@@ -1,0 +1,100 @@
+"""``horovod_tpu_torch`` stands alone: importing every module of it pulls
+in no JAX-side module (``jax``, ``jaxlib``, ``flax``, ``optax``, or
+``horovod_tpu`` itself), and its entry points refuse to run on a machine
+without a GPU unless the caller asks for the CPU."""
+
+import json
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import horovod_tpu_torch
+mods = ["horovod_tpu_torch"] + [
+    m.name for m in pkgutil.walk_packages(horovod_tpu_torch.__path__,
+                                          "horovod_tpu_torch.")]
+for m in mods:
+    importlib.import_module(m)
+banned = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in banned)
+print(json.dumps({"modules": mods, "bad": bad}))
+"""
+
+
+def test_no_jax_side_module_is_imported():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         cwd=REPO)
+    assert out.returncode == 0, out.stderr[-3000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bad"] == [], res["bad"]
+    # every module of the slice was imported
+    for m in ("common.types", "common.logging", "common.config",
+              "common.util", "common.basics", "ops.compression",
+              "ops.collectives", "optim.fused_update", "optim.distributed",
+              "models.resnet", "interop", "train_step", "_build"):
+        assert f"horovod_tpu_torch.{m}" in res["modules"]
+
+
+def test_package_shares_no_code_with_the_jax_package():
+    import horovod_tpu_torch
+
+    for m in pkgutil.walk_packages(horovod_tpu_torch.__path__,
+                                   "horovod_tpu_torch."):
+        path = os.path.join(REPO, *m.name.split(".")) + (
+            os.sep + "__init__.py" if m.ispkg else ".py")
+        with open(path) as f:
+            src = f.read()
+        for word in ("import jax", "from jax", "import flax", "import optax",
+                     "from horovod_tpu import", "from horovod_tpu.",
+                     "import horovod_tpu\n", "import horovod_tpu."):
+            assert word not in src, f"{m.name} has {word!r}"
+
+
+@pytest.mark.parametrize("entry", ["init", "ResNet50", "synthetic_batch"])
+def test_entry_points_raise_without_a_gpu(entry, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.train_step import synthetic_batch
+
+    call = {"init": hvd.init,
+            "ResNet50": lambda: ResNet50(num_filters=8),
+            "synthetic_batch": lambda: synthetic_batch(2, 8)}[entry]
+    with pytest.raises(hvd.HorovodTpuError, match="device='cpu'"):
+        call()
+    assert not hvd.is_initialized()
+
+
+def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
+    """A wrapper given a CUDA tensor launches its kernel or raises; it
+    never computes the plain version instead.  Without a card this
+    shows as the build failing loudly (no nvcc), not as a result."""
+    from horovod_tpu_torch import _build
+    from horovod_tpu_torch.common.types import HorovodTpuError
+    from horovod_tpu_torch.optim import fused_update as TF
+
+    calls = []
+    monkeypatch.setattr(TF, "sgd_plain",
+                        lambda *a, **k: calls.append(a) or a[0])
+    monkeypatch.setattr(TF, "_lib", None)
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build.shutil, "which", lambda _: None)
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+
+    g = torch.zeros(4)
+    monkeypatch.setattr(type(g), "device",
+                        property(lambda self: torch.device("cuda", 0)))
+    with pytest.raises(HorovodTpuError, match="nvcc not found"):
+        TF.sgd_update(g, 1, -0.1)
+    assert calls == []
