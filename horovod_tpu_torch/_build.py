@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` is compiled on first use with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface and loaded
 with :mod:`ctypes`.  The library lands in ``horovod_tpu_torch/_build/``
 keyed by a hash of its source and flags, so an edited source rebuilds
-and an unchanged one is reused; a file lock keeps two ranks from
-building the same library at once.  A missing ``nvcc`` or a failed build
+and an unchanged one is reused; a file lock keeps two ranks (or
+threads) from building the same library at once.  A missing ``nvcc`` or a failed build
 raises: there is no fallback.
 """
 
@@ -76,14 +76,16 @@ def _build(name: str, out: str) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library built from ``csrc/<name>.cu``."""
-    with _lock:
-        lib = _libs.get(name)
-        if lib is None:
-            out = library_path(name)
-            info = ({"seconds": 0.0, "log": ""} if os.path.exists(out)
-                    else _build(name, out))
-            lib = ctypes.CDLL(out)
-            build_info[name] = info
-            _libs[name] = lib
-        return lib
+    """The loaded library built from ``csrc/<name>.cu``.  Threads may
+    load libraries at once, so their ``nvcc`` runs overlap; the file
+    lock in :func:`_build` keeps two of them from building one name."""
+    lib = _libs.get(name)
+    if lib is None:
+        out = library_path(name)
+        info = ({"seconds": 0.0, "log": ""} if os.path.exists(out)
+                else _build(name, out))
+        with _lock:
+            if info["seconds"] or name not in build_info:
+                build_info[name] = info
+            lib = _libs.setdefault(name, ctypes.CDLL(out))
+    return lib

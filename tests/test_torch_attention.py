@@ -1,0 +1,199 @@
+"""Kernels B8-B10 and ring attention of the port against the JAX package
+on the CPU.
+
+The port's wrappers take their plain versions on CPU tensors; the JAX
+side runs the Pallas kernels in interpret mode, as
+``tests/test_pallas_attention.py`` runs them, on the same numpy inputs
+at (BH, L, D) = (8, 64, 16) float32.  Tolerances are the JAX tests':
+rtol 2e-4 / atol 2e-5 forward, 2e-3 / 2e-4 backward (the Pallas kernels
+walk 32x16 tiles with an online softmax, the plain versions take a whole
+block at once, so only the order of the sums differs).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax import shard_map
+from jax.sharding import Mesh, PartitionSpec as P
+
+from horovod_tpu.ops import pallas_attention as JA
+from horovod_tpu.parallel import ring_attention as JR
+from horovod_tpu_torch.common.types import HorovodTpuError
+from horovod_tpu_torch.ops import flash_attention as FA
+from horovod_tpu_torch.parallel import ring_attention as TR
+
+BH, L, D = 8, 64, 16
+FWD_TOL = dict(rtol=2e-4, atol=2e-5)
+BWD_TOL = dict(rtol=2e-3, atol=2e-4)
+BLOCKS = dict(block_q=32, block_k=16, interpret=True)
+
+
+def _arrays(seed, *shapes):
+    rng = np.random.RandomState(seed)
+    return [(rng.randn(*s) * 0.3).astype(np.float32) for s in shapes]
+
+
+def _fresh(lq=L):
+    return (np.full((BH, lq), -np.inf, np.float32),
+            np.zeros((BH, lq), np.float32),
+            np.zeros((BH, lq, D), np.float32))
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.array(a)) for a in arrays]
+
+
+def _close(ours, ref, tol, what):
+    np.testing.assert_allclose(np.asarray(ours, np.float32),
+                               np.asarray(ref, np.float32), err_msg=what,
+                               **tol)
+
+
+def _step_both(q, k, v, state, qo, ko, causal):
+    ref = JA.flash_block_step(*map(jnp.asarray, (q, k, v, *state)), qo, ko,
+                              causal=causal, **BLOCKS)
+    ours = FA.flash_block_step(*_t(q, k, v, *state), qo, ko, causal=causal)
+    return [np.asarray(r) for r in ref], [o.numpy() for o in ours]
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_block_step_matches_pallas(causal):
+    q, k, v = _arrays(0, (BH, L, D), (BH, L, D), (BH, L, D))
+    ref, ours = _step_both(q, k, v, _fresh(), 0, 0, causal)
+    for name, a, b in zip("mlo", ours, ref):
+        _close(a, b, FWD_TOL, f"B8 {name}")
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_block_step_carries_state_across_kv_halves(causal):
+    """Two steps over the two KV halves (k_offset 0 and 32), each side
+    carrying its own state, and the port's pair equals its one step."""
+    q, k, v = _arrays(1, (BH, L, D), (BH, L, D), (BH, L, D))
+    half = L // 2
+    ref, ours = _step_both(q, k[:, :half], v[:, :half], _fresh(), 0, 0,
+                           causal)
+    ref, _ = _step_both(q, k[:, half:], v[:, half:], ref, 0, half, causal)
+    _, ours = _step_both(q, k[:, half:], v[:, half:], ours, 0, half, causal)
+    for name, a, b in zip("mlo", ours, ref):
+        _close(a, b, FWD_TOL, f"B8 carried {name}")
+    one = FA.flash_block_step(*_t(q, k, v, *_fresh()), 0, 0, causal=causal)
+    for name, a, b in zip("mlo", ours, one):
+        _close(a, b.numpy(), FWD_TOL, f"B8 split vs whole {name}")
+
+
+def test_fully_masked_block_keeps_fresh_state():
+    """q at positions 0..63 against keys at 64..127, causal: every row is
+    masked, so m stays -inf and l, o stay 0 on both sides."""
+    q, k, v = _arrays(2, (BH, L, D), (BH, L, D), (BH, L, D))
+    ref, ours = _step_both(q, k, v, _fresh(), 0, L, True)
+    for a, b in zip(ours, ref):
+        np.testing.assert_array_equal(a, b)
+    assert np.isneginf(ours[0]).all() and not ours[1].any()
+    assert not ours[2].any()
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("k_offset", [0, L // 2], ids=["own", "later"])
+def test_backward_kernels_match_pallas(causal, k_offset):
+    """B9 and B10 from the saved lse of a forward step, on the whole KV
+    block and on a block whose positions start half-way (some rows see
+    none of it)."""
+    q, k, v, dout = _arrays(3, (BH, L, D), (BH, L, D), (BH, L, D),
+                            (BH, L, D))
+    _, state = _step_both(q, k, v, _fresh(), 0, 0, causal)
+    out, lse = (t.numpy() for t in TR.finish(*_t(*state)))
+    delta = (dout * out).sum(-1).astype(np.float32)
+    args = (q, k, v, dout, lse, delta)
+    ref_dq = JA.flash_bwd_dq(*map(jnp.asarray, args), 0, k_offset,
+                             causal=causal, **BLOCKS)
+    ref_dk, ref_dv = JA.flash_bwd_dkv(*map(jnp.asarray, args), 0, k_offset,
+                                      causal=causal, **BLOCKS)
+    dq = FA.flash_bwd_dq(*_t(*args), 0, k_offset, causal=causal)
+    dk, dv = FA.flash_bwd_dkv(*_t(*args), 0, k_offset, causal=causal)
+    _close(dq, ref_dq, BWD_TOL, "B9 dq")
+    _close(dk, ref_dk, BWD_TOL, "B10 dk")
+    _close(dv, ref_dv, BWD_TOL, "B10 dv")
+    assert FA.LAUNCHES == {"flash_block_step": 0, "flash_bwd_dq": 0,
+                           "flash_bwd_dkv": 0}  # CPU: plain versions
+
+
+@pytest.mark.parametrize("b", [1, 2], ids=["batch1", "batch2"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_ring_attention_and_grads_match_jax_ring_flash(causal, b):
+    """The port's ring_attention (autograd Function over B8-B10) against
+    ``ring_attention(impl="pallas")`` on a one-device ``sp`` mesh, which
+    runs the JAX package's ``_ring_flash`` custom VJP."""
+    h = 4
+    q, k, v = _arrays(4, (b, L, h, D), (b, L, h, D), (b, L, h, D))
+    mesh = Mesh(np.array(jax.devices()[:1]), ("sp",))
+
+    def loss(a, b_, c):
+        o = JR.ring_attention(a, b_, c, "sp", causal=causal, impl="pallas")
+        return jnp.sum(o * o), o
+
+    fn = jax.jit(shard_map(
+        lambda a, b_, c: jax.value_and_grad(loss, argnums=(0, 1, 2),
+                                            has_aux=True)(a, b_, c),
+        mesh=mesh, check_vma=False, in_specs=(P(None, "sp"),) * 3,
+        out_specs=((P(), P(None, "sp")), (P(None, "sp"),) * 3)))
+    (_, ref_out), ref_grads = fn(q, k, v)
+
+    tq, tk, tv = (x.requires_grad_() for x in _t(q, k, v))
+    out = TR.ring_attention(tq, tk, tv, causal=causal)
+    (out * out).sum().backward()
+    _close(out.detach(), ref_out, FWD_TOL, "ring attention output")
+    dense = TR.reference_attention(*_t(q, k, v), causal=causal)
+    _close(out.detach(), dense, FWD_TOL, "ring attention vs dense")
+    for name, g, r in zip(("dq", "dk", "dv"), (tq.grad, tk.grad, tv.grad),
+                          ref_grads):
+        _close(g, r, BWD_TOL, f"ring attention {name}")
+
+
+def test_ring_attention_bfloat16_matches_jax():
+    """bf16 operands: the port's output within the JAX package's bf16
+    tolerance of ``ring_attention(impl="pallas")``."""
+    b, h = 2, 4
+    q, k, v = _arrays(5, (b, L, h, D), (b, L, h, D), (b, L, h, D))
+    mesh = Mesh(np.array(jax.devices()[:1]), ("sp",))
+    fn = jax.jit(shard_map(
+        lambda a, b_, c: JR.ring_attention(a, b_, c, "sp", causal=True,
+                                           impl="pallas"),
+        mesh=mesh, check_vma=False, in_specs=(P(None, "sp"),) * 3,
+        out_specs=P(None, "sp")))
+    ref = fn(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)))
+    ours = TR.ring_attention(*(x.bfloat16() for x in _t(q, k, v)))
+    assert ours.dtype == torch.bfloat16
+    _close(ours.float(), np.asarray(ref, np.float32),
+           dict(rtol=2e-2, atol=2e-2), "bf16 ring attention")
+
+
+def test_sequence_group_of_more_than_one_rank_is_not_ported(monkeypatch):
+    import torch.distributed as dist
+
+    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
+    q = torch.zeros(1, 8, 2, 8)
+    with pytest.raises(NotImplementedError, match="Queue A item 10"):
+        TR.ring_attention(q, q, q, sp_group=object())
+
+
+@pytest.mark.parametrize("bad", ["head_dim", "dtype", "kv_shape", "state",
+                                 "contiguous"])
+def test_wrappers_refuse_what_the_kernels_do_not_take(bad):
+    q = torch.zeros(2, 16, 16)
+    k = v = torch.zeros(2, 8, 16)
+    m, l, o = torch.zeros(2, 16), torch.zeros(2, 16), torch.zeros(2, 16, 16)
+    if bad == "head_dim":
+        q, k, v, o = (x[..., :12].contiguous() for x in (q, k, v, o))
+    elif bad == "dtype":
+        q, k, v = q.half(), k.half(), v.half()
+    elif bad == "kv_shape":
+        v = torch.zeros(2, 9, 16)
+    elif bad == "state":
+        m = m.double()
+    else:
+        k = torch.zeros(2, 16, 8).transpose(1, 2)
+    with pytest.raises(HorovodTpuError):
+        FA.flash_block_step(q, k, v, m, l, o, 0, 0)

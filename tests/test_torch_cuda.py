@@ -1,7 +1,8 @@
-"""Tests of the port that need the card: kernels B1-B3 against their
-plain versions, and a short training run through the fused tail.  Marked
-``cuda``; each skips (with its reason) where no CUDA device is present.
-This file imports no JAX, so it runs on a GPU machine without it::
+"""Tests of the port that need the card: kernels B1-B3 and B8-B10
+against their plain versions, and short training runs through them.
+Marked ``cuda``; each skips (with its reason) where no CUDA device is
+present.  This file imports no JAX, so it runs on a GPU machine without
+it::
 
     python -m pytest tests/test_torch_cuda.py -q -p no:cacheprovider --noconftest
 """
@@ -11,7 +12,9 @@ import math
 import pytest
 import torch
 
+from horovod_tpu_torch.ops import flash_attention as FA
 from horovod_tpu_torch.optim import fused_update as TF
+from horovod_tpu_torch.parallel.ring_attention import finish
 
 pytestmark = pytest.mark.cuda
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -81,6 +84,120 @@ def test_small_training_run_goes_through_the_kernel(card, monkeypatch):
         assert all(math.isfinite(v) for v in losses)
         n_params = len(list(model.parameters()))
         assert TF.LAUNCHES["momentum"] == 3 * n_params
+    finally:
+        hvd.shutdown()
+
+
+# f32: the kernels and the plain versions differ only in the order of
+# their sums (TF32 off); bf16: p and ds are rounded to bf16, so a sum
+# order that moves a value across a rounding boundary moves it by one bf16
+# ulp -- the JAX package's own bf16 tolerance (test_pallas_attention.py).
+FLASH_TOL = {"f32": (1e-4, 1e-5), "bf16": (2e-2, 2e-2)}
+
+
+def _close(got, want, dname, what):
+    rtol, atol = FLASH_TOL[dname]
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol,
+                               msg=lambda m: f"{what}: {m}")
+
+
+def _close_state(got, want, dname, what):
+    for name, a, b in FA.state_pairs(got, want, dname == "bf16"):
+        _close(a, b, dname, f"{what} {name}")
+
+
+@pytest.fixture()
+def exact_f32():
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+# (bh, lq, lk, d, q_offset, k_offset): a ragged tile edge, a KV block
+# after the queries, a mostly hidden block, head dims 8 to 128
+FLASH_SHAPES = [(6, 200, 136, 64, 136, 0), (3, 64, 64, 128, 0, 0),
+                (2, 100, 70, 40, 64, 64), (4, 128, 128, 8, 0, 96)]
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dname", sorted(DTYPES))
+def test_flash_kernels_against_plain(card, exact_f32, dname, causal, shape):
+    bh, lq, lk, d, qo, ko = shape
+    dtype = DTYPES[dname]
+    gen = torch.Generator(device=card).manual_seed(lq * d)
+
+    def rnd(*s):
+        return (torch.randn(*s, device=card, generator=gen) * 0.5).to(dtype)
+
+    q, do = rnd(bh, lq, d), rnd(bh, lq, d)
+    k, v = rnd(bh, lk, d), rnd(bh, lk, d)
+    # a carried state from an earlier block (some rows still at -inf)
+    k0, v0 = rnd(bh, 32, d), rnd(bh, 32, d)
+    m0 = torch.full((bh, lq), -math.inf, device=card)
+    z = torch.zeros((bh, lq), device=card)
+    m, l, o = FA.flash_block_step_plain(q, k0, v0, m0, z,
+                                        torch.zeros(bh, lq, d, device=card),
+                                        qo, qo + 16, causal)
+    FA.reset_launch_counts()
+    got = FA.flash_block_step(q, k, v, m, l, o, qo, ko, causal=causal)
+    want = FA.flash_block_step_plain(q, k, v, m, l, o, qo, ko, causal)
+    _close_state(got, want, dname, "B8")
+    out, lse = finish(*want)
+    delta = (do.float() * out).sum(-1)
+    _close(FA.flash_bwd_dq(q, k, v, do, lse, delta, qo, ko, causal=causal),
+           FA.flash_bwd_dq_plain(q, k, v, do, lse, delta, qo, ko, causal),
+           dname, "B9 dq")
+    for name, a, b in zip(("dk", "dv"),
+                          FA.flash_bwd_dkv(q, k, v, do, lse, delta, qo, ko,
+                                           causal=causal),
+                          FA.flash_bwd_dkv_plain(q, k, v, do, lse, delta, qo,
+                                                 ko, causal)):
+        _close(a, b, dname, f"B10 {name}")
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES == {"flash_block_step": 1, "flash_bwd_dq": 1,
+                           "flash_bwd_dkv": 1}
+
+
+def test_flash_fully_masked_block_keeps_fresh_state(card):
+    q = torch.randn(4, 512, 64, device=card).bfloat16()
+    kv = torch.randn(4, 512, 64, device=card).bfloat16()
+    m = torch.full((4, 512), -math.inf, device=card)
+    l = torch.zeros(4, 512, device=card)
+    o = torch.zeros(4, 512, 64, device=card)
+    m2, l2, o2 = FA.flash_block_step(q, kv, kv, m, l, o, 0, 512)
+    assert torch.equal(m2, m) and torch.equal(l2, l) and torch.equal(o2, o)
+
+
+def test_small_transformer_goes_through_the_kernels(card, monkeypatch):
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import (Transformer,
+                                                      TransformerConfig)
+    from horovod_tpu_torch.train_step import lm_train_step, synthetic_tokens
+
+    for k in ("HOROVOD_SIZE", "HOROVOD_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("HOROVOD_FUSED_UPDATE", "1")
+    hvd.init()
+    try:
+        cfg = TransformerConfig(vocab=256, d_model=64, n_heads=4,
+                                head_dim=16, n_layers=2, d_ff=128,
+                                max_seq=128)
+        model = Transformer(cfg, seed=0)
+        opt = hvd.DistributedOptimizer(
+            hvd.fused_update.adam(model.parameters(), 3e-4))
+        tokens, targets = synthetic_tokens(2, 128, cfg.vocab, seed=1)
+        FA.reset_launch_counts()
+        TF.reset_launch_counts()
+        losses = [float(lm_train_step(model, opt, tokens, targets))
+                  for _ in range(3)]
+        assert all(math.isfinite(v) for v in losses)
+        assert losses[-1] < losses[0]
+        assert FA.LAUNCHES == {"flash_block_step": 6, "flash_bwd_dq": 6,
+                               "flash_bwd_dkv": 6}
+        assert TF.LAUNCHES["adam"] == 3 * (3 + 6 * cfg.n_layers)
     finally:
         hvd.shutdown()
 

@@ -42,7 +42,9 @@ def test_no_jax_side_module_is_imported():
     for m in ("common.types", "common.logging", "common.config",
               "common.util", "common.basics", "ops.compression",
               "ops.collectives", "optim.fused_update", "optim.distributed",
-              "models.resnet", "interop", "train_step", "_build"):
+              "models.resnet", "interop", "train_step", "_build",
+              "ops.flash_attention", "parallel.ring_attention",
+              "models.transformer"):
         assert f"horovod_tpu_torch.{m}" in res["modules"]
 
 
@@ -61,16 +63,23 @@ def test_package_shares_no_code_with_the_jax_package():
             assert word not in src, f"{m.name} has {word!r}"
 
 
-@pytest.mark.parametrize("entry", ["init", "ResNet50", "synthetic_batch"])
+@pytest.mark.parametrize("entry", ["init", "ResNet50", "synthetic_batch",
+                                   "Transformer", "synthetic_tokens"])
 def test_entry_points_raise_without_a_gpu(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models.resnet import ResNet50
-    from horovod_tpu_torch.train_step import synthetic_batch
+    from horovod_tpu_torch.models.transformer import (Transformer,
+                                                      TransformerConfig)
+    from horovod_tpu_torch.train_step import synthetic_batch, synthetic_tokens
 
+    small = TransformerConfig(vocab=16, d_model=16, n_heads=2, head_dim=8,
+                              n_layers=1, d_ff=16, max_seq=8)
     call = {"init": hvd.init,
             "ResNet50": lambda: ResNet50(num_filters=8),
-            "synthetic_batch": lambda: synthetic_batch(2, 8)}[entry]
+            "synthetic_batch": lambda: synthetic_batch(2, 8),
+            "Transformer": lambda: Transformer(small),
+            "synthetic_tokens": lambda: synthetic_tokens(2, 8, 16)}[entry]
     with pytest.raises(hvd.HorovodTpuError, match="device='cpu'"):
         call()
     assert not hvd.is_initialized()
@@ -97,4 +106,32 @@ def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
                         property(lambda self: torch.device("cuda", 0)))
     with pytest.raises(HorovodTpuError, match="nvcc not found"):
         TF.sgd_update(g, 1, -0.1)
+    assert calls == []
+
+
+@pytest.mark.parametrize("wrapper", ["flash_block_step", "flash_bwd_dq",
+                                     "flash_bwd_dkv"])
+def test_cuda_attention_tensor_never_takes_the_plain_version(wrapper,
+                                                             monkeypatch):
+    """The same for the attention wrappers B8-B10."""
+    from horovod_tpu_torch import _build
+    from horovod_tpu_torch.common.types import HorovodTpuError
+    from horovod_tpu_torch.ops import flash_attention as FA
+
+    calls = []
+    monkeypatch.setattr(FA, f"{wrapper}_plain",
+                        lambda *a, **k: calls.append(a) or a[0])
+    monkeypatch.setattr(FA, "_lib", None)
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build.shutil, "which", lambda _: None)
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+
+    x = torch.zeros(2, 8, 8)
+    row = torch.zeros(2, 8)
+    monkeypatch.setattr(type(x), "device",
+                        property(lambda self: torch.device("cuda", 0)))
+    args = ((x, x, x, row, row, x) if wrapper == "flash_block_step"
+            else (x, x, x, x, row, row))
+    with pytest.raises(HorovodTpuError, match="nvcc not found"):
+        getattr(FA, wrapper)(*args, 0, 0)
     assert calls == []
