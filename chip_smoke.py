@@ -39,7 +39,21 @@ Phases (any failure exits non-zero and prints no result line):
 8. the long-context config (seq 8192, batch 1) trained 2 steps, its
    peak memory below one float32 (12, 8192, 8192) score block per layer
    and below the measured peak plus one such block, and B8, B9 and B10
-   checked at its attention shape (12, 8192, 64) bf16 causal.
+   checked at its attention shape (12, 8192, 64) bf16 causal;
+9. the codec kernels (B4 quantize, B5 dequantize, B6 int4 pack, B7 int4
+   unpack) against their plain versions, bit for bit, at the fused
+   gradient buffer of both paths (25,557,032 and 110,906,112 float32 in
+   blocks of 256) for the int8 headroom of 1, 2 and 4 ranks (qmax 127,
+   63, 31; int4 7, 3, 1), with a block of .5 ties, a zero block, int32
+   partial sums and the int8 sum of four payloads; each timed beside its
+   plain version, its bound and, for B5, ``torch.mul``;
+10. the lossy wire on the ResNet-50 path: the 161 gradient leaves of the
+   main path's model through ``Compression.int8`` and ``Compression.int4``
+   (exactly 161 launches of each of B4-B7, error at most scale / 2), then
+   a 4-rank reduction at the fused-buffer width from four seeded 64-image
+   batch shards, int8 at qmax 31 and int4 at qmax 1, with only the
+   transport emulated on the one card: equal to the plain pipeline bit
+   for bit and within n * scale / 2 of the float sum.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``.  ``--profile FILE`` adds a
@@ -54,6 +68,7 @@ import argparse
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -73,7 +88,12 @@ REPLACES = {
     "flash_block_step": "horovod_tpu/ops/pallas_attention.py:94",
     "flash_bwd_dq": "horovod_tpu/ops/pallas_attention.py:256",
     "flash_bwd_dkv": "horovod_tpu/ops/pallas_attention.py:301",
+    "quantize": "horovod_tpu/ops/quantization.py:210",
+    "dequantize": "horovod_tpu/ops/quantization.py:232",
+    "pack4": "horovod_tpu/ops/quantization.py:496",
+    "unpack4": "horovod_tpu/ops/quantization.py:519",
 }
+CODECS = ("quantize", "dequantize", "pack4", "unpack4")
 # the JAX package's transformer bench (bench.py:_bench_transformer)
 LM = dict(vocab=32768, d_model=768, n_heads=12, head_dim=64, n_layers=12,
           d_ff=3072)
@@ -88,6 +108,20 @@ LONG_MEM_LIMIT = LM["n_layers"] * LM["n_heads"] * LONG_SEQ ** 2 * 4
 # layers, would exceed
 LONG_MEM_TIGHT = 9_219_148_288 + LM["n_heads"] * LONG_SEQ ** 2 * 4
 LM_LEAVES = 3 + 6 * LM["n_layers"]
+# the fused float32 gradient buffer of each path, in blocks of 256
+QBLOCK = 256
+CODEC_BUFFERS = {"ResNet-50": N_PARAMS, "transformer": 110_906_112}
+# bytes per element moved (float32 side 4 B, int8 side 1 B or 1/2 B) and
+# float operations per element (B4/B6: multiply, rint, two clamps; B5/B7:
+# one multiply); plus one 4 B scale per block
+CODEC_BYTES = {"quantize": 5, "dequantize": 5, "pack4": 4.5, "unpack4": 4.5}
+CODEC_FLOPS = {"quantize": 4, "dequantize": 1, "pack4": 4, "unpack4": 1}
+CODEC_LIBRARY = {
+    "dequantize": "torch.mul(q2d, scales[:, None]) (int8 x float32 -> "
+                  "float32 in one kernel)",
+    "quantize": None, "pack4": None, "unpack4": None}
+NO_LIBRARY = ("no one PyTorch call computes it: torch.quantize_per_channel "
+              "divides by the scale and clamps to [-128, 127]")
 # the path's attention shape: (batch * heads, seq, head_dim)
 ATTN_SHAPE = (LM_BATCH * LM["n_heads"], LM_SEQ, LM["head_dim"])
 # bf16: p and ds are rounded to bf16 and the kernels sum in another
@@ -361,16 +395,18 @@ def main_path(hvd, torch, steps: int, batch: int, gpu: str,
             f"{steps} steps, expected {161 * steps}")
     steady = times[1:] or times
     step_s = sum(steady) / len(steady)
+    med = statistics.median(steady)
     log(f"[main] ResNet-50 224x224 batch {batch} bf16, fused momentum SGD,"
         f" {steps} steps on {gpu}: losses {losses}")
-    log(f"[main] step times (s) {times}; steady step {step_s:.4f} s = "
-        f"{batch / step_s:.1f} img/s; peak memory "
+    log(f"[main] step times (s) {times}; steady step mean {step_s:.4f} s = "
+        f"{batch / step_s:.1f} img/s, median {med:.4f} s = "
+        f"{batch / med:.1f} img/s; peak memory "
         f"{peak / 2**30:.2f} GiB; kernel launches {launches}; on {gpu}")
     if profile:
         profile_steps(torch, lambda: train_step(model, opt, images, labels),
                       step_s, profile, RESNET_CLASSES, "resnet50")
     return {"launches": launches, "losses": losses, "step_s": step_s,
-            "peak_bytes": peak}
+            "median_s": med, "peak_bytes": peak, "model": model}
 
 
 RESNET_CLASSES = {"convolution (cuDNN)": ("xmma", "conv", "gemm", "cudnn",
@@ -714,11 +750,13 @@ def lm_path(hvd, torch, seq: int, batch: int, steps: int, gpu: str,
             f"{want}")
     steady = times[1:] or times
     step_s = sum(steady) / len(steady)
+    med = statistics.median(steady)
     log(f"[{tag}] transformer d{cfg.d_model} L{cfg.n_layers} "
         f"h{cfg.n_heads}x{cfg.head_dim} seq {seq} batch {batch} bf16, "
         f"fused Adam, {steps} steps on {gpu}: losses {losses}")
-    log(f"[{tag}] step times (s) {times}; steady step {step_s:.4f} s = "
-        f"{batch * seq / step_s:.1f} tokens/s; peak memory "
+    log(f"[{tag}] step times (s) {times}; steady step mean {step_s:.4f} s ="
+        f" {batch * seq / step_s:.1f} tokens/s, median {med:.4f} s = "
+        f"{batch * seq / med:.1f} tokens/s; peak memory "
         f"{peak / 2**30:.2f} GiB ({peak} B); kernel launches {launches}; "
         f"on {gpu}")
     if profile:
@@ -727,7 +765,7 @@ def lm_path(hvd, torch, seq: int, batch: int, steps: int, gpu: str,
                                                    targets),
                       step_s, f"{stem}_{tag}{ext}", LM_CLASSES, tag)
     return {"launches": launches, "losses": losses, "step_s": step_s,
-            "peak_bytes": peak}
+            "median_s": med, "peak_bytes": peak}
 
 
 def long_context(hvd, torch, FA, gpu: str, profile: str | None) -> dict:
@@ -764,6 +802,235 @@ def long_context(hvd, torch, FA, gpu: str, profile: str | None) -> dict:
     return res
 
 
+def _hold_bits(res: dict, name: str, got, want, what: str) -> None:
+    """Raise unless ``got`` equals ``want`` bit for bit; record the
+    largest absolute difference (0.0 when they agree)."""
+    err = float((got.float() - want.float()).abs().max().item()) \
+        if got.numel() else 0.0
+    res[name] = max(res[name], err)
+    if got.dtype != want.dtype or not got.equal(want):
+        bad = int((got != want).sum().item()) if got.shape == want.shape \
+            else got.numel()
+        raise AssertionError(f"{name} {what}: {bad} elements differ from "
+                             f"the plain version (max abs {err})")
+
+
+def _tie_blocks(torch, x2d, gen):
+    """Block 0: exact .5 ties under a power-of-two scale (set by
+    :func:`_tie_scales`); block 1: all zero."""
+    k = torch.randint(-31, 31, (x2d.shape[1],), device="cuda", generator=gen)
+    x2d[0] = (k.float() + 0.5) * 0.125
+    x2d[1] = 0.0
+
+
+def _tie_scales(s):
+    s[0] = 0.125
+    return s
+
+
+def _emulated_wire(Q, torch, res, xs, qmax: int, int4: bool, what: str):
+    """An n-rank reduction of the rows ``xs`` (list of (nb, block)
+    float32) with only the transport emulated: shared scales (max over
+    the ranks), each rank's payload, their int8 sum (checked against the
+    int64 sum: no wrap), the sum and each residual dequantized; every
+    kernel output held against its plain version.  Returns ``(sum,
+    scales)``."""
+    enc, dec = ((Q.quantize_pack4_values, Q.unpack_dequantize4_values)
+                if int4 else (Q.quantize_values, Q.dequantize_values))
+    enc_p, dec_p = ((Q.quantize_pack4_plain, Q.unpack_dequantize4_plain)
+                    if int4 else (Q.quantize_plain, Q.dequantize_plain))
+    ek, dk = ("pack4", "unpack4") if int4 else ("quantize", "dequantize")
+    shared = torch.stack([Q.block_absmax(x) for x in xs]).amax(0)
+    s = Q._scales(shared, qmax)
+    qs = []
+    for r, x in enumerate(xs):
+        q = enc(x, s, qmax)
+        _hold_bits(res, ek, q, enc_p(x, s, qmax), f"{what} rank {r}")
+        _hold_bits(res, dk, dec(q, s), dec_p(q, s),
+                   f"{what} rank {r} residual")
+        qs.append(q)
+    stack = torch.stack(qs)
+    qsum = stack.sum(0, dtype=torch.int8)
+    if not qsum.long().equal(stack.long().sum(0)):
+        raise AssertionError(f"{what}: the int8 sum wrapped")
+    out = dec(qsum, s)
+    _hold_bits(res, dk, out, dec_p(qsum, s), f"{what} sum")
+    torch.cuda.synchronize()
+    return out, s
+
+
+def codec_checks(Q, torch) -> dict:
+    """Phase 9a: B4-B7 against their plain versions on the card at the
+    fused gradient buffer of both paths; returns each kernel's largest
+    absolute difference."""
+    res = dict.fromkeys(CODECS, 0.0)
+    gen = torch.Generator(device="cuda").manual_seed(4242)
+    for name, n_el in CODEC_BUFFERS.items():
+        x2d, _ = Q._to_blocks(torch.randn(n_el, device="cuda",
+                                          generator=gen), QBLOCK)
+        _tie_blocks(torch, x2d, gen)
+        absmax = Q.block_absmax(x2d)
+        what = f"{name} {tuple(x2d.shape)}"
+        for qmax in (127, 63, 31):
+            s = _tie_scales(Q._scales(absmax, qmax))
+            q = Q.quantize_values(x2d, s, qmax)
+            _hold_bits(res, "quantize", q, Q.quantize_plain(x2d, s, qmax),
+                       f"{what} qmax {qmax}")
+            _hold_bits(res, "dequantize", Q.dequantize_values(q, s),
+                       Q.dequantize_plain(q, s), f"{what} qmax {qmax}")
+            del q
+        for qmax in (7, 3, 1):
+            s = _tie_scales(Q._scales(absmax, qmax))
+            p = Q.quantize_pack4_values(x2d, s, qmax)
+            _hold_bits(res, "pack4", p, Q.quantize_pack4_plain(x2d, s, qmax),
+                       f"{what} qmax {qmax}")
+            _hold_bits(res, "unpack4", Q.unpack_dequantize4_values(p, s),
+                       Q.unpack_dequantize4_plain(p, s), f"{what} qmax {qmax}")
+            del p
+        # four payloads summed on an int8 wire: B5 on the sum (and on the
+        # same sums held as int32), B7 on summed packed bytes
+        xs = [x2d] + [torch.randn(x2d.shape, device="cuda", generator=gen)
+                      for _ in range(3)]
+        _emulated_wire(Q, torch, res, xs, 31, False, f"{what} 4 payloads")
+        qsum = torch.stack([Q.quantize_values(x, Q._scales(absmax, 31), 31)
+                            for x in xs]).sum(0, dtype=torch.int32)
+        s = Q._scales(absmax, 31)
+        _hold_bits(res, "dequantize", Q.dequantize_values(qsum, s),
+                   Q.dequantize_plain(qsum, s), f"{what} int32 sums")
+        del qsum
+        _emulated_wire(Q, torch, res, xs, 1, True, f"{what} 4 packed payloads")
+        del xs, x2d
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        log(f"[codec] {what}: B4, B5 at qmax 127/63/31 and B6, B7 at 7/3/1 "
+            "(a .5-tie block, a zero block), B5 on int32 sums and on the "
+            "int8 sum of 4 payloads, B7 on summed packed bytes: bit for bit "
+            "with their plain versions")
+    return res
+
+
+def half_scale(s, qmax: int):
+    """The per-element error bound of one rank's round trip, ``s / 2``,
+    widened by the float32 rounding of ``1/s``, ``x * (1/s)`` and ``q *
+    s`` (each at most 2**-24 relative, with ``|x/s|, |q| <= qmax``):
+    ``s * (1/2 + (3 qmax + 2) 2**-24)``.  A value ``x/s`` within that
+    rounding of a .5 tie may round to the farther grid point."""
+    return s * (0.5 + (3 * qmax + 2) * 2.0 ** -24)
+
+
+def codec_path(hvd, Q, torch, model, gpu: str) -> dict:
+    """Phase 10: the lossy wire on the ResNet-50 path (one card).
+    Returns the launches of B4-B7 in the compressors' round trips and
+    each kernel's largest difference from its plain version."""
+    from horovod_tpu_torch.train_step import (softmax_cross_entropy,
+                                              synthetic_batch)
+
+    grads = [p.grad.detach().clone() for p in model.parameters()]
+    if len(grads) != 161 or any(g.dtype != torch.float32 for g in grads):
+        raise AssertionError("expected the 161 float32 gradient leaves of "
+                             "the main path's backward")
+    worst = {"int8": 0.0, "int4": 0.0}
+    Q.reset_launch_counts()
+    for g in grads:
+        for mode, qmax in (("int8", 127), ("int4", 7)):
+            comp = hvd.Compression.lookup(mode)
+            wire, ctx = comp.compress(g)
+            back = comp.decompress(wire, ctx)
+            err2d, _ = Q._to_blocks(back - g, ctx.block)
+            ratio = float((err2d.abs() / (wire[1][:, None] / 2)
+                           .clamp_min(1e-30)).max())
+            worst[mode] = max(worst[mode], ratio)
+            if not bool((err2d.abs() <= half_scale(wire[1], qmax)[:, None])
+                        .all().item()):
+                raise AssertionError(
+                    f"{mode} round trip of a {tuple(g.shape)} leaf: error "
+                    f"{ratio} of scale / 2, beyond its float32 rounding")
+    torch.cuda.synchronize()
+    launches = dict(Q.LAUNCHES)
+    if launches != dict.fromkeys(CODECS, 161):
+        raise AssertionError(f"codec launches {launches}, expected 161 each")
+    log(f"[wire] 161 ResNet-50 gradient leaves through Compression.int8 and "
+        f"Compression.int4: launches {launches}; largest error / (scale/2) "
+        f"{worst}")
+
+    # a 4-rank reduction at the fused-buffer width: four batch shards of
+    # 64 images, one backward each; only the transport is emulated
+    res = dict.fromkeys(CODECS, 0.0)
+    xs = []
+    for r in range(4):
+        images, labels = synthetic_batch(64, 224, 1000, seed=100 + r)
+        model.zero_grad(set_to_none=True)
+        softmax_cross_entropy(model(images), labels).backward()
+        flat = torch.cat([p.grad.reshape(-1) for p in model.parameters()])
+        xs.append(Q._to_blocks(flat, QBLOCK)[0])
+        del images, labels, flat
+    model.zero_grad(set_to_none=True)
+    exact = torch.stack(xs).double().sum(0)
+    for qmax, int4 in ((31, False), (1, True)):
+        what = f"4-rank {'int4' if int4 else 'int8'} qmax {qmax}"
+        out, s = _emulated_wire(Q, torch, res, xs, qmax, int4, what)
+        bound = 4 * half_scale(s.double(), qmax)[:, None]
+        excess = float(((out.double() - exact).abs() - bound).max())
+        if excess > 0:
+            raise AssertionError(f"{what}: beyond n * scale / 2 of the float "
+                                 f"sum by {excess}")
+        log(f"[wire] {what} over 4 gradient buffers of {N_PARAMS} float32 "
+            f"({tuple(out.shape)} blocks; only the transport is emulated, "
+            f"the four ranks' payloads summed on this card): kernels bit for "
+            f"bit with the plain pipeline, the sum within n * scale / 2 of "
+            f"the float sum; on {gpu}")
+    del xs, exact
+    torch.cuda.empty_cache()
+    return {"launches": launches, "errs": res}
+
+
+def codec_timings(Q, torch) -> dict:
+    """Phase 9b: B4-B7 at both fused-buffer shapes, each twice beside its
+    plain version, its memory bound and (B5) ``torch.mul``."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out = {}
+    for name, n_el in CODEC_BUFFERS.items():
+        x2d, _ = Q._to_blocks(torch.randn(n_el, device="cuda", generator=gen),
+                              QBLOCK)
+        nb = x2d.shape[0]
+        s = Q._scales(Q.block_absmax(x2d), 127)
+        q = Q.quantize_values(x2d, s, 127)
+        p = Q.quantize_pack4_values(x2d, s, 7)
+        calls = {
+            "quantize": (lambda: Q.quantize_values(x2d, s, 127),
+                         lambda: Q.quantize_plain(x2d, s, 127), None),
+            "dequantize": (lambda: Q.dequantize_values(q, s),
+                           lambda: Q.dequantize_plain(q, s),
+                           lambda: torch.mul(q, s[:, None])),
+            "pack4": (lambda: Q.quantize_pack4_values(x2d, s, 7),
+                      lambda: Q.quantize_pack4_plain(x2d, s, 7), None),
+            "unpack4": (lambda: Q.unpack_dequantize4_values(p, s),
+                        lambda: Q.unpack_dequantize4_plain(p, s), None),
+        }
+        for kind, (kern, plain, lib) in calls.items():
+            t = {"ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, reps=5)}
+            t["ms_again"] = cuda_ms(kern)
+            t["plain_ms_again"] = cuda_ms(plain, reps=5)
+            t["library_ms"] = cuda_ms(lib) if lib else None
+            bytes_ = CODEC_BYTES[kind] * nb * QBLOCK + 4 * nb
+            flops = CODEC_FLOPS[kind] * nb * QBLOCK
+            t_bytes, t_ops = bytes_ / MEM_BW * 1e3, flops / F32_PEAK * 1e3
+            t["bound_ms"] = max(t_bytes, t_ops)
+            t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            t["bytes"] = bytes_
+            out.setdefault(kind, {})[name] = t
+            log(f"[timing] {kind} {name} ({nb}, {QBLOCK}): kernel "
+                f"{t['ms']:.4f} / {t['ms_again']:.4f} ms "
+                f"({bytes_ / t['ms'] / 1e9:.3f} TB/s, "
+                f"{t['bound_ms'] / t['ms']:.3f} of bound), plain "
+                f"{t['plain_ms']:.4f} / {t['plain_ms_again']:.4f} ms; bound "
+                f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {bytes_:.0f} B); "
+                f"library {t['library_ms']}")
+        del x2d, q, p
+        torch.cuda.empty_cache()
+    return out
+
+
 def run(args) -> int:
     card = pin_one_card()
     import torch
@@ -780,6 +1047,7 @@ def run(args) -> int:
         from horovod_tpu_torch import _build
         from horovod_tpu_torch.models.resnet import ResNet50
         from horovod_tpu_torch.ops import flash_attention as FA
+        from horovod_tpu_torch.ops import quantization as Q
         from horovod_tpu_torch.optim import fused_update as TF
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here ({exc}); run "
@@ -792,14 +1060,15 @@ def run(args) -> int:
 
     # one nvcc per source, all started together
     t0 = time.perf_counter()
-    sources = ("fused_update", "flash_attention")
+    sources = ("fused_update", "flash_attention", "quantization")
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_build.load, sources))
     for name in sources:
         info = _build.build_info[name]
         log(f"[build] {name}.cu: nvcc {info['seconds']:.1f} s\n"
             f"{info['log'].strip()}")
-    log(f"[build] both loaded in {time.perf_counter() - t0:.1f} s")
+    log(f"[build] all {len(sources)} loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     shapes = {"momentum": [tuple(p.shape) for p in
                            ResNet50(device="cpu").parameters()],
@@ -809,16 +1078,19 @@ def run(args) -> int:
     # path adds the (8192, 768) position table)
     checks = kernel_checks(TF, torch, shapes["adam"] + lm_shapes(LONG_SEQ))
     checks.update(attention_checks(FA, torch))
+    codec_errs = codec_checks(Q, torch)
     hvd.init()
     os.environ["HOROVOD_FUSED_UPDATE"] = "1"
     timings = kernel_timings(TF, torch, shapes["momentum"],
                              ("momentum", "sgd"))
     timings.update(kernel_timings(TF, torch, shapes["adam"], ("adam",)))
     timings.update(attention_timings(FA, torch))
+    codec_times = codec_timings(Q, torch)
     small_reference(hvd, torch)
     small_lm_reference(hvd, torch)
     torch.backends.cudnn.benchmark = True
     path = main_path(hvd, torch, STEPS, BATCH, gpu, args.profile)
+    wire = codec_path(hvd, Q, torch, path.pop("model"), gpu)
     torch.cuda.empty_cache()
     lm = lm_path(hvd, torch, LM_SEQ, LM_BATCH, LM_STEPS, gpu, "transformer",
                  args.profile)
@@ -862,6 +1134,27 @@ def run(args) -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "library": t["library"],
             "shapes": f"timed at {ATTN_SHAPE} bf16 causal",
+        })
+    for kind in CODECS:
+        t, tl = (codec_times[kind][k] for k in CODEC_BUFFERS)
+        kernels.append({
+            "name": f"quantization.{kind}",
+            "route": "cuda",
+            "source": "horovod_tpu_torch/csrc/quantization.cu",
+            "replaces": REPLACES[kind],
+            # the compressors' round trips of the 161 ResNet-50 leaves
+            "launches": wire["launches"][kind],
+            "max_abs_err": max(codec_errs[kind], wire["errs"][kind]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "library": CODEC_LIBRARY[kind] or NO_LIBRARY,
+            "ms_transformer": tl["ms"], "plain_ms_transformer": tl["plain_ms"],
+            "bound_ms_transformer": tl["bound_ms"],
+            "library_ms_transformer": tl["library_ms"],
+            "shapes": (f"timed at the ResNet-50 fused buffer "
+                       f"({-(-N_PARAMS // QBLOCK)}, {QBLOCK}) f32; "
+                       "*_transformer at (433227, 256)"),
         })
     log(json.dumps({"kernels": kernels}))
     log(gpu)

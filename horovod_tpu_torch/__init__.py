@@ -16,9 +16,12 @@ from horovod_tpu_torch.common.basics import (  # noqa: F401
     local_size, rank, shutdown, size)
 from horovod_tpu_torch.common.types import HorovodTpuError  # noqa: F401
 from horovod_tpu_torch.ops.collectives import (  # noqa: F401
-    Adasum, Average, Sum, allreduce, broadcast, grouped_allreduce)
+    Adasum, Average, Sum, allgather, allreduce, alltoall, broadcast,
+    grouped_allreduce, grouped_quantized_allreduce, grouped_reducescatter,
+    quantized_allreduce, reducescatter)
 from horovod_tpu_torch.ops.compression import Compression  # noqa: F401
 from horovod_tpu_torch.optim import fused_update  # noqa: F401
 from horovod_tpu_torch.optim.distributed import (  # noqa: F401
-    DistributedOptimizer, allreduce_gradients, broadcast_object,
+    DistributedOptimizer, allreduce_gradients,
+    allreduce_gradients_with_feedback, broadcast_object,
     broadcast_optimizer_state, broadcast_parameters)

@@ -30,7 +30,18 @@ _KNOBS: dict[str, Knob] = {
         "update of an optimizer built by fused_update.sgd/adam."),
     "compression": Knob(
         "HOROVOD_COMPRESSION", "none", str,
-        "Gradient wire compression for allreduce: none | fp16 | bf16."),
+        "Gradient wire compression for allreduce: none | fp16 | bf16 "
+        "(dtype casts) | int8 | int4 (block-scaled with shared per-block "
+        "scales) | topk (sparse index + value payload)."),
+    "quant_block_size": Knob(
+        "HOROVOD_QUANT_BLOCK_SIZE", 256, int,
+        "Elements per int8/int4 quantization block (one float32 scale "
+        "each; default 256).  Must agree on every rank."),
+    "topk_ratio": Knob(
+        "HOROVOD_TOPK_RATIO", 0.01, float,
+        "Top-k density: each payload sends max(1, round(ratio * n)) "
+        "(index, value) pairs; the rest stays in the error-feedback "
+        "residual.  Must agree on every rank."),
     "zero_stage": Knob(
         "HOROVOD_ZERO_STAGE", 0, int,
         "ZeRO sharding stage for DistributedOptimizer; only 0 (the "
@@ -42,6 +53,32 @@ _KNOBS: dict[str, Knob] = {
         "HOROVOD_LOG_HIDE_TIME", False, _parse_bool,
         "Drop the timestamp from log lines."),
 }
+
+
+# Knobs of the JAX package whose feature is not ported yet: each one set
+# raises instead of being ignored, since it would change what runs.
+_NOT_PORTED = {
+    "HOROVOD_OVERLAP": "the overlap engine (ROADMAP.md Queue A item 8)",
+    "HOROVOD_BUCKET_COMPRESSION":
+        "per-bucket wire modes of the overlap engine (ROADMAP.md Queue A "
+        "item 8)",
+    "HOROVOD_HIERARCHICAL_ALLREDUCE":
+        "hierarchical (cross, local) reductions (ROADMAP.md Queue A item 9)",
+    "HOROVOD_ADAPTIVE_COMPRESSION":
+        "the residual-ratio guardrail and its metrics (ROADMAP.md Queue A "
+        "item 12)",
+}
+
+
+def refuse_not_ported() -> None:
+    """Raise ``NotImplementedError`` if a knob of an unported feature is
+    set (to anything but an empty or false value)."""
+    for env, what in _NOT_PORTED.items():
+        raw = os.environ.get(env, "").strip().lower()
+        if raw not in ("", "0", "false", "no", "off"):
+            raise NotImplementedError(
+                f"{env}={os.environ[env]!r} asks for {what}, which is not "
+                "ported yet")
 
 
 def get(name: str) -> Any:

@@ -231,3 +231,44 @@ def adam_to_optax(model, optimizer) -> AdamState:
                                   opt.state[p][key]))
              for key in ("mu", "nu")]
     return AdamState(np.asarray(counts.pop(), np.int32), *trees)
+
+
+# ---------------------------------------------------------------------------
+# Error-feedback residuals: the JAX package's ``_FeedbackState.residual``
+# tree, mapped like the weights (the transformer's layout for a
+# ``Transformer``, the flax layout otherwise).
+# ---------------------------------------------------------------------------
+
+
+def _residual_tensors(model, optimizer, lm: bool) -> dict:
+    res = optimizer.residuals
+    if res is None:
+        raise ValueError("the optimizer keeps no error-feedback residuals "
+                         "(it needs a lossy compressor and "
+                         "backward_passes_per_step=1)")
+    if lm:
+        return _lm_tensors(model, lambda p: res[p])
+    return {n: res[p] for n, p in model.named_parameters()}
+
+
+def feedback_from_jax(residual_tree: dict, model, optimizer) -> None:
+    """Set a ``DistributedOptimizer``'s per-parameter residuals from the
+    JAX package's ``_FeedbackState.residual`` tree (numpy arrays, laid
+    out like the weights of ``model``)."""
+    from horovod_tpu_torch.models.transformer import Transformer
+
+    lm = isinstance(model, Transformer)
+    tensors = _residual_tensors(model, optimizer, lm)
+    if lm:
+        _lm_load(tensors, residual_tree, "residual")
+    else:
+        _load(tensors, residual_tree, "residual")
+
+
+def feedback_to_jax(model, optimizer) -> dict:
+    """The inverse of :func:`feedback_from_jax`."""
+    from horovod_tpu_torch.models.transformer import Transformer
+
+    lm = isinstance(model, Transformer)
+    tensors = _residual_tensors(model, optimizer, lm)
+    return _lm_tree(tensors) if lm else _to_tree(tensors.items())

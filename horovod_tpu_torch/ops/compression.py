@@ -1,13 +1,19 @@
-"""Gradient compression for allreduce: the cast compressors of
-``horovod_tpu/ops/compression.py`` (``none``, ``fp16``, ``bf16``).
-The lossy codecs (int8, int4, top-k) are not ported yet: asking for one
-raises instead of running uncompressed."""
+"""Gradient compression for allreduce (``horovod_tpu/ops/compression.py``):
+the cast compressors (``none``, ``fp16``, ``bf16``) wrap the reduction in
+compress -> reduce -> decompress; the lossy ones (``int8``, ``int4``,
+``topk``) are markers the collectives dispatch on to the scale-aware or
+sparse reductions of :mod:`horovod_tpu_torch.ops.quantization`.  Their
+``compress`` / ``decompress`` stay a standalone local round trip; integer
+and bool tensors pass through."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from horovod_tpu_torch.common import config as _config
+from horovod_tpu_torch.ops import quantization as _q
 
 
 class NoneCompressor:
@@ -46,16 +52,81 @@ class BF16Compressor(_CastCompressor):
     wire_dtype = torch.bfloat16
 
 
-class _NotPorted:
-    def __init__(self, mode: str):
-        self.mode = mode
+class _LossyCompressor:
+    """Base of the lossy wire modes: collectives dispatch on
+    ``quantized`` and run the mode's reduction instead of compress ->
+    reduce -> decompress."""
+    quantized = True
+    mode = "none"
 
-    def _raise(self, *_):
-        raise NotImplementedError(
-            f"Compression.{self.mode} is not ported yet (ROADMAP.md "
-            "Queue A item 6, kernels B4-B7); use none, fp16 or bf16")
 
-    compress = decompress = _raise
+class Int8Compressor(_LossyCompressor):
+    """Block-scaled symmetric int8: ``compress`` gives ``((q, scales),
+    meta)`` (kernel B4), ``decompress`` undoes it (B5)."""
+    mode = "int8"
+
+    @staticmethod
+    def compress(tensor):
+        if not tensor.is_floating_point():
+            return tensor, None
+        q, scales, meta = _q.quantize_block_scaled(tensor)
+        return (q, scales), meta
+
+    @staticmethod
+    def decompress(tensor, ctx):
+        if ctx is None:
+            return tensor
+        q, scales = tensor
+        return _q.dequantize_block_scaled(q, scales, ctx)
+
+
+class Int4Compressor(_LossyCompressor):
+    """Packed int4 (two nibbles per wire byte): B6 and B7."""
+    mode = "int4"
+
+    @staticmethod
+    def compress(tensor):
+        if not tensor.is_floating_point():
+            return tensor, None
+        p, scales, meta = _q.quantize4_block_scaled(tensor)
+        return (p, scales), meta
+
+    @staticmethod
+    def decompress(tensor, ctx):
+        if ctx is None:
+            return tensor
+        p, scales = tensor
+        return _q.dequantize4_block_scaled(p, scales, ctx)
+
+
+class TopKCompressor(_LossyCompressor):
+    """Magnitude top-k with a fixed ``k = max(1, round(HOROVOD_TOPK_RATIO
+    * n))`` index + value payload; the round trip keeps the k largest
+    magnitudes and zeroes the rest."""
+    mode = "topk"
+
+    @staticmethod
+    def compress(tensor):
+        if not tensor.is_floating_point():
+            return tensor, None
+        flat = tensor.to(torch.float32).reshape(-1)
+        idx, vals = _q._topk_select(flat, _q.topk_k(flat.numel()))
+        return (idx, vals), (tuple(tensor.shape), tensor.dtype)
+
+    @staticmethod
+    def decompress(tensor, ctx):
+        if ctx is None:
+            return tensor
+        idx, vals = tensor
+        shape, dtype = ctx
+        dense = torch.zeros(math.prod(shape), dtype=torch.float32,
+                            device=vals.device)
+        dense[idx.long()] = vals
+        return dense.reshape(shape).to(dtype)
+
+
+# Aggressiveness ladder: the byte cut grows to the right.
+MODE_LADDER = ("none", "bf16", "fp16", "int8", "int4", "topk")
 
 
 class Compression:
@@ -64,9 +135,9 @@ class Compression:
     none = NoneCompressor
     fp16 = FP16Compressor
     bf16 = BF16Compressor
-    int8 = _NotPorted("int8")
-    int4 = _NotPorted("int4")
-    topk = _NotPorted("topk")
+    int8 = Int8Compressor
+    int4 = Int4Compressor
+    topk = TopKCompressor
 
     @classmethod
     def lookup(cls, name: str):
@@ -81,10 +152,19 @@ class Compression:
                 "none|fp16|bf16|int8|int4|topk") from None
 
 
-def require_ported(compression) -> None:
-    """Raise now, not at the first step, for a codec not ported yet."""
-    if isinstance(compression, _NotPorted):
-        compression.compress(None)
+def is_quantized(compression) -> bool:
+    """True for the compressors that need a scale-aware or sparse
+    reduction (int8, int4, topk)."""
+    return bool(getattr(compression, "quantized", False))
+
+
+def wire_mode(compression) -> str:
+    """The mode string a compressor's wire runs
+    (``none|fp16|bf16|int8|int4|topk``)."""
+    if is_quantized(compression):
+        return compression.mode
+    return {torch.float16: "fp16", torch.bfloat16: "bf16"}.get(
+        getattr(compression, "wire_dtype", None), "none")
 
 
 def active_compression():

@@ -8,6 +8,14 @@ through the fused tail (one kernel launch per parameter,
 the wrapped optimizer is fusable, else through the wrapped optimizer's
 own ``step()``.  Reduction is synchronous, inside ``step()`` (or an
 explicit ``synchronize()``).
+
+With a lossy compressor (int8, int4, top-k), ``backward_passes_per_step
+== 1`` and an op other than Adasum, the wrapper keeps error feedback:
+one float32 residual per parameter (``residuals``, the port's form of
+the JAX package's ``_FeedbackState.residual``), zero at the start,
+re-injected into the next step's gradient before the reduction.  With
+accumulation (``backward_passes_per_step > 1``) a lossy compressor
+reduces without feedback, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -24,23 +32,43 @@ from horovod_tpu_torch.common import config as _config
 from horovod_tpu_torch.common.util import true_divide
 from horovod_tpu_torch.ops import collectives as _coll
 from horovod_tpu_torch.ops.collectives import Adasum, Average
-from horovod_tpu_torch.ops.compression import (active_compression,
-                                               require_ported)
+from horovod_tpu_torch.ops import quantization as _quant
+from horovod_tpu_torch.ops.compression import (Compression,
+                                               active_compression,
+                                               is_quantized, wire_mode)
 from horovod_tpu_torch.optim import fused_update as _fused
 
 
 def _resolve_compression(compression):
-    c = active_compression() if compression is None else compression
-    require_ported(c)
-    return c
+    return active_compression() if compression is None else compression
 
 
 def allreduce_gradients(grads, op: int = Average, compression=None):
     """Allreduce a list of gradients: leaves grouped by dtype, each group
-    one flat buffer and one collective."""
+    one flat buffer and one collective (a lossy compressor fuses every
+    floating leaf into one float32 buffer)."""
     return _coll.grouped_allreduce(list(grads), op=op,
                                    compression=_resolve_compression(
                                        compression))
+
+
+def allreduce_gradients_with_feedback(grads, residuals, op: int = Average,
+                                      compression=None):
+    """Lossy gradient allreduce with error feedback: returns
+    ``(reduced, new_residuals)``, lists like ``grads``.  Last step's
+    ``residuals`` are added to the gradients before the reduction; the
+    new ones carry this step's local compression error.
+    ``compression=None`` reads the ``HOROVOD_COMPRESSION`` knob and takes
+    int8 when it names a mode that is not lossy."""
+    compression = _resolve_compression(compression)
+    if not is_quantized(compression):
+        compression = Compression.int8
+    grads = list(grads)
+    if not grads:
+        return [], list(residuals)
+    injected = _quant.apply_error_feedback(grads, residuals)
+    return _coll.grouped_quantized_allreduce(
+        injected, op=op, with_error=True, mode=wire_mode(compression))
 
 
 class _DistributedOptimizer:
@@ -53,17 +81,20 @@ class _DistributedOptimizer:
         if not isinstance(optimizer, torch.optim.Optimizer):
             raise TypeError("DistributedOptimizer expects a "
                             f"torch.optim.Optimizer (got {type(optimizer)!r})")
+        _config.refuse_not_ported()
         stage = int(_config.get("zero_stage") if zero_stage is None
                     else zero_stage)
         if stage != 0:
             raise NotImplementedError(
                 f"zero_stage={stage} is not ported yet (ROADMAP.md Queue A "
                 "item 8); only the replicated update (stage 0) runs")
+        self.compression = _resolve_compression(compression)
+        if is_quantized(self.compression):
+            _coll._check_quantized_op(op)
         if op == Adasum:
             raise NotImplementedError(
                 "op=Adasum is not ported yet (ROADMAP.md Queue A item 9)")
         self.optimizer = optimizer
-        self.compression = _resolve_compression(compression)
         self.op = op
         self.backward_passes_per_step = int(backward_passes_per_step)
         if self.backward_passes_per_step < 1:
@@ -71,6 +102,14 @@ class _DistributedOptimizer:
         self.fused_spec = _fused.resolve_spec(optimizer)
         self._counter = 0
         self._accum: dict = {}
+        #: parameter -> float32 error-feedback residual, or None when the
+        #: wrapper reduces without feedback
+        self.residuals = None
+        if is_quantized(self.compression) \
+                and self.backward_passes_per_step == 1:
+            params = [p for g in optimizer.param_groups for p in g["params"]]
+            self.residuals = dict(zip(
+                params, _quant.init_error_feedback(params)))
 
     def __getattr__(self, name):
         return getattr(self.__dict__["optimizer"], name)
@@ -87,8 +126,15 @@ class _DistributedOptimizer:
         """Reduce every gradient across the world in place; returns the
         parameters that have one."""
         params = self._params()
-        reduced = allreduce_gradients([p.grad for p in params], op=self.op,
-                                      compression=self.compression)
+        grads = [p.grad for p in params]
+        if self.residuals is None:
+            reduced = allreduce_gradients(grads, op=self.op,
+                                          compression=self.compression)
+        else:
+            reduced, new = allreduce_gradients_with_feedback(
+                grads, [self.residuals[p] for p in params], op=self.op,
+                compression=self.compression)
+            self.residuals.update(zip(params, new))
         for p, r in zip(params, reduced):
             p.grad.copy_(r)
         return params

@@ -1,10 +1,11 @@
-"""Tests of the port that need the card: kernels B1-B3 and B8-B10
-against their plain versions, and short training runs through them.
+"""Tests of the port that need the card: kernels B1-B10 against their
+plain versions, and short training runs through them; on a machine with
+four cards, the collectives and the lossy wire over NCCL.
 Marked ``cuda``; each skips (with its reason) where no CUDA device is
 present.  This file imports no JAX, so it runs on a GPU machine without
 it::
 
-    python -m pytest tests/test_torch_cuda.py -q -p no:cacheprovider --noconftest
+    python -m pytest tests/test_torch_cuda.py -q -s -p no:cacheprovider --noconftest
 """
 
 import math
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from horovod_tpu_torch.ops import flash_attention as FA
+from horovod_tpu_torch.ops import quantization as Q
 from horovod_tpu_torch.optim import fused_update as TF
 from horovod_tpu_torch.parallel.ring_attention import finish
 
@@ -216,5 +218,100 @@ def test_four_cards_nccl_collectives():
 
     outs = spawn(4, "cuda", timeout=300)
     for check in (C.check_topology, C.check_allreduce, C.check_grouped,
-                  C.check_broadcasts, C.check_distributed_optimizer):
+                  C.check_broadcasts, C.check_distributed_optimizer,
+                  *C.LOSSY_CHECKS):
         check(outs, 4)
+
+
+# (nblocks, block, offset): a full 256 row, the vector paths at a width
+# that is no multiple of 256, the scalar paths (block 6 and 10: rows not
+# a multiple of 4 or 8 wide; offset 1: a pointer off the 16-byte grid)
+CODEC_SHAPES = [(1000, 256, 0), (33, 200, 0), (7, 6, 0), (5, 10, 0),
+                (64, 256, 1)]
+
+
+def _codec_inputs(card, nb, block, offset, qmax):
+    gen = torch.Generator(device=card).manual_seed(nb * block + qmax)
+    buf = torch.randn(nb * block + offset, device=card, generator=gen)
+    x = buf[offset:].view(nb, block)
+    s = Q.block_absmax(x) / torch.full((nb,), float(qmax), device=card)
+    # an all-zero block and a block of exact .5 ties under scale 1/8
+    x[0] = 0.0
+    s[0] = 0.0
+    k = torch.randint(-qmax, qmax, (block,), device=card, generator=gen)
+    x[1] = (k.float() + 0.5) / 8
+    s[1] = 0.125
+    return x, s, gen
+
+
+@pytest.mark.parametrize("shape", CODEC_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_codec_kernels_bit_exact_against_plain(card, shape):
+    nb, block, offset = shape
+    Q.reset_launch_counts()
+    for qmax in (127, 63, 31):
+        x, s, gen = _codec_inputs(card, nb, block, offset, qmax)
+        q = Q.quantize_values(x, s, qmax)
+        assert torch.equal(q, Q.quantize_plain(x, s, qmax))
+        assert torch.equal(Q.dequantize_values(q, s),
+                           Q.dequantize_plain(q, s))
+        # int32 partial sums, negative ones included
+        qs = (q.int() * 4 - 3 * qmax).contiguous()
+        assert torch.equal(Q.dequantize_values(qs, s),
+                           Q.dequantize_plain(qs, s))
+    for qmax in (7, 3, 1):
+        x, s, gen = _codec_inputs(card, nb, block, offset, qmax)
+        p = Q.quantize_pack4_values(x, s, qmax)
+        assert torch.equal(p, Q.quantize_pack4_plain(x, s, qmax))
+        assert torch.equal(Q.unpack_dequantize4_values(p, s),
+                           Q.unpack_dequantize4_plain(p, s))
+        # the int8 sum of 7 // qmax ranks' packed bytes
+        ranks = 7 // qmax
+        grid = torch.randint(-qmax, qmax + 1, (ranks, nb, block),
+                             device=card, generator=gen)
+        h = block // 2
+        packed = (grid[..., h:] * 16 + grid[..., :h]).to(torch.int8)
+        summed = packed.sum(0, dtype=torch.int8)
+        assert torch.equal(summed.long(), packed.long().sum(0))
+        assert torch.equal(Q.unpack_dequantize4_values(summed, s),
+                           Q.unpack_dequantize4_plain(summed, s))
+    torch.cuda.synchronize()
+    assert Q.LAUNCHES == {"quantize": 3, "dequantize": 6, "pack4": 3,
+                          "unpack4": 6}
+
+
+def test_four_cards_lossy_resnet50():
+    """ResNet-50 at full width, batch 256 per card, fused momentum SGD
+    with the int8 and then the int4 wire and error feedback, 3 steps on
+    four cards: one B4 and two B5 (int4: one B6, two B7) per step on every
+    rank, finite losses, and the reduced gradient identical bit for bit
+    on every rank."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    import math
+    import os
+    import subprocess
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from _torch_collectives_worker import spawn
+
+    outs = spawn(4, "cuda", timeout=900, mode="resnet")
+    card = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    one = {"int8": {"quantize": 1, "dequantize": 2, "pack4": 0,
+                    "unpack4": 0, "momentum": 161},
+           "int4": {"quantize": 0, "dequantize": 0, "pack4": 1,
+                    "unpack4": 2, "momentum": 161}}
+    for mode, want in one.items():
+        for o in outs:
+            r = o[mode]
+            assert r["launches"] == [want] * 3, (mode, r["launches"])
+            assert all(math.isfinite(v) for v in r["losses"])
+        assert len({o[mode]["grad_digest"] for o in outs}) == 1
+        steady = sorted(o[mode]["times"][-1] for o in outs)
+        print(f"[four cards] ResNet-50 {mode} + EF, batch 256 per card: "
+              f"losses {outs[0][mode]['losses']}, step times rank 0 "
+              f"{outs[0][mode]['times']} s, last step over ranks "
+              f"{steady[0]:.4f}-{steady[-1]:.4f} s; on 4 x {card.strip()}")

@@ -44,7 +44,7 @@ def test_no_jax_side_module_is_imported():
               "ops.collectives", "optim.fused_update", "optim.distributed",
               "models.resnet", "interop", "train_step", "_build",
               "ops.flash_attention", "parallel.ring_attention",
-              "models.transformer"):
+              "models.transformer", "ops.quantization"):
         assert f"horovod_tpu_torch.{m}" in res["modules"]
 
 
@@ -134,4 +134,37 @@ def test_cuda_attention_tensor_never_takes_the_plain_version(wrapper,
             else (x, x, x, x, row, row))
     with pytest.raises(HorovodTpuError, match="nvcc not found"):
         getattr(FA, wrapper)(*args, 0, 0)
+    assert calls == []
+
+
+@pytest.mark.parametrize("wrapper", ["quantize_values", "dequantize_values",
+                                     "quantize_pack4_values",
+                                     "unpack_dequantize4_values"])
+def test_cuda_codec_tensor_never_takes_the_plain_version(wrapper,
+                                                         monkeypatch):
+    """The same for the codec wrappers B4-B7, and for the compressors'
+    round trip that calls them."""
+    from horovod_tpu_torch import _build
+    from horovod_tpu_torch.common.types import HorovodTpuError
+    from horovod_tpu_torch.ops import quantization as Q
+
+    calls = []
+    for name in ("quantize_plain", "dequantize_plain",
+                 "quantize_pack4_plain", "unpack_dequantize4_plain"):
+        monkeypatch.setattr(Q, name, lambda *a, **k: calls.append(a) or a[0])
+    monkeypatch.setattr(Q, "_lib", None)
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build.shutil, "which", lambda _: None)
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+
+    x = torch.zeros(4, 256)
+    q = torch.zeros(4, 256, dtype=torch.int8)
+    s = torch.ones(4)
+    monkeypatch.setattr(torch.Tensor, "device",
+                        property(lambda self: torch.device("cuda", 0)))
+    args = {"quantize_values": (x, s), "dequantize_values": (q, s),
+            "quantize_pack4_values": (x, s),
+            "unpack_dequantize4_values": (q[:, :128].contiguous(), s)}
+    with pytest.raises(HorovodTpuError, match="nvcc not found"):
+        getattr(Q, wrapper)(*args[wrapper])
     assert calls == []
