@@ -21,8 +21,13 @@ Phases (any failure exits non-zero and prints no result line):
    versions on the card: the transformer path's shape (192, 1024, 64)
    bf16, causal and not, from a fresh state; the carried state over two
    KV halves against one call; a fully masked block; float32 at (8,
-   256, 64); then each timed at the path's shape beside its plain
-   version, its bound and ``scaled_dot_product_attention``;
+   256, 64); bf16 within the JAX package's 2e-2 and within the tighter
+   bounds of ``flash_attention.BF16_MAX_ABS`` and ``BF16_ROW_REL``; then
+   each timed at the path's shape beside its plain version, its bound
+   and ``scaled_dot_product_attention``, and at the long-context shape
+   (12, 8192, 64) beside its bound and SDPA; the registers, local memory
+   (stack and spills) and shared memory of the bf16 B8 and B10
+   (``wgmma``) kernels from ``cudaFuncGetAttributes``;
 5. a small ResNet and a small transformer (float32, TF32 off) trained 3
    steps on the card through the kernels and on the CPU through the
    plain versions: losses and weights must agree;
@@ -122,13 +127,18 @@ CODEC_LIBRARY = {
     "quantize": None, "pack4": None, "unpack4": None}
 NO_LIBRARY = ("no one PyTorch call computes it: torch.quantize_per_channel "
               "divides by the scale and clamps to [-128, 127]")
-# the path's attention shape: (batch * heads, seq, head_dim)
+# the paths' attention shapes: (batch * heads, seq, head_dim)
 ATTN_SHAPE = (LM_BATCH * LM["n_heads"], LM_SEQ, LM["head_dim"])
+LONG_ATTN_SHAPE = (LONG_BATCH * LM["n_heads"], LONG_SEQ, LM["head_dim"])
+FLASH = ("flash_block_step", "flash_bwd_dq", "flash_bwd_dkv")
+# the bf16 kernels on the tensor cores (the rest run on the CUDA cores)
+TC_KERNELS = ("flash_block_step", "flash_bwd_dkv")
 # bf16: p and ds are rounded to bf16 and the kernels sum in another
 # order, so a value that crosses a rounding boundary moves by one bf16
 # ulp; this is the JAX package's own bf16 tolerance
-# (tests/test_pallas_attention.py:118).  f32: only the order of the sums
-# differs (TF32 off).
+# (tests/test_pallas_attention.py:118), and bf16 results are also held to
+# flash_attention.BF16_MAX_ABS and BF16_ROW_REL.  f32: only the order of
+# the sums differs (TF32 off).
 ATTN_TOL = {"bfloat16": (2e-2, 2e-2), "float32": (1e-4, 1e-5)}
 # bytes moved and float operations per element (f32): reads + writes
 BYTES_PER_EL = {"sgd": 8, "momentum": 16, "adam": 24}
@@ -413,9 +423,9 @@ RESNET_CLASSES = {"convolution (cuDNN)": ("xmma", "conv", "gemm", "cudnn",
                                           "implicit", "cutlass"),
                   "fused tail B1": ("momentum_kernel",),
                   "NCCL": ("nccl",)}
-LM_CLASSES = {"attention B8 forward": ("flash_fwd_kernel",),
-              "attention B9 dQ": ("flash_bwd_dq_kernel",),
-              "attention B10 dK/dV": ("flash_bwd_dkv_kernel",),
+LM_CLASSES = {"attention B8 forward": ("flash_fwd",),
+              "attention B9 dQ": ("flash_bwd_dq",),
+              "attention B10 dK/dV": ("flash_bwd_dkv",),
               "fused tail B3": ("adam_kernel",),
               "matmul (cuBLAS)": ("gemm", "nvjet", "xmma", "cutlass"),
               "NCCL": ("nccl",)}
@@ -490,22 +500,34 @@ def _lse_delta(state, do):
     return lse, (do.float() * out).sum(-1)
 
 
-def _hold(torch, res: dict, name: str, got, want, dtype, what: str) -> None:
+def _flash_res() -> dict:
+    return {k: {"max_abs_err": 0.0, "max_row_err": 0.0} for k in FLASH}
+
+
+def _hold(FA, torch, res: dict, name: str, got, want, dtype,
+          what: str) -> None:
     """Raise unless ``got`` is within the attention tolerance of
-    ``want``; record the largest finite absolute error under ``name``."""
+    ``want`` and, in bf16, within ``BF16_MAX_ABS`` and ``BF16_ROW_REL``;
+    record the largest absolute and row errors under ``name``."""
     rtol, atol = ATTN_TOL[str(dtype)[6:]]
     torch.testing.assert_close(got, want, rtol=rtol, atol=atol,
                                msg=lambda m: f"{what}: {m}")
-    d = (got.float() - want.float()).abs()
-    d = d[torch.isfinite(d)]
-    res[name] = max(res[name], float(d.max()) if d.numel() else 0.0)
+    err, row = FA.errors(got, want)
+    r = res[name]
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    r["max_row_err"] = max(r["max_row_err"], row)
+    if dtype == torch.bfloat16 and (err > FA.BF16_MAX_ABS
+                                    or row > FA.BF16_ROW_REL):
+        raise AssertionError(
+            f"{what}: largest error {err}, largest row error {row}; bounds "
+            f"{FA.BF16_MAX_ABS}, {FA.BF16_ROW_REL}")
 
 
 def _hold_state(FA, torch, res: dict, got, want, dtype, what: str) -> None:
     """B8's (m, l, o); in bf16 o is held as o / l (see
     ``flash_attention.state_pairs``)."""
     for n, a, b in FA.state_pairs(got, want, dtype == torch.bfloat16):
-        _hold(torch, res, "flash_block_step", a, b, dtype, f"{what} {n}")
+        _hold(FA, torch, res, "flash_block_step", a, b, dtype, f"{what} {n}")
 
 
 def _hold_three(FA, torch, res: dict, q, k, v, do, causal: bool,
@@ -520,19 +542,20 @@ def _hold_three(FA, torch, res: dict, q, k, v, do, causal: bool,
     lse, delta = _lse_delta(want, do)
     del want, fresh
     args = (q, k, v, do, lse, delta, 0, 0)
-    _hold(torch, res, "flash_bwd_dq", FA.flash_bwd_dq(*args, causal=causal),
+    _hold(FA, torch, res, "flash_bwd_dq",
+          FA.flash_bwd_dq(*args, causal=causal),
           FA.flash_bwd_dq_plain(*args, causal), dtype, f"B9 dq {what}")
     for n, a, b in zip(("dk", "dv"), FA.flash_bwd_dkv(*args, causal=causal),
                        FA.flash_bwd_dkv_plain(*args, causal)):
-        _hold(torch, res, "flash_bwd_dkv", a, b, dtype, f"B10 {n} {what}")
+        _hold(FA, torch, res, "flash_bwd_dkv", a, b, dtype,
+              f"B10 {n} {what}")
     torch.cuda.synchronize()
 
 
 def attention_checks(FA, torch) -> dict:
     """Phase 4a: B8-B10 against their plain versions on the card;
-    returns each kernel's largest absolute error."""
-    res = dict.fromkeys(("flash_block_step", "flash_bwd_dq",
-                         "flash_bwd_dkv"), 0.0)
+    returns each kernel's largest absolute and row errors."""
+    res = _flash_res()
     gen = torch.Generator(device="cuda").manual_seed(2024)
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -569,7 +592,8 @@ def attention_checks(FA, torch) -> dict:
         log(f"[attention] {ATTN_SHAPE} bf16: the carried state over two KV "
             f"halves agrees with one call; a fully masked block keeps m = "
             f"-inf, l = 0; largest errors {res} (bf16 B8 o as o / l); "
-            f"tolerance rtol/atol {ATTN_TOL}")
+            f"tolerance rtol/atol {ATTN_TOL}, bf16 also largest error "
+            f"{FA.BF16_MAX_ABS} and row error {FA.BF16_ROW_REL}")
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
     return res
@@ -595,18 +619,19 @@ def attention_costs(shape, itemsize: int) -> dict:
     }
 
 
-def attention_timings(FA, torch) -> dict:
-    """Phase 4b: B8-B10 at the transformer path's shape (bf16, causal),
-    each beside its plain version, its bound and
-    ``scaled_dot_product_attention`` on the same inputs (forward for B8,
-    its backward for B9 and B10 together; SDPA returns the normalised
-    output where B8 returns the carried state)."""
+def attention_timings(FA, torch, shape, batch: int,
+                      plain: bool) -> dict:
+    """Phase 4b: B8-B10 at ``shape`` (bf16, causal), each beside its
+    bound, ``scaled_dot_product_attention`` on the same inputs (forward
+    for B8, its backward for B9 and B10 together; SDPA returns the
+    normalised output where B8 returns the carried state) and, with
+    ``plain``, its plain version."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(7)
-    bh, l_, d = ATTN_SHAPE
-    q, k, v, do = _attn_inputs(torch, ATTN_SHAPE, torch.bfloat16, gen)
-    fresh = _fresh(torch, *ATTN_SHAPE)
+    bh, l_, d = shape
+    q, k, v, do = _attn_inputs(torch, shape, torch.bfloat16, gen)
+    fresh = _fresh(torch, *shape)
     lse, delta = _lse_delta(FA.flash_block_step(q, k, v, *fresh, 0, 0), do)
     args = (q, k, v, do, lse, delta, 0, 0)
     calls = {
@@ -618,8 +643,8 @@ def attention_timings(FA, torch) -> dict:
         "flash_bwd_dkv": (lambda: FA.flash_bwd_dkv(*args),
                           lambda: FA.flash_bwd_dkv_plain(*args, True)),
     }
-    b, h = LM_BATCH, LM["n_heads"]
-    q4, k4, v4, do4 = (x.view(b, h, l_, d) for x in (q, k, v, do))
+    h = bh // batch
+    q4, k4, v4, do4 = (x.view(batch, h, l_, d) for x in (q, k, v, do))
     qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q4, k4, v4))
     out4 = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
     lib = {
@@ -628,12 +653,15 @@ def attention_timings(FA, torch) -> dict:
         "bwd": cuda_ms(lambda: torch.autograd.grad(
             out4, (qg, kg, vg), do4, retain_graph=True)),
     }
-    costs = attention_costs(ATTN_SHAPE, 2)
+    costs = attention_costs(shape, 2)
     out = {}
-    for name, (kern, plain) in calls.items():
-        t = {"ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, reps=3)}
+    for name, (kern, plain_fn) in calls.items():
+        t = {"ms": cuda_ms(kern)}
+        if plain:
+            t["plain_ms"] = cuda_ms(plain_fn, reps=3)
         t["ms_again"] = cuda_ms(kern)
-        t["plain_ms_again"] = cuda_ms(plain, reps=3)
+        if plain:
+            t["plain_ms_again"] = cuda_ms(plain_fn, reps=3)
         bytes_, flops = costs[name]
         t_bytes, t_ops = bytes_ / MEM_BW * 1e3, flops / BF16_PEAK * 1e3
         t["bound_ms"] = max(t_bytes, t_ops)
@@ -644,15 +672,36 @@ def attention_timings(FA, torch) -> dict:
                         + ("forward" if fwd else
                            "backward, dQ dK dV together"))
         t["bytes"], t["flops"] = bytes_, flops
+        t["tflops"] = flops / t["ms"] / 1e9
         out[name] = t
-        log(f"[timing] {name} {ATTN_SHAPE} bf16 causal: kernel "
+        plain_txt = (f"plain {t['plain_ms']:.4f} / {t['plain_ms_again']:.4f}"
+                     f" ms; " if plain else "")
+        log(f"[timing] {name} {shape} bf16 causal: kernel "
             f"{t['ms']:.4f} / {t['ms_again']:.4f} ms "
-            f"({flops / t['ms'] / 1e9:.1f} TFLOP/s, "
-            f"{t['bound_ms'] / t['ms']:.4f} of bound), plain "
-            f"{t['plain_ms']:.4f} / {t['plain_ms_again']:.4f} ms; bound "
+            f"({t['tflops']:.1f} TFLOP/s, "
+            f"{t['bound_ms'] / t['ms']:.4f} of bound), {plain_txt}bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {bytes_} B, "
             f"{flops} FLOP); library {t['library_ms']:.4f} ms "
-            f"({t['library']})")
+            f"({t['library']}; kernel / library "
+            f"{t['ms'] / t['library_ms']:.3f})")
+    del q, k, v, do, fresh, lse, delta, qg, kg, vg, out4
+    torch.cuda.empty_cache()
+    return out
+
+
+def tc_build_report(FA) -> dict:
+    """Registers, local memory (stack and spills) and shared memory of
+    the bf16 tensor-core kernels at D <= 64 and D = 128; returns those at
+    the paths' head dim per wrapper name."""
+    out = {}
+    for name in TC_KERNELS:
+        for d in (64, 128):
+            a = FA.tc_kernel_attributes(name, d)
+            log(f"[build] {name} bf16 kernel at D <= {d}: {a['registers']} "
+                f"registers, {a['local_bytes']} B local memory per thread, "
+                f"{a['smem_bytes']} B dynamic shared memory")
+            if d == LM["head_dim"]:
+                out[name] = a
     return out
 
 
@@ -782,10 +831,9 @@ def long_context(hvd, torch, FA, gpu: str, profile: str | None) -> dict:
             raise AssertionError(f"long context: peak memory {peak} B is "
                                  f"not below {limit} B, {what}")
     torch.cuda.empty_cache()
-    shape = (LONG_BATCH * LM["n_heads"], LONG_SEQ, LM["head_dim"])
+    shape = LONG_ATTN_SHAPE
     gen = torch.Generator(device="cuda").manual_seed(11)
-    res = dict.fromkeys(("flash_block_step", "flash_bwd_dq",
-                         "flash_bwd_dkv"), 0.0)
+    res = _flash_res()
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -1084,7 +1132,10 @@ def run(args) -> int:
     timings = kernel_timings(TF, torch, shapes["momentum"],
                              ("momentum", "sgd"))
     timings.update(kernel_timings(TF, torch, shapes["adam"], ("adam",)))
-    timings.update(attention_timings(FA, torch))
+    timings.update(attention_timings(FA, torch, ATTN_SHAPE, LM_BATCH, True))
+    long_times = attention_timings(FA, torch, LONG_ATTN_SHAPE, LONG_BATCH,
+                                   False)
+    tc_info = tc_build_report(FA)
     codec_times = codec_timings(Q, torch)
     small_reference(hvd, torch)
     small_lm_reference(hvd, torch)
@@ -1119,8 +1170,8 @@ def run(args) -> int:
             "ms_one_buffer": t["ms_one_buffer"],
             "shapes": f"{len(shapes[kind])} {model} leaves, {n_el} f32",
         })
-    for name in ("flash_block_step", "flash_bwd_dq", "flash_bwd_dkv"):
-        t = timings[name]
+    for name in FLASH:
+        t, tl = timings[name], long_times[name]
         kernels.append({
             "name": f"flash_attention.{name}",
             "route": "cuda",
@@ -1128,12 +1179,19 @@ def run(args) -> int:
             "replaces": REPLACES[name],
             "launches": launches[name],
             # the largest over every case, the long-context shape's too
-            "max_abs_err": max(checks[name], long_errs[name]),
-            "max_abs_err_long": long_errs[name],
+            **{k: max(checks[name][k], long_errs[name][k])
+               for k in ("max_abs_err", "max_row_err")},
+            "max_abs_err_long": long_errs[name]["max_abs_err"],
+            "max_row_err_long": long_errs[name]["max_row_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "library": t["library"],
-            "shapes": f"timed at {ATTN_SHAPE} bf16 causal",
+            "tflops": t["tflops"],
+            "ms_long": tl["ms"], "bound_ms_long": tl["bound_ms"],
+            "library_ms_long": tl["library_ms"], "tflops_long": tl["tflops"],
+            **tc_info.get(name, {}),
+            "shapes": f"timed at {ATTN_SHAPE} bf16 causal; *_long at "
+                      f"{LONG_ATTN_SHAPE}",
         })
     for kind in CODECS:
         t, tl = (codec_times[kind][k] for k in CODEC_BUFFERS)

@@ -31,9 +31,9 @@ BWD_TOL = dict(rtol=2e-3, atol=2e-4)
 BLOCKS = dict(block_q=32, block_k=16, interpret=True)
 
 
-def _arrays(seed, *shapes):
+def _arrays(seed, *shapes, scale=0.3):
     rng = np.random.RandomState(seed)
-    return [(rng.randn(*s) * 0.3).astype(np.float32) for s in shapes]
+    return [(rng.randn(*s) * scale).astype(np.float32) for s in shapes]
 
 
 def _fresh(lq=L):
@@ -118,6 +118,119 @@ def test_backward_kernels_match_pallas(causal, k_offset):
     _close(dv, ref_dv, BWD_TOL, "B10 dv")
     assert FA.LAUNCHES == {"flash_block_step": 0, "flash_bwd_dq": 0,
                            "flash_bwd_dkv": 0}  # CPU: plain versions
+
+
+# The card kernels' tile edges (tests/test_torch_cuda.py TC_SHAPES), cut
+# to what the interpreted Pallas kernels run in seconds: (bh, lq, lk, d,
+# q_offset, k_offset, block_q, block_k), the Pallas blocks dividing L
+EDGE_SHAPES = [(2, 300, 260, 64, 40, 0, 60, 52),
+               (1, 512, 512, 16, 0, 0, 128, 128),
+               (1, 512, 512, 128, 0, 0, 128, 128),
+               (8, 256, 256, 64, 0, 0, 128, 128)]
+
+
+@pytest.mark.parametrize("shape", EDGE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s[:6])))
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_bf16_tile_edges_match_pallas(causal, shape):
+    """bf16 B8 and B10 at the card tests' tile-edge geometry: the port's
+    plain versions (which the card kernels are held to) against the
+    interpreted Pallas kernels, at the JAX package's bf16 tolerance; B8's
+    o as o / l (``flash_attention.state_pairs``)."""
+    bh, lq, lk, d, qo, ko, bq, bk = shape
+    blocks = dict(block_q=bq, block_k=bk, interpret=True)
+    q, k, v, dout = _arrays(6, (bh, lq, d), (bh, lk, d), (bh, lk, d),
+                            (bh, lq, d))
+    jq, jk, jv, jdo = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, dout))
+    tq, tk, tv, tdo = (x.bfloat16() for x in _t(q, k, v, dout))
+    fresh = (np.full((bh, lq), -np.inf, np.float32),
+             np.zeros((bh, lq), np.float32), np.zeros((bh, lq, d), np.float32))
+    ref = JA.flash_block_step(jq, jk, jv, *map(jnp.asarray, fresh), qo, ko,
+                              causal=causal, **blocks)
+    ours = FA.flash_block_step(tq, tk, tv, *_t(*fresh), qo, ko, causal=causal)
+    bf16 = dict(rtol=2e-2, atol=2e-2)
+    for name, a, b in FA.state_pairs(ours, _t(*ref), True):
+        _close(a, b, bf16, f"B8 {name}")
+    out, lse = TR.finish(*ours)
+    delta = (tdo.float() * out).sum(-1)
+    ref_dk, ref_dv = JA.flash_bwd_dkv(jq, jk, jv, jdo, jnp.asarray(lse),
+                                      jnp.asarray(delta), qo, ko,
+                                      causal=causal, **blocks)
+    dk, dv = FA.flash_bwd_dkv(tq, tk, tv, tdo, lse, delta, qo, ko,
+                              causal=causal)
+    _close(dk, ref_dk, bf16, "B10 dk")
+    _close(dv, ref_dv, bf16, "B10 dv")
+
+
+# The card holds bf16 B8 and B10 within the JAX package's 2e-2 and within
+# flash_attention.BF16_MAX_ABS and BF16_ROW_REL.  These cases build, from
+# the plain versions, what a kernel at the long-context row length (one
+# head of 8192 positions, D 64) returns when it rounds as the tensor-core
+# kernels do (p to bf16 against the running max of 128-key tiles) and
+# when it drops or mis-masks one tile, on the rows such a fault touches.
+LONG = 8192
+
+
+def _long_b8(drop=None, unmask_last=False):
+    """o / l of B8 and of the plain step over the last 128 query rows,
+    the B8 state carried over 128-key tiles: tile ``drop`` skipped, the
+    last (diagonal) tile unmasked with ``unmask_last``."""
+    q, k, v = (x.bfloat16()
+               for x in _t(*_arrays(8, *[(1, LONG, 64)] * 3, scale=1.0)))
+    qo = LONG - 128
+    q = q[:, qo:]
+    fresh = (torch.full((1, 128), -np.inf), torch.zeros(1, 128),
+             torch.zeros(1, 128, 64))
+    want = FA.flash_block_step_plain(q, k, v, *fresh, qo, 0, True)
+    got = fresh
+    for t, k0 in enumerate(range(0, LONG, 128)):
+        if t != drop:
+            got = FA.flash_block_step_plain(
+                q, k[:, k0:k0 + 128], v[:, k0:k0 + 128], *got, qo, k0,
+                not (unmask_last and k0 == qo))
+    return dict((n, (a, b)) for n, a, b in FA.state_pairs(got, want, True))[
+        "o / l"]
+
+
+def _long_b10_dropped_query_tile():
+    """dK of the first 128 keys against every query, and the same with
+    the 64-query tile at the row's middle left out of the sums."""
+    q, k, v, dout = (x.bfloat16()
+                     for x in _t(*_arrays(9, *[(1, LONG, 64)] * 4,
+                                          scale=1.0)))
+    state = (torch.full((1, LONG), -np.inf), torch.zeros(1, LONG),
+             torch.zeros(1, LONG, 64))
+    for k0 in range(0, LONG, 1024):
+        state = FA.flash_block_step_plain(q, k[:, k0:k0 + 1024],
+                                          v[:, k0:k0 + 1024], *state, 0, k0)
+    out, lse = TR.finish(*state)
+    delta = (dout.float() * out).sum(-1)
+    kb, vb = k[:, :128], v[:, :128]
+    want = FA.flash_bwd_dkv_plain(q, kb, vb, dout, lse, delta, 0, 0)[0]
+    t = slice(LONG // 2, LONG // 2 + 64)
+    part = FA.flash_bwd_dkv_plain(q[:, t], kb, vb, dout[:, t], lse[:, t],
+                                  delta[:, t], LONG // 2, 0)[0]
+    return want - part, want
+
+
+@pytest.mark.parametrize("case", ["tiled_rounding", "dropped_key_tile",
+                                  "unmasked_diagonal_tile",
+                                  "dropped_query_tile"])
+def test_bf16_bounds_pass_tiled_rounding_and_catch_a_faulty_tile(case):
+    if case == "dropped_query_tile":
+        got, want = _long_b10_dropped_query_tile()
+    else:
+        got, want = _long_b8(drop=LONG // 256 if case == "dropped_key_tile"
+                             else None,
+                             unmask_last=case == "unmasked_diagonal_tile")
+    err, row = FA.errors(got, want)
+    if case == "tiled_rounding":
+        assert err <= FA.BF16_MAX_ABS and row <= FA.BF16_ROW_REL, (err, row)
+        return
+    assert err > FA.BF16_MAX_ABS and row > FA.BF16_ROW_REL, (err, row)
+    if case != "dropped_query_tile":
+        # the JAX package's bf16 tolerance alone lets this fault pass
+        torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
 
 
 @pytest.mark.parametrize("b", [1, 2], ids=["batch1", "batch2"])

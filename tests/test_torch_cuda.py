@@ -13,6 +13,7 @@ import math
 import pytest
 import torch
 
+from horovod_tpu_torch.common.types import HorovodTpuError
 from horovod_tpu_torch.ops import flash_attention as FA
 from horovod_tpu_torch.ops import quantization as Q
 from horovod_tpu_torch.optim import fused_update as TF
@@ -93,19 +94,31 @@ def test_small_training_run_goes_through_the_kernel(card, monkeypatch):
 # f32: the kernels and the plain versions differ only in the order of
 # their sums (TF32 off); bf16: p and ds are rounded to bf16, so a sum
 # order that moves a value across a rounding boundary moves it by one bf16
-# ulp -- the JAX package's own bf16 tolerance (test_pallas_attention.py).
+# ulp -- the JAX package's own bf16 tolerance (test_pallas_attention.py),
+# and bf16 is also held to flash_attention.BF16_MAX_ABS and BF16_ROW_REL.
 FLASH_TOL = {"f32": (1e-4, 1e-5), "bf16": (2e-2, 2e-2)}
+# the longest KV block at which the f32 atol was read; past it B8's
+# unnormalised o grows with the row's l and its f32 sums with it, so the
+# atol grows in proportion (B8 o read 1.27e-5 at Lk = 1024, D = 128)
+F32_ATOL_KEYS = 256
 
 
-def _close(got, want, dname, what):
+def _close(got, want, dname, what, lk=0):
     rtol, atol = FLASH_TOL[dname]
+    if dname == "f32":
+        atol *= max(1.0, lk / F32_ATOL_KEYS)
     torch.testing.assert_close(got, want, rtol=rtol, atol=atol,
                                msg=lambda m: f"{what}: {m}")
+    err, row = FA.errors(got, want)
+    print(f"[reading] {what}: largest error {err:.3e}, row error {row:.3e}")
+    if dname == "bf16":
+        assert err <= FA.BF16_MAX_ABS and row <= FA.BF16_ROW_REL, (
+            f"{what}: largest error {err}, row error {row}")
 
 
-def _close_state(got, want, dname, what):
+def _close_state(got, want, dname, what, lk=0):
     for name, a, b in FA.state_pairs(got, want, dname == "bf16"):
-        _close(a, b, dname, f"{what} {name}")
+        _close(a, b, dname, f"{what} {name}", lk)
 
 
 @pytest.fixture()
@@ -120,6 +133,12 @@ def exact_f32():
 # after the queries, a mostly hidden block, head dims 8 to 128
 FLASH_SHAPES = [(6, 200, 136, 64, 136, 0), (3, 64, 64, 128, 0, 0),
                 (2, 100, 70, 40, 64, 64), (4, 128, 128, 8, 0, 96)]
+# the bf16 tensor-core kernels' tile edges (128-row blocks of two 64-row
+# warpgroups, 128- or 64-key tiles): L no multiple of 128 with offsets
+# no multiple of 64, D = 16 and 128 over full 1024-row tiles, and more
+# blocks than one wave of the card's 132 SMs; f32 runs them too
+TC_SHAPES = [(2, 300, 260, 64, 40, 0), (2, 1024, 1024, 16, 0, 0),
+             (2, 1024, 1024, 128, 0, 0), (160, 256, 256, 64, 0, 0)]
 
 
 @pytest.mark.parametrize("shape", FLASH_SHAPES,
@@ -127,9 +146,25 @@ FLASH_SHAPES = [(6, 200, 136, 64, 136, 0), (3, 64, 64, 128, 0, 0),
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("dname", sorted(DTYPES))
 def test_flash_kernels_against_plain(card, exact_f32, dname, causal, shape):
+    _check_flash(card, dname, causal, shape)
+
+
+@pytest.mark.parametrize("shape", TC_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dname", sorted(DTYPES))
+def test_flash_tile_edges_against_plain(card, exact_f32, dname, causal,
+                                        shape):
+    _check_flash(card, dname, causal, shape)
+
+
+def _check_flash(card, dname, causal, shape):
+    """B8 from a carried state, then B9 and B10 from its lse, each
+    against its plain version; one launch of each."""
     bh, lq, lk, d, qo, ko = shape
     dtype = DTYPES[dname]
     gen = torch.Generator(device=card).manual_seed(lq * d)
+    case = f"{dname} {'causal' if causal else 'full'} {shape}"
 
     def rnd(*s):
         return (torch.randn(*s, device=card, generator=gen) * 0.5).to(dtype)
@@ -146,21 +181,97 @@ def test_flash_kernels_against_plain(card, exact_f32, dname, causal, shape):
     FA.reset_launch_counts()
     got = FA.flash_block_step(q, k, v, m, l, o, qo, ko, causal=causal)
     want = FA.flash_block_step_plain(q, k, v, m, l, o, qo, ko, causal)
-    _close_state(got, want, dname, "B8")
+    _close_state(got, want, dname, f"{case} B8", lk)
     out, lse = finish(*want)
     delta = (do.float() * out).sum(-1)
     _close(FA.flash_bwd_dq(q, k, v, do, lse, delta, qo, ko, causal=causal),
            FA.flash_bwd_dq_plain(q, k, v, do, lse, delta, qo, ko, causal),
-           dname, "B9 dq")
+           dname, f"{case} B9 dq", lk)
     for name, a, b in zip(("dk", "dv"),
                           FA.flash_bwd_dkv(q, k, v, do, lse, delta, qo, ko,
                                            causal=causal),
                           FA.flash_bwd_dkv_plain(q, k, v, do, lse, delta, qo,
                                                  ko, causal)):
-        _close(a, b, dname, f"B10 {name}")
+        _close(a, b, dname, f"{case} B10 {name}", lk)
     torch.cuda.synchronize()
     assert FA.LAUNCHES == {"flash_block_step": 1, "flash_bwd_dq": 1,
                            "flash_bwd_dkv": 1}
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_bf16_kernels_are_deterministic(card, d):
+    """B8 and B10 on the tensor cores own their output tiles (no
+    atomics): two calls give the same bits."""
+    gen = torch.Generator(device=card).manual_seed(d)
+    q, k, v, do = (torch.randn(8, 520, d, device=card, generator=gen)
+                   .bfloat16() for _ in range(4))
+    m = torch.full((8, 520), -math.inf, device=card)
+    l = torch.zeros(8, 520, device=card)
+    o = torch.zeros(8, 520, d, device=card)
+    state = FA.flash_block_step(q, k, v, m, l, o, 0, 0)
+    again = FA.flash_block_step(q, k, v, m, l, o, 0, 0)
+    for a, b in zip(state, again):
+        assert torch.equal(a, b)
+    out, lse = finish(*state)
+    delta = (do.float() * out).sum(-1)
+    grads = FA.flash_bwd_dkv(q, k, v, do, lse, delta, 0, 0)
+    for a, b in zip(grads, FA.flash_bwd_dkv(q, k, v, do, lse, delta, 0, 0)):
+        assert torch.equal(a, b)
+
+
+def _off_grid(t):
+    """A copy of ``t`` whose base address is one element off the 16-byte
+    grid."""
+    buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def test_flash_refuses_unaligned_operands(card):
+    """TMA needs 16-byte-aligned base addresses: a bf16 operand of B8 or
+    B10 that starts off that grid is refused, not copied or sent
+    elsewhere."""
+    k = torch.zeros(2, 64, 64, device=card, dtype=torch.bfloat16)
+    q = _off_grid(k)  # 2 bytes off the grid
+    m = torch.full((2, 64), -math.inf, device=card)
+    l = torch.zeros(2, 64, device=card)
+    o = torch.zeros(2, 64, 64, device=card)
+    with pytest.raises(HorovodTpuError, match="16-byte"):
+        FA.flash_block_step(q, k, k, m, l, o, 0, 0)
+    with pytest.raises(HorovodTpuError, match="16-byte"):
+        FA.flash_bwd_dkv(q, k, k, q, l, l, 0, 0)
+    # B8 reads the carried f32 o as float2
+    with pytest.raises(HorovodTpuError, match="8-byte"):
+        FA.flash_block_step(k, k, k, m, l, _off_grid(o), 0, 0)
+
+
+def test_flash_cuda_core_kernels_take_unaligned_operands(card, exact_f32):
+    """The kernels that use no TMA (f32 B8-B10, bf16 B9) read their
+    operands element by element: operands off the 16-byte grid run and
+    agree with the plain versions."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    for dname, dtype in DTYPES.items():
+        q, k, v, do = (_off_grid((torch.randn(2, 64, 64, device=card,
+                                              generator=gen) * 0.5).to(dtype))
+                       for _ in range(4))
+        fresh = (torch.full((2, 64), -math.inf, device=card),
+                 torch.zeros(2, 64, device=card),
+                 torch.zeros(2, 64, 64, device=card))
+        state = FA.flash_block_step_plain(q, k, v, *fresh, 0, 0)
+        out, lse = finish(*state)
+        delta = (do.float() * out).sum(-1)
+        args = (q, k, v, do, _off_grid(lse), _off_grid(delta), 0, 0)
+        _close(FA.flash_bwd_dq(*args), FA.flash_bwd_dq_plain(*args), dname,
+               f"B9 dq {dname} unaligned")
+        if dname == "f32":
+            m, l, o = (_off_grid(t) for t in state)
+            _close_state(FA.flash_block_step(q, k, v, m, l, o, 0, 0),
+                         FA.flash_block_step_plain(q, k, v, m, l, o, 0, 0),
+                         dname, "B8 f32 unaligned")
+            for name, a, b in zip(("dk", "dv"), FA.flash_bwd_dkv(*args),
+                                  FA.flash_bwd_dkv_plain(*args)):
+                _close(a, b, dname, f"B10 {name} f32 unaligned")
 
 
 def test_flash_fully_masked_block_keeps_fresh_state(card):
