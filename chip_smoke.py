@@ -13,10 +13,14 @@ Phases (any failure exits non-zero and prints no result line):
    leaf), 25,557,032 (all parameters in one buffer) and 1,000 elements,
    float32 and bfloat16, Adam at steps 1 and 3: float32 bit for bit,
    bfloat16 within 1 bf16 ulp; B3 also at the leaf shapes of both
-   transformer paths, float32, bit for bit; then B1 and B2 timed over the 161
-   ResNet-50 leaves of one step and B3 over the 75 transformer leaves,
-   each beside its plain version, its memory bound and, where one
-   PyTorch call computes the same function, that call;
+   transformer paths, float32, bit for bit; B2's one launch over the 161
+   ResNet-50 leaf shapes and an empty leaf (``sgd_update_multi``, navg 1
+   and 2), float32 and bfloat16, bit for bit with the plain loop; then B1
+   over the 161 ResNet-50 leaves of one step (one launch each), B2 over
+   them in one launch and one launch each, and B3 over the 75
+   transformer leaves, each beside its plain version, its memory bound
+   and, where PyTorch computes the same function, ``torch.mul`` leaf by
+   leaf and ``torch._foreach_mul`` in one call;
 4. flash attention (B8 forward step, B9 dQ, B10 dK/dV) against the plain
    versions on the card: the transformer path's shape (192, 1024, 64)
    bf16, causal and not, from a fresh state; the carried state over two
@@ -24,10 +28,11 @@ Phases (any failure exits non-zero and prints no result line):
    256, 64); bf16 within the JAX package's 2e-2 and within the tighter
    bounds of ``flash_attention.BF16_MAX_ABS`` and ``BF16_ROW_REL``; then
    each timed at the path's shape beside its plain version, its bound
-   and ``scaled_dot_product_attention``, and at the long-context shape
-   (12, 8192, 64) beside its bound and SDPA; the registers, local memory
-   (stack and spills) and shared memory of the bf16 B8 and B10
-   (``wgmma``) kernels from ``cudaFuncGetAttributes``;
+   and ``scaled_dot_product_attention`` (and B9 + B10 together beside
+   SDPA's backward), and at the long-context shape (12, 8192, 64) beside
+   its bound and SDPA; the registers, local memory (stack and spills) and
+   shared memory of the bf16 B8, B9 and B10 (``wgmma``) kernels from
+   ``cudaFuncGetAttributes``;
 5. a small ResNet and a small transformer (float32, TF32 off) trained 3
    steps on the card through the kernels and on the CPU through the
    plain versions: losses and weights must agree;
@@ -35,7 +40,9 @@ Phases (any failure exits non-zero and prints no result line):
    224x224, 1000 classes, batch 256, bf16 compute, ``DistributedOptimizer(
    fused_update.sgd(0.1, momentum=0.9))`` with ``HOROVOD_FUSED_UPDATE=1``
    on a seeded synthetic batch; every loss finite and exactly 161
-   momentum-kernel launches per step;
+   momentum-kernel launches per step; then 3 steps of plain SGD,
+   ``fused_update.sgd(0.1)``, on a new model: every loss finite, one B2
+   launch and no B1 launch per step;
 7. the transformer path: the JAX package's transformer bench config
    (vocab 32768, d_model 768, 12 x 64 heads, 12 layers, d_ff 3072, seq
    1024, batch 16, bf16) trained 6 steps with ``DistributedOptimizer(
@@ -131,8 +138,10 @@ NO_LIBRARY = ("no one PyTorch call computes it: torch.quantize_per_channel "
 ATTN_SHAPE = (LM_BATCH * LM["n_heads"], LM_SEQ, LM["head_dim"])
 LONG_ATTN_SHAPE = (LONG_BATCH * LM["n_heads"], LONG_SEQ, LM["head_dim"])
 FLASH = ("flash_block_step", "flash_bwd_dq", "flash_bwd_dkv")
-# the bf16 kernels on the tensor cores (the rest run on the CUDA cores)
-TC_KERNELS = ("flash_block_step", "flash_bwd_dkv")
+# the bf16 kernels on the tensor cores (f32 and the rest run on the CUDA
+# cores)
+TC_KERNELS = FLASH
+SGD_STEPS = 3
 # bf16: p and ds are rounded to bf16 and the kernels sum in another
 # order, so a value that crosses a rounding boundary moves by one bf16
 # ulp; this is the JAX package's own bf16 tolerance
@@ -201,7 +210,8 @@ def ulp_diff(a, b) -> int:
 
 def _hold_ulp(res: dict, kind: str, got, want, tol: int, what: str):
     for a, b in zip(got, want):
-        err = float((a.float() - b.float()).abs().max().item())
+        err = float((a.float() - b.float()).abs().max().item()) \
+            if a.numel() else 0.0
         ulp = ulp_diff(a, b)
         r = res[kind]
         r["max_abs_err"] = max(r["max_abs_err"], err)
@@ -211,10 +221,11 @@ def _hold_ulp(res: dict, kind: str, got, want, tol: int, what: str):
                                  f"its plain version (max abs {err})")
 
 
-def kernel_checks(TF, torch, adam_shapes) -> dict:
+def kernel_checks(TF, torch, adam_shapes, sgd_shapes) -> dict:
     """Phase 3a: kernel against plain version; returns per-kernel
     max_abs_err (and max ulp).  B3 is also held at the distinct leaf
-    shapes ``adam_shapes`` of the path that runs it."""
+    shapes ``adam_shapes`` of the path that runs it, B2's one launch
+    over the leaf shapes ``sgd_shapes`` and an empty leaf."""
     gen = torch.Generator(device="cuda").manual_seed(1234)
     res = {k: {"max_abs_err": 0.0, "max_ulp": 0}
            for k in ("sgd", "momentum", "adam")}
@@ -260,13 +271,33 @@ def kernel_checks(TF, torch, adam_shapes) -> dict:
             _hold_ulp(res, "adam", got, want, 0, f"{shape} step={step}")
     log(f"[kernels] adam at the path's {len(set(adam_shapes))} distinct "
         "leaf shapes, float32, steps 1 and 3: bit-exact")
+    shapes = list(sgd_shapes) + [(0,)]
+    for dtype in (torch.float32, torch.bfloat16):
+        grads = [torch.randn(s, device="cuda", generator=gen).to(dtype)
+                 for s in shapes]
+        for navg in (1, 2):
+            TF.reset_launch_counts()
+            got = TF.sgd_update_multi(grads, navg, -0.1)
+            torch.cuda.synchronize()
+            if TF.LAUNCHES["sgd"] != 1:
+                raise AssertionError(f"sgd_update_multi launched "
+                                     f"{TF.LAUNCHES['sgd']} times")
+            want = [TF.sgd_plain(g, navg, -0.1) for g in grads]
+            _hold_ulp(res, "sgd", got, want, 0,
+                      f"one launch over {len(shapes)} leaves {dtype} "
+                      f"navg={navg}")
+        del grads, got, want
+    log(f"[kernels] sgd in one launch over the {len(shapes) - 1} ResNet-50 "
+        "leaf shapes and an empty leaf, float32 and bfloat16, navg 1 and 2: "
+        "bit for bit with the plain loop")
     return res
 
 
 def kernel_timings(TF, torch, shapes, kinds) -> dict:
     """Phase 3b: each kernel of ``kinds`` over one step's leaves (its
-    path's shapes), its plain version, and a one-call library
-    equivalent."""
+    path's shapes) as its path launches it, its plain version, and a
+    one-call library equivalent; B2 also one launch per leaf and
+    ``torch.mul`` leaf by leaf."""
     gen = torch.Generator(device="cuda").manual_seed(99)
 
     def leaves():
@@ -279,10 +310,9 @@ def kernel_timings(TF, torch, shapes, kinds) -> dict:
     spec = TF.FusedSpec("adam", 0.1)
     bc1, bc2 = TF.bias_corrections(spec, 3)
     calls = {
-        "sgd": (lambda: [TF.sgd_update(a, 1, -0.1, out=o)
-                         for a, o in zip(g, u)],
+        "sgd": (lambda: TF.sgd_update_multi(g, 1, -0.1, outs=u),
                 lambda: [TF.sgd_plain(a, 1, -0.1) for a in g],
-                lambda: [torch.mul(a, -0.1, out=o) for a, o in zip(g, u)]),
+                lambda: torch._foreach_mul(g, -0.1)),
         "momentum": (lambda: [TF.momentum_update(a, b, 1, 0.9, -0.1, out=o,
                                                  t_out=b)
                               for a, b, o in zip(g, t, u)],
@@ -317,6 +347,17 @@ def kernel_timings(TF, torch, shapes, kinds) -> dict:
         out[kind]["plain_ms_again"] = cuda_ms(plain, reps=5)
         out[kind]["ms_one_buffer"] = cuda_ms(one)
         out[kind]["library_ms"] = cuda_ms(lib) if lib else None
+        extra = ""
+        if kind == "sgd":
+            out[kind]["ms_per_leaf"] = cuda_ms(
+                lambda: [TF.sgd_update(a, 1, -0.1, out=o)
+                         for a, o in zip(g, u)])
+            out[kind]["torch_mul_ms"] = cuda_ms(
+                lambda: [torch.mul(a, -0.1, out=o) for a, o in zip(g, u)])
+            extra = (f"; one launch per leaf {out[kind]['ms_per_leaf']:.4f} "
+                     f"ms; torch.mul leaf by leaf "
+                     f"{out[kind]['torch_mul_ms']:.4f} ms; library = "
+                     "torch._foreach_mul in one call")
         bytes_ = BYTES_PER_EL[kind] * n_el
         flops = FLOPS_PER_EL[kind] * n_el
         t_bytes, t_ops = bytes_ / MEM_BW * 1e3, flops / F32_PEAK * 1e3
@@ -328,7 +369,7 @@ def kernel_timings(TF, torch, shapes, kinds) -> dict:
             f" ms over {len(shapes)} leaves ({n_el} f32); one "
             f"{n_el}-element launch {out[kind]['ms_one_buffer']:.4f} ms; "
             f"bound {out[kind]['bound_ms']:.4f} ms; library "
-            f"{out[kind]['library_ms']}")
+            f"{out[kind]['library_ms']}{extra}")
     return out
 
 
@@ -417,6 +458,44 @@ def main_path(hvd, torch, steps: int, batch: int, gpu: str,
                       step_s, profile, RESNET_CLASSES, "resnet50")
     return {"launches": launches, "losses": losses, "step_s": step_s,
             "median_s": med, "peak_bytes": peak, "model": model}
+
+
+def sgd_path(hvd, torch, gpu: str) -> dict:
+    """Phase 6b: B2 on a path: the main path's ResNet-50 (a new model,
+    seed 1) trained ``SGD_STEPS`` steps with plain SGD,
+    ``DistributedOptimizer(fused_update.sgd(0.1))`` under
+    ``HOROVOD_FUSED_UPDATE=1``: every loss finite, one B2 launch per step
+    (the 161 float32 leaves are one dtype group) and no B1 launch."""
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.optim import fused_update as TF
+    from horovod_tpu_torch.train_step import synthetic_batch, train_step
+
+    model = ResNet50(num_classes=1000, dtype=torch.bfloat16, seed=1)
+    opt = hvd.DistributedOptimizer(
+        hvd.fused_update.sgd(model.parameters(), 0.1))
+    if not TF.active():
+        raise AssertionError("the fused tail is not active")
+    images, labels = synthetic_batch(BATCH, 224, 1000, seed=0)
+    torch.cuda.synchronize()
+    losses, times = [], []
+    TF.reset_launch_counts()
+    for _ in range(SGD_STEPS):
+        t0 = time.perf_counter()
+        loss = train_step(model, opt, images, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    launches = dict(TF.LAUNCHES)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"plain SGD: non-finite loss: {losses}")
+    want = {"sgd": SGD_STEPS, "momentum": 0, "adam": 0}
+    if launches != want:
+        raise AssertionError(f"plain SGD: kernel launches {launches} in "
+                             f"{SGD_STEPS} steps, expected {want}")
+    log(f"[sgd] ResNet-50 224x224 batch {BATCH} bf16, fused plain SGD, "
+        f"{SGD_STEPS} steps on {gpu}: losses {losses}; step times (s) "
+        f"{times}; kernel launches {launches}")
+    return {"launches": launches, "losses": losses, "times": times}
 
 
 RESNET_CLASSES = {"convolution (cuDNN)": ("xmma", "conv", "gemm", "cudnn",
@@ -684,6 +763,13 @@ def attention_timings(FA, torch, shape, batch: int,
             f"{flops} FLOP); library {t['library_ms']:.4f} ms "
             f"({t['library']}; kernel / library "
             f"{t['ms'] / t['library_ms']:.3f})")
+    # the fairer pair: SDPA's backward computes dQ, dK and dV together
+    both = cuda_ms(lambda: (FA.flash_bwd_dq(*args), FA.flash_bwd_dkv(*args)))
+    out["flash_bwd_dq"]["ms_with_dkv"] = both
+    flops = costs["flash_bwd_dq"][1] + costs["flash_bwd_dkv"][1]
+    log(f"[timing] flash_bwd_dq + flash_bwd_dkv {shape} bf16 causal: "
+        f"{both:.4f} ms ({flops / both / 1e9:.1f} TFLOP/s); SDPA backward "
+        f"{lib['bwd']:.4f} ms (kernels / library {both / lib['bwd']:.3f})")
     del q, k, v, do, fresh, lse, delta, qg, kg, vg, out4
     torch.cuda.empty_cache()
     return out
@@ -1124,7 +1210,8 @@ def run(args) -> int:
     shapes["sgd"] = shapes["momentum"]
     # B3 at the leaf shapes of both transformer paths (the long-context
     # path adds the (8192, 768) position table)
-    checks = kernel_checks(TF, torch, shapes["adam"] + lm_shapes(LONG_SEQ))
+    checks = kernel_checks(TF, torch, shapes["adam"] + lm_shapes(LONG_SEQ),
+                           shapes["sgd"])
     checks.update(attention_checks(FA, torch))
     codec_errs = codec_checks(Q, torch)
     hvd.init()
@@ -1143,13 +1230,16 @@ def run(args) -> int:
     path = main_path(hvd, torch, STEPS, BATCH, gpu, args.profile)
     wire = codec_path(hvd, Q, torch, path.pop("model"), gpu)
     torch.cuda.empty_cache()
+    sgd = sgd_path(hvd, torch, gpu)
+    torch.cuda.empty_cache()
     lm = lm_path(hvd, torch, LM_SEQ, LM_BATCH, LM_STEPS, gpu, "transformer",
                  args.profile)
     torch.cuda.empty_cache()
     long_errs = long_context(hvd, torch, FA, gpu, args.profile)
     hvd.shutdown()
 
-    launches = {**path["launches"], **lm["launches"]}
+    launches = {**path["launches"], **lm["launches"],
+                "sgd": sgd["launches"]["sgd"]}
     kernels = []
     for kind in ("momentum", "sgd", "adam"):
         t = timings[kind]
@@ -1166,9 +1256,14 @@ def run(args) -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
-            "library": "torch.mul" if kind == "sgd" else None,
+            "library": "torch._foreach_mul (one call over the leaves)"
+                       if kind == "sgd" else None,
             "ms_one_buffer": t["ms_one_buffer"],
             "shapes": f"{len(shapes[kind])} {model} leaves, {n_el} f32",
+            **({"launch": "one over all the leaves of one dtype",
+                "ms_per_leaf": t["ms_per_leaf"],
+                "torch_mul_ms": t["torch_mul_ms"]} if kind == "sgd" else
+               {"launch": "one per leaf"}),
         })
     for name in FLASH:
         t, tl = timings[name], long_times[name]
@@ -1190,6 +1285,11 @@ def run(args) -> int:
             "ms_long": tl["ms"], "bound_ms_long": tl["bound_ms"],
             "library_ms_long": tl["library_ms"], "tflops_long": tl["tflops"],
             **tc_info.get(name, {}),
+            "cores": "bf16 on the tensor cores (wgmma), f32 on the CUDA "
+                     "cores",
+            **({"ms_with_dkv": t["ms_with_dkv"],
+                "ms_with_dkv_long": tl["ms_with_dkv"]}
+               if name == "flash_bwd_dq" else {}),
             "shapes": f"timed at {ATTN_SHAPE} bf16 causal; *_long at "
                       f"{LONG_ATTN_SHAPE}",
         })

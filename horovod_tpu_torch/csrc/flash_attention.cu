@@ -29,38 +29,48 @@
 // TPU's packed m|l lane tile and block-size fallback are not carried
 // over.  Two kernels per entry, chosen by dtype:
 //
-// bf16 B8 and B10 (flash_fwd_tc_kernel, flash_bwd_dkv_tc_kernel) run on
-// the tensor cores.  A block is two consumer warpgroups of 64 rows and
-// one producer warp.  The producer's lane 0 issues TMA copies into
-// shared memory (128-byte swizzle) behind a two-stage ring of mbarriers
-// (full: bytes arrived; empty: the eight consumer warps are done), so
-// the next K/V (B8) or Q/dO/lse/delta (B10) tile is in flight while the
-// current one is multiplied.  The products are wgmma.mma_async with f32
-// accumulators.  B8: one block per 128 Q rows (Q tiles walked last
-// first: the causal mask gives the last the most keys), 128-key tiles
-// at D <= 64 and 64-key tiles at D = 128; S = Q.K^T from shared memory
-// (both K-major), row max and sum over the four threads of a quad; p is
-// rounded to bf16 in registers and fed back as the register A operand of
-// O += P.V (the accumulator layout of S over columns [16c, 16c + 16) is
-// the A fragment of k-chunk c; V is the MN-major B operand, transpose
-// bit set); l is kept as per-thread partial sums and reduced once at the
-// end; exp2f on scores scaled by log2(e).  B10: one block per 128 keys,
-// 64 per warpgroup, loop over 64-query tiles (32 at D = 128, which keeps
-// dK, dV, S^T and dP^T within the register file): S^T = K.Q^T and dP^T
-// = V.dO^T, p^T and ds^T in registers, then dV += bf16(p^T).dO and dK +=
-// bf16(ds^T).Q with the same Q and dO tiles read MN-major.  The
-// roundings are the Pallas bodies' (p to V's or dO's dtype, ds to Q's);
-// only the order of the sums moves, so bf16 results agree with the plain
-// versions within the bf16 tolerance, not bit for bit.
+// bf16 B8, B9 and B10 (flash_fwd_tc_kernel, flash_bwd_dq_tc_kernel,
+// flash_bwd_dkv_tc_kernel) run on the tensor cores.  A block is two
+// consumer warpgroups of 64 rows and one producer warp.  The producer's
+// lane 0 issues TMA copies into shared memory (128-byte swizzle) behind a
+// two-stage ring of mbarriers (full: bytes arrived; empty: the eight
+// consumer warps are done), so the next K/V (B8, B9) or Q/dO/lse/delta
+// (B10) tile is in flight while the current one is multiplied.  The
+// products are wgmma.mma_async with f32 accumulators.  B8: one block per
+// 128 Q rows (Q tiles walked last first: the causal mask gives the last
+// the most keys), 128-key tiles at D <= 64 and 64-key tiles at D = 128; S
+// = Q.K^T from shared memory (both K-major), row max and sum over the four
+// threads of a quad; p is rounded to bf16 in registers and fed back as the
+// register A operand of O += P.V (the accumulator layout of S over columns
+// [16c, 16c + 16) is the A fragment of k-chunk c; V is the MN-major B
+// operand, transpose bit set); l is kept as per-thread partial sums and
+// reduced once at the end; exp2f on scores scaled by log2(e).  B10: one
+// block per 128 keys, 64 per warpgroup, loop over 64-query tiles (32 at D
+// = 128, which keeps dK, dV, S^T and dP^T within the register file): S^T =
+// K.Q^T and dP^T = V.dO^T, p^T and ds^T in registers, then dV +=
+// bf16(p^T).dO and dK += bf16(ds^T).Q with the same Q and dO tiles read
+// MN-major.  B9: B8's block and walk (128 Q rows, Q tiles last first,
+// hidden tiles not loaded) over 64-key tiles (S, dP and dQ fit the
+// register file without spills at D = 128 too); Q and dO arrive once,
+// behind one barrier, lse and delta of the thread's two rows by plain
+// loads (rows past Lq get lse = -inf, so p = 0); S = Q.K^T and dP = dO.V^T
+// as B10's S^T and dP^T with the roles of Q and K swapped, ds in
+// registers, then dQ += bf16(ds).K with K read MN-major from the same
+// stage (B8's P.V with V replaced by K), so the stage is released only
+// after that product's wait.  Each block owns its dQ rows: no atomics, and
+// dQ stays a separate kernel from B10, as in the TPU contract.  The
+// roundings are the Pallas bodies' (p to V's or dO's dtype, ds to Q's or
+// K's); only the order of the sums moves, so bf16 results agree with the
+// plain versions within the bf16 tolerance, not bit for bit.
 //
-// f32 B8-B10 and bf16 B9 run on the CUDA cores: tensor cores would take
-// f32 as TF32, whose 10-bit mantissa breaks the f32 tolerance.  B8 and
-// B9 run one block per (bh, 64-row Q tile) looping over 64-row K/V
-// tiles; B10 one block per (bh, 64-row K tile) looping over Q tiles.
-// Tiles are staged in shared memory as f32 (rows padded by one word, so
-// a column walk hits 32 banks); each of the 256 threads owns a 4x4
-// micro-tile of the 64x64 score tile and a 4-row strip of the output,
-// so a row's max and sum are reduced by shuffles among 16 lanes.
+// f32 B8-B10 run on the CUDA cores: tensor cores would take f32 as TF32,
+// whose 10-bit mantissa breaks the f32 tolerance.  B8 and B9 run one block
+// per (bh, 64-row Q tile) looping over 64-row K/V tiles; B10 one block per
+// (bh, 64-row K tile) looping over Q tiles. Tiles are staged in shared
+// memory as f32 (rows padded by one word, so a column walk hits 32 banks);
+// each of the 256 threads owns a 4x4 micro-tile of the 64x64 score tile
+// and a 4-row strip of the output, so a row's max and sum are reduced by
+// shuffles among 16 lanes.
 //
 // Traps the tensor-core path handles:
 // - Tensor maps are 3-D, (D, L, BH), never 2-D (D, BH*L): out-of-bounds
@@ -92,8 +102,10 @@
 // peak), so bytes bound it; B10 reads q, k, v, dO, lse, delta and writes
 // f32 dK and dV, 0.20 GB (0.061 ms) against 52 GFLOP (0.052 ms).  The
 // f32 state is 100 MB of B8's 179 MB; its loads and stores sit in each
-// block's prologue and epilogue.  B9 is bound the same way and still
-// multiplies with FMAs on the CUDA cores (67 TFLOP/s f32 peak).
+// block's prologue and epilogue.  B9 reads q, k, v, dO, lse, delta and
+// writes f32 dQ, 0.15 GB (0.046 ms) against 39 GFLOP (0.039 ms), so
+// bytes bound it too; at (12, 8192, 64) all three are bound by their
+// products.
 //
 // Interface: plain C, one entry per kernel, loaded with ctypes.  dtype
 // 0 = float32, 1 = bfloat16 (q, k, v, do); m, l, o, lse, delta and every
@@ -117,28 +129,6 @@ constexpr int kBK = 64;        // key rows per tile
 constexpr int kThreads = 256;  // 16 row groups x 16 column lanes
 constexpr int kMaxD = 128;
 
-template <typename T>
-struct Io;
-
-template <>
-struct Io<float> {
-  static __device__ __forceinline__ float load(const float* p, size_t i) {
-    return p[i];
-  }
-  static __device__ __forceinline__ float round(float v) { return v; }
-};
-
-template <>
-struct Io<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(const __nv_bfloat16* p,
-                                               size_t i) {
-    return __bfloat162float(p[i]);
-  }
-  static __device__ __forceinline__ float round(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  }
-};
-
 __device__ __forceinline__ float neg_inf() { return -INFINITY; }
 
 // Reductions over the 16 lanes of a row group (lanes 0-15 or 16-31).
@@ -157,15 +147,13 @@ __device__ __forceinline__ float group_sum(float x) {
 
 // Stage rows [row0, row0 + 64) of a (L, D) matrix into shared memory as
 // f32 with row stride D + 1; rows past L are zero.
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
-                                          int L, int D) {
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int row0, int L, int D) {
   const int sd = D + 1;
   for (int idx = threadIdx.x; idx < 64 * D; idx += kThreads) {
     const int r = idx / D;
     const int c = idx - r * D;
-    dst[r * sd + c] =
-        row0 + r < L ? Io<T>::load(src, (size_t)(row0 + r) * D + c) : 0.f;
+    dst[r * sd + c] = row0 + r < L ? src[(size_t)(row0 + r) * D + c] : 0.f;
   }
 }
 
@@ -347,11 +335,13 @@ __device__ __forceinline__ float softmax_p(float s, float lse) {
   return (isfinite(s) && lse_ok) ? expf(s - (lse_ok ? lse : 0.f)) : 0.f;
 }
 
-// B9: grid (ceil(Lq/64), BH).
-template <typename T, int NJ>
+// B9, f32: grid (ceil(Lq/64), BH).
+template <int NJ>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ dout,
+    flash_bwd_dq_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, float* dq, int Lq,
                         int Lk, int D, int q_offset, int k_offset,
@@ -368,8 +358,8 @@ __global__ void __launch_bounds__(kThreads)
   const int ra = (threadIdx.x >> 4) * 4;
   const int cg = threadIdx.x & 15;
   const size_t qbase = (size_t)bh * Lq;
-  const T* kb = k + (size_t)bh * Lk * D;
-  const T* vb = v + (size_t)bh * Lk * D;
+  const float* kb = k + (size_t)bh * Lk * D;
+  const float* vb = v + (size_t)bh * Lk * D;
 
   load_tile(Qs, q + qbase * D, q0, Lq, D);
   load_tile(dOs, dout + qbase * D, q0, Lq, D);
@@ -405,8 +395,8 @@ __global__ void __launch_bounds__(kThreads)
         const int kk = k0 + cg + 16 * j;
         const bool ok = kk < Lk && (!causal || qpos >= k_offset + kk);
         const float p = softmax_p(ok ? s[i][j] * scale : neg_inf(), lse_r[i]);
-        const float ds = p * (dp[i][j] - delta_r[i]) * scale;
-        dSs[(ra + i) * (kBK + 1) + cg + 16 * j] = Io<T>::round(ds);
+        dSs[(ra + i) * (kBK + 1) + cg + 16 * j] =
+            p * (dp[i][j] - delta_r[i]) * scale;
       }
     }
     __syncthreads();
@@ -1013,6 +1003,175 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   }
 }
 
+// B9, bf16: grid (BH, ceil(Lq/128)), the Q tiles walked last first as in
+// B8; each warpgroup owns 64 Q rows (and their dO rows) and loops over
+// kDqKeys-key tiles of K and V.
+constexpr int kDqKeys = 64;
+
+template <int DP>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_do,
+                           const float* lse, const float* delta, float* dq,
+                           int Lq, int Lk, int D, int q_offset, int k_offset,
+                           int causal, float scale) {
+  constexpr int BK = kDqKeys;
+  constexpr uint32_t kQBytes = kTcRows * DP * 2;  // Q or dO
+  constexpr uint32_t kTile = BK * DP * 2;         // one K or V tile
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sdO = sQ + kQBytes;
+  const uint32_t sK = sdO + kQBytes;            // + stage * kTile
+  const uint32_t sV = sK + kStages * kTile;     // + stage * kTile
+  const uint32_t bars = sV + kStages * kTile;   // q/dO, full[], empty[]
+  const uint32_t q_full = bars;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcRows;
+  int n_kt = (Lk + BK - 1) / BK;
+  if (causal) {
+    // keys at index <= lim are visible to some row of this tile
+    const long long lim = (long long)q_offset + min(q0 + kTcRows, Lq) - 1 -
+                          (long long)k_offset;
+    n_kt = lim < 0 ? 0 : (int)min((long long)n_kt, lim / BK + 1);
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bars + 8 * (1 + s), 1);
+      mbar_init(bars + 8 * (1 + kStages + s), kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumerWarps) {  // the producer: one lane issues every copy
+    if (lane == 0 && n_kt > 0) {
+      mbar_expect_tx(q_full, 2 * kQBytes);
+      for (int g = 0; g < DP / kAtom; ++g) {
+        tma_load_3d(sQ + g * kTcRows * 128, &tm_q, q_full, g * kAtom, q0, bh);
+        tma_load_3d(sdO + g * kTcRows * 128, &tm_do, q_full, g * kAtom, q0,
+                    bh);
+      }
+      for (int i = 0; i < n_kt; ++i) {
+        const int s = i % kStages;
+        const uint32_t full = bars + 8 * (1 + s);
+        if (i >= kStages)
+          mbar_wait(bars + 8 * (1 + kStages + s), ((i / kStages) + 1) & 1);
+        mbar_expect_tx(full, 2 * kTile);
+        for (int g = 0; g < DP / kAtom; ++g) {
+          tma_load_3d(sK + s * kTile + g * BK * 128, &tm_k, full, g * kAtom,
+                      i * BK, bh);
+          tma_load_3d(sV + s * kTile + g * BK * 128, &tm_v, full, g * kAtom,
+                      i * BK, bh);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows [wq0, wq0 + 64); this thread rows
+  // r[0] and r[1] = r[0] + 8, key columns 8 j + 2 quad (+1) of S and dP,
+  // head columns 8 j + 2 quad (+1) of dQ
+  const int wg = warp >> 2, quad = lane & 3;
+  const int wq0 = q0 + 64 * wg;
+  const int r[2] = {wq0 + 16 * (warp & 3) + (lane >> 2),
+                    wq0 + 16 * (warp & 3) + (lane >> 2) + 8};
+  float lse_r[2], delta_r[2], dqa[DP / 2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool in = r[i] < Lq;
+    const size_t row = (size_t)bh * Lq + r[i];
+    lse_r[i] = in ? lse[row] : neg_inf();  // p = 0 on rows past Lq
+    delta_r[i] = in ? delta[row] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dqa[i] = 0.f;
+
+  if (n_kt > 0) mbar_wait(q_full, 0);
+  const bool rows_in = wq0 < Lq;
+  for (int i = 0; i < n_kt; ++i) {
+    const int s = i % kStages;
+    const int k0 = i * BK;
+    mbar_wait(bars + 8 * (1 + s), (i / kStages) & 1);
+    // a tile whose first key follows the warpgroup's last row is hidden
+    const bool visible =
+        rows_in && (!causal || (long long)k_offset + k0 <=
+                                   (long long)q_offset + wq0 + 63);
+    if (visible) {
+      float sc[BK / 2], dp[BK / 2];  // S = Q.K^T and dP = dO.V^T
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t a = (kk / 4) * kTcRows * 128 + wg * 64 * 128 +
+                           (kk % 4) * 32;
+        const uint32_t b = s * kTile + (kk / 4) * BK * 128 + (kk % 4) * 32;
+        wgmma_ss<BK>(sc, desc_k(sQ + a), desc_k(sK + b), kk > 0);
+        wgmma_ss<BK>(dp, desc_k(sdO + a), desc_k(sV + b), kk > 0);
+      }
+      wg_commit();
+      wg_wait0();
+      reg_fence(sc);
+      reg_fence(dp);
+      // ragged keys or a tile crossing the diagonal need the mask
+      const bool edge = k0 + BK > Lk ||
+                        (causal && (long long)k_offset + k0 + BK - 1 >
+                                       (long long)q_offset + wq0);
+#pragma unroll
+      for (int i2 = 0; i2 < 2; ++i2) {
+        const int qpos = q_offset + r[i2];
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int idx = 4 * j + 2 * i2 + c;
+            bool ok = true;
+            if (edge) {
+              // keys zero-filled past Lk are masked, not scored 0
+              const int kk = k0 + 8 * j + 2 * quad + c;
+              ok = kk < Lk && (!causal || qpos >= k_offset + kk);
+            }
+            // softmax_p's guards; then ds = p (dp - delta) scale
+            const float sv = sc[idx] * scale;
+            const float p = (ok && isfinite(sv) && isfinite(lse_r[i2]))
+                                ? exp2f((sv - lse_r[i2]) * kLog2e)
+                                : 0.f;
+            sc[idx] = ok ? p * (dp[idx] - delta_r[i2]) * scale : 0.f;
+          }
+      }
+      uint32_t sf[BK / 16][4];  // ds rounded to bf16, K's dtype
+      to_frags<BK>(sc, sf);
+      wg_fence();
+#pragma unroll
+      for (int kc = 0; kc < BK / 16; ++kc)
+        wgmma_rs<DP>(dqa, sf[kc],
+                     desc_mn(sK + s * kTile + kc * 16 * 128, BK * 128), 1);
+      wg_commit();
+      wg_wait0();
+      reg_fence(dqa);
+      reg_fence(sf);
+    }
+    // the dQ product has read K from the stage: release it
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bars + 8 * (1 + kStages + s));
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (r[i] >= Lq) continue;
+    const size_t row = (size_t)bh * Lq + r[i];
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int c = 8 * j + 2 * quad;
+      if (c < D)
+        *reinterpret_cast<float2*>(dq + row * D + c) =
+            make_float2(dqa[4 * j + 2 * i], dqa[4 * j + 2 * i + 1]);
+    }
+  }
+}
+
 // B10, bf16: grid (BH, ceil(Lk/128)); each warpgroup owns 64 keys and
 // loops over BQ-query tiles of Q, dO, lse and delta.
 template <int DP, int BQ>
@@ -1274,6 +1433,11 @@ constexpr size_t fwd_tc_smem() {
   return 1024 + (size_t)(kTcRows + 2 * kStages * BK) * DP * 2 +
          8 * (1 + 2 * kStages);
 }
+template <int DP>
+constexpr size_t dq_tc_smem() {
+  return 1024 + (size_t)(2 * kTcRows + 2 * kStages * kDqKeys) * DP * 2 +
+         8 * (1 + 2 * kStages);
+}
 template <int DP, int BQ>
 constexpr size_t dkv_tc_smem() {
   return 1024 + (size_t)kTcRows * DP * 4 +
@@ -1296,6 +1460,24 @@ cudaError_t fwd_tc(const void* q, const void* k, const void* v,
                 fwd_tc_smem<DP, BK>(), s, tq,
                 tk, tv, m, l, o, m_out, l_out, o_out, lq, lk, d, q_offset,
                 k_offset, causal, scale);
+}
+
+template <int DP>
+cudaError_t bwd_dq_tc(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* delta,
+                      float* dq, int bh, int lq, int lk, int d, int q_offset,
+                      int k_offset, int causal, float scale,
+                      cudaStream_t s) {
+  CUtensorMap tq, tk, tv, tdo;
+  if (!map_tiles(&tq, q, bh, lq, d, kTcRows) ||
+      !map_tiles(&tk, k, bh, lk, d, kDqKeys) ||
+      !map_tiles(&tv, v, bh, lk, d, kDqKeys) ||
+      !map_tiles(&tdo, dout, bh, lq, d, kTcRows))
+    return cudaErrorInvalidValue;
+  const dim3 grid(bh, (lq + kTcRows - 1) / kTcRows);
+  return launch(flash_bwd_dq_tc_kernel<DP>, grid, kTcThreads,
+                dq_tc_smem<DP>(), s, tq, tk, tv, tdo, lse, delta, dq, lq, lk,
+                d, q_offset, k_offset, causal, scale);
 }
 
 template <int DP, int BQ>
@@ -1347,22 +1529,18 @@ cudaError_t fwd_f32(const float* q, const float* k, const float* v,
                 causal, scale);
 }
 
-template <typename T>
-cudaError_t bwd_dq(const void* q, const void* k, const void* v,
-                   const void* dout, const float* lse, const float* delta,
-                   float* dq, int bh, int lq, int lk, int d, int q_offset,
-                   int k_offset, int causal, float scale, cudaStream_t s) {
+cudaError_t bwd_dq_f32(const float* q, const float* k, const float* v,
+                       const float* dout, const float* lse,
+                       const float* delta, float* dq, int bh, int lq, int lk,
+                       int d, int q_offset, int k_offset, int causal,
+                       float scale, cudaStream_t s) {
   const dim3 grid((lq + kBQ - 1) / kBQ, bh);
-  const T* tq = (const T*)q;
-  const T* tk = (const T*)k;
-  const T* tv = (const T*)v;
-  const T* tdo = (const T*)dout;
   if (d <= 64)
-    return launch(flash_bwd_dq_kernel<T, 4>, grid, kThreads, dq_smem(d), s,
-                  tq, tk, tv, tdo, lse, delta, dq, lq, lk, d, q_offset,
-                  k_offset, causal, scale);
-  return launch(flash_bwd_dq_kernel<T, 8>, grid, kThreads, dq_smem(d), s, tq,
-                tk, tv, tdo, lse, delta, dq, lq, lk, d, q_offset, k_offset,
+    return launch(flash_bwd_dq_kernel<4>, grid, kThreads, dq_smem(d), s, q,
+                  k, v, dout, lse, delta, dq, lq, lk, d, q_offset, k_offset,
+                  causal, scale);
+  return launch(flash_bwd_dq_kernel<8>, grid, kThreads, dq_smem(d), s, q, k,
+                v, dout, lse, delta, dq, lq, lk, d, q_offset, k_offset,
                 causal, scale);
 }
 
@@ -1418,12 +1596,17 @@ int hvd_flash_bwd_dq(int dtype, const void* q, const void* k, const void* v,
   cudaStream_t s = (cudaStream_t)stream;
   const float *fl = (const float*)lse, *fd = (const float*)delta;
   if (dtype == 0)
-    return (int)bwd_dq<float>(q, k, v, dout, fl, fd, (float*)dq, bh, lq, lk,
-                              d, q_offset, k_offset, causal, scale, s);
-  if (dtype == 1)
-    return (int)bwd_dq<__nv_bfloat16>(q, k, v, dout, fl, fd, (float*)dq, bh,
-                                      lq, lk, d, q_offset, k_offset, causal,
-                                      scale, s);
+    return (int)bwd_dq_f32((const float*)q, (const float*)k, (const float*)v,
+                           (const float*)dout, fl, fd, (float*)dq, bh, lq, lk,
+                           d, q_offset, k_offset, causal, scale, s);
+  if (dtype == 1) {
+    if (!tc_shape_ok(bh, lq)) return (int)cudaErrorInvalidValue;
+    if (d <= 64)
+      return (int)bwd_dq_tc<64>(q, k, v, dout, fl, fd, (float*)dq, bh, lq, lk,
+                                d, q_offset, k_offset, causal, scale, s);
+    return (int)bwd_dq_tc<128>(q, k, v, dout, fl, fd, (float*)dq, bh, lq, lk,
+                               d, q_offset, k_offset, causal, scale, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1453,10 +1636,10 @@ int hvd_flash_bwd_dkv(int dtype, const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// The bf16 B8 (kernel 0) or B10 (kernel 1) instantiation that runs at
-// head dim d: out[0] registers per thread, out[1] local memory per thread
-// (stack frame and spills), out[2] the dynamic shared memory it launches
-// with.  Returns the error of cudaFuncGetAttributes.
+// The bf16 B8 (kernel 0), B10 (kernel 1) or B9 (kernel 2) instantiation
+// that runs at head dim d: out[0] registers per thread, out[1] local
+// memory per thread (stack frame and spills), out[2] the dynamic shared
+// memory it launches with.  Returns the error of cudaFuncGetAttributes.
 int hvd_flash_tc_attributes(int kernel, int d, int* out) {
   cudaFuncAttributes a;
   cudaError_t err;
@@ -1465,10 +1648,16 @@ int hvd_flash_tc_attributes(int kernel, int d, int* out) {
     err = d <= 64 ? cudaFuncGetAttributes(&a, flash_fwd_tc_kernel<64, 128>)
                   : cudaFuncGetAttributes(&a, flash_fwd_tc_kernel<128, 64>);
     smem = d <= 64 ? fwd_tc_smem<64, 128>() : fwd_tc_smem<128, 64>();
-  } else {
+  } else if (kernel == 1) {
     err = d <= 64 ? cudaFuncGetAttributes(&a, flash_bwd_dkv_tc_kernel<64, 64>)
                   : cudaFuncGetAttributes(&a, flash_bwd_dkv_tc_kernel<128, 32>);
     smem = d <= 64 ? dkv_tc_smem<64, 64>() : dkv_tc_smem<128, 32>();
+  } else if (kernel == 2) {
+    err = d <= 64 ? cudaFuncGetAttributes(&a, flash_bwd_dq_tc_kernel<64>)
+                  : cudaFuncGetAttributes(&a, flash_bwd_dq_tc_kernel<128>);
+    smem = d <= 64 ? dq_tc_smem<64>() : dq_tc_smem<128>();
+  } else {
+    return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;
   out[0] = a.numRegs;

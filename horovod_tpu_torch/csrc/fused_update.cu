@@ -23,9 +23,15 @@
 // is a TPU layout detail and is not carried over) and no intermediate
 // in device memory; consecutive threads touch consecutive elements so
 // every warp access is coalesced, and a grid-stride loop with a masked
-// tail covers any length.  The per-parameter launches of the stage-0
-// path (161 for ResNet-50) leave the small leaves launch-bound; packing
-// them into one launch is later work.
+// tail covers any length.  Launched once per leaf, as the stage-0 path
+// launches B1 and B3, the small leaves are launch-bound: 161 launches of
+// some 18 us of host time each for ResNet-50.  So B2 also has one launch
+// for a whole list of leaves of one dtype (hvd_sgd_multi): each block
+// takes one fixed-size chunk of one leaf and finds its leaf by a
+// binary search of a table of (g, u, n, first chunk), which the caller
+// builds on the host and copies to the card; empty leaves are left out
+// of the table.  The per-element arithmetic is sgd_kernel's, so the
+// result is bit for bit the per-leaf one.
 //
 // Interface: plain C, one entry per kernel, loaded with ctypes.  dtype
 // 0 = float32, 1 = bfloat16.  Each returns cudaGetLastError() after the
@@ -109,6 +115,39 @@ __global__ void sgd_kernel(const T* g, T* u, int64_t n, int divide,
   }
 }
 
+// One entry of hvd_sgd_multi's leaf table (four int64 values).
+struct Leaf {
+  const void* g;
+  void* u;
+  int64_t n;       // elements, > 0
+  int64_t chunk0;  // the leaf's first chunk, in launch order
+};
+
+template <typename T>
+__global__ void sgd_multi_kernel(const Leaf* __restrict__ leaves,
+                                 int n_leaves, int chunk, int divide,
+                                 float navg, float neg_lr) {
+  // the leaf of this block's chunk: the last whose first chunk is <= it
+  const int64_t b = blockIdx.x;
+  int lo = 0, hi = n_leaves - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (leaves[mid].chunk0 <= b)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  const Leaf leaf = leaves[lo];
+  const T* g = static_cast<const T*>(leaf.g);
+  T* u = static_cast<T*>(leaf.u);
+  const int64_t begin = (b - leaf.chunk0) * chunk;
+  const int64_t end = begin + chunk < leaf.n ? begin + chunk : leaf.n;
+  for (int64_t i = begin + threadIdx.x; i < end; i += kThreads) {
+    float x = prep<T>(g, i, divide, navg);
+    Io<T>::store(u, i, mul<T>(neg_lr, x));
+  }
+}
+
 template <typename T>
 __global__ void momentum_kernel(const T* g, const T* t, T* u, T* t_out,
                                 int64_t n, int divide, float navg,
@@ -169,6 +208,29 @@ int hvd_sgd(int dtype, const void* g, void* u, int64_t n, int divide,
     sgd_kernel<__nv_bfloat16><<<blocks_for(n), kThreads, 0, s>>>(
         (const __nv_bfloat16*)g, (__nv_bfloat16*)u, n, divide, navg,
         neg_lr);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// B2 over n_leaves leaves in one launch of n_chunks blocks, each taking
+// `chunk` elements: `leaves` is a device array of Leaf (the int64
+// quadruples g, u, n, first chunk), sorted by first chunk, the first at
+// chunk 0, every n > 0.
+int hvd_sgd_multi(int dtype, const void* leaves, int n_leaves,
+                  int64_t n_chunks, int chunk, int divide, float navg,
+                  float neg_lr, void* stream) {
+  if (n_leaves <= 0 || n_chunks <= 0 || n_chunks > 0x7fffffff || chunk <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const Leaf* t = (const Leaf*)leaves;
+  if (dtype == 0) {
+    sgd_multi_kernel<float><<<(unsigned)n_chunks, kThreads, 0, s>>>(
+        t, n_leaves, chunk, divide, navg, neg_lr);
+  } else if (dtype == 1) {
+    sgd_multi_kernel<__nv_bfloat16><<<(unsigned)n_chunks, kThreads, 0, s>>>(
+        t, n_leaves, chunk, divide, navg, neg_lr);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -25,11 +25,10 @@ with an online softmax, so the two differ by the order of their sums.
 its arguments, then launches its CUDA kernel (``csrc/flash_attention.cu``)
 for CUDA tensors and counts the launch in :data:`LAUNCHES`, or runs its
 plain version for CPU tensors.  A failed build or launch raises.  On the
-card, bfloat16 B8 and B10 run on the tensor cores (``wgmma`` on TMA-fed
-tiles) and float32 B8-B10 and bfloat16 B9 on the CUDA cores; the
-kernels' sums then run in another order than the plain versions', so
-bfloat16 results agree within the JAX package's bfloat16 tolerance, not
-bit for bit.
+card, bfloat16 B8-B10 run on the tensor cores (``wgmma`` on TMA-fed
+tiles) and float32 B8-B10 on the CUDA cores; the bfloat16 kernels' sums
+run in another order than the plain versions', so bfloat16 results
+agree within the JAX package's bfloat16 tolerance, not bit for bit.
 """
 
 from __future__ import annotations
@@ -151,15 +150,19 @@ def errors(got, want):
     """``(largest absolute error, largest row error)`` of ``got``
     against ``want`` over the entries where ``want`` is finite: a row
     error is the norm of one row's (last axis) difference over that
-    row's norm in ``want``.  A tile dropped from a long row shows in the
-    row error of its rows however small its elements are."""
+    row's norm in ``want``, or over ``BF16_MAX_ABS`` where the row is
+    smaller.  A tile dropped from a long row shows in the row error of
+    its rows however small its elements are; a row that is zero up to
+    rounding (B9's dQ of a query that sees one key: ``ds = p (dp -
+    delta)`` with ``dp = delta``) is held to the absolute bound's scale,
+    not to its own rounding noise."""
     w = want.float()
     ok = torch.isfinite(w)
     d = torch.where(ok, got.float() - w, 0.0)
     w = torch.where(ok, w, 0.0)
     if not d.numel():
         return 0.0, 0.0
-    rows = d.norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)
+    rows = d.norm(dim=-1) / w.norm(dim=-1).clamp_min(BF16_MAX_ABS)
     return float(d.abs().max()), float(rows.max())
 
 
@@ -246,12 +249,13 @@ def _check_aligned(name: str, tensors, grid: int) -> None:
 def tc_kernel_attributes(name: str, d: int) -> dict:
     """The registers and local memory (stack and spills) per thread and
     the dynamic shared memory of the bfloat16 tensor-core kernel of
-    ``name`` (``flash_block_step`` or ``flash_bwd_dkv``) that runs at
-    head dim ``d``, from ``cudaFuncGetAttributes`` (builds the
-    library)."""
+    ``name`` (``flash_block_step``, ``flash_bwd_dq`` or ``flash_bwd_dkv``)
+    that runs at head dim ``d``, from ``cudaFuncGetAttributes`` (builds
+    the library)."""
     out = (ctypes.c_int * 3)()
     rc = _kernels().hvd_flash_tc_attributes(
-        {"flash_block_step": 0, "flash_bwd_dkv": 1}[name], d, out)
+        {"flash_block_step": 0, "flash_bwd_dkv": 1, "flash_bwd_dq": 2}[name],
+        d, out)
     if rc != 0:
         raise HorovodTpuError(f"{name}: cudaFuncGetAttributes failed: CUDA "
                               f"error {rc}")
@@ -303,6 +307,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, q_offset: int, k_offset: int, *,
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, q_offset,
                                   k_offset, causal)
+    if q.dtype == torch.bfloat16:
+        _check_aligned("flash_bwd_dq", (q, k, v, do), 16)
     lib = _kernels()
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     _launch("flash_bwd_dq", lib.hvd_flash_bwd_dq, q, q.data_ptr(),

@@ -3,8 +3,8 @@
 
 The wrapper reduces every gradient with one grouped allreduce per dtype
 group, writes the reduced gradient back to ``p.grad`` and then updates:
-through the fused tail (one kernel launch per parameter,
-``fused_update.fused_update_tree``) when ``HOROVOD_FUSED_UPDATE=1`` and
+through the fused tail (``fused_update.fused_update_tree``: plain SGD in
+one kernel launch per dtype, momentum and Adam in one per parameter) when ``HOROVOD_FUSED_UPDATE=1`` and
 the wrapped optimizer is fusable, else through the wrapped optimizer's
 own ``step()``.  Reduction is synchronous, inside ``step()`` (or an
 explicit ``synchronize()``).

@@ -2,9 +2,11 @@
 
 The counterpart of ``horovod_tpu/optim/fused_update.py``.  After the
 gradient reduction, the update of an optimizer built by :func:`sgd` or
-:func:`adam` runs as one CUDA kernel per parameter
-(``csrc/fused_update.cu``) instead of a chain of elementwise PyTorch
-ops, each a full pass over device memory.
+:func:`adam` runs as CUDA kernels (``csrc/fused_update.cu``) instead of
+a chain of elementwise PyTorch ops, each a full pass over device memory:
+plain SGD as one launch over all the leaves of one dtype
+(:func:`sgd_update_multi`), momentum and Adam as one launch per
+parameter.
 
 **Bit-exactness contract.**  The kernels and their plain versions below
 compute optax's update expressions (``optax.sgd`` / ``optax.trace`` /
@@ -17,11 +19,11 @@ every operation rounds to that dtype.  Divisions are true divisions
 round differently).
 
 **Kernel selection follows the tensor's device.**  Each wrapper
-(:func:`sgd_update`, :func:`momentum_update`, :func:`adam_update`)
-launches its CUDA kernel for CUDA tensors and counts the launch in
-:data:`LAUNCHES`; for CPU tensors it runs its plain version
-(:func:`sgd_plain`, :func:`momentum_plain`, :func:`adam_plain`).  A
-failed build or launch raises.
+(:func:`sgd_update`, :func:`sgd_update_multi`, :func:`momentum_update`,
+:func:`adam_update`) launches its CUDA kernel for CUDA tensors and
+counts the launch in :data:`LAUNCHES`; for CPU tensors it runs its plain
+version (:func:`sgd_plain`, :func:`momentum_plain`, :func:`adam_plain`).
+A failed build or launch raises.
 
 The port updates optimizer state in place (the JAX package returns new
 state); updates come back as new tensors, as ``optax`` returns them.
@@ -44,6 +46,8 @@ from horovod_tpu_torch.common.util import true_divide
 
 _INT32_MAX = 2 ** 31 - 1
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: Elements that one block of B2's multi-leaf launch takes from a leaf.
+_SGD_CHUNK = 4096
 
 #: Kernel launches per wrapper since the last :func:`reset_launch_counts`.
 LAUNCHES = {"sgd": 0, "momentum": 0, "adam": 0}
@@ -302,11 +306,14 @@ def _kernels():
         p, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                             ctypes.c_float)
         lib.hvd_sgd.argtypes = [i32, p, p, i64, i32, f32, f32, p]
+        lib.hvd_sgd_multi.argtypes = [i32, p, i32, i64, i32, i32, f32, f32,
+                                      p]
         lib.hvd_momentum.argtypes = [i32, p, p, p, p, i64, i32, f32, f32,
                                      f32, p]
         lib.hvd_adam.argtypes = [i32, p, p, p, p, p, p, i64, i32, f32,
                                  *[f32] * 9, p]
-        for fn in (lib.hvd_sgd, lib.hvd_momentum, lib.hvd_adam):
+        for fn in (lib.hvd_sgd, lib.hvd_sgd_multi, lib.hvd_momentum,
+                   lib.hvd_adam):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -352,6 +359,85 @@ def sgd_update(g, navg: int, neg_lr: float, out=None):
     _launch("sgd", _kernels().hvd_sgd, g, g.data_ptr(), u.data_ptr(),
             g.numel(), int(navg > 1), _round(navg, d), _round(neg_lr, d))
     return u
+
+
+def _leaf_table(rows, device):
+    """The device table ``hvd_sgd_multi`` reads for ``rows`` of ``(g
+    pointer, u pointer, n)``: per leaf ``(g, u, n, first chunk)`` as four
+    int64 values, and the number of chunks.  It is copied from a new
+    pageable host tensor on the current stream, so no host buffer of a
+    pending copy is ever written again."""
+    flat, chunk0 = [], 0
+    for gp, up, n in rows:
+        flat += (gp, up, n, chunk0)
+        chunk0 += -(-n // _SGD_CHUNK)
+    table = torch.tensor(flat, dtype=torch.int64)
+    return table.to(device, non_blocking=True), chunk0
+
+
+def sgd_update_multi(grads, navg: int, neg_lr: float, outs=None):
+    """B2 over a list of leaves of one dtype on one device, in one
+    launch: ``u = neg_lr * (g / navg)`` for each ``g``, bit for bit what
+    :func:`sgd_update` gives leaf by leaf.  ``outs`` (a tensor of each
+    leaf's size, dtype and device) receive the updates; by default they
+    are new tensors like the leaves.  Empty leaves are skipped.  Returns
+    the updates."""
+    grads = list(grads)
+    if not grads:
+        return []
+    ref = grads[0]
+    if ref.device.type not in ("cpu", "cuda"):
+        raise HorovodTpuError(f"sgd: unsupported device {ref.device}")
+    if ref.dtype not in _DTYPE_CODES:
+        raise HorovodTpuError(
+            f"sgd: dtype {ref.dtype} is not float32 or bfloat16")
+    _check_leaves(grads, ref, "leaf")
+    if outs is None:
+        outs = [torch.empty_like(g) for g in grads]
+    else:
+        outs = list(outs)
+        if len(outs) != len(grads):
+            raise HorovodTpuError(
+                f"sgd: {len(outs)} outputs for {len(grads)} leaves")
+        _check_leaves(outs, ref, "output")
+        if any(u.numel() != g.numel() for g, u in zip(grads, outs)):
+            raise HorovodTpuError(
+                "sgd: an output's size differs from its leaf's")
+    if ref.device.type == "cpu":
+        for g, u in zip(grads, outs):
+            u.copy_(sgd_plain(g, navg, neg_lr))
+        return outs
+    rows = [(g.data_ptr(), u.data_ptr(), g.numel())
+            for g, u in zip(grads, outs) if g.numel()]
+    if not rows:
+        return outs
+    d = ref.dtype
+    stream = torch.cuda.current_stream(ref.device).cuda_stream
+    table, n_chunks = _leaf_table(rows, ref.device)
+    rc = _kernels().hvd_sgd_multi(
+        _DTYPE_CODES[d], table.data_ptr(), len(rows), n_chunks, _SGD_CHUNK,
+        int(navg > 1), _round(navg, d), _round(neg_lr, d), stream)
+    if rc != 0:
+        raise HorovodTpuError(f"sgd kernel launch failed: CUDA error {rc}")
+    LAUNCHES["sgd"] += 1
+    return outs
+
+
+def _check_leaves(ts, ref, what: str) -> None:
+    """Raise unless every tensor of ``ts`` is contiguous and of ``ref``'s
+    dtype and device (one pass; the message names the first that is
+    not)."""
+    dev, dt = ref.device, ref.dtype
+    if all(t.device == dev and t.dtype == dt and t.is_contiguous()
+           for t in ts):
+        return
+    i, t = next((i, t) for i, t in enumerate(ts)
+                if t.device != dev or t.dtype != dt or not t.is_contiguous())
+    if t.device != dev or t.dtype != dt:
+        raise HorovodTpuError(
+            f"sgd: {what} {i} is {t.dtype} on {t.device}, the first leaf "
+            f"{dt} on {dev}; one launch takes one dtype on one device")
+    raise HorovodTpuError(f"sgd: {what} {i} is not contiguous")
 
 
 def momentum_update(g, t, navg: int, decay: float, neg_lr: float,
@@ -426,23 +512,32 @@ def _check_state(spec: FusedSpec, grads, states) -> None:
 
 
 def fused_update_tree(spec: FusedSpec, grads, states):
-    """Fused replacement for the replicated (stage 0) update: one kernel
-    launch per gradient (already reduced, so no unscale).  ``states``
-    are the optimizer's per-parameter state dicts, updated in place.
-    Returns the list of updates.  A state of another layout (say a
+    """Fused replacement for the replicated (stage 0) update (gradients
+    already reduced, so no unscale): plain SGD in one launch per dtype
+    (and device) of the gradients, momentum and Adam in one per
+    gradient.  ``states`` are the optimizer's per-parameter state dicts,
+    updated in place.  Returns the list of updates.  A state of another layout (say a
     trace loaded in another dtype) raises :class:`HorovodTpuError`: the
     fused tail was asked for, so nothing else runs in its place."""
     _check_state(spec, grads, states)
     if not grads:
         return []
+    if spec.kind == "sgd":
+        outs = [None] * len(grads)
+        groups: dict = {}
+        for i, g in enumerate(grads):
+            groups.setdefault((g.device, g.dtype), []).append(i)
+        for idx in groups.values():
+            us = sgd_update_multi([grads[i] for i in idx], 1, -spec.lr)
+            for i, u in zip(idx, us):
+                outs[i] = u
+        return outs
     outs = []
     if spec.kind == "adam":
         count = min(states[0]["count"] + 1, _INT32_MAX)
         bc1, bc2 = bias_corrections(spec, count)
     for g, st in zip(grads, states):
-        if spec.kind == "sgd":
-            u = sgd_update(g, 1, -spec.lr)
-        elif spec.kind == "momentum":
+        if spec.kind == "momentum":
             u, _ = momentum_update(g, st["trace"], 1, spec.momentum,
                                    -spec.lr, t_out=st["trace"])
         else:

@@ -162,12 +162,13 @@ def test_bf16_tile_edges_match_pallas(causal, shape):
     _close(dv, ref_dv, bf16, "B10 dv")
 
 
-# The card holds bf16 B8 and B10 within the JAX package's 2e-2 and within
+# The card holds bf16 B8-B10 within the JAX package's 2e-2 and within
 # flash_attention.BF16_MAX_ABS and BF16_ROW_REL.  These cases build, from
 # the plain versions, what a kernel at the long-context row length (one
 # head of 8192 positions, D 64) returns when it rounds as the tensor-core
-# kernels do (p to bf16 against the running max of 128-key tiles) and
-# when it drops or mis-masks one tile, on the rows such a fault touches.
+# kernels do (B8: p to bf16 against the running max of 128-key tiles; B9:
+# dQ summed over 64-key tiles) and when it drops or mis-masks one tile, on
+# the rows such a fault touches.
 LONG = 8192
 
 
@@ -190,6 +191,30 @@ def _long_b8(drop=None, unmask_last=False):
                 not (unmask_last and k0 == qo))
     return dict((n, (a, b)) for n, a, b in FA.state_pairs(got, want, True))[
         "o / l"]
+
+
+def _long_b9(drop=None, unmask_last=False):
+    """dQ of the last 128 query rows against every key, and the same
+    summed over 64-key tiles (B9's at D = 64): tile ``drop`` left out,
+    the last (diagonal) tile unmasked with ``unmask_last``."""
+    q, k, v, dout = (x.bfloat16()
+                     for x in _t(*_arrays(10, *[(1, LONG, 64)] * 4,
+                                          scale=1.0)))
+    qo = LONG - 128
+    q, dout = q[:, qo:], dout[:, qo:]
+    fresh = (torch.full((1, 128), -np.inf), torch.zeros(1, 128),
+             torch.zeros(1, 128, 64))
+    out, lse = TR.finish(*FA.flash_block_step_plain(q, k, v, *fresh, qo, 0,
+                                                    True))
+    delta = (dout.float() * out).sum(-1)
+    want = FA.flash_bwd_dq_plain(q, k, v, dout, lse, delta, qo, 0, True)
+    got = torch.zeros_like(want)
+    for t, k0 in enumerate(range(0, LONG, 64)):
+        if t != drop:
+            got += FA.flash_bwd_dq_plain(
+                q, k[:, k0:k0 + 64], v[:, k0:k0 + 64], dout, lse, delta, qo,
+                k0, not (unmask_last and k0 == LONG - 64))
+    return got, want
 
 
 def _long_b10_dropped_query_tile():
@@ -215,22 +240,43 @@ def _long_b10_dropped_query_tile():
 
 @pytest.mark.parametrize("case", ["tiled_rounding", "dropped_key_tile",
                                   "unmasked_diagonal_tile",
-                                  "dropped_query_tile"])
+                                  "dropped_query_tile", "dq_tiled_sums",
+                                  "dq_dropped_key_tile",
+                                  "dq_unmasked_diagonal_tile"])
 def test_bf16_bounds_pass_tiled_rounding_and_catch_a_faulty_tile(case):
     if case == "dropped_query_tile":
         got, want = _long_b10_dropped_query_tile()
+    elif case.startswith("dq_"):
+        got, want = _long_b9(drop=LONG // 128 if "dropped" in case else None,
+                             unmask_last="unmasked" in case)
     else:
         got, want = _long_b8(drop=LONG // 256 if case == "dropped_key_tile"
                              else None,
                              unmask_last=case == "unmasked_diagonal_tile")
     err, row = FA.errors(got, want)
-    if case == "tiled_rounding":
+    if case in ("tiled_rounding", "dq_tiled_sums"):
         assert err <= FA.BF16_MAX_ABS and row <= FA.BF16_ROW_REL, (err, row)
         return
     assert err > FA.BF16_MAX_ABS and row > FA.BF16_ROW_REL, (err, row)
     if case != "dropped_query_tile":
         # the JAX package's bf16 tolerance alone lets this fault pass
         torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+
+
+def test_row_error_of_a_zero_row_is_held_to_the_absolute_bound():
+    """A row that is zero up to rounding (B9's dQ of a query that sees
+    one key) reads its noise over ``BF16_MAX_ABS``, while a small row
+    that is wholly wrong still fails the row bound."""
+    want = torch.ones(3, 64) * 0.1
+    want[0] = 0.0
+    want[1] = 5e-4  # row norm 4e-3, below the absolute bound
+    got = want.clone()
+    got[0] = 1e-7  # rounding noise on the zero row
+    err, row = FA.errors(got, want)
+    assert err <= FA.BF16_MAX_ABS and row <= FA.BF16_ROW_REL, (err, row)
+    got[1] = 0.0
+    err, row = FA.errors(got, want)
+    assert err <= FA.BF16_MAX_ABS and row > FA.BF16_ROW_REL, (err, row)
 
 
 @pytest.mark.parametrize("b", [1, 2], ids=["batch1", "batch2"])

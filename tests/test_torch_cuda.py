@@ -1,5 +1,6 @@
 """Tests of the port that need the card: kernels B1-B10 against their
-plain versions, and short training runs through them; on a machine with
+plain versions (B2 also in one launch over many leaves), and short
+training runs through them; on a machine with
 four cards, the collectives and the lossy wire over NCCL.
 Marked ``cuda``; each skips (with its reason) where no CUDA device is
 present.  This file imports no JAX, so it runs on a GPU machine without
@@ -56,6 +57,28 @@ def test_kernel_bit_exact_against_plain(card, kind, dname, n):
         for a, b in zip(got, want):
             assert torch.equal(a, b)
     assert TF.LAUNCHES[kind] == 2
+
+
+@pytest.mark.parametrize("dname", sorted(DTYPES))
+def test_sgd_one_launch_over_mixed_leaves_equals_per_leaf(card, dname):
+    """B2 over leaves of many sizes (one element, a ragged chunk, an
+    empty leaf, several chunks) in one launch equals ``sgd_update`` leaf
+    by leaf, bit for bit, into given outputs and into new ones."""
+    dtype = DTYPES[dname]
+    gen = torch.Generator(device=card).manual_seed(17)
+    sizes = [(1,), (4095,), (0,), (64, 64), (3, 4097), (2_359_296,), (5,)]
+    grads = [torch.randn(s, device=card, generator=gen).to(dtype)
+             for s in sizes]
+    for navg in (1, 2):
+        want = [TF.sgd_update(g, navg, -0.1) for g in grads]
+        outs = [torch.full_like(g, float("nan")) for g in grads]
+        TF.reset_launch_counts()
+        got = TF.sgd_update_multi(grads, navg, -0.1, outs=outs)
+        again = TF.sgd_update_multi(grads, navg, -0.1)
+        torch.cuda.synchronize()
+        assert TF.LAUNCHES["sgd"] == 2
+        for a, b, w in zip(got, again, want):
+            assert torch.equal(a, w) and torch.equal(b, w)
 
 
 def test_in_place_state_update(card):
@@ -200,7 +223,7 @@ def _check_flash(card, dname, causal, shape):
 
 @pytest.mark.parametrize("d", [64, 128])
 def test_flash_bf16_kernels_are_deterministic(card, d):
-    """B8 and B10 on the tensor cores own their output tiles (no
+    """B8, B9 and B10 on the tensor cores own their output tiles (no
     atomics): two calls give the same bits."""
     gen = torch.Generator(device=card).manual_seed(d)
     q, k, v, do = (torch.randn(8, 520, d, device=card, generator=gen)
@@ -217,6 +240,8 @@ def test_flash_bf16_kernels_are_deterministic(card, d):
     grads = FA.flash_bwd_dkv(q, k, v, do, lse, delta, 0, 0)
     for a, b in zip(grads, FA.flash_bwd_dkv(q, k, v, do, lse, delta, 0, 0)):
         assert torch.equal(a, b)
+    assert torch.equal(FA.flash_bwd_dq(q, k, v, do, lse, delta, 0, 0),
+                       FA.flash_bwd_dq(q, k, v, do, lse, delta, 0, 0))
 
 
 def _off_grid(t):
@@ -229,8 +254,8 @@ def _off_grid(t):
 
 
 def test_flash_refuses_unaligned_operands(card):
-    """TMA needs 16-byte-aligned base addresses: a bf16 operand of B8 or
-    B10 that starts off that grid is refused, not copied or sent
+    """TMA needs 16-byte-aligned base addresses: a bf16 operand of B8, B9
+    or B10 that starts off that grid is refused, not copied or sent
     elsewhere."""
     k = torch.zeros(2, 64, 64, device=card, dtype=torch.bfloat16)
     q = _off_grid(k)  # 2 bytes off the grid
@@ -241,37 +266,37 @@ def test_flash_refuses_unaligned_operands(card):
         FA.flash_block_step(q, k, k, m, l, o, 0, 0)
     with pytest.raises(HorovodTpuError, match="16-byte"):
         FA.flash_bwd_dkv(q, k, k, q, l, l, 0, 0)
+    with pytest.raises(HorovodTpuError, match="16-byte"):
+        FA.flash_bwd_dq(k, k, k, q, l, l, 0, 0)
     # B8 reads the carried f32 o as float2
     with pytest.raises(HorovodTpuError, match="8-byte"):
         FA.flash_block_step(k, k, k, m, l, _off_grid(o), 0, 0)
 
 
 def test_flash_cuda_core_kernels_take_unaligned_operands(card, exact_f32):
-    """The kernels that use no TMA (f32 B8-B10, bf16 B9) read their
-    operands element by element: operands off the 16-byte grid run and
-    agree with the plain versions."""
+    """The kernels that use no TMA (f32 B8-B10) read their operands
+    element by element: operands off the 16-byte grid run and agree with
+    the plain versions."""
     gen = torch.Generator(device=card).manual_seed(5)
-    for dname, dtype in DTYPES.items():
-        q, k, v, do = (_off_grid((torch.randn(2, 64, 64, device=card,
-                                              generator=gen) * 0.5).to(dtype))
-                       for _ in range(4))
-        fresh = (torch.full((2, 64), -math.inf, device=card),
-                 torch.zeros(2, 64, device=card),
-                 torch.zeros(2, 64, 64, device=card))
-        state = FA.flash_block_step_plain(q, k, v, *fresh, 0, 0)
-        out, lse = finish(*state)
-        delta = (do.float() * out).sum(-1)
-        args = (q, k, v, do, _off_grid(lse), _off_grid(delta), 0, 0)
-        _close(FA.flash_bwd_dq(*args), FA.flash_bwd_dq_plain(*args), dname,
-               f"B9 dq {dname} unaligned")
-        if dname == "f32":
-            m, l, o = (_off_grid(t) for t in state)
-            _close_state(FA.flash_block_step(q, k, v, m, l, o, 0, 0),
-                         FA.flash_block_step_plain(q, k, v, m, l, o, 0, 0),
-                         dname, "B8 f32 unaligned")
-            for name, a, b in zip(("dk", "dv"), FA.flash_bwd_dkv(*args),
-                                  FA.flash_bwd_dkv_plain(*args)):
-                _close(a, b, dname, f"B10 {name} f32 unaligned")
+    q, k, v, do = (_off_grid(torch.randn(2, 64, 64, device=card,
+                                         generator=gen) * 0.5)
+                   for _ in range(4))
+    fresh = (torch.full((2, 64), -math.inf, device=card),
+             torch.zeros(2, 64, device=card),
+             torch.zeros(2, 64, 64, device=card))
+    state = FA.flash_block_step_plain(q, k, v, *fresh, 0, 0)
+    out, lse = finish(*state)
+    delta = (do.float() * out).sum(-1)
+    args = (q, k, v, do, _off_grid(lse), _off_grid(delta), 0, 0)
+    _close(FA.flash_bwd_dq(*args), FA.flash_bwd_dq_plain(*args), "f32",
+           "B9 dq f32 unaligned")
+    m, l, o = (_off_grid(t) for t in state)
+    _close_state(FA.flash_block_step(q, k, v, m, l, o, 0, 0),
+                 FA.flash_block_step_plain(q, k, v, m, l, o, 0, 0),
+                 "f32", "B8 f32 unaligned")
+    for name, a, b in zip(("dk", "dv"), FA.flash_bwd_dkv(*args),
+                          FA.flash_bwd_dkv_plain(*args)):
+        _close(a, b, "f32", f"B10 {name} f32 unaligned")
 
 
 def test_flash_fully_masked_block_keeps_fresh_state(card):

@@ -228,3 +228,83 @@ def test_fused_tail_raises_on_foreign_state(kind, key, bad):
         TF.fused_update_tree(opt.fused_spec, grads, states)
     opt.state[params[1]][key] = before[key]
     assert len(TF.fused_update_tree(opt.fused_spec, grads, states)) == 2
+
+
+@pytest.mark.parametrize("hyper", sorted(HYPER))
+def test_sgd_tree_of_mixed_dtypes_matches_jax(monkeypatch, hyper):
+    """The stage-0 plain-SGD tail over float32 and bfloat16 leaves and an
+    empty one (the port groups them by dtype, one multi-leaf call each)
+    against the JAX package's ``fused_update_tree`` over the same tree,
+    through the interpreted Pallas kernels (dyadic) or the jnp twin."""
+    h = HYPER[hyper]
+    rng = np.random.RandomState(11)
+    shapes = [((7, 5), "f32"), ((300,), "bf16"), ((0,), "f32"),
+              ((3, 3, 4), "bf16"), ((4097,), "f32")]
+    base = [(rng.standard_normal(s) * 4).astype(np.float32)
+            for s, _ in shapes]
+    if hyper == "dyadic":
+        base = [np.round(b * 64) / 64 for b in base]
+    jgrads = [jnp.asarray(b).astype(DTYPES[d][0])
+              for b, (_, d) in zip(base, shapes)]
+    monkeypatch.setenv("HOROVOD_QUANT_PALLAS",
+                       "1" if hyper == "dyadic" else "0")
+    opt = JF.sgd(h["lr"])
+    jouts, _ = JF.fused_update_tree(opt.fused_spec, jgrads,
+                                    opt.init(jgrads))
+
+    params = [torch.nn.Parameter(_t(b, DTYPES[d][1]))
+              for b, (_, d) in zip(base, shapes)]
+    topt = TF.sgd(params, h["lr"])
+    grads = [_t(b, DTYPES[d][1]) for b, (_, d) in zip(base, shapes)]
+    TF.reset_launch_counts()
+    outs = TF.fused_update_tree(topt.fused_spec, grads,
+                                [topt.state[p] for p in params])
+    for i, (u, j, (s, d)) in enumerate(zip(outs, jouts, shapes)):
+        assert tuple(u.shape) == s and u.dtype == DTYPES[d][1]
+        assert_ulp(_np(u), j, d, f"u #{i} {d} {s}")
+    assert TF.LAUNCHES["sgd"] == 0  # CPU: the plain versions
+
+
+def test_sgd_update_multi_equals_the_plain_loop():
+    """The multi-leaf wrapper on CPU tensors is the loop of ``sgd_plain``
+    over the leaves, bit for bit, into the given outputs or new ones."""
+    gen = torch.Generator().manual_seed(2)
+    for dtype in (torch.float32, torch.bfloat16):
+        grads = [torch.randn(s, generator=gen).to(dtype)
+                 for s in ((3, 4), (0,), (5000,), (1,))]
+        for navg in (1, 2):
+            want = [TF.sgd_plain(g, navg, -0.1) for g in grads]
+            outs = [torch.full_like(g, 7.0) for g in grads]
+            got = TF.sgd_update_multi(grads, navg, -0.1, outs=outs)
+            assert all(a is b for a, b in zip(got, outs))
+            again = TF.sgd_update_multi(grads, navg, -0.1)
+            for a, b, w in zip(got, again, want):
+                assert torch.equal(a, w) and torch.equal(b, w)
+    assert TF.sgd_update_multi([], 1, -0.1) == []
+
+
+@pytest.mark.parametrize("bad", ["mixed_devices", "mixed_dtypes",
+                                 "non_contiguous", "outs_count",
+                                 "outs_size", "outs_dtype",
+                                 "outs_non_contiguous", "dtype"])
+def test_sgd_update_multi_refuses_what_one_launch_does_not_take(bad):
+    grads = [torch.zeros(4, 3), torch.zeros(6)]
+    outs = None
+    if bad == "mixed_devices":
+        grads[1] = torch.zeros(6, device="meta")
+    elif bad == "mixed_dtypes":
+        grads[1] = grads[1].bfloat16()
+    elif bad == "non_contiguous":
+        grads[0] = torch.zeros(3, 4).t()
+    elif bad == "dtype":
+        grads = [g.double() for g in grads]
+    elif bad == "outs_count":
+        outs = [torch.zeros(4, 3)]
+    elif bad == "outs_size":
+        outs = [torch.zeros(4, 3), torch.zeros(7)]
+    elif bad == "outs_dtype":
+        outs = [torch.zeros(4, 3), torch.zeros(6).bfloat16()]
+    else:
+        outs = [torch.zeros(3, 4).t(), torch.zeros(6)]
+    with pytest.raises(HorovodTpuError):
+        TF.sgd_update_multi(grads, 1, -0.1, outs=outs)
