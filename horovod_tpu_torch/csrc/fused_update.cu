@@ -1,9 +1,10 @@
 // Fused optimizer tail for Hopper (sm_90a): kernels B1-B3 of the port.
 //
 // Replaces the Pallas kernels of horovod_tpu/optim/fused_update.py:
-//   hvd_momentum  <- _momentum_pallas (:314) / _momentum_kernel (:265)
-//   hvd_sgd       <- _sgd_pallas      (:299) / _sgd_kernel      (:260)
-//   hvd_adam      <- _adam_pallas     (:331) / _adam_kernel     (:273)
+//   hvd_momentum, hvd_momentum_multi <- _momentum_pallas (:314)
+//   hvd_sgd, hvd_sgd_multi           <- _sgd_pallas (:299)
+//   hvd_adam, hvd_adam_multi         <- _adam_pallas (:331)
+// (kernels :265, :260, :273).
 //
 // Contract: bit-exact against optax's expressions in their order
 // (fused_update.py:208-232).  Every float operation is written as an
@@ -12,41 +13,65 @@
 // as one FMA would differ from optax by an ulp.  For bfloat16 the value
 // is rounded to bf16 after every operation, as JAX's per-op semantics
 // round; the constants arrive already rounded to the working dtype.
+// The per-element arithmetic of each update lives once, in its functor
+// (SgdOp, MomentumOp, AdamOp); the one-buffer and the multi-leaf
+// kernels both call it, so their bits are the same.
 //
 // Bound: each is a single elementwise pass, so device-memory bandwidth
 // bounds it.  Momentum moves 16 B per f32 element (reads g and t, writes
 // u and t'): about 409 MB for the 25,557,032 parameters of ResNet-50,
 // some 0.12 ms at the H100 SXM's 3.35 TB/s.  SGD moves 8 B per element,
-// Adam 24 B (reads g, mu, nu; writes u, mu', nu').  What the design does
-// about it: each element is read and written exactly once, with no
-// padding (the Pallas (16, 128) row tile
-// is a TPU layout detail and is not carried over) and no intermediate
-// in device memory; consecutive threads touch consecutive elements so
-// every warp access is coalesced, and a grid-stride loop with a masked
-// tail covers any length.  Launched once per leaf, as the stage-0 path
-// launches B1 and B3, the small leaves are launch-bound: 161 launches of
-// some 18 us of host time each for ResNet-50.  So B2 also has one launch
-// for a whole list of leaves of one dtype (hvd_sgd_multi): each block
-// takes one fixed-size chunk of one leaf and finds its leaf by a
-// binary search of a table of (g, u, n, first chunk), which the caller
-// builds on the host and copies to the card; empty leaves are left out
-// of the table.  The per-element arithmetic is sgd_kernel's, so the
-// result is bit for bit the per-leaf one.
+// Adam 24 B (reads g, mu, nu; writes u, mu', nu').  They do 1 to 12
+// operations per 8 to 24 bytes, three orders of magnitude below the
+// card's ridge of about 295 operations per byte, and each byte is read
+// or written once with nothing reused: so no TMA, no wgmma and no
+// shared-memory tiles, since there is nothing to stage.  What the design
+// goes after instead is what per-leaf launches lose: host time per
+// launch (some 15-27 us of Python and ctypes each, 161 launches per
+// ResNet-50 step), idle SMs on small leaves, and narrow accesses.
 //
-// Interface: plain C, one entry per kernel, loaded with ctypes.  dtype
-// 0 = float32, 1 = bfloat16.  Each returns cudaGetLastError() after the
-// launch on the caller's stream; nothing is allocated and nothing is
-// synchronised.  t/t_out (mu/mu_out, nu/nu_out) may alias: each element
-// is read before it is written by the same thread.
+// The multi-leaf launcher (hvd_sgd_multi, hvd_momentum_multi,
+// hvd_adam_multi) runs one update over a list of leaves of one dtype in
+// one launch.  Its leaf table travels in the kernel's parameters (a
+// __grid_constant__ struct; since CUDA 12.1 a kernel may take 32,764
+// bytes of them), not in device memory: no device table, no
+// host-to-device copy, nothing cached.  A row holds the leaf's pointers
+// (inputs, then outputs), its element count and its first chunk; each
+// block takes one 4096-element chunk of one leaf and finds its row by a
+// binary search over the first chunks, every thread of the block reading
+// the same row (uniform reads of parameter space are broadcast).  A leaf
+// whose pointers are all 16-byte aligned is swept with 16-byte accesses
+// (float4, or 8 bf16), chunk starts being multiples of 4096 elements;
+// any other leaf (a view at an odd offset) with the scalar loop.  Both
+// loops call the same functor per element.  A list longer than the
+// table's capacity (Table<Op>::kCap rows, fixed by a static_assert on
+// its size) takes ceil(rows / capacity) launches, each with its first
+// chunks numbered from 0.
+//
+// Interface: plain C, loaded with ctypes.  dtype 0 = float32, 1 =
+// bfloat16.  Each entry returns the first CUDA error of its launches on
+// the caller's stream; nothing is allocated and nothing is synchronised.
+// t/t_out (mu/mu_out, nu/nu_out) may alias within a leaf: each element
+// is read before it is written by the same thread.  Leaves must not
+// alias one another: one launch runs them in no order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+static_assert(CUDART_VERSION >= 12010,
+              "the multi-leaf kernels take 32,764 bytes of parameters, "
+              "which needs CUDA 12.1 or later");
+
 namespace {
+
+// bytes of parameters a kernel may take (CUDA 12.1 and later, Volta on)
+constexpr int kParamBytes = 32764;
 
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 132 * 16;
+// elements of one leaf that one block of a multi-leaf launch takes
+constexpr int64_t kChunk = 4096;
 
 template <typename T>
 struct Io;
@@ -78,6 +103,55 @@ struct Io<__nv_bfloat16> {
   }
 };
 
+// 16 bytes of T as floats: 4 float32 or 8 bfloat16 values.
+template <typename T>
+struct Vec;
+
+template <>
+struct Vec<float> {
+  static constexpr int kN = 4;
+  static __device__ __forceinline__ void load(const void* p, int64_t i,
+                                              float* v) {
+    const float4 x =
+        *reinterpret_cast<const float4*>(static_cast<const float*>(p) + i);
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = x.z;
+    v[3] = x.w;
+  }
+  static __device__ __forceinline__ void store(void* p, int64_t i,
+                                               const float* v) {
+    *reinterpret_cast<float4*>(static_cast<float*>(p) + i) =
+        make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  static __device__ __forceinline__ void load(const void* p, int64_t i,
+                                              float* v) {
+    const uint4 x = *reinterpret_cast<const uint4*>(
+        static_cast<const __nv_bfloat16*>(p) + i);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(h[j]);
+      v[2 * j] = f.x;
+      v[2 * j + 1] = f.y;
+    }
+  }
+  static __device__ __forceinline__ void store(void* p, int64_t i,
+                                               const float* v) {
+    uint4 x;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&x);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      h[j] = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+    *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(p) + i) = x;
+  }
+};
+
 // One operation of the working dtype T: exact-rounded in f32, then
 // rounded to T.
 template <typename T>
@@ -99,93 +173,163 @@ __device__ __forceinline__ float sqrt_(float a) {
 
 // _prep_grad: g / navg (Average) when navg > 1, already in dtype T.
 template <typename T>
-__device__ __forceinline__ float prep(const T* g, int64_t i, int divide,
-                                      float navg) {
-  float x = Io<T>::load(g, i);
-  return divide ? div<T>(x, navg) : x;
+__device__ __forceinline__ float prep(float g, int divide, float navg) {
+  return divide ? div<T>(g, navg) : g;
 }
 
-template <typename T>
-__global__ void sgd_kernel(const T* g, T* u, int64_t n, int divide,
-                           float navg, float neg_lr) {
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    float x = prep<T>(g, i, divide, navg);
-    Io<T>::store(u, i, mul<T>(neg_lr, x));
+// The updates, one element each.  in[0] is the prepared gradient, the
+// other inputs the state read at the same element; out[] in the order
+// of the row's output pointers.
+struct SgdOp {
+  static constexpr int kIn = 1, kOut = 1;  // in: g; out: u
+  float neg_lr;
+  template <typename T>
+  __device__ __forceinline__ void apply(const float* in, float* out) const {
+    out[0] = mul<T>(neg_lr, in[0]);
   }
-}
-
-// One entry of hvd_sgd_multi's leaf table (four int64 values).
-struct Leaf {
-  const void* g;
-  void* u;
-  int64_t n;       // elements, > 0
-  int64_t chunk0;  // the leaf's first chunk, in launch order
 };
 
-template <typename T>
-__global__ void sgd_multi_kernel(const Leaf* __restrict__ leaves,
-                                 int n_leaves, int chunk, int divide,
-                                 float navg, float neg_lr) {
+struct MomentumOp {
+  static constexpr int kIn = 2, kOut = 2;  // in: g, t; out: u, t'
+  float decay, neg_lr;
+  template <typename T>
+  __device__ __forceinline__ void apply(const float* in, float* out) const {
+    // optax.trace: g + decay * t; optax.scale: (-lr) * t'
+    float t2 = add<T>(in[0], mul<T>(decay, in[1]));
+    out[1] = t2;
+    out[0] = mul<T>(neg_lr, t2);
+  }
+};
+
+struct AdamOp {
+  static constexpr int kIn = 3, kOut = 3;  // in: g, mu, nu; out: u, mu', nu'
+  float c1, b1, c2, b2, bc1, bc2, eps_root, eps, neg_lr;
+  template <typename T>
+  __device__ __forceinline__ void apply(const float* in, float* out) const {
+    const float x = in[0];
+    // mu2 = (1 - b1) * g + b1 * mu
+    float mu2 = add<T>(mul<T>(c1, x), mul<T>(b1, in[1]));
+    // nu2 = (1 - b2) * (g * g) + b2 * nu
+    float nu2 = add<T>(mul<T>(c2, mul<T>(x, x)), mul<T>(b2, in[2]));
+    float mu_hat = div<T>(mu2, bc1);
+    float nu_hat = div<T>(nu2, bc2);
+    // (-lr) * (mu_hat / (sqrt(nu_hat + eps_root) + eps))
+    float den = add<T>(sqrt_<T>(add<T>(nu_hat, eps_root)), eps);
+    out[1] = mu2;
+    out[2] = nu2;
+    out[0] = mul<T>(neg_lr, div<T>(mu_hat, den));
+  }
+};
+
+// One leaf: its pointers (inputs, then outputs), its element count and
+// its first chunk in its launch (int64 values, as the caller lays them
+// out).
+template <typename Op>
+struct Row {
+  const void* in[Op::kIn];
+  void* out[Op::kOut];
+  int64_t n;
+  int64_t chunk0;
+};
+
+// The multi-leaf kernel's parameters: the update's constants and up to
+// kCap rows, sorted by first chunk, the first at chunk 0, every n > 0.
+template <typename Op>
+struct Table {
+  static constexpr int kCap = (kParamBytes - 64) / sizeof(Row<Op>);
+  Op op;
+  float navg;
+  int divide;
+  int n_rows;
+  Row<Op> rows[kCap];
+};
+static_assert(sizeof(Table<SgdOp>) <= kParamBytes, "SGD table size");
+static_assert(sizeof(Table<MomentumOp>) <= kParamBytes,
+              "momentum table size");
+static_assert(sizeof(Table<AdamOp>) <= kParamBytes, "Adam table size");
+
+template <typename T, typename Op>
+__device__ __forceinline__ void update_at(const Op& op, const Row<Op>& r,
+                                          int64_t i, int divide,
+                                          float navg) {
+  float in[Op::kIn], out[Op::kOut];
+  in[0] = prep<T>(Io<T>::load(static_cast<const T*>(r.in[0]), i), divide,
+                  navg);
+#pragma unroll
+  for (int k = 1; k < Op::kIn; ++k)
+    in[k] = Io<T>::load(static_cast<const T*>(r.in[k]), i);
+  op.template apply<T>(in, out);
+#pragma unroll
+  for (int k = 0; k < Op::kOut; ++k)
+    Io<T>::store(static_cast<T*>(r.out[k]), i, out[k]);
+}
+
+// Vec<T>::kN consecutive elements from i (16-byte aligned): the same
+// functor per element as update_at.
+template <typename T, typename Op>
+__device__ __forceinline__ void update_vec(const Op& op, const Row<Op>& r,
+                                           int64_t i, int divide,
+                                           float navg) {
+  constexpr int V = Vec<T>::kN;
+  float in[Op::kIn][V], out[Op::kOut][V];
+#pragma unroll
+  for (int k = 0; k < Op::kIn; ++k) Vec<T>::load(r.in[k], i, in[k]);
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    float a[Op::kIn], o[Op::kOut];
+    a[0] = prep<T>(in[0][e], divide, navg);
+#pragma unroll
+    for (int k = 1; k < Op::kIn; ++k) a[k] = in[k][e];
+    op.template apply<T>(a, o);
+#pragma unroll
+    for (int k = 0; k < Op::kOut; ++k) out[k][e] = o[k];
+  }
+#pragma unroll
+  for (int k = 0; k < Op::kOut; ++k) Vec<T>::store(r.out[k], i, out[k]);
+}
+
+// One buffer of r.n elements, grid-stride.
+template <typename T, typename Op>
+__global__ void update_kernel(const __grid_constant__ Row<Op> r, int divide,
+                              float navg, const __grid_constant__ Op op) {
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < r.n;
+       i += (int64_t)gridDim.x * blockDim.x)
+    update_at<T>(op, r, i, divide, navg);
+}
+
+template <typename T, typename Op>
+__global__ void __launch_bounds__(kThreads)
+    multi_kernel(const __grid_constant__ Table<Op> tab) {
   // the leaf of this block's chunk: the last whose first chunk is <= it
   const int64_t b = blockIdx.x;
-  int lo = 0, hi = n_leaves - 1;
+  int lo = 0, hi = tab.n_rows - 1;
   while (lo < hi) {
     const int mid = (lo + hi + 1) >> 1;
-    if (leaves[mid].chunk0 <= b)
+    if (tab.rows[mid].chunk0 <= b)
       lo = mid;
     else
       hi = mid - 1;
   }
-  const Leaf leaf = leaves[lo];
-  const T* g = static_cast<const T*>(leaf.g);
-  T* u = static_cast<T*>(leaf.u);
-  const int64_t begin = (b - leaf.chunk0) * chunk;
-  const int64_t end = begin + chunk < leaf.n ? begin + chunk : leaf.n;
-  for (int64_t i = begin + threadIdx.x; i < end; i += kThreads) {
-    float x = prep<T>(g, i, divide, navg);
-    Io<T>::store(u, i, mul<T>(neg_lr, x));
+  const Row<Op> r = tab.rows[lo];
+  const int64_t begin = (b - r.chunk0) * kChunk;
+  const int64_t end = begin + kChunk < r.n ? begin + kChunk : r.n;
+  uintptr_t bits = 0;
+#pragma unroll
+  for (int k = 0; k < Op::kIn; ++k)
+    bits |= reinterpret_cast<uintptr_t>(r.in[k]);
+#pragma unroll
+  for (int k = 0; k < Op::kOut; ++k)
+    bits |= reinterpret_cast<uintptr_t>(r.out[k]);
+  int64_t tail = begin;
+  if ((bits & 15) == 0) {
+    constexpr int V = Vec<T>::kN;
+    tail = begin + (end - begin) / V * V;
+    for (int64_t i = begin + (int64_t)threadIdx.x * V; i < tail;
+         i += (int64_t)kThreads * V)
+      update_vec<T>(tab.op, r, i, tab.divide, tab.navg);
   }
-}
-
-template <typename T>
-__global__ void momentum_kernel(const T* g, const T* t, T* u, T* t_out,
-                                int64_t n, int divide, float navg,
-                                float decay, float neg_lr) {
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    float x = prep<T>(g, i, divide, navg);
-    // optax.trace: g + decay * t; optax.scale: (-lr) * t'
-    float t2 = add<T>(x, mul<T>(decay, Io<T>::load(t, i)));
-    Io<T>::store(t_out, i, t2);
-    Io<T>::store(u, i, mul<T>(neg_lr, t2));
-  }
-}
-
-struct AdamConsts {
-  float c1, b1, c2, b2, bc1, bc2, eps_root, eps, neg_lr;
-};
-
-template <typename T>
-__global__ void adam_kernel(const T* g, const T* mu, const T* nu, T* u,
-                            T* mu_out, T* nu_out, int64_t n, int divide,
-                            float navg, AdamConsts k) {
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    float x = prep<T>(g, i, divide, navg);
-    // mu2 = (1 - b1) * g + b1 * mu
-    float mu2 = add<T>(mul<T>(k.c1, x), mul<T>(k.b1, Io<T>::load(mu, i)));
-    // nu2 = (1 - b2) * (g * g) + b2 * nu
-    float nu2 = add<T>(mul<T>(k.c2, mul<T>(x, x)),
-                       mul<T>(k.b2, Io<T>::load(nu, i)));
-    float mu_hat = div<T>(mu2, k.bc1);
-    float nu_hat = div<T>(nu2, k.bc2);
-    // (-lr) * (mu_hat / (sqrt(nu_hat + eps_root) + eps))
-    float den = add<T>(sqrt_<T>(add<T>(nu_hat, k.eps_root)), k.eps);
-    Io<T>::store(mu_out, i, mu2);
-    Io<T>::store(nu_out, i, nu2);
-    Io<T>::store(u, i, mul<T>(k.neg_lr, div<T>(mu_hat, den)));
-  }
+  for (int64_t i = tail + threadIdx.x; i < end; i += kThreads)
+    update_at<T>(tab.op, r, i, tab.divide, tab.navg);
 }
 
 inline int blocks_for(int64_t n) {
@@ -193,68 +337,112 @@ inline int blocks_for(int64_t n) {
   return (int)(b < kMaxBlocks ? b : kMaxBlocks);
 }
 
-}  // namespace
-
-extern "C" {
-
-int hvd_sgd(int dtype, const void* g, void* u, int64_t n, int divide,
-            float navg, float neg_lr, void* stream) {
+// One buffer: ptrs holds Op::kIn input pointers, then Op::kOut outputs.
+template <typename Op>
+int launch_one(int dtype, const void* const* ptrs, int64_t n, int divide,
+               float navg, const Op& op, void* stream) {
   if (n <= 0) return 0;
+  Row<Op> r;
+  for (int k = 0; k < Op::kIn; ++k) r.in[k] = ptrs[k];
+  for (int k = 0; k < Op::kOut; ++k)
+    r.out[k] = const_cast<void*>(ptrs[Op::kIn + k]);
+  r.n = n;
+  r.chunk0 = 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {
-    sgd_kernel<float><<<blocks_for(n), kThreads, 0, s>>>(
-        (const float*)g, (float*)u, n, divide, navg, neg_lr);
+    update_kernel<float, Op><<<blocks_for(n), kThreads, 0, s>>>(
+        r, divide, navg, op);
   } else if (dtype == 1) {
-    sgd_kernel<__nv_bfloat16><<<blocks_for(n), kThreads, 0, s>>>(
-        (const __nv_bfloat16*)g, (__nv_bfloat16*)u, n, divide, navg,
-        neg_lr);
+    update_kernel<__nv_bfloat16, Op><<<blocks_for(n), kThreads, 0, s>>>(
+        r, divide, navg, op);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
-// B2 over n_leaves leaves in one launch of n_chunks blocks, each taking
-// `chunk` elements: `leaves` is a device array of Leaf (the int64
-// quadruples g, u, n, first chunk), sorted by first chunk, the first at
-// chunk 0, every n > 0.
-int hvd_sgd_multi(int dtype, const void* leaves, int n_leaves,
-                  int64_t n_chunks, int chunk, int divide, float navg,
-                  float neg_lr, void* stream) {
-  if (n_leaves <= 0 || n_chunks <= 0 || n_chunks > 0x7fffffff || chunk <= 0)
+// n_rows rows of Op::kIn + Op::kOut + 2 int64 values each (pointers,
+// n, first chunk), numbered from chunk 0 again at every kCap rows.  The
+// whole table is checked before the first launch.
+template <typename Op>
+int launch_multi(int dtype, const int64_t* rows, int n_rows, int chunk,
+                 int divide, float navg, const Op& op, void* stream) {
+  using Tab = Table<Op>;
+  constexpr int kW = Op::kIn + Op::kOut + 2;
+  if (rows == nullptr || n_rows <= 0 || chunk != kChunk ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const Leaf* t = (const Leaf*)leaves;
-  if (dtype == 0) {
-    sgd_multi_kernel<float><<<(unsigned)n_chunks, kThreads, 0, s>>>(
-        t, n_leaves, chunk, divide, navg, neg_lr);
-  } else if (dtype == 1) {
-    sgd_multi_kernel<__nv_bfloat16><<<(unsigned)n_chunks, kThreads, 0, s>>>(
-        t, n_leaves, chunk, divide, navg, neg_lr);
-  } else {
-    return (int)cudaErrorInvalidValue;
+  int64_t next = 0;
+  for (int j = 0; j < n_rows; ++j) {
+    const int64_t n = rows[(int64_t)j * kW + kW - 2];
+    const int64_t chunk0 = rows[(int64_t)j * kW + kW - 1];
+    if (j % Tab::kCap == 0) next = 0;
+    if (n <= 0 || chunk0 != next) return (int)cudaErrorInvalidValue;
+    next += (n + kChunk - 1) / kChunk;
+    if (next > 0x7fffffff) return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  Tab tab;
+  tab.op = op;
+  tab.navg = navg;
+  tab.divide = divide;
+  cudaStream_t s = (cudaStream_t)stream;
+  for (int first = 0; first < n_rows; first += Tab::kCap) {
+    const int m = n_rows - first < Tab::kCap ? n_rows - first : Tab::kCap;
+    const int64_t* src = rows + (int64_t)first * kW;
+    for (int j = 0; j < m; ++j, src += kW) {
+      Row<Op>& d = tab.rows[j];
+      for (int k = 0; k < Op::kIn; ++k)
+        d.in[k] = reinterpret_cast<const void*>(src[k]);
+      for (int k = 0; k < Op::kOut; ++k)
+        d.out[k] = reinterpret_cast<void*>(src[Op::kIn + k]);
+      d.n = src[kW - 2];
+      d.chunk0 = src[kW - 1];
+    }
+    tab.n_rows = m;
+    const Row<Op>& last = tab.rows[m - 1];
+    const unsigned blocks =
+        (unsigned)(last.chunk0 + (last.n + kChunk - 1) / kChunk);
+    if (dtype == 0)
+      multi_kernel<float, Op><<<blocks, kThreads, 0, s>>>(tab);
+    else
+      multi_kernel<__nv_bfloat16, Op><<<blocks, kThreads, 0, s>>>(tab);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Rows one launch of the multi-leaf kernel takes: kind 0 = SGD, 1 =
+// momentum, 2 = Adam.
+int hvd_multi_capacity(int kind) {
+  switch (kind) {
+    case 0:
+      return Table<SgdOp>::kCap;
+    case 1:
+      return Table<MomentumOp>::kCap;
+    case 2:
+      return Table<AdamOp>::kCap;
+    default:
+      return -1;
+  }
+}
+
+int hvd_sgd(int dtype, const void* g, void* u, int64_t n, int divide,
+            float navg, float neg_lr, void* stream) {
+  const void* p[] = {g, u};
+  return launch_one(dtype, p, n, divide, navg, SgdOp{neg_lr}, stream);
 }
 
 int hvd_momentum(int dtype, const void* g, const void* t, void* u,
                  void* t_out, int64_t n, int divide, float navg,
                  float decay, float neg_lr, void* stream) {
-  if (n <= 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) {
-    momentum_kernel<float><<<blocks_for(n), kThreads, 0, s>>>(
-        (const float*)g, (const float*)t, (float*)u, (float*)t_out, n,
-        divide, navg, decay, neg_lr);
-  } else if (dtype == 1) {
-    momentum_kernel<__nv_bfloat16><<<blocks_for(n), kThreads, 0, s>>>(
-        (const __nv_bfloat16*)g, (const __nv_bfloat16*)t,
-        (__nv_bfloat16*)u, (__nv_bfloat16*)t_out, n, divide, navg, decay,
-        neg_lr);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  const void* p[] = {g, t, u, t_out};
+  return launch_one(dtype, p, n, divide, navg, MomentumOp{decay, neg_lr},
+                    stream);
 }
 
 int hvd_adam(int dtype, const void* g, const void* mu, const void* nu,
@@ -262,23 +450,35 @@ int hvd_adam(int dtype, const void* g, const void* mu, const void* nu,
              float navg, float c1, float b1, float c2, float b2, float bc1,
              float bc2, float eps_root, float eps, float neg_lr,
              void* stream) {
-  if (n <= 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  AdamConsts k{c1, b1, c2, b2, bc1, bc2, eps_root, eps, neg_lr};
-  if (dtype == 0) {
-    adam_kernel<float><<<blocks_for(n), kThreads, 0, s>>>(
-        (const float*)g, (const float*)mu, (const float*)nu, (float*)u,
-        (float*)mu_out, (float*)nu_out, n, divide, navg, k);
-  } else if (dtype == 1) {
-    adam_kernel<__nv_bfloat16><<<blocks_for(n), kThreads, 0, s>>>(
-        (const __nv_bfloat16*)g, (const __nv_bfloat16*)mu,
-        (const __nv_bfloat16*)nu, (__nv_bfloat16*)u,
-        (__nv_bfloat16*)mu_out, (__nv_bfloat16*)nu_out, n, divide, navg,
-        k);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  const void* p[] = {g, mu, nu, u, mu_out, nu_out};
+  return launch_one(dtype, p, n, divide, navg,
+                    AdamOp{c1, b1, c2, b2, bc1, bc2, eps_root, eps, neg_lr},
+                    stream);
+}
+
+// The multi-leaf entries: `rows` is a host array of n_rows rows (g, u,
+// n, first chunk for SGD; g, t, u, t', n, first chunk for momentum; g,
+// mu, nu, u, mu', nu', n, first chunk for Adam), `chunk` must be 4096.
+int hvd_sgd_multi(int dtype, const int64_t* rows, int n_rows, int chunk,
+                  int divide, float navg, float neg_lr, void* stream) {
+  return launch_multi(dtype, rows, n_rows, chunk, divide, navg,
+                      SgdOp{neg_lr}, stream);
+}
+
+int hvd_momentum_multi(int dtype, const int64_t* rows, int n_rows,
+                       int chunk, int divide, float navg, float decay,
+                       float neg_lr, void* stream) {
+  return launch_multi(dtype, rows, n_rows, chunk, divide, navg,
+                      MomentumOp{decay, neg_lr}, stream);
+}
+
+int hvd_adam_multi(int dtype, const int64_t* rows, int n_rows, int chunk,
+                   int divide, float navg, float c1, float b1, float c2,
+                   float b2, float bc1, float bc2, float eps_root, float eps,
+                   float neg_lr, void* stream) {
+  return launch_multi(
+      dtype, rows, n_rows, chunk, divide, navg,
+      AdamOp{c1, b1, c2, b2, bc1, bc2, eps_root, eps, neg_lr}, stream);
 }
 
 }  // extern "C"

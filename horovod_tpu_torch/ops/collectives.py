@@ -51,10 +51,12 @@ def _check_quantized_op(op) -> None:
 
 def _reduce_flat(buf: torch.Tensor, op: int) -> torch.Tensor:
     """Sum ``buf`` (owned by the caller, reduced in place) over the
-    world; divide for Average."""
+    world; divide for Average.  An integer Average divides at any world
+    size, so it returns floats as the reference's ``out / size`` does; a
+    floating one at world 1 skips the division by 1."""
     n = _basics.size()
     dist.all_reduce(buf, op=dist.ReduceOp.SUM)
-    if op == Average and n > 1:
+    if op == Average and (n > 1 or not buf.is_floating_point()):
         buf = true_divide(buf, n)
     return buf
 
@@ -167,6 +169,7 @@ def grouped_quantized_allreduce(tensors, op: int = Average,
 
 def allgather(tensor: torch.Tensor) -> torch.Tensor:
     """Concatenate every rank's tensor along axis 0 (equal shapes)."""
+    _config.refuse_not_ported()
     if tensor.dim() == 0:
         raise HorovodTpuError("allgather requires rank >= 1 tensors")
     return _quant._all_gather(tensor, _basics.size())
@@ -176,6 +179,7 @@ def alltoall(tensor: torch.Tensor) -> torch.Tensor:
     """Equal-split all-to-all along axis 0: chunk ``j`` of this rank's
     tensor goes to rank ``j``, and the result stacks what every rank
     sent here in rank order."""
+    _config.refuse_not_ported()
     n = _basics.size()
     if tensor.dim() == 0 or tensor.shape[0] % n:
         raise HorovodTpuError(
@@ -294,6 +298,7 @@ def _scatter_flat_buffer(buf: torch.Tensor, quantized=False,
 
 def broadcast(tensor: torch.Tensor, root_rank: int = 0) -> torch.Tensor:
     """Return ``root_rank``'s value of ``tensor`` on every rank."""
+    _config.refuse_not_ported()
     out = tensor.detach().clone().contiguous()
     dist.broadcast(out, src=root_rank)
     return out
@@ -302,6 +307,7 @@ def broadcast(tensor: torch.Tensor, root_rank: int = 0) -> torch.Tensor:
 def broadcast_(tensors, root_rank: int = 0) -> None:
     """Overwrite each tensor in place with ``root_rank``'s value, one
     collective per dtype (fused like :func:`grouped_allreduce`)."""
+    _config.refuse_not_ported()
     groups: dict = {}
     for t in tensors:
         groups.setdefault(t.dtype, []).append(t)

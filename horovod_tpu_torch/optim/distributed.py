@@ -3,9 +3,9 @@
 
 The wrapper reduces every gradient with one grouped allreduce per dtype
 group, writes the reduced gradient back to ``p.grad`` and then updates:
-through the fused tail (``fused_update.fused_update_tree``: plain SGD in
-one kernel launch per dtype, momentum and Adam in one per parameter) when ``HOROVOD_FUSED_UPDATE=1`` and
-the wrapped optimizer is fusable, else through the wrapped optimizer's
+through the fused tail (``fused_update.fused_update_tree``: one kernel
+launch per dtype group of the gradients) when ``HOROVOD_FUSED_UPDATE=1``
+and the wrapped optimizer is fusable, else through the wrapped optimizer's
 own ``step()``.  Reduction is synchronous, inside ``step()`` (or an
 explicit ``synchronize()``).
 
@@ -135,8 +135,8 @@ class _DistributedOptimizer:
                 grads, [self.residuals[p] for p in params], op=self.op,
                 compression=self.compression)
             self.residuals.update(zip(params, new))
-        for p, r in zip(params, reduced):
-            p.grad.copy_(r)
+        if params:
+            torch._foreach_copy_(grads, reduced)
         return params
 
     @torch.no_grad()
@@ -173,8 +173,8 @@ class _DistributedOptimizer:
             updates = _fused.fused_update_tree(
                 self.fused_spec, [p.grad for p in params],
                 [self.optimizer.state[p] for p in params])
-            for p, u in zip(params, updates):
-                p.add_(u)
+            if params:
+                torch._foreach_add_(params, updates)
         return loss
 
 

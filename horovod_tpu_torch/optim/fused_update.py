@@ -4,9 +4,9 @@ The counterpart of ``horovod_tpu/optim/fused_update.py``.  After the
 gradient reduction, the update of an optimizer built by :func:`sgd` or
 :func:`adam` runs as CUDA kernels (``csrc/fused_update.cu``) instead of
 a chain of elementwise PyTorch ops, each a full pass over device memory:
-plain SGD as one launch over all the leaves of one dtype
-(:func:`sgd_update_multi`), momentum and Adam as one launch per
-parameter.
+one launch over all the leaves of one dtype (:func:`sgd_update_multi`,
+:func:`momentum_update_multi`, :func:`adam_update_multi`), whose leaf
+table travels in the kernel's parameters (:func:`leaf_table`).
 
 **Bit-exactness contract.**  The kernels and their plain versions below
 compute optax's update expressions (``optax.sgd`` / ``optax.trace`` /
@@ -19,11 +19,11 @@ every operation rounds to that dtype.  Divisions are true divisions
 round differently).
 
 **Kernel selection follows the tensor's device.**  Each wrapper
-(:func:`sgd_update`, :func:`sgd_update_multi`, :func:`momentum_update`,
-:func:`adam_update`) launches its CUDA kernel for CUDA tensors and
-counts the launch in :data:`LAUNCHES`; for CPU tensors it runs its plain
-version (:func:`sgd_plain`, :func:`momentum_plain`, :func:`adam_plain`).
-A failed build or launch raises.
+(the one-buffer :func:`sgd_update`, :func:`momentum_update`,
+:func:`adam_update` and the multi-leaf ones) launches its CUDA kernel for
+CUDA tensors and counts each launch in :data:`LAUNCHES`; for CPU tensors
+it runs its plain version (:func:`sgd_plain`, :func:`momentum_plain`,
+:func:`adam_plain`) leaf by leaf.  A failed build or launch raises.
 
 The port updates optimizer state in place (the JAX package returns new
 state); updates come back as new tensors, as ``optax`` returns them.
@@ -46,8 +46,11 @@ from horovod_tpu_torch.common.util import true_divide
 
 _INT32_MAX = 2 ** 31 - 1
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: Elements that one block of B2's multi-leaf launch takes from a leaf.
-_SGD_CHUNK = 4096
+#: Elements that one block of a multi-leaf launch takes from a leaf (the
+#: kernel's ``kChunk``).
+_CHUNK = 4096
+#: The kinds' codes in ``hvd_multi_capacity``.
+_KIND_CODES = {"sgd": 0, "momentum": 1, "adam": 2}
 
 #: Kernel launches per wrapper since the last :func:`reset_launch_counts`.
 LAUNCHES = {"sgd": 0, "momentum": 0, "adam": 0}
@@ -306,14 +309,21 @@ def _kernels():
         p, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                             ctypes.c_float)
         lib.hvd_sgd.argtypes = [i32, p, p, i64, i32, f32, f32, p]
-        lib.hvd_sgd_multi.argtypes = [i32, p, i32, i64, i32, i32, f32, f32,
-                                      p]
         lib.hvd_momentum.argtypes = [i32, p, p, p, p, i64, i32, f32, f32,
                                      f32, p]
         lib.hvd_adam.argtypes = [i32, p, p, p, p, p, p, i64, i32, f32,
                                  *[f32] * 9, p]
-        for fn in (lib.hvd_sgd, lib.hvd_sgd_multi, lib.hvd_momentum,
-                   lib.hvd_adam):
+        # (dtype, host rows, rows, chunk, divide, navg, constants...,
+        # stream)
+        lib.hvd_sgd_multi.argtypes = [i32, p, i32, i32, i32, f32, f32, p]
+        lib.hvd_momentum_multi.argtypes = [i32, p, i32, i32, i32, f32, f32,
+                                           f32, p]
+        lib.hvd_adam_multi.argtypes = [i32, p, i32, i32, i32, f32,
+                                       *[f32] * 9, p]
+        lib.hvd_multi_capacity.argtypes = [i32]
+        for fn in (lib.hvd_sgd, lib.hvd_momentum, lib.hvd_adam,
+                   lib.hvd_sgd_multi, lib.hvd_momentum_multi,
+                   lib.hvd_adam_multi, lib.hvd_multi_capacity):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -361,83 +371,185 @@ def sgd_update(g, navg: int, neg_lr: float, out=None):
     return u
 
 
-def _leaf_table(rows, device):
-    """The device table ``hvd_sgd_multi`` reads for ``rows`` of ``(g
-    pointer, u pointer, n)``: per leaf ``(g, u, n, first chunk)`` as four
-    int64 values, and the number of chunks.  It is copied from a new
-    pageable host tensor on the current stream, so no host buffer of a
-    pending copy is ever written again."""
-    flat, chunk0 = [], 0
-    for gp, up, n in rows:
-        flat += (gp, up, n, chunk0)
-        chunk0 += -(-n // _SGD_CHUNK)
-    table = torch.tensor(flat, dtype=torch.int64)
-    return table.to(device, non_blocking=True), chunk0
+def leaf_table(ptrs, sizes, capacity: int, chunk: int = _CHUNK):
+    """The rows of a multi-leaf launch.  ``ptrs`` holds one list of data
+    pointers per operand (gradients, state, outputs), leaf by leaf, and
+    ``sizes`` the leaves' element counts.  Per non-empty leaf, a row of
+    its pointers, ``n`` and its first chunk (of ``chunk`` elements), in
+    one C-ordered int64 array that ctypes hands to the C entry, which
+    copies the rows into the kernel's parameters.  Rows go into launches
+    of at most ``capacity`` rows, each launch numbering its first chunks
+    from 0.  Returns ``(table, launches)``."""
+    n = np.asarray(sizes, np.int64)
+    keep = np.flatnonzero(n)
+    rows = len(keep)
+    table = np.empty((rows, len(ptrs) + 2), np.int64)
+    table[:, :-2] = np.asarray(ptrs, np.int64).T[keep]
+    n = n[keep]
+    table[:, -2] = n
+    chunks = -(-n // chunk)
+    first = np.cumsum(chunks) - chunks
+    table[:, -1] = first - first[np.arange(rows) // capacity * capacity]
+    return table, -(-rows // capacity)
 
 
-def sgd_update_multi(grads, navg: int, neg_lr: float, outs=None):
-    """B2 over a list of leaves of one dtype on one device, in one
-    launch: ``u = neg_lr * (g / navg)`` for each ``g``, bit for bit what
-    :func:`sgd_update` gives leaf by leaf.  ``outs`` (a tensor of each
-    leaf's size, dtype and device) receive the updates; by default they
-    are new tensors like the leaves.  Empty leaves are skipped.  Returns
-    the updates."""
-    grads = list(grads)
-    if not grads:
-        return []
-    ref = grads[0]
-    if ref.device.type not in ("cpu", "cuda"):
-        raise HorovodTpuError(f"sgd: unsupported device {ref.device}")
-    if ref.dtype not in _DTYPE_CODES:
-        raise HorovodTpuError(
-            f"sgd: dtype {ref.dtype} is not float32 or bfloat16")
-    _check_leaves(grads, ref, "leaf")
-    if outs is None:
-        outs = [torch.empty_like(g) for g in grads]
-    else:
-        outs = list(outs)
-        if len(outs) != len(grads):
-            raise HorovodTpuError(
-                f"sgd: {len(outs)} outputs for {len(grads)} leaves")
-        _check_leaves(outs, ref, "output")
-        if any(u.numel() != g.numel() for g, u in zip(grads, outs)):
-            raise HorovodTpuError(
-                "sgd: an output's size differs from its leaf's")
-    if ref.device.type == "cpu":
-        for g, u in zip(grads, outs):
-            u.copy_(sgd_plain(g, navg, neg_lr))
-        return outs
-    rows = [(g.data_ptr(), u.data_ptr(), g.numel())
-            for g, u in zip(grads, outs) if g.numel()]
-    if not rows:
-        return outs
-    d = ref.dtype
-    stream = torch.cuda.current_stream(ref.device).cuda_stream
-    table, n_chunks = _leaf_table(rows, ref.device)
-    rc = _kernels().hvd_sgd_multi(
-        _DTYPE_CODES[d], table.data_ptr(), len(rows), n_chunks, _SGD_CHUNK,
-        int(navg > 1), _round(navg, d), _round(neg_lr, d), stream)
-    if rc != 0:
-        raise HorovodTpuError(f"sgd kernel launch failed: CUDA error {rc}")
-    LAUNCHES["sgd"] += 1
-    return outs
+@functools.lru_cache(maxsize=None)
+def capacity(kind: str) -> int:
+    """Rows one launch of the multi-leaf kernel takes for ``kind`` (its
+    parameter table's size, fixed in ``csrc/fused_update.cu``)."""
+    return _kernels().hvd_multi_capacity(_KIND_CODES[kind])
 
 
-def _check_leaves(ts, ref, what: str) -> None:
+def _check_leaves(kind: str, ts, ref, what: str) -> None:
     """Raise unless every tensor of ``ts`` is contiguous and of ``ref``'s
     dtype and device (one pass; the message names the first that is
     not)."""
     dev, dt = ref.device, ref.dtype
-    if all(t.device == dev and t.dtype == dt and t.is_contiguous()
+    if all(t.device == dev and t.dtype is dt and t.is_contiguous()
            for t in ts):
         return
     i, t = next((i, t) for i, t in enumerate(ts)
                 if t.device != dev or t.dtype != dt or not t.is_contiguous())
     if t.device != dev or t.dtype != dt:
         raise HorovodTpuError(
-            f"sgd: {what} {i} is {t.dtype} on {t.device}, the first leaf "
+            f"{kind}: {what} {i} is {t.dtype} on {t.device}, the first leaf "
             f"{dt} on {dev}; one launch takes one dtype on one device")
-    raise HorovodTpuError(f"sgd: {what} {i} is not contiguous")
+    raise HorovodTpuError(f"{kind}: {what} {i} is not contiguous")
+
+
+def _multi(kind: str, grads, ins, outs, plain, launch) -> list:
+    """One update over the list of leaves ``grads``.  ``ins`` and
+    ``outs`` are ``(name, tensors)`` pairs, the state read and the
+    outputs written, leaf by leaf (``None`` outputs: new tensors like
+    the leaves; an output list that is an input list is updated in
+    place).  Checks all one launch takes -- one device, float32 or
+    bfloat16 throughout, contiguous tensors of each leaf's size, no two
+    leaves writing one pointer -- then on the CPU runs ``plain(g,
+    *state)`` leaf by leaf into the outputs, on the card ``launch(dtype,
+    table, rows)``.  Returns the output lists."""
+    ref = grads[0]
+    if ref.device.type not in ("cpu", "cuda"):
+        raise HorovodTpuError(f"{kind}: unsupported device {ref.device}")
+    if ref.dtype not in _DTYPE_CODES:
+        raise HorovodTpuError(
+            f"{kind}: dtype {ref.dtype} is not float32 or bfloat16")
+    sizes = [g.numel() for g in grads]
+    _check_leaves(kind, grads, ref, "leaf")
+    checked = [grads]
+
+    def check(name, ts):
+        if any(ts is c for c in checked):
+            return ts
+        ts = ts if isinstance(ts, list) else list(ts)
+        if len(ts) != len(grads):
+            raise HorovodTpuError(
+                f"{kind}: {len(ts)} {name}s for {len(grads)} leaves")
+        _check_leaves(kind, ts, ref, name)
+        if [t.numel() for t in ts] != sizes:
+            raise HorovodTpuError(
+                f"{kind}: a {name}'s size differs from its leaf's")
+        checked.append(ts)
+        return ts
+
+    state = [check(name, ts) for name, ts in ins]
+    given = [check(name, ts) for name, ts in outs if ts is not None]
+    ptrs: dict = {}
+
+    def ptrs_of(ts):
+        if id(ts) not in ptrs:
+            ptrs[id(ts)] = [t.data_ptr() for t in ts]
+        return ptrs[id(ts)]
+
+    written = [p for ts in given for p, n in zip(ptrs_of(ts), sizes) if n]
+    if len(set(written)) != len(written):
+        raise HorovodTpuError(
+            f"{kind}: two leaves write one pointer, and one launch updates "
+            "the leaves in no order")
+    given_it = iter(given)
+    new = [next(given_it) if ts is not None else
+           [torch.empty_like(g) for g in grads] for _, ts in outs]
+    if ref.device.type == "cpu":
+        k = len(state)
+        for g, *rest in zip(grads, *state, *new):
+            for o, v in zip(rest[k:], plain(g, *rest[:k])):
+                o.copy_(v)
+        return new
+    table, launches = leaf_table(
+        [ptrs_of(ts) for ts in (grads, *state, *new)], sizes,
+        capacity(kind))
+    if launches:
+        rc = launch(_DTYPE_CODES[ref.dtype], table.ctypes.data, len(table),
+                    torch.cuda.current_stream(ref.device).cuda_stream)
+        if rc != 0:
+            raise HorovodTpuError(
+                f"{kind} kernel launch failed: CUDA error {rc}")
+        LAUNCHES[kind] += launches
+    return new
+
+
+def sgd_update_multi(grads, navg: int, neg_lr: float, outs=None):
+    """B2 over a list of leaves of one dtype on one device, in one
+    launch (one per :func:`capacity` rows): ``u = neg_lr * (g / navg)``
+    for each ``g``, bit for bit what :func:`sgd_update` gives leaf by
+    leaf.  ``outs`` (a tensor of each leaf's size, dtype and device)
+    receive the updates; by default they are new tensors like the
+    leaves.  Empty leaves are skipped.  Returns the updates."""
+    grads = list(grads)
+    if not grads:
+        return []
+    d = grads[0].dtype
+    return _multi(
+        "sgd", grads, (), (("output", outs),),
+        lambda g: (sgd_plain(g, navg, neg_lr),),
+        lambda code, table, rows, stream: _kernels().hvd_sgd_multi(
+            code, table, rows, _CHUNK, int(navg > 1), _round(navg, d),
+            _round(neg_lr, d), stream))[0]
+
+
+def momentum_update_multi(grads, traces, navg: int, decay: float,
+                          neg_lr: float, outs=None, t_outs=None):
+    """B1 over a list of leaves of one dtype on one device, in one
+    launch (one per :func:`capacity` rows), bit for bit what
+    :func:`momentum_update` gives leaf by leaf.  ``outs`` and ``t_outs``
+    receive ``u`` and ``t'`` (new tensors by default; ``t_outs`` may be
+    ``traces`` itself, the in-place trace).  Returns ``(us, t_outs)``."""
+    grads = list(grads)
+    if not grads:
+        return [], []
+    d = grads[0].dtype
+    us, ts = _multi(
+        "momentum", grads, (("trace", traces),),
+        (("output", outs), ("trace output", t_outs)),
+        lambda g, t: momentum_plain(g, t, navg, decay, neg_lr),
+        lambda code, table, rows, stream: _kernels().hvd_momentum_multi(
+            code, table, rows, _CHUNK, int(navg > 1), _round(navg, d),
+            _round(decay, d), _round(neg_lr, d), stream))
+    return us, ts
+
+
+def adam_update_multi(grads, mus, nus, bc1: float, bc2: float, navg: int,
+                      spec: FusedSpec, outs=None, mu_outs=None,
+                      nu_outs=None):
+    """B3 over a list of leaves of one dtype on one device, in one
+    launch (one per :func:`capacity` rows), bit for bit what
+    :func:`adam_update` gives leaf by leaf.  ``mu_outs`` / ``nu_outs``
+    may be ``mus`` / ``nus`` themselves.  Returns ``(us, mu_outs,
+    nu_outs)``."""
+    grads = list(grads)
+    if not grads:
+        return [], [], []
+    d = grads[0].dtype
+    consts = [_round(c, d) for c in (1 - spec.b1, spec.b1, 1 - spec.b2,
+                                     spec.b2, bc1, bc2, spec.eps_root,
+                                     spec.eps, -spec.lr)]
+    us, ms, vs = _multi(
+        "adam", grads, (("mu", mus), ("nu", nus)),
+        (("output", outs), ("mu output", mu_outs), ("nu output", nu_outs)),
+        lambda g, m, v: adam_plain(g, m, v, bc1, bc2, navg, spec),
+        lambda code, table, rows, stream: _kernels().hvd_adam_multi(
+            code, table, rows, _CHUNK, int(navg > 1), _round(navg, d),
+            *consts, stream))
+    return us, ms, vs
 
 
 def momentum_update(g, t, navg: int, decay: float, neg_lr: float,
@@ -513,36 +625,39 @@ def _check_state(spec: FusedSpec, grads, states) -> None:
 
 def fused_update_tree(spec: FusedSpec, grads, states):
     """Fused replacement for the replicated (stage 0) update (gradients
-    already reduced, so no unscale): plain SGD in one launch per dtype
-    (and device) of the gradients, momentum and Adam in one per
-    gradient.  ``states`` are the optimizer's per-parameter state dicts,
-    updated in place.  Returns the list of updates.  A state of another layout (say a
-    trace loaded in another dtype) raises :class:`HorovodTpuError`: the
-    fused tail was asked for, so nothing else runs in its place."""
+    already reduced, so no unscale): one multi-leaf launch per dtype
+    (and device) of the gradients, whatever the kind.  ``states`` are
+    the optimizer's per-parameter state dicts, updated in place.
+    Returns the list of updates.  A state of another layout (say a trace
+    loaded in another dtype) raises :class:`HorovodTpuError`: the fused
+    tail was asked for, so nothing else runs in its place."""
     _check_state(spec, grads, states)
     if not grads:
         return []
-    if spec.kind == "sgd":
-        outs = [None] * len(grads)
-        groups: dict = {}
-        for i, g in enumerate(grads):
-            groups.setdefault((g.device, g.dtype), []).append(i)
-        for idx in groups.values():
-            us = sgd_update_multi([grads[i] for i in idx], 1, -spec.lr)
-            for i, u in zip(idx, us):
-                outs[i] = u
-        return outs
-    outs = []
     if spec.kind == "adam":
         count = min(states[0]["count"] + 1, _INT32_MAX)
         bc1, bc2 = bias_corrections(spec, count)
-    for g, st in zip(grads, states):
-        if spec.kind == "momentum":
-            u, _ = momentum_update(g, st["trace"], 1, spec.momentum,
-                                   -spec.lr, t_out=st["trace"])
+    outs = [None] * len(grads)
+    groups: dict = {}
+    for i, g in enumerate(grads):
+        groups.setdefault((g.device, g.dtype), []).append(i)
+    for idx in groups.values():
+        gs = [grads[i] for i in idx]
+        sts = [states[i] for i in idx]
+        if spec.kind == "sgd":
+            us = sgd_update_multi(gs, 1, -spec.lr)
+        elif spec.kind == "momentum":
+            tr = [st["trace"] for st in sts]
+            us, _ = momentum_update_multi(gs, tr, 1, spec.momentum,
+                                          -spec.lr, t_outs=tr)
         else:
-            u, _, _ = adam_update(g, st["mu"], st["nu"], bc1, bc2, 1, spec,
-                                  mu_out=st["mu"], nu_out=st["nu"])
+            mus = [st["mu"] for st in sts]
+            nus = [st["nu"] for st in sts]
+            us, _, _ = adam_update_multi(gs, mus, nus, bc1, bc2, 1, spec,
+                                         mu_outs=mus, nu_outs=nus)
+        for i, u in zip(idx, us):
+            outs[i] = u
+    if spec.kind == "adam":
+        for st in states:
             st["count"] = count
-        outs.append(u)
     return outs

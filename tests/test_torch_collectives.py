@@ -370,20 +370,74 @@ def test_unported_modes_raise(monkeypatch):
 
     with pytest.raises(NotImplementedError, match="zero_stage"):
         hvd.DistributedOptimizer(TF.sgd([w], 0.1), zero_stage=1)
-    # knobs of features not ported yet raise instead of being ignored
+    # knobs of features not ported yet raise instead of being ignored,
+    # from every collective entry and the optimizer
     for env, item in (("HOROVOD_OVERLAP", "item 8"),
                       ("HOROVOD_BUCKET_COMPRESSION", "item 8"),
+                      ("HOROVOD_SHARDED_OPTIMIZER", "item 8"),
                       ("HOROVOD_HIERARCHICAL_ALLREDUCE", "item 9"),
-                      ("HOROVOD_ADAPTIVE_COMPRESSION", "item 12")):
-        monkeypatch.setenv(env, "int8" if "BUCKET" in env else "1")
+                      ("HOROVOD_HIERARCHICAL_ALLGATHER", "item 9"),
+                      ("HOROVOD_MESH", "item 9"),
+                      ("HOROVOD_ADAPTIVE_COMPRESSION", "item 12"),
+                      ("HOROVOD_HEALTH", "item 12"),
+                      ("HOROVOD_HEALTH_SKIP_NONFINITE", "item 12")):
+        monkeypatch.setenv(env, {"HOROVOD_BUCKET_COMPRESSION": "int8",
+                                 "HOROVOD_MESH": "dp:1"}.get(env, "1"))
         with pytest.raises(NotImplementedError, match=item):
             hvd.allreduce(x, compression=hvd.Compression.int8)
         with pytest.raises(NotImplementedError, match=item):
+            hvd.grouped_allreduce([x])
+        with pytest.raises(NotImplementedError, match=item):
             hvd.reducescatter(x)
+        with pytest.raises(NotImplementedError, match=item):
+            hvd.allgather(x)
+        with pytest.raises(NotImplementedError, match=item):
+            hvd.alltoall(x)
+        with pytest.raises(NotImplementedError, match=item):
+            hvd.broadcast(x)
         with pytest.raises(NotImplementedError, match=item):
             hvd.DistributedOptimizer(TF.sgd([w], 0.1),
                                      compression=hvd.Compression.int8)
         monkeypatch.delenv(env)
+
+
+def test_integer_average_at_world_one_matches_jax(monkeypatch):
+    """An int32 Average at world 1 through ``allreduce`` and
+    ``grouped_allreduce`` returns the JAX package's dtype and values
+    (float32: its ``out / size`` divides an integer sum at any world
+    size); a float32 leaf keeps its dtype and values."""
+    import jax
+    import jax.numpy as jnp
+    from jax import shard_map
+    from jax.sharding import Mesh, PartitionSpec as P
+
+    from horovod_tpu.ops import collectives as jcoll
+
+    x = np.arange(6, dtype=np.int32) * 3 - 7
+    f = np.linspace(-1.0, 1.0, 6, dtype=np.float32)
+
+    def body(a, b):
+        return (jcoll.allreduce(a, axis_name="hvd", op=jcoll.Average),
+                jcoll.grouped_allreduce([a, b], axis_name="hvd",
+                                        op=jcoll.Average))
+
+    mesh = Mesh(np.array(jax.devices()[:1]), ("hvd",))
+    fn = jax.jit(shard_map(body, mesh=mesh, in_specs=(P("hvd"), P("hvd")),
+                           out_specs=P("hvd"), check_vma=False))
+    jone, jgroup = fn(jnp.asarray(x), jnp.asarray(f))
+    for k in ("HOROVOD_SIZE", "HOROVOD_RANK", "HOROVOD_COORDINATOR_ADDR"):
+        monkeypatch.delenv(k, raising=False)
+    hvd.init(device="cpu")
+    try:
+        one = hvd.allreduce(torch.from_numpy(x), op=hvd.Average)
+        group = hvd.grouped_allreduce([torch.from_numpy(x),
+                                       torch.from_numpy(f)], op=hvd.Average)
+    finally:
+        hvd.shutdown()
+    for got, want in zip([one, *group], [jone, *jgroup]):
+        want = np.asarray(want)
+        assert str(got.dtype) == f"torch.{want.dtype}"
+        np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_jax_launcher_spawns_port_ranks():

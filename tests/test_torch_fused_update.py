@@ -230,12 +230,20 @@ def test_fused_tail_raises_on_foreign_state(kind, key, bad):
     assert len(TF.fused_update_tree(opt.fused_spec, grads, states)) == 2
 
 
-@pytest.mark.parametrize("hyper", sorted(HYPER))
-def test_sgd_tree_of_mixed_dtypes_matches_jax(monkeypatch, hyper):
-    """The stage-0 plain-SGD tail over float32 and bfloat16 leaves and an
-    empty one (the port groups them by dtype, one multi-leaf call each)
-    against the JAX package's ``fused_update_tree`` over the same tree,
-    through the interpreted Pallas kernels (dyadic) or the jnp twin."""
+def _kind_cases(cases):
+    """``(kind, case)`` params over the three kinds; plain SGD keeps the
+    case's own id."""
+    return [pytest.param(k, c, id=c if k == "sgd" else f"{k}-{c}")
+            for k in KINDS for c in cases]
+
+
+@pytest.mark.parametrize("kind,hyper", _kind_cases(sorted(HYPER)))
+def test_sgd_tree_of_mixed_dtypes_matches_jax(monkeypatch, kind, hyper):
+    """The stage-0 fused tail of each kind over float32 and bfloat16
+    leaves and an empty one (the port groups them by dtype, one
+    multi-leaf call each) against the JAX package's
+    ``fused_update_tree`` over the same tree, two steps, through the
+    interpreted Pallas kernels (dyadic) or the jnp twin."""
     h = HYPER[hyper]
     rng = np.random.RandomState(11)
     shapes = [((7, 5), "f32"), ((300,), "bf16"), ((0,), "f32"),
@@ -248,21 +256,31 @@ def test_sgd_tree_of_mixed_dtypes_matches_jax(monkeypatch, hyper):
               for b, (_, d) in zip(base, shapes)]
     monkeypatch.setenv("HOROVOD_QUANT_PALLAS",
                        "1" if hyper == "dyadic" else "0")
-    opt = JF.sgd(h["lr"])
-    jouts, _ = JF.fused_update_tree(opt.fused_spec, jgrads,
-                                    opt.init(jgrads))
+    opt = _jax_opt(kind, h)
+    jstate = opt.init(jgrads)
+    jouts = []
+    for _ in range(2):
+        u, jstate = JF.fused_update_tree(opt.fused_spec, jgrads, jstate)
+        jouts.append(u)
 
     params = [torch.nn.Parameter(_t(b, DTYPES[d][1]))
               for b, (_, d) in zip(base, shapes)]
-    topt = TF.sgd(params, h["lr"])
+    if kind == "adam":
+        topt = TF.adam(params, h["lr"], b1=h["b1"], b2=h["b2"], eps=h["eps"])
+    else:
+        topt = TF.sgd(params, h["lr"], h["momentum"] if kind == "momentum"
+                      else None)
     grads = [_t(b, DTYPES[d][1]) for b, (_, d) in zip(base, shapes)]
     TF.reset_launch_counts()
-    outs = TF.fused_update_tree(topt.fused_spec, grads,
-                                [topt.state[p] for p in params])
-    for i, (u, j, (s, d)) in enumerate(zip(outs, jouts, shapes)):
-        assert tuple(u.shape) == s and u.dtype == DTYPES[d][1]
-        assert_ulp(_np(u), j, d, f"u #{i} {d} {s}")
-    assert TF.LAUNCHES["sgd"] == 0  # CPU: the plain versions
+    for step in range(2):
+        outs = TF.fused_update_tree(topt.fused_spec, grads,
+                                    [topt.state[p] for p in params])
+        for i, (u, j, (s, d)) in enumerate(zip(outs, jouts[step], shapes)):
+            assert tuple(u.shape) == s and u.dtype == DTYPES[d][1]
+            assert_ulp(_np(u), j, d, f"u step {step} #{i} {d} {s}")
+    if kind == "adam":
+        assert all(topt.state[p]["count"] == 2 for p in params)
+    assert TF.LAUNCHES == {"sgd": 0, "momentum": 0, "adam": 0}  # CPU
 
 
 def test_sgd_update_multi_equals_the_plain_loop():
@@ -283,11 +301,76 @@ def test_sgd_update_multi_equals_the_plain_loop():
     assert TF.sgd_update_multi([], 1, -0.1) == []
 
 
-@pytest.mark.parametrize("bad", ["mixed_devices", "mixed_dtypes",
-                                 "non_contiguous", "outs_count",
-                                 "outs_size", "outs_dtype",
-                                 "outs_non_contiguous", "dtype"])
-def test_sgd_update_multi_refuses_what_one_launch_does_not_take(bad):
+def _multi_call(kind, grads, outs=None, state=None, **kw):
+    """``kind``'s multi-leaf wrapper over ``grads`` (state: zeros like
+    the leaves unless given)."""
+    if state is None:
+        state = [[torch.zeros_like(g) for g in grads] for _ in range(2)]
+    if kind == "sgd":
+        return [TF.sgd_update_multi(grads, 1, -0.1, outs=outs)]
+    if kind == "momentum":
+        return TF.momentum_update_multi(grads, state[0], 1, 0.9, -0.1,
+                                        outs=outs, **kw)
+    return TF.adam_update_multi(grads, *state, 0.1, 0.01, 1,
+                                TF.FusedSpec("adam", 0.1), outs=outs, **kw)
+
+
+@pytest.mark.parametrize("kind", ["momentum", "adam"])
+def test_multi_update_equals_the_plain_loop(kind):
+    """B1's and B3's multi-leaf wrappers on CPU tensors are the loop of
+    ``momentum_plain`` / ``adam_plain`` over the leaves, bit for bit:
+    into given outputs, into new ones, and with the state in place."""
+    gen = torch.Generator().manual_seed(5)
+    spec = TF.FusedSpec("adam", 0.1)
+    for dtype in (torch.float32, torch.bfloat16):
+        shapes = ((3, 4), (0,), (5000,), (1,))
+        grads = [torch.randn(s, generator=gen).to(dtype) for s in shapes]
+        for navg in (1, 2):
+            state = [[torch.randn(s, generator=gen).to(dtype).abs()
+                      for s in shapes] for _ in range(2)]
+            if kind == "momentum":
+                want = list(zip(*[TF.momentum_plain(g, t, navg, 0.9, -0.1)
+                                  for g, t in zip(grads, state[0])]))
+
+                def call(**kw):
+                    return TF.momentum_update_multi(grads, state[0], navg,
+                                                    0.9, -0.1, **kw)
+                names = ("outs", "t_outs")
+            else:
+                want = list(zip(*[TF.adam_plain(g, m, v, 0.2, 0.05, navg,
+                                                spec)
+                                  for g, m, v in zip(grads, *state)]))
+
+                def call(**kw):
+                    return TF.adam_update_multi(grads, *state, 0.2, 0.05,
+                                                navg, spec, **kw)
+                names = ("outs", "mu_outs", "nu_outs")
+            given = [[torch.full_like(g, 7.0) for g in grads]
+                     for _ in names]
+            got = call(**dict(zip(names, given)))
+            assert all(a is b for a, b in zip(got, given))
+            for results in (got, call()):
+                for ws, gs in zip(want, results):
+                    assert all(torch.equal(w, x) for w, x in zip(ws, gs))
+            # the state updated in place (the fused tail's call)
+            inplace = call(**dict(zip(names[1:], state)))
+            assert all(a is b for a, b in zip(inplace[1:], state))
+            for ws, gs in zip(want, inplace):
+                assert all(torch.equal(w, x) for w, x in zip(ws, gs))
+    assert TF.momentum_update_multi([], [], 1, 0.9, -0.1) == ([], [])
+    assert TF.adam_update_multi([], [], [], 0.1, 0.01, 1, spec) == \
+        ([], [], [])
+
+
+_BAD = ["mixed_devices", "mixed_dtypes", "non_contiguous", "outs_count",
+        "outs_size", "outs_dtype", "outs_non_contiguous", "dtype",
+        "two_rows_write_one_pointer"]
+
+
+@pytest.mark.parametrize("kind,bad", _kind_cases(_BAD))
+def test_sgd_update_multi_refuses_what_one_launch_does_not_take(kind, bad):
+    """Each multi-leaf wrapper refuses what one launch does not take
+    (before any update runs, on the CPU as on the card)."""
     grads = [torch.zeros(4, 3), torch.zeros(6)]
     outs = None
     if bad == "mixed_devices":
@@ -304,7 +387,54 @@ def test_sgd_update_multi_refuses_what_one_launch_does_not_take(bad):
         outs = [torch.zeros(4, 3), torch.zeros(7)]
     elif bad == "outs_dtype":
         outs = [torch.zeros(4, 3), torch.zeros(6).bfloat16()]
+    elif bad == "two_rows_write_one_pointer":
+        shared = torch.zeros(12)
+        outs = [shared.view(4, 3), shared[:6]]
     else:
         outs = [torch.zeros(3, 4).t(), torch.zeros(6)]
+    state = None
+    if bad in ("mixed_devices", "mixed_dtypes", "non_contiguous", "dtype"):
+        state = [[torch.zeros(4, 3), torch.zeros(6)] for _ in range(2)]
     with pytest.raises(HorovodTpuError):
-        TF.sgd_update_multi(grads, 1, -0.1, outs=outs)
+        _multi_call(kind, grads, outs=outs, state=state)
+
+
+@pytest.mark.parametrize("kind", ["momentum", "adam"])
+def test_multi_update_refuses_states_one_launch_does_not_take(kind):
+    """A state list of another count, size, dtype or layout than the
+    leaves', and two outputs of one leaf on one pointer, are refused."""
+    grads = [torch.zeros(4, 3), torch.zeros(6)]
+    for bad in ([torch.zeros(4, 3)], [torch.zeros(4, 3), torch.zeros(7)],
+                [torch.zeros(4, 3), torch.zeros(6).bfloat16()],
+                [torch.zeros(3, 4).t(), torch.zeros(6)]):
+        with pytest.raises(HorovodTpuError):
+            _multi_call(kind, grads, state=[bad, bad])
+    state = [[torch.zeros_like(g) for g in grads] for _ in range(2)]
+    with pytest.raises(HorovodTpuError, match="write one pointer"):
+        _multi_call(kind, grads, outs=state[0], state=state,
+                    **{"t_outs" if kind == "momentum" else "mu_outs":
+                       state[0]})
+
+
+def test_leaf_table_rows_launches_and_first_chunks():
+    """The parameter rows of a multi-leaf launch: empty leaves skipped,
+    first chunks numbered in order from 0 within each launch, a new
+    launch at every ``capacity`` rows."""
+    chunk = TF._CHUNK
+    sizes = [chunk, 0, 1, chunk + 1, 3 * chunk, 0, 7]
+    ptrs = [[10 * i + 1 for i in range(7)], [10 * i + 2 for i in range(7)]]
+    table, launches = TF.leaf_table(ptrs, sizes, 5)
+    assert launches == 1 and table.dtype == np.int64
+    assert table.flags.c_contiguous
+    assert table.tolist() == [[1, 2, chunk, 0],
+                              [21, 22, 1, 1],
+                              [31, 32, chunk + 1, 2],
+                              [41, 42, 3 * chunk, 4],
+                              [61, 62, 7, 7]]
+    # capacity + 1 rows: a second launch whose first chunks start at 0
+    table, launches = TF.leaf_table(ptrs, sizes, 4)
+    assert launches == 2 and table[-1].tolist() == [61, 62, 7, 0]
+    table, launches = TF.leaf_table(ptrs, sizes, 2)
+    assert launches == 3 and table[:, -1].tolist() == [0, 1, 0, 2, 0]
+    table, launches = TF.leaf_table([[5], [6]], [0], 3)
+    assert launches == 0 and table.shape == (0, 4)
