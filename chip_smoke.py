@@ -6,8 +6,9 @@
 Phases (any failure exits non-zero and prints no result line):
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the CUDA kernels from ``horovod_tpu_torch/csrc``, one ``nvcc``
-   per source, all started together;
+2. build the CUDA kernels from ``horovod_tpu_torch/csrc`` (the optimizer
+   tail, flash attention, the codec and BatchNorm), one ``nvcc`` per
+   source, all started together;
 3. the fused optimizer tail (B1 momentum, B2 sgd, B3 adam) against its
    plain PyTorch version on the card at 2,359,296 (the largest ResNet-50
    leaf), 25,557,032 (all parameters in one buffer) and 1,000 elements,
@@ -41,14 +42,21 @@ Phases (any failure exits non-zero and prints no result line):
    its bound and SDPA; the registers, local memory (stack and spills) and
    shared memory of the bf16 B8, B9 and B10 (``wgmma``) kernels from
    ``cudaFuncGetAttributes``;
-5. a small ResNet and a small transformer (float32, TF32 off) trained 3
-   steps on the card through the kernels and on the CPU through the
-   plain versions: losses and weights must agree;
+5. a small ResNet, a small transformer and SmallCNN (96 px, batch 2)
+   (float32, TF32 off) trained 3 steps on the card through the kernels
+   (N1-N4 for the CNNs' BatchNorm) and on the CPU through the plain
+   versions: losses and weights must agree; Inception-v3 at 139 px,
+   batch 2, one step on the card against the CPU (loss, BatchNorm
+   statistics) and against a float64 CPU evaluation (the whole
+   gradient's relative L2 error, at most twice the CPU float32 run's
+   plus 1e-3: this model's float32 gradients are rounding-dominated at
+   random weights), then 3 card steps;
 6. the ResNet-50 path: ``init()`` (world 1, NCCL), ResNet-50 at
    224x224, 1000 classes, batch 256, bf16 compute, ``DistributedOptimizer(
    fused_update.sgd(0.1, momentum=0.9))`` with ``HOROVOD_FUSED_UPDATE=1``
-   on a seeded synthetic batch; every loss finite and exactly one
-   momentum-kernel launch per step (the 161 leaves are one dtype group);
+   on a seeded synthetic batch; every loss finite, exactly one
+   momentum-kernel launch per step (the 161 leaves are one dtype group)
+   and 53 launches of each of N1-N4 per step;
    then 3 steps of plain SGD,
    ``fused_update.sgd(0.1)``, on a new model: every loss finite, one B2
    launch and no B1 launch per step;
@@ -74,13 +82,33 @@ Phases (any failure exits non-zero and prints no result line):
    a 4-rank reduction at the fused-buffer width from four seeded 64-image
    batch shards, int8 at qmax 31 and int4 at qmax 1, with only the
    transport emulated on the one card: equal to the plain pipeline bit
-   for bit and within n * scale / 2 of the float sum.
+   for bit and within n * scale / 2 of the float sum;
+11. BatchNorm N1-N4 against their plain versions at the paths' shapes
+   (ResNet-50's (256*112*112, 64) and (256*7*7, 2048), Inception-v3's
+   (128*149*149, 32), (128*35*35, 48) and (128*8*8, 448)), bf16 and
+   float32, train and eval, eps 1e-5 / 1e-3 and momentum 0.9 / 0.99:
+   float32 statistics and sums no further from a float64 evaluation
+   than twice the plain version's plus 1e-6 of scale, y and dx within
+   one ulp or 2^-8 (bf16) / 2^-20 (float32) of the largest magnitude,
+   the same bits from the same input twice; each timed at the largest
+   BatchNorm of ResNet-50 and Inception-v3 beside its plain version,
+   its bound and the nearest library calls (``torch.batch_norm``,
+   ``aten.native_batch_norm_backward``: not the same function);
+12. B1 over VGG-16's 32 leaf shapes (138,357,544 elements) in one
+   launch, float32 bit for bit, bf16 within 1 ulp, timed; then VGG-16
+   at 224 px, batch 128, bf16, dropout on, 5 steps: one B1 launch per
+   step and no N1-N4 launch;
+13. Inception-v3 at 299 px, batch 128, bf16, dropout on, 5 steps: one
+   B1 launch and 94 launches of each of N1-N4 per step.  Both CNN paths
+   report median and mean step time, img/s and peak memory.
 
-Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the
-last line ``{"ok": true, "device": {...}}``.  ``--profile FILE`` adds a
-device-time breakdown of the ResNet-50 path (table in FILE), the
-transformer path and the long-context path (tables in FILE with
-``_transformer`` and ``_long`` before its suffix).
+Then the run's wall time, a ``{"kernels": [...]}`` line, the
+``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
+{...}}``.
+``--profile FILE`` adds a device-time breakdown of the ResNet-50 path
+(table in FILE), the VGG-16, Inception-v3, transformer and long-context
+paths (tables in FILE with ``_vgg16``, ``_inception3``, ``_transformer``
+and ``_long`` before its suffix).
 """
 
 from __future__ import annotations
@@ -202,8 +230,8 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def ulp_diff(a, b) -> int:
-    """Largest distance in ulps of a's dtype (float32 or bfloat16)."""
+def _ulps(a, b):
+    """Elementwise distance in ulps of a's dtype (float32 or bfloat16)."""
     import torch
 
     if a.dtype == torch.bfloat16:
@@ -214,7 +242,12 @@ def ulp_diff(a, b) -> int:
         sign = 1 << 31
     ia = torch.where(ia < 0, -(ia & (sign - 1)), ia)
     ib = torch.where(ib < 0, -(ib & (sign - 1)), ib)
-    return int((ia - ib).abs().max().item()) if a.numel() else 0
+    return (ia - ib).abs()
+
+
+def ulp_diff(a, b) -> int:
+    """Largest distance in ulps of a's dtype (float32 or bfloat16)."""
+    return int(_ulps(a, b).max().item()) if a.numel() else 0
 
 
 def _hold_ulp(res: dict, kind: str, got, want, tol: int, what: str):
@@ -552,7 +585,9 @@ def kernel_timings(TF, torch, shapes, kinds) -> dict:
 def small_reference(hvd, torch) -> None:
     """Phase 4: a small ResNet trained 3 steps on the card (fused tail)
     and on the CPU (plain optimizer) from the same weights and batch."""
+    from horovod_tpu_torch.models.layers import BatchNorm
     from horovod_tpu_torch.models.resnet import BottleneckBlock, ResNet
+    from horovod_tpu_torch.ops import batch_norm as BN
     from horovod_tpu_torch.optim import fused_update as TF
     from horovod_tpu_torch.train_step import synthetic_batch, train_step
 
@@ -566,6 +601,8 @@ def small_reference(hvd, torch) -> None:
         oc = TF.sgd(mc.parameters(), 0.1, 0.9)
         xg, yg = synthetic_batch(8, 32, 10, seed=3, device="cuda")
         xc, yc = synthetic_batch(8, 32, 10, seed=3, device="cpu")
+        n_bn = sum(isinstance(m, BatchNorm) for m in mg.modules())
+        BN.reset_launch_counts()
         for step in range(3):
             lg = float(train_step(mg, og, xg, yg))
             lc = float(train_step(mc, oc, xc, yc))
@@ -582,9 +619,13 @@ def small_reference(hvd, torch) -> None:
             if err > 1e-3:
                 raise AssertionError(
                     f"small reference: {name} differs by {err} of its scale")
+        if BN.LAUNCHES != dict.fromkeys(BN_KERNELS, 3 * n_bn):
+            raise AssertionError(f"small ResNet: BatchNorm launches "
+                                 f"{BN.LAUNCHES}, expected {3 * n_bn} each")
         log(f"[reference] small ResNet, 3 steps: card and CPU agree "
             f"(last loss {lg:.6f} vs {lc:.6f}; worst weight error "
-            f"{worst:.2e} of scale; tolerance rel 1e-4 loss, 1e-3 weights)")
+            f"{worst:.2e} of scale; tolerance rel 1e-4 loss, 1e-3 weights); "
+            f"N1-N4 launched {BN.LAUNCHES}")
     finally:
         torch.backends.cudnn.allow_tf32 = True
 
@@ -593,6 +634,7 @@ def main_path(hvd, torch, steps: int, batch: int, gpu: str,
               profile: str | None = None) -> dict:
     """Phase 5: ResNet-50 training steps through the public entry points."""
     from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.ops import batch_norm as BN
     from horovod_tpu_torch.optim import fused_update as TF
     from horovod_tpu_torch.train_step import synthetic_batch, train_step
 
@@ -606,13 +648,14 @@ def main_path(hvd, torch, steps: int, batch: int, gpu: str,
     torch.cuda.reset_peak_memory_stats()
     losses, times = [], []
     TF.reset_launch_counts()
+    BN.reset_launch_counts()
     for _ in range(steps):
         t0 = time.perf_counter()
         loss = train_step(model, opt, images, labels)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(float(loss))
-    launches = dict(TF.LAUNCHES)
+    launches = {**TF.LAUNCHES, **BN.LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite loss: {losses}")
@@ -623,6 +666,10 @@ def main_path(hvd, torch, steps: int, batch: int, gpu: str,
         raise AssertionError(
             f"momentum kernel launched {launches['momentum']} times in "
             f"{steps} steps, expected {want}")
+    if BN.LAUNCHES != dict.fromkeys(BN_KERNELS, RESNET50_BN * steps):
+        raise AssertionError(f"BatchNorm kernels launched {BN.LAUNCHES} "
+                             f"times in {steps} steps, expected "
+                             f"{RESNET50_BN * steps} each")
     steady = times[1:] or times
     step_s = sum(steady) / len(steady)
     med = statistics.median(steady)
@@ -677,7 +724,9 @@ def sgd_path(hvd, torch, gpu: str) -> dict:
     return {"launches": launches, "losses": losses, "times": times}
 
 
-RESNET_CLASSES = {"convolution (cuDNN)": ("xmma", "conv", "gemm", "cudnn",
+RESNET_CLASSES = {"batch norm N1-N4": ("reduce_tiles", "finalize<",
+                                       "normalize<", "bwd_dx<"),
+                  "convolution (cuDNN)": ("xmma", "conv", "gemm", "cudnn",
                                           "implicit", "cutlass"),
                   "fused tail B1": ("momentumop",),
                   "NCCL": ("nccl",)}
@@ -1344,7 +1393,676 @@ def codec_timings(Q, torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# BatchNorm N1-N4 (phase 11) and the CNN paths (phases 12-13)
+# ---------------------------------------------------------------------------
+
+# the paths' BatchNorm activations as (rows, channels), bench sizes
+BN_SHAPES = {
+    "ResNet-50 bn_init": (256 * 112 * 112, 64),
+    "ResNet-50 last stage": (256 * 7 * 7, 2048),
+    "Inception-v3 ConvBN_0": (128 * 149 * 149, 32),
+    "Inception-v3 MixedA 5x5 branch": (128 * 35 * 35, 48),
+    "Inception-v3 MixedC 448": (128 * 8 * 8, 448),
+}
+# the shapes the kernels are timed at (bf16): the largest of each path
+BN_TIMED = ("ResNet-50 bn_init", "Inception-v3 ConvBN_0")
+BN_KERNELS = ("bn_stats", "bn_normalize", "bn_bwd_reduce", "bn_bwd_dx")
+BN_REPLACES = ("flax.linen.BatchNorm under XLA (no Pallas kernel): "
+               "horovod_tpu/models/resnet.py:83-84, "
+               "horovod_tpu/models/inception.py:33-34")
+# activation passes (x, dy read; y, dx written), per-channel float32
+# vectors moved, and float32 operations per element of each kernel
+BN_COST = {"bn_stats": (1, 7, 3), "bn_normalize": (2, 4, 3),
+           "bn_bwd_reduce": (2, 4, 5), "bn_bwd_dx": (3, 5, 7)}
+# outputs y and dx: within one ulp of the plain version's, or within
+# this share of the tensor's largest magnitude
+BN_ACT_TOL = {"torch.bfloat16": 2.0 ** -8, "torch.float32": 2.0 ** -20}
+# the cancelling cases (bn_case): var within twice the plain version's
+# error plus this many float32 ulps of E[x^2].  The float32 fast form
+# rounds mean, mean^2 and E[x^2] once each; the mean's half ulp moves
+# mean^2 by about one ulp of E[x^2], so its own error is about 2 ulps
+BN_CANCEL_ULPS = 4
+# the shapes of the cancelling cases: the longest reduction, and a C off
+# the powers of two
+BN_CANCEL_SHAPES = ("ResNet-50 bn_init", "Inception-v3 MixedA 5x5 branch")
+# N2-N4's one-call library functions (bn_timings)
+BN_LIBRARY = {
+    "bn_normalize": "torch.batch_norm_elemt on the channels-last NCHW view",
+    "bn_bwd_reduce": "torch.batch_norm_backward_reduce(input_g=False) on "
+                     "the channels-last NCHW view: grad_weight and grad_bias",
+    "bn_bwd_dx": "torch.batch_norm_backward_elemt on the channels-last NCHW "
+                 "view, with sum_dy_xmu = dscale / rstd",
+}
+# the bench's CNN paths (bench.py:1877-1880): side, batch, BatchNorms
+CNN_STEPS = 5
+CNN = {"vgg16": (224, 128, 0), "inception3": (299, 128, 94)}
+RESNET50_BN = 53
+# Inception-v3's card gradients (inception_reference): the relative L2
+# error against float64 of the whole gradient and of each leaf at most
+# twice the CPU float32 run's plus this
+INCEPTION_GRAD_FLOOR = 1e-3
+VGG16_LEAVES = 32
+
+
+def _bn_res() -> dict:
+    res = {k: {"max_abs_err": 0.0, "max_ulp": 0, "max_err_f64": 0.0,
+               "plain_err_f64": 0.0, "chain_max_abs_err": 0.0,
+               "chain_max_ulp": 0} for k in BN_KERNELS}
+    # the cancelling cases' readings, one entry per case (bn_case)
+    res["bn_stats"]["cancel"] = []
+    return res
+
+
+def _hold_stat(res: dict, name: str, what: str, got, plain, ref,
+               floor: float | None = None) -> tuple:
+    """A float32 statistic or sum: the kernel's error against the float64
+    evaluation ``ref`` at most twice the plain version's plus ``floor``,
+    by default 1e-6 of the quantity's scale; returns both errors."""
+    ref = ref.double()
+    k = float((got.double() - ref).abs().max())
+    p = float((plain.double() - ref).abs().max())
+    scale = float(ref.abs().max())
+    if floor is None:
+        floor = 1e-6 * scale
+    r = res[name]
+    r["max_abs_err"] = max(r["max_abs_err"],
+                           float((got - plain).abs().max()))
+    r["max_err_f64"] = max(r["max_err_f64"], k)
+    r["plain_err_f64"] = max(r["plain_err_f64"], p)
+    if not k <= 2 * p + floor:
+        raise AssertionError(f"{name} {what}: error {k} against float64, "
+                             f"plain {p}, floor {floor}, scale {scale}")
+    return k, p
+
+
+def _hold_act(res: dict, name: str, what: str, got, want,
+              chain: bool = False) -> None:
+    """An output in x's dtype: every element within one ulp of the plain
+    version's, or within ``BN_ACT_TOL`` of its largest magnitude.  With
+    ``chain`` the plain version ran on the plain statistics (its errors
+    are recorded apart: on the same statistics N2 and N4 round as the
+    plain versions do)."""
+    diff = (got.float() - want.float()).abs()
+    tol = BN_ACT_TOL[str(got.dtype)] * float(want.float().abs().max())
+    ulps = _ulps(got, want)
+    bad = int(((ulps > 1) & (diff > tol)).sum())
+    r, pre = res[name], "chain_" if chain else ""
+    r[pre + "max_abs_err"] = max(r[pre + "max_abs_err"], float(diff.max()))
+    r[pre + "max_ulp"] = max(r[pre + "max_ulp"], int(ulps.max()))
+    if bad:
+        raise AssertionError(f"{name} {what}: {bad} elements beyond one ulp "
+                             f"and {tol} of the plain version")
+
+
+def _hold_ulp_of(torch, what: str, got, want) -> None:
+    """float32 ``got`` within one ulp of ``want``."""
+    n = int(_ulps(got, want).max())
+    if n > 1:
+        raise AssertionError(f"{what}: {n} ulps from {want.tolist()[:8]}")
+
+
+def _same_bits(name: str, what: str, a, b) -> None:
+    for x, y in zip(a, b):
+        if not x.equal(y):
+            raise AssertionError(f"{name} {what}: two runs on the same "
+                                 "input differ")
+
+
+def bn_case(BN, torch, res: dict, shape, dtype, eps: float,
+            momentum: float, train: bool, gen, what: str,
+            off_grid: bool = False, cancel: bool = False) -> None:
+    """N1-N4 (train) or N2, N3 and N2 as the input gradient (eval) at
+    ``shape`` against their plain versions, the float64 evaluation of
+    the same expressions and themselves (the same input twice); with
+    ``off_grid`` x and dy are views one element off the 16-byte grid
+    (the scalar loop).
+
+    With ``cancel`` x is ``1e3 + 1e-2 * randn``: the fast variance
+    E[x^2] - E[x]^2 cancels in float32 to the rounding of E[x^2], in the
+    kernel and in the plain version alike, so their var (a few float32
+    ulps of E[x^2], or 0 by the clamp) and rstd = rsqrt(var + eps) are
+    two draws of that noise.  There var and the running variance are
+    held to twice the plain version's error plus ``BN_CANCEL_ULPS``
+    float32 ulps of E[x^2] (times 1 - momentum for the running one),
+    rstd to the kernel's own var (one ulp of the float64
+    ``rsqrt(var + eps)``), and the outputs only against the plain
+    versions on the kernel's statistics (the chain through the plain
+    statistics would compare two draws of the noise); the readings go
+    to ``res["bn_stats"]["cancel"]``."""
+    m, c = shape
+    what = f"{what} {shape} {str(dtype)[6:]} eps {eps} " + (
+        f"momentum {momentum} train" if train else "eval") + (
+        " off the 16-byte grid" if off_grid else "") + (
+        " cancelling variance" if cancel else "")
+
+    def randn(*s):
+        return torch.randn(*s, device="cuda", generator=gen)
+
+    if cancel:
+        x = (1e3 + 1e-2 * randn(m, c)).to(dtype)
+    else:
+        x = (randn(m, c) * 1.5 + randn(c)).to(dtype)
+    dy = randn(m, c).to(dtype)
+    if off_grid:
+        x, dy = _off_grid(torch, x), _off_grid(torch, dy)
+    scale, bias = 1 + 0.1 * randn(c), 0.1 * randn(c)
+    ra0 = (0.1 * randn(c), 1 + 0.1 * randn(c).abs())
+    if train:
+        ra_k = [t.clone() for t in ra0]
+        ra_p = [t.clone() for t in ra0]
+        got = BN.bn_stats(x, eps, momentum, *ra_k)
+        plain = BN.bn_stats_plain(x, eps, momentum, *ra_p)
+        ref = BN.bn_stats_plain(x.double(), eps)
+        ref_ra = [momentum * t.double() + (1 - momentum) * s
+                  for t, s in zip(ra0, ref[:2])]
+        names = ("mean", "var", "rstd", "running mean", "running var")
+        floors = dict.fromkeys(names)
+        if cancel:
+            ex2 = (x.double() ** 2).mean(0).float()
+            ulp = float((torch.nextafter(ex2, ex2 + 1) - ex2).max())
+            floors["var"] = BN_CANCEL_ULPS * ulp
+            floors["running var"] = (BN_CANCEL_ULPS * ulp * (1 - momentum)
+                                     + 1e-6 * float(ref_ra[1].abs().max()))
+        # the cancelling cases' statistics stay out of the largest errors
+        # (their readings are kept apart below)
+        sres, errs = _bn_res() if cancel else res, {}
+        for n, a, b, r in zip(names, (*got, *ra_k), (*plain, *ra_p),
+                              (*ref, *ref_ra)):
+            if cancel and n == "rstd":
+                _hold_ulp_of(torch, f"bn_stats {what} rstd", a,
+                             torch.rsqrt(got[1].double() + eps).float())
+                continue
+            errs[n] = _hold_stat(sres, "bn_stats", f"{what} {n}", a, b, r,
+                                 floors[n])
+        if cancel:
+            rs = got[2] / plain[2]
+            res["bn_stats"]["cancel"].append({
+                "case": what, "ulp_ex2": ulp,
+                "mean_err": errs["mean"][0], "plain_mean_err": errs["mean"][1],
+                "var_err": errs["var"][0], "plain_var_err": errs["var"][1],
+                "var_ref_max": float(ref[1].max()),
+                "clamped": int((got[1] == 0).sum()),
+                "plain_clamped": int((plain[1] == 0).sum()),
+                "rstd_over_plain": [float(rs.min()), float(rs.max())]})
+        again = [t.clone() for t in ra0]
+        _same_bits("bn_stats", what, (*got, *ra_k),
+                   (*BN.bn_stats(x, eps, momentum, *again), *again))
+        mean, _, rstd = got
+        pmean, prstd = plain[0], plain[2]
+    else:
+        mean = pmean = ra0[0]
+        rstd = prstd = torch.rsqrt(ra0[1] + eps)
+    # N2 on the same statistics, then the kernels' chain against the
+    # plain versions' chain
+    chain = not (cancel and train)
+    y = BN.bn_normalize(x, mean, rstd, scale, bias)
+    _hold_act(res, "bn_normalize", what, y,
+              BN.bn_normalize_plain(x, mean, rstd, scale, bias))
+    if chain:
+        _hold_act(res, "bn_normalize", f"{what} (chain)", y,
+                  BN.bn_normalize_plain(x, pmean, prstd, scale, bias), True)
+    _same_bits("bn_normalize", what, (y,),
+               (BN.bn_normalize(x, mean, rstd, scale, bias),))
+    del y
+    db, ds = BN.bn_bwd_reduce(dy, x, mean, rstd)
+    plain = BN.bn_bwd_reduce_plain(dy, x, mean, rstd)
+    ref = BN.bn_bwd_reduce_plain(dy.double(), x.double(), mean.double(),
+                                 rstd.double())
+    for n, a, b, r in zip(("dbias", "dscale"), (db, ds), plain, ref):
+        _hold_stat(res, "bn_bwd_reduce", f"{what} {n}", a, b, r)
+    _same_bits("bn_bwd_reduce", what, (db, ds),
+               BN.bn_bwd_reduce(dy, x, mean, rstd))
+    if train:
+        dx = BN.bn_bwd_dx(dy, x, mean, rstd, scale, db, ds)
+        _hold_act(res, "bn_bwd_dx", what, dx,
+                  BN.bn_bwd_dx_plain(dy, x, mean, rstd, scale, db, ds))
+        if chain:
+            sums = BN.bn_bwd_reduce_plain(dy, x, pmean, prstd)
+            _hold_act(res, "bn_bwd_dx", f"{what} (chain)", dx,
+                      BN.bn_bwd_dx_plain(dy, x, pmean, prstd, scale, *sums),
+                      True)
+        _same_bits("bn_bwd_dx", what, (dx,),
+                   (BN.bn_bwd_dx(dy, x, mean, rstd, scale, db, ds),))
+        del dx
+    else:
+        # the eval backward's dx = dy * (rstd * scale), through N2
+        zero = torch.zeros_like(mean)
+        _hold_act(res, "bn_normalize", f"{what} dx",
+                  BN.bn_normalize(dy, zero, rstd, scale, zero),
+                  (dy.float() * (rstd * scale)).to(dtype))
+    torch.cuda.synchronize()
+
+
+def bn_checks(BN, torch) -> dict:
+    """Phase 11a: N1-N4 at the paths' BatchNorm shapes, bf16 and float32,
+    train (eps 1e-5 momentum 0.9 and eps 1e-3 momentum 0.99, by turns)
+    and eval; then the cancelling cases at ``BN_CANCEL_SHAPES``; returns
+    each kernel's largest errors and the cancelling cases' readings."""
+    res = _bn_res()
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    cases = [(1e-5, 0.9), (1e-3, 0.99), (1e-3, 0.9), (1e-5, 0.99)]
+    k = 0
+    for what, shape in BN_SHAPES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            eps, mom = cases[k % len(cases)]
+            k += 1
+            bn_case(BN, torch, res, shape, dtype, eps, mom, True, gen, what)
+            bn_case(BN, torch, res, shape, dtype, eps, mom, False, gen, what)
+            torch.cuda.empty_cache()
+        log(f"[batch norm] {what} {shape}: N1-N4 train and eval, bf16 and "
+            f"float32, agree with their plain versions and the float64 "
+            f"evaluation, and repeat bit for bit")
+    for what in BN_CANCEL_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            for train in (True, False):
+                bn_case(BN, torch, res, BN_SHAPES[what], dtype, 1e-5, 0.9,
+                        train, gen, what, cancel=True)
+            torch.cuda.empty_cache()
+    for r in res["bn_stats"]["cancel"]:
+        log(f"[batch norm] cancelling variance (x = 1e3 + 1e-2 randn), "
+            f"{r['case']}: var error against float64 {r['var_err']:.6g} "
+            f"(plain {r['plain_var_err']:.6g}; float64 var at most "
+            f"{r['var_ref_max']:.6g}; one float32 ulp of E[x^2] "
+            f"{r['ulp_ex2']:.6g}); clamped channels {r['clamped']} (plain "
+            f"{r['plain_clamped']}); rstd over the plain version's "
+            f"{r['rstd_over_plain']}")
+    log(f"[batch norm] largest errors {res}; tolerance: statistics within "
+        f"2x the plain version's float64 error + 1e-6 of scale; y and dx "
+        f"within 1 ulp or {BN_ACT_TOL} of the largest magnitude")
+    return res
+
+
+def bn_bound(name: str, shape, itemsize: int):
+    m, c = shape
+    passes, vecs, ops = BN_COST[name]
+    t_bytes = (passes * m * c * itemsize + vecs * c * 4) / MEM_BW * 1e3
+    t_ops = ops * m * c / F32_PEAK * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def bn_timings(BN, torch) -> dict:
+    """Phase 11b: N1-N4 at the largest BatchNorm of each path (bf16),
+    each twice beside its plain version and its memory bound, and the
+    library calls on the channels-last NCHW view.  N2-N4 each have one
+    call that computes the same function on the given statistics,
+    SyncBatchNorm's building blocks: ``torch.batch_norm_elemt`` (N2),
+    ``torch.batch_norm_backward_reduce`` (N3's dbias and dscale) and
+    ``torch.batch_norm_backward_elemt`` (N4): their ``library_ms``, and
+    their outputs' largest difference from the kernel's as a share of
+    its largest magnitude.  N1 has none: ``torch.batch_norm_stats``
+    (Welford's variance, no running statistics) is its nearest call.
+    The whole layer's cuDNN calls, ``torch.batch_norm`` in training mode
+    (N1 and N2's work) and ``aten.native_batch_norm_backward`` (N3 and
+    N4's), are timed beside them as ``layer_library_ms``."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    out = {}
+    nhwc = {"ResNet-50 bn_init": (256, 112, 112),
+            "Inception-v3 ConvBN_0": (128, 149, 149)}
+    for what in BN_TIMED:
+        m, c = shape = BN_SHAPES[what]
+        x = (torch.randn(m, c, device="cuda", generator=gen) + 0.5).to(
+            torch.bfloat16)
+        dy = torch.randn(m, c, device="cuda", generator=gen).to(x.dtype)
+        scale = torch.rand(c, device="cuda", generator=gen) + 0.5
+        bias = torch.randn(c, device="cuda", generator=gen)
+        ra = [torch.zeros(c, device="cuda"), torch.ones(c, device="cuda")]
+        mean, _, rstd = BN.bn_stats(x, 1e-5, 0.9, *ra)
+        db, ds = BN.bn_bwd_reduce(dy, x, mean, rstd)
+        calls = {
+            "bn_stats": (lambda: BN.bn_stats(x, 1e-5, 0.9, *ra),
+                         lambda: BN.bn_stats_plain(x, 1e-5, 0.9, *ra)),
+            "bn_normalize": (
+                lambda: BN.bn_normalize(x, mean, rstd, scale, bias),
+                lambda: BN.bn_normalize_plain(x, mean, rstd, scale, bias)),
+            "bn_bwd_reduce": (
+                lambda: BN.bn_bwd_reduce(dy, x, mean, rstd),
+                lambda: BN.bn_bwd_reduce_plain(dy, x, mean, rstd)),
+            "bn_bwd_dx": (
+                lambda: BN.bn_bwd_dx(dy, x, mean, rstd, scale, db, ds),
+                lambda: BN.bn_bwd_dx_plain(dy, x, mean, rstd, scale, db,
+                                           ds)),
+        }
+        n, h, w = nhwc[what]
+        x4 = x.view(n, h, w, c).permute(0, 3, 1, 2)
+        dy4 = dy.view(n, h, w, c).permute(0, 3, 1, 2)
+        rm, rv = torch.zeros(c, device="cuda"), torch.ones(c, device="cuda")
+        _, save_mean, save_invstd = torch.native_batch_norm(
+            x4, scale, bias, rm, rv, True, 0.1, 1e-5)
+        count = torch.full((1,), m, dtype=torch.int32, device="cuda")
+        sum_dy, sum_dy_xmu, _, _ = torch.batch_norm_backward_reduce(
+            dy4, x4, mean, rstd, scale, True, False, False)
+        lib_calls = {
+            "bn_stats": lambda: torch.batch_norm_stats(x4, 1e-5),
+            "bn_normalize": lambda: torch.batch_norm_elemt(
+                x4, scale, bias, mean, rstd, 1e-5),
+            "bn_bwd_reduce": lambda: torch.batch_norm_backward_reduce(
+                dy4, x4, mean, rstd, scale, False, True, True)[2:],
+            "bn_bwd_dx": lambda: torch.batch_norm_backward_elemt(
+                dy4, x4, mean, rstd, scale, sum_dy, sum_dy_xmu, count),
+        }
+
+        def rows(t):  # the channels-last NCHW result as (M, C)
+            return t.permute(0, 2, 3, 1).reshape(m, c)
+
+        same = {
+            "bn_normalize": ((rows(lib_calls["bn_normalize"]()),),
+                             (calls["bn_normalize"][0](),)),
+            "bn_bwd_reduce": (lib_calls["bn_bwd_reduce"]()[::-1], (db, ds)),
+            "bn_bwd_dx": ((rows(lib_calls["bn_bwd_dx"]()),),
+                          (calls["bn_bwd_dx"][0](),)),
+        }
+        layer = {
+            "forward": cuda_ms(lambda: torch.batch_norm(
+                x4, scale, bias, rm, rv, True, 0.1, 1e-5, True)),
+            "backward": cuda_ms(
+                lambda: torch.ops.aten.native_batch_norm_backward(
+                    dy4, x4, scale, rm, rv, save_mean, save_invstd, True,
+                    1e-5, [True, True, True])),
+        }
+        for name, (kern, plain) in calls.items():
+            t = {"ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, reps=5)}
+            t["ms_again"] = cuda_ms(kern)
+            t["plain_ms_again"] = cuda_ms(plain, reps=5)
+            t["bound_ms"], t["bound_by"] = bn_bound(name, shape, 2)
+            lib_ms = cuda_ms(lib_calls[name])
+            if name in same:
+                t["library_ms"] = lib_ms
+                t["library"] = BN_LIBRARY[name]
+                t["library_max_rel_diff"] = max(
+                    float((a.float() - b.float()).abs().max()
+                          / b.float().abs().max())
+                    for a, b in zip(*same[name]))
+                lib_txt = (f"library {lib_ms:.4f} ms ({BN_LIBRARY[name]}; "
+                           f"largest difference from the kernel "
+                           f"{t['library_max_rel_diff']:.3g} of its scale)")
+            else:
+                t["library_ms"] = None
+                t["nearest_library_ms"] = lib_ms
+                t["nearest_library"] = (
+                    "torch.batch_norm_stats on the channels-last NCHW view: "
+                    "nearest library call, not the same function (Welford's "
+                    "variance, no running statistics)")
+                lib_txt = (f"nearest library call (not the same function) "
+                           f"{lib_ms:.4f} ms")
+            fwd = name in ("bn_stats", "bn_normalize")
+            t["layer_library_ms"] = layer["forward" if fwd else "backward"]
+            t["layer_library"] = (
+                ("torch.batch_norm(training=True) on the channels-last NCHW "
+                 "view, N1 and N2's work in one call" if fwd else
+                 "aten.native_batch_norm_backward, N3 and N4's work in one "
+                 "call") + ": the whole layer's cuDNN call, not the same "
+                "function (cuDNN's variance and its unbiased running "
+                "variance)")
+            out.setdefault(name, {})[what] = t
+            log(f"[timing] {name} {what} {shape} bf16: kernel "
+                f"{t['ms']:.4f} / {t['ms_again']:.4f} ms "
+                f"({t['bound_ms'] / t['ms']:.3f} of bound), plain "
+                f"{t['plain_ms']:.4f} / {t['plain_ms_again']:.4f} ms; bound "
+                f"{t['bound_ms']:.4f} ms ({t['bound_by']}); {lib_txt}; the "
+                f"whole layer's {'forward' if fwd else 'backward'} (not the "
+                f"same function) {t['layer_library_ms']:.4f} ms")
+        del x, dy, x4, dy4, save_mean, save_invstd, same
+        torch.cuda.empty_cache()
+    return out
+
+
+def vgg16_shapes() -> list:
+    """VGG-16's 32 parameter shapes at 224 px and 1000 classes, in
+    ``parameters()`` order (the model is not built for them)."""
+    from horovod_tpu_torch.models.vgg import _CFG
+
+    widths, ch, shapes = (64, 128, 256, 512, 512), 3, []
+    for stage, n_convs in enumerate(_CFG[16]):
+        for _ in range(n_convs):
+            shapes += [(widths[stage], ch, 3, 3), (widths[stage],)]
+            ch = widths[stage]
+    shapes += [(4096, 7 * 7 * 512), (4096,), (4096, 4096), (4096,),
+               (1000, 4096), (1000,)]
+    return shapes
+
+
+def vgg_momentum_check(TF, torch, shapes) -> dict:
+    """Phase 12a: B1 over VGG-16's 32 leaf shapes (102,760,448 elements in
+    Dense_0) and an empty leaf in one launch, float32 bit for bit and
+    bf16 within 1 ulp of the plain loop."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    res = {"momentum": {"max_abs_err": 0.0, "max_ulp": 0}}
+    for dtype in (torch.float32, torch.bfloat16):
+        n = multi_check(TF, torch, res, "momentum", list(shapes) + [(0,)],
+                        gen, dtype, 1, None)
+        if n != 1:
+            raise AssertionError(f"B1 over VGG-16's leaves: {n} launches")
+        torch.cuda.empty_cache()
+    log(f"[kernels] momentum in one launch over VGG-16's {len(shapes)} leaf "
+        f"shapes ({sum(math.prod(s) for s in shapes)} elements) and an empty "
+        f"leaf: float32 bit for bit, bf16 within 1 ulp (largest "
+        f"{res['momentum']['max_ulp']})")
+    return res["momentum"]
+
+
+def _weights_close(mg, mc, tol: float, what: str) -> float:
+    """Every tensor of the card model's state within ``tol`` of its
+    largest magnitude on the CPU model; returns the worst share."""
+    worst = 0.0
+    for (name, a), b in zip(mg.state_dict().items(),
+                            mc.state_dict().values()):
+        err = float((a.cpu() - b).abs().max()) / max(float(b.abs().max()),
+                                                     1e-30)
+        worst = max(worst, err)
+        if err > tol:
+            raise AssertionError(f"{what}: {name} differs by {err} of its "
+                                 "scale")
+    return worst
+
+
+def small_cnn_reference(hvd, torch) -> None:
+    """Phase 5c: SmallCNN at 96 px, batch 2, float32 (TF32 off), trained
+    3 steps on the card (N1-N4, B1) and on the CPU (plain versions) from
+    the same weights and batch: losses within rel 1e-4, weights within
+    1e-3 of scale."""
+    from horovod_tpu_torch.models.mnist import SmallCNN
+    from horovod_tpu_torch.ops import batch_norm as BN
+    from horovod_tpu_torch.optim import fused_update as TF
+    from horovod_tpu_torch.train_step import synthetic_batch, train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        kw = dict(num_classes=10, dtype=torch.float32, seed=7)
+        mg, mc = SmallCNN(device="cuda", **kw), SmallCNN(device="cpu", **kw)
+        og = hvd.DistributedOptimizer(TF.sgd(mg.parameters(), 0.1, 0.9))
+        oc = TF.sgd(mc.parameters(), 0.1, 0.9)
+        xg, yg = synthetic_batch(2, 96, 10, seed=3, device="cuda")
+        xc, yc = synthetic_batch(2, 96, 10, seed=3, device="cpu")
+        BN.reset_launch_counts()
+        for step in range(3):
+            lg = float(train_step(mg, og, xg, yg))
+            lc = float(train_step(mc, oc, xc, yc))
+            if not math.isclose(lg, lc, rel_tol=1e-4, abs_tol=1e-5):
+                raise AssertionError(
+                    f"SmallCNN step {step}: card loss {lg} vs CPU {lc}")
+        if BN.LAUNCHES != dict.fromkeys(BN_KERNELS, 9):
+            raise AssertionError(f"SmallCNN: BatchNorm launches "
+                                 f"{BN.LAUNCHES}, expected 9 each")
+        worst = _weights_close(mg, mc, 1e-3, "SmallCNN")
+        log(f"[reference] SmallCNN 96 px batch 2, 3 steps: card and CPU "
+            f"agree (last loss {lg:.6f} vs {lc:.6f}; worst weight error "
+            f"{worst:.2e} of scale; tolerance rel 1e-4 loss, 1e-3 "
+            f"weights); N1-N4 launched {BN.LAUNCHES}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+
+
+def inception_reference(hvd, torch) -> None:
+    """Phase 5d: Inception-v3 (float32, TF32 off, dropout in eval on both
+    sides: the card's and the CPU's masks differ) at 139 px, batch 2.
+    One step from the same weights: the card (N1-N4) against the CPU
+    (plain versions) on the loss (rel 1e-4) and the new BatchNorm
+    statistics (rtol 1e-3, atol 1e-4); the gradients against a float64
+    CPU evaluation. At random weights this model's float32 gradients
+    carry rounding far above float32's (flax's and the port's alike: the
+    CPU's whole gradient sits 3-5e-2 from float64 in relative L2 here,
+    single tensors up to 0.3-1.0 of their scale, PERF.md), so the card
+    is held on relative L2 errors against float64, each at most twice
+    the CPU float32 run's plus ``INCEPTION_GRAD_FLOOR``: the whole
+    gradient's, and every one of the 284 leaves' on its own (so a fault
+    confined to a few leaves, one BatchNorm's scale and bias or one
+    branch's convolutions, shows). Then 3 steps on the card through
+    N1-N4 and B1: finite losses, 94 launches of each of N1-N4 and one of
+    B1 per step. (At 75 px and batch 2 the last blocks' BatchNorms see
+    two rows and even the forward differs by 3.5e-4 between float32 and
+    float64.)
+    """
+    from horovod_tpu_torch.models.inception import InceptionV3
+    from horovod_tpu_torch.ops import batch_norm as BN
+    from horovod_tpu_torch.optim import fused_update as TF
+    from horovod_tpu_torch.train_step import (softmax_cross_entropy,
+                                              synthetic_batch, train_step)
+
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        runs = {}
+        for dev, dt in (("cuda", torch.float32), ("cpu", torch.float32),
+                        ("cpu", torch.float64)):
+            m = InceptionV3(num_classes=10, dtype=dt, device=dev, seed=7)
+            m = m.to(dt).train()
+            m.Dropout_0.eval()
+            x, y = synthetic_batch(2, 139, 10, seed=3, device=dev)
+            BN.reset_launch_counts()
+            loss = softmax_cross_entropy(m(x.to(dt)), y)
+            loss.backward()
+            runs[(dev, dt)] = (loss.item(), m, dict(BN.LAUNCHES))
+        (lg, mg, ng), (lc, mc, _), (l64, m64, _) = runs.values()
+        if ng != dict.fromkeys(BN_KERNELS, 94):
+            raise AssertionError(f"Inception-v3 card step: BatchNorm "
+                                 f"launches {ng}, expected 94 each")
+        if not math.isclose(lg, lc, rel_tol=1e-4):
+            raise AssertionError(f"Inception-v3: card loss {lg} vs CPU {lc}")
+        for (name, a), b in zip(mg.named_buffers(), mc.buffers()):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-4,
+                                       msg=lambda s: f"{name}: {s}")
+        # relative L2 errors against float64, the whole gradient's and
+        # each leaf's: the card's at most twice the CPU float32 run's plus
+        # INCEPTION_GRAD_FLOOR
+        names = [n for n, _ in m64.named_parameters()]
+        ref = [p.grad for p in m64.parameters()]
+        grads = {k: [p.grad.cpu().double() for p in m.parameters()]
+                 for k, m in (("card", mg), ("cpu", mc))}
+
+        def rel(a, b):
+            return float((a - b).norm() / b.norm().clamp_min(1e-300))
+
+        err = {k: rel(torch.cat([t.flatten() for t in g]),
+                      torch.cat([t.flatten() for t in ref]))
+               for k, g in grads.items()}
+        leaf = {k: [rel(a, b) for a, b in zip(g, ref)]
+                for k, g in grads.items()}
+        ratio = sorted((c / max(p, 1e-300), n) for n, c, p in
+                       zip(names, leaf["card"], leaf["cpu"]))
+        bn = [i for i, n in enumerate(names) if "BatchNorm" in n]
+        readings = {
+            "leaves": len(names), "batch_norm_leaves": len(bn),
+            "whole": err,
+            "median_leaf": {k: statistics.median(v) for k, v in leaf.items()},
+            "worst_leaf": {k: max(zip(v, names)) for k, v in leaf.items()},
+            "worst_batch_norm_leaf": {k: max((v[i], names[i]) for i in bn)
+                                      for k, v in leaf.items()},
+            "card_over_cpu": {"median": statistics.median(
+                r for r, _ in ratio), "largest five": ratio[-5:]},
+        }
+        bad = [(n, c, p) for n, c, p in zip(names, leaf["card"], leaf["cpu"])
+               if not c <= 2 * p + INCEPTION_GRAD_FLOOR]
+        if not err["card"] <= 2 * err["cpu"] + INCEPTION_GRAD_FLOOR or bad:
+            raise AssertionError(
+                f"Inception-v3 gradients: relative L2 error against float64 "
+                f"{err}; leaves past twice the CPU's + "
+                f"{INCEPTION_GRAD_FLOOR}: {bad}; {readings}")
+        del mc, m64, runs
+        og = hvd.DistributedOptimizer(TF.sgd(mg.parameters(), 0.1, 0.9))
+        xg, yg = synthetic_batch(2, 139, 10, seed=3, device="cuda")
+        TF.reset_launch_counts()
+        BN.reset_launch_counts()
+        losses = [float(train_step(mg, og, xg, yg)) for _ in range(3)]
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"Inception-v3 small: losses {losses}")
+        if BN.LAUNCHES != dict.fromkeys(BN_KERNELS, 3 * 94) \
+                or TF.LAUNCHES["momentum"] != 3:
+            raise AssertionError(f"Inception-v3 small: launches "
+                                 f"{BN.LAUNCHES}, B1 {TF.LAUNCHES}")
+        log(f"[reference] Inception-v3 139 px batch 2 float32: card loss "
+            f"{lg:.7f}, CPU {lc:.7f}, float64 {l64:.7f}; batch statistics "
+            f"agree (rtol 1e-3, atol 1e-4); the whole gradient's relative "
+            f"L2 error against float64: card {err['card']:.4e}, CPU "
+            f"{err['cpu']:.4e}; every leaf's too (card held to twice the "
+            f"CPU's + {INCEPTION_GRAD_FLOOR}): {readings}; then 3 card steps "
+            f"{losses}, N1-N4 launched 94 times each per step, B1 once")
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+
+
+def cnn_path(hvd, torch, name: str, gpu: str,
+             profile: str | None = None) -> dict:
+    """Phases 12b and 13: VGG-16 or Inception-v3 at the bench's size
+    (``CNN``), 1000 classes, bf16, dropout active, trained ``CNN_STEPS``
+    steps with ``DistributedOptimizer(fused_update.sgd(0.1,
+    momentum=0.9))`` on a seeded synthetic batch: every loss finite, one
+    B1 launch per step, one launch of each of N1-N4 per BatchNorm per
+    step."""
+    from horovod_tpu_torch.models.inception import InceptionV3
+    from horovod_tpu_torch.models.vgg import VGG16
+    from horovod_tpu_torch.ops import batch_norm as BN
+    from horovod_tpu_torch.optim import fused_update as TF
+    from horovod_tpu_torch.train_step import synthetic_batch, train_step
+
+    side, batch, n_bn = CNN[name]
+    model = {"vgg16": VGG16, "inception3": InceptionV3}[name](
+        num_classes=1000, dtype=torch.bfloat16, seed=0)
+    opt = hvd.DistributedOptimizer(
+        hvd.fused_update.sgd(model.parameters(), 0.1, momentum=0.9))
+    if not TF.active():
+        raise AssertionError("the fused tail is not active")
+    images, labels = synthetic_batch(batch, side, 1000, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    TF.reset_launch_counts()
+    BN.reset_launch_counts()
+    for _ in range(CNN_STEPS):
+        t0 = time.perf_counter()
+        loss = train_step(model, opt, images, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    launches = {"momentum": TF.LAUNCHES["momentum"], **BN.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{name}: non-finite loss: {losses}")
+    want = {"momentum": CNN_STEPS,
+            **dict.fromkeys(BN_KERNELS, n_bn * CNN_STEPS)}
+    if launches != want:
+        raise AssertionError(f"{name}: kernel launches {launches} in "
+                             f"{CNN_STEPS} steps, expected {want}")
+    steady = times[1:]
+    step_s = sum(steady) / len(steady)
+    med = statistics.median(steady)
+    log(f"[{name}] {side}x{side} batch {batch} bf16, dropout on, fused "
+        f"momentum SGD, {CNN_STEPS} steps on {gpu}: losses {losses}")
+    log(f"[{name}] step times (s) {times}; steady step mean {step_s:.4f} s "
+        f"= {batch / step_s:.1f} img/s, median {med:.4f} s = "
+        f"{batch / med:.1f} img/s; peak memory {peak / 2**30:.2f} GiB "
+        f"({peak} B); kernel launches {launches}; on {gpu}")
+    if profile:
+        stem, ext = os.path.splitext(profile)
+        profile_steps(torch, lambda: train_step(model, opt, images, labels),
+                      step_s, f"{stem}_{name}{ext}", RESNET_CLASSES, name)
+    del model, opt, images, labels
+    torch.cuda.empty_cache()
+    return {"launches": launches, "losses": losses, "step_s": step_s,
+            "median_s": med, "peak_bytes": peak}
+
+
 def run(args) -> int:
+    t_start = time.perf_counter()
     card = pin_one_card()
     import torch
 
@@ -1359,6 +2077,7 @@ def run(args) -> int:
         import horovod_tpu_torch as hvd
         from horovod_tpu_torch import _build
         from horovod_tpu_torch.models.resnet import ResNet50
+        from horovod_tpu_torch.ops import batch_norm as BN
         from horovod_tpu_torch.ops import flash_attention as FA
         from horovod_tpu_torch.ops import quantization as Q
         from horovod_tpu_torch.optim import fused_update as TF
@@ -1373,7 +2092,8 @@ def run(args) -> int:
 
     # one nvcc per source, all started together
     t0 = time.perf_counter()
-    sources = ("fused_update", "flash_attention", "quantization")
+    sources = ("fused_update", "flash_attention", "quantization",
+               "batch_norm")
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_build.load, sources))
     for name in sources:
@@ -1393,6 +2113,11 @@ def run(args) -> int:
                            shapes["sgd"], shapes["adam"])
     checks.update(attention_checks(FA, torch))
     codec_errs = codec_checks(Q, torch)
+    bn_errs = bn_checks(BN, torch)
+    vgg = vgg16_shapes()
+    if len(vgg) != VGG16_LEAVES or sum(map(math.prod, vgg)) != 138_357_544:
+        raise AssertionError("VGG-16's leaf shapes do not add up")
+    vgg_err = vgg_momentum_check(TF, torch, vgg)
     hvd.init()
     os.environ["HOROVOD_FUSED_UPDATE"] = "1"
     timings = kernel_timings(TF, torch, shapes["momentum"],
@@ -1403,14 +2128,20 @@ def run(args) -> int:
                                    False)
     tc_info = tc_build_report(FA)
     codec_times = codec_timings(Q, torch)
+    bn_times = bn_timings(BN, torch)
+    vgg_times = kernel_timings(TF, torch, vgg, ("momentum",))["momentum"]
     small_reference(hvd, torch)
     small_lm_reference(hvd, torch)
+    small_cnn_reference(hvd, torch)
+    inception_reference(hvd, torch)
     torch.backends.cudnn.benchmark = True
     path = main_path(hvd, torch, STEPS, BATCH, gpu, args.profile)
     wire = codec_path(hvd, Q, torch, path.pop("model"), gpu)
     torch.cuda.empty_cache()
     sgd = sgd_path(hvd, torch, gpu)
     torch.cuda.empty_cache()
+    cnn = {name: cnn_path(hvd, torch, name, gpu, args.profile)
+           for name in CNN}
     lm = lm_path(hvd, torch, LM_SEQ, LM_BATCH, LM_STEPS, gpu, "transformer",
                  args.profile)
     torch.cuda.empty_cache()
@@ -1447,6 +2178,16 @@ def run(args) -> int:
                       "table in the kernel's parameters",
             "shapes": f"{len(shapes[kind])} {model} leaves, {n_el} f32",
             **({"torch_mul_ms": t["torch_mul_ms"]} if kind == "sgd" else {}),
+            **({"ms_vgg16": vgg_times["ms"],
+                "plain_ms_vgg16": vgg_times["plain_ms"],
+                "bound_ms_vgg16": vgg_times["bound_ms"],
+                "nearest_library_ms_vgg16": vgg_times["nearest_library_ms"],
+                "ms_kernel_vgg16": vgg_times["ms_kernel"],
+                "max_ulp_vgg16": vgg_err["max_ulp"],
+                "launches_vgg16": cnn["vgg16"]["launches"]["momentum"],
+                "launches_inception3":
+                    cnn["inception3"]["launches"]["momentum"]}
+               if kind == "momentum" else {}),
         })
     for name in FLASH:
         t, tl = timings[name], long_times[name]
@@ -1497,6 +2238,44 @@ def run(args) -> int:
                        f"({-(-N_PARAMS // QBLOCK)}, {QBLOCK}) f32; "
                        "*_transformer at (433227, 256)"),
         })
+    for name in BN_KERNELS:
+        t, ti = (bn_times[name][k] for k in BN_TIMED)
+        e = bn_errs[name]
+        kernels.append({
+            "name": f"batch_norm.{name}",
+            "route": "cuda",
+            "source": "horovod_tpu_torch/csrc/batch_norm.cu",
+            "replaces": BN_REPLACES,
+            # the ResNet-50 path's run; the other CNN paths' beside it
+            "launches": launches[name],
+            "launches_inception3": cnn["inception3"]["launches"][name],
+            "launches_vgg16": cnn["vgg16"]["launches"][name],
+            "max_abs_err": e["max_abs_err"], "max_ulp": e["max_ulp"],
+            "max_err_f64": e["max_err_f64"],
+            "plain_err_f64": e["plain_err_f64"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            **({"library": t["library"],
+                "library_max_rel_diff": t["library_max_rel_diff"],
+                "library_ms_inception3": ti["library_ms"]}
+               if t["library_ms"] is not None else
+               {"nearest_library_ms": t["nearest_library_ms"],
+                "nearest_library": t["nearest_library"],
+                "nearest_library_ms_inception3": ti["nearest_library_ms"]}),
+            "layer_library_ms": t["layer_library_ms"],
+            "layer_library": t["layer_library"],
+            "ms_inception3": ti["ms"], "plain_ms_inception3": ti["plain_ms"],
+            "bound_ms_inception3": ti["bound_ms"],
+            "layer_library_ms_inception3": ti["layer_library_ms"],
+            **({"cancel": e["cancel"]} if name == "bn_stats" else {}),
+            "shapes": f"timed at {BN_SHAPES[BN_TIMED[0]]} bf16 (ResNet-50 "
+                      f"bn_init); *_inception3 at {BN_SHAPES[BN_TIMED[1]]}",
+        })
+    log(f"[done] wall time {time.perf_counter() - t_start:.1f} s; CNN paths "
+        + "; ".join(f"{n}: median step {r['median_s']:.4f} s, "
+                    f"{CNN[n][1] / r['median_s']:.1f} img/s, peak "
+                    f"{r['peak_bytes']} B" for n, r in cnn.items()))
     log(json.dumps({"kernels": kernels}))
     log(gpu)
     log(json.dumps({"ok": True, "device": {
@@ -1509,8 +2288,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="FILE",
                     help="also profile a few steps of each path; write the "
-                         "profiler's tables to FILE, FILE_transformer and "
-                         "FILE_long")
+                         "profiler's tables to FILE, FILE_vgg16, "
+                         "FILE_inception3, FILE_transformer and FILE_long")
     args = ap.parse_args()
     try:
         return run(args)

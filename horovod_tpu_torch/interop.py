@@ -1,10 +1,12 @@
 """Weights and optimizer state across the two packages.
 
-The port's ResNet names its submodules after the flax scopes, so a flax
-path ``a/b/kernel`` is the torch name ``a.b.weight``: convolution
-kernels go HWIO -> OIHW, the Dense kernel ``(in, out)`` -> ``(out, in)``,
-and everything else (BatchNorm ``scale``/``bias``, Dense ``bias``,
-``batch_stats`` ``mean``/``var``) is copied as it is.  The transformer's
+The port's CNNs (ResNet, VGG, Inception-v3, SmallCNN, MnistCNN) name
+their submodules after the flax scopes, so a flax path ``a/b/kernel`` is
+the torch name ``a.b.weight``: convolution kernels go HWIO -> OIHW, a
+Dense kernel ``(in, out)`` -> ``(out, in)``, and everything else
+(BatchNorm ``scale``/``bias``, convolution and Dense ``bias``,
+``batch_stats`` ``mean``/``var``) is copied as it is
+(:func:`cnn_from_flax`, :func:`cnn_to_flax`).  The transformer's
 stacked layer leaves map to one parameter per layer.  Arrays are numpy
 on the JAX side.  Nothing here imports JAX.
 """
@@ -79,10 +81,10 @@ def _load(tensors: dict, tree: dict, what: str) -> None:
         raise KeyError(f"{what}: no flax value for {sorted(missing)}")
 
 
-def resnet_from_flax(params: dict, batch_stats: dict, model):
+def cnn_from_flax(params: dict, batch_stats: dict, model):
     """Load flax ``params`` and ``batch_stats`` (nested dicts of numpy
-    arrays) into the port's ResNet ``model``; every key on both sides
-    must map.  Returns ``model``."""
+    arrays; ``{}`` for a model without BatchNorm) into the port's CNN
+    ``model``; every key on both sides must map.  Returns ``model``."""
     _load(dict(model.named_parameters()), params, "params")
     _load(dict(model.named_buffers()), batch_stats, "batch_stats")
     return model
@@ -95,12 +97,16 @@ def _to_tree(named) -> dict:
                  for name, t in named)
 
 
-def resnet_to_flax(model, grads: bool = False):
+def cnn_to_flax(model, grads: bool = False):
     """``(params, batch_stats)`` of ``model`` as flax-layout numpy trees;
     with ``grads=True`` the first tree holds each parameter's ``.grad``
     instead."""
     named = [(n, p.grad if grads else p) for n, p in model.named_parameters()]
     return _to_tree(named), _to_tree(model.named_buffers())
+
+
+resnet_from_flax = cnn_from_flax
+resnet_to_flax = cnn_to_flax
 
 
 def momentum_from_optax(trace_tree: dict, model, optimizer) -> None:

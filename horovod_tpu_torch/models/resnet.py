@@ -1,20 +1,12 @@
 """ResNet (v1.5) as ``nn.Module``s with the flax model's semantics
 (``horovod_tpu/models/resnet.py``).
 
-- **Layout.**  Inputs and activations are NHWC, as in the JAX model.
-  Each convolution hands cuDNN a channels-last NCHW view of the same
-  memory (``permute``, no copy).
-- **Padding.**  Flax ``"SAME"`` pads ``total // 2`` before and the rest
-  after, so a stride-2 3x3 convolution or max-pool on an even input pads
-  ``(0, 1)``, where PyTorch's ``padding=1`` would pad ``(1, 1)`` and
-  shift every window.  Asymmetric padding goes through ``F.pad`` (with
-  ``-inf`` for the pool).
-- **BatchNorm.**  Statistics in float32 with the fast, biased variance
-  ``mean(x^2) - mean(x)^2`` clamped at 0; running statistics updated as
-  ``0.9 * ra + 0.1 * batch_stat`` (flax ``momentum=0.9``,
-  ``epsilon=1e-5``); the normalisation in float32, cast to the compute
-  dtype.  Written with plain torch ops (``torch.nn.BatchNorm2d`` would
-  update the running variance with the unbiased estimate).
+The layers are the shared flax-semantics ones of
+:mod:`horovod_tpu_torch.models.layers` (re-exported here): NHWC
+activations with channels-last NCHW views for cuDNN, flax's ``"SAME"``
+padding, and BatchNorm (``momentum=0.9``, ``epsilon=1e-5``) through
+kernels N1-N4 of :mod:`horovod_tpu_torch.ops.batch_norm` on the card.
+
 - **Precision.**  Parameters and statistics are float32; convolutions,
   activations and BatchNorm outputs are in ``dtype`` (bfloat16 by
   default); the classifier runs in float32.  No TF32 is involved: the
@@ -28,7 +20,6 @@
 
 from __future__ import annotations
 
-import math
 from functools import partial
 from typing import Sequence
 
@@ -37,123 +28,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from horovod_tpu_torch.common.util import resolve_device
-
-# lecun_normal: truncated normal on [-2, 2] rescaled to unit variance
-_TRUNC_STD = 0.87962566103423978
-
-
-def same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
-    """XLA's ``"SAME"`` padding of one spatial dim: (before, after)."""
-    out = -(-size // stride)
-    total = max((out - 1) * stride + kernel - size, 0)
-    return total // 2, total - total // 2
-
-
-def _pad_nchw(x, pads_h, pads_w, value: float = 0.0):
-    """Apply (before, after) pads to H and W: symmetric pads are
-    returned for the op's own ``padding=`` argument, asymmetric ones
-    are applied here."""
-    if pads_h[0] == pads_h[1] and pads_w[0] == pads_w[1]:
-        return x, (pads_h[0], pads_w[0])
-    return F.pad(x, (*pads_w, *pads_h), value=value), (0, 0)
-
-
-class Conv(nn.Module):
-    """``flax.linen.Conv`` without bias.  ``weight`` is OIHW float32;
-    ``padding`` is ``"SAME"`` or explicit ((top, bottom), (left,
-    right))."""
-
-    def __init__(self, in_ch: int, out_ch: int, kernel: int,
-                 strides: int = 1, padding="SAME",
-                 dtype: torch.dtype = torch.bfloat16):
-        super().__init__()
-        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel, kernel))
-        self.kernel, self.strides, self.padding = kernel, strides, padding
-        self.dtype = dtype
-
-    def forward(self, x):
-        xc = x.permute(0, 3, 1, 2)
-        if self.padding == "SAME":
-            ph = same_pads(xc.shape[2], self.kernel, self.strides)
-            pw = same_pads(xc.shape[3], self.kernel, self.strides)
-        else:
-            ph, pw = self.padding
-        xc, pad = _pad_nchw(xc, ph, pw)
-        w = self.weight.to(self.dtype).contiguous(
-            memory_format=torch.channels_last)
-        y = F.conv2d(xc, w, stride=self.strides, padding=pad)
-        return y.permute(0, 2, 3, 1)
-
-
-class _BatchNormTrain(torch.autograd.Function):
-    """Train-mode BatchNorm over the leading dims of an NHWC tensor.
-    Saves only the input and per-channel vectors; the backward is the
-    closed form of the forward's derivative."""
-
-    @staticmethod
-    def forward(ctx, x, scale, bias, eps: float):
-        c = x.shape[-1]
-        xf = x.reshape(-1, c).float()
-        mean = xf.mean(0)
-        var = torch.clamp_min((xf * xf).mean(0) - mean * mean, 0.0)
-        rstd = torch.rsqrt(var + eps)
-        y = ((xf - mean) * (rstd * scale) + bias).to(x.dtype)
-        ctx.save_for_backward(x, mean, rstd, scale)
-        ctx.mark_non_differentiable(mean, var)
-        return y.view(x.shape), mean, var
-
-    @staticmethod
-    def backward(ctx, dy, _dmean, _dvar):
-        x, mean, rstd, scale = ctx.saved_tensors
-        c = x.shape[-1]
-        xf = x.reshape(-1, c).float()
-        dyf = dy.reshape(-1, c).float()
-        m = xf.shape[0]
-        xhat = (xf - mean) * rstd
-        dbias = dyf.sum(0)
-        dscale = (dyf * xhat).sum(0)
-        dx = (scale * rstd / m) * (m * dyf - dbias - xhat * dscale)
-        return dx.to(x.dtype).view(x.shape), dscale, dbias, None
-
-
-class BatchNorm(nn.Module):
-    """``flax.linen.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the last
-    (channel) dim.  Parameters ``scale``/``bias``; buffers
-    ``mean``/``var`` (flax's ``batch_stats``)."""
-
-    def __init__(self, ch: int, momentum: float = 0.9, eps: float = 1e-5,
-                 zero_scale: bool = False):
-        super().__init__()
-        self.scale = nn.Parameter(
-            torch.zeros(ch) if zero_scale else torch.ones(ch))
-        self.bias = nn.Parameter(torch.zeros(ch))
-        self.register_buffer("mean", torch.zeros(ch))
-        self.register_buffer("var", torch.ones(ch))
-        self.momentum, self.eps = momentum, eps
-
-    def forward(self, x):
-        if not self.training:
-            mul = torch.rsqrt(self.var + self.eps) * self.scale
-            return ((x.float() - self.mean) * mul + self.bias).to(x.dtype)
-        y, mean, var = _BatchNormTrain.apply(x, self.scale, self.bias,
-                                             self.eps)
-        with torch.no_grad():
-            m = self.momentum
-            self.mean.copy_(m * self.mean + (1 - m) * mean)
-            self.var.copy_(m * self.var + (1 - m) * var)
-        return y
-
-
-class Dense(nn.Module):
-    """``flax.linen.Dense`` in float32: ``weight`` is (out, in)."""
-
-    def __init__(self, in_features: int, out_features: int):
-        super().__init__()
-        self.weight = nn.Parameter(torch.empty(out_features, in_features))
-        self.bias = nn.Parameter(torch.zeros(out_features))
-
-    def forward(self, x):
-        return F.linear(x.float(), self.weight, self.bias)
+from horovod_tpu_torch.models.layers import (  # noqa: F401
+    BatchNorm, Conv, Dense, init_weights, max_pool, same_pads, spatial_mean)
 
 
 class ResNetBlock(nn.Module):
@@ -233,31 +109,16 @@ class ResNet(nn.Module):
                 self.block_names.append(name)
                 in_ch = blk.out_channels
         self.Dense_0 = Dense(in_ch, num_classes)
-        self._init_weights(torch.Generator().manual_seed(seed))
+        init_weights(self, torch.Generator().manual_seed(seed))
         self.to(dev)
-
-    @torch.no_grad()
-    def _init_weights(self, gen: torch.Generator) -> None:
-        for m in self.modules():
-            if isinstance(m, (Conv, Dense)):
-                fan_in = m.weight[0].numel()
-                nn.init.trunc_normal_(m.weight, 0.0, 1.0, -2.0, 2.0,
-                                      generator=gen)
-                m.weight.mul_(math.sqrt(1.0 / fan_in) / _TRUNC_STD)
 
     def forward(self, x):
         x = x.to(self.dtype)
         x = F.relu(self.bn_init(self.conv_init(x)))
-        xc = x.permute(0, 3, 1, 2)
-        xc, pad = _pad_nchw(xc, same_pads(xc.shape[2], 3, 2),
-                            same_pads(xc.shape[3], 3, 2),
-                            value=-math.inf)
-        x = F.max_pool2d(xc, 3, 2, padding=pad).permute(0, 2, 3, 1)
+        x = max_pool(x, 3, 2, "SAME")
         for name in self.block_names:
             x = getattr(self, name)(x)
-        # jnp.mean over H, W: float32 accumulation, result in x's dtype
-        x = x.float().mean(dim=(1, 2)).to(self.dtype)
-        return self.Dense_0(x)
+        return self.Dense_0(spatial_mean(x, self.dtype))
 
 
 ResNet18 = partial(ResNet, stage_sizes=[2, 2, 2, 2], block_cls=ResNetBlock)

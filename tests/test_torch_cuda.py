@@ -1,6 +1,6 @@
-"""Tests of the port that need the card: kernels B1-B10 against their
-plain versions (B1-B3 also in one launch over many leaves), and short
-training runs through them; on a machine with
+"""Tests of the port that need the card: kernels B1-B10 and N1-N4 against
+their plain versions (B1-B3 also in one launch over many leaves), and
+short training runs through them; on a machine with
 four cards, the collectives and the lossy wire over NCCL.
 Marked ``cuda``; each skips (with its reason) where no CUDA device is
 present.  This file imports no JAX, so it runs on a GPU machine without
@@ -534,3 +534,139 @@ def test_four_cards_lossy_resnet50():
               f"losses {outs[0][mode]['losses']}, step times rank 0 "
               f"{outs[0][mode]['times']} s, last step over ranks "
               f"{steady[0]:.4f}-{steady[-1]:.4f} s; on 4 x {card.strip()}")
+
+
+# ---------------------------------------------------------------------------
+# BatchNorm N1-N4, held as chip_smoke.py holds them (bn_case): statistics
+# and sums within twice the plain version's error against a float64
+# evaluation plus 1e-6 of scale, y and dx within one ulp of the plain
+# version's (or 2^-8 bf16 / 2^-20 f32 of the largest magnitude), and the
+# same bits from the same input twice.
+# ---------------------------------------------------------------------------
+
+BN_CASES = [((4097, 48), "bf16", 1e-3, 0.9),
+            ((2000, 80), "f32", 1e-5, 0.99),
+            ((8192, 448), "f32", 1e-3, 0.9),
+            ((12544, 2048), "bf16", 1e-5, 0.9),
+            ((3000, 3), "f32", 1e-5, 0.9),
+            ((1, 32), "bf16", 1e-3, 0.99),
+            ((700, 36), "bf16", 1e-5, 0.99),
+            ((100_000, 64), "bf16", 1e-5, 0.9)]
+
+
+@pytest.mark.parametrize("off_grid", [False, True],
+                         ids=["aligned", "off_grid"])
+@pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
+@pytest.mark.parametrize("shape,dname,eps,momentum", BN_CASES,
+                         ids=[f"{s[0]}x{s[1]}-{d}" for s, d, _, _ in BN_CASES])
+def test_batch_norm_kernels_against_plain(card, shape, dname, eps, momentum,
+                                          train, off_grid):
+    import chip_smoke
+    from horovod_tpu_torch.ops import batch_norm as BN
+
+    res = chip_smoke._bn_res()
+    gen = torch.Generator(device=card).manual_seed(shape[0] + shape[1])
+    BN.reset_launch_counts()
+    chip_smoke.bn_case(BN, torch, res, shape, DTYPES[dname], eps, momentum,
+                       train, gen, "test", off_grid=off_grid)
+    assert BN.LAUNCHES["bn_normalize"] > 0
+    assert BN.LAUNCHES["bn_bwd_reduce"] > 0
+    if train:
+        assert BN.LAUNCHES["bn_stats"] > 0 and BN.LAUNCHES["bn_bwd_dx"] > 0
+    print(f"{shape} {dname} {'train' if train else 'eval'} "
+          f"off_grid={off_grid}: {res}")
+
+
+@pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
+@pytest.mark.parametrize("dname", ["bf16", "f32"])
+@pytest.mark.parametrize("shape", [(100_000, 64), (4097, 48)],
+                         ids=["100000x64", "4097x48"])
+def test_batch_norm_kernels_cancelling_variance(card, shape, dname, train):
+    """x = 1e3 + 1e-2 * randn, where the fast variance cancels in float32:
+    held as chip_smoke.bn_case holds its cancelling cases."""
+    import chip_smoke
+    from horovod_tpu_torch.ops import batch_norm as BN
+
+    res = chip_smoke._bn_res()
+    gen = torch.Generator(device=card).manual_seed(shape[0] + shape[1])
+    BN.reset_launch_counts()
+    chip_smoke.bn_case(BN, torch, res, shape, DTYPES[dname], 1e-5, 0.9,
+                       train, gen, "test", cancel=True)
+    assert BN.LAUNCHES["bn_normalize"] > 0
+    assert len(res["bn_stats"]["cancel"]) == int(train)
+    print(f"{shape} {dname} {'train' if train else 'eval'}: {res}")
+
+
+def test_batch_norm_refuses_float64_on_the_card(card):
+    from horovod_tpu_torch.ops import batch_norm as BN
+
+    with pytest.raises(HorovodTpuError, match="float32 or bfloat16"):
+        BN.bn_stats(torch.zeros(8, 4, device=card, dtype=torch.float64),
+                    1e-5)
+
+
+CNN_PATHS = {  # name: (factory, side, BatchNorm layers)
+    "resnet50": ("horovod_tpu_torch.models.resnet", "ResNet50", 224, 53),
+    "vgg16": ("horovod_tpu_torch.models.vgg", "VGG16", 224, 0),
+    "inception3": ("horovod_tpu_torch.models.inception", "InceptionV3", 299,
+                   94),
+    "smallcnn": ("horovod_tpu_torch.models.mnist", "SmallCNN", 96, 3),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CNN_PATHS))
+def test_cnn_paths_launch_counts(card, monkeypatch, name):
+    """Two bf16 steps at the bench's side and batch 2 with fused momentum
+    SGD: one B1 launch per step and one launch of each of N1-N4 per
+    BatchNorm per step; losses finite."""
+    import importlib
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import batch_norm as BN
+    from horovod_tpu_torch.train_step import synthetic_batch, train_step
+
+    mod, cls, side, n_bn = CNN_PATHS[name]
+    for k in ("HOROVOD_SIZE", "HOROVOD_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("HOROVOD_FUSED_UPDATE", "1")
+    hvd.init()
+    try:
+        model = getattr(importlib.import_module(mod), cls)(
+            num_classes=1000, dtype=torch.bfloat16)
+        opt = hvd.DistributedOptimizer(
+            hvd.fused_update.sgd(model.parameters(), 0.1, momentum=0.9))
+        x, y = synthetic_batch(2, side, 1000)
+        TF.reset_launch_counts()
+        BN.reset_launch_counts()
+        losses = [float(train_step(model, opt, x, y)) for _ in range(2)]
+        assert all(math.isfinite(v) for v in losses)
+        assert TF.LAUNCHES["momentum"] == 2
+        assert BN.LAUNCHES == dict.fromkeys(BN.LAUNCHES, 2 * n_bn)
+    finally:
+        hvd.shutdown()
+
+
+@pytest.mark.parametrize("dname", ["f64", "f32"])
+def test_avgpool3_gradient_matches_cpu(card, dname):
+    """Inception's 3x3 "SAME" average (the padding counted) on a
+    channels-last card tensor: output and input gradient equal the CPU's
+    (float64 to 1e-12; float32 to rounding).  PyTorch 2.11's CUDA
+    ``avg_pool2d(padding=1)`` on a channels-last input gets this
+    gradient wrong by O(1), so ``layers._avgpool3`` pads explicitly."""
+    from horovod_tpu_torch.models.layers import _avgpool3
+
+    dtype = {"f64": torch.float64, "f32": torch.float32}[dname]
+    tol = 1e-12 if dname == "f64" else 1e-5
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 8, 7, 7, generator=gen, dtype=dtype) \
+        .contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+    ct = torch.randn(2, 7, 7, 8, generator=gen, dtype=dtype)
+    out = {}
+    for dev in ("cpu", card):
+        xx = x.to(dev).detach().requires_grad_()
+        y = _avgpool3(xx)
+        (y * ct.to(dev)).sum().backward()
+        out[str(dev)] = (y.detach().cpu(), xx.grad.cpu())
+    (y0, g0), (y1, g1) = out.values()
+    torch.testing.assert_close(y1, y0, rtol=tol, atol=tol)
+    torch.testing.assert_close(g1, g0, rtol=tol, atol=tol)

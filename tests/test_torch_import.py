@@ -44,7 +44,9 @@ def test_no_jax_side_module_is_imported():
               "ops.collectives", "optim.fused_update", "optim.distributed",
               "models.resnet", "interop", "train_step", "_build",
               "ops.flash_attention", "parallel.ring_attention",
-              "models.transformer", "ops.quantization"):
+              "models.transformer", "ops.quantization", "models.layers",
+              "models.mnist", "models.vgg", "models.inception",
+              "ops.batch_norm"):
         assert f"horovod_tpu_torch.{m}" in res["modules"]
 
 
@@ -64,13 +66,18 @@ def test_package_shares_no_code_with_the_jax_package():
 
 
 @pytest.mark.parametrize("entry", ["init", "ResNet50", "synthetic_batch",
-                                   "Transformer", "synthetic_tokens"])
+                                   "Transformer", "synthetic_tokens",
+                                   "VGG16", "InceptionV3", "SmallCNN",
+                                   "MnistCNN"])
 def test_entry_points_raise_without_a_gpu(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.inception import InceptionV3
+    from horovod_tpu_torch.models.mnist import MnistCNN, SmallCNN
     from horovod_tpu_torch.models.resnet import ResNet50
     from horovod_tpu_torch.models.transformer import (Transformer,
                                                       TransformerConfig)
+    from horovod_tpu_torch.models.vgg import VGG16
     from horovod_tpu_torch.train_step import synthetic_batch, synthetic_tokens
 
     small = TransformerConfig(vocab=16, d_model=16, n_heads=2, head_dim=8,
@@ -79,7 +86,11 @@ def test_entry_points_raise_without_a_gpu(entry, monkeypatch):
             "ResNet50": lambda: ResNet50(num_filters=8),
             "synthetic_batch": lambda: synthetic_batch(2, 8),
             "Transformer": lambda: Transformer(small),
-            "synthetic_tokens": lambda: synthetic_tokens(2, 8, 16)}[entry]
+            "synthetic_tokens": lambda: synthetic_tokens(2, 8, 16),
+            "VGG16": lambda: VGG16(widths=(8, 8, 8, 8, 8), image_size=32),
+            "InceptionV3": lambda: InceptionV3(num_classes=10),
+            "SmallCNN": lambda: SmallCNN(num_classes=10),
+            "MnistCNN": lambda: MnistCNN()}[entry]
     with pytest.raises(hvd.HorovodTpuError, match="device='cpu'"):
         call()
     assert not hvd.is_initialized()
