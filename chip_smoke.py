@@ -100,7 +100,22 @@ Phases (any failure exits non-zero and prints no result line):
    step and no N1-N4 launch;
 13. Inception-v3 at 299 px, batch 128, bf16, dropout on, 5 steps: one
    B1 launch and 94 launches of each of N1-N4 per step.  Both CNN paths
-   report median and mean step time, img/s and peak memory.
+   report median and mean step time, img/s and peak memory;
+14. ZeRO and the overlap engine: (a) the sharded tail at an emulated
+   world of 4 with 4 buckets (only the transport emulated): the
+   ResNet-50 gradients of four 64-image batch shards of the main path's
+   model through ``fuse_bucket_piece``, summed, each rank's shard
+   through ``fused_update_groups`` (B1, navg 4) and the update
+   reassembled by ``leaf_from_buckets``, equal bit for bit to stage 0's
+   B1 over the summed gradients; B3 likewise at the LM's 75 leaf shapes;
+   one launch per emulated rank; (b) the ResNet-50 path (world 1 over
+   NCCL) 3 steps at stage 0 + overlap, stages 1, 2 and 3 (stage 3
+   through ``zero3_train_step``) and stage 2 + overlap: losses finite,
+   one B1 and 53 of each of N1-N4 per step, median step time, peak
+   memory and optimizer-state bytes, and one more step's tail on the
+   captured gradients equal to stage 0's bit for bit; (c) the transformer
+   at ZeRO stage 2, 3 steps: losses finite and falling, one B3 and 12 of
+   each of B8-B10 per step.
 
 Then the run's wall time, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
@@ -1074,9 +1089,11 @@ def small_lm_reference(hvd, torch) -> None:
 
 
 def lm_path(hvd, torch, seq: int, batch: int, steps: int, gpu: str,
-            tag: str, profile: str | None = None) -> dict:
-    """Phases 7 and 8: the transformer LM trained through the public
-    entry points at the bench's widths (seed 0 weights, seed 1 tokens)."""
+            tag: str, profile: str | None = None,
+            zero_stage: int = 0) -> dict:
+    """Phases 7, 8 and 14c: the transformer LM trained through the public
+    entry points at the bench's widths (seed 0 weights, seed 1 tokens),
+    at ZeRO stage ``zero_stage``."""
     from horovod_tpu_torch.models.transformer import (Transformer,
                                                       TransformerConfig)
     from horovod_tpu_torch.ops import flash_attention as FA
@@ -1086,7 +1103,8 @@ def lm_path(hvd, torch, seq: int, batch: int, steps: int, gpu: str,
     cfg = TransformerConfig(**LM, max_seq=seq)
     model = Transformer(cfg, seed=0)
     opt = hvd.DistributedOptimizer(
-        hvd.fused_update.adam(model.parameters(), 3e-4))
+        hvd.fused_update.adam(model.parameters(), 3e-4),
+        zero_stage=zero_stage)
     if not TF.active():
         raise AssertionError("the fused tail is not active")
     tokens, targets = synthetic_tokens(batch, seq, cfg.vocab, seed=1)
@@ -1128,7 +1146,8 @@ def lm_path(hvd, torch, seq: int, batch: int, steps: int, gpu: str,
                                                    targets),
                       step_s, f"{stem}_{tag}{ext}", LM_CLASSES, tag)
     return {"launches": launches, "losses": losses, "step_s": step_s,
-            "median_s": med, "peak_bytes": peak}
+            "median_s": med, "peak_bytes": peak,
+            "state_bytes": opt.state_bytes()}
 
 
 def long_context(hvd, torch, FA, gpu: str, profile: str | None) -> dict:
@@ -2061,6 +2080,261 @@ def cnn_path(hvd, torch, name: str, gpu: str,
             "median_s": med, "peak_bytes": peak}
 
 
+# ---------------------------------------------------------------------------
+# ZeRO stages 1-3 and the overlap engine (phase 14)
+# ---------------------------------------------------------------------------
+
+ZERO_N, ZERO_K = 4, 4  # the emulated world and its buckets (phase 14a)
+# (name, zero_stage, overlap) of the ResNet-50 runs (phase 14b)
+ZERO_CONFIGS = (("stage 0 + overlap", 0, True), ("stage 1", 1, False),
+                ("stage 2", 2, False), ("stage 3", 3, False),
+                ("stage 2 + overlap", 2, True))
+ZERO_STEPS = 3
+
+
+def _sharded_tail(torch, spec, grads, state: dict, what: str) -> dict:
+    """The sharded tail at an emulated world of ``ZERO_N`` (only the
+    transport emulated): every rank's ``ZERO_K`` bucket pieces
+    (``fuse_bucket_piece``) summed in rank order, each rank's shard
+    through ``fused_update_groups`` (navg ``ZERO_N``) with its shard of
+    ``state``, the update reassembled leaf by leaf from the bucket results
+    (``leaf_from_buckets``); held bit for bit, updates and moments,
+    against stage 0's multi-leaf kernel over the gradients summed in the
+    same order.  Returns the launches of each side."""
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.ops import overlap as O
+    from horovod_tpu_torch.optim import distributed as D
+    from horovod_tpu_torch.optim import fused_update as TF
+
+    n = ZERO_N
+    lay = D._shard_layout(grads[0], n)
+    if len(lay.keys) != 1:
+        raise AssertionError(f"{what}: expected one float32 group")
+    L, bounds = lay.shard[0], O.bucket_bounds(lay.shard[0], ZERO_K)
+    sums = []
+    for s, e in bounds:
+        pieces = [C.fuse_bucket_piece(g, lay.idxs[0], lay.sizes[0],
+                                      lay.padded[0], n, s, e, torch.float32)
+                  for g in grads]
+        total = pieces[0].clone()
+        for piece in pieces[1:]:
+            total.add_(piece)
+        sums.append(total.view(n, e - s))
+        del pieces
+    moments = [k for k in state if k != "count"]
+    TF.reset_launch_counts()
+    shards = []
+    for j in range(n):
+        st = {k: D._rank_shard(state[k], lay, 0, j).clone() for k in moments}
+        if "count" in state:
+            st["count"] = state["count"]
+        shard = torch.cat([sm[j] for sm in sums])
+        shards.append((TF.fused_update_groups(spec, [shard], [st], n,
+                                              [torch.float32])[0], st))
+    torch.cuda.synchronize()
+    zero_launches = TF.LAUNCHES[spec.kind]
+    if zero_launches != n:
+        raise AssertionError(f"{what}: {zero_launches} launches for {n} "
+                             "emulated ranks of one group")
+    del sums
+    outs = {"update": [torch.cat([u[s:e] for u, _ in shards])
+                       for s, e in bounds]}
+    for k in moments:
+        outs[k] = [torch.cat([st[k][s:e] for _, st in shards])
+                   for s, e in bounds]
+    summed = []
+    for i in range(len(grads[0])):
+        t = grads[0][i].clone()
+        for g in grads[1:]:
+            t.add_(g[i])
+        summed.append(t)
+    TF.reset_launch_counts()
+    if spec.kind == "momentum":
+        us, ts = TF.momentum_update_multi(
+            summed, [t.clone() for t in state["trace"]], n, spec.momentum,
+            -spec.lr)
+        want = {"update": us, "trace": ts}
+    else:
+        bc1, bc2 = TF.bias_corrections(spec, state["count"] + 1)
+        us, ms, vs = TF.adam_update_multi(
+            summed, [m.clone() for m in state["mu"]],
+            [v.clone() for v in state["nu"]], bc1, bc2, n, spec)
+        want = {"update": us, "mu": ms, "nu": vs}
+    torch.cuda.synchronize()
+    stage0_launches = TF.LAUNCHES[spec.kind]
+    off = 0
+    for i, sz in zip(lay.idxs[0], lay.sizes[0]):
+        for k, w in want.items():
+            got = C.leaf_from_buckets(outs[k], bounds, n, L, off, sz)
+            if not torch.equal(got.view(w[i].shape), w[i]):
+                raise AssertionError(
+                    f"{what}: leaf {i} {k} differs from stage 0's")
+        off += sz
+    return {"zero_launches": zero_launches,
+            "stage0_launches": stage0_launches}
+
+
+def zero_tail_emulated(torch, model, gpu: str) -> dict:
+    """Phase 14a: B1 over the ResNet-50 gradients of four 64-image batch
+    shards of the main path's model (a seeded random trace), B3 over
+    seeded gradients and moments at the LM's 75 leaf shapes, each as the
+    sharded tail at an emulated world of 4 with 4 buckets, bit for bit
+    against stage 0."""
+    from horovod_tpu_torch.optim import fused_update as TF
+    from horovod_tpu_torch.train_step import (softmax_cross_entropy,
+                                              synthetic_batch)
+
+    grads = []
+    for r in range(ZERO_N):
+        images, labels = synthetic_batch(64, 224, 1000, seed=100 + r)
+        model.zero_grad(set_to_none=True)
+        softmax_cross_entropy(model(images), labels).backward()
+        grads.append([p.grad.detach().clone() for p in model.parameters()])
+        del images, labels
+    model.zero_grad(set_to_none=True)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    trace = [torch.randn(g.shape, device="cuda", generator=gen)
+             for g in grads[0]]
+    out = {"momentum": _sharded_tail(
+        torch, TF.FusedSpec("momentum", 0.1, 0.9), grads, {"trace": trace},
+        "ResNet-50 B1")}
+    del grads, trace
+    shapes = lm_shapes(LM_SEQ)
+    grads = [[torch.randn(s, device="cuda", generator=gen) for s in shapes]
+             for _ in range(ZERO_N)]
+    state = {"mu": [torch.randn(s, device="cuda", generator=gen) * 1e-2
+                    for s in shapes],
+             "nu": [torch.rand(s, device="cuda", generator=gen) * 1e-4
+                    for s in shapes],
+             "count": 2}
+    out["adam"] = _sharded_tail(
+        torch, TF.FusedSpec("adam", 3e-4, 0.0, 0.9, 0.999, 1e-8), grads,
+        state, "LM B3")
+    del grads, state
+    torch.cuda.empty_cache()
+    log(f"[zero] the sharded tail at an emulated world of {ZERO_N} with "
+        f"{ZERO_K} buckets (fuse_bucket_piece, fused_update_groups with "
+        f"navg {ZERO_N}, leaf_from_buckets) equals stage 0's kernel over "
+        f"the summed gradients bit for bit, updates and moments: B1 over "
+        f"the 161 ResNet-50 leaves ({out['momentum']['zero_launches']} "
+        f"launches, stage 0 {out['momentum']['stage0_launches']}), B3 over "
+        f"the 75 LM leaves ({out['adam']['zero_launches']} launches, stage 0 "
+        f"{out['adam']['stage0_launches']}); on {gpu}")
+    return out
+
+
+def _leaves_of(flat, sizes, shapes) -> list:
+    out, off = [], 0
+    for sz, shape in zip(sizes, shapes):
+        out.append(flat[off:off + sz].view(shape))
+        off += sz
+    return out
+
+
+def _zero_tail_check(hvd, torch, name: str, opt, model, zp) -> None:
+    """One more step of ``opt`` on its current weights, state and
+    gradients (the last step's) against a stage-0 optimizer on copies of
+    them: the weights and traces equal bit for bit.  At a world of one
+    the shard is the whole padded buffer."""
+    if zp is None:
+        params = list(model.parameters())
+        shapes = [p.shape for p in params]
+        sizes = [p.numel() for p in params]
+        grads = [p.grad.clone() for p in params]
+        weights = lambda: [p.detach() for p in params]  # noqa: E731
+        if opt.zero_stage == 0:
+            traces = lambda: [opt.optimizer.state[p]["trace"]  # noqa: E731
+                              for p in params]
+        else:
+            traces = lambda: _leaves_of(  # noqa: E731
+                opt.shard_state[0]["trace"], sizes, shapes)
+    else:
+        shapes, sizes = zp.shapes, zp.layout.sizes[0]
+        shard = zp.shards[0]
+        grads = [g.clone() for g in _leaves_of(shard.grad, sizes, shapes)]
+        weights = lambda: _leaves_of(shard.detach(), sizes,  # noqa: E731
+                                     shapes)
+        traces = lambda: _leaves_of(  # noqa: E731
+            opt.optimizer.state[shard]["trace"], sizes, shapes)
+    ref = [torch.nn.Parameter(w.clone()) for w in weights()]
+    for p, g in zip(ref, grads):
+        p.grad = g
+    ropt = hvd.DistributedOptimizer(hvd.fused_update.sgd(ref, 0.1,
+                                                         momentum=0.9))
+    for p, t in zip(ref, traces()):
+        ropt.optimizer.state[p]["trace"].copy_(t)
+    opt.step()
+    ropt.step()
+    torch.cuda.synchronize()
+    for i, (a, b, ta, tb) in enumerate(zip(weights(), ref, traces(), [
+            ropt.optimizer.state[p]["trace"] for p in ref])):
+        if not (torch.equal(a, b.detach()) and torch.equal(ta, tb)):
+            raise AssertionError(f"{name}: the tail on captured gradients "
+                                 f"differs from stage 0's at leaf {i}")
+
+
+def zero_resnet_paths(hvd, torch, gpu: str) -> dict:
+    """Phase 14b: the main path's ResNet-50 (224 px, batch 256, bf16,
+    fused momentum SGD, world 1 over NCCL) ``ZERO_STEPS`` steps at each of
+    ``ZERO_CONFIGS``, stage 3 through ``zero3_train_step``: every loss
+    finite, one B1 and 53 of each of N1-N4 per step, median step time,
+    peak memory and optimizer-state bytes; then the tail check."""
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.ops import batch_norm as BN
+    from horovod_tpu_torch.optim import fused_update as TF
+    from horovod_tpu_torch.train_step import (synthetic_batch, train_step,
+                                              zero3_train_step)
+
+    images, labels = synthetic_batch(BATCH, 224, 1000, seed=0)
+    out = {}
+    for name, stage, overlap in ZERO_CONFIGS:
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        model = ResNet50(num_classes=1000, dtype=torch.bfloat16, seed=0)
+        zp = hvd.zero3_shard_params(model) if stage == 3 else None
+        opt = hvd.DistributedOptimizer(
+            hvd.fused_update.sgd(zp.shards if zp else model.parameters(),
+                                 0.1, momentum=0.9),
+            zero_stage=stage, overlap=overlap)
+        torch.cuda.synchronize()
+        losses, times = [], []
+        TF.reset_launch_counts()
+        BN.reset_launch_counts()
+        for _ in range(ZERO_STEPS):
+            t0 = time.perf_counter()
+            if zp is None:
+                loss = train_step(model, opt, images, labels)
+            else:
+                loss = zero3_train_step(model, zp, opt, images, labels)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+        launches = {**TF.LAUNCHES, **BN.LAUNCHES}
+        peak = torch.cuda.max_memory_allocated()
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{name}: non-finite loss: {losses}")
+        want = {"sgd": 0, "momentum": ZERO_STEPS, "adam": 0,
+                **dict.fromkeys(BN_KERNELS, RESNET50_BN * ZERO_STEPS)}
+        if launches != want:
+            raise AssertionError(f"{name}: kernel launches {launches} in "
+                                 f"{ZERO_STEPS} steps, expected {want}")
+        _zero_tail_check(hvd, torch, name, opt, model, zp)
+        med = statistics.median(times[1:])
+        log(f"[zero] ResNet-50 224x224 batch {BATCH} bf16, fused momentum "
+            f"SGD, {name}, {ZERO_STEPS} steps on {gpu}: losses {losses}; "
+            f"step times (s) {times}; median {med:.4f} s = "
+            f"{BATCH / med:.1f} img/s; peak memory {peak} B; optimizer "
+            f"state {opt.state_bytes()} B; kernel launches {launches}; the "
+            "tail on captured gradients equals stage 0's bit for bit")
+        out[name] = {"launches": launches, "losses": losses,
+                     "median_s": med, "peak_bytes": peak,
+                     "state_bytes": opt.state_bytes()}
+        del model, opt, zp
+    torch.cuda.empty_cache()
+    return out
+
+
 def run(args) -> int:
     t_start = time.perf_counter()
     card = pin_one_card()
@@ -2136,7 +2410,10 @@ def run(args) -> int:
     inception_reference(hvd, torch)
     torch.backends.cudnn.benchmark = True
     path = main_path(hvd, torch, STEPS, BATCH, gpu, args.profile)
-    wire = codec_path(hvd, Q, torch, path.pop("model"), gpu)
+    model = path.pop("model")
+    wire = codec_path(hvd, Q, torch, model, gpu)
+    zero_tail = zero_tail_emulated(torch, model, gpu)
+    del model
     torch.cuda.empty_cache()
     sgd = sgd_path(hvd, torch, gpu)
     torch.cuda.empty_cache()
@@ -2146,6 +2423,15 @@ def run(args) -> int:
                  args.profile)
     torch.cuda.empty_cache()
     long_errs = long_context(hvd, torch, FA, gpu, args.profile)
+    torch.cuda.empty_cache()
+    zero = zero_resnet_paths(hvd, torch, gpu)
+    zero_lm = lm_path(hvd, torch, LM_SEQ, LM_BATCH, ZERO_STEPS, gpu,
+                      "transformer stage 2", zero_stage=2)
+    if not zero_lm["losses"][-1] < zero_lm["losses"][0]:
+        raise AssertionError(f"transformer stage 2: losses do not fall: "
+                             f"{zero_lm['losses']}")
+    log(f"[zero] transformer stage 2: optimizer state "
+        f"{zero_lm['state_bytes']} B (stage 0: {lm['state_bytes']} B)")
     hvd.shutdown()
 
     launches = {**path["launches"], **lm["launches"],
@@ -2178,6 +2464,13 @@ def run(args) -> int:
                       "table in the kernel's parameters",
             "shapes": f"{len(shapes[kind])} {model} leaves, {n_el} f32",
             **({"torch_mul_ms": t["torch_mul_ms"]} if kind == "sgd" else {}),
+            **({"launches_zero_resnet50": {
+                    n: r["launches"]["momentum"] for n, r in zero.items()},
+                "zero_tail_launches": zero_tail["momentum"]}
+               if kind == "momentum" else {}),
+            **({"launches_zero_lm": zero_lm["launches"]["adam"],
+                "zero_tail_launches": zero_tail["adam"]}
+               if kind == "adam" else {}),
             **({"ms_vgg16": vgg_times["ms"],
                 "plain_ms_vgg16": vgg_times["plain_ms"],
                 "bound_ms_vgg16": vgg_times["bound_ms"],
@@ -2209,6 +2502,7 @@ def run(args) -> int:
             "ms_long": tl["ms"], "bound_ms_long": tl["bound_ms"],
             "library_ms_long": tl["library_ms"], "tflops_long": tl["tflops"],
             **tc_info.get(name, {}),
+            "launches_zero_lm": zero_lm["launches"][name],
             "cores": "bf16 on the tensor cores (wgmma), f32 on the CUDA "
                      "cores",
             **({"ms_with_dkv": t["ms_with_dkv"],
@@ -2250,6 +2544,8 @@ def run(args) -> int:
             "launches": launches[name],
             "launches_inception3": cnn["inception3"]["launches"][name],
             "launches_vgg16": cnn["vgg16"]["launches"][name],
+            "launches_zero_resnet50": {n: r["launches"][name]
+                                       for n, r in zero.items()},
             "max_abs_err": e["max_abs_err"], "max_ulp": e["max_ulp"],
             "max_err_f64": e["max_err_f64"],
             "plain_err_f64": e["plain_err_f64"],

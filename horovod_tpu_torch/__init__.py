@@ -22,6 +22,7 @@ from horovod_tpu_torch.ops.collectives import (  # noqa: F401
 from horovod_tpu_torch.ops.compression import Compression  # noqa: F401
 from horovod_tpu_torch.optim import fused_update  # noqa: F401
 from horovod_tpu_torch.optim.distributed import (  # noqa: F401
-    DistributedOptimizer, allreduce_gradients,
+    DistributedOptimizer, Zero3Params, allreduce_gradients,
     allreduce_gradients_with_feedback, broadcast_object,
-    broadcast_optimizer_state, broadcast_parameters)
+    broadcast_optimizer_state, broadcast_parameters,
+    broadcast_skipping_shards, zero3_full_params, zero3_shard_params)

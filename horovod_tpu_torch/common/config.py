@@ -44,8 +44,33 @@ _KNOBS: dict[str, Knob] = {
         "residual.  Must agree on every rank."),
     "zero_stage": Knob(
         "HOROVOD_ZERO_STAGE", 0, int,
-        "ZeRO sharding stage for DistributedOptimizer; only 0 (the "
-        "replicated update) is implemented."),
+        "ZeRO sharding stage for DistributedOptimizer (0-3): 0 the "
+        "replicated update; 1 optimizer state as rank-local 1/world "
+        "shards; 2 also the gradients (bucket-wise reduce-scatter, no "
+        "full fused buffer); 3 also the parameters (zero3_shard_params, "
+        "zero3_full_params)."),
+    "sharded_optimizer": Knob(
+        "HOROVOD_SHARDED_OPTIMIZER", False, _parse_bool,
+        "ZeRO stage 1 under its older name: read when HOROVOD_ZERO_STAGE "
+        "is 0."),
+    "zero_prefetch_chunks": Knob(
+        "HOROVOD_ZERO_PREFETCH_CHUNKS", 4, int,
+        "Buckets of the stage-2/3 pipelines: the gradient reduce-scatter "
+        "and the stage-3 parameter all-gather run in this many column "
+        "buckets of the (world, shard) view."),
+    "overlap": Knob(
+        "HOROVOD_OVERLAP", False, _parse_bool,
+        "Bucketed gradient communication: each fused buffer is reduced in "
+        "HOROVOD_OVERLAP_CHUNKS buckets, bucket b+1's reduce-scatter "
+        "issued before bucket b's math and all-gather."),
+    "overlap_chunks": Knob(
+        "HOROVOD_OVERLAP_CHUNKS", 4, int,
+        "Bucket count of the overlap schedule (default 4)."),
+    "bucket_compression": Knob(
+        "HOROVOD_BUCKET_COMPRESSION", "", str,
+        "Per-bucket wire modes, colon-separated (e.g. 'int8:int4:topk'), "
+        "cycled over the buckets of the overlap and stage-2/3 schedules; "
+        "empty: every bucket rides the call's own mode."),
     "log_level": Knob(
         "HOROVOD_LOG_LEVEL", "warning", str,
         "trace | debug | info | warning | error | fatal."),
@@ -61,13 +86,6 @@ _KNOBS: dict[str, Knob] = {
 # (The knobs ignored on purpose, each with its reason, are listed in
 # ROADMAP.md Queue C.)
 _NOT_PORTED = {
-    "HOROVOD_OVERLAP": "the overlap engine (ROADMAP.md Queue A item 8)",
-    "HOROVOD_BUCKET_COMPRESSION":
-        "per-bucket wire modes of the overlap engine (ROADMAP.md Queue A "
-        "item 8)",
-    "HOROVOD_SHARDED_OPTIMIZER":
-        "ZeRO stage 1, the sharded weight update (ROADMAP.md Queue A "
-        "item 8)",
     "HOROVOD_HIERARCHICAL_ALLREDUCE":
         "hierarchical (cross, local) reductions (ROADMAP.md Queue A item 9)",
     "HOROVOD_HIERARCHICAL_ALLGATHER":

@@ -278,3 +278,105 @@ def feedback_to_jax(model, optimizer) -> dict:
     lm = isinstance(model, Transformer)
     tensors = _residual_tensors(model, optimizer, lm)
     return _lm_tree(tensors) if lm else _to_tree(tensors.items())
+
+
+# ---------------------------------------------------------------------------
+# ZeRO state: the JAX package's fused buffers (stage-1/2 ``_ShardedState``,
+# stage-3 ``Zero3Params``) split per leaf in its layout, mapped like the
+# weights, and fused again in the port's (leaf order and convolution
+# layout differ between the packages, so the shards do too).
+# ---------------------------------------------------------------------------
+
+
+def _jax_leaves(tree: dict, prefix=()):
+    """``(path, array)`` of a nested dict in JAX's flatten order (keys
+    sorted at every level)."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _jax_leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _from_jax_fused(bufs, layout, params_tree: dict, model, tensors: dict,
+                    what: str) -> None:
+    """Split the JAX fused buffers ``bufs`` (one host array per group of
+    ``layout``, every rank's shard concatenated) into the leaves of
+    ``params_tree`` and load them, mapped like the weights, into
+    ``tensors`` (the port's parameter name -> tensor)."""
+    from horovod_tpu_torch.models.transformer import Transformer
+
+    leaves = list(_jax_leaves(params_tree))
+    items = []
+    for g, buf in enumerate(bufs):
+        buf = np.asarray(buf, np.float32).reshape(-1)
+        off = 0
+        for i, sz in zip(layout.idxs[g], layout.sizes[g]):
+            path, like = leaves[i]
+            items.append((path, buf[off:off + sz].reshape(np.shape(like))))
+            off += sz
+    tree = _nest(items)
+    if isinstance(model, Transformer):
+        by_param = {p: tensors[name] for name, p in model.named_parameters()}
+        _lm_load(_lm_tensors(model, lambda p: by_param[p]), tree, what)
+    else:
+        _load(tensors, tree, what)
+
+
+def sharded_state_from_jax(state: dict, layout, params_tree: dict, model,
+                           optimizer) -> None:
+    """Set a stage-1/2 ``DistributedOptimizer``'s shard state from the JAX
+    package's ``_ShardedState``: ``state`` maps each moment (``trace``,
+    or ``mu`` and ``nu``) to that state's full fused buffers, one host
+    array per dtype group of ``layout`` (the JAX ``_ShardLayout``; every
+    rank's shard concatenated), and ``count`` to Adam's step count;
+    ``params_tree`` is the JAX parameter tree (flax or transformer
+    layout) whose flatten order the layout indexes.  Each leaf maps as
+    the weights do, and the port's layout is fused anew: this rank's
+    shard of each group."""
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.optim.distributed import _rank_shard
+
+    names = [name for name, _ in model.named_parameters()]
+    params = dict(model.named_parameters())
+    by_id = {id(p): name for name, p in params.items()}
+    order = [by_id[id(p)] for p in optimizer._params_all]
+    if sorted(order) != sorted(names):
+        raise ValueError("the optimizer's parameters are not the model's")
+    shard_state = optimizer.shard_state
+    for key, bufs in state.items():
+        if key == "count":
+            for st in shard_state:
+                st["count"] = int(np.asarray(bufs))
+            continue
+        tensors = {name: torch.empty(p.shape, dtype=p.dtype)
+                   for name, p in params.items()}
+        _from_jax_fused(bufs, layout, params_tree, model, tensors, key)
+        leaves = [tensors[name] for name in order]
+        for g, st in enumerate(shard_state):
+            with torch.no_grad():
+                st[key].copy_(_rank_shard(leaves, optimizer.layout, g,
+                                          basics.rank()))
+
+
+def zero3_params_from_jax(shards, layout, params_tree: dict, model,
+                          zp) -> None:
+    """Set the port's ``Zero3Params`` ``zp`` (of ``model``) from the JAX
+    package's stage-3 shards: ``shards`` holds each dtype group's full
+    fused buffer (every rank's shard concatenated) in the JAX
+    ``layout``."""
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.optim.distributed import _rank_shard
+
+    dtypes = {}
+    for g, key in enumerate(zp.layout.keys):
+        for i in zp.layout.idxs[g]:
+            dtypes[zp.names[i]] = key
+    tensors = {name: torch.empty(shape, dtype=dtypes[name])
+               for name, shape in zip(zp.names, zp.shapes)}
+    _from_jax_fused(shards, layout, params_tree, model, tensors, "params")
+    leaves = [tensors[name] for name in zp.names]
+    for g, shard in enumerate(zp.shards):
+        with torch.no_grad():
+            shard.copy_(_rank_shard(leaves, zp.layout, g, basics.rank()))

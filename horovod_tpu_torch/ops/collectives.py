@@ -9,10 +9,20 @@ world size in the wire dtype (``collectives.py:101-104``), not NCCL's
 The cast compressors (fp16/bf16) wrap a reduction in compress -> reduce
 -> decompress; the lossy ones (int8/int4/topk) dispatch to the
 scale-aware and sparse reductions of :mod:`horovod_tpu_torch.ops.
-quantization` instead.
+quantization` instead.  ``overlap`` (default: the ``HOROVOD_OVERLAP``
+knob) runs a reduction as the bucketed schedule of
+:mod:`horovod_tpu_torch.ops.overlap`.
+
+The span-wise helpers at the end (:func:`fuse_span`,
+:func:`fuse_bucket_piece`, :func:`leaf_from_buckets`) build one bucket
+of a fused buffer straight from its leaves, and one leaf straight from
+bucket results, so the ZeRO stage-2/3 pipelines never assemble a
+full-size fused buffer.
 """
 
 from __future__ import annotations
+
+import bisect
 
 import torch
 import torch.distributed as dist
@@ -21,6 +31,7 @@ from horovod_tpu_torch.common import basics as _basics
 from horovod_tpu_torch.common import config as _config
 from horovod_tpu_torch.common.types import HorovodTpuError
 from horovod_tpu_torch.common.util import true_divide
+from horovod_tpu_torch.ops import overlap as _overlap
 from horovod_tpu_torch.ops import quantization as _quant
 from horovod_tpu_torch.ops.compression import (Compression, is_quantized,
                                                wire_mode)
@@ -62,28 +73,39 @@ def _reduce_flat(buf: torch.Tensor, op: int) -> torch.Tensor:
 
 
 def allreduce(tensor: torch.Tensor, op: int = Average,
-              compression=Compression.none) -> torch.Tensor:
+              compression=Compression.none,
+              overlap: bool | None = None) -> torch.Tensor:
     """Allreduce one tensor over the world."""
     if is_quantized(compression) and tensor.is_floating_point():
         return quantized_allreduce(tensor, op=op,
-                                   mode=wire_mode(compression))
+                                   mode=wire_mode(compression),
+                                   overlap=overlap)
     _check_op(op)
     wire, ctx = compression.compress(tensor)
-    out = _reduce_flat(wire.clone(), op)
+    if _overlap.enabled(overlap):
+        out, _ = _overlap.overlapped_allreduce(wire, op=op)
+    else:
+        out = _reduce_flat(wire.clone(), op)
     return compression.decompress(out, ctx)
 
 
 def quantized_allreduce(tensor: torch.Tensor, op: int = Average,
                         block_size: int | None = None,
-                        with_error: bool = False, mode: str = "int8"):
+                        with_error: bool = False, mode: str = "int8",
+                        overlap: bool | None = None):
     """Allreduce on a lossy wire (``mode`` = int8 | int4 | topk).  With
     ``with_error`` also returns this rank's float32 residual (shape of
     ``tensor``) for error feedback.  Average divides after the cast back
     to ``tensor``'s dtype."""
     _check_quantized_op(op)
     _check_op(op)
-    out, err = _quant._lossy_psum_impl(tensor, mode, block_size, None,
-                                       with_error)
+    if _overlap.enabled(overlap):
+        out, err = _overlap.overlapped_allreduce(
+            tensor, op=Sum, quantized=mode, with_error=with_error,
+            block_size=block_size)
+    else:
+        out, err = _quant._lossy_psum_impl(tensor, mode, block_size, None,
+                                           with_error)
     out = out.to(tensor.dtype)
     if op == Average:
         out = true_divide(out, _basics.size())
@@ -91,31 +113,38 @@ def quantized_allreduce(tensor: torch.Tensor, op: int = Average,
 
 
 def grouped_allreduce(tensors, op: int = Average,
-                      compression=Compression.none) -> list:
+                      compression=Compression.none,
+                      overlap: bool | None = None) -> list:
     """Allreduce a list of tensors as one group: same-dtype payloads are
     concatenated into one flat buffer per dtype, reduced with one
-    collective, and split back (``_grouped_fused``,
-    ``collectives.py:208-226``).  A lossy compressor runs
-    :func:`grouped_quantized_allreduce` instead."""
+    collective (or, under ``overlap``, the bucketed schedule, which
+    divides bucket by bucket for Average), and split back
+    (``_grouped_fused``, ``collectives.py:208-226``).  A lossy compressor
+    runs :func:`grouped_quantized_allreduce` instead."""
     if is_quantized(compression):
         return grouped_quantized_allreduce(tensors, op=op,
-                                           mode=wire_mode(compression))[0]
+                                           mode=wire_mode(compression),
+                                           overlap=overlap)[0]
     _check_op(op)
     if not tensors:
         return []
     wires, ctxs = zip(*[compression.compress(t) for t in tensors])
-    outs = _grouped_fused(wires, op)
+    if _overlap.enabled(overlap):
+        outs = _grouped_fused(wires, op, lambda buf, op: _overlap
+                              .overlapped_flat_reduce(buf, op=op)[0])
+    else:
+        outs = _grouped_fused(wires, op)
     return [compression.decompress(o, c) for o, c in zip(outs, ctxs)]
 
 
-def _grouped_fused(wires, op: int) -> list:
+def _grouped_fused(wires, op: int, reduce=_reduce_flat) -> list:
     groups: dict = {}
     for i, w in enumerate(wires):
         groups.setdefault(w.dtype, []).append(i)
     outs: list = [None] * len(wires)
     for idxs in groups.values():
         buf = torch.cat([wires[i].reshape(-1) for i in idxs])
-        red = _reduce_flat(buf, op)
+        red = reduce(buf, op)
         off = 0
         for i in idxs:
             n = wires[i].numel()
@@ -127,13 +156,15 @@ def _grouped_fused(wires, op: int) -> list:
 def grouped_quantized_allreduce(tensors, op: int = Average,
                                 block_size: int | None = None,
                                 with_error: bool = False,
-                                mode: str = "int8"):
+                                mode: str = "int8",
+                                overlap: bool | None = None):
     """Grouped allreduce on a lossy wire: every floating leaf, whatever
     its dtype, is raveled into ONE float32 buffer -> one lossy reduction
-    -> split and cast back; integer and bool leaves take an uncompressed
-    sum.  Returns ``(outputs, errors)``: ``errors`` is a list of float32
-    residuals (zeros for the pass-through leaves) when ``with_error``,
-    else ``None``."""
+    (under ``overlap``, the bucketed schedule: each bucket compressed on
+    its own) -> split and cast back; integer and bool leaves take an
+    uncompressed sum.  Returns ``(outputs, errors)``: ``errors`` is a
+    list of float32 residuals (zeros for the pass-through leaves) when
+    ``with_error``, else ``None``."""
     _check_quantized_op(op)
     _check_op(op)
     if not tensors:
@@ -146,8 +177,13 @@ def grouped_quantized_allreduce(tensors, op: int = Average,
     if fidx:
         buf = torch.cat([tensors[i].to(torch.float32).reshape(-1)
                          for i in fidx])
-        red, err = _quant._lossy_psum_impl(buf, mode, block_size, None,
-                                           with_error)
+        if _overlap.enabled(overlap):
+            red, err = _overlap.overlapped_flat_reduce(
+                buf, op=Sum, quantized=mode, with_error=with_error,
+                block_size=block_size)
+        else:
+            red, err = _quant._lossy_psum_impl(buf, mode, block_size, None,
+                                               with_error)
         if op == Average:
             red = true_divide(red, n)
         off = 0
@@ -192,19 +228,21 @@ def alltoall(tensor: torch.Tensor) -> torch.Tensor:
 
 def reducescatter(tensor: torch.Tensor, op: int = Sum,
                   compression=Compression.none,
-                  block_size: int | None = None) -> torch.Tensor:
+                  block_size: int | None = None,
+                  overlap: bool | None = None) -> torch.Tensor:
     """Reduce + scatter along axis 0.  A leading dimension that does not
     divide the world size is zero-padded here: every rank returns
     ``ceil(d0 / n)`` rows, the trailing ranks holding zero tail rows.  A
     lossy compressor rides its wire with blocks laid out inside each
     output shard."""
     return grouped_reducescatter([tensor], op=op, compression=compression,
-                                 block_size=block_size)[0]
+                                 block_size=block_size, overlap=overlap)[0]
 
 
 def grouped_reducescatter(tensors, op: int = Sum,
                           compression=Compression.none,
-                          block_size: int | None = None) -> list:
+                          block_size: int | None = None,
+                          overlap: bool | None = None) -> list:
     """Reduce + scatter a list of tensors along axis 0 in one group:
     same-dtype payloads fuse into one flat buffer (under a lossy
     compressor, every floating leaf into one float32 buffer), each rank
@@ -248,7 +286,8 @@ def grouped_reducescatter(tensors, op: int = Sum,
         seg = torch.cat(segs, dim=1)
         red, _ = _scatter_flat_buffer(seg.reshape(-1),
                                       quantized=qmode if lossy else False,
-                                      block_size=block_size)
+                                      block_size=block_size,
+                                      overlap=overlap)
         if op == Average:
             red = true_divide(red, n)
         off = 0
@@ -269,31 +308,28 @@ def grouped_reducescatter(tensors, op: int = Sum,
 
 def _scatter_flat_buffer(buf: torch.Tensor, quantized=False,
                          with_error: bool = False,
-                         block_size: int | None = None):
+                         block_size: int | None = None,
+                         overlap: bool | None = None):
     """Reduce-scatter a 1-D buffer whose length divides by the world size
     ``n`` into this rank's ``len / n`` shard (summed; the caller divides
     for Average): segment ``i`` lands on rank ``i``.  ``quantized`` is
-    ``False`` or a lossy mode (``True`` = int8).  Returns ``(shard,
+    ``False`` or a wire mode (``True`` = int8).  Returns ``(shard,
     err)``; ``err`` (``with_error``, lossy modes) is the full-buffer
-    float32 residual."""
-    mode = _quant.norm_mode(quantized)
-    n = _basics.size()
-    if n == 1:
-        err = (torch.zeros(buf.shape, dtype=torch.float32, device=buf.device)
-               if with_error else None)
-        return buf, err
-    L = buf.shape[0] // n
-    if mode in _quant.LOSSY_MODES:
-        seg = buf.to(torch.float32).reshape(n, L)
-        out, err2d = _quant.lossy_psum_scatter_segments(
-            seg, mode, block_size, with_error)
-        err = err2d.reshape(-1) if err2d is not None else None
-        return out.to(buf.dtype), err
-    if mode != "none":
-        raise ValueError(f"unknown wire mode {mode!r}")
-    out = torch.empty(L, dtype=buf.dtype, device=buf.device)
-    dist.reduce_scatter_tensor(out, buf.contiguous())
-    return out, None
+    float32 residual.  ``overlap`` runs it in buckets: the same shard
+    and residual layout."""
+    if _overlap.enabled(overlap):
+        return _overlap.overlapped_scatter_flat_buffer(
+            buf, quantized=quantized, with_error=with_error,
+            block_size=block_size)
+    return _overlap.scatter_bucket(buf, quantized, with_error, block_size)
+
+
+def _gather_flat_shard(shard: torch.Tensor, overlap: bool | None = None):
+    """Inverse of :func:`_scatter_flat_buffer`: every rank's 1-D shard
+    gathered back into the full buffer in segment order."""
+    if _overlap.enabled(overlap):
+        return _overlap.overlapped_gather_flat_shard(shard)
+    return _overlap.gather_bucket(shard)
 
 
 def broadcast(tensor: torch.Tensor, root_rank: int = 0) -> torch.Tensor:
@@ -320,3 +356,85 @@ def broadcast_(tensors, root_rank: int = 0) -> None:
                 n = t.numel()
                 t.copy_(buf[off:off + n].view(t.shape))
                 off += n
+
+
+# ---------------------------------------------------------------------------
+# Span-wise fused-buffer assembly (the ZeRO stage-2/3 bucket pipelines)
+# ---------------------------------------------------------------------------
+
+
+def _offsets(sizes) -> list:
+    offsets = [0]
+    for sz in sizes:
+        offsets.append(offsets[-1] + sz)
+    return offsets
+
+
+def fuse_span(leaves, idxs, sizes, start: int, end: int, dtype,
+              offsets=None) -> torch.Tensor:
+    """Elements ``[start, end)`` of the zero-padded fused flat buffer of
+    ``leaves[i] for i in idxs`` (flat sizes ``sizes``), without
+    concatenating the whole buffer: only the members that overlap the
+    window are read, then zeros for the pad.  ``offsets`` (the
+    ``len(idxs) + 1`` cumulative member starts) lets repeated callers
+    bisect to the first member.  A window inside one member of
+    ``dtype`` is a view of it."""
+    if offsets is None:
+        offsets = _offsets(sizes)
+    pieces = []
+    j = max(bisect.bisect_right(offsets, start) - 1, 0)
+    while j < len(idxs) and offsets[j] < end:
+        off, sz = offsets[j], sizes[j]
+        a, b = max(start, off), min(end, off + sz)
+        if a < b:
+            pieces.append(leaves[idxs[j]].reshape(-1)[a - off:b - off]
+                          .to(dtype))
+        j += 1
+    covered = sum(p.shape[0] for p in pieces)
+    if covered < end - start:
+        dev = leaves[idxs[0]].device
+        pieces.append(torch.zeros(end - start - covered, dtype=dtype,
+                                  device=dev))
+    return pieces[0] if len(pieces) == 1 else torch.cat(pieces)
+
+
+def fuse_bucket_piece(leaves, idxs, sizes, padded: int, n: int, s: int,
+                      e: int, dtype, inject=None) -> torch.Tensor:
+    """Bucket ``[s, e)`` of the ``(n, L)`` segment view of the padded
+    fused buffer, one :func:`fuse_span` per segment, as the flat ``(n *
+    (e - s),)`` segment-order buffer a bucket's reduce-scatter takes.
+    ``inject(lo, hi)`` (optional) returns a term added to flat window
+    ``[lo, hi)``: the error-feedback residual's slice."""
+    L = padded // n
+    offsets = _offsets(sizes)
+    spans = []
+    for i in range(n):
+        span = fuse_span(leaves, idxs, sizes, i * L + s, i * L + e, dtype,
+                         offsets=offsets)
+        if inject is not None:
+            span = span + inject(i * L + s, i * L + e)
+        spans.append(span)
+    return spans[0] if len(spans) == 1 else torch.cat(spans)
+
+
+def leaf_from_buckets(bucket_outs, bounds, n: int, L: int, off: int,
+                      sz: int) -> torch.Tensor:
+    """The flat leaf at ``[off, off + sz)`` of a fused buffer, from
+    bucket results (``bucket_outs[k]`` the flat ``(n * (e_k - s_k),)``
+    segment-order result of column bucket ``bounds[k]`` of the ``(n,
+    L)`` view): the leaf range splits into runs of one segment and one
+    bucket, each a slice of one bucket result, so no full-size buffer is
+    assembled.  A leaf in one run is a view."""
+    pieces = []
+    p, end = off, off + sz
+    while p < end:
+        seg, c = divmod(p, L)
+        k = next(k for k, (s, e) in enumerate(bounds) if s <= c < e)
+        s, e = bounds[k]
+        run = min(end, seg * L + e) - p
+        start = seg * (e - s) + (c - s)
+        pieces.append(bucket_outs[k][start:start + run])
+        p += run
+    if not pieces:
+        return bucket_outs[0][:0]
+    return pieces[0] if len(pieces) == 1 else torch.cat(pieces)

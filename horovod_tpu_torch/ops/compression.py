@@ -170,3 +170,32 @@ def wire_mode(compression) -> str:
 def active_compression():
     """The compressor selected by the ``HOROVOD_COMPRESSION`` knob."""
     return Compression.lookup(_config.get("compression"))
+
+
+# ---------------------------------------------------------------------------
+# Per-bucket modes (``HOROVOD_BUCKET_COMPRESSION``)
+# ---------------------------------------------------------------------------
+
+
+def parse_bucket_modes(spec: str) -> list:
+    """Parse a ``HOROVOD_BUCKET_COMPRESSION`` value: colon-separated mode
+    names (``int8:int4:topk``), each checked against
+    :data:`MODE_LADDER`; a typo raises."""
+    modes = [m.strip().lower() for m in str(spec).split(":") if m.strip()]
+    for m in modes:
+        if m not in MODE_LADDER:
+            raise ValueError(
+                f"HOROVOD_BUCKET_COMPRESSION entry {m!r} is not a wire "
+                f"mode; expected one of {'|'.join(MODE_LADDER)}")
+    return modes
+
+
+def bucket_modes(k: int, default: str = "none") -> list:
+    """The wire mode of each of ``k`` buckets: the
+    ``HOROVOD_BUCKET_COMPRESSION`` list cycled to length ``k``, or
+    ``default`` for every bucket when the knob is unset."""
+    k = max(1, int(k))
+    modes = parse_bucket_modes(str(_config.get("bucket_compression")).strip())
+    if not modes:
+        return [default] * k
+    return [modes[b % len(modes)] for b in range(k)]

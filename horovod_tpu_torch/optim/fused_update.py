@@ -6,7 +6,9 @@ gradient reduction, the update of an optimizer built by :func:`sgd` or
 a chain of elementwise PyTorch ops, each a full pass over device memory:
 one launch over all the leaves of one dtype (:func:`sgd_update_multi`,
 :func:`momentum_update_multi`, :func:`adam_update_multi`), whose leaf
-table travels in the kernel's parameters (:func:`leaf_table`).
+table travels in the kernel's parameters (:func:`leaf_table`).  At ZeRO
+stages 1-3 the tail runs over each dtype group's flat shard, one launch
+per group (:func:`fused_update_groups`).
 
 **Bit-exactness contract.**  The kernels and their plain versions below
 compute optax's update expressions (``optax.sgd`` / ``optax.trace`` /
@@ -33,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import numpy as np
@@ -599,7 +602,8 @@ def adam_update(g, mu, nu, bc1: float, bc2: float, navg: int,
 
 def _check_state(spec: FusedSpec, grads, states) -> None:
     """Raise unless every leaf's state has the layout the kernels take
-    (a tensor of the gradient's shape and dtype per moment)."""
+    (a tensor of the gradient's shape and dtype per moment; ``grads``
+    need only ``shape``, ``dtype`` and ``device``)."""
     if len(grads) != len(states):
         raise HorovodTpuError(
             f"fused {spec.kind} update: {len(grads)} gradients but "
@@ -657,6 +661,77 @@ def fused_update_tree(spec: FusedSpec, grads, states):
                                          mu_outs=mus, nu_outs=nus)
         for i, u in zip(idx, us):
             outs[i] = u
+    if spec.kind == "adam":
+        for st in states:
+            st["count"] = count
+    return outs
+
+
+# ---------------------------------------------------------------------------
+# The ZeRO (stage >= 1) entry point: raw post-scatter shard buffers
+# ---------------------------------------------------------------------------
+
+
+def init_group_state(spec: FusedSpec, shards) -> list:
+    """Zero state of the kinds' layout over flat shard buffers, one dict
+    per group (``trace``; ``mu``, ``nu`` and ``count``; nothing for
+    plain SGD), as :func:`fused_update_groups` takes it."""
+    out = []
+    for s in shards:
+        if spec.kind == "momentum":
+            out.append({"trace": torch.zeros_like(s)})
+        elif spec.kind == "adam":
+            out.append({"mu": torch.zeros_like(s), "nu": torch.zeros_like(s),
+                        "count": 0})
+        else:
+            out.append({})
+    return out
+
+
+def fused_update_groups(spec: FusedSpec, shards, states, navg: int,
+                        dtypes) -> list:
+    """Fused tail of the ZeRO paths: ``shards`` are the raw post-scatter
+    flat buffers of the dtype groups (summed in the wire dtype),
+    ``states`` one state dict per group (:func:`init_group_state`,
+    updated in place), ``dtypes`` the groups' dtypes and ``navg`` the
+    Average divisor (1 for Sum).  One launch per group: the kernel
+    unscales by ``navg`` itself when the shard is in its group's dtype;
+    a shard in another wire dtype (a lossy wire's float32 under a
+    bfloat16 group) is divided in that dtype and cast first, the
+    unfused chain's ``shard / n`` then ``astype``.  Returns the update
+    shards in the group dtypes."""
+    shards = list(shards)
+    # moments live in the group dtype: hold them to the shard's shape in
+    # that dtype
+    _check_state(spec, [SimpleNamespace(shape=s.shape, dtype=d,
+                                        device=s.device)
+                        for s, d in zip(shards, dtypes)], states)
+    if not shards:
+        return []
+    if spec.kind == "adam":
+        counts = {st["count"] for st in states}
+        if len(counts) != 1:
+            raise HorovodTpuError(
+                f"fused adam update: the groups disagree on the step count "
+                f"({sorted(counts)})")
+        count = min(counts.pop() + 1, _INT32_MAX)
+        bc1, bc2 = bias_corrections(spec, count)
+    outs = []
+    for g, st, d in zip(shards, states, dtypes):
+        div = navg
+        if g.dtype != d:
+            g = (true_divide(g, navg) if navg > 1 else g).to(d)
+            div = 1
+        if spec.kind == "sgd":
+            outs.append(sgd_update(g, div, -spec.lr))
+        elif spec.kind == "momentum":
+            tr = st["trace"]
+            outs.append(momentum_update(g, tr, div, spec.momentum, -spec.lr,
+                                        t_out=tr)[0])
+        else:
+            mu, nu = st["mu"], st["nu"]
+            outs.append(adam_update(g, mu, nu, bc1, bc2, div, spec,
+                                    mu_out=mu, nu_out=nu)[0])
     if spec.kind == "adam":
         for st in states:
             st["count"] = count

@@ -3,7 +3,12 @@
 with the batch-statistics update, mean softmax cross-entropy on one-hot
 labels, backward, ``DistributedOptimizer`` step), and
 :func:`lm_train_step`, the transformer LM's step (the JAX package's
-``make_train_step`` at one rank of each model axis)."""
+``make_train_step`` at one rank of each model axis).  Their ZeRO
+stage-3 twins, :func:`zero3_train_step` and :func:`zero3_lm_train_step`,
+run the forward on the full parameters that ``zero3_full_params``
+gathers from the shards (``bench.py``'s ``p = hvd.zero3_full_params(p)``
+inside the loss), through ``torch.func.functional_call``; the model's
+buffers (BatchNorm statistics) stay its own and update in place."""
 
 from __future__ import annotations
 
@@ -13,6 +18,7 @@ import torch.nn.functional as F
 
 from horovod_tpu_torch.common.util import resolve_device
 from horovod_tpu_torch.models.transformer import loss_fn
+from horovod_tpu_torch.optim.distributed import zero3_full_params
 
 
 def softmax_cross_entropy(logits: torch.Tensor,
@@ -41,6 +47,35 @@ def lm_train_step(model, optimizer, tokens: torch.Tensor,
     model.train()
     optimizer.zero_grad(set_to_none=True)
     loss = loss_fn(model(tokens), targets)
+    loss.backward()
+    optimizer.step()
+    return loss.detach()
+
+
+def zero3_train_step(model, zp, optimizer, images: torch.Tensor,
+                     labels: torch.Tensor) -> torch.Tensor:
+    """:func:`train_step` at ZeRO stage 3: ``zp`` is the model's
+    ``Zero3Params`` and ``optimizer`` the stage-3
+    ``DistributedOptimizer`` over its shards."""
+    model.train()
+    optimizer.zero_grad(set_to_none=True)
+    full = zero3_full_params(zp)
+    logits = torch.func.functional_call(model, full, (images,))
+    loss = softmax_cross_entropy(logits, labels)
+    loss.backward()
+    optimizer.step()
+    return loss.detach()
+
+
+def zero3_lm_train_step(model, zp, optimizer, tokens: torch.Tensor,
+                        targets: torch.Tensor) -> torch.Tensor:
+    """:func:`lm_train_step` at ZeRO stage 3 (the tied embedding is one
+    parameter, gathered once and used twice)."""
+    model.train()
+    optimizer.zero_grad(set_to_none=True)
+    full = zero3_full_params(zp)
+    loss = loss_fn(torch.func.functional_call(model, full, (tokens,)),
+                   targets)
     loss.backward()
     optimizer.step()
     return loss.detach()

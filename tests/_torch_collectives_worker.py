@@ -4,18 +4,27 @@ results as one JSON line.  Inputs are numpy arrays seeded by rank, so the
 parent can recompute every expected value; :func:`spawn` starts a world
 of such ranks with the launcher's env contract.
 
-``sys.argv[2] == "resnet"`` instead trains ResNet-50 at full width for a
-few steps with the int8 and then the int4 wire and error feedback, and
-prints launch counts, losses, step times and a digest of the reduced
-gradient.  ``HVD_TEST_FEEDBACK`` may name a ``.npy`` file of per-rank
-residuals that the lossy optimizer case loads before its second step."""
+``sys.argv[2]`` picks another case set: ``resnet`` trains ResNet-50 at
+full width for a few steps with the int8 and then the int4 wire and
+error feedback, and prints launch counts, losses, step times and a
+digest of the reduced gradient; ``overlap`` runs the bucketed schedules
+of ``ops/overlap.py`` (:func:`overlap_main`); ``zero`` the ZeRO stages
+(:func:`zero_main`); ``zero_resnet`` ResNet-50 at full width through
+stages 0-3 on the card (:func:`zero_resnet_main`).
+``HVD_TEST_FEEDBACK`` may name a ``.npy`` file of per-rank residuals
+that the lossy optimizer case loads before its second step;
+``HVD_TEST_INTEROP`` a pickle, written by ``tests/test_torch_zero.py``,
+of the JAX package's stage-1 state that the zero cases carry over
+(:func:`interop_case`)."""
 
+import gc
 import hashlib
 import json
 import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -254,9 +263,390 @@ def resnet_main(device: str, steps: int = 3):
     print(json.dumps(out))
 
 
+# ---------------------------------------------------------------------------
+# The overlap engine (tests/test_torch_overlap.py)
+# ---------------------------------------------------------------------------
+
+OVL_LEN = 1003            # no multiple of 2 or 4: the padded tail
+OVL_CHUNKS = (1, 3, 4)
+OVL_LOSSY = ("int8", "int4", "topk")
+OVL_MODES = "int8:none:topk"   # HOROVOD_BUCKET_COMPRESSION, 3 buckets
+OVL_LEAVES = ((40, 3), (17,))
+
+
+def overlap_inputs(rank: int, n: int):
+    rng = np.random.RandomState(300 + rank)
+    return {
+        "int": rng.randint(-20, 21, OVL_LEN).astype(np.float32),
+        "rand": rng.standard_normal(OVL_LEN).astype(np.float32),
+        "ga": rng.standard_normal((40, 3)).astype(np.float32),
+        "gb": rng.standard_normal(17).astype(np.float32),
+        "gc": rng.randint(-50, 50, (5,)).astype(np.int32),
+        "rs": rng.standard_normal((9, 5)).astype(np.float32),
+        "opt_g": [[rng.standard_normal(s).astype(np.float32)
+                   for s in OVL_LEAVES] for _ in range(2)],
+    }
+
+
+def overlap_main(device: str):
+    """The bucketed schedules against the JAX package's: the flat reduce
+    (dense, lossy, per-bucket modes), the grouped and single entry
+    points under ``overlap=True``, and ``DistributedOptimizer`` with the
+    overlap on and off at stages 0 and 1."""
+    from horovod_tpu_torch.ops import overlap as O
+
+    hvd.init(device=device)
+    dev = hvd.device()
+    inp = overlap_inputs(hvd.rank(), hvd.size())
+    t = {k: torch.from_numpy(v).to(dev) for k, v in inp.items()
+         if k != "opt_g"}
+    out = {}
+    for op in (hvd.Sum, hvd.Average):
+        for k in OVL_CHUNKS:
+            for data in ("int", "rand"):
+                out[f"dense_{op}_{k}_{data}"] = O.overlapped_flat_reduce(
+                    t[data], op=op, chunks=k)[0]
+    for mode in OVL_LOSSY:
+        out[f"lossy_{mode}"] = list(O.overlapped_flat_reduce(
+            t["rand"], op=hvd.Sum, quantized=mode, with_error=True,
+            chunks=3))
+    os.environ["HOROVOD_BUCKET_COMPRESSION"] = OVL_MODES
+    out["modes"] = list(O.overlapped_flat_reduce(
+        t["rand"], op=hvd.Sum, with_error=True, chunks=3))
+    del os.environ["HOROVOD_BUCKET_COMPRESSION"]
+    out["grouped"] = hvd.grouped_allreduce([t["ga"], t["gb"], t["gc"]],
+                                           overlap=True)
+    out["grouped_q"] = list(hvd.grouped_quantized_allreduce(
+        [t["ga"], t["gb"]], op=hvd.Sum, with_error=True, overlap=True))
+    out["rs"] = hvd.reducescatter(t["rs"], overlap=True)
+    out["allreduce"] = hvd.allreduce(t["rand"], overlap=True)
+    for stage in (0, 1):
+        for ovl in (False, True):
+            ws = [torch.nn.Parameter(torch.zeros(s, device=dev))
+                  for s in OVL_LEAVES]
+            opt = hvd.DistributedOptimizer(TF.sgd(ws, 0.1, 0.9),
+                                           zero_stage=stage, overlap=ovl)
+            for grads in inp["opt_g"]:
+                for w, g in zip(ws, grads):
+                    w.grad = torch.from_numpy(g).to(dev)
+                opt.step()
+            out[f"opt_{stage}_{ovl}"] = [w.detach() for w in ws]
+    hvd.shutdown()
+    print(json.dumps({k: enc(v) for k, v in out.items()}))
+
+
+# ---------------------------------------------------------------------------
+# ZeRO stages 1-3 (tests/test_torch_zero.py)
+# ---------------------------------------------------------------------------
+
+ZERO_LEAVES = (("a", (40, 3)), ("b", (17,)), ("c", (5, 7)), ("d", (3,)))
+ZERO_STEPS = 3
+ZERO_KINDS = ("sgd", "momentum", "adam")
+# dyadic hyperparameters keep every operation of SGD and momentum exact
+# on integer-valued data; the defaults are what users run
+ZERO_HYPER = {
+    "dyadic": dict(lr=0.5, momentum=0.5, b1=0.5, b2=0.25, eps=2.0 ** -10),
+    "random": dict(lr=0.1, momentum=0.9, b1=0.9, b2=0.999, eps=1e-8),
+}
+EF_LEN, EF_STEPS, EF_LR = 512, 5, 0.01
+
+
+def zero_inputs(rank: int, n: int, data: str):
+    """Initial weights (the same on every rank) and ``ZERO_STEPS`` steps
+    of per-rank gradients, leaf by leaf."""
+    rng = np.random.RandomState(500)
+    if data == "dyadic":
+        init = [rng.randint(-8, 9, s).astype(np.float32)
+                for _, s in ZERO_LEAVES]
+    else:
+        init = [rng.standard_normal(s).astype(np.float32)
+                for _, s in ZERO_LEAVES]
+    rng = np.random.RandomState(600 + rank)
+    if data == "dyadic":
+        grads = [[rng.randint(-4, 5, s).astype(np.float32)
+                  for _, s in ZERO_LEAVES] for _ in range(ZERO_STEPS)]
+    else:
+        grads = [[rng.standard_normal(s).astype(np.float32)
+                  for _, s in ZERO_LEAVES] for _ in range(ZERO_STEPS)]
+    return init, grads
+
+
+def ef_grad(rank: int) -> np.ndarray:
+    return np.random.RandomState(700 + rank).standard_normal(
+        EF_LEN).astype(np.float32)
+
+
+def _zero_opt(kind: str, params, h: dict):
+    if kind == "adam":
+        return TF.adam(params, h["lr"], b1=h["b1"], b2=h["b2"], eps=h["eps"])
+    return TF.sgd(params, h["lr"], h["momentum"] if kind == "momentum"
+                  else None)
+
+
+def zero_run(kind: str, stage: int, data: str, dev, steps=None,
+             compression=None, **kw):
+    """``ZERO_STEPS`` steps of a ``DistributedOptimizer`` at ``stage``
+    over the ``ZERO_LEAVES``; stage 3 through ``zero3_full_params``
+    (under ``compression``) with a loss linear in the weights (its
+    cotangents are the gradients).  Returns the weights, leaf by leaf,
+    and the optimizer."""
+    init, grads = zero_inputs(hvd.rank(), hvd.size(), data)
+    grads = grads if steps is None else steps
+    h = ZERO_HYPER[data]
+    ws = [torch.nn.Parameter(torch.from_numpy(a).to(dev)) for a in init]
+    if stage == 3:
+        zp = hvd.zero3_shard_params(
+            [(name, w) for (name, _), w in zip(ZERO_LEAVES, ws)])
+        opt = hvd.DistributedOptimizer(_zero_opt(kind, zp.shards, h),
+                                       zero_stage=3, **kw)
+        for gs in grads:
+            opt.zero_grad()
+            full = hvd.zero3_full_params(zp, compression=compression)
+            loss = sum((full[name] * torch.from_numpy(g).to(dev)).sum()
+                       for (name, _), g in zip(ZERO_LEAVES, gs))
+            loss.backward()
+            opt.step()
+        full = hvd.zero3_full_params(zp)
+        return [full[name].detach() for name, _ in ZERO_LEAVES], opt
+    opt = hvd.DistributedOptimizer(_zero_opt(kind, ws, h), zero_stage=stage,
+                                   **kw)
+    for gs in grads:
+        for w, g in zip(ws, gs):
+            w.grad = torch.from_numpy(g).to(dev)
+        opt.step()
+    return [w.detach() for w in ws], opt
+
+
+def zero_main(device: str):
+    """Stages 1-3 against the JAX package's ``DistributedOptimizer
+    (zero_stage=k)``: every kind with and without the fused tail, on
+    dyadic and random data; int8 with error feedback at stages 1 and 2;
+    accumulation over two passes at stage 1; at two ranks also a small
+    ResNet through ``zero3_train_step`` against stage 0 and the carried
+    JAX state (``HVD_TEST_INTEROP``)."""
+    hvd.init(device=device)
+    dev = hvd.device()
+    r, n = hvd.rank(), hvd.size()
+    out = {}
+    for fused in ("0", "1"):
+        os.environ["HOROVOD_FUSED_UPDATE"] = fused
+        for kind in ZERO_KINDS:
+            for stage in (0, 1, 2, 3):
+                for data in ZERO_HYPER:
+                    ws, opt = zero_run(kind, stage, data, dev)
+                    out[f"{kind}_{stage}_{fused}_{data}"] = ws
+                    if stage in (1, 2):
+                        out[f"bytes_{kind}_{stage}_{fused}"] = \
+                            opt.state_bytes()
+    os.environ["HOROVOD_FUSED_UPDATE"] = "1"
+    g = torch.from_numpy(ef_grad(r)).to(dev)
+    for stage, comp in ((1, "int8"), (2, "int8"), (1, "none")):
+        w = torch.nn.Parameter(torch.zeros(EF_LEN, device=dev))
+        opt = hvd.DistributedOptimizer(
+            TF.sgd([w], EF_LR), zero_stage=stage,
+            compression=hvd.Compression.lookup(comp))
+        for _ in range(EF_STEPS):
+            w.grad = g.clone()
+            opt.step()
+        out[f"ef_{stage}_{comp}"] = w.detach()
+        if comp != "none":
+            out[f"ef_res_{stage}"] = opt.residual[0]
+    # stage 3 with the backward's scatter on the int8 wire (no feedback)
+    out["zero3_int8"] = zero_run("sgd", 3, "random", dev,
+                                 compression=hvd.Compression.int8)[0]
+    # two backward passes per update at stage 1: four steps, two updates
+    _, grads = zero_inputs(r, n, "dyadic")
+    out["accum"] = zero_run("momentum", 1, "dyadic", dev,
+                            steps=grads + grads[:1],
+                            backward_passes_per_step=2)[0]
+    if n == 2:
+        out["resnet"] = zero3_resnet_case(dev)
+        if os.environ.get("HVD_TEST_INTEROP"):
+            out["interop"] = interop_case(dev,
+                                          os.environ["HVD_TEST_INTEROP"])
+    hvd.shutdown()
+    print(json.dumps({k: enc(v) for k, v in out.items()}))
+
+
+def small_resnet(dev):
+    from horovod_tpu_torch.models.resnet import BottleneckBlock, ResNet
+
+    return ResNet(stage_sizes=[1, 1, 1, 1], block_cls=BottleneckBlock,
+                  num_classes=10, num_filters=8, dtype=torch.float32, seed=7,
+                  device=dev)
+
+
+def zero3_resnet_case(dev, steps: int = 2) -> dict:
+    """The small ResNet (``tests/test_torch_resnet.py``'s config, f32)
+    trained ``steps`` steps on this rank's batch through
+    ``zero3_train_step`` and through ``train_step`` at stage 0, fused
+    momentum SGD: both weight sets, gathered, and the losses."""
+    from horovod_tpu_torch.train_step import (synthetic_batch, train_step,
+                                              zero3_train_step)
+
+    os.environ["HOROVOD_FUSED_UPDATE"] = "1"
+    x, y = synthetic_batch(4, 32, 10, seed=3 + hvd.rank(), device=dev)
+    m0 = small_resnet(dev)
+    o0 = hvd.DistributedOptimizer(TF.sgd(m0.parameters(), 0.1, 0.9))
+    l0 = [float(train_step(m0, o0, x, y)) for _ in range(steps)]
+    m3 = small_resnet(dev)
+    names = [name for name, _ in m3.named_parameters()]
+    zp = hvd.zero3_shard_params(m3)
+    o3 = hvd.DistributedOptimizer(TF.sgd(zp.shards, 0.1, 0.9), zero_stage=3)
+    l3 = [float(zero3_train_step(m3, zp, o3, x, y)) for _ in range(steps)]
+    full = hvd.zero3_full_params(zp)
+    return {"loss0": l0, "loss3": l3,
+            "w0": torch.cat([p.detach().reshape(-1)
+                             for p in m0.parameters()]),
+            "w3": torch.cat([full[k].detach().reshape(-1) for k in names]),
+            "bn0": m0.bn_init.mean, "bn3": m3.bn_init.mean,
+            "bytes0": o0.state_bytes(), "bytes3": o3.state_bytes(),
+            "numel3": sum(s.numel() for s in zp.shards)}
+
+
+def interop_case(dev, path: str) -> dict:
+    """The JAX package's stage-1 run of the small ResNet, carried over
+    after two steps (weights and ``_ShardedState``), then one more step
+    here: returns the weights in the flax layout's names."""
+    import pickle
+
+    with open(path, "rb") as f:
+        saved = pickle.load(f)
+    os.environ["HOROVOD_FUSED_UPDATE"] = "1"
+    model = small_resnet(dev)
+    interop.cnn_from_flax(saved["params"], saved["batch_stats"], model)
+    opt = hvd.DistributedOptimizer(TF.sgd(model.parameters(), 0.1, 0.9),
+                                   zero_stage=1)
+    interop.sharded_state_from_jax(
+        saved["state"], types.SimpleNamespace(**saved["layout"]),
+        saved["params"], model, opt)
+    grads = {name: torch.zeros_like(p) for name, p in
+             model.named_parameters()}
+    interop._load(grads, saved["grads"][hvd.rank()], "grads")
+    for name, p in model.named_parameters():
+        p.grad = grads[name]
+    opt.step()
+    return interop.cnn_to_flax(model)[0]
+
+
+# ---------------------------------------------------------------------------
+# ZeRO stages on four cards (tests/test_torch_cuda.py)
+# ---------------------------------------------------------------------------
+
+# (name, zero_stage, overlap, compression)
+ZERO_RESNET = (("stage 0", 0, False, "none"),
+               ("stage 0 + overlap", 0, True, "none"),
+               ("stage 1", 1, False, "none"),
+               ("stage 2", 2, False, "none"),
+               ("stage 3", 3, False, "none"),
+               ("stage 2 + overlap + int8", 2, True, "int8"))
+ZERO_RESNET_STEPS = 4
+
+
+def zero_resnet_main(device: str, steps: int = ZERO_RESNET_STEPS):
+    """ResNet-50, 224x224, batch 256 per rank (seeded by rank), bf16,
+    fused momentum SGD from the same seeded weights, ``steps`` steps at
+    each of ``ZERO_RESNET``, after a warm-up that autotunes cuDNN: per
+    step the launches, loss, time and (stages 1-2) a digest of the
+    weights; per configuration the peak memory and the optimizer-state
+    bytes.  The configurations then run again in reverse order, and
+    their step times are kept beside the first pass's (``times2``); and a
+    third time for two steps with a synchronize around the optimizer's
+    step, for the peaks of the forward and backward and of the step
+    apart (``peak_fwd_bwd``, ``peak_step``) and the bytes allocated as
+    the step begins (``resident_step``).
+    Stage 3's weights after one step are held against stage 1's here
+    (rtol 2e-5, atol 1e-7)."""
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.ops import batch_norm as BN
+    from horovod_tpu_torch.train_step import (synthetic_batch, train_step,
+                                              zero3_train_step)
+
+    os.environ["HOROVOD_FUSED_UPDATE"] = "1"
+    hvd.init(device=device)
+    r = hvd.rank()
+    images, labels = synthetic_batch(256, 224, 1000, seed=r, device=device)
+    torch.backends.cudnn.benchmark = True
+    first = {}
+
+    def run(stage, ovl, comp, steps, split_peaks=False):
+        gc.collect()                 # the last configuration's cycles
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = ResNet50(num_classes=1000, dtype=torch.bfloat16, seed=0,
+                         device=device)
+        zp = hvd.zero3_shard_params(model) if stage == 3 else None
+        opt = hvd.DistributedOptimizer(
+            hvd.fused_update.sgd(zp.shards if zp else model.parameters(),
+                                 0.1, momentum=0.9),
+            zero_stage=stage, overlap=ovl,
+            compression=hvd.Compression.lookup(comp))
+        res = {"launches": [], "losses": [], "times": [], "digests": [],
+               "peak_fwd_bwd": 0, "peak_step": 0, "resident_step": 0}
+        if split_peaks:
+            step_fn = opt.step
+
+            def step(closure=None):
+                torch.cuda.synchronize()
+                res["peak_fwd_bwd"] = max(res["peak_fwd_bwd"],
+                                          torch.cuda.max_memory_allocated())
+                res["resident_step"] = max(res["resident_step"],
+                                           torch.cuda.memory_allocated())
+                torch.cuda.reset_peak_memory_stats()
+                step_fn(closure)
+                torch.cuda.synchronize()
+                res["peak_step"] = max(res["peak_step"],
+                                       torch.cuda.max_memory_allocated())
+                torch.cuda.reset_peak_memory_stats()
+
+            opt.step = step
+        for step in range(steps):
+            Q.reset_launch_counts()
+            TF.reset_launch_counts()
+            BN.reset_launch_counts()
+            t0 = time.perf_counter()
+            if zp is None:
+                loss = train_step(model, opt, images, labels)
+            else:
+                loss = zero3_train_step(model, zp, opt, images, labels)
+            torch.cuda.synchronize()
+            res["times"].append(time.perf_counter() - t0)
+            res["losses"].append(float(loss))
+            res["launches"].append({**Q.LAUNCHES, **BN.LAUNCHES,
+                                    "momentum": TF.LAUNCHES["momentum"]})
+            if zp is None:
+                res["digests"].append(_digest(model.parameters()))
+            if step == 0 and stage in (1, 3) and stage not in first:
+                w = (torch.cat([t.detach().reshape(-1) for t in
+                                hvd.zero3_full_params(zp).values()])
+                     if zp else torch.cat([p.detach().reshape(-1)
+                                           for p in model.parameters()]))
+                first[stage] = w.clone()
+        res["peak_bytes"] = torch.cuda.max_memory_allocated()
+        res["state_bytes"] = opt.state_bytes()
+        return res
+
+    run(0, False, "none", 2)                     # cuDNN autotuning
+    out = {"rank": r}
+    for name, stage, ovl, comp in ZERO_RESNET:
+        out[name] = run(stage, ovl, comp, steps)
+    for name, stage, ovl, comp in reversed(ZERO_RESNET):
+        out[name]["times2"] = run(stage, ovl, comp, steps)["times"]
+    for name, stage, ovl, comp in ZERO_RESNET:
+        res = run(stage, ovl, comp, 2, split_peaks=True)
+        out[name]["peak_fwd_bwd"] = res["peak_fwd_bwd"]
+        out[name]["peak_step"] = res["peak_step"]
+        out[name]["resident_step"] = res["resident_step"]
+    a, b = first[3], first[1]
+    out["stage3_vs_stage1"] = float(((a - b).abs() - 2e-5 * b.abs())
+                                    .max())
+    out["stage3_close"] = bool(torch.allclose(a, b, rtol=2e-5, atol=1e-7))
+    hvd.shutdown()
+    print(json.dumps(out))
+
+
 if __name__ == "__main__":
     dev = sys.argv[1] if len(sys.argv) > 1 else "cpu"
-    if len(sys.argv) > 2 and sys.argv[2] == "resnet":
-        resnet_main(dev)
-    else:
-        main(dev)
+    mode = sys.argv[2] if len(sys.argv) > 2 else "collectives"
+    {"collectives": main, "resnet": resnet_main, "overlap": overlap_main,
+     "zero": zero_main, "zero_resnet": zero_resnet_main}[mode](dev)

@@ -536,6 +536,71 @@ def test_four_cards_lossy_resnet50():
               f"{steady[0]:.4f}-{steady[-1]:.4f} s; on 4 x {card.strip()}")
 
 
+def test_four_cards_zero_resnet50():
+    """ResNet-50 at full width, batch 256 per card, fused momentum SGD, 4
+    steps from the same seeded weights at stage 0, stage 0 + overlap,
+    stages 1, 2 and 3, and stage 2 + overlap + int8 + error feedback, on
+    four cards: finite losses; per step one B1 launch, 53 of each of
+    N1-N4, and under int8 one B4 and two B5 per bucket; at stages 1 and 2
+    the weights identical bit for bit on every rank after each step;
+    stage 3's gathered weights within rtol 2e-5, atol 1e-7 of stage 1's
+    after one step; stage 1's optimizer state a quarter of stage 0's.
+    Prints each configuration's median step time (steps 2-4 of two
+    passes, the second in reverse order, after a warm-up), per-rank peak
+    memory and optimizer-state bytes."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    import os
+    import statistics
+    import subprocess
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from _torch_collectives_worker import (ZERO_RESNET, ZERO_RESNET_STEPS,
+                                           spawn)
+
+    outs = spawn(4, "cuda", timeout=900, mode="zero_resnet")
+    card = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    buckets = 4  # HOROVOD_ZERO_PREFETCH_CHUNKS
+    for name, stage, _, comp in ZERO_RESNET:
+        want = {"quantize": 0, "dequantize": 0, "pack4": 0, "unpack4": 0,
+                "bn_stats": 53, "bn_normalize": 53, "bn_bwd_reduce": 53,
+                "bn_bwd_dx": 53, "momentum": 1}
+        if comp == "int8":
+            want.update(quantize=buckets, dequantize=2 * buckets)
+        for o in outs:
+            r = o[name]
+            assert r["launches"] == [want] * ZERO_RESNET_STEPS, \
+                (name, r["launches"])
+            assert all(math.isfinite(v) for v in r["losses"]), name
+        if stage in (1, 2):
+            for step in range(ZERO_RESNET_STEPS):
+                assert len({o[name]["digests"][step] for o in outs}) == 1, \
+                    (name, step)
+        med = [statistics.median(o[name]["times"][1:] + o[name]["times2"][1:])
+               for o in outs]
+        print(f"[four cards] ResNet-50 {name}, batch 256 per card: losses "
+              f"{outs[0][name]['losses']}, median step {min(med):.4f}-"
+              f"{max(med):.4f} s over ranks (rank 0's steps "
+              f"{outs[0][name]['times']} then {outs[0][name]['times2']} s), "
+              f"peak "
+              f"{[o[name]['peak_bytes'] for o in outs]} B (rank 0: forward "
+              f"and backward {outs[0][name]['peak_fwd_bwd']} B, optimizer "
+              f"step {outs[0][name]['peak_step']} B from "
+              f"{outs[0][name]['resident_step']} B allocated as it begins), "
+              f"optimizer state "
+              f"{[o[name]['state_bytes'] for o in outs]} B per rank; on "
+              f"4 x {card.strip()}")
+    for o in outs:
+        assert o["stage3_close"], o["stage3_vs_stage1"]
+        assert o["stage 0"]["state_bytes"] == 102_228_128
+        assert o["stage 1"]["state_bytes"] == 25_557_032
+        assert o["stage 2"]["state_bytes"] == 25_557_032
+        assert o["stage 3"]["state_bytes"] == 25_557_032
+
+
 # ---------------------------------------------------------------------------
 # BatchNorm N1-N4, held as chip_smoke.py holds them (bn_case): statistics
 # and sums within twice the plain version's error against a float64
