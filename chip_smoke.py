@@ -115,7 +115,18 @@ Phases (any failure exits non-zero and prints no result line):
    memory and optimizer-state bytes, and one more step's tail on the
    captured gradients equal to stage 0's bit for bit; (c) the transformer
    at ZeRO stage 2, 3 steps: losses finite and falling, one B3 and 12 of
-   each of B8-B10 per step.
+   each of B8-B10 per step;
+15. sequence parallelism at the long-context LM's attention: (a) B8, B9
+   and B10 against their plain versions at the ring's offsets (a block
+   visible whole, one hidden whole, which must leave the fresh state and
+   give zero gradients exactly, two partial blocks off the tile grid, the
+   zigzag pairs) at (12, 2048, 64) bf16 and (8, 256, 64) f32; (b) the
+   causal ring over an emulated group of 4 ranks at (12, 8192, 64) bf16,
+   contiguous and zigzag, each rank walking its ``ring_plan`` with the
+   ring's own step functions: out, dQ, dK and dV against the one-call
+   kernels within ``BF16_MAX_ABS``/``BF16_ROW_REL``, launches per rank
+   exactly as planned, kernel time per rank; (c) Ulysses emulated (12
+   heads into 4 groups, ``blockwise_attention`` on each at L = 8192).
 
 Then the run's wall time, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
@@ -2335,6 +2346,317 @@ def zero_resnet_paths(hvd, torch, gpu: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Sequence parallelism (phase 15)
+# ---------------------------------------------------------------------------
+
+SP = 4  # the emulated sequence group: the long-context LM over four ranks
+# the offsets the ring gives B8-B10 (as tests/test_torch_cuda.py's
+# SP_OFFSET_CASES): (bh, [(name, q_offset, k_offset, causal, rows)]) at
+# Lq = Lk = rows, the long-context chunk (12, 2048, 64) bf16 and (8, 256,
+# 64) f32; the zigzag pairs at half a chunk
+SP_OFFSETS = {
+    "bfloat16": (12, [("visible whole", 2048, 0, True, 2048),
+                      ("hidden whole", 0, 2048, True, 2048),
+                      ("partial, keys ahead", 0, 1000, True, 2048),
+                      ("partial, queries ahead", 1337, 0, True, 2048),
+                      ("zigzag diagonal", 0, 0, True, 1024),
+                      ("zigzag full", 0, 0, False, 1024)]),
+    "float32": (8, [("visible whole", 256, 0, True, 256),
+                    ("hidden whole", 0, 256, True, 256),
+                    ("partial, keys ahead", 0, 125, True, 256),
+                    ("partial, queries ahead", 167, 0, True, 256),
+                    ("zigzag diagonal", 0, 0, True, 128),
+                    ("zigzag full", 0, 0, False, 128)]),
+}
+ULYSSES_BLOCK_K = 512
+# a device-side wait (~3 ms at the H100's clocks) before each timed call
+# of the host-ahead pass, long enough for the host to enqueue the call's
+# launches: its CUDA events then time the kernels back to back, without
+# the host's launch gaps
+SLEEP_CYCLES = 5_000_000
+
+
+def sp_offset_checks(FA, torch) -> dict:
+    """Phase 15a: B8 from a fresh state, B9 and B10 from the lse and delta
+    of the block seen whole, each against its plain version at the ring's
+    offsets; a block hidden whole must leave the fresh state and give
+    zero gradients exactly.  Returns each kernel's largest errors."""
+    from horovod_tpu_torch.parallel.ring_attention import finish
+
+    res = _flash_res()
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dname, (bh, cases) in SP_OFFSETS.items():
+            dtype = getattr(torch, dname)
+            for name, qo, ko, causal, rows in cases:
+                shape = (bh, rows, LM["head_dim"])
+                q, k, v, do = _attn_inputs(torch, shape, dtype, gen)
+                fresh = _fresh(torch, *shape)
+                what = (f"{shape} {dname} {name}, offsets ({qo}, {ko}) "
+                        f"causal={causal}")
+                got = FA.flash_block_step(q, k, v, *fresh, qo, ko,
+                                          causal=causal)
+                _hold_state(FA, torch, res, got, FA.flash_block_step_plain(
+                    q, k, v, *fresh, qo, ko, causal), dtype, f"B8 {what}")
+                out, lse = finish(*FA.flash_block_step_plain(
+                    q, k, v, *fresh, 0, 0, False))
+                args = (q, k, v, do, lse, (do.float() * out).sum(-1), qo,
+                        ko)
+                dq = FA.flash_bwd_dq(*args, causal=causal)
+                dk, dv = FA.flash_bwd_dkv(*args, causal=causal)
+                _hold(FA, torch, res, "flash_bwd_dq", dq,
+                      FA.flash_bwd_dq_plain(*args, causal), dtype,
+                      f"B9 dq {what}")
+                for n, a, b in zip(("dk", "dv"), (dk, dv),
+                                   FA.flash_bwd_dkv_plain(*args, causal)):
+                    _hold(FA, torch, res, "flash_bwd_dkv", a, b, dtype,
+                          f"B10 {n} {what}")
+                if name == "hidden whole" and not (
+                        all(torch.equal(a, b) for a, b in zip(got, fresh))
+                        and not (dq.any() or dk.any() or dv.any())):
+                    raise AssertionError(
+                        f"{what}: a block hidden whole changed the fresh "
+                        "state or gave a non-zero gradient")
+                torch.cuda.synchronize()
+        log(f"[sp] B8, B9, B10 agree with their plain versions at the "
+            f"ring's offsets (visible whole, hidden whole: the fresh state "
+            f"and zero gradients exactly, two partial blocks off the tile "
+            f"grid, the zigzag pairs) at (12, 2048, 64) bf16 and (8, 256, "
+            f"64) f32: largest errors {res}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    return res
+
+
+class _RankClock:
+    """The launches and the kernel time (CUDA events) of each emulated
+    rank, summed over the calls made for it; with ``ahead`` each call
+    waits ``SLEEP_CYCLES`` on the device first, so the events time its
+    kernels without the host's launch gaps."""
+
+    def __init__(self, FA, n: int, ahead: bool):
+        self.FA, self.ahead = FA, ahead
+        self.launches = [dict.fromkeys(FLASH, 0) for _ in range(n)]
+        self.events = [[] for _ in range(n)]
+
+    def call(self, torch, rank: int, fn, *args):
+        before = dict(self.FA.LAUNCHES)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        if self.ahead:
+            torch.cuda._sleep(SLEEP_CYCLES)
+        ev[0].record()
+        out = fn(*args)
+        ev[1].record()
+        self.events[rank].append(ev)
+        for k in FLASH:
+            self.launches[rank][k] += self.FA.LAUNCHES[k] - before[k]
+        return out
+
+    def ms(self, torch) -> list:
+        torch.cuda.synchronize()
+        return [sum(a.elapsed_time(b) for a, b in evs) for evs in self.events]
+
+
+def _one_call(FA, torch, q, k, v, do) -> dict:
+    """B8, B9 and B10 over the whole sequence (sp = 1), float32 results."""
+    from horovod_tpu_torch.parallel.ring_attention import finish
+
+    out, lse = finish(*FA.flash_block_step(q, k, v, *_fresh(torch, *q.shape),
+                                           0, 0))
+    args = (q, k, v, do, lse, (do.float() * out).sum(-1), 0, 0)
+    dk, dv = FA.flash_bwd_dkv(*args)
+    return {"out": out, "dq": FA.flash_bwd_dq(*args), "dk": dk, "dv": dv}
+
+
+def sp_emulated_ring(FA, torch, layout: str, x: dict, want: dict,
+                     ahead: bool) -> dict:
+    """Phase 15b: the causal ring over an emulated group of ``SP`` ranks
+    at ``LONG_ATTN_SHAPE`` bf16 in ``layout``: each rank walks its
+    ``ring_plan`` with the ring's own per-step functions (the rotation is
+    list indexing: at step j rank i holds rank (i - j) mod SP's block, and
+    the dK/dV accumulators are added in the ring's order), forward then
+    backward; the assembled out, dQ, dK, dV are held against the one-call
+    kernels ``want``.  Returns the launches, the kernel ms (as the host
+    drives them, or with ``ahead`` the device time alone: see
+    :class:`_RankClock`) and the errors of each rank."""
+    from horovod_tpu_torch.parallel import ring_attention as R
+
+    bh, L, d = LONG_ATTN_SHAPE
+    lc = L // SP
+    zig = layout == "zigzag"
+    shard = (lambda t: R.zigzag_shard(t, SP)) if zig else (lambda t: t)
+    plans = [R.ring_plan(i, SP, lc, True, layout) for i in range(SP)]
+    qsl, kvsl = R.plan_slices(plans[0])
+    chunk = {n: [shard(t)[:, i * lc:(i + 1) * lc] for i in range(SP)]
+             for n, t in x.items()}
+    q = [R.split_rows(t, qsl) for t in chunk["q"]]
+    k = [R.split_rows(t, kvsl) for t in chunk["k"]]
+    v = [R.split_rows(t, kvsl) for t in chunk["v"]]
+    do = [R.split_rows(t, qsl) for t in chunk["do"]]
+    clock = _RankClock(FA, SP, ahead)
+    FA.reset_launch_counts()
+    outs, lses, deltas = [], [], []
+    for i in range(SP):
+        state = R.fresh_state(q[i])
+        for j in range(SP):
+            src = (i - j) % SP
+            clock.call(torch, i, R.ring_fwd_step, plans[i][j], q[i], k[src],
+                       v[src], state)
+        done = {key: R.finish(*st) for key, st in state.items()}
+        outs.append({key: r[0] for key, r in done.items()})
+        lses.append({key: r[1] for key, r in done.items()})
+        deltas.append({key: (do[i][key].float() * o).sum(-1)
+                       for key, o in outs[i].items()})
+    dq = [{key: torch.zeros(t.shape, device="cuda") for key, t in q[i].items()}
+          for i in range(SP)]
+    acc = [{key: [torch.zeros(t.shape, device="cuda") for _ in range(2)]
+            for key, t in k[i].items()} for i in range(SP)]
+    for j in range(SP):
+        for i in range(SP):
+            src = (i - j) % SP
+            dkv = clock.call(torch, i, R.ring_bwd_step, plans[i][j], q[i],
+                             k[src], v[src], do[i], lses[i], deltas[i],
+                             dq[i])
+            for key, (a, b) in dkv.items():
+                acc[src][key][0].add_(a)
+                acc[src][key][1].add_(b)
+    ms = clock.ms(torch)
+    unshard = ((lambda t: R.zigzag_unshard(t, SP)) if zig else
+               (lambda t: t))
+    got = {"out": [R.join_rows(o) for o in outs],
+           "dq": [R.join_rows(g) for g in dq],
+           "dk": [R.join_rows({key: a[0] for key, a in g.items()})
+                  for g in acc],
+           "dv": [R.join_rows({key: a[1] for key, a in g.items()})
+                  for g in acc]}
+    res = _flash_res()
+    errs = {}
+    for n, parts in got.items():
+        g = unshard(torch.cat(parts, 1))
+        name = {"out": "flash_block_step", "dq": "flash_bwd_dq"}.get(
+            n, "flash_bwd_dkv")
+        _hold(FA, torch, res, name, g, want[n], torch.bfloat16,
+              f"emulated {layout} ring, sp = {SP}, {n}")
+        errs[n] = FA.errors(g, want[n])
+    for i in range(SP):
+        runs = sum(a.run for step in plans[i] for a in step)
+        if clock.launches[i] != dict.fromkeys(FLASH, runs):
+            raise AssertionError(
+                f"emulated {layout} ring rank {i}: launches "
+                f"{clock.launches[i]}, planned {runs} of each")
+    log(f"[sp] emulated {layout} ring, {LONG_ATTN_SHAPE} bf16 causal over sp "
+        f"= {SP}: out, dQ, dK, dV agree with the one-call kernels (largest "
+        f"(abs, row) errors {errs}); launches per rank "
+        f"{[c['flash_block_step'] for c in clock.launches]} of each of B8, "
+        f"B9, B10, as planned; ms per rank (forward + backward, "
+        f"{'device alone, host ahead' if ahead else 'as the host drives'}) "
+        f"{ms}")
+    return {"launches": [c["flash_block_step"] for c in clock.launches],
+            "ms": ms, "errors": errs, "res": res}
+
+
+def sp_emulated_ulysses(FA, torch, x: dict, want: dict, ahead: bool) -> dict:
+    """Phase 15c: Ulysses over an emulated group of ``SP`` ranks: the head
+    regrouping (each rank gets its group of 12 / SP heads over the whole
+    sequence) on the card, ``blockwise_attention`` forward and backward on
+    each group at L = 8192, the groups reassembled and held against the
+    one-call kernels rounded to bf16 (blockwise_attention returns q's
+    dtype) at the JAX package's bf16 tolerance and the row bound; timed
+    per group as :func:`sp_emulated_ring` times a rank."""
+    from horovod_tpu_torch.parallel.ring_attention import (blockwise_attention,
+                                                           blockwise_plan)
+
+    bh, L, d = LONG_ATTN_SHAPE
+    hg = bh // SP
+    four = {n: t.view(LONG_BATCH, LM["n_heads"], L, d).transpose(1, 2)
+            for n, t in x.items()}
+    clock = _RankClock(FA, SP, ahead)
+    parts = {n: [] for n in ("out", "dq", "dk", "dv")}
+    for r in range(SP):
+        mine = {n: t[:, :, r * hg:(r + 1) * hg].detach().clone()
+                for n, t in four.items()}
+        for n in "qkv":
+            mine[n].requires_grad_()
+
+        def fwd_bwd():
+            out = blockwise_attention(mine["q"], mine["k"], mine["v"], True,
+                                      ULYSSES_BLOCK_K)
+            out.backward(mine["do"])
+            return out
+
+        out = clock.call(torch, r, fwd_bwd)
+        for n, t in (("out", out), ("dq", mine["q"].grad),
+                     ("dk", mine["k"].grad), ("dv", mine["v"].grad)):
+            parts[n].append(t.detach())
+    ms = clock.ms(torch)
+    errs = {}
+    for n, ps in parts.items():
+        g = torch.cat(ps, 2).transpose(1, 2).reshape(bh, L, d).float()
+        w = want[n].to(torch.bfloat16).float()
+        torch.testing.assert_close(g, w, rtol=ATTN_TOL["bfloat16"][0],
+                                   atol=ATTN_TOL["bfloat16"][1],
+                                   msg=lambda m: f"emulated Ulysses {n}: {m}")
+        errs[n] = FA.errors(g, w)
+        if errs[n][1] > FA.BF16_ROW_REL:
+            raise AssertionError(f"emulated Ulysses {n}: row error "
+                                 f"{errs[n][1]} > {FA.BF16_ROW_REL}")
+    blocks = len(blockwise_plan(L, ULYSSES_BLOCK_K)[0])
+    if clock.launches != [dict.fromkeys(FLASH, blocks)] * SP:
+        raise AssertionError(f"emulated Ulysses: launches {clock.launches}, "
+                             f"planned {blocks} of each per head group")
+    log(f"[sp] emulated Ulysses, {LM['n_heads']} heads into {SP} groups, "
+        f"blockwise_attention at L = {L} (block_k {ULYSSES_BLOCK_K}): out, "
+        f"dQ, dK, dV agree with the one-call kernels rounded to bf16 "
+        f"(largest (abs, row) errors {errs}); {blocks} launches of each of "
+        f"B8, B9, B10 per group, as planned; ms per group (forward + "
+        f"backward, with autograd, "
+        f"{'device alone, host ahead' if ahead else 'as the host drives'}) "
+        f"{ms}")
+    return {"launches": [c["flash_block_step"] for c in clock.launches],
+            "ms": ms, "errors": errs}
+
+
+def sequence_parallel(FA, torch) -> dict:
+    """Phase 15: the offsets (15a), the emulated ring in both layouts
+    (15b) and the emulated Ulysses (15c) at the long-context LM's
+    attention; the emulations run twice, timed as the host drives them
+    and then with the host ahead."""
+    t0 = time.perf_counter()
+    offsets = sp_offset_checks(FA, torch)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    x = dict(zip(("q", "k", "v", "do"), _attn_inputs(
+        torch, LONG_ATTN_SHAPE, torch.bfloat16, gen)))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = _one_call(FA, torch, x["q"], x["k"], x["v"], x["do"])
+        rings, uly = {}, {}
+        for ahead in (False, True):
+            for layout in ("contiguous", "zigzag"):
+                r = sp_emulated_ring(FA, torch, layout, x, want, ahead)
+                rings.setdefault(layout, r)["ms_device" if ahead else
+                                            "ms"] = r["ms"]
+            r = sp_emulated_ulysses(FA, torch, x, want, ahead)
+            uly.setdefault("ulysses", r)["ms_device" if ahead else
+                                         "ms"] = r["ms"]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    for key in ("ms", "ms_device"):
+        slow = {layout: max(r[key]) for layout, r in rings.items()}
+        log(f"[sp] slowest rank's attention ms (forward + backward, "
+            f"{'device alone' if key == 'ms_device' else 'as driven'}): "
+            f"contiguous {slow['contiguous']:.4f}, zigzag "
+            f"{slow['zigzag']:.4f} (zigzag / contiguous "
+            f"{slow['zigzag'] / slow['contiguous']:.3f})")
+    log(f"[sp] phase 15 took {time.perf_counter() - t0:.1f} s")
+    del x, want
+    torch.cuda.empty_cache()
+    return {"offsets": offsets, "rings": rings, "ulysses": uly["ulysses"]}
+
+
 def run(args) -> int:
     t_start = time.perf_counter()
     card = pin_one_card()
@@ -2432,6 +2754,7 @@ def run(args) -> int:
                              f"{zero_lm['losses']}")
     log(f"[zero] transformer stage 2: optimizer state "
         f"{zero_lm['state_bytes']} B (stage 0: {lm['state_bytes']} B)")
+    sp = sequence_parallel(FA, torch)
     hvd.shutdown()
 
     launches = {**path["launches"], **lm["launches"],
@@ -2490,11 +2813,27 @@ def run(args) -> int:
             "source": "horovod_tpu_torch/csrc/flash_attention.cu",
             "replaces": REPLACES[name],
             "launches": launches[name],
-            # the largest over every case, the long-context shape's too
-            **{k: max(checks[name][k], long_errs[name][k])
+            # the largest over every case, the long-context shape's and
+            # the sequence-parallel offsets' too
+            **{k: max(checks[name][k], long_errs[name][k],
+                      sp["offsets"][name][k])
                for k in ("max_abs_err", "max_row_err")},
             "max_abs_err_long": long_errs[name]["max_abs_err"],
             "max_row_err_long": long_errs[name]["max_row_err"],
+            "max_abs_err_sp_offsets": sp["offsets"][name]["max_abs_err"],
+            "max_row_err_sp_offsets": sp["offsets"][name]["max_row_err"],
+            # phase 15b-c: per emulated rank, forward + backward
+            "launches_sp": {k: r["launches"] for k, r in
+                            (*sp["rings"].items(),
+                             ("ulysses", sp["ulysses"]))},
+            "ms_sp": {k: r["ms"] for k, r in
+                      (*sp["rings"].items(), ("ulysses", sp["ulysses"]))},
+            "ms_sp_device": {k: r["ms_device"] for k, r in
+                             (*sp["rings"].items(),
+                              ("ulysses", sp["ulysses"]))},
+            "max_row_err_sp_ring": max(
+                r["res"][name]["max_row_err"]
+                for r in sp["rings"].values()),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "library": t["library"],

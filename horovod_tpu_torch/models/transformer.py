@@ -1,11 +1,15 @@
 """Decoder-only transformer LM: the counterpart of
-``horovod_tpu/models/transformer.py`` at one rank of each model axis.
+``horovod_tpu/models/transformer.py`` at one rank of the tp, pp and ep
+axes.
 
-- **Parallelism.**  Data parallelism is the world, through
-  ``DistributedOptimizer``.  Tensor, pipeline and sequence parallelism
-  and the MoE layers are not ported yet (``tp``/``pp`` > 1,
-  ``moe_every != 0`` and a sequence group of more than one rank raise
-  ``NotImplementedError``).
+- **Parallelism.**  Data and sequence parallelism: ``forward(tokens,
+  sp_group)`` takes this rank's sequence chunk of a sequence sharded
+  over ``sp_group`` (:func:`horovod_tpu_torch.parallel.mesh.
+  sequence_groups`), at global positions, and attention runs the KV
+  ring over that group; ``DistributedOptimizer`` averages every
+  gradient over the world (= dp x sp).  Tensor and pipeline parallelism
+  and the MoE layers are not ported yet (``tp``/``pp`` > 1 and
+  ``moe_every != 0`` raise ``NotImplementedError``).
 - **Weights.**  :func:`init_params` draws the JAX package's arrays in its
   order from a ``numpy.random.RandomState``, so one seed gives the same
   float32 arrays in both packages.  Matrices keep the JAX ``(in, out)``
@@ -16,7 +20,8 @@
   (``jax.nn.gelu``'s default); the residual stream in the compute dtype;
   logits through the tied embedding, in float32.
 - **Attention** is :func:`horovod_tpu_torch.parallel.ring_attention.
-  ring_attention`: kernels B8-B10 on the card.
+  ring_attention` in the contiguous layout, as in the reference: kernels
+  B8-B10 on the card.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from horovod_tpu_torch.common.util import resolve_device, true_divide
+from horovod_tpu_torch.parallel.mesh import group_place
 from horovod_tpu_torch.parallel.ring_attention import ring_attention
 
 # the compute dtypes the attention kernels take
@@ -144,9 +150,10 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """The LM: ``forward(tokens)`` maps (B, L) int64 tokens to float32
-    logits (B, L, vocab).  Weights come from ``params`` (a tree as
-    :func:`init_params` returns it) or else from
+    """The LM: ``forward(tokens, sp_group=None)`` maps this rank's (B,
+    Lc) int64 tokens (sequence chunk ``s`` of ``sp_group``'s ``sp``, or
+    the whole sequence) to float32 logits (B, Lc, vocab).  Weights come
+    from ``params`` (a tree as :func:`init_params` returns it) or else from
     ``init_params(RandomState(seed), cfg)``.  ``pp``/``tp`` are the
     model-axis sizes (only 1 is ported).  Runs on ``device`` (default
     ``cuda``)."""
@@ -179,10 +186,12 @@ class Transformer(nn.Module):
     def forward(self, tokens, sp_group=None):
         cd = self.cfg.compute_dtype
         b, lc = tokens.shape
-        if lc > self.cfg.max_seq:
-            raise ValueError(f"sequence length {lc} exceeds max_seq "
-                             f"{self.cfg.max_seq}")
-        pos = torch.arange(lc, device=tokens.device)
+        sp, s = group_place(sp_group)
+        if lc * sp > self.cfg.max_seq:
+            raise ValueError(f"sequence length {lc * sp} ({sp} chunks of "
+                             f"{lc}) exceeds max_seq {self.cfg.max_seq}")
+        # chunk s starts at global position s * lc
+        pos = s * lc + torch.arange(lc, device=tokens.device)
         x = (self.embed[tokens] + self.pos[pos]).to(cd)
         for blk in self.layers:
             x = blk(x, sp_group)
@@ -193,8 +202,9 @@ class Transformer(nn.Module):
 def loss_fn(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Mean next-token cross entropy: float32 log-softmax, the target's
     negative log-probability summed and divided by the token count (the
-    JAX ``loss_fn`` at one data rank; ``DistributedOptimizer`` averages
-    the gradients over the world)."""
+    JAX ``loss_fn`` at one rank of ``("dp", "sp")``, which divides by the
+    global count instead: ``DistributedOptimizer``'s average over the
+    world of equal local counts gives the same gradient)."""
     logp = F.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
     return true_divide(nll.sum(), nll.numel())

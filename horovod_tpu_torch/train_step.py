@@ -3,7 +3,8 @@
 with the batch-statistics update, mean softmax cross-entropy on one-hot
 labels, backward, ``DistributedOptimizer`` step), and
 :func:`lm_train_step`, the transformer LM's step (the JAX package's
-``make_train_step`` at one rank of each model axis).  Their ZeRO
+``make_train_step`` at world = dp x sp, with ``tp = pp = 1``; its batch
+from :func:`shard_tokens`).  Their ZeRO
 stage-3 twins, :func:`zero3_train_step` and :func:`zero3_lm_train_step`,
 run the forward on the full parameters that ``zero3_full_params``
 gathers from the shards (``bench.py``'s ``p = hvd.zero3_full_params(p)``
@@ -14,9 +15,11 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
-from horovod_tpu_torch.common.util import resolve_device
+from horovod_tpu_torch.common.types import HorovodTpuError
+from horovod_tpu_torch.common.util import resolve_device, true_divide
 from horovod_tpu_torch.models.transformer import loss_fn
 from horovod_tpu_torch.optim.distributed import zero3_full_params
 
@@ -39,17 +42,43 @@ def train_step(model, optimizer, images: torch.Tensor,
     return loss.detach()
 
 
+def world_mean(x: torch.Tensor) -> torch.Tensor:
+    """The average of ``x`` over the world (``x`` itself at world 1),
+    outside autograd."""
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    if n == 1:
+        return x.detach()
+    x = x.detach().clone()
+    dist.all_reduce(x)
+    return true_divide(x, n)
+
+
 def lm_train_step(model, optimizer, tokens: torch.Tensor,
-                  targets: torch.Tensor) -> torch.Tensor:
+                  targets: torch.Tensor, sp_group=None) -> torch.Tensor:
     """One transformer LM step (forward, mean next-token cross entropy,
-    backward, ``DistributedOptimizer`` step); returns the detached
-    loss."""
+    backward, ``DistributedOptimizer`` step) on this rank's rows and
+    sequence chunk (:func:`shard_tokens`) of a sequence sharded over
+    ``sp_group``; returns the global loss, the world average of the local
+    losses (the reference's ``psum`` over ``("dp", "sp")``)."""
     model.train()
     optimizer.zero_grad(set_to_none=True)
-    loss = loss_fn(model(tokens), targets)
+    loss = loss_fn(model(tokens, sp_group), targets)
     loss.backward()
     optimizer.step()
-    return loss.detach()
+    return world_mean(loss)
+
+
+def shard_tokens(x: torch.Tensor, dp: int, sp: int, d: int,
+                 s: int) -> torch.Tensor:
+    """Rank ``(d, s)``'s block of a global (B, L) batch, as the
+    reference's ``P("dp", "sp")`` places it: rows ``[d*B/dp,
+    (d+1)*B/dp)`` and tokens ``[s*L/sp, (s+1)*L/sp)``."""
+    b, l_ = x.shape
+    if b % dp or l_ % sp:
+        raise HorovodTpuError(
+            f"a ({b}, {l_}) batch does not split over dp={dp}, sp={sp}")
+    rb, rl = b // dp, l_ // sp
+    return x[d * rb:(d + 1) * rb, s * rl:(s + 1) * rl].contiguous()
 
 
 def zero3_train_step(model, zp, optimizer, images: torch.Tensor,

@@ -10,7 +10,11 @@ error feedback, and prints launch counts, losses, step times and a
 digest of the reduced gradient; ``overlap`` runs the bucketed schedules
 of ``ops/overlap.py`` (:func:`overlap_main`); ``zero`` the ZeRO stages
 (:func:`zero_main`); ``zero_resnet`` ResNet-50 at full width through
-stages 0-3 on the card (:func:`zero_resnet_main`).
+stages 0-3 on the card (:func:`zero_resnet_main`); ``sp`` the sequence
+parallel attention and the LM at dp x sp (:func:`sp_main`);
+``sp_cards`` the LM at full width at sp = 4 and at dp = 2 x sp = 2 on four
+cards (:func:`sp_cards_main`), ``sp_cards_ref`` its one-card run
+(:func:`sp_cards_ref_main`).
 ``HVD_TEST_FEEDBACK`` may name a ``.npy`` file of per-rank residuals
 that the lossy optimizer case loads before its second step;
 ``HVD_TEST_INTEROP`` a pickle, written by ``tests/test_torch_zero.py``,
@@ -21,6 +25,7 @@ import gc
 import hashlib
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -645,8 +650,307 @@ def zero_resnet_main(device: str, steps: int = ZERO_RESNET_STEPS):
     print(json.dumps(out))
 
 
+# ---------------------------------------------------------------------------
+# Sequence parallelism (tests/test_torch_sequence_parallel.py)
+# ---------------------------------------------------------------------------
+
+#: (B, L, H, D) of the attention cases, as the reference's tests
+SP_SHAPE = (2, 64, 8, 16)
+#: (name, function, layout) of the attention cases; every case runs
+#: causal and not, and the ring cases also in bfloat16 (forward)
+SP_CASES = (("ring", "ring", "contiguous"), ("zigzag", "ring", "zigzag"),
+            ("ulysses", "ulysses", "contiguous"))
+#: the small LM (tests/test_transformer.py's widths) and its SGD run
+SP_LM = dict(vocab=64, d_model=32, n_heads=4, head_dim=8, n_layers=4,
+             d_ff=64, max_seq=64)
+SP_LM_BATCH, SP_LM_STEPS, SP_LM_LR = 4, 3, 0.5
+
+
+def sp_inputs() -> dict:
+    """Global q, k, v and the loss's cotangent g, (B, L, H, D) float32."""
+    rng = np.random.RandomState(0)
+    return {n: (rng.randn(*SP_SHAPE) * 0.3).astype(np.float32)
+            for n in "qkvg"}
+
+
+def sp_lm_layout(n: int) -> tuple[int, int]:
+    """The (dp, sp) the LM runs at in a world of ``n``."""
+    return {2: (1, 2), 4: (2, 2)}[n]
+
+
+def sp_attention_case(fn, layout, causal, dtype, group, sp, s) -> dict:
+    """This rank's output and input gradients of ``sum(out * g)``."""
+    from horovod_tpu_torch.parallel.ring_attention import (ring_attention,
+                                                           zigzag_shard)
+    from horovod_tpu_torch.parallel.ulysses import ulysses_attention
+
+    lc = SP_SHAPE[1] // sp
+    x = {}
+    for n, a in sp_inputs().items():
+        t = torch.from_numpy(a)
+        if layout == "zigzag":
+            t = zigzag_shard(t, sp)
+        x[n] = t[:, s * lc:(s + 1) * lc].to(dtype).requires_grad_(n != "g")
+    if fn == "ring":
+        out = ring_attention(x["q"], x["k"], x["v"], group, causal, layout)
+    else:
+        out = ulysses_attention(x["q"], x["k"], x["v"], group, causal)
+    (out.float() * x["g"].float()).sum().backward()
+    return {"out": out, "dq": x["q"].grad, "dk": x["k"].grad,
+            "dv": x["v"].grad}
+
+
+def sp_lm_run(group, dp: int, sp: int, d: int, s: int) -> dict:
+    """The small LM, SGD, on rank (d, s)'s block of the global batch:
+    the initial logits, the world-averaged losses and the weights."""
+    from horovod_tpu_torch.models import transformer as TT
+    from horovod_tpu_torch.train_step import (lm_train_step, shard_tokens,
+                                              synthetic_tokens)
+
+    cfg = TT.TransformerConfig(**SP_LM, dtype="float32")
+    model = TT.Transformer(cfg, seed=0, device="cpu")
+    opt = hvd.DistributedOptimizer(TF.sgd(model.parameters(), SP_LM_LR))
+    tok, tgt = (shard_tokens(t, dp, sp, d, s) for t in synthetic_tokens(
+        SP_LM_BATCH, SP_LM["max_seq"], cfg.vocab, seed=1, device="cpu"))
+    with torch.no_grad():
+        logits = model(tok, group)
+    losses = [float(lm_train_step(model, opt, tok, tgt, group))
+              for _ in range(SP_LM_STEPS)]
+    return {"logits": logits, "losses": losses,
+            "weights": {k: v for k, v in model.state_dict().items()}}
+
+
+def sp_main(device: str):
+    """Every attention case at sp = world size, then the LM at
+    :func:`sp_lm_layout`."""
+    from horovod_tpu_torch.parallel.mesh import sequence_groups
+
+    hvd.init(device=device)
+    n, r = hvd.size(), hvd.rank()
+    group, (_, s) = sequence_groups(1, n)
+    dp, sp = sp_lm_layout(n)
+    lm_group, (ld, ls) = sequence_groups(dp, sp)
+    out = {"rank": r}
+    for name, fn, layout in SP_CASES:
+        for causal in (True, False):
+            out[f"{name} causal={causal}"] = sp_attention_case(
+                fn, layout, causal, torch.float32, group, n, s)
+        if fn == "ring":
+            out[f"{name} bf16"] = {"out": sp_attention_case(
+                fn, layout, True, torch.bfloat16, group, n, s)["out"]}
+    out["lm"] = sp_lm_run(lm_group, dp, sp, ld, ls)
+    try:
+        sequence_groups(n, 2)
+        out["groups_refused"] = False
+    except hvd.HorovodTpuError:
+        out["groups_refused"] = True
+    hvd.shutdown()
+    print(json.dumps(enc(out)))
+
+
+#: the long-context LM at sp = 4 and the bench LM at dp = 2 x sp = 2 on
+#: four cards: (name, seq, global batch, dp, sp)
+SP_CARD_CONFIGS = (("long-context sp4", 8192, 1, 1, 4),
+                   ("bench dp2 x sp2", 1024, 16, 2, 2))
+SP_CARD_LM = dict(vocab=32768, d_model=768, n_heads=12, head_dim=64,
+                  n_layers=12, d_ff=3072)
+SP_CARD_STEPS = 3
+#: the attention of the sequence group over NCCL: (B, L, H, D) bf16
+SP_CARD_ATTN = (1, 8192, 12, 64)
+
+
+def _progress(msg: str) -> None:
+    """Append ``msg`` to this rank's progress file in the directory
+    ``HVD_TEST_PROGRESS`` names (if set): what a hung world reached."""
+    d = os.environ.get("HVD_TEST_PROGRESS")
+    if d:
+        with open(os.path.join(d, f"progress_rank{hvd.rank()}.txt"),
+                  "a") as f:
+            f.write(f"{time.strftime('%H:%M:%S')} {msg}\n")
+
+
+def _flat_grads(model) -> torch.Tensor:
+    return torch.cat([p.grad.reshape(-1).float() for p in model.parameters()])
+
+
+def sp_card_lm(cfg, group, seq, batch, dp, sp, d, s) -> tuple:
+    """``SP_CARD_STEPS`` fused-Adam steps of the LM on rank (d, s)'s block
+    through ``lm_train_step``: per step the launches, global loss, time
+    and a digest of the weights; the peak memory; and the world-averaged
+    gradient of step 1 (which the optimizer writes back to ``.grad``).
+    With ``HVD_TEST_PROFILE`` (a directory) two more steps run under
+    ``torch.profiler`` (``chip_smoke.profile_steps``: the table per rank
+    in that directory, the summary in the progress file)."""
+    from horovod_tpu_torch.models import transformer as TT
+    from horovod_tpu_torch.ops import flash_attention as FA
+    from horovod_tpu_torch.train_step import (lm_train_step, shard_tokens,
+                                              synthetic_tokens)
+
+    model = TT.Transformer(cfg, seed=0)
+    opt = hvd.DistributedOptimizer(hvd.fused_update.adam(model.parameters(),
+                                                         3e-4))
+    tok, tgt = (shard_tokens(t, dp, sp, d, s)
+                for t in synthetic_tokens(batch, seq, cfg.vocab, seed=1))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = {"launches": [], "losses": [], "times": [], "digests": []}
+    for step in range(SP_CARD_STEPS):
+        FA.reset_launch_counts()
+        TF.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = lm_train_step(model, opt, tok, tgt, group)
+        torch.cuda.synchronize()
+        res["times"].append(time.perf_counter() - t0)
+        res["losses"].append(float(loss))
+        res["launches"].append({**FA.LAUNCHES, "adam": TF.LAUNCHES["adam"]})
+        if step == 0:
+            g1 = _flat_grads(model)
+        res["digests"].append(_digest(model.parameters()))
+        _progress(f"seq {seq} dp {dp} sp {sp}: step {step} "
+                  f"{res['times'][-1]:.4f} s")
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    prof = os.environ.get("HVD_TEST_PROFILE")
+    if prof:
+        import chip_smoke
+
+        chip_smoke.log = _progress
+        tag = f"seq{seq}_dp{dp}_sp{sp}_rank{hvd.rank()}"
+        chip_smoke.profile_steps(
+            torch, lambda: lm_train_step(model, opt, tok, tgt, group),
+            statistics.median(res["times"][1:]),
+            os.path.join(prof, f"profile_{tag}.txt"), chip_smoke.LM_CLASSES,
+            tag, steps=2)
+    return res, g1
+
+
+def _ref_path(i: int) -> str:
+    return os.path.join(os.environ["HVD_TEST_REF_DIR"], f"grad{i}.pt")
+
+
+def sp_cards_ref_main(device: str):
+    """One card's sp = 1 run of each of ``SP_CARD_CONFIGS`` (world 1, the
+    same global batch, weights and fused Adam): its results, and its
+    step-1 gradient saved under ``HVD_TEST_REF_DIR`` for
+    :func:`sp_cards_main`."""
+    from horovod_tpu_torch.models import transformer as TT
+
+    os.environ["HOROVOD_FUSED_UPDATE"] = "1"
+    hvd.init(device=device)
+    out = {}
+    for i, (name, seq, batch, _, _) in enumerate(SP_CARD_CONFIGS):
+        cfg = TT.TransformerConfig(**SP_CARD_LM, max_seq=seq)
+        out[name], g1 = sp_card_lm(cfg, None, seq, batch, 1, 1, 0, 0)
+        torch.save(g1.cpu(), _ref_path(i))
+        del g1
+    hvd.shutdown()
+    print(json.dumps(out))
+
+
+def sp_card_attention(group, sp: int, s: int) -> dict:
+    """The contiguous ring, the zigzag ring and Ulysses at
+    ``SP_CARD_ATTN`` bf16, causal, over ``group`` (NCCL), forward and
+    backward, against the one-call kernels over the whole sequence: the
+    largest errors, this rank's launches and its median time of three
+    forward + backward passes (CUDA events, after one warm-up)."""
+    from horovod_tpu_torch.ops import flash_attention as FA
+    from horovod_tpu_torch.parallel.ring_attention import (ring_attention,
+                                                           zigzag_shard)
+    from horovod_tpu_torch.parallel.ulysses import ulysses_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    x = {n: torch.randn(*SP_CARD_ATTN, device="cuda", generator=gen)
+         .bfloat16() for n in "qkvg"}
+
+    def run(fn, inputs, grp):
+        q, k, v = (inputs[n].detach().clone().requires_grad_()
+                   for n in "qkv")
+        out = fn(q, k, v, grp)
+        out.backward(inputs["g"])
+        return [out.detach(), q.grad, k.grad, v.grad]
+
+    ring = lambda q, k, v, g: ring_attention(q, k, v, g)  # noqa: E731
+    want = run(ring, x, None)
+    lc = SP_CARD_ATTN[1] // sp
+    cases = {
+        "contiguous": (ring, False),
+        "zigzag": (lambda q, k, v, g: ring_attention(q, k, v, g,
+                                                     layout="zigzag"), True),
+        "ulysses": (ulysses_attention, False),
+    }
+    out = {}
+    for name, (fn, zig) in cases.items():
+        shard = (lambda t: zigzag_shard(t, sp)) if zig else (lambda t: t)
+        mine = {n: shard(t)[:, s * lc:(s + 1) * lc].contiguous()
+                for n, t in x.items()}
+        FA.reset_launch_counts()
+        got = run(fn, mine, group)
+        launches = dict(FA.LAUNCHES)
+        errs = {}
+        for what, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+            b = shard(b)[:, s * lc:(s + 1) * lc]
+            torch.testing.assert_close(a.float(), b.float(), rtol=2e-2,
+                                       atol=2e-2, msg=lambda m: f"{name} "
+                                       f"{what}: {m}")
+            errs[what] = FA.errors(a, b)
+        times = []
+        for _ in range(4):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            run(fn, mine, group)
+            ev[1].record()
+            torch.cuda.synchronize()
+            times.append(ev[0].elapsed_time(ev[1]))
+        out[name] = {"launches": launches, "errors": errs,
+                     "ms": statistics.median(times[1:])}
+        _progress(f"attention {name}: {out[name]}")
+    return out
+
+
+def sp_cards_main(device: str):
+    """``SP_CARD_CONFIGS`` on four cards and the attention of the long
+    group over NCCL; rank 0 holds the world-averaged gradient of step 1
+    against the one card's that :func:`sp_cards_ref_main` saved (relative
+    L2 error)."""
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.models import transformer as TT
+    from horovod_tpu_torch.parallel.mesh import sequence_groups
+
+    os.environ["HOROVOD_FUSED_UPDATE"] = "1"
+    hvd.init(device=device)
+    r = hvd.rank()
+    groups = {name: sequence_groups(dp, sp)
+              for name, _, _, dp, sp in SP_CARD_CONFIGS}
+    _progress("groups built")
+    out, grads = {"rank": r}, {}
+    for name, seq, batch, dp, sp in SP_CARD_CONFIGS:
+        group, (d, s) = groups[name]
+        cfg = TT.TransformerConfig(**SP_CARD_LM, max_seq=seq)
+        out[name], grads[name] = sp_card_lm(cfg, group, seq, batch, dp, sp,
+                                            d, s)
+        out[name]["place"] = [d, s]
+        if r:
+            del grads[name]
+    long_name, _, _, _, long_sp = SP_CARD_CONFIGS[0]
+    group, (_, s) = groups[long_name]
+    out["attention"] = sp_card_attention(group, long_sp, s)
+    if r == 0:
+        for i, (name, *_) in enumerate(SP_CARD_CONFIGS):
+            g1 = torch.load(_ref_path(i)).cuda()
+            out[name]["grad_rel_err"] = float(
+                (grads.pop(name) - g1).norm() / g1.norm())
+            del g1
+    dist.barrier()
+    hvd.shutdown()
+    print(json.dumps(out))
+
+
 if __name__ == "__main__":
     dev = sys.argv[1] if len(sys.argv) > 1 else "cpu"
     mode = sys.argv[2] if len(sys.argv) > 2 else "collectives"
     {"collectives": main, "resnet": resnet_main, "overlap": overlap_main,
-     "zero": zero_main, "zero_resnet": zero_resnet_main}[mode](dev)
+     "zero": zero_main, "zero_resnet": zero_resnet_main,
+     "sp": sp_main, "sp_cards": sp_cards_main,
+     "sp_cards_ref": sp_cards_ref_main}[mode](dev)

@@ -329,15 +329,6 @@ def test_ring_attention_bfloat16_matches_jax():
            dict(rtol=2e-2, atol=2e-2), "bf16 ring attention")
 
 
-def test_sequence_group_of_more_than_one_rank_is_not_ported(monkeypatch):
-    import torch.distributed as dist
-
-    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
-    q = torch.zeros(1, 8, 2, 8)
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        TR.ring_attention(q, q, q, sp_group=object())
-
-
 @pytest.mark.parametrize("bad", ["head_dim", "dtype", "kv_shape", "state",
                                  "contiguous"])
 def test_wrappers_refuse_what_the_kernels_do_not_take(bad):

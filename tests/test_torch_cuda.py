@@ -11,6 +11,7 @@ it::
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -392,6 +393,68 @@ def test_flash_fully_masked_block_keeps_fresh_state(card):
     assert torch.equal(m2, m) and torch.equal(l2, l) and torch.equal(o2, o)
 
 
+# The offsets the sequence-parallel path gives B8-B10 (chip_smoke.py phase
+# 15a), at the long-context ring's chunk (12, 2048, 64) bf16 and at (8,
+# 256, 64) f32: (name, q_offset, k_offset, causal, rows) with Lq = Lk =
+# rows; the zigzag pairs at half a chunk.
+SP_OFFSET_CASES = {
+    "bf16": (12, 2048, [("visible whole", 2048, 0, True, 2048),
+                        ("hidden whole", 0, 2048, True, 2048),
+                        ("partial, keys ahead", 0, 1000, True, 2048),
+                        ("partial, queries ahead", 1337, 0, True, 2048),
+                        ("zigzag diagonal", 0, 0, True, 1024),
+                        ("zigzag full", 0, 0, False, 1024)]),
+    "f32": (8, 256, [("visible whole", 256, 0, True, 256),
+                     ("hidden whole", 0, 256, True, 256),
+                     ("partial, keys ahead", 0, 125, True, 256),
+                     ("partial, queries ahead", 167, 0, True, 256),
+                     ("zigzag diagonal", 0, 0, True, 128),
+                     ("zigzag full", 0, 0, False, 128)]),
+}
+
+
+@pytest.mark.parametrize("case", range(6))
+@pytest.mark.parametrize("dname", sorted(DTYPES))
+def test_flash_kernels_at_sequence_parallel_offsets(card, exact_f32, dname,
+                                                    case):
+    """B8 from a fresh state, B9 and B10 from the lse and delta of the
+    block seen whole (every row finite), each against its plain version
+    at the ring's offsets; a block hidden whole leaves the fresh state and
+    gives zero dQ, dK and dV exactly."""
+    bh, _, cases = SP_OFFSET_CASES[dname]
+    name, qo, ko, causal, rows = cases[case]
+    dtype = DTYPES[dname]
+    gen = torch.Generator(device=card).manual_seed(100 + case)
+    q, k, v, do = (torch.randn(bh, rows, 64, device=card, generator=gen)
+                   .to(dtype) for _ in range(4))
+    fresh = (torch.full((bh, rows), -math.inf, device=card),
+             torch.zeros(bh, rows, device=card),
+             torch.zeros(bh, rows, 64, device=card))
+    what = f"{dname} {name} offsets ({qo}, {ko}) causal={causal}"
+    FA.reset_launch_counts()
+    got = FA.flash_block_step(q, k, v, *fresh, qo, ko, causal=causal)
+    _close_state(got, FA.flash_block_step_plain(q, k, v, *fresh, qo, ko,
+                                                causal), dname,
+                 f"{what} B8", rows)
+    out, lse = finish(*FA.flash_block_step_plain(q, k, v, *fresh, 0, 0,
+                                                 False))
+    delta = (do.float() * out).sum(-1)
+    args = (q, k, v, do, lse, delta, qo, ko)
+    dq = FA.flash_bwd_dq(*args, causal=causal)
+    dk, dv = FA.flash_bwd_dkv(*args, causal=causal)
+    _close(dq, FA.flash_bwd_dq_plain(*args, causal), dname, f"{what} B9 dq",
+           rows)
+    for n, a, b in zip(("dk", "dv"), (dk, dv),
+                       FA.flash_bwd_dkv_plain(*args, causal)):
+        _close(a, b, dname, f"{what} B10 {n}", rows)
+    if name == "hidden whole":
+        assert all(torch.equal(a, b) for a, b in zip(got, fresh))
+        assert not (dq.any() or dk.any() or dv.any())
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES == {"flash_block_step": 1, "flash_bwd_dq": 1,
+                           "flash_bwd_dkv": 1}
+
+
 def test_small_transformer_goes_through_the_kernels(card, monkeypatch):
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models.transformer import (Transformer,
@@ -599,6 +662,98 @@ def test_four_cards_zero_resnet50():
         assert o["stage 1"]["state_bytes"] == 25_557_032
         assert o["stage 2"]["state_bytes"] == 25_557_032
         assert o["stage 3"]["state_bytes"] == 25_557_032
+
+
+def test_four_cards_sequence_parallel_lm(tmp_path):
+    """The LM at full width (vocab 32768, d_model 768, 12 x 64 heads, 12
+    layers, d_ff 3072, bf16, fused Adam 3e-4), 3 steps over NCCL: the
+    long-context config (seq 8192, batch 1) at sp = 4 and the bench config
+    (seq 1024, batch 16) at dp = 2 x sp = 2, each against one card's sp =
+    1 run (its own process, world 1) of the same global batch and seeded
+    weights: global losses within rtol 2e-2 (``tests/test_transformer.py``'s
+    layout tolerance);
+    the world-averaged gradient of step 1 within a relative L2 error of
+    0.1 of one card's (a world-size factor of 2 reads 0.5 or 1: Adam's
+    normalised step would hide it in the weights); the same weights bit
+    for bit on every rank after each step; per step on sequence rank s
+    12 (s + 1) launches of each of B8, B9 and B10 (the contiguous ring
+    skips the blocks the mask hides whole) and one of B3.  Then the
+    contiguous ring, the zigzag ring and Ulysses at (1, 8192, 12, 64)
+    bf16, causal, over the sp = 4 group against the one-call kernels,
+    launches as planned.  Prints the median step, tokens/s per card,
+    per-rank peak memory and per-rank attention time."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    import os
+    import statistics
+    import subprocess
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from _torch_collectives_worker import SP_CARD_ATTN, SP_CARD_CONFIGS, spawn
+
+    from horovod_tpu_torch.parallel.ring_attention import blockwise_plan
+
+    env = {"HVD_TEST_REF_DIR": str(tmp_path)}
+    ref_all = spawn(1, "cuda", timeout=600, mode="sp_cards_ref",
+                    env_extra=env)[0]
+    outs = spawn(4, "cuda", timeout=900, mode="sp_cards", env_extra=env)
+    card = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    for name, seq, batch, dp, sp in SP_CARD_CONFIGS:
+        ref = ref_all[name]
+        assert ref["launches"] == [dict.fromkeys(
+            ("flash_block_step", "flash_bwd_dq", "flash_bwd_dkv"), 12)
+            | {"adam": 1}] * len(ref["launches"]), ref["launches"]
+        for o in outs:
+            r = o[name]
+            s = r["place"][1]
+            want = {"flash_block_step": 12 * (s + 1),
+                    "flash_bwd_dq": 12 * (s + 1),
+                    "flash_bwd_dkv": 12 * (s + 1), "adam": 1}
+            assert r["launches"] == [want] * len(r["launches"]), \
+                (name, o["rank"], r["launches"])
+            assert all(math.isfinite(v) for v in r["losses"])
+            np.testing.assert_allclose(r["losses"], ref["losses"], rtol=2e-2)
+        for step in range(len(ref["losses"])):
+            assert len({o[name]["digests"][step] for o in outs}) == 1, \
+                (name, step)
+        err = outs[0][name]["grad_rel_err"]
+        assert err < 0.1, (name, err)
+        med = [statistics.median(o[name]["times"][1:]) for o in outs]
+        one = statistics.median(ref["times"][1:])
+        print(f"[four cards] LM {name} (seq {seq}, global batch {batch}, dp "
+              f"{dp} x sp {sp}): losses {outs[0][name]['losses']} (one card "
+              f"{ref['losses']}); step-1 gradient relative L2 error "
+              f"{err:.3e}; median step "
+              f"{min(med):.4f}-{max(med):.4f} s over ranks = "
+              f"{batch * seq / max(med) / 4:.1f} tokens/s per card (one card "
+              f"{one:.4f} s = {batch * seq / one:.1f} tokens/s); rank 0 steps "
+              f"{outs[0][name]['times']} s; peak "
+              f"{[o[name]['peak_bytes'] for o in outs]} B per rank (one card "
+              f"{ref['peak_bytes']} B); launches per step "
+              f"{[o[name]['launches'][0] for o in outs]}; on "
+              f"4 x {card.strip()}")
+    sp = SP_CARD_CONFIGS[0][4]
+    blocks = len(blockwise_plan(SP_CARD_ATTN[1])[0])
+    planned = {"contiguous": lambda s: s + 1, "zigzag": lambda s: 2 * sp + 1,
+               "ulysses": lambda s: blocks}
+    for layout, count in planned.items():
+        for o in outs:
+            a = o["attention"][layout]
+            s = o["long-context sp4"]["place"][1]
+            assert a["launches"] == dict.fromkeys(
+                ("flash_block_step", "flash_bwd_dq", "flash_bwd_dkv"),
+                count(s)), (layout, o["rank"], a["launches"])
+            for what, (err, row) in a["errors"].items():
+                assert row <= FA.BF16_ROW_REL, (layout, what, err, row)
+        print(f"[four cards] attention {SP_CARD_ATTN} bf16 causal, "
+              f"{layout} over sp = {sp} (NCCL), forward + backward: ms per "
+              f"rank {[o['attention'][layout]['ms'] for o in outs]}; "
+              f"largest (abs, row) errors against the one-call kernels "
+              f"{outs[0]['attention'][layout]['errors']}; on "
+              f"4 x {card.strip()}")
 
 
 # ---------------------------------------------------------------------------

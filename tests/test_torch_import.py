@@ -46,7 +46,7 @@ def test_no_jax_side_module_is_imported():
               "ops.flash_attention", "parallel.ring_attention",
               "models.transformer", "ops.quantization", "models.layers",
               "models.mnist", "models.vgg", "models.inception",
-              "ops.batch_norm"):
+              "ops.batch_norm", "parallel.mesh", "parallel.ulysses"):
         assert f"horovod_tpu_torch.{m}" in res["modules"]
 
 
