@@ -126,7 +126,29 @@ Phases (any failure exits non-zero and prints no result line):
    ring's own step functions: out, dQ, dK and dV against the one-call
    kernels within ``BF16_MAX_ABS``/``BF16_ROW_REL``, launches per rank
    exactly as planned, kernel time per rank; (c) Ulysses emulated (12
-   heads into 4 groups, ``blockwise_attention`` on each at L = 8192).
+   heads into 4 groups, ``blockwise_attention`` on each at L = 8192);
+16. the data plane over an emulated world of 4 on the card (threads, one
+   at a time, running the port's own functions; only the transfers
+   between them are emulated, summed in member order): (a) the two-level
+   lossy sum, ``quantized_allreduce(with_error=True)`` over a (cross 2,
+   local 2) pair of ResNet-50's fused gradient buffer from four seeded
+   64-image shards, int8 (B4/B5 at qmax ``sum_safe_qmax(2)``) and int4
+   (B6/B7 at ``sum_safe_qmax4(2)``) on the cross hop only: bit for bit
+   with the same pipeline run on the CPU (the plain versions), within nc
+   * scale / 2 of the float sum with the scales of the local partial
+   sums, the residual the cross hop's error divided by nl, one encode and
+   two decode launches per emulated rank, ms before each transfer and
+   payload bytes per hop; ZeRO stage 2 over the pair against stage 0 over
+   it (B1 over the 161 ResNet-50 leaves, B3 at the LM's 75 leaf shapes;
+   two steps): weights bit for bit, each rank's state shard at its
+   ``shard_index``, one launch per rank per step; (b) Adasum over the 161
+   leaves fused with per-leaf segments, f32 and bf16 over the world and
+   f32 over the pair: every rank bit-identical, within rtol 1e-4 / atol
+   1e-5 x scale (bf16 2^-7; the pair 1e-5 / 1e-6 against the local mean's
+   Adasum) of the float64 ``adasum_reference``; (c) the main path at world
+   1 over NCCL, 3 steps flat, under ``init(mesh="dp:1")`` and with
+   ``op=Adasum``, deterministic cuDNN: losses and weights bit for bit, one
+   B1 and 53 of each of N1-N4 per step.
 
 Then the run's wall time, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
@@ -2657,6 +2679,539 @@ def sequence_parallel(FA, torch) -> dict:
     return {"offsets": offsets, "rings": rings, "ulysses": uly["ulysses"]}
 
 
+# ---------------------------------------------------------------------------
+# The data plane (phase 16): an emulated world on one card
+# ---------------------------------------------------------------------------
+
+DP_N, DP_CROSS, DP_LOCAL = 4, 2, 2  # the emulated world and its pair
+DP_STEPS = 3                        # phase 16c's steps per run
+
+
+class EmulatedWorld:
+    """``n`` emulated ranks on one device, each a thread running the
+    port's own functions over emulated hops (:meth:`pair`, :meth:`flat`).
+    Only the transport is emulated: one thread runs at a time, and a
+    transfer completes when every member of its group has reached it,
+    its result computed in member order (sums as ``x0 + x1 + ...``).  Per
+    rank it keeps the kernel launches (``counters``: the wrappers'
+    ``LAUNCHES`` dicts), the time of the work before each transfer
+    (``ms``, keyed by the hop and transfer it ends at; the device is
+    synchronized there) and the payload bytes sent per hop (``wire``)."""
+
+    def __init__(self, torch, n: int, counters=(), sync: bool = True):
+        import collections
+        import threading
+
+        self.torch, self.n, self.counters, self.sync = torch, n, counters, sync
+        self.cond = threading.Condition()
+        self.turn = 0
+        self.state = ["run"] * n
+        self.slots, self.outs, self.seq = {}, {}, {}
+        self.launches = [collections.Counter() for _ in range(n)]
+        self.ms = [collections.Counter() for _ in range(n)]
+        self.wire = [collections.Counter() for _ in range(n)]
+        self.error = None
+        self._t0, self._snap = [0.0] * n, [{}] * n
+        self._hop_cls = _emu_hop_class()
+
+    def _counts(self) -> dict:
+        return {k: v for c in self.counters for k, v in c.items()}
+
+    def _start(self, r: int) -> None:
+        self._t0[r], self._snap[r] = time.perf_counter(), self._counts()
+
+    def _stop(self, r: int, label: str) -> None:
+        if self.sync:
+            self.torch.cuda.synchronize()
+        self.ms[r][label] += (time.perf_counter() - self._t0[r]) * 1e3
+        for k, v in self._counts().items():
+            if v != self._snap[r][k]:
+                self.launches[r][k] += v - self._snap[r][k]
+
+    def _pass(self, r: int) -> None:
+        """Hand the device to the next runnable rank after ``r``."""
+        for k in range(1, self.n + 1):
+            nxt = (r + k) % self.n
+            if self.state[nxt] == "run":
+                self.turn = nxt
+                self.cond.notify_all()
+                return
+        if any(s != "done" for s in self.state) and self.error is None:
+            self.error = RuntimeError("emulated transfers deadlocked: "
+                                      f"rank states {self.state}")
+        self.turn = None
+        self.cond.notify_all()
+
+    def _wait_turn(self, r: int) -> None:
+        while self.turn != r and self.error is None:
+            self.cond.wait()
+        if self.error is not None:
+            raise RuntimeError("another emulated rank failed")
+
+    def transfer(self, hop, label: str, payload, nbytes: int, combine):
+        """One member's part of a transfer over ``hop``: its payload in,
+        its result (from ``combine(payloads in member order)``) out."""
+        r = hop.rank
+        with self.cond:
+            self._stop(r, f"{hop.name}.{label}")
+            self.wire[r][hop.name] += nbytes
+            n = self.seq.get((r, hop.key), 0)
+            self.seq[(r, hop.key)] = n + 1
+            k = (hop.key, n)
+            self.slots.setdefault(k, {})[hop.index] = payload
+            if len(self.slots[k]) == hop.size:
+                slot = self.slots.pop(k)
+                self.outs[k] = dict(enumerate(combine(
+                    [slot[i] for i in range(hop.size)])))
+                if self.sync:  # the transport's own work, timed by nobody
+                    self.torch.cuda.synchronize()
+                for m in hop.ranks:
+                    self.state[m] = "run"
+            else:
+                self.state[r] = "wait"
+            self._pass(r)
+            self._wait_turn(r)
+            out = self.outs[k].pop(hop.index)
+            if not self.outs[k]:
+                del self.outs[k]
+            self._start(r)
+            return out
+
+    def run(self, fn) -> list:
+        """``fn(rank)`` on every emulated rank; their results."""
+        import threading
+
+        results = [None] * self.n
+
+        def body(r):
+            with self.cond:
+                try:
+                    self._wait_turn(r)
+                except RuntimeError:
+                    return
+                self._start(r)
+            try:
+                res = fn(r)
+            except BaseException as exc:  # noqa: BLE001 -- re-raised below
+                with self.cond:
+                    self.error = self.error or exc
+                    self.state[r] = "done"
+                    self.cond.notify_all()
+                return
+            with self.cond:
+                self._stop(r, "end")
+                results[r] = res
+                self.state[r] = "done"
+                self._pass(r)
+
+        threads = [threading.Thread(target=body, args=(r,), daemon=True)
+                   for r in range(self.n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        if self.error is not None:
+            raise self.error
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("an emulated rank did not finish")
+        return results
+
+    def hop(self, r: int, ranks, name: str):
+        return self._hop_cls(self, r, ranks, name)
+
+    def flat(self, r: int):
+        """Rank ``r``'s hop over the whole emulated world."""
+        return self.hop(r, range(self.n), "flat")
+
+    def pair(self, r: int, local: int):
+        """Rank ``r``'s ``(cross, local)`` pair: ``local`` consecutive
+        ranks per local group, cross-major (``r = c * local + l``)."""
+        from horovod_tpu_torch.parallel.mesh import HopPair
+
+        c, l_ = divmod(r, local)
+        return HopPair(self.hop(r, range(l_, self.n, local), "cross"),
+                       self.hop(r, range(c * local, (c + 1) * local),
+                                "local"),
+                       self.flat(r))
+
+
+def _emu_hop_class():
+    """The ``Hop`` of an :class:`EmulatedWorld` (built when the port is
+    importable)."""
+    import torch
+
+    from horovod_tpu_torch.parallel.mesh import Hop
+
+    def _sum(xs):
+        acc = xs[0].clone()
+        for x in xs[1:]:
+            acc.add_(x)
+        return acc
+
+    class EmuHop(Hop):
+        def __init__(self, world, r, ranks, name):
+            ranks = list(ranks)
+            super().__init__(ranks, ranks.index(r), None, name)
+            self.world, self.rank, self.key = world, r, (name, tuple(ranks))
+
+        def _go(self, label, t, combine, payload=None):
+            return self.world.transfer(
+                self, label, t if payload is None else payload,
+                t.numel() * t.element_size(), combine)
+
+        def all_reduce(self, t, op="sum"):
+            if self.size > 1:
+                def combine(xs):
+                    if op == "max":
+                        acc = xs[0].clone()
+                        for x in xs[1:]:
+                            torch.maximum(acc, x, out=acc)
+                    else:
+                        acc = _sum(xs)
+                    return [acc] * len(xs)
+                t.copy_(self._go(f"all_reduce({op})", t, combine))
+            return t
+
+        def reduce_scatter(self, out, src, async_op=False):
+            out.copy_(self._go("reduce_scatter", src, lambda xs: list(
+                _sum(xs).reshape(len(xs), -1))).reshape(out.shape))
+
+        def all_gather(self, out, src, async_op=False):
+            out.copy_(self._go("all_gather", src, lambda xs: [torch.cat(
+                [x.reshape(-1) for x in xs])] * len(xs)).reshape(out.shape))
+
+        def all_to_all(self, out, src):
+            out.copy_(self._go("all_to_all", src, lambda xs: [torch.cat(
+                [x.reshape(len(xs), -1)[j] for x in xs])
+                for j in range(len(xs))]).reshape(out.shape))
+
+        def broadcast(self, t, root):
+            t.copy_(self._go("broadcast", t,
+                             lambda xs: [xs[root]] * len(xs)))
+            return t
+
+        def exchange(self, t, peer):
+            # every member exchanges at an Adasum level: one transfer of
+            # the group, each member taking its peer's vector
+            return self._go("exchange", t, lambda xs: [
+                xs[xs[i][1]][0].clone() for i in range(len(xs))],
+                payload=(t, peer))
+
+    return EmuHop
+
+
+def _resnet_grads(torch, model) -> list:
+    """The main path's model's gradient leaves for four seeded 64-image
+    batch shards (the shards of phases 10 and 14a)."""
+    from horovod_tpu_torch.train_step import (softmax_cross_entropy,
+                                              synthetic_batch)
+
+    grads = []
+    for r in range(DP_N):
+        images, labels = synthetic_batch(64, 224, 1000, seed=100 + r)
+        model.zero_grad(set_to_none=True)
+        softmax_cross_entropy(model(images), labels).backward()
+        grads.append([p.grad.detach().clone() for p in model.parameters()])
+        del images, labels
+    model.zero_grad(set_to_none=True)
+    return grads
+
+
+def _lossy_pair(Q, torch, flats, mode: str, gpu: str) -> dict:
+    """Phase 16a, the two-level lossy sum: ``quantized_allreduce(op=Sum,
+    with_error=True, mode)`` on each emulated rank over the (cross 2,
+    local 2) pair, on the card and (the plain versions) on the CPU."""
+    from horovod_tpu_torch.ops import collectives as C
+
+    qmax = (Q.sum_safe_qmax if mode == "int8" else Q.sum_safe_qmax4)(DP_CROSS)
+    enc = Q.quantize_plain if mode == "int8" else Q.quantize_pack4_plain
+    dec = Q.dequantize_plain if mode == "int8" else Q.unpack_dequantize4_plain
+    kernels = ("quantize", "dequantize") if mode == "int8" \
+        else ("pack4", "unpack4")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        world = EmulatedWorld(torch, DP_N, (Q.LAUNCHES,), sync=dev == "cuda")
+        xs = [f if dev == "cuda" else f.cpu() for f in flats]
+        Q.reset_launch_counts()
+        runs[dev] = (world, world.run(lambda r: C.quantized_allreduce(
+            xs[r], op=C.Sum, with_error=True, mode=mode,
+            axis_name=world.pair(r, DP_LOCAL))))
+    world, outs = runs["cuda"]
+    for r, ((out, err), (pout, perr)) in enumerate(zip(outs, runs["cpu"][1])):
+        if not (torch.equal(out.cpu(), pout) and torch.equal(err.cpu(), perr)):
+            raise AssertionError(f"{mode} rank {r}: the card's two-level sum "
+                                 "or residual differs from the plain "
+                                 "versions' on the CPU")
+        want = {kernels[0]: 1, kernels[1]: 2}
+        if dict(world.launches[r]) != want:
+            raise AssertionError(f"{mode} rank {r}: launches "
+                                 f"{dict(world.launches[r])}, expected {want}")
+    # the bound, from the local partial sums' block absmax: the cross hop
+    # is the only lossy one; and the residual is the cross hop's error of
+    # the rank's local shard, gathered over the local hop and divided by nl
+    half = flats[0].numel() // DP_LOCAL
+    worst = 0.0
+    for l_ in range(DP_LOCAL):
+        sl = slice(l_ * half, (l_ + 1) * half)
+        parts = [flats[c * DP_LOCAL][sl] + flats[c * DP_LOCAL + 1][sl]
+                 for c in range(DP_CROSS)]
+        p2d = [Q._to_blocks(p, QBLOCK)[0] for p in parts]
+        s = Q._scales(torch.stack([Q.block_absmax(p) for p in p2d]).amax(0),
+                      qmax)
+        exact = (parts[0].double() + parts[1].double())
+        bound = DP_CROSS * torch.repeat_interleave(
+            half_scale(s.double(), qmax), QBLOCK)[:half]
+        for r, (out, err) in enumerate(outs):
+            excess = float(((out[sl].double() - exact).abs() - bound).max())
+            worst = max(worst, float(((out[sl].double() - exact).abs()
+                                      / bound.clamp_min(1e-30)).max()))
+            if excess > 0:
+                raise AssertionError(f"{mode} rank {r}: beyond nc * scale / "
+                                     f"2 of the float sum by {excess}")
+            c = r // DP_LOCAL
+            resid = (p2d[c] - dec(enc(p2d[c], s, qmax), s)).reshape(-1)[:half]
+            if not torch.equal(err[sl] * DP_LOCAL, resid):
+                raise AssertionError(f"{mode} rank {r}: the residual of "
+                                     f"local shard {l_} is not the cross "
+                                     "hop's error divided by nl")
+        del parts, p2d, exact, bound
+    ms = dict(world.ms[0])
+    log(f"[data plane] {mode} over an emulated (cross {DP_CROSS}, local "
+        f"{DP_LOCAL}) world, ResNet-50's fused gradient buffer "
+        f"({flats[0].numel()} f32) from four 64-image shards: the card's "
+        f"sum and residual equal the plain versions' bit for bit on every "
+        f"rank; within nc * scale / 2 of the float sum (largest "
+        f"{worst:.4f} of the bound), scales from the local partial sums at "
+        f"qmax {qmax}; residual = the cross hop's error / nl; launches per "
+        f"rank {[dict(x) for x in world.launches]}; rank 0's ms before "
+        f"each transfer {ms}; payload bytes per hop (rank 0) "
+        f"{dict(world.wire[0])}; on {gpu}")
+    return {"launches": [dict(x) for x in world.launches],
+            "ms": [dict(x) for x in world.ms],
+            "wire": [dict(x) for x in world.wire], "worst": worst}
+
+
+def _zero_pair(torch, kind: str, weights, grads, gpu: str) -> dict:
+    """Phase 16a, the sharded variant: ``DistributedOptimizer`` with the
+    fused tail (``kind``: B1 momentum or B3 Adam) at stage 2 on each
+    emulated rank over the pair, against stage 0 over the same pair: two
+    steps, weights bit for bit, each rank's shard of the state at its
+    ``shard_index`` of stage 0's, one launch per rank per step."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.optim import fused_update as TF
+
+    res = {}
+    for stage in (0, 2):
+        world = EmulatedWorld(torch, DP_N, (TF.LAUNCHES,))
+
+        def step(r):
+            ax = world.pair(r, DP_LOCAL)
+            ps = [torch.nn.Parameter(w.clone()) for w in weights]
+            opt = (hvd.fused_update.sgd(ps, 0.1, momentum=0.9)
+                   if kind == "momentum" else hvd.fused_update.adam(ps, 3e-4))
+            dopt = hvd.DistributedOptimizer(opt, zero_stage=stage,
+                                            axis_name=ax)
+            for _ in range(2):
+                for p, g in zip(ps, grads[r]):
+                    p.grad = g.clone()
+                dopt.step()
+            key = "trace" if kind == "momentum" else "mu"
+            st = (torch.cat([opt.state[p][key].reshape(-1) for p in ps])
+                  if stage == 0 else dopt.shard_state[0][key])
+            return [p.detach() for p in ps], st, C.shard_index(ax)
+
+        TF.reset_launch_counts()
+        res[stage] = (world, world.run(step))
+    base = res[0][1][0]
+    for stage, (world, outs) in res.items():
+        for r, (ws, st, idx) in enumerate(outs):
+            if not all(torch.equal(a, b) for a, b in zip(ws, base[0])):
+                raise AssertionError(f"{kind} stage {stage} rank {r}: "
+                                     "weights differ from stage 0's")
+            if dict(world.launches[r]) != {kind: 2}:
+                raise AssertionError(f"{kind} stage {stage} rank {r}: "
+                                     f"launches {dict(world.launches[r])}")
+            if stage == 2:
+                L = st.numel()
+                full = res[0][1][r][1]
+                want = full[idx * L:(idx + 1) * L]
+                if idx != r or not torch.equal(st[:want.numel()], want):
+                    raise AssertionError(f"{kind} rank {r}: its shard is not "
+                                         f"segment {idx} of stage 0's state")
+    log(f"[data plane] ZeRO stage 2 over the emulated pair ({kind}, "
+        f"{len(weights)} leaves, two steps): weights equal stage 0's over "
+        f"the pair bit for bit on every rank, each rank's state shard is "
+        f"segment shard_index = rank (cross-major) of stage 0's, launches "
+        f"per rank {[dict(w.launches[0]) for w, _ in res.values()]} "
+        f"(stage 0, stage 2); rank 0's ms before each transfer at stage 2 "
+        f"{dict(res[2][0].ms[0])}; on {gpu}")
+    return {"launches": {s: [dict(x) for x in w.launches]
+                         for s, (w, _) in res.items()}}
+
+
+def _adasum_world(torch, grads, gpu: str) -> dict:
+    """Phase 16b: ``grouped_allreduce(op=Adasum)`` over the ResNet-50
+    gradient leaves of four emulated ranks, f32 and bf16 (computed in
+    f32) over the flat world, f32 hierarchically over the pair."""
+    import numpy as np
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import adasum as A
+
+    out = {}
+    for name, dtype, pair in (("f32", torch.float32, False),
+                              ("bf16", torch.bfloat16, False),
+                              ("f32 pair", torch.float32, True)):
+        world = EmulatedWorld(torch, DP_N)
+        leaves = [[g.to(dtype) for g in gs] for gs in grads]
+        res = world.run(lambda r: hvd.grouped_allreduce(
+            leaves[r], op=hvd.Adasum, axis_name=(
+                world.pair(r, DP_LOCAL) if pair else world.flat(r))))
+        for r in range(1, DP_N):
+            if not all(torch.equal(a, b) for a, b in zip(res[r], res[0])):
+                raise AssertionError(f"Adasum {name}: rank {r}'s result "
+                                     "differs from rank 0's")
+        # the float64 reference leaf by leaf; the pair: local mean, then
+        # Adasum across the cross axis
+        if dtype == torch.float32:
+            rtol, atol = (1e-5, 1e-6) if pair else (1e-4, 1e-5)
+        else:
+            rtol = atol = 2.0 ** -7
+        worst = 0.0
+        for i in range(len(leaves[0])):
+            per = [leaves[r][i].float().cpu().numpy() for r in range(DP_N)]
+            if pair:
+                per = list(np.stack(per).astype(np.float64).reshape(
+                    DP_CROSS, DP_LOCAL, -1).mean(1))
+            want = A.adasum_reference(per).reshape(-1)
+            got = res[0][i].float().cpu().numpy().astype(np.float64) \
+                .reshape(-1)
+            tol = rtol * np.abs(want) + atol * np.abs(want).max()
+            worst = max(worst, float((np.abs(got - want) / np.maximum(
+                tol, 1e-30)).max()))
+            if not (np.abs(got - want) <= tol).all():
+                raise AssertionError(f"Adasum {name} leaf {i}: beyond rtol "
+                                     f"{rtol} / atol {atol} x scale of the "
+                                     "float64 reference")
+        out[name] = worst
+        log(f"[data plane] Adasum {name} over an emulated world of {DP_N}, "
+            f"161 ResNet-50 gradient leaves fused per dtype (per-leaf "
+            f"segments): every rank bit-identical; within rtol {rtol} / "
+            f"atol {atol} x the leaf's scale of the float64 reference "
+            f"(largest {worst:.4f} of the tolerance); rank 0's ms before "
+            f"each transfer {dict(world.ms[0])}; on {gpu}")
+        del leaves, res
+    return out
+
+
+def data_plane_emulated(hvd, torch, model, gpu: str) -> dict:
+    """Phase 16a-b on the main path's model's gradients."""
+    from horovod_tpu_torch.ops import quantization as Q
+    from horovod_tpu_torch.optim import fused_update as TF
+
+    t0 = time.perf_counter()
+    prev = os.environ.get("HOROVOD_HIERARCHICAL_ALLREDUCE")
+    os.environ["HOROVOD_HIERARCHICAL_ALLREDUCE"] = "1"
+    try:
+        grads = _resnet_grads(torch, model)
+        flats = [torch.cat([g.reshape(-1) for g in gs]) for gs in grads]
+        out = {mode: _lossy_pair(Q, torch, flats, mode, gpu)
+               for mode in ("int8", "int4")}
+        del flats
+        weights = [p.detach().clone() for p in model.parameters()]
+        out["zero_momentum"] = _zero_pair(torch, "momentum", weights, grads,
+                                          gpu)
+        del weights
+        out["adasum"] = _adasum_world(torch, grads, gpu)
+        del grads
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device="cuda").manual_seed(16)
+        shapes = lm_shapes(LM_SEQ)
+        weights = [torch.randn(s, device="cuda", generator=gen) * 0.02
+                   for s in shapes]
+        grads = [[torch.randn(s, device="cuda", generator=gen) * 1e-2
+                  for s in shapes] for _ in range(DP_N)]
+        out["zero_adam"] = _zero_pair(torch, "adam", weights, grads, gpu)
+        del weights, grads
+    finally:
+        if prev is None:
+            os.environ.pop("HOROVOD_HIERARCHICAL_ALLREDUCE", None)
+        else:
+            os.environ["HOROVOD_HIERARCHICAL_ALLREDUCE"] = prev
+        torch.cuda.empty_cache()
+    TF.reset_launch_counts()
+    log(f"[data plane] phase 16a-b took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def data_plane_degenerate(hvd, torch, gpu: str) -> dict:
+    """Phase 16c: the main path's ResNet-50 at world 1 over NCCL,
+    ``DP_STEPS`` steps each flat (Average), under ``init(mesh="dp:1")``
+    and with ``op=Adasum``: losses and weights bit for bit with the flat
+    run (deterministic cuDNN), one B1 and 53 of each of N1-N4 per step."""
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.ops import batch_norm as BN
+    from horovod_tpu_torch.optim import fused_update as TF
+    from horovod_tpu_torch.train_step import synthetic_batch, train_step
+
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.benchmark, cudnn.deterministic)
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    images, labels = synthetic_batch(BATCH, 224, 1000, seed=0)
+    out = {}
+    try:
+        for name, mesh, op in (("flat", None, hvd.Average),
+                               ("mesh dp:1", "dp:1", hvd.Average),
+                               ("Adasum", None, hvd.Adasum)):
+            hvd.shutdown()
+            hvd.init(mesh=mesh)
+            model = ResNet50(num_classes=1000, dtype=torch.bfloat16, seed=0)
+            opt = hvd.DistributedOptimizer(
+                hvd.fused_update.sgd(model.parameters(), 0.1, momentum=0.9),
+                op=op)
+            TF.reset_launch_counts()
+            BN.reset_launch_counts()
+            losses = [float(train_step(model, opt, images, labels))
+                      for _ in range(DP_STEPS)]
+            torch.cuda.synchronize()
+            launches = {**TF.LAUNCHES, **BN.LAUNCHES}
+            want = {"sgd": 0, "momentum": DP_STEPS, "adam": 0,
+                    **dict.fromkeys(BN_KERNELS, RESNET50_BN * DP_STEPS)}
+            if launches != want:
+                raise AssertionError(f"{name}: launches {launches}, expected "
+                                     f"{want}")
+            out[name] = {"losses": losses, "launches": launches,
+                         "weights": [p.detach().clone()
+                                     for p in model.parameters()],
+                         "axis": str(opt.axis_name)}
+            del model, opt
+            os.environ.pop("HOROVOD_MESH", None)
+    finally:
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = \
+            flags
+        os.environ.pop("HOROVOD_MESH", None)
+    base = out["flat"]
+    for name in ("mesh dp:1", "Adasum"):
+        if out[name]["losses"] != base["losses"] or not all(
+                torch.equal(a, b) for a, b in zip(out[name]["weights"],
+                                                  base["weights"])):
+            raise AssertionError(f"{name}: losses or weights differ from the "
+                                 "flat Average run's")
+    if [out[n]["axis"] for n in out] != ["hvd", "dp", "hvd"]:
+        raise AssertionError("the default reduction axis of the three runs "
+                             f"is {[out[n]['axis'] for n in out]}")
+    for r in out.values():
+        del r["weights"]
+    log(f"[data plane] ResNet-50 224x224 batch {BATCH} bf16, world 1 over "
+        f"NCCL, {DP_STEPS} steps flat, under init(mesh='dp:1') (axis dp) and "
+        f"with op=Adasum: losses {base['losses']} and weights equal bit for "
+        f"bit; launches per run {base['launches']}; on {gpu}")
+    torch.cuda.empty_cache()
+    return out
+
+
 def run(args) -> int:
     t_start = time.perf_counter()
     card = pin_one_card()
@@ -2735,6 +3290,7 @@ def run(args) -> int:
     model = path.pop("model")
     wire = codec_path(hvd, Q, torch, model, gpu)
     zero_tail = zero_tail_emulated(torch, model, gpu)
+    data_plane = data_plane_emulated(hvd, torch, model, gpu)
     del model
     torch.cuda.empty_cache()
     sgd = sgd_path(hvd, torch, gpu)
@@ -2755,6 +3311,7 @@ def run(args) -> int:
     log(f"[zero] transformer stage 2: optimizer state "
         f"{zero_lm['state_bytes']} B (stage 0: {lm['state_bytes']} B)")
     sp = sequence_parallel(FA, torch)
+    data_plane["degenerate"] = data_plane_degenerate(hvd, torch, gpu)
     hvd.shutdown()
 
     launches = {**path["launches"], **lm["launches"],

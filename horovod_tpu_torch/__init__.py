@@ -12,14 +12,17 @@ Importing the package builds nothing and touches no device.
 """
 
 from horovod_tpu_torch.common.basics import (  # noqa: F401
-    cross_rank, cross_size, device, init, is_initialized, local_rank,
-    local_size, rank, shutdown, size)
+    cross_rank, cross_size, data_mesh, data_parallel_size, device, init,
+    is_initialized, local_rank, local_size, rank, shutdown, size)
 from horovod_tpu_torch.common.types import HorovodTpuError  # noqa: F401
 from horovod_tpu_torch.ops.collectives import (  # noqa: F401
     Adasum, Average, Sum, allgather, allreduce, alltoall, broadcast,
-    grouped_allreduce, grouped_quantized_allreduce, grouped_reducescatter,
-    quantized_allreduce, reducescatter)
+    cross_allreduce, grouped_allreduce, grouped_quantized_allreduce,
+    grouped_reducescatter, hierarchical_allgather, hierarchical_allreduce,
+    local_allreduce, quantized_allreduce, reducescatter)
 from horovod_tpu_torch.ops.compression import Compression  # noqa: F401
+from horovod_tpu_torch.parallel.mesh import (  # noqa: F401
+    hierarchical_mesh, make_mesh, parse_mesh_spec)
 from horovod_tpu_torch.optim import fused_update  # noqa: F401
 from horovod_tpu_torch.optim.distributed import (  # noqa: F401
     DistributedOptimizer, Zero3Params, allreduce_gradients,

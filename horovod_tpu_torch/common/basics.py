@@ -7,6 +7,11 @@ ranks of this package unchanged.  With no env the world is one process.
 The process group is started at every size -- ``nccl`` on CUDA, ``gloo``
 on the CPU -- so a one-process run takes the same collective path as a
 larger one.
+
+``init(mesh=...)`` (or ``HOROVOD_MESH``) names a data mesh: ``init``
+builds its process groups once, on every rank in the same order
+(``parallel/mesh.py``), and the gradient collectives reduce over its dp
+axis.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from datetime import timedelta
 import torch
 import torch.distributed as dist
 
+from horovod_tpu_torch.common import config as _config
 from horovod_tpu_torch.common import logging as _log
 from horovod_tpu_torch.common.types import HorovodTpuError
 from horovod_tpu_torch.common.util import free_port, resolve_device
@@ -34,6 +40,8 @@ class _State:
         self.cross_rank = 0
         self.cross_size = 1
         self.device = torch.device("cpu")
+        self.data_mesh = None   # parallel.mesh.RankMesh of HOROVOD_MESH
+        self.data_axes = None   # its axis sizes, e.g. {'dp': 4, 'tp': 2}
 
 
 _state = _State()
@@ -44,19 +52,26 @@ def _env_int(name: str, default: int) -> int:
     return int(raw) if raw.strip() else default
 
 
-def init(device=None, timeout_s: float = 300.0) -> None:
+def init(device=None, timeout_s: float = 300.0, mesh=None) -> None:
     """Initialize the world.  ``device`` is where this rank computes:
     ``cuda`` (the default; local rank ``i`` takes card ``i``) or
-    ``cpu``.  Idempotent until :func:`shutdown`."""
+    ``cpu``.  ``mesh`` names the data mesh: a spec string
+    (``'dp:4,tp:2'``), an axis dict, or a mesh object whose axis names
+    come from ``parallel.mesh.AXES`` and include ``dp`` (a torch
+    ``DeviceMesh`` or a ``parallel.mesh.RankMesh``); it is exported as
+    ``HOROVOD_MESH`` and must agree with a ``HOROVOD_MESH`` already set.
+    Idempotent until :func:`shutdown`."""
     with _state.lock:
         if _state.initialized:
             return
+        _apply_mesh_arg(mesh)
         dev = resolve_device(device)
         size = _env_int("HOROVOD_SIZE", 1)
         rank = _env_int("HOROVOD_RANK", 0)
         if not 0 <= rank < size:
             raise HorovodTpuError(
                 f"HOROVOD_RANK={rank} is outside HOROVOD_SIZE={size}")
+        axes = _mesh_axes(size)
         local_rank = _env_int("HOROVOD_LOCAL_RANK", rank)
         local_size = _env_int("HOROVOD_LOCAL_SIZE", size)
         if size > 1:
@@ -84,8 +99,84 @@ def init(device=None, timeout_s: float = 300.0) -> None:
         _state.cross_size = _env_int("HOROVOD_CROSS_SIZE", 1)
         _state.device = dev
         _state.initialized = True
+        if axes is not None:
+            _build_data_mesh(axes)
         _log.debug(f"init: backend={backend} size={size} device={dev}",
                    rank=rank)
+
+
+def _apply_mesh_arg(mesh) -> None:
+    """Canonicalize an ``init(mesh=...)`` argument into the ``mesh``
+    knob (``horovod_tpu/common/basics.py:391-430``)."""
+    if mesh is None:
+        return
+    from horovod_tpu_torch.parallel import mesh as _pmesh
+
+    if isinstance(mesh, str):
+        axes = _pmesh.parse_mesh_spec(mesh)
+    elif isinstance(mesh, dict):
+        axes = _pmesh.parse_mesh_spec(
+            ",".join(f"{k}:{v}" for k, v in mesh.items()))
+    else:
+        names = getattr(mesh, "mesh_dim_names", None) \
+            or getattr(mesh, "axis_names", None)
+        shape = getattr(mesh, "shape", None)
+        if names is None or shape is None:
+            raise HorovodTpuError(
+                "init(mesh=...) wants a spec string ('dp:4,tp:2'), an "
+                "axis dict, or a DeviceMesh; got "
+                f"{type(mesh).__name__}")
+        shape = dict(zip(names, tuple(shape)))
+        bad = sorted(n for n in shape if n not in _pmesh.AXES)
+        if bad:
+            raise HorovodTpuError(
+                f"init(mesh=...) axis names must come from "
+                f"{'/'.join(_pmesh.AXES)}; got {bad}")
+        if _pmesh.DATA_AXIS not in shape:
+            raise HorovodTpuError(
+                "init(mesh=...) mesh has no 'dp' axis; the gradient "
+                "stack reduces over dp")
+        axes = {a: int(shape.get(a, 1)) for a in _pmesh.AXES}
+    canon = _pmesh.canonical_spec(axes)
+    knob = str(_config.get("mesh") or "").strip()
+    if knob and _pmesh.canonical_spec(_pmesh.parse_mesh_spec(knob)) != canon:
+        raise HorovodTpuError(
+            f"init(mesh=...) ({canon!r}) disagrees with HOROVOD_MESH "
+            f"({knob!r}); set one, not both")
+    _config.set_knob("mesh", canon)
+
+
+def _mesh_axes(size: int):
+    """The axis sizes the ``mesh`` knob names, or ``None``: a spec that
+    does not cover the world exactly, or that names a sequence axis,
+    raises (training on it would reduce over the wrong replica
+    groups)."""
+    spec = str(_config.get("mesh") or "").strip()
+    if not spec:
+        return None
+    from horovod_tpu_torch.parallel import mesh as _pmesh
+
+    axes = _pmesh.parse_mesh_spec(spec)
+    _pmesh.refuse_sequence_axis(axes)   # before any process group
+    n = 1
+    for v in axes.values():
+        n *= int(v)
+    if n != size:
+        raise HorovodTpuError(
+            f"HOROVOD_MESH {_pmesh.canonical_spec(axes)!r} covers {n} "
+            f"ranks but the world has {size}; every rank must belong to "
+            "exactly one mesh coordinate")
+    return axes
+
+
+def _build_data_mesh(axes) -> None:
+    """Build the data mesh of ``axes`` (every rank, one order)."""
+    from horovod_tpu_torch.parallel import mesh as _pmesh
+
+    _state.data_mesh = _pmesh.build_data_mesh(axes)
+    _state.data_axes = _state.data_mesh.sizes()
+    _log.debug(f"data mesh {_pmesh.canonical_spec(axes)}: axes "
+               f"{_state.data_axes}", rank=_state.rank)
 
 
 def shutdown() -> None:
@@ -94,6 +185,7 @@ def shutdown() -> None:
             return
         if dist.is_initialized():
             dist.destroy_process_group()
+        _state.data_mesh = _state.data_axes = None
         _state.initialized = False
 
 
@@ -136,3 +228,19 @@ def cross_size() -> int:
 def device() -> torch.device:
     """The device :func:`init` bound this rank to."""
     return _check().device
+
+
+def data_mesh():
+    """The named data mesh (``parallel.mesh.RankMesh``) built at
+    :func:`init`, or ``None`` in the flat world.  Under hierarchical
+    mode its dp axis is the ``("dpc", "dpl")`` pair."""
+    return _check().data_mesh
+
+
+def data_parallel_size() -> int:
+    """Replicas of the gradient reduction: the data mesh's dp extent
+    when one is named, else the world size."""
+    from horovod_tpu_torch.parallel import mesh as _pmesh
+
+    dp = _pmesh.data_parallel_size()
+    return dp if dp is not None else _check().size

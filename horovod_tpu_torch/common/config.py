@@ -71,6 +71,31 @@ _KNOBS: dict[str, Knob] = {
         "Per-bucket wire modes, colon-separated (e.g. 'int8:int4:topk'), "
         "cycled over the buckets of the overlap and stage-2/3 schedules; "
         "empty: every bucket rides the call's own mode."),
+    "mesh": Knob(
+        "HOROVOD_MESH", "", str,
+        "Named data-mesh axis sizes as 'axis:size' pairs, e.g. "
+        "'dp:4,tp:2' (axes dp/pp/tp/sp; empty = flat world).  When set, "
+        "init() builds the mesh's process groups and every gradient "
+        "collective, the optimizer and the ZeRO shard layouts reduce "
+        "over the dp axis only.  Must agree on every rank."),
+    "hierarchical_allreduce": Knob(
+        "HOROVOD_HIERARCHICAL_ALLREDUCE", False, _parse_bool,
+        "Two-level (cross, local) allreduce over an axis pair: local "
+        "reduce-scatter, cross allreduce (the only hop a lossy "
+        "compressor touches), local all-gather.  With a data mesh and "
+        "HOROVOD_HIERARCHICAL_LOCAL_SIZE the dp axis splits into the "
+        "(dpc, dpl) pair; alone it changes nothing.  Must agree on every "
+        "rank."),
+    "hierarchical_allgather": Knob(
+        "HOROVOD_HIERARCHICAL_ALLGATHER", False, _parse_bool,
+        "Two-level allgather: like HOROVOD_HIERARCHICAL_ALLREDUCE, "
+        "splits a data mesh's dp axis under "
+        "HOROVOD_HIERARCHICAL_LOCAL_SIZE.  Must agree on every rank."),
+    "hierarchical_local_size": Knob(
+        "HOROVOD_HIERARCHICAL_LOCAL_SIZE", 0, int,
+        "Local extent of the dp axis's (dpc, dpl) split: used when "
+        "1 < L < dp and L divides dp; 0 (the default) splits nothing.  "
+        "Must agree on every rank."),
     "log_level": Knob(
         "HOROVOD_LOG_LEVEL", "warning", str,
         "trace | debug | info | warning | error | fatal."),
@@ -86,13 +111,6 @@ _KNOBS: dict[str, Knob] = {
 # (The knobs ignored on purpose, each with its reason, are listed in
 # ROADMAP.md Queue C.)
 _NOT_PORTED = {
-    "HOROVOD_HIERARCHICAL_ALLREDUCE":
-        "hierarchical (cross, local) reductions (ROADMAP.md Queue A item 9)",
-    "HOROVOD_HIERARCHICAL_ALLGATHER":
-        "hierarchical (cross, local) gathers (ROADMAP.md Queue A item 9)",
-    "HOROVOD_MESH":
-        "named mesh axes, with every collective over the dp axis only "
-        "(ROADMAP.md Queue A item 9)",
     "HOROVOD_ADAPTIVE_COMPRESSION":
         "the residual-ratio guardrail and its metrics (ROADMAP.md Queue A "
         "item 12)",
@@ -126,3 +144,10 @@ def get(name: str) -> Any:
         return k.parse(raw)
     except (ValueError, TypeError):
         return k.default
+
+
+def set_knob(name: str, value: Any) -> None:
+    """Set a knob by exporting its env var (the one source of truth)."""
+    k = _KNOBS[name]
+    os.environ[k.env] = ("1" if value else "0") if isinstance(value, bool) \
+        else str(value)

@@ -19,6 +19,13 @@ with ``async_op=True`` (NCCL runs it on the process group's stream and
 own thread).  The reference's ``ppermute`` rings have no counterpart:
 one NCCL call is the bucket's transport.
 
+Every schedule runs over the axis its ``axis_name`` resolves to
+(:func:`horovod_tpu_torch.parallel.mesh.resolve_hops`).  Under a
+hierarchical ``(cross, local)`` pair a bucket's reduce-scatter is the
+local hop (full precision) then the cross hop (the only lossy one), and
+its all-gather the cross then the local hop
+(``horovod_tpu/ops/overlap.py:206-290``); those run synchronously.
+
 Lossy modes compress each bucket on its own (per-bucket shared scales,
 a top-k payload per bucket), so an error-feedback residual is the
 bucket-aligned slices of one full-buffer residual, zeros where a
@@ -29,13 +36,12 @@ bucket its own mode (:func:`resolve_bucket_modes`).
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 
-from horovod_tpu_torch.common import basics as _basics
 from horovod_tpu_torch.common import config as _config
 from horovod_tpu_torch.common.util import true_divide
 from horovod_tpu_torch.ops import compression as _compression
 from horovod_tpu_torch.ops import quantization as _quant
+from horovod_tpu_torch.parallel import mesh as _pmesh
 
 # ReduceOp codes shared with collectives.py (which imports this module).
 _AVERAGE, _SUM = 1, 2
@@ -97,63 +103,129 @@ def _zeros_err(buf: torch.Tensor, with_error: bool):
             if with_error else None)
 
 
+def _seg_transpose(seg2d: torch.Tensor, nc: int, nl: int) -> torch.Tensor:
+    """Re-order ``(n, L)`` segment rows from world (cross-major) order to
+    local-major order, so that a local-then-cross two-stage scatter lands
+    segment ``c*nl + l`` on rank ``(c, l)``."""
+    L = seg2d.shape[1]
+    return seg2d.reshape(nc, nl, L).transpose(0, 1).reshape(nc * nl, L)
+
+
+def _seg_untranspose_flat(buf: torch.Tensor, nc: int,
+                          nl: int) -> torch.Tensor:
+    """Inverse of :func:`_seg_transpose` on a gathered flat buffer in
+    local-major segment order."""
+    L = buf.shape[0] // (nc * nl)
+    return buf.reshape(nl, nc, L).transpose(0, 1).reshape(-1)
+
+
+def _hier_scatter(buf, pair: _pmesh.HopPair, mode: str, with_error: bool,
+                  block_size):
+    """The two-level bucket scatter: segments re-ordered local-major
+    (``_seg_transpose``), a full-precision reduce-scatter over the local
+    hop, then the cross hop (lossy in a lossy mode), so segment ``c*nl +
+    l`` lands on rank ``(c, l)``.  The residual is gathered over the
+    local hop and pre-divided by ``nl``."""
+    nc, nl = pair.cross.size, pair.local.size
+    lossy = mode in _quant.LOSSY_MODES
+    L = buf.shape[0] // (nc * nl)
+    seg = buf.to(torch.float32) if lossy else buf
+    seg = _seg_transpose(seg.reshape(nc * nl, L), nc, nl).reshape(-1)
+    part = torch.empty(nc * L, dtype=seg.dtype, device=seg.device)
+    pair.local.reduce_scatter(part, seg)                # (nc, L), local
+    if lossy:
+        out, err_part = _quant.lossy_psum_scatter_segments(
+            part.reshape(nc, L), mode, block_size, with_error,
+            axis_name=pair.cross)
+        err = None
+        if with_error:
+            g = torch.empty(nl * nc * L, dtype=torch.float32,
+                            device=buf.device)
+            pair.local.all_gather(g, err_part.reshape(-1).contiguous())
+            err = _seg_untranspose_flat(g, nc, nl)
+            err = true_divide(err, nl) if nl > 1 else err
+        return out.to(buf.dtype), err
+    out = torch.empty(L, dtype=buf.dtype, device=buf.device)
+    pair.cross.reduce_scatter(out, part)
+    return out, None
+
+
 def start_scatter(buf: torch.Tensor, quantized=False,
                   with_error: bool = False,
-                  block_size: int | None = None) -> _Pending:
+                  block_size: int | None = None, axis_name=None) -> _Pending:
     """Start the reduce-scatter of one 1-D bucket buffer of ``n * Lk``
-    elements; ``wait()`` gives ``(shard, err)``: the ``(Lk,)`` sum of
-    segment ``rank`` and, with ``with_error`` in a lossy mode, this
-    rank's ``(n * Lk,)`` float32 residual.  ``quantized`` is ``False``
-    or a mode (``fp16 | bf16`` wrap a dense scatter in a cast, ``int8 |
-    int4 | topk`` run the lossy segment scatter, which waits for its
-    own collectives)."""
+    elements over ``axis_name``; ``wait()`` gives ``(shard, err)``: the
+    ``(Lk,)`` sum of the segment at this rank's axis index and, with
+    ``with_error`` in a lossy mode, this rank's ``(n * Lk,)`` float32
+    residual.  ``quantized`` is ``False`` or a mode (``fp16 | bf16`` wrap
+    a dense scatter in a cast, ``int8 | int4 | topk`` run the lossy
+    segment scatter, which waits for its own collectives)."""
+    hops = _pmesh.resolve_hops(axis_name)
     mode = _quant.norm_mode(quantized)
-    n = _basics.size()
+    n = _pmesh.flat_hop(hops).size
     if n == 1:
         return _done((buf, _zeros_err(buf, with_error)))
     if mode in _CAST_WIRES:
         shrinks = buf.is_floating_point() and buf.element_size() > 2
-        inner = start_scatter(buf.to(_CAST_WIRES[mode]) if shrinks else buf)
+        inner = start_scatter(buf.to(_CAST_WIRES[mode]) if shrinks else buf,
+                              axis_name=hops)
         err = _zeros_err(buf, with_error)
         return _Pending(inner.work,
                         lambda: (inner.finish()[0].to(buf.dtype), err),
                         inner.keep)
+    if mode not in _quant.LOSSY_MODES and mode != "none":
+        raise ValueError(f"unknown wire mode {mode!r}")
+    if _pmesh.two_level(hops):
+        return _done(_hier_scatter(buf, hops, mode, with_error, block_size))
+    hop = _pmesh.flat_hop(hops)
     L = buf.shape[0] // n
     if mode in _quant.LOSSY_MODES:
         seg = buf.to(torch.float32).reshape(n, L)
         out, err2d = _quant.lossy_psum_scatter_segments(
-            seg, mode, block_size, with_error)
+            seg, mode, block_size, with_error, axis_name=hop)
         err = err2d.reshape(-1) if err2d is not None else None
         return _done((out.to(buf.dtype), err))
-    if mode != "none":
-        raise ValueError(f"unknown wire mode {mode!r}")
     src = buf.contiguous()
     out = torch.empty(L, dtype=buf.dtype, device=buf.device)
-    work = dist.reduce_scatter_tensor(out, src, async_op=True)
+    work = hop.reduce_scatter(out, src, async_op=True)
     return _Pending(work, lambda: (out, None), src)
 
 
-def start_gather(shard: torch.Tensor) -> _Pending:
-    """Start the all-gather of one bucket shard; ``wait()`` gives the
-    ``(n * Lk,)`` buffer in segment order."""
-    n = _basics.size()
+def start_gather(shard: torch.Tensor, axis_name=None) -> _Pending:
+    """Start the all-gather of one bucket shard over ``axis_name``;
+    ``wait()`` gives the ``(n * Lk,)`` buffer in segment order (under a
+    hierarchical pair: the cross gather, then the local one, re-ordered
+    back to cross-major segments)."""
+    hops = _pmesh.resolve_hops(axis_name)
+    n = _pmesh.flat_hop(hops).size
     if n == 1:
         return _done(shard)
     src = shard.contiguous()
+    pair = _pmesh.two_level(hops)
+    if pair:
+        g = torch.empty(pair.cross.size * src.shape[0], dtype=src.dtype,
+                        device=src.device)
+        pair.cross.all_gather(g, src)
+        out = torch.empty(n * src.shape[0], dtype=src.dtype,
+                          device=src.device)
+        pair.local.all_gather(out, g)
+        return _done(_seg_untranspose_flat(out, pair.cross.size,
+                                           pair.local.size))
     out = torch.empty(n * src.shape[0], dtype=src.dtype, device=src.device)
-    work = dist.all_gather_into_tensor(out, src, async_op=True)
+    work = _pmesh.flat_hop(hops).all_gather(out, src, async_op=True)
     return _Pending(work, lambda: out, src)
 
 
 def scatter_bucket(buf, quantized=False, with_error: bool = False,
-                   block_size: int | None = None):
+                   block_size: int | None = None, axis_name=None):
     """:func:`start_scatter`, waited for: ``(shard, err)``."""
-    return start_scatter(buf, quantized, with_error, block_size).wait()
+    return start_scatter(buf, quantized, with_error, block_size,
+                         axis_name).wait()
 
 
-def gather_bucket(shard):
+def gather_bucket(shard, axis_name=None):
     """:func:`start_gather`, waited for."""
-    return start_gather(shard).wait()
+    return start_gather(shard, axis_name).wait()
 
 
 # ---------------------------------------------------------------------------
@@ -202,14 +274,16 @@ def _piece(seg: torch.Tensor, s: int, e: int) -> torch.Tensor:
 def overlapped_flat_reduce(buf, op: int = _SUM, quantized=False,
                            with_error: bool = False,
                            block_size: int | None = None,
-                           chunks: int | None = None):
+                           chunks: int | None = None, axis_name=None):
     """Bucketed allreduce of a fused 1-D buffer: K column buckets, each
     reduce-scattered, divided (Average) or dequantized bucket-locally,
     and all-gathered, bucket b's reduce-scatter issued before bucket
     b-1's math and all-gather.  Returns ``(reduced, err)``; ``err``
     (``with_error``) is the full-buffer float32 residual, zeros for
-    buckets whose mode keeps none.  A world of one returns ``buf``."""
-    n = _basics.size()
+    buckets whose mode keeps none.  An axis of one rank returns
+    ``buf``."""
+    hops = _pmesh.resolve_hops(axis_name)
+    n = _pmesh.flat_hop(hops).size
     if n == 1:
         return buf, _zeros_err(buf, with_error)
     total = buf.shape[0]
@@ -225,7 +299,7 @@ def overlapped_flat_reduce(buf, op: int = _SUM, quantized=False,
 
     def finish(b, pending):
         shard, errs[b] = pending.wait()
-        gathers.append(start_gather(_bucket_math(shard, op, n)))
+        gathers.append(start_gather(_bucket_math(shard, op, n), hops))
 
     pending = None
     for b, (s, e) in enumerate(bounds):
@@ -234,7 +308,7 @@ def overlapped_flat_reduce(buf, op: int = _SUM, quantized=False,
             # the bucket rides the wire at its width through scatter,
             # math and gather, and widens only at reassembly
             piece, mode_b = piece.to(_CAST_WIRES[mode_b]), "none"
-        started = start_scatter(piece, mode_b, with_error, block_size)
+        started = start_scatter(piece, mode_b, with_error, block_size, hops)
         if pending is not None:
             finish(*pending)
         pending = (b, started)
@@ -251,23 +325,25 @@ def overlapped_flat_reduce(buf, op: int = _SUM, quantized=False,
 
 def overlapped_allreduce(tensor, op: int = _AVERAGE, quantized=False,
                          with_error: bool = False,
-                         block_size: int | None = None):
+                         block_size: int | None = None, axis_name=None):
     """Tensor-shaped :func:`overlapped_flat_reduce`."""
     out, err = overlapped_flat_reduce(
         tensor.reshape(-1), op=op, quantized=quantized,
-        with_error=with_error, block_size=block_size)
+        with_error=with_error, block_size=block_size, axis_name=axis_name)
     out = out.reshape(tensor.shape).to(tensor.dtype)
     return out, (err.reshape(tensor.shape) if err is not None else None)
 
 
 def overlapped_scatter_flat_buffer(buf, quantized=False,
                                    with_error: bool = False,
-                                   block_size: int | None = None):
+                                   block_size: int | None = None,
+                                   axis_name=None):
     """``collectives._scatter_flat_buffer`` in K column buckets, bucket
     b+1's reduce-scatter issued before bucket b is waited for: the
     concatenation of the bucket shards is the same contiguous shard.
     Returns ``(shard, err)`` with the full-buffer residual layout."""
-    n = _basics.size()
+    hops = _pmesh.resolve_hops(axis_name)
+    n = _pmesh.flat_hop(hops).size
     if n == 1:
         return buf, _zeros_err(buf, with_error)
     seg = buf.reshape(n, buf.shape[0] // n)
@@ -278,7 +354,7 @@ def overlapped_scatter_flat_buffer(buf, quantized=False,
     pending = None
     for b, (s, e) in enumerate(bounds):
         started = start_scatter(_piece(seg, s, e), bmodes[b], with_error,
-                                block_size)
+                                block_size, hops)
         if pending is not None:
             pb, pw = pending
             shards[pb], errs[pb] = pw.wait()
@@ -293,24 +369,27 @@ def overlapped_scatter_flat_buffer(buf, quantized=False,
 
 
 def prefetched_gather_flat_shard(shard: torch.Tensor,
-                                 chunks: int | None = None):
+                                 chunks: int | None = None, axis_name=None):
     """All-gather a rank's 1-D shard bucket by bucket, every bucket's
     gather started before the first is waited for.  Returns
     ``(bucket_outs, bounds)``: bucket k's ``(n * Lb_k,)`` segment-order
     result stays its own tensor (``collectives.leaf_from_buckets``
     slices leaves out of it), so no full-size buffer is assembled.  A
     world of one returns views of the shard."""
+    hops = _pmesh.resolve_hops(axis_name)
     bounds = bucket_bounds(shard.shape[0], chunks)
-    if _basics.size() == 1:
+    if _pmesh.flat_hop(hops).size == 1:
         return [shard[s:e] for s, e in bounds], bounds
-    started = [start_gather(shard[s:e]) for s, e in bounds]
+    started = [start_gather(shard[s:e], hops) for s, e in bounds]
     return [p.wait() for p in started], bounds
 
 
-def overlapped_gather_flat_shard(shard):
+def overlapped_gather_flat_shard(shard, axis_name=None):
     """``collectives._gather_flat_shard`` in K buckets: the full buffer
     in segment order."""
-    n = _basics.size()
+    hops = _pmesh.resolve_hops(axis_name)
+    n = _pmesh.flat_hop(hops).size
     if n == 1:
         return shard
-    return concat_columns(prefetched_gather_flat_shard(shard)[0], n)
+    return concat_columns(
+        prefetched_gather_flat_shard(shard, axis_name=hops)[0], n)

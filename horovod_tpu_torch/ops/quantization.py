@@ -1,6 +1,7 @@
 """Block-scaled lossy wire codecs (int8, packed int4, top-k) with error
 feedback: the counterpart of ``horovod_tpu/ops/quantization.py`` over
-the ``torch.distributed`` world.
+the ``torch.distributed`` world or one axis of the data mesh (a
+:class:`~horovod_tpu_torch.parallel.mesh.Hop`).
 
 **Wire format.**  A flat float32 payload is cut into blocks of
 ``HOROVOD_QUANT_BLOCK_SIZE`` elements (default 256, zero tail pad); each
@@ -9,8 +10,9 @@ wire byte, element ``i`` of a block paired with ``i + block/2``).
 
 **Reductions.**  Ranks agree on per-block scales with a float ``MAX``
 allreduce of the block absmaxes, quantize with the sum-safe headroom
-``qmax = 127 // n`` (int4: ``7 // n``) so the int8 ``SUM`` allreduce of
-the payload cannot overflow, and dequantize with the shared scales.
+``qmax = 127 // n`` (int4: ``7 // n``), ``n`` the size of the axis the
+reduction runs over, so the int8 ``SUM`` allreduce of the payload cannot
+overflow, and dequantize with the shared scales.
 Top-k gathers every rank's ``(int32 index, float32 value)`` pairs
 (``all_gather`` for allreduce, ``all_to_all`` for reduce-scatter) and
 scatter-adds them.  Every ``*_with_error`` form also returns this rank's
@@ -35,14 +37,13 @@ import ctypes
 from typing import NamedTuple
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from horovod_tpu_torch import _build
-from horovod_tpu_torch.common import basics as _basics
 from horovod_tpu_torch.common import config as _config
 from horovod_tpu_torch.common.types import HorovodTpuError
 from horovod_tpu_torch.common.util import true_divide
+from horovod_tpu_torch.parallel import mesh as _pmesh
 
 DEFAULT_BLOCK_SIZE = 256
 _QMAX = 127  # symmetric int8: values in [-127, 127] (-128 unused)
@@ -331,16 +332,6 @@ def dequantize4_block_scaled(p2d, scales, meta: QuantMeta):
 # ---------------------------------------------------------------------------
 
 
-def _allreduce_max(t: torch.Tensor) -> torch.Tensor:
-    dist.all_reduce(t, op=dist.ReduceOp.MAX)
-    return t
-
-
-def _allreduce_sum(t: torch.Tensor) -> torch.Tensor:
-    dist.all_reduce(t, op=dist.ReduceOp.SUM)
-    return t
-
-
 def _codec(n: int, block: int, int4: bool):
     """``(qmax, encode, decode)`` of the int8 or packed int4 wire over
     ``n`` ranks."""
@@ -351,9 +342,10 @@ def _codec(n: int, block: int, int4: bool):
     return sum_safe_qmax(n), quantize_values, dequantize_values
 
 
-def _dense_psum_impl(x, block_size, with_error: bool, int4: bool):
-    """int8 (``int4=False``) or packed int4 allreduce of ``x``."""
-    n = _basics.size()
+def _dense_psum_impl(x, block_size, with_error: bool, int4: bool, hop):
+    """int8 (``int4=False``) or packed int4 allreduce of ``x`` over
+    ``hop``, at the headroom of ``hop``'s size."""
+    n = hop.size
     block = resolve_block_size(block_size)
     qmax, enc, dec = _codec(n, block, int4)
     if n == 1:
@@ -361,9 +353,9 @@ def _dense_psum_impl(x, block_size, with_error: bool, int4: bool):
                if with_error else None)
         return x, err
     x2d, length = _to_blocks(x, block)
-    scales = _scales(_allreduce_max(block_absmax(x2d)), qmax)
+    scales = _scales(hop.all_reduce(block_absmax(x2d), "max"), qmax)
     q = enc(x2d, scales, qmax)
-    qsum = _allreduce_sum(q.clone() if with_error else q)  # int8 wire
+    qsum = hop.all_reduce(q.clone() if with_error else q)  # int8 wire
     out = _from_blocks(dec(qsum, scales),
                        QuantMeta(tuple(x.shape), x.dtype, length, block))
     err = None
@@ -374,30 +366,37 @@ def _dense_psum_impl(x, block_size, with_error: bool, int4: bool):
     return out, err
 
 
-def quantized_psum(x, block_size: int | None = None):
-    """Sum of ``x`` over the world on the int8 wire: one float ``MAX`` of
-    the block absmaxes and one int8 ``SUM`` of the payload.  Within
-    ``n * scale / 2`` of the exact sum per element."""
-    return _dense_psum_impl(x, block_size, False, int4=False)[0]
+def quantized_psum(x, block_size: int | None = None, axis_name=None):
+    """Sum of ``x`` over ``axis_name`` on the int8 wire: one float
+    ``MAX`` of the block absmaxes and one int8 ``SUM`` of the payload.
+    Within ``n * scale / 2`` of the exact sum per element."""
+    return _dense_psum_impl(x, block_size, False, False,
+                            _pmesh.flat_hop(axis_name))[0]
 
 
-def quantized_psum_with_error(x, block_size: int | None = None):
+def quantized_psum_with_error(x, block_size: int | None = None,
+                              axis_name=None):
     """:func:`quantized_psum` and this rank's residual
     ``x - dequant(quant(x))`` (float32, shape of ``x``)."""
-    return _dense_psum_impl(x, block_size, True, int4=False)
+    return _dense_psum_impl(x, block_size, True, False,
+                            _pmesh.flat_hop(axis_name))
 
 
-def int4_psum(x, block_size: int | None = None):
-    """Sum over the world on the packed int4 wire (half int8's bytes)."""
-    return _dense_psum_impl(x, block_size, False, int4=True)[0]
+def int4_psum(x, block_size: int | None = None, axis_name=None):
+    """Sum over ``axis_name`` on the packed int4 wire (half int8's
+    bytes)."""
+    return _dense_psum_impl(x, block_size, False, True,
+                            _pmesh.flat_hop(axis_name))[0]
 
 
-def int4_psum_with_error(x, block_size: int | None = None):
-    return _dense_psum_impl(x, block_size, True, int4=True)
+def int4_psum_with_error(x, block_size: int | None = None, axis_name=None):
+    return _dense_psum_impl(x, block_size, True, True,
+                            _pmesh.flat_hop(axis_name))
 
 
-def _dense_scatter_impl(seg, block_size, with_error: bool, int4: bool):
-    n = _basics.size()
+def _dense_scatter_impl(seg, block_size, with_error: bool, int4: bool,
+                        hop):
+    n = hop.size
     block = resolve_block_size(block_size)
     qmax, enc, dec = _codec(n, block, int4)
     length = seg.shape[1]
@@ -406,12 +405,12 @@ def _dense_scatter_impl(seg, block_size, with_error: bool, int4: bool):
         seg = F.pad(seg, (0, pad))
     nb = seg.shape[1] // block
     x3 = seg.reshape(n, nb, block)
-    absmax = _allreduce_max(x3.abs().amax(dim=2))          # (n, nb)
+    absmax = hop.all_reduce(x3.abs().amax(dim=2), "max")    # (n, nb)
     scales = _scales(absmax, qmax)                           # shared
     q = enc(x3.reshape(n * nb, block), scales.reshape(-1), qmax)
     qsum = torch.empty((nb, q.shape[1]), dtype=torch.int8, device=q.device)
-    dist.reduce_scatter_tensor(qsum, q)                      # int8 wire
-    out = dec(qsum, scales[_basics.rank()].contiguous()).reshape(-1)
+    hop.reduce_scatter(qsum, q)                              # int8 wire
+    out = dec(qsum, scales[hop.index].contiguous()).reshape(-1)
     out = out[:length]
     err = None
     if with_error:
@@ -421,19 +420,23 @@ def _dense_scatter_impl(seg, block_size, with_error: bool, int4: bool):
 
 
 def quantized_psum_scatter_segments(seg, block_size: int | None = None,
-                                    with_error: bool = False):
-    """Reduce-scatter an ``(n, L)`` float32 segment stack on the int8 wire
-    with per-(segment, block) shared scales: returns ``(shard, err)``,
-    ``shard`` the ``(L,)`` sum of segment ``rank`` and ``err``
-    (``with_error``) this rank's full ``(n, L)`` residual.  No world-1
-    shortcut of its own: the caller decides."""
-    return _dense_scatter_impl(seg, block_size, with_error, int4=False)
+                                    with_error: bool = False,
+                                    axis_name=None):
+    """Reduce-scatter an ``(n, L)`` float32 segment stack over
+    ``axis_name`` on the int8 wire with per-(segment, block) shared
+    scales: returns ``(shard, err)``, ``shard`` the ``(L,)`` sum of the
+    segment at this rank's axis index and ``err`` (``with_error``) this
+    rank's full ``(n, L)`` residual.  No world-1 shortcut of its own:
+    the caller decides."""
+    return _dense_scatter_impl(seg, block_size, with_error, False,
+                               _pmesh.flat_hop(axis_name))
 
 
 def int4_psum_scatter_segments(seg, block_size: int | None = None,
-                               with_error: bool = False):
+                               with_error: bool = False, axis_name=None):
     """The int4 sibling of :func:`quantized_psum_scatter_segments`."""
-    return _dense_scatter_impl(seg, block_size, with_error, int4=True)
+    return _dense_scatter_impl(seg, block_size, with_error, True,
+                               _pmesh.flat_hop(axis_name))
 
 
 # ---------------------------------------------------------------------------
@@ -469,15 +472,16 @@ def _topk_select(flat: torch.Tensor, k: int):
     return idx.to(torch.int32), flat[idx]
 
 
-def _all_gather(t: torch.Tensor, n: int) -> torch.Tensor:
-    out = torch.empty((n * t.shape[0],) + tuple(t.shape[1:]), dtype=t.dtype,
-                      device=t.device)
-    dist.all_gather_into_tensor(out, t.contiguous())
+def _all_gather(t: torch.Tensor, hop) -> torch.Tensor:
+    """Every member of ``hop``'s ``t`` concatenated along dim 0."""
+    out = torch.empty((hop.size * t.shape[0],) + tuple(t.shape[1:]),
+                      dtype=t.dtype, device=t.device)
+    hop.all_gather(out, t.contiguous())
     return out
 
 
-def _topk_psum_impl(x, ratio, with_error: bool):
-    n = _basics.size()
+def _topk_psum_impl(x, ratio, with_error: bool, hop):
+    n = hop.size
     shape, dtype = x.shape, x.dtype
     if n == 1:
         err = (torch.zeros(shape, dtype=torch.float32, device=x.device)
@@ -486,7 +490,7 @@ def _topk_psum_impl(x, ratio, with_error: bool):
     flat = x.to(torch.float32).reshape(-1)
     idx, vals = _topk_select(flat, topk_k(flat.numel(), ratio))
     # every rank's sparse pairs are the wire; the dense sum is local
-    all_idx, all_vals = _all_gather(idx, n), _all_gather(vals, n)
+    all_idx, all_vals = _all_gather(idx, hop), _all_gather(vals, hop)
     dense = torch.zeros_like(flat).index_add_(0, all_idx.long(), all_vals)
     out = dense.reshape(shape).to(dtype)
     err = None
@@ -496,21 +500,22 @@ def _topk_psum_impl(x, ratio, with_error: bool):
     return out, err
 
 
-def topk_psum(x, ratio: float | None = None):
-    return _topk_psum_impl(x, ratio, False)[0]
+def topk_psum(x, ratio: float | None = None, axis_name=None):
+    return _topk_psum_impl(x, ratio, False, _pmesh.flat_hop(axis_name))[0]
 
 
-def topk_psum_with_error(x, ratio: float | None = None):
-    return _topk_psum_impl(x, ratio, True)
+def topk_psum_with_error(x, ratio: float | None = None, axis_name=None):
+    return _topk_psum_impl(x, ratio, True, _pmesh.flat_hop(axis_name))
 
 
 def topk_psum_scatter_segments(seg, ratio: float | None = None,
-                               with_error: bool = False):
+                               with_error: bool = False, axis_name=None):
     """Reduce-scatter an ``(n, L)`` segment stack on the sparse wire: each
     row's magnitude top-k goes by one ``all_to_all`` to the rank owning
     that segment, which scatter-adds it.  Same ``(shard, err)`` contract
     as :func:`quantized_psum_scatter_segments`."""
-    n = _basics.size()
+    hop = _pmesh.flat_hop(axis_name)
+    n = hop.size
     L = seg.shape[1]
     if n == 1:
         err = (torch.zeros(seg.shape, dtype=torch.float32, device=seg.device)
@@ -520,8 +525,8 @@ def topk_psum_scatter_segments(seg, ratio: float | None = None,
     vals = torch.gather(seg, 1, idx)
     idx32 = idx.to(torch.int32).contiguous()
     ridx, rvals = torch.empty_like(idx32), torch.empty_like(vals)
-    dist.all_to_all_single(ridx, idx32)
-    dist.all_to_all_single(rvals, vals.contiguous())
+    hop.all_to_all(ridx, idx32)
+    hop.all_to_all(rvals, vals.contiguous())
     shard = torch.zeros(L, dtype=torch.float32, device=seg.device).index_add_(
         0, ridx.reshape(-1).long(), rvals.reshape(-1))
     err = seg.scatter(1, idx, 0.0) if with_error else None
@@ -542,39 +547,47 @@ def norm_mode(quantized) -> str:
     return str(quantized)
 
 
-def _lossy_psum_impl(x, mode, block_size, ratio, with_error: bool):
+def _lossy_psum_impl(x, mode, block_size, ratio, with_error: bool,
+                     axis_name=None):
     mode = norm_mode(mode)
+    hop = _pmesh.flat_hop(axis_name)
     if mode == "int8":
-        return _dense_psum_impl(x, block_size, with_error, int4=False)
+        return _dense_psum_impl(x, block_size, with_error, False, hop)
     if mode == "int4":
-        return _dense_psum_impl(x, block_size, with_error, int4=True)
+        return _dense_psum_impl(x, block_size, with_error, True, hop)
     if mode == "topk":
-        return _topk_psum_impl(x, ratio, with_error)
+        return _topk_psum_impl(x, ratio, with_error, hop)
     raise ValueError(f"unknown lossy wire mode {mode!r}; expected one of "
                      f"{LOSSY_MODES}")
 
 
 def lossy_psum(x, mode: str, block_size: int | None = None,
-               ratio: float | None = None):
-    return _lossy_psum_impl(x, mode, block_size, ratio, False)[0]
+               ratio: float | None = None, axis_name=None):
+    """Sum of ``x`` over ``axis_name`` on the ``mode`` wire."""
+    return _lossy_psum_impl(x, mode, block_size, ratio, False, axis_name)[0]
 
 
 def lossy_psum_with_error(x, mode: str, block_size: int | None = None,
-                          ratio: float | None = None):
-    return _lossy_psum_impl(x, mode, block_size, ratio, True)
+                          ratio: float | None = None, axis_name=None):
+    """:func:`lossy_psum` and this rank's float32 residual."""
+    return _lossy_psum_impl(x, mode, block_size, ratio, True, axis_name)
 
 
 def lossy_psum_scatter_segments(seg, mode: str,
                                 block_size: int | None = None,
                                 with_error: bool = False,
-                                ratio: float | None = None):
+                                ratio: float | None = None, axis_name=None):
+    """Reduce-scatter an ``(n, L)`` segment stack over ``axis_name`` on
+    the ``mode`` wire: ``(shard, err)``."""
     mode = norm_mode(mode)
     if mode == "int8":
-        return quantized_psum_scatter_segments(seg, block_size, with_error)
+        return quantized_psum_scatter_segments(seg, block_size, with_error,
+                                               axis_name)
     if mode == "int4":
-        return int4_psum_scatter_segments(seg, block_size, with_error)
+        return int4_psum_scatter_segments(seg, block_size, with_error,
+                                          axis_name)
     if mode == "topk":
-        return topk_psum_scatter_segments(seg, ratio, with_error)
+        return topk_psum_scatter_segments(seg, ratio, with_error, axis_name)
     raise ValueError(f"unknown lossy wire mode {mode!r}; expected one of "
                      f"{LOSSY_MODES}")
 

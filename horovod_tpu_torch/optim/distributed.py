@@ -36,6 +36,12 @@ all-gathers; its backward reduce-scatters the cotangents into summed
 shard gradients), and the optimizer, built over ``zp.shards``, updates
 the shards with no gather.
 
+Every stage reduces over ``axis_name`` (default ``None``: the data
+mesh's dp axis when ``HOROVOD_MESH`` names one, else the world; a
+``(cross, local)`` pair under hierarchical mode): the shard count is
+that axis's total and a rank's shard its cross-major index
+(``collectives.shard_index``).  ``op=Adasum`` runs at stage 0 only.
+
 The port runs the reference's in-trace regime (``shard_map``): its
 collectives are direct NCCL/gloo calls.  At stages 2-3 the schedule is
 bucketed already; ``overlap`` there chose the reference's ``ppermute``
@@ -65,6 +71,7 @@ from horovod_tpu_torch.ops.compression import (Compression,
                                                active_compression,
                                                is_quantized, wire_mode)
 from horovod_tpu_torch.optim import fused_update as _fused
+from horovod_tpu_torch.parallel import mesh as _pmesh
 
 
 def _resolve_compression(compression):
@@ -72,18 +79,21 @@ def _resolve_compression(compression):
 
 
 def allreduce_gradients(grads, op: int = Average, compression=None,
-                        overlap: bool | None = None):
-    """Allreduce a list of gradients: leaves grouped by dtype, each group
-    one flat buffer and one collective (a lossy compressor fuses every
-    floating leaf into one float32 buffer)."""
+                        overlap: bool | None = None, axis_name=None):
+    """Allreduce a list of gradients over ``axis_name``: leaves grouped
+    by dtype, each group one flat buffer and one collective chain (a
+    lossy compressor fuses every floating leaf into one float32
+    buffer)."""
     return _coll.grouped_allreduce(list(grads), op=op,
                                    compression=_resolve_compression(
-                                       compression), overlap=overlap)
+                                       compression), overlap=overlap,
+                                   axis_name=axis_name)
 
 
 def allreduce_gradients_with_feedback(grads, residuals, op: int = Average,
                                       compression=None,
-                                      overlap: bool | None = None):
+                                      overlap: bool | None = None,
+                                      axis_name=None):
     """Lossy gradient allreduce with error feedback: returns
     ``(reduced, new_residuals)``, lists like ``grads``.  Last step's
     ``residuals`` are added to the gradients before the reduction; the
@@ -99,7 +109,7 @@ def allreduce_gradients_with_feedback(grads, residuals, op: int = Average,
     injected = _quant.apply_error_feedback(grads, residuals)
     return _coll.grouped_quantized_allreduce(
         injected, op=op, with_error=True, mode=wire_mode(compression),
-        overlap=overlap)
+        overlap=overlap, axis_name=axis_name)
 
 
 # ---------------------------------------------------------------------------
@@ -189,15 +199,16 @@ def _rank_shard(leaves, layout: ShardLayout, g: int, r: int) -> torch.Tensor:
 
 def _bucketed_scatter_group(leaves, layout: ShardLayout, g: int, n: int,
                             quantized, with_error: bool, residual,
-                            chunks=None):
+                            chunks=None, axis_name=None):
     """The stage-2 gradient scatter of group ``g``: K bucket pieces
     (column slices of the ``(n, L)`` segment view) assembled span-wise
     from the leaves (``collectives.fuse_bucket_piece``, the residual's
     slice added in), each reduce-scattered, bucket k+1's started before
     bucket k is waited for, so at most two pieces are alive; the full
     fused buffer is never built.  Each bucket may carry its own mode
-    (``HOROVOD_BUCKET_COMPRESSION``).  Returns ``(shard, err)`` in the
-    layout of ``collectives._scatter_flat_buffer``."""
+    (``HOROVOD_BUCKET_COMPRESSION``).  ``n`` is the total of
+    ``axis_name``.  Returns ``(shard, err)`` in the layout of
+    ``collectives._scatter_flat_buffer``."""
     L = layout.padded[g] // n
     bounds = _ovl.bucket_bounds(L, _zero_chunks(chunks))
     lossy = _quant.norm_mode(quantized) in _quant.LOSSY_MODES
@@ -218,7 +229,8 @@ def _bucketed_scatter_group(leaves, layout: ShardLayout, g: int, n: int,
         piece = _coll.fuse_bucket_piece(
             leaves, layout.idxs[g], layout.sizes[g], layout.padded[g], n,
             s, e, dtype, inject=inject)
-        started = _ovl.start_scatter(piece, bmodes[k], with_error)
+        started = _ovl.start_scatter(piece, bmodes[k], with_error,
+                                     axis_name=axis_name)
         if pending is not None:
             finish(*pending)
         pending = (k, started)
@@ -238,27 +250,31 @@ def _bucketed_scatter_group(leaves, layout: ShardLayout, g: int, n: int,
 class Zero3Params:
     """Stage-3 parameters: per dtype group, this rank's flat shard of the
     padded fused buffer (``shards``, leaf tensors with ``requires_grad``:
-    the optimizer is built over them), the :class:`ShardLayout`, and the
-    parameters' names and shapes."""
+    the optimizer is built over them), the :class:`ShardLayout`, the
+    parameters' names and shapes, and the axis they are sharded over."""
 
-    def __init__(self, shards, layout: ShardLayout, names, shapes):
+    def __init__(self, shards, layout: ShardLayout, names, shapes,
+                 axis_name="hvd"):
         self.shards = list(shards)
         self.layout = layout
         self.names = tuple(names)
         self.shapes = tuple(tuple(s) for s in shapes)
+        self.axis_name = axis_name
 
 
 def _is_zero3_shard(t) -> bool:
     return bool(getattr(t, "_hvd_zero3", False))
 
 
-def zero3_shard_params(params) -> Zero3Params:
-    """This rank's stage-3 form of ``params``: a module (its
+def zero3_shard_params(params, axis_name=None) -> Zero3Params:
+    """This rank's stage-3 form of ``params``, sharded over ``axis_name``
+    (default: the data mesh's dp axis, else the world): a module (its
     ``named_parameters()``), a mapping of name to tensor, or ``(name,
     tensor)`` pairs.  A module's own parameters are released (their
-    storage replaced by empty tensors): from here on only the 1/world
+    storage replaced by empty tensors): from here on only the 1/n
     shards are resident, and the forward sees full parameters through
     :func:`zero3_full_params` and ``torch.func.functional_call``."""
+    axis_name = _pmesh.resolve_axis(axis_name)
     module = params if isinstance(params, torch.nn.Module) else None
     if module is not None:
         named = list(module.named_parameters())
@@ -270,15 +286,16 @@ def zero3_shard_params(params) -> Zero3Params:
         raise HorovodTpuError("zero3_shard_params: no parameters")
     names = [name for name, _ in named]
     leaves = [t.detach() for _, t in named]
-    layout = _shard_layout(leaves, _basics.size())
+    layout = _shard_layout(leaves, _pmesh.axis_total(axis_name))
+    idx = _pmesh.shard_index(axis_name)
     shards = []
     for g in range(len(layout.keys)):
         shard = torch.nn.Parameter(
-            _rank_shard(leaves, layout, g, _basics.rank()).clone())
+            _rank_shard(leaves, layout, g, idx).clone())
         shard._hvd_zero3 = True
         shards.append(shard)
     zp = Zero3Params(shards, layout, names,
-                     [tuple(t.shape) for t in leaves])
+                     [tuple(t.shape) for t in leaves], axis_name)
     if module is not None:
         for _, p in named:
             p.data = torch.empty(0, dtype=p.dtype, device=p.device)
@@ -307,15 +324,17 @@ class _Zero3Gather(torch.autograd.Function):
     ``bwd``); under a lossy wire without error feedback."""
 
     @staticmethod
-    def forward(ctx, zp, qmode, chunks, *shards):
-        ctx.zp, ctx.qmode, ctx.chunks = zp, qmode, chunks
-        sets = [_ovl.prefetched_gather_flat_shard(s, chunks) for s in shards]
+    def forward(ctx, zp, qmode, chunks, axis, *shards):
+        ctx.zp, ctx.qmode, ctx.chunks, ctx.axis = zp, qmode, chunks, axis
+        sets = [_ovl.prefetched_gather_flat_shard(s, chunks, axis)
+                for s in shards]
         return tuple(_leaves_from_buckets(sets, zp.layout, zp.shapes,
-                                          _basics.size()))
+                                          _pmesh.axis_total(axis)))
 
     @staticmethod
     def backward(ctx, *cts):
-        zp, lay, n = ctx.zp, ctx.zp.layout, _basics.size()
+        zp, lay = ctx.zp, ctx.zp.layout
+        n = _pmesh.axis_total(ctx.axis)
         cts = list(cts)
         for g, key in enumerate(lay.keys):
             for i in lay.idxs[g]:
@@ -327,13 +346,13 @@ class _Zero3Gather(torch.autograd.Function):
             q = ctx.qmode != "none" and key.is_floating_point
             shard, _ = _bucketed_scatter_group(
                 cts, lay, g, n, ctx.qmode if q else False, False, None,
-                chunks=ctx.chunks)
+                chunks=ctx.chunks, axis_name=ctx.axis)
             gshards.append(shard.to(key))
-        return (None, None, None, *gshards)
+        return (None, None, None, None, *gshards)
 
 
 def zero3_full_params(zp: Zero3Params, compression=None,
-                      chunks: int | None = None) -> dict:
+                      chunks: int | None = None, axis_name=None) -> dict:
     """The full parameters of ``zp`` for the forward, as a mapping of name
     to tensor (for ``torch.func.functional_call``): per group
     ``HOROVOD_ZERO_PREFETCH_CHUNKS`` bucket all-gathers, every one started
@@ -341,10 +360,19 @@ def zero3_full_params(zp: Zero3Params, compression=None,
     no full fused parameter buffer.  Differentiating through it
     reduce-scatters the cotangents bucket by bucket into summed shard
     gradients (``zp.shards[g].grad``); under a lossy ``compression``
-    that scatter rides the lossy wire, without error feedback."""
+    that scatter rides the lossy wire, without error feedback.
+    ``axis_name`` (default: the axis ``zp`` was sharded over) must span
+    the ranks the shards were cut for."""
     compression = _resolve_compression(compression)
     qmode = wire_mode(compression) if is_quantized(compression) else "none"
-    leaves = _Zero3Gather.apply(zp, qmode, _zero_chunks(chunks), *zp.shards)
+    axis = zp.axis_name if axis_name is None else axis_name
+    if _pmesh.axis_total(axis) * zp.layout.shard[0] != zp.layout.padded[0]:
+        raise HorovodTpuError(
+            f"zero3_full_params over {axis!r}: the shards were cut for "
+            f"{zp.layout.padded[0] // zp.layout.shard[0]} ranks "
+            f"({zp.axis_name!r})")
+    leaves = _Zero3Gather.apply(zp, qmode, _zero_chunks(chunks), axis,
+                                *zp.shards)
     return dict(zip(zp.names, leaves))
 
 
@@ -392,7 +420,7 @@ class _DistributedOptimizer:
     optimizer's."""
 
     def __init__(self, optimizer, compression, backward_passes_per_step,
-                 op, zero_stage, sharded, overlap):
+                 op, zero_stage, sharded, overlap, axis_name):
         if not isinstance(optimizer, torch.optim.Optimizer):
             raise TypeError("DistributedOptimizer expects a "
                             f"torch.optim.Optimizer (got {type(optimizer)!r})")
@@ -401,15 +429,12 @@ class _DistributedOptimizer:
         self.compression = _resolve_compression(compression)
         if is_quantized(self.compression):
             _coll._check_quantized_op(op)
-        if op == Adasum:
-            if stage >= 1:
-                raise HorovodTpuError(
-                    "zero_stage>=1 (sharded=True) does not compose with "
-                    "op=Adasum: the projection's dot/norm math needs the "
-                    "full reduction, not a scatter. Use op=Average/Sum "
-                    "with the sharded optimizer.")
-            raise NotImplementedError(
-                "op=Adasum is not ported yet (ROADMAP.md Queue A item 9)")
+        if op == Adasum and stage >= 1:
+            raise HorovodTpuError(
+                "zero_stage>=1 (sharded=True) does not compose with "
+                "op=Adasum: the projection's dot/norm math needs the "
+                "full reduction, not a scatter. Use op=Average/Sum "
+                "with the sharded optimizer.")
         self.backward_passes_per_step = int(backward_passes_per_step)
         if self.backward_passes_per_step < 1:
             raise ValueError("backward_passes_per_step must be >= 1")
@@ -421,6 +446,7 @@ class _DistributedOptimizer:
                 "eliminates. Accumulate outside the optimizer and feed "
                 "the mean instead.")
         self.optimizer = optimizer
+        self.axis_name = _pmesh.resolve_axis(axis_name)
         self.op = op
         self.overlap = overlap
         self.zero_stage = stage
@@ -456,7 +482,8 @@ class _DistributedOptimizer:
     def _init_sharded(self) -> None:
         _hyperparameters(self.optimizer)
         leaves = self._params_all
-        n, r = _basics.size(), _basics.rank()
+        n = _pmesh.axis_total(self.axis_name)
+        r = _pmesh.shard_index(self.axis_name)
         self.layout = lay = _shard_layout(leaves, n)
         dev = leaves[0].device
         if self.fused_spec is not None:
@@ -509,7 +536,7 @@ class _DistributedOptimizer:
 
     @torch.no_grad()
     def synchronize(self):
-        """Reduce every gradient across the world in place; returns the
+        """Reduce every gradient over the axis in place; returns the
         parameters that have one.  Stage 0 only: the sharded stages never
         hold full reduced gradients."""
         if self.zero_stage:
@@ -521,11 +548,13 @@ class _DistributedOptimizer:
         if self.residuals is None:
             reduced = allreduce_gradients(grads, op=self.op,
                                           compression=self.compression,
-                                          overlap=self.overlap)
+                                          overlap=self.overlap,
+                                          axis_name=self.axis_name)
         else:
             reduced, new = allreduce_gradients_with_feedback(
                 grads, [self.residuals[p] for p in params], op=self.op,
-                compression=self.compression, overlap=self.overlap)
+                compression=self.compression, overlap=self.overlap,
+                axis_name=self.axis_name)
             self.residuals.update(zip(params, new))
         if params:
             torch._foreach_copy_(grads, reduced)
@@ -576,12 +605,13 @@ class _DistributedOptimizer:
         return loss
 
     def _navg(self) -> int:
-        return _basics.size() if self.op == Average else 1
+        return _pmesh.axis_total(self.axis_name) if self.op == Average \
+            else 1
 
     @torch.no_grad()
     def _sharded_step(self) -> None:
         """Stages 1-2: scatter, the tail on the shards, gather and apply."""
-        lay, n = self.layout, _basics.size()
+        lay, n = self.layout, _pmesh.axis_total(self.axis_name)
         leaves = self._params_all
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in leaves]
@@ -593,14 +623,15 @@ class _DistributedOptimizer:
             res = self.residual[g] if q else None
             if self.zero_stage >= 2 and n > 1:
                 shard, err = _bucketed_scatter_group(
-                    grads, lay, g, n, qmode if q else False, q, res)
+                    grads, lay, g, n, qmode if q else False, q, res,
+                    axis_name=self.axis_name)
             else:
                 buf = _fuse_group(grads, lay, g)
                 if q:
                     buf = buf.to(torch.float32) + res
                 shard, err = _coll._scatter_flat_buffer(
                     buf, quantized=qmode if q else False, with_error=q,
-                    overlap=self.overlap)
+                    overlap=self.overlap, axis_name=self.axis_name)
             if err is not None:
                 self.residual[g] = err
             gshards.append(shard)
@@ -614,7 +645,7 @@ class _DistributedOptimizer:
             return
         # the wrapped optimizer's class on the shard: current values in,
         # the (divided, cast) shard gradient as its gradient
-        r = _basics.rank()
+        r = _pmesh.shard_index(self.axis_name)
         hyper = _hyperparameters(self.optimizer)
         if not isinstance(self._inner, (_fused.SGD, _fused.Adam)):
             self._inner.param_groups[0].update(hyper)
@@ -632,15 +663,16 @@ class _DistributedOptimizer:
         parameters) or new value shards (copied into them): at stage 1
         one all-gather per group, at stage 2 bucket by bucket with each
         leaf reassembled from the bucket results."""
-        lay, n = self.layout, _basics.size()
+        lay, n = self.layout, _pmesh.axis_total(self.axis_name)
         leaves = self._params_all
         for g in range(len(lay.keys)):
             if self.zero_stage >= 2:
                 outs, bounds = _ovl.prefetched_gather_flat_shard(
-                    shards[g], _zero_chunks())
+                    shards[g], _zero_chunks(), self.axis_name)
             else:
                 full = _coll._gather_flat_shard(shards[g],
-                                                overlap=self.overlap)
+                                                overlap=self.overlap,
+                                                axis_name=self.axis_name)
             off, dst, src = 0, [], []
             for i, sz in zip(lay.idxs[g], lay.sizes[g]):
                 if self.zero_stage >= 2:
@@ -680,7 +712,7 @@ def DistributedOptimizer(optimizer, compression=None,
                          backward_passes_per_step: int = 1,
                          op: int = Average, zero_stage: int | None = None,
                          sharded: bool | None = None,
-                         overlap: bool | None = None):
+                         overlap: bool | None = None, axis_name=None):
     """Wrap a ``torch.optim.Optimizer`` with cross-rank gradient
     averaging (Horovod's contract).  ``compression=None`` reads the
     ``HOROVOD_COMPRESSION`` knob.  With ``backward_passes_per_step=k``
@@ -695,10 +727,13 @@ def DistributedOptimizer(optimizer, compression=None,
     ``zero3_full_params``; no accumulation).  Stages 1-3 refuse Adasum
     and, with more than one parameter group, differing hyperparameters.
     ``overlap=None`` reads ``HOROVOD_OVERLAP``: the fused buffers are
-    reduced in ``HOROVOD_OVERLAP_CHUNKS`` pipelined buckets."""
+    reduced in ``HOROVOD_OVERLAP_CHUNKS`` pipelined buckets.
+    ``axis_name=None`` reduces over the data mesh's dp axis when one is
+    named (``HOROVOD_MESH``), else over the world; the sharded stages
+    cut one shard per rank of that axis."""
     return _DistributedOptimizer(optimizer, compression,
                                  backward_passes_per_step, op, zero_stage,
-                                 sharded, overlap)
+                                 sharded, overlap, axis_name)
 
 
 # ---------------------------------------------------------------------------

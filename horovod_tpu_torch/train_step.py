@@ -9,7 +9,13 @@ stage-3 twins, :func:`zero3_train_step` and :func:`zero3_lm_train_step`,
 run the forward on the full parameters that ``zero3_full_params``
 gathers from the shards (``bench.py``'s ``p = hvd.zero3_full_params(p)``
 inside the loss), through ``torch.func.functional_call``; the model's
-buffers (BatchNorm statistics) stay its own and update in place."""
+buffers (BatchNorm statistics) stay its own and update in place.
+
+The reduction axis is the optimizer's (``DistributedOptimizer(axis_name=
+...)``, default the data mesh's dp axis); the stage-3 steps take
+``axis_name`` for ``zero3_full_params`` (default: the axis the shards
+were cut over).  The LM steps keep the world reduction of their loss:
+their ``("dp", "sp")`` reduction arrives with tensor parallelism."""
 
 from __future__ import annotations
 
@@ -82,13 +88,13 @@ def shard_tokens(x: torch.Tensor, dp: int, sp: int, d: int,
 
 
 def zero3_train_step(model, zp, optimizer, images: torch.Tensor,
-                     labels: torch.Tensor) -> torch.Tensor:
+                     labels: torch.Tensor, axis_name=None) -> torch.Tensor:
     """:func:`train_step` at ZeRO stage 3: ``zp`` is the model's
     ``Zero3Params`` and ``optimizer`` the stage-3
     ``DistributedOptimizer`` over its shards."""
     model.train()
     optimizer.zero_grad(set_to_none=True)
-    full = zero3_full_params(zp)
+    full = zero3_full_params(zp, axis_name=axis_name)
     logits = torch.func.functional_call(model, full, (images,))
     loss = softmax_cross_entropy(logits, labels)
     loss.backward()

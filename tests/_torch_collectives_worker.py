@@ -14,7 +14,10 @@ stages 0-3 on the card (:func:`zero_resnet_main`); ``sp`` the sequence
 parallel attention and the LM at dp x sp (:func:`sp_main`);
 ``sp_cards`` the LM at full width at sp = 4 and at dp = 2 x sp = 2 on four
 cards (:func:`sp_cards_main`), ``sp_cards_ref`` its one-card run
-(:func:`sp_cards_ref_main`).
+(:func:`sp_cards_ref_main`); ``mesh`` the named data mesh
+(:func:`mesh_main`), ``data_plane`` the hierarchical reductions and Adasum
+(:func:`data_plane_main`), ``dp_cards`` ResNet-50 through them on four
+cards (:func:`dp_cards_main`).
 ``HVD_TEST_FEEDBACK`` may name a ``.npy`` file of per-rank residuals
 that the lossy optimizer case loads before its second step;
 ``HVD_TEST_INTEROP`` a pickle, written by ``tests/test_torch_zero.py``,
@@ -947,10 +950,485 @@ def sp_cards_main(device: str):
     print(json.dumps(out))
 
 
+# ---------------------------------------------------------------------------
+# The data plane: named mesh axes (tests/test_torch_mesh.py), hierarchical
+# reductions and Adasum (tests/test_torch_data_plane.py)
+# ---------------------------------------------------------------------------
+
+MESH_LR, MESH_STEPS = 0.5, 2
+#: (zero_stage, overlap, compression) of the dp-axis parity grid
+MESH_GRID = tuple((st, ov, comp) for st in (0, 1, 2, 3) for ov in (False, True)
+                  for comp in ("none", "int8"))
+HIER_SIZES = (16, 10, 1)
+HIER_EF_STEPS = 24
+#: the two-level world of tests/test_torch_data_plane.py
+DP_CROSS, DP_LOCAL = 2, 2
+#: leaf shapes of the fused Adasum and ZeRO cases
+DP_LEAVES = ((40, 3), (17,), (5, 7), (3,))
+
+
+class Recorder:
+    """Records every ``torch.distributed`` transfer while active: (name,
+    payload dtype, payload elements, the group's global ranks)."""
+
+    NAMES = ("all_reduce", "reduce_scatter_tensor", "all_gather_into_tensor",
+             "broadcast", "all_to_all_single", "batch_isend_irecv")
+
+    def __init__(self):
+        self.calls = []
+        self._saved = {}
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        def ranks(group):
+            return (list(range(dist.get_world_size())) if group is None
+                    else dist.get_process_group_ranks(group))
+
+        def wrap(name, fn):
+            def call(*args, **kw):
+                if name == "batch_isend_irecv":
+                    for op in args[0]:
+                        self.calls.append((name, str(op.tensor.dtype),
+                                           op.tensor.numel(),
+                                           ranks(op.group)))
+                else:
+                    t = args[1] if name in ("reduce_scatter_tensor",
+                                            "all_gather_into_tensor",
+                                            "all_to_all_single") \
+                        else args[0]
+                    self.calls.append((name, str(t.dtype), t.numel(),
+                                       ranks(kw.get("group"))))
+                return fn(*args, **kw)
+            return call
+
+        for name in self.NAMES:
+            self._saved[name] = getattr(dist, name)
+            setattr(dist, name, wrap(name, self._saved[name]))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for name, fn in self._saved.items():
+            setattr(dist, name, fn)
+
+
+def _mesh_params(dev):
+    return {"b": torch.ones((3, 3), device=dev),
+            "w": torch.arange(-10.0, 11.0, device=dev)}
+
+
+def mesh_grid_run(stage: int, overlap: bool, comp: str, d: int, dev,
+                  axis_name=None):
+    """``MESH_STEPS`` steps of ``DistributedOptimizer(fused sgd)`` at
+    ``stage`` over ``axis_name`` on the reference's fixed integer
+    gradients: leaf ``i`` (sorted names) gets ``(i + 1) * (d - 3)``, ``d``
+    this rank's dp index (``tests/test_mesh.py:_run_steps_fixed``).
+    Returns the weights by name."""
+    names = sorted(_mesh_params(dev))
+    params = _mesh_params(dev)
+    comp_ = hvd.Compression.lookup(comp)
+    if stage == 3:
+        zp = hvd.zero3_shard_params([(k, params[k]) for k in names],
+                                    axis_name=axis_name)
+        opt = hvd.DistributedOptimizer(TF.sgd(zp.shards, MESH_LR),
+                                       zero_stage=3, overlap=overlap,
+                                       compression=comp_,
+                                       axis_name=axis_name)
+        for _ in range(MESH_STEPS):
+            opt.zero_grad()
+            full = hvd.zero3_full_params(zp)
+            loss = sum((i + 1.0) * (d - 3.0) * full[k].sum()
+                       for i, k in enumerate(names))
+            loss.backward()
+            opt.step()
+        full = hvd.zero3_full_params(zp)
+        return {k: full[k].detach() for k in names}
+    ws = {k: torch.nn.Parameter(params[k]) for k in names}
+    opt = hvd.DistributedOptimizer(TF.sgd([ws[k] for k in names], MESH_LR),
+                                   zero_stage=stage, overlap=overlap,
+                                   compression=comp_, axis_name=axis_name)
+    for _ in range(MESH_STEPS):
+        for i, k in enumerate(names):
+            ws[k].grad = torch.full(ws[k].shape, (i + 1.0) * (d - 3.0),
+                                    device=dev)
+        opt.step()
+    return {k: w.detach() for k, w in ws.items()}
+
+
+def mesh_main(device: str):
+    """The dp-axis parity grid at this world's dp index (a flat world of
+    2, or ``HOROVOD_MESH=dp:2,tp:2`` given as a ``DeviceMesh``), and at
+    the mesh: the resolver, the dp-scoped entries and the data mesh's
+    layouts."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from horovod_tpu_torch.parallel import mesh as M
+
+    os.environ["HOROVOD_FUSED_UPDATE"] = "1"
+    spec = os.environ.get("HOROVOD_MESH", "")
+    r, n = int(os.environ["HOROVOD_RANK"]), int(os.environ["HOROVOD_SIZE"])
+    out = {}
+    if spec:
+        coord = os.environ["HOROVOD_COORDINATOR_ADDR"]
+        dist.init_process_group("gloo", init_method=f"tcp://{coord}",
+                                world_size=n, rank=r)
+        dm = init_device_mesh("cpu", (2, 2), mesh_dim_names=("dp", "tp"))
+        hvd.init(device=device, mesh=dm)
+    else:
+        hvd.init(device=device)
+    dev = hvd.device()
+    d = M.shard_index()
+    out["grid"] = {f"{st}_{ov}_{comp}": mesh_grid_run(st, ov, comp, d, dev)
+                   for st, ov, comp in MESH_GRID}
+    if spec:
+        hops = {a: [list(M.resolve_hops(a).ranks), M.resolve_hops(a).index]
+                for a in ("dp", "tp", "hvd")}
+        out["hops"] = hops
+        out["default"] = str(M.resolve_axis())
+        out["sizes"] = [M.data_parallel_size(), M.model_parallel_size(),
+                        hvd.data_parallel_size()]
+        x = torch.tensor([float(d), float(r)], device=dev)
+        out["sum"] = hvd.allreduce(x, op=hvd.Sum)
+        out["avg_world"] = hvd.allreduce(x, axis_name="hvd")
+        out["bcast"] = hvd.broadcast(x, root_rank=1)
+        out["gather"] = hvd.allgather(x[None])
+        out["rs"] = hvd.reducescatter(torch.arange(4.0, device=dev) * (r + 1))
+        out["a2a"] = hvd.alltoall(torch.arange(4.0, device=dev) + 10 * r)
+        built = M.build_data_mesh({"dp": 2, "tp": 2})
+        out["built"] = [list(built.axis_names), list(built.shape)]
+        os.environ.update({"HOROVOD_HIERARCHICAL_ALLREDUCE": "1",
+                           "HOROVOD_HIERARCHICAL_LOCAL_SIZE": "2"})
+        split = M.build_data_mesh({"dp": 4})
+        out["split"] = [list(split.axis_names), list(split.shape),
+                        list(split.pair("dpc", "dpl").flat.ranks),
+                        split.pair("dpc", "dpl").flat.index]
+        os.environ["HOROVOD_HIERARCHICAL_LOCAL_SIZE"] = "3"
+        out["nosplit"] = list(M.build_data_mesh({"dp": 4}).axis_names)
+        del os.environ["HOROVOD_HIERARCHICAL_ALLREDUCE"]
+        del os.environ["HOROVOD_HIERARCHICAL_LOCAL_SIZE"]
+    hvd.shutdown()
+    print(json.dumps({k: enc(v) for k, v in out.items()}))
+
+
+def dp_inputs(rank: int) -> dict:
+    """Per-rank inputs of the data-plane cases, seeded by rank."""
+    rng = np.random.RandomState(800 + rank)
+    return {
+        "q": rng.standard_normal(2048).astype(np.float32),
+        "qr": rng.standard_normal((8, 300)).astype(np.float32),
+        "ef": rng.standard_normal(512).astype(np.float32),
+        "leaves": [rng.standard_normal(s).astype(np.float32)
+                   for s in DP_LEAVES],
+        "zint": [rng.randint(-4, 5, s).astype(np.float32)
+                 for s in DP_LEAVES],
+    }
+
+
+def _knob(on: bool) -> None:
+    os.environ["HOROVOD_HIERARCHICAL_ALLREDUCE"] = "1" if on else "0"
+
+
+def _zero_pair_run(stage: int, overlap: bool, comp: str, dev, axis_name,
+                   grads, op=hvd.Average):
+    """Steps of fused momentum SGD at ``stage`` over ``axis_name`` on the
+    per-rank gradients ``grads`` (a list of leaves per step)."""
+    init = [np.linspace(-1, 1, int(np.prod(s)), dtype=np.float32).reshape(s)
+            for s in DP_LEAVES]
+    comp_ = hvd.Compression.lookup(comp)
+    names = [f"l{i}" for i in range(len(DP_LEAVES))]
+    ws = [torch.nn.Parameter(torch.from_numpy(a).to(dev)) for a in init]
+    if stage == 3:
+        zp = hvd.zero3_shard_params(list(zip(names, ws)),
+                                    axis_name=axis_name)
+        opt = hvd.DistributedOptimizer(TF.sgd(zp.shards, 0.5, 0.5),
+                                       zero_stage=3, overlap=overlap,
+                                       compression=comp_,
+                                       axis_name=axis_name)
+        for gs in grads:
+            opt.zero_grad()
+            full = hvd.zero3_full_params(zp)
+            sum((full[k] * torch.from_numpy(g).to(dev)).sum()
+                for k, g in zip(names, gs)).backward()
+            opt.step()
+        full = hvd.zero3_full_params(zp)
+        return [full[k].detach() for k in names], None
+    opt = hvd.DistributedOptimizer(TF.sgd(ws, 0.5, 0.5), zero_stage=stage,
+                                   overlap=overlap, compression=comp_,
+                                   axis_name=axis_name, op=op)
+    for gs in grads:
+        for w, g in zip(ws, gs):
+            # a copy: the optimizer writes the reduced gradient into it
+            w.grad = torch.tensor(g, device=dev)
+        opt.step()
+    res = None
+    if comp != "none":
+        res = (list(opt.residuals.values()) if stage == 0
+               else opt.residual[0])
+    return [w.detach() for w in ws], res
+
+
+def data_plane_main(device: str):
+    """Hierarchical reductions and Adasum over a (cross 2, local 2) pair
+    built by ``hierarchical_mesh`` with no data mesh, then (a second
+    ``init`` on ``HVD_TEST_COORD2``) under ``HOROVOD_MESH=dp:4`` with the
+    hierarchical split, where every default resolves to (dpc, dpl)."""
+    from horovod_tpu_torch.ops import adasum as A
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.optim import distributed as D
+    from horovod_tpu_torch.parallel import mesh as M
+
+    os.environ["HOROVOD_FUSED_UPDATE"] = "1"
+    hvd.init(device=device)
+    dev = hvd.device()
+    r, n = hvd.rank(), hvd.size()
+    inp = dp_inputs(r)
+    t = {k: torch.from_numpy(v).to(dev) for k, v in inp.items()
+         if not isinstance(v, list)}
+    pair = M.hierarchical_mesh(DP_LOCAL).pair("cross", "local")
+    out = {"pair": [list(pair.cross.ranks), list(pair.local.ranks),
+                    list(pair.flat.ranks), pair.flat.index,
+                    C.shard_index(pair)]}
+    # the knob alone (HOROVOD_HIERARCHICAL_LOCAL_SIZE=2 is set too, no
+    # mesh): the default axis stays the flat world
+    _knob(True)
+    out["alone_axis"] = str(M.resolve_axis())
+    out["alone"] = hvd.quantized_allreduce(t["q"], op=hvd.Sum)
+    out["alone_world"] = hvd.quantized_allreduce(t["q"], op=hvd.Sum,
+                                                 axis_name="hvd")
+    out["alone_pair"] = hvd.quantized_allreduce(t["q"], op=hvd.Sum,
+                                                axis_name=pair)
+    for size in HIER_SIZES:
+        x = torch.from_numpy((np.arange(n * size, dtype=np.float32)
+                              .reshape(n, size) % 7)[r]).to(dev)
+        for op in (hvd.Sum, hvd.Average):
+            out[f"hier_{size}_{op}"] = C.hierarchical_allreduce(
+                x, pair.local, pair.cross, op=op)
+            _knob(False)
+            out[f"flat_{size}_{op}"] = hvd.allreduce(x, op=op,
+                                                     axis_name=pair)
+            _knob(True)
+    h = C.hierarchical_allreduce(torch.full((3, 5), 2.0, dtype=torch.bfloat16,
+                                            device=dev),
+                                 pair.local, pair.cross, op=hvd.Sum)
+    out["bf16"] = [h, str(h.dtype), list(h.shape)]
+    xg = torch.from_numpy((np.arange(n * 12, dtype=np.float32)
+                           .reshape(n, 12) % 5)[r]).to(dev)
+    with Recorder() as rec:
+        out["knob_grouped"] = hvd.grouped_allreduce([xg], op=hvd.Sum,
+                                                    axis_name=pair)[0]
+    out["knob_calls"] = rec.calls
+    _knob(False)
+    with Recorder() as rec:
+        hvd.grouped_allreduce([xg], op=hvd.Sum, axis_name=pair)
+    out["flat_calls"] = rec.calls
+    _knob(True)
+    out["gather"] = C.hierarchical_allgather(
+        torch.full((1, 3), float(r), device=dev), pair.local, pair.cross)
+    out["gather_default"] = hvd.allgather(
+        torch.full((1, 3), float(r), device=dev), axis_name=pair)
+    # the lossy wire: flat over the pair (knob off), cross hop only (on)
+    adasum_x = torch.from_numpy(np.random.RandomState(3).randn(n, 32)
+                                .astype(np.float32)[r]).to(dev)
+    out["hier_adasum"] = hvd.allreduce(adasum_x, op=hvd.Adasum,
+                                       axis_name=pair)
+    for on in (False, True):
+        _knob(on)
+        out[f"q_avg_{on}"] = hvd.quantized_allreduce(t["q"], axis_name=pair)
+        for mode in ("int8", "int4"):
+            with Recorder() as rec:
+                out[f"q_{mode}_{on}"] = list(hvd.quantized_allreduce(
+                    t["q"], op=hvd.Sum, with_error=True, mode=mode,
+                    axis_name=pair))
+            out[f"q_{mode}_{on}_calls"] = rec.calls
+            out[f"rs_{mode}_{on}"] = hvd.reducescatter(
+                t["qr"], compression=hvd.Compression.lookup(mode),
+                axis_name=pair)
+        out[f"rs_none_{on}"] = hvd.reducescatter(t["qr"], axis_name=pair)
+        # error feedback over the pair: the running mean of the reduced
+        # gradient converges to the exact mean
+        res = [torch.zeros(512, device=dev)]
+        steps = []
+        for _ in range(HIER_EF_STEPS):
+            (red,), res = D.allreduce_gradients_with_feedback(
+                [t["ef"]], res, op=hvd.Average, axis_name=pair)
+            steps.append(red)
+        out[f"ef_{on}"] = steps
+    _knob(False)
+    out["q_exact"] = hvd.allreduce(t["q"], axis_name=pair)
+    # Adasum: flat over the world, identical vectors, fused leaves with
+    # per-leaf segments (f32 and bf16), and over the pair
+    ad = torch.from_numpy(np.random.RandomState(0).randn(n, 32)
+                          .astype(np.float32)[r]).to(dev)
+    out["adasum"] = hvd.allreduce(ad, op=hvd.Adasum)
+    out["adasum_same"] = hvd.allreduce(torch.full((16,), 3.0, device=dev),
+                                       op=hvd.Adasum)
+    leaves = [torch.from_numpy(a).to(dev) for a in inp["leaves"]]
+    for dt in (torch.float32, torch.bfloat16):
+        ls = [x.to(dt) for x in leaves]
+        out[f"adasum_leaves_{dt}"] = hvd.grouped_allreduce(ls, op=hvd.Adasum)
+        out[f"adasum_leaves_pair_{dt}"] = hvd.grouped_allreduce(
+            ls, op=hvd.Adasum, axis_name=pair)
+    out["adasum_opt"] = _zero_pair_run(0, False, "none", dev, None,
+                                       [inp["leaves"]], op=hvd.Adasum)[0]
+    # ZeRO over the pair, two-level, against the flat world
+    grads = [[dp_inputs(r)["zint"][i] * (s + 1) for i in range(len(DP_LEAVES))]
+             for s in range(3)]
+    for stage in (0, 1, 2, 3):
+        for ov in (False, True):
+            out[f"zero_flat_{stage}_{ov}"] = _zero_pair_run(
+                stage, ov, "none", dev, None, grads)[0]
+            _knob(True)
+            out[f"zero_pair_{stage}_{ov}"] = _zero_pair_run(
+                stage, ov, "none", dev, pair, grads)[0]
+            _knob(False)
+    _knob(True)
+    for stage in (0, 1, 2):
+        for mode in ("int8", "int4"):
+            w, res = _zero_pair_run(stage, False, mode, dev, pair, grads)
+            out[f"zero_{mode}_{stage}"] = [w, res]
+    hvd.shutdown()
+
+    # the data mesh's own split: HOROVOD_MESH=dp:4 with the knobs
+    os.environ["HOROVOD_COORDINATOR_ADDR"] = os.environ["HVD_TEST_COORD2"]
+    os.environ["HOROVOD_HIERARCHICAL_LOCAL_SIZE"] = "2"
+    hvd.init(device=device, mesh="dp:4")
+    axis = M.resolve_axis()
+    hops = M.resolve_hops()
+    out["mesh_axis"] = list(axis)
+    out["mesh_pair"] = [list(hops.cross.ranks), list(hops.local.ranks),
+                        list(hops.flat.ranks), M.data_parallel_size()]
+    with Recorder() as rec:
+        out["mesh_q"] = hvd.quantized_allreduce(t["q"], op=hvd.Sum)
+    out["mesh_q_calls"] = rec.calls
+    for stage in (0, 2):
+        out[f"mesh_zero_{stage}"] = _zero_pair_run(stage, False, "int8", dev,
+                                                   None, grads)[0]
+    hvd.shutdown()
+    print(json.dumps({k: enc(v) for k, v in out.items()}))
+
+
+#: the four-card data-plane cases (tests/test_torch_cuda.py::
+#: test_four_cards_data_plane): (name, init mesh, hierarchical knob,
+#: zero_stage, compression, op); the world is re-initialized when the mesh
+#: or the knob changes
+DP_CARD_CASES = (
+    ("flat", None, False, 0, "none", "avg"),
+    ("adasum flat", None, False, 0, "none", "adasum"),
+    ("hier", "dp:4", True, 0, "none", "avg"),
+    ("hier int8 stage 0", "dp:4", True, 0, "int8", "avg"),
+    ("hier int4 stage 0", "dp:4", True, 0, "int4", "avg"),
+    ("hier int8 stage 2", "dp:4", True, 2, "int8", "avg"),
+    ("hier int4 stage 2", "dp:4", True, 2, "int4", "avg"),
+    ("adasum hier", "dp:4", True, 0, "none", "adasum"),
+    ("dp2 x tp2", "dp:2,tp:2", False, 0, "none", "avg"),
+)
+DP_CARD_STEPS = 3
+
+
+def _dp_card_case(device: str, name: str, stage: int, comp: str, op: str,
+                  seed: int, want_grad=None) -> dict:
+    """``DP_CARD_STEPS`` steps of ResNet-50 (224 px, batch 256, bf16, fused
+    momentum SGD) on this rank's batch (seed ``seed``); step 1's
+    transfers recorded, and (``want_grad``) its reduced gradient against
+    another run's."""
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.ops import batch_norm as BN
+    from horovod_tpu_torch.train_step import synthetic_batch, train_step
+
+    images, labels = synthetic_batch(256, 224, 1000, seed=seed, device=device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = ResNet50(num_classes=1000, dtype=torch.bfloat16, seed=0,
+                     device=device)
+    opt = hvd.DistributedOptimizer(
+        hvd.fused_update.sgd(model.parameters(), 0.1, momentum=0.9),
+        compression=hvd.Compression.lookup(comp), zero_stage=stage,
+        op=hvd.Adasum if op == "adasum" else hvd.Average)
+    res = {"launches": [], "losses": [], "times": [], "digests": [],
+           "axis": str(opt.axis_name)}
+    grad = None
+    for step in range(DP_CARD_STEPS):
+        Q.reset_launch_counts()
+        TF.reset_launch_counts()
+        BN.reset_launch_counts()
+        t0 = time.perf_counter()
+        if step == 0:
+            with Recorder() as rec:
+                loss = train_step(model, opt, images, labels)
+            res["calls"] = sorted({(c[0], c[1], tuple(c[3]))
+                                   for c in rec.calls})
+            if stage == 0:
+                grad = torch.cat([p.grad.reshape(-1)
+                                  for p in model.parameters()])
+        else:
+            loss = train_step(model, opt, images, labels)
+        torch.cuda.synchronize()
+        res["times"].append(time.perf_counter() - t0)
+        res["losses"].append(float(loss))
+        res["launches"].append({**Q.LAUNCHES,
+                                "momentum": TF.LAUNCHES["momentum"],
+                                **BN.LAUNCHES})
+        res["digests"].append(_digest(model.parameters()))
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    if want_grad is not None:
+        res["grad_rel_err"] = float((grad - want_grad).norm()
+                                    / want_grad.norm())
+        res["grad_max_rel"] = float((grad - want_grad).abs().max()
+                                    / want_grad.abs().max())
+    del model, opt, images, labels
+    return res, grad
+
+
+def dp_cards_main(device: str):
+    """The data plane on four cards (``DP_CARD_CASES``), or, at world 2,
+    the flat two-rank run the dp:2,tp:2 case is held against.
+    Deterministic cuDNN throughout: runs that must agree bit for bit
+    pick the same convolution algorithms."""
+    from horovod_tpu_torch.parallel import mesh as M
+
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    os.environ["HOROVOD_FUSED_UPDATE"] = "1"
+    os.environ["HOROVOD_HIERARCHICAL_LOCAL_SIZE"] = "2"
+    n = int(os.environ["HOROVOD_SIZE"])
+    coords = [os.environ["HOROVOD_COORDINATOR_ADDR"]] + \
+        os.environ.get("HVD_TEST_COORDS", "").split(",")
+    out, flat_grad, current = {}, None, "none"
+    cases = DP_CARD_CASES if n == 4 else (("flat2", None, False, 0, "none",
+                                           "avg"),)
+    for name, mesh, hier, stage, comp, op in cases:
+        if (mesh, hier) != current:
+            if current != "none":
+                hvd.shutdown()
+                os.environ["HOROVOD_COORDINATOR_ADDR"] = coords.pop(1)
+            os.environ["HOROVOD_HIERARCHICAL_ALLREDUCE"] = "1" if hier else "0"
+            os.environ.pop("HOROVOD_MESH", None)
+            hvd.init(device=device, mesh=mesh)
+            current = (mesh, hier)
+        seed = M.shard_index()          # the dp index: tp columns share data
+        _progress(f"[dp cards] rank {hvd.rank()} {name}")
+        out[name], grad = _dp_card_case(
+            device, name, stage, comp, op, seed,
+            want_grad=flat_grad if name == "hier" else None)
+        if name == "flat":
+            flat_grad = grad
+        out[name]["place"] = [hvd.rank(), seed]
+        out[name]["hops"] = {
+            k: list(h.ranks) for k, h in zip(
+                ("cross", "local", "flat"), M.resolve_hops())} \
+            if mesh == "dp:4" else list(M.resolve_hops().ranks)
+    hvd.shutdown()
+    print(json.dumps({"rank": int(os.environ["HOROVOD_RANK"]), **out}))
+
+
 if __name__ == "__main__":
     dev = sys.argv[1] if len(sys.argv) > 1 else "cpu"
     mode = sys.argv[2] if len(sys.argv) > 2 else "collectives"
     {"collectives": main, "resnet": resnet_main, "overlap": overlap_main,
      "zero": zero_main, "zero_resnet": zero_resnet_main,
      "sp": sp_main, "sp_cards": sp_cards_main,
-     "sp_cards_ref": sp_cards_ref_main}[mode](dev)
+     "sp_cards_ref": sp_cards_ref_main, "mesh": mesh_main,
+     "data_plane": data_plane_main, "dp_cards": dp_cards_main}[mode](dev)

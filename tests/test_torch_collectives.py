@@ -363,23 +363,20 @@ def test_size_above_one_needs_a_coordinator(monkeypatch):
 
 def test_unported_modes_raise(monkeypatch):
     x = torch.zeros(3)
-    with pytest.raises(NotImplementedError, match="Adasum"):
-        hvd.allreduce(x, op=hvd.Adasum)
     w = torch.nn.Parameter(torch.zeros(2))
     from horovod_tpu_torch.optim import fused_update as TF
 
     # knobs of features not ported yet raise instead of being ignored,
     # from every collective entry and the optimizer (zero_stage=1..3,
-    # HOROVOD_OVERLAP, HOROVOD_BUCKET_COMPRESSION and
-    # HOROVOD_SHARDED_OPTIMIZER are ported: tests/test_torch_zero.py and
-    # tests/test_torch_overlap.py hold them against the JAX package)
-    for env, item in (("HOROVOD_HIERARCHICAL_ALLREDUCE", "item 9"),
-                      ("HOROVOD_HIERARCHICAL_ALLGATHER", "item 9"),
-                      ("HOROVOD_MESH", "item 9"),
-                      ("HOROVOD_ADAPTIVE_COMPRESSION", "item 12"),
+    # HOROVOD_OVERLAP, HOROVOD_BUCKET_COMPRESSION,
+    # HOROVOD_SHARDED_OPTIMIZER, HOROVOD_MESH and the hierarchical knobs
+    # are ported: tests/test_torch_zero.py, tests/test_torch_overlap.py,
+    # tests/test_torch_mesh.py and tests/test_torch_data_plane.py hold
+    # them against the JAX package)
+    for env, item in (("HOROVOD_ADAPTIVE_COMPRESSION", "item 12"),
                       ("HOROVOD_HEALTH", "item 12"),
                       ("HOROVOD_HEALTH_SKIP_NONFINITE", "item 12")):
-        monkeypatch.setenv(env, {"HOROVOD_MESH": "dp:1"}.get(env, "1"))
+        monkeypatch.setenv(env, "1")
         with pytest.raises(NotImplementedError, match=item):
             hvd.allreduce(x, compression=hvd.Compression.int8)
         with pytest.raises(NotImplementedError, match=item):
@@ -396,6 +393,28 @@ def test_unported_modes_raise(monkeypatch):
             hvd.DistributedOptimizer(TF.sgd([w], 0.1),
                                      compression=hvd.Compression.int8)
         monkeypatch.delenv(env)
+    # HOROVOD_MESH=dp:1 now runs: a one-rank data mesh, every entry
+    # reducing over its dp axis
+    for k in ("HOROVOD_SIZE", "HOROVOD_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("HOROVOD_MESH", "dp:1")
+    hvd.init(device="cpu")
+    try:
+        y = torch.arange(3, dtype=torch.float32)
+        assert torch.equal(hvd.allreduce(y, compression=hvd.Compression.int8),
+                           y)
+        assert torch.equal(hvd.grouped_allreduce([y])[0], y)
+        assert torch.equal(hvd.reducescatter(y), y)
+        assert torch.equal(hvd.allgather(y), y)
+        assert torch.equal(hvd.alltoall(y), y)
+        assert torch.equal(hvd.broadcast(y), y)
+        assert torch.equal(hvd.allreduce(y, op=hvd.Adasum), y)
+        w.grad = torch.ones(2)
+        hvd.DistributedOptimizer(TF.sgd([w], 0.5),
+                                 compression=hvd.Compression.int8).step()
+        assert torch.equal(w.detach(), torch.full((2,), -0.5))
+    finally:
+        hvd.shutdown()
 
 
 def test_integer_average_at_world_one_matches_jax(monkeypatch):

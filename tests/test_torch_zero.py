@@ -1,7 +1,8 @@
 """ZeRO stages 1-3 of the port's ``DistributedOptimizer`` against the JAX
 package's, on the CPU.
 
-1. Stage resolution and the refusals (``tests/test_zero23.py:111-146``).
+1. Stage resolution and the refusals (``tests/test_zero23.py:111-146``);
+   Adasum, refused at stages 1-3, runs at stage 0.
 2. The span-wise helpers (``fuse_span``, ``fuse_bucket_piece``,
    ``leaf_from_buckets``) against the reference's on the same leaves,
    bit for bit.
@@ -119,8 +120,16 @@ def test_refusals(world1):
     with pytest.raises(HorovodTpuError, match="Adasum"):
         hvd.DistributedOptimizer(TF.sgd([w], 0.1), op=hvd.Adasum,
                                  zero_stage=2)
-    with pytest.raises(NotImplementedError, match="Adasum"):
-        hvd.DistributedOptimizer(TF.sgd([w], 0.1), op=hvd.Adasum)
+    # Adasum runs at stage 0: at a world of one it equals Average
+    outs = []
+    for op in (hvd.Adasum, hvd.Average):
+        p = torch.nn.Parameter(torch.arange(4, dtype=torch.float32))
+        opt = hvd.DistributedOptimizer(TF.sgd([p], 0.5, 0.5), op=op)
+        for _ in range(2):
+            p.grad = torch.tensor([1.0, -2.0, 3.0, 0.25])
+            opt.step()
+        outs.append(p.detach())
+    assert torch.equal(outs[0], outs[1])
     zp = hvd.zero3_shard_params([("w", torch.zeros(5))])
     with pytest.raises(HorovodTpuError, match="backward_passes"):
         hvd.DistributedOptimizer(TF.sgd(zp.shards, 0.1), zero_stage=3,
