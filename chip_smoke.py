@@ -148,7 +148,27 @@ Phases (any failure exits non-zero and prints no result line):
    Adasum) of the float64 ``adasum_reference``; (c) the main path at world
    1 over NCCL, 3 steps flat, under ``init(mesh="dp:1")`` and with
    ``op=Adasum``, deterministic cuDNN: losses and weights bit for bit, one
-   B1 and 53 of each of N1-N4 per step.
+   B1 and 53 of each of N1-N4 per step;
+17. tensor and expert parallelism in the LM over emulated worlds on the
+   card (the ranks are threads of phase 16's ``EmulatedWorld``, each
+   running ``Transformer(..., mesh=<its place>)``, ``lm_optimizer`` and
+   ``lm_train_step``; the backward on the rank's own thread): (a) the
+   bench LM (batch 16, fused Adam, 3 steps) at dp 1 x tp 2 against one
+   rank at tp = 1 whose ``wqkv`` is ``tp_equivalent_wqkv`` of the same
+   weights: losses within rtol 2e-2 and the step-1 gradient, joined
+   from both ranks' shards, within 0.1 relative L2 (phase 15's bf16 LM
+   tolerances); exactly 12 of each of B8-B10 (6 heads each) and one B3
+   per rank per step; the peak memory and the bytes each tensor rank
+   all-reduces; (b) the bench LM with a Switch-MoE MLP every second
+   layer (2 experts per rank) at dp = ep = 4, batch 4 per rank: the
+   first MoE layer's weights through ``moe_layer`` on every rank (4,096
+   float32 tokens each) against ``moe_reference`` over all 8 experts
+   (rtol 1e-4 / atol 1e-5, TF32 off), then 3 steps: losses finite and
+   equal on every rank, 12 of each of B8-B10 and two B3 (one per
+   reduction group) per rank per step; (c) the CPU tests' small LM
+   (float32, SGD 0.5) at tp 2, then with MoE at ep 2, 3 steps on the
+   card (kernels) and on the CPU (plain versions): losses within rtol
+   1e-4, weights within 1e-4 of each tensor's largest magnitude.
 
 Then the run's wall time, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
@@ -3212,6 +3232,397 @@ def data_plane_degenerate(hvd, torch, gpu: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Tensor and expert parallelism (phase 17): emulated ranks on one card
+# ---------------------------------------------------------------------------
+
+MP_STEPS = 3
+TP_N, TP_BATCH = 2, 16          # 17a: dp 1 x tp 2, the bench batch
+EP_N, EP_BATCH = 4, 4           # 17b: dp = ep = 4, batch 4 per rank
+EP_MOE = dict(moe_every=2, experts_per_rank=2)
+# 17c: the CPU tests' config (tests/test_torch_model_parallel.py)
+MP_SMALL = dict(vocab=64, d_model=32, n_heads=4, head_dim=8, n_layers=4,
+                d_ff=64, max_seq=64)
+MP_SMALL_BATCH, MP_SMALL_LR = 4, 0.5
+# 17a: the losses of two bf16 runs of one function (8.2e-6 apart on an
+# H100); the step-1 gradient at phase 15's bf16 LM limit
+TP_LOSS_RTOL, LM_GRAD_REL = 1e-3, 0.1
+MOE_TOL = dict(rtol=1e-4, atol=1e-5)    # tests/test_pipeline_moe.py:283
+
+
+def emulated_place(world, r: int, dp: int, tp: int):
+    """Rank ``r``'s place in an emulated ``make_mesh(dp, 1, tp, 1)`` of
+    ``world``: ``place_ranks``'s layout over the world's hops."""
+    from horovod_tpu_torch.parallel.mesh import (AXES, HopPair, Place,
+                                                 place_ranks)
+
+    h = {name: world.hop(r, ranks, name)
+         for name, ranks in place_ranks(r, dp=dp, tp=tp).items()}
+    return Place(*(h[a] for a in AXES), HopPair(h["dp"], h["sp"],
+                                                h["dp*sp"]))
+
+
+def _adam_launches(TF, groups) -> int:
+    """B3 launches for one step over leaf groups of these sizes."""
+    return sum(-(-n // TF.capacity("adam")) for n in groups)
+
+
+def _mp_world(torch, device: str, n: int, dp: int, tp: int, cfg, params,
+              tokens, make_opt, steps: int, counters, collect=None):
+    """``steps`` of ``lm_train_step`` with ``lm_optimizer`` on every rank
+    of an emulated ``(dp, tp)`` world on ``device`` (the port's own
+    functions; the backward runs on each rank's thread).  Returns the
+    world, and per rank its losses, coordinate, trained local tree and
+    ``collect(model)`` after the first step."""
+    from horovod_tpu_torch import interop
+    from horovod_tpu_torch.models.transformer import Transformer
+    from horovod_tpu_torch.train_step import (lm_optimizer, lm_train_step,
+                                              shard_tokens)
+
+    world = EmulatedWorld(torch, n, counters, sync=device == "cuda")
+
+    def rank(r):
+        with torch.autograd.set_multithreading_enabled(False):
+            place = emulated_place(world, r, dp, tp)
+            model = Transformer(cfg, params=params, device=device,
+                                mesh=place)
+            opt = lm_optimizer(model, make_opt(model.parameters()))
+            d = model.coord()["dp"][0]
+            tok, tgt = (shard_tokens(t, dp, 1, d, 0).to(device)
+                        for t in tokens)
+            losses, got = [], None
+            for step in range(steps):
+                losses.append(float(lm_train_step(model, opt, tok, tgt)))
+                if step == 0 and collect is not None:
+                    got = collect(model)
+            return {"losses": losses, "coord": model.coord(),
+                    "tree": interop.transformer_to_jax(model),
+                    "collected": got, "groups": opt.axes}
+
+    return world, world.run(rank)
+
+
+def _full_grads(cfg, outs, tp: int):
+    """Every rank's step-1 gradient joined to the full tree, ``wqkv`` in
+    the tp-equivalent layout, flattened in the tree's order."""
+    import numpy as np
+
+    from horovod_tpu_torch.interop import transformer_to_jax_full
+    from horovod_tpu_torch.models.transformer import tp_equivalent_wqkv
+
+    full = transformer_to_jax_full(
+        [(o["coord"], o["collected"]) for o in outs], cfg)
+    full["layers"]["wqkv"] = tp_equivalent_wqkv(full["layers"]["wqkv"], tp)
+    return _flat_tree(np, full)
+
+
+def _flat_tree(np, tree) -> "object":
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        out.append(_flat_tree(np, v) if isinstance(v, dict)
+                   else np.asarray(v, np.float32).reshape(-1))
+    return np.concatenate(out)
+
+
+def tensor_parallel_emulated(hvd, torch, gpu: str) -> dict:
+    """Phase 17a: the bench LM at an emulated dp 1 x tp 2 on the card
+    (batch 16, fused Adam, ``MP_STEPS`` steps) against one rank at tp = 1
+    whose ``wqkv`` is ``tp_equivalent_wqkv`` of the same weights."""
+    import numpy as np
+
+    from horovod_tpu_torch import interop
+    from horovod_tpu_torch.models.transformer import (TransformerConfig,
+                                                      init_params,
+                                                      tp_equivalent_wqkv)
+    from horovod_tpu_torch.models.transformer import Transformer
+    from horovod_tpu_torch.ops import flash_attention as FA
+    from horovod_tpu_torch.optim import fused_update as TF
+    from horovod_tpu_torch.train_step import lm_train_step, synthetic_tokens
+
+    t0 = time.perf_counter()
+    cfg = TransformerConfig(**LM, max_seq=LM_SEQ)
+    params = init_params(np.random.RandomState(0), cfg)
+    tokens = synthetic_tokens(TP_BATCH, LM_SEQ, cfg.vocab, seed=1,
+                              device="cpu")
+    # the reference: one rank at tp = 1 computing the tp model's function
+    eq = dict(params, layers=dict(params["layers"]))
+    eq["layers"]["wqkv"] = tp_equivalent_wqkv(params["layers"]["wqkv"],
+                                              TP_N)
+    model = Transformer(cfg, params=eq)
+    opt = hvd.DistributedOptimizer(hvd.fused_update.adam(
+        model.parameters(), 3e-4))
+    tok, tgt = (t.cuda() for t in tokens)
+    ref_losses = []
+    for step in range(MP_STEPS):
+        ref_losses.append(float(lm_train_step(model, opt, tok, tgt)))
+        if step == 0:
+            ref_grad = _flat_tree(np, interop.transformer_to_jax(
+                model, grads=True))
+    del model, opt, eq
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FA.reset_launch_counts()
+    TF.reset_launch_counts()
+    world, outs = _mp_world(
+        torch, "cuda", TP_N, 1, TP_N, cfg, params, tokens,
+        lambda ps: hvd.fused_update.adam(ps, 3e-4), MP_STEPS,
+        (FA.LAUNCHES, TF.LAUNCHES),
+        collect=lambda m: interop.transformer_to_jax(m, grads=True))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    total = {**FA.LAUNCHES, "adam": TF.LAUNCHES["adam"]}
+    want = {k: cfg.n_layers * MP_STEPS for k in FLASH}
+    want["adam"] = _adam_launches(TF, [LM_LEAVES]) * MP_STEPS
+    for r, o in enumerate(outs):
+        got = {k: world.launches[r][k] for k in want}
+        if got != want:
+            raise AssertionError(f"tp rank {r}: launches {got}, expected "
+                                 f"{want}")
+        if not all(math.isfinite(x) for x in o["losses"]):
+            raise AssertionError(f"tp rank {r}: losses {o['losses']}")
+        for a, b in zip(o["losses"], ref_losses):
+            if not math.isclose(a, b, rel_tol=TP_LOSS_RTOL):
+                raise AssertionError(f"tp rank {r}: losses {o['losses']} vs "
+                                     f"tp = 1 equivalent {ref_losses}")
+    if total != {k: v * TP_N for k, v in want.items()}:
+        raise AssertionError(f"tp: launches over the world {total}")
+    grad = _full_grads(cfg, outs, TP_N)
+    rel = float(np.linalg.norm(grad.astype(np.float64) - ref_grad)
+                / np.linalg.norm(ref_grad.astype(np.float64)))
+    if not rel <= LM_GRAD_REL:
+        raise AssertionError(f"tp: step-1 gradient {rel} relative L2 from "
+                             "the tp = 1 equivalent's")
+    wire = [dict(w) for w in world.wire]
+    tp_bytes = wire[0].get("tp", 0) / MP_STEPS
+    log(f"[mp] 17a tensor parallelism, bench LM at emulated dp 1 x tp "
+        f"{TP_N} ({cfg.n_heads // TP_N} heads per rank), batch {TP_BATCH}, "
+        f"seq {LM_SEQ}, bf16, fused Adam, {MP_STEPS} steps: losses "
+        f"{[o['losses'] for o in outs]}; "
+        f"tp = 1 with tp_equivalent_wqkv {ref_losses} (rtol "
+        f"{TP_LOSS_RTOL}); step-1 gradient gathered to full {rel:.3e} "
+        f"relative L2 (limit {LM_GRAD_REL}); launches per rank per step "
+        f"{ {k: v // MP_STEPS for k, v in want.items()} }; all-reduce "
+        f"bytes per tensor rank per step {tp_bytes:.0f} "
+        f"({wire[0]}); peak memory of both emulated ranks {peak} B "
+        f"({peak / 2**30:.2f} GiB); rank 0's ms before each transfer, "
+        f"summed {sum(world.ms[0].values()):.1f}; "
+        f"{time.perf_counter() - t0:.1f} s; on {gpu}")
+    # what rank 0 counted (each rank's equals ``want``, checked above)
+    return {"launches": {k: world.launches[0][k] for k in want},
+            "losses": [o["losses"] for o in outs],
+            "ref_losses": ref_losses, "grad_rel": rel, "peak_bytes": peak,
+            "tp_bytes_per_step": tp_bytes}
+
+
+def _first_moe_check(torch, world, params, cfg, gpu: str) -> dict:
+    """Phase 17b, the layer: ``moe_layer`` on every emulated rank (its
+    own 4,096 float32 tokens, the LM's first MoE weights, its two experts)
+    against ``moe_reference`` over all eight experts."""
+    from horovod_tpu_torch.parallel.moe import moe_layer, moe_reference, route
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        w = {k: torch.from_numpy(params["moe"][k][0]).cuda()
+             for k in ("router", "w_in", "w_out")}
+        el = cfg.experts_per_rank
+        t = EP_BATCH * LM_SEQ
+        gen = torch.Generator(device="cuda").manual_seed(17)
+        xs = [torch.randn(t, cfg.d_model, device="cuda", generator=gen)
+              for _ in range(EP_N)]
+
+        def rank(r):
+            place = emulated_place(world, r, EP_N, 1)
+            out, aux = moe_layer(xs[r], w["router"],
+                                 w["w_in"][r * el:(r + 1) * el],
+                                 w["w_out"][r * el:(r + 1) * el], place.dp)
+            return out, float(aux)
+
+        outs = world.run(rank)
+        worst, margins, kept = 0.0, [], []
+        for r, (out, aux) in enumerate(outs):
+            ref = moe_reference(xs[r], w["router"], w["w_in"], w["w_out"])
+            torch.testing.assert_close(out, ref, **MOE_TOL,
+                                       msg=lambda m: f"moe rank {r}: {m}")
+            worst = max(worst, float((out - ref).abs().max()))
+            gates, _, _, _, _, keep, _ = route(xs[r], w["router"])
+            top2 = gates.topk(2, dim=-1).values
+            margins.append(float((top2[:, 0] - top2[:, 1]).min()))
+            kept.append(int(keep.any(-1).sum()))
+            if not math.isfinite(aux):
+                raise AssertionError(f"moe rank {r}: aux {aux}")
+        log(f"[mp] 17b first MoE layer at {t} f32 tokens per rank, "
+            f"{EP_N} x {el} experts: every rank's moe_layer within rtol "
+            f"{MOE_TOL['rtol']} / atol {MOE_TOL['atol']} of moe_reference "
+            f"over all experts (largest difference {worst:.3e}); tokens "
+            f"kept per rank {kept}; smallest top-1 gate margin per rank "
+            f"{[f'{m:.2e}' for m in margins]}; on {gpu}")
+        return {"max_abs_err": worst, "margins": margins}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def expert_parallel_emulated(hvd, torch, gpu: str) -> dict:
+    """Phase 17b: the bench LM with a Switch-MoE MLP every second layer
+    (2 experts per rank) at an emulated dp = ep = 4 on the card (batch 4
+    per rank, fused Adam, ``MP_STEPS`` steps); the first MoE layer
+    against ``moe_reference``."""
+    import numpy as np
+
+    from horovod_tpu_torch.models.transformer import (TransformerConfig,
+                                                      init_params)
+    from horovod_tpu_torch.ops import flash_attention as FA
+    from horovod_tpu_torch.optim import fused_update as TF
+    from horovod_tpu_torch.train_step import synthetic_tokens
+
+    t0 = time.perf_counter()
+    cfg = TransformerConfig(**LM, max_seq=LM_SEQ, **EP_MOE)
+    params = init_params(np.random.RandomState(0), cfg, ep=EP_N)
+    layer = _first_moe_check(torch, EmulatedWorld(torch, EP_N), params,
+                             cfg, gpu)
+    tokens = synthetic_tokens(EP_N * EP_BATCH, LM_SEQ, cfg.vocab, seed=1,
+                              device="cpu")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FA.reset_launch_counts()
+    TF.reset_launch_counts()
+    world, outs = _mp_world(
+        torch, "cuda", EP_N, EP_N, 1, cfg, params, tokens,
+        lambda ps: hvd.fused_update.adam(ps, 3e-4), MP_STEPS,
+        (FA.LAUNCHES, TF.LAUNCHES))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    n_moe = cfg.n_layers // cfg.moe_every
+    want = {k: cfg.n_layers * MP_STEPS for k in FLASH}
+    # ("dp", "sp"): every leaf but the experts; ("sp",): the experts
+    want["adam"] = _adam_launches(TF, [LM_LEAVES + n_moe,
+                                       2 * n_moe]) * MP_STEPS
+    for r, o in enumerate(outs):
+        got = {k: world.launches[r][k] for k in want}
+        if got != want:
+            raise AssertionError(f"ep rank {r}: launches {got}, expected "
+                                 f"{want}")
+        if not all(math.isfinite(x) for x in o["losses"]):
+            raise AssertionError(f"ep rank {r}: losses {o['losses']}")
+        if o["losses"] != outs[0]["losses"]:
+            raise AssertionError(f"ep rank {r}: the global loss differs "
+                                 f"from rank 0's: {o['losses']}")
+        if [tuple(a) for a in o["groups"]] != [("dp", "sp"), ("sp",)]:
+            raise AssertionError(f"ep rank {r}: groups {o['groups']}")
+    total = {**FA.LAUNCHES, "adam": TF.LAUNCHES["adam"]}
+    if total != {k: v * EP_N for k, v in want.items()}:
+        raise AssertionError(f"ep: launches over the world {total}")
+    wire = dict(world.wire[0])
+    log(f"[mp] 17b expert parallelism, bench LM + MoE every 2nd layer at "
+        f"emulated dp = ep = {EP_N} ({EP_N * cfg.experts_per_rank} "
+        f"experts, 2 per rank), batch {EP_BATCH} per rank (cut from 16), "
+        f"bf16, fused Adam, {MP_STEPS} steps: global losses "
+        f"{outs[0]['losses']} (equal on every rank); launches per rank per "
+        f"step { {k: v // MP_STEPS for k, v in want.items()} } (B3 once "
+        f"per reduction group); rank 0's payload bytes per step "
+        f"{ {k: v / MP_STEPS for k, v in wire.items()} }; peak memory of "
+        f"the four emulated ranks {peak} B ({peak / 2**30:.2f} GiB); "
+        f"{time.perf_counter() - t0:.1f} s; on {gpu}")
+    return {"launches": {k: world.launches[0][k] for k in want},
+            "losses": outs[0]["losses"], "peak_bytes": peak, "layer": layer}
+
+
+def small_mp_reference(hvd, torch, gpu: str) -> dict:
+    """Phase 17c: the CPU tests' small LM (float32, SGD lr 0.5) at an
+    emulated tp 2, then dp = ep 2 with MoE layers, 3 steps on the card
+    (kernels) and on the CPU (plain versions) from the same weights and
+    batch: losses within rtol 1e-4, weights within 1e-4 of each tensor's
+    largest magnitude (TF32 off)."""
+    import numpy as np
+
+    from horovod_tpu_torch.models.transformer import (TransformerConfig,
+                                                      init_params)
+    from horovod_tpu_torch.ops import flash_attention as FA
+    from horovod_tpu_torch.optim import fused_update as TF
+    from horovod_tpu_torch.train_step import synthetic_tokens
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {}
+    try:
+        for name, dp, tp, moe in (("tp2", 1, 2, 0), ("moe ep2", 2, 1, 2)):
+            cfg = TransformerConfig(**MP_SMALL, dtype="float32",
+                                    moe_every=moe)
+            params = init_params(np.random.RandomState(0), cfg, ep=dp)
+            tokens = synthetic_tokens(MP_SMALL_BATCH, MP_SMALL["max_seq"],
+                                      cfg.vocab, seed=1, device="cpu")
+            runs = {}
+            for dev in ("cuda", "cpu"):
+                FA.reset_launch_counts()
+                TF.reset_launch_counts()
+                world, outs = _mp_world(
+                    torch, dev, 2, dp, tp, cfg, params, tokens,
+                    lambda ps: hvd.fused_update.sgd(ps, MP_SMALL_LR),
+                    MP_STEPS, (FA.LAUNCHES, TF.LAUNCHES))
+                runs[dev] = (outs, [dict(w) for w in world.launches])
+            worst = 0.0
+            for r, (g, c) in enumerate(zip(runs["cuda"][0], runs["cpu"][0])):
+                for a, b in zip(g["losses"], c["losses"]):
+                    if not math.isclose(a, b, rel_tol=1e-4):
+                        raise AssertionError(
+                            f"small {name} rank {r}: card losses "
+                            f"{g['losses']} vs CPU {c['losses']}")
+                a, b = _flat_tree(np, g["tree"]), _flat_tree(np, c["tree"])
+                worst = max(worst, float(np.abs(a - b).max())
+                            / float(np.abs(b).max()))
+                _trees_within(g["tree"], c["tree"], 1e-4,
+                              f"small {name} rank {r}")
+            want = {k: cfg.n_layers * MP_STEPS for k in FLASH}
+            want["sgd"] = (2 if moe else 1) * MP_STEPS
+            for r, counts in enumerate(runs["cuda"][1]):
+                got = {k: counts.get(k, 0) for k in want}
+                if got != want:
+                    raise AssertionError(f"small {name} rank {r}: card "
+                                         f"launches {got}, expected {want}")
+            log(f"[mp] 17c small LM {name} (float32, SGD {MP_SMALL_LR}, "
+                f"{MP_STEPS} steps, emulated dp {dp} x tp {tp}): card and "
+                f"CPU agree (losses {runs['cuda'][0][0]['losses']} vs "
+                f"{runs['cpu'][0][0]['losses']}; worst weight error "
+                f"{worst:.2e} of the largest magnitude; rtol 1e-4 loss, 1e-4 "
+                f"weights); card launches per rank {want}; on {gpu}")
+            res[name] = {"launches": {k: runs["cuda"][1][0].get(k, 0)
+                                      for k in want}, "worst": worst}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    return res
+
+
+def _trees_within(a: dict, b: dict, tol: float, what: str) -> None:
+    """Every leaf of ``a`` within ``tol`` of the largest magnitude of the
+    same leaf of ``b``."""
+    import numpy as np
+
+    for k, v in b.items():
+        if isinstance(v, dict):
+            _trees_within(a[k], v, tol, f"{what} {k}")
+            continue
+        x, y = np.asarray(a[k], np.float32), np.asarray(v, np.float32)
+        err = float(np.abs(x - y).max())
+        if err > tol * max(float(np.abs(y).max()), 1e-30):
+            raise AssertionError(f"{what} {k}: differs by {err}, over {tol} "
+                                 "of its largest magnitude")
+
+
+def model_parallel(hvd, torch, gpu: str) -> dict:
+    """Phase 17 (a-c)."""
+    t0 = time.perf_counter()
+    out = {"tp": tensor_parallel_emulated(hvd, torch, gpu)}
+    torch.cuda.empty_cache()
+    out["ep"] = expert_parallel_emulated(hvd, torch, gpu)
+    torch.cuda.empty_cache()
+    out["small"] = small_mp_reference(hvd, torch, gpu)
+    log(f"[mp] phase 17 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def run(args) -> int:
     t_start = time.perf_counter()
     card = pin_one_card()
@@ -3312,6 +3723,8 @@ def run(args) -> int:
         f"{zero_lm['state_bytes']} B (stage 0: {lm['state_bytes']} B)")
     sp = sequence_parallel(FA, torch)
     data_plane["degenerate"] = data_plane_degenerate(hvd, torch, gpu)
+    torch.cuda.empty_cache()
+    mp = model_parallel(hvd, torch, gpu)
     hvd.shutdown()
 
     launches = {**path["launches"], **lm["launches"],
@@ -3349,7 +3762,10 @@ def run(args) -> int:
                 "zero_tail_launches": zero_tail["momentum"]}
                if kind == "momentum" else {}),
             **({"launches_zero_lm": zero_lm["launches"]["adam"],
-                "zero_tail_launches": zero_tail["adam"]}
+                "zero_tail_launches": zero_tail["adam"],
+                # phase 17, per emulated rank over MP_STEPS steps
+                "launches_tp": mp["tp"]["launches"]["adam"],
+                "launches_ep": mp["ep"]["launches"]["adam"]}
                if kind == "adam" else {}),
             **({"ms_vgg16": vgg_times["ms"],
                 "plain_ms_vgg16": vgg_times["plain_ms"],
@@ -3399,6 +3815,9 @@ def run(args) -> int:
             "library_ms_long": tl["library_ms"], "tflops_long": tl["tflops"],
             **tc_info.get(name, {}),
             "launches_zero_lm": zero_lm["launches"][name],
+            # phase 17, per emulated rank over MP_STEPS steps
+            "launches_tp": mp["tp"]["launches"][name],
+            "launches_ep": mp["ep"]["launches"][name],
             "cores": "bf16 on the tensor cores (wgmma), f32 on the CUDA "
                      "cores",
             **({"ms_with_dkv": t["ms_with_dkv"],

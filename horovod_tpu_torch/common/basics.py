@@ -148,16 +148,14 @@ def _apply_mesh_arg(mesh) -> None:
 
 def _mesh_axes(size: int):
     """The axis sizes the ``mesh`` knob names, or ``None``: a spec that
-    does not cover the world exactly, or that names a sequence axis,
-    raises (training on it would reduce over the wrong replica
-    groups)."""
+    does not cover the world exactly raises (training on it would reduce
+    over the wrong replica groups)."""
     spec = str(_config.get("mesh") or "").strip()
     if not spec:
         return None
     from horovod_tpu_torch.parallel import mesh as _pmesh
 
     axes = _pmesh.parse_mesh_spec(spec)
-    _pmesh.refuse_sequence_axis(axes)   # before any process group
     n = 1
     for v in axes.values():
         n *= int(v)

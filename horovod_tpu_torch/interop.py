@@ -7,8 +7,10 @@ Dense kernel ``(in, out)`` -> ``(out, in)``, and everything else
 (BatchNorm ``scale``/``bias``, convolution and Dense ``bias``,
 ``batch_stats`` ``mean``/``var``) is copied as it is
 (:func:`cnn_from_flax`, :func:`cnn_to_flax`).  The transformer's
-stacked layer leaves map to one parameter per layer.  Arrays are numpy
-on the JAX side.  Nothing here imports JAX.
+stacked layer (and MoE) leaves map to one parameter per layer; a
+transformer on a mesh loads its own shards of the full JAX tree, and
+:func:`transformer_to_jax_full` puts every rank's shards back together.
+Arrays are numpy on the JAX side.  Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -127,9 +129,10 @@ def momentum_to_optax(model, optimizer) -> dict:
 
 # ---------------------------------------------------------------------------
 # The transformer LM: the JAX tree stacks each layer matrix over the
-# layers (``layers/wqkv`` is (n_layers, d_model, 3*H*D)); the port keeps
-# one parameter per layer (``layers.<i>.wqkv``), in the same (in, out)
-# layout.
+# layers (``layers/wqkv`` is (n_layers, d_model, 3*H*D)) and each MoE
+# matrix over the MoE layers (``moe/w_in``); the port keeps one parameter
+# per layer (``layers.<i>.wqkv``, ``moe.<k>.w_in``), in the same (in,
+# out) layout.  A model on a mesh holds its shards (``shard_params``).
 # ---------------------------------------------------------------------------
 
 
@@ -146,8 +149,8 @@ def _lm_tensors(model, pick) -> dict:
     out: dict = {}
     for name, p in model.named_parameters():
         parts = name.split(".")
-        if parts[0] == "layers":
-            out.setdefault(("layers", parts[2]), []).append(
+        if parts[0] in ("layers", "moe"):
+            out.setdefault((parts[0], parts[2]), []).append(
                 (int(parts[1]), pick(p)))
         else:
             out[(name,)] = pick(p)
@@ -192,31 +195,53 @@ def _lm_tree(tensors: dict) -> dict:
                  for path, t in tensors.items())
 
 
+def _local(tree: dict, model) -> dict:
+    """This rank's shards of a full JAX-layout tree (the tree itself for
+    a model without a mesh)."""
+    if model.place is None:
+        return tree
+    from horovod_tpu_torch.models.transformer import shard_params
+
+    return shard_params(tree, model.cfg, model.coord())
+
+
 def transformer_from_jax(params: dict, model):
-    """Load the JAX package's transformer ``params`` (a nested dict of
-    numpy arrays, ``layers/*`` stacked over the layers) into the port's
-    ``Transformer``; every key on both sides must map.  Returns
-    ``model``."""
-    _lm_load(_lm_tensors(model, lambda p: p), params, "params")
+    """Load the JAX package's full transformer ``params`` (a nested dict
+    of numpy arrays, ``layers/*`` and ``moe/*`` stacked) into the port's
+    ``Transformer``, cut to its shards on a mesh; every key on both
+    sides must map.  Returns ``model``."""
+    _lm_load(_lm_tensors(model, lambda p: p), _local(params, model),
+             "params")
     return model
 
 
 def transformer_to_jax(model, grads: bool = False) -> dict:
     """The port transformer's parameters (or, with ``grads=True``, their
-    ``.grad``) as the JAX package's tree of numpy arrays."""
+    ``.grad``) as the JAX package's tree of numpy arrays: this rank's
+    shards on a mesh (:func:`transformer_to_jax_full` joins them)."""
     return _lm_tree(_lm_tensors(model,
                                 (lambda p: p.grad) if grads else
                                 (lambda p: p)))
 
 
+def transformer_to_jax_full(parts, cfg) -> dict:
+    """The full JAX tree from every rank's :func:`transformer_to_jax`:
+    ``parts`` is a list of ``(model.coord(), tree)``, one per rank (or
+    at least one per shard)."""
+    from horovod_tpu_torch.models.transformer import unshard_params
+
+    return unshard_params(parts, cfg)
+
+
 def adam_from_optax(state, model, optimizer) -> None:
     """Set an Adam optimizer's per-parameter ``mu``, ``nu`` and ``count``
     from optax's ``ScaleByAdamState`` (anything with ``count``, ``mu``,
-    ``nu``; trees in the JAX transformer's layout)."""
+    ``nu``; full trees in the JAX transformer's layout, cut to the
+    model's shards on a mesh; ``optimizer`` may be an ``lm_optimizer``)."""
     opt = getattr(optimizer, "optimizer", optimizer)
     for key in ("mu", "nu"):
         _lm_load(_lm_tensors(model, lambda p, key=key: opt.state[p][key]),
-                 getattr(state, key), key)
+                 _local(getattr(state, key), model), key)
     count = int(np.asarray(state.count))
     for g in opt.param_groups:
         for p in g["params"]:
@@ -226,7 +251,7 @@ def adam_from_optax(state, model, optimizer) -> None:
 def adam_to_optax(model, optimizer) -> AdamState:
     """The inverse of :func:`adam_from_optax`: ``AdamState(count, mu,
     nu)`` with numpy trees (``optax.ScaleByAdamState(*result)`` rebuilds
-    optax's own)."""
+    optax's own; this rank's shards on a mesh)."""
     opt = getattr(optimizer, "optimizer", optimizer)
     counts = {opt.state[p]["count"] for g in opt.param_groups
               for p in g["params"]}

@@ -1,24 +1,38 @@
 """Decoder-only transformer LM: the counterpart of
-``horovod_tpu/models/transformer.py`` at one rank of the tp, pp and ep
-axes.
+``horovod_tpu/models/transformer.py`` at one rank of its dp x tp x sp
+mesh, with optional Switch-MoE layers whose experts shard over dp.
 
-- **Parallelism.**  Data and sequence parallelism: ``forward(tokens,
-  sp_group)`` takes this rank's sequence chunk of a sequence sharded
-  over ``sp_group`` (:func:`horovod_tpu_torch.parallel.mesh.
-  sequence_groups`), at global positions, and attention runs the KV
-  ring over that group; ``DistributedOptimizer`` averages every
-  gradient over the world (= dp x sp).  Tensor and pipeline parallelism
-  and the MoE layers are not ported yet (``tp``/``pp`` > 1 and
-  ``moe_every != 0`` raise ``NotImplementedError``).
+- **Parallelism.**  ``Transformer(cfg, ..., mesh=...)`` takes the
+  rank's place in a mesh (a ``RankMesh`` from ``make_mesh(dp, pp, tp,
+  sp)`` or ``hvd.data_mesh()``, or a :class:`~horovod_tpu_torch.
+  parallel.mesh.Place`) and holds its local shards (:func:`shard_params`
+  of the full tree by :func:`param_specs`): ``wqkv`` and ``w1`` by
+  contiguous columns over tp, ``wo`` and ``w2`` by rows, the experts by
+  expert over dp.  A block runs Megatron's f before ``wqkv`` and ``w1``
+  and g after ``wo`` and ``w2`` (:mod:`~horovod_tpu_torch.parallel.
+  sharding`), attention over ``n_heads / tp`` heads through the KV ring
+  over the sp group, and every ``moe_every``-th MLP as
+  :func:`~horovod_tpu_torch.parallel.moe.moe_layer` over the dp hop,
+  replicated over tp.  Without a mesh the model is whole on this rank
+  and ``forward(tokens, sp_group)`` takes a sequence group of
+  :func:`horovod_tpu_torch.parallel.mesh.sequence_groups`.  Pipeline
+  parallelism is not ported (ROADMAP.md Queue A item 10d).
+- **The wqkv layout.**  A rank reshapes its local ``wqkv`` columns as
+  ``(3, n_heads / tp, head_dim)``, as the reference does, so at tp > 1
+  the same full weights give another function than at tp = 1;
+  :func:`tp_equivalent_wqkv` permutes the columns so that a tp = 1
+  model computes the tp model's function.
 - **Weights.**  :func:`init_params` draws the JAX package's arrays in its
-  order from a ``numpy.random.RandomState``, so one seed gives the same
+  order from a ``numpy.random.RandomState`` (the MoE tree after the
+  layers, ``ep * experts_per_rank`` experts), so one seed gives the same
   float32 arrays in both packages.  Matrices keep the JAX ``(in, out)``
   layout, so ``x @ w`` reads as it does there.
 - **Precision.**  Parameters are float32; every matrix product runs in
-  the compute dtype (``h.to(cd) @ w.to(cd)``); RMSNorm in float32 with
-  ``1e-6`` inside the square root; GELU with the tanh approximation
-  (``jax.nn.gelu``'s default); the residual stream in the compute dtype;
-  logits through the tied embedding, in float32.
+  the compute dtype (``h.to(cd) @ w.to(cd)``), the tensor-parallel sums
+  in float32; RMSNorm in float32 with ``1e-6`` inside the square root;
+  GELU with the tanh approximation (``jax.nn.gelu``'s default); the
+  residual stream in the compute dtype; logits through the tied
+  embedding, in float32.
 - **Attention** is :func:`horovod_tpu_torch.parallel.ring_attention.
   ring_attention` in the contiguous layout, as in the reference: kernels
   B8-B10 on the card.
@@ -33,13 +47,22 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from horovod_tpu_torch.common import basics as _basics
+from horovod_tpu_torch.common.types import HorovodTpuError
 from horovod_tpu_torch.common.util import resolve_device, true_divide
-from horovod_tpu_torch.parallel.mesh import group_place
+from horovod_tpu_torch.parallel.mesh import (Place, RankMesh, group_place,
+                                             make_mesh)
+from horovod_tpu_torch.parallel.moe import moe_layer
 from horovod_tpu_torch.parallel.ring_attention import ring_attention
+from horovod_tpu_torch.parallel.sharding import (P, copy_to_tp,
+                                                 grad_reduce_axes,
+                                                 reduce_from_tp)
 
 # the compute dtypes the attention kernels take
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 LAYER_KEYS = ("wqkv", "wo", "w1", "w2", "ln1", "ln2")
+MOE_KEYS = ("router", "w_in", "w_out")
+PIPELINE_ITEM = "ROADMAP.md Queue A item 10d"
 
 
 @dataclass(frozen=True)
@@ -84,20 +107,25 @@ class TransformerConfig:
         return _DTYPES[self.dtype]
 
 
-def init_params(rng: np.random.RandomState, cfg: TransformerConfig) -> dict:
+def moe_layer_ids(cfg: TransformerConfig) -> list:
+    """The layers whose MLP is the MoE (every ``moe_every``-th)."""
+    if not cfg.moe_every:
+        return []
+    return [i for i in range(cfg.n_layers) if (i + 1) % cfg.moe_every == 0]
+
+
+def init_params(rng: np.random.RandomState, cfg: TransformerConfig,
+                ep: int = 1) -> dict:
     """The full parameter tree as float32 numpy arrays, drawn in the JAX
-    package's order (embed, pos, then the stacked layer matrices)."""
-    if cfg.moe_every:
-        raise NotImplementedError(
-            "MoE layers (moe_every != 0) are not ported yet (ROADMAP.md "
-            "Queue A item 10)")
+    package's order (embed, pos, the stacked layer matrices, then with
+    ``moe_every`` the MoE tree of ``ep * experts_per_rank`` experts)."""
     dm, hd, nh, ff, nl = (cfg.d_model, cfg.head_dim, cfg.n_heads,
                           cfg.d_ff, cfg.n_layers)
 
     def norm(*shape, scale):
         return (rng.randn(*shape) * scale).astype(np.float32)
 
-    return {
+    p = {
         "embed": norm(cfg.vocab, dm, scale=0.02),
         "pos": norm(cfg.max_seq, dm, scale=0.02),
         "ln_f": np.ones(dm, np.float32),
@@ -110,6 +138,113 @@ def init_params(rng: np.random.RandomState, cfg: TransformerConfig) -> dict:
             "ln2": np.ones((nl, dm), np.float32),
         },
     }
+    if cfg.moe_every:
+        n_moe = len(moe_layer_ids(cfg))
+        e = ep * cfg.experts_per_rank
+        p["moe"] = {
+            "router": norm(n_moe, dm, e, scale=dm ** -0.5),
+            "w_in": norm(n_moe, e, dm, ff, scale=dm ** -0.5),
+            "w_out": norm(n_moe, e, ff, dm, scale=ff ** -0.5),
+        }
+    return p
+
+
+def param_specs(cfg: TransformerConfig) -> dict:
+    """The reference's partition specs (``transformer.py:120-146``): the
+    layer stacks over pp and the column/row-parallel matrices over tp;
+    the experts over dp."""
+    specs = {
+        "embed": P(), "pos": P(), "ln_f": P(),
+        "layers": {
+            "wqkv": P("pp", None, "tp"),
+            "wo": P("pp", "tp", None),
+            "w1": P("pp", None, "tp"),
+            "w2": P("pp", "tp", None),
+            "ln1": P("pp"),
+            "ln2": P("pp"),
+        },
+    }
+    if cfg.moe_every:
+        specs["moe"] = {"router": P(), "w_in": P(None, "dp"),
+                        "w_out": P(None, "dp")}
+    return specs
+
+
+def _block_slices(shape, spec, coord: dict) -> tuple:
+    """The slice of each dimension that the rank at ``coord`` (``{axis:
+    (index, size)}``) holds of a leaf of ``shape`` under ``spec``."""
+    out = []
+    for dim, n in enumerate(shape):
+        axis = spec[dim] if dim < len(spec) else None
+        if axis is None:
+            out.append(slice(None))
+            continue
+        idx, size = coord.get(axis, (0, 1))
+        if n % size:
+            raise HorovodTpuError(
+                f"dimension {dim} ({n}) does not split over {axis}={size}")
+        out.append(slice(idx * n // size, (idx + 1) * n // size))
+    return tuple(out)
+
+
+def _leaves(tree: dict, specs: dict, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, specs[k], prefix + (k,))
+        else:
+            yield prefix + (k,), v, specs[k]
+
+
+def _set(tree: dict, path, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def shard_params(params: dict, cfg: TransformerConfig, coord: dict) -> dict:
+    """The local arrays of the rank at ``coord`` (``{axis: (index,
+    size)}``, :meth:`Transformer.coord`) cut from the full tree
+    ``params`` by :func:`param_specs`; unsharded leaves whole."""
+    out: dict = {}
+    for path, a, spec in _leaves(params, param_specs(cfg)):
+        a = np.asarray(a)
+        _set(out, path, a[_block_slices(a.shape, spec, coord)])
+    return out
+
+
+def unshard_params(parts, cfg: TransformerConfig) -> dict:
+    """The full tree from every rank's local tree: ``parts`` is a list of
+    ``(coord, local tree)`` that covers every shard (replicas may
+    repeat)."""
+    coord0, tree0 = parts[0]
+    out: dict = {}
+    for path, a, spec in _leaves(tree0, param_specs(cfg)):
+        a = np.asarray(a)
+        full = [n * coord0.get(spec[d], (0, 1))[1]
+                if d < len(spec) and spec[d] is not None else n
+                for d, n in enumerate(a.shape)]
+        buf = np.zeros(full, a.dtype)
+        for coord, tree in parts:
+            leaf = tree
+            for k in path:
+                leaf = leaf[k]
+            buf[_block_slices(full, spec, coord)] = np.asarray(leaf)
+        _set(out, path, buf)
+    return out
+
+
+def tp_equivalent_wqkv(w, tp: int):
+    """``wqkv`` (``(..., d_model, 3 * n_heads * head_dim)``, numpy or
+    torch) with its columns permuted so that a tp = 1 model computes the
+    function that the tp model computes from ``w``: rank ``t``'s local
+    columns ``(3, n_heads / tp, head_dim)`` become heads ``t * n_heads /
+    tp ...`` of q, k and v."""
+    c = w.shape[-1] // 3
+    lead = tuple(w.shape[:-1])
+    x = w.reshape(lead + (tp, 3, c // tp))
+    x = x.swapaxes(-3, -2) if isinstance(x, np.ndarray) else \
+        x.transpose(-3, -2)
+    return x.reshape(lead + (3 * c,))
 
 
 def _rmsnorm(x, g):
@@ -118,73 +253,153 @@ def _rmsnorm(x, g):
     return ((x32 / rms) * g).to(x.dtype)
 
 
+def _param(a) -> nn.Parameter:
+    return nn.Parameter(torch.from_numpy(np.array(a, np.float32)))
+
+
 class Block(nn.Module):
-    """One transformer block; parameters named as the JAX layer stack's
-    leaves (``wqkv``, ``wo``, ``w1``, ``w2``, ``ln1``, ``ln2``)."""
+    """One transformer block at this rank's tp shard; parameters named
+    as the JAX layer stack's leaves (``wqkv``, ``wo``, ``w1``, ``w2``,
+    ``ln1``, ``ln2``)."""
 
     def __init__(self, cfg: TransformerConfig, arrays: dict):
         super().__init__()
         self.cfg = cfg
         for key in LAYER_KEYS:
-            setattr(self, key, nn.Parameter(torch.from_numpy(
-                np.array(arrays[key], np.float32))))
+            setattr(self, key, _param(arrays[key]))
 
-    def forward(self, x, sp_group=None):
+    def forward(self, x, sp_group=None, tp=None, moe=None, dp=None):
+        """``x`` (B, Lc, d_model) -> (x, aux): ``tp`` is the tensor hop,
+        ``moe`` this layer's :class:`MoE` (or ``None``: the dense MLP)
+        over the dp hop ``dp``; aux is ``None`` for the dense MLP."""
         cfg = self.cfg
         cd = cfg.compute_dtype
         b, lc, dm = x.shape
+        nh = self.wqkv.shape[1] // (3 * cfg.head_dim)   # n_heads / tp
         h = _rmsnorm(x, self.ln1)
+        h = copy_to_tp(h, tp)        # Megatron "f"
         qkv = h.to(cd) @ self.wqkv.to(cd)
-        qkv = qkv.reshape(b, lc, 3, cfg.n_heads, cfg.head_dim)
+        qkv = qkv.reshape(b, lc, 3, nh, cfg.head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         attn = ring_attention(q, k, v, sp_group, causal=True)
-        attn = attn.reshape(b, lc, cfg.n_heads * cfg.head_dim)
+        attn = attn.reshape(b, lc, nh * cfg.head_dim)
         proj = (attn.to(cd) @ self.wo.to(cd)).float()
+        proj = reduce_from_tp(proj, tp)  # Megatron "g", in float32
         x = x + proj.to(x.dtype)
 
         h = _rmsnorm(x, self.ln2)
-        ff = F.gelu((h.to(cd) @ self.w1.to(cd)).float(),
-                    approximate="tanh").to(cd)
-        mlp = (ff @ self.w2.to(cd)).float()
-        return x + mlp.to(x.dtype)
+        aux = None
+        if moe is not None:
+            out, aux = moe_layer(h.reshape(b * lc, dm), moe.router,
+                                 moe.w_in, moe.w_out, dp)
+            mlp = out.reshape(b, lc, dm).float()
+        else:
+            h = copy_to_tp(h, tp)
+            ff = F.gelu((h.to(cd) @ self.w1.to(cd)).float(),
+                        approximate="tanh").to(cd)
+            mlp = (ff @ self.w2.to(cd)).float()
+            mlp = reduce_from_tp(mlp, tp)
+        return x + mlp.to(x.dtype), aux
+
+
+class MoE(nn.Module):
+    """One MoE layer's weights at this rank: the router over all
+    experts, ``w_in``/``w_out`` of this rank's experts."""
+
+    def __init__(self, arrays: dict):
+        super().__init__()
+        for key in MOE_KEYS:
+            setattr(self, key, _param(arrays[key]))
+
+
+def _place_of(mesh) -> Place | None:
+    if mesh is None or isinstance(mesh, Place):
+        return mesh
+    if isinstance(mesh, RankMesh):
+        return mesh.place()
+    raise TypeError(f"mesh must be a RankMesh or a Place, got "
+                    f"{type(mesh).__name__}")
 
 
 class Transformer(nn.Module):
     """The LM: ``forward(tokens, sp_group=None)`` maps this rank's (B,
-    Lc) int64 tokens (sequence chunk ``s`` of ``sp_group``'s ``sp``, or
-    the whole sequence) to float32 logits (B, Lc, vocab).  Weights come
-    from ``params`` (a tree as :func:`init_params` returns it) or else from
-    ``init_params(RandomState(seed), cfg)``.  ``pp``/``tp`` are the
-    model-axis sizes (only 1 is ported).  Runs on ``device`` (default
-    ``cuda``)."""
+    Lc) int64 tokens (sequence chunk ``s`` of a sequence sharded over
+    ``sp`` ranks, or the whole sequence) to float32 logits (B, Lc,
+    vocab); ``with_aux=True`` also returns the MoE layers' summed
+    load-balancing loss (float32; zero without MoE).
+
+    ``mesh`` is the rank's place (a ``RankMesh`` with the ``dp``, ``pp``,
+    ``tp`` and ``sp`` axes, or a ``Place``); the sequence group is then
+    its sp axis.  Without it the model is whole here and the sequence
+    group comes from ``forward``.  Weights come from ``params`` (the full
+    tree as :func:`init_params` returns it, cut to this rank's shards)
+    or else from ``init_params(RandomState(seed), cfg, ep=dp)``.
+    Without ``mesh``, ``tp > 1`` builds ``make_mesh(dp=world // tp,
+    tp=tp)`` (every rank must build the model, in one order); ``pp``
+    and ``tp`` are the mesh's when it is given.  pp > 1 is not ported.
+    Runs on ``device`` (default ``cuda``)."""
 
     def __init__(self, cfg: TransformerConfig, params: dict | None = None,
-                 seed: int = 0, device=None, pp: int = 1, tp: int = 1):
+                 seed: int = 0, device=None, pp: int = 1, tp: int = 1,
+                 mesh=None):
         dev = resolve_device(device)
-        if pp != 1 or tp != 1:
+        if mesh is not None and (pp, tp) != (1, 1):
+            raise TypeError("pp and tp are the mesh's: give the sizes or "
+                            "the mesh, not both")
+        place = _place_of(mesh)
+        if place is not None:
+            pp, tp = place.pp.size, place.tp.size
+        if pp > 1:
             raise NotImplementedError(
-                f"pipeline (pp={pp}) and tensor (tp={tp}) parallelism are "
-                "not ported yet (ROADMAP.md Queue A item 10); data "
-                "parallelism is the world, through DistributedOptimizer")
-        if cfg.moe_every:
-            raise NotImplementedError(
-                "MoE layers (moe_every != 0) are not ported yet (ROADMAP.md "
-                "Queue A item 10)")
+                f"pipeline parallelism (pp={pp}) is not ported yet "
+                f"({PIPELINE_ITEM})")
+        if cfg.n_heads % tp:
+            raise HorovodTpuError(
+                f"n_heads={cfg.n_heads} does not split over tp={tp}")
+        if place is None and tp > 1:
+            place = make_mesh(dp=_basics.size() // tp, tp=tp).place()
         super().__init__()
         self.cfg = cfg
+        self.place = place
+        ep = 1 if place is None else place.dp.size
         if params is None:
-            params = init_params(np.random.RandomState(seed), cfg)
+            params = init_params(np.random.RandomState(seed), cfg, ep)
+        if cfg.moe_every:
+            e = np.shape(params["moe"]["router"])[-1]
+            if e != ep * cfg.experts_per_rank:
+                raise HorovodTpuError(
+                    f"the tree has {e} experts; dp={ep} x experts_per_rank="
+                    f"{cfg.experts_per_rank} are {ep * cfg.experts_per_rank}"
+                    " (init_params(rng, cfg, ep=dp))")
+        if place is not None:
+            params = shard_params(params, cfg, self.coord())
         for key in ("embed", "pos", "ln_f"):
-            setattr(self, key, nn.Parameter(torch.from_numpy(
-                np.array(params[key], np.float32))))
+            setattr(self, key, _param(params[key]))
         stack = params["layers"]
         self.layers = nn.ModuleList(
             Block(cfg, {key: stack[key][i] for key in LAYER_KEYS})
             for i in range(cfg.n_layers))
+        self.moe_ids = moe_layer_ids(cfg)
+        self.moe = nn.ModuleList(
+            MoE({key: params["moe"][key][k] for key in MOE_KEYS})
+            for k in range(len(self.moe_ids)))
         self.to(dev)
 
-    def forward(self, tokens, sp_group=None):
+    def coord(self) -> dict:
+        """``{axis: (index, size)}`` of this rank on the mesh (all ``(0,
+        1)`` without one)."""
+        if self.place is None:
+            return {a: (0, 1) for a in ("dp", "pp", "tp", "sp")}
+        return self.place.coord()
+
+    def forward(self, tokens, sp_group=None, with_aux: bool = False):
         cd = self.cfg.compute_dtype
+        place = self.place
+        if sp_group is None and place is not None:
+            sp_group = place.sp.group
+        tp = dp = None
+        if place is not None:
+            tp, dp = place.tp, place.dp
         b, lc = tokens.shape
         sp, s = group_place(sp_group)
         if lc * sp > self.cfg.max_seq:
@@ -193,18 +408,43 @@ class Transformer(nn.Module):
         # chunk s starts at global position s * lc
         pos = s * lc + torch.arange(lc, device=tokens.device)
         x = (self.embed[tokens] + self.pos[pos]).to(cd)
-        for blk in self.layers:
-            x = blk(x, sp_group)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        moe = dict(zip(self.moe_ids, self.moe))
+        for i, blk in enumerate(self.layers):
+            x, a = blk(x, sp_group, tp, moe.get(i), dp)
+            if a is not None:
+                aux = aux + a
         x = _rmsnorm(x, self.ln_f)
-        return (x.to(cd) @ self.embed.to(cd).T).float()
+        logits = (x.to(cd) @ self.embed.to(cd).T).float()
+        return (logits, aux) if with_aux else logits
+
+    def reduce_axes(self) -> dict:
+        """Parameter name -> the data axes its gradient sums over
+        (``grad_reduce_axes`` of its spec)."""
+        specs = param_specs(self.cfg)
+        out = {}
+        for name, _ in self.named_parameters():
+            parts = name.split(".")
+            spec = specs[parts[0]][parts[2]] if parts[0] in ("layers",
+                                                              "moe") \
+                else specs[name]
+            out[name] = grad_reduce_axes(spec)
+        return out
 
 
-def loss_fn(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Mean next-token cross entropy: float32 log-softmax, the target's
-    negative log-probability summed and divided by the token count (the
-    JAX ``loss_fn`` at one rank of ``("dp", "sp")``, which divides by the
-    global count instead: ``DistributedOptimizer``'s average over the
-    world of equal local counts gives the same gradient)."""
+def loss_fn(logits: torch.Tensor, targets: torch.Tensor, aux=None,
+            data_ranks: int = 1) -> torch.Tensor:
+    """The JAX ``loss_fn``'s local slice: the target's negative
+    log-probability under a float32 log-softmax, summed and divided by
+    the global token count (this rank's count times ``data_ranks``, the
+    ranks of ``("dp", "sp")``), plus ``0.01 * aux / data_ranks``.  At
+    ``data_ranks=1`` it is the mean cross entropy (plus ``0.01 * aux``),
+    whose world average ``DistributedOptimizer`` takes over equal local
+    counts; under a mesh the gradients are summed instead, as the
+    reference sums them."""
     logp = F.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
-    return true_divide(nll.sum(), nll.numel())
+    loss = true_divide(nll.sum(), nll.numel() * data_ranks)
+    if aux is not None:
+        loss = loss + true_divide(0.01 * aux, data_ranks)
+    return loss

@@ -427,10 +427,17 @@ def allgather(tensor: torch.Tensor, axis_name=None) -> torch.Tensor:
 
 def alltoall(tensor: torch.Tensor, axis_name=None) -> torch.Tensor:
     """Equal-split all-to-all along axis 0: chunk ``j`` of this rank's
-    tensor goes to the axis member ``j`` (flat index for a pair), and
-    the result stacks what every member sent here in axis order."""
+    tensor goes to the axis member ``j``, and the result stacks what
+    every member sent here in axis order.  An
+    axis pair is refused, as the reference refuses any two-axis name."""
     _config.refuse_not_ported()
-    hop = _pmesh.flat_hop(axis_name)
+    ax = _pmesh.resolve_axis(axis_name)
+    if isinstance(ax, HopPair) or (isinstance(ax, (tuple, list))
+                                   and len(ax) == 2):
+        raise HorovodTpuError(
+            "alltoall over a hierarchical (cross, local) axis pair is "
+            "not supported; pass a single mesh axis name")
+    hop = _pmesh.flat_hop(ax)
     n = hop.size
     if tensor.dim() == 0 or tensor.shape[0] % n:
         raise HorovodTpuError(

@@ -394,9 +394,9 @@ def _hyperparameters(optimizer) -> dict:
     return hyper[0]
 
 
-def _shard_optimizer(optimizer, params):
-    """An optimizer of ``optimizer``'s class and hyperparameters over the
-    flat shard tensors ``params``."""
+def optimizer_like(optimizer, params):
+    """An optimizer of ``optimizer``'s class and hyperparameters over
+    ``params`` (a ZeRO shard's flat tensors, or a group of leaves)."""
     spec = _fused.spec_of(optimizer)
     if isinstance(optimizer, _fused.SGD):
         return _fused.SGD(params, spec.lr,
@@ -497,8 +497,8 @@ class _DistributedOptimizer:
             self._shard_params = [
                 _rank_shard(leaves, lay, g, r).detach().clone()
                 for g in range(len(lay.keys))]
-            self._inner = _shard_optimizer(self.optimizer,
-                                           self._shard_params)
+            self._inner = optimizer_like(self.optimizer,
+                                         self._shard_params)
         # the shard state replaces the wrapped optimizer's full-size state
         self.optimizer.state.clear()
         if is_quantized(self.compression):
@@ -760,17 +760,33 @@ def _refuse_zero3(what: str) -> None:
         "would defeat the residency contract.")
 
 
+def _refuse_model_parallel() -> None:
+    """The broadcast helpers run on the reference's eager plane, which
+    refuses a data mesh with model-parallel axes
+    (``horovod_tpu/ops/eager.py:126-133``): a broadcast from one root
+    would overwrite every tp/pp/sp shard with the root's."""
+    if _pmesh.model_parallel_size() > 1:
+        raise HorovodTpuError(
+            "eager collectives reduce over the whole world and cannot "
+            "honor a data mesh with model-parallel axes "
+            f"({_pmesh.canonical_spec(_pmesh.active_spec())!r}); run "
+            "the collective over a named axis (axis_name=) or drop the "
+            "tp/pp/sp extents from HOROVOD_MESH")
+
+
 def broadcast_parameters(params, root_rank: int = 0):
     """Overwrite ``params`` in place with ``root_rank``'s values, fused
     per dtype.  ``params`` is a module (its ``state_dict()``, buffers
     included), a mapping of name to tensor, or an iterable of tensors or
     ``(name, tensor)`` pairs.  Returns ``params``.  Stage-3 shards
-    (:class:`Zero3Params`) are refused."""
+    (:class:`Zero3Params`) and a data mesh with model-parallel axes are
+    refused."""
     if isinstance(params, Zero3Params):
         _refuse_zero3("broadcast_parameters")
     tensors = _tensors_of(params)
     if any(_is_zero3_shard(t) for t in tensors):
         _refuse_zero3("broadcast_parameters")
+    _refuse_model_parallel()
     _coll.broadcast_(tensors, root_rank)
     return params
 
@@ -783,6 +799,7 @@ def broadcast_skipping_shards(optimizer, root_rank: int = 0):
     other entries (step counts, hyperparameters) by object broadcast."""
     if isinstance(optimizer, Zero3Params):
         _refuse_zero3("broadcast_skipping_shards")
+    _refuse_model_parallel()
     opt = getattr(optimizer, "optimizer", optimizer)
     params = [p for g in opt.param_groups for p in g["params"]]
     tensors, others = [], {}
@@ -813,7 +830,9 @@ def broadcast_optimizer_state(optimizer, root_rank: int = 0):
 
 def broadcast_object(obj, root_rank: int = 0):
     """Broadcast a picklable object from ``root_rank`` (length, then
-    payload, as uint8 tensors on this rank's device)."""
+    payload, as uint8 tensors on this rank's device) over the world; a
+    data mesh with model-parallel axes is refused."""
+    _refuse_model_parallel()
     dev = _basics.device()
     if _basics.rank() == root_rank:
         buf = io.BytesIO()

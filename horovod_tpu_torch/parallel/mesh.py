@@ -17,7 +17,10 @@ named, else the flat world ``"hvd"``.  A :class:`Hop` is one axis as this
 rank sees it (group, size, index) with the transfers the data plane
 runs over it; a :class:`HopPair` is a ``(cross, local)`` pair with the
 group of both (``flat``), which carries the pair's reduction when the
-hierarchical decomposition is off.
+hierarchical decomposition is off.  The LM's data axes ``("dp", "sp")``
+are such a pair (cross = dp, local = sp, the flat group dp-major), as
+any two-axis name is on the reference (``horovod_tpu/ops/collectives.py:
+306``); :class:`Place` is a rank's hops along the model's axes.
 """
 
 from __future__ import annotations
@@ -40,6 +43,9 @@ AXES = ("dp", "pp", "tp", "sp")
 DATA_AXIS = "dp"
 HIER_DATA_AXES = ("dpc", "dpl")
 WORLD_AXIS = "hvd"
+#: The LM's data axes: every gradient not sharded on one of them reduces
+#: over both (``horovod_tpu/parallel/sharding.py:73-80``)
+LM_DATA_AXES = ("dp", "sp")
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
@@ -127,17 +133,22 @@ class HopPair(NamedTuple):
     flat: Hop
 
 
-def _axis_groups(ranks: np.ndarray, axes, coord, name: str) -> Hop:
-    """The groups along ``axes`` (a tuple of dims of ``ranks``, earlier
-    dims major), built on every rank in one order, and this rank's hop.
-    ``torch.distributed.new_group`` must be called by every rank for
-    every group, its own or not."""
-    rest = [a for a in range(ranks.ndim) if a not in axes]
-    rows = np.transpose(ranks, rest + list(axes)).reshape(
-        -1, math.prod(ranks.shape[a] for a in axes))
-    me = int(ranks[tuple(coord)])
+def _axis_rows(shape, axes) -> np.ndarray:
+    """The groups along ``axes`` (a tuple of dims of a C-order rank grid
+    of ``shape``, earlier dims major), one row each, in the order every
+    rank builds them."""
+    ranks = np.arange(math.prod(shape)).reshape(shape)
+    rest = [a for a in range(len(shape)) if a not in axes]
+    return np.transpose(ranks, rest + list(axes)).reshape(
+        -1, math.prod(shape[a] for a in axes))
+
+
+def _axis_groups(shape, axes, me: int, name: str) -> Hop:
+    """Every group of :func:`_axis_rows`, built in one order, and rank
+    ``me``'s hop.  ``torch.distributed.new_group`` must be called by
+    every rank for every group, its own or not."""
     mine = None
-    for row in rows:
+    for row in _axis_rows(shape, axes):
         group = dist.new_group(row.tolist()) if row.size > 1 else None
         if me in row:
             mine = Hop(row, row.tolist().index(me), group, name)
@@ -159,15 +170,14 @@ class RankMesh:
                 "to exactly one mesh coordinate")
         self.axis_names = tuple(names)
         self.shape = shape
-        ranks = np.arange(world).reshape(shape)
         self.coord = tuple(int(c) for c in np.unravel_index(rank, shape))
-        self.hops = {n: _axis_groups(ranks, (a,), self.coord, n)
+        self.hops = {n: _axis_groups(shape, (a,), rank, n)
                      for a, n in enumerate(names)}
         self.flat = {}
         for cross, local in pairs:
             axes = (names.index(cross), names.index(local))
             self.flat[(cross, local)] = _axis_groups(
-                ranks, axes, self.coord, f"{cross}*{local}")
+                shape, axes, rank, f"{cross}*{local}")
         if world > 1:
             # gloo connects a new group's members eagerly: no rank may
             # go on (and perhaps exit) while another still connects
@@ -184,10 +194,60 @@ class RankMesh:
         return HopPair(self.hops[cross], self.hops[local],
                        self.flat[(cross, local)])
 
+    def place(self) -> "Place":
+        """This rank's hops along the model's axes (the mesh must have
+        the ``dp``, ``pp``, ``tp`` and ``sp`` axes and the ``("dp",
+        "sp")`` pair)."""
+        missing = [a for a in AXES if a not in self.hops]
+        if missing or LM_DATA_AXES not in self.flat:
+            raise HorovodTpuError(
+                f"the mesh {self.sizes()} has no {'/'.join(missing) or 'dp'}"
+                " axis for the model: under the hierarchical split "
+                "(HOROVOD_HIERARCHICAL_LOCAL_SIZE) the dp axis is the "
+                "('dpc', 'dpl') pair, and the LM names 'dp' (as the "
+                "reference's make_train_step does); build the model's "
+                "mesh with make_mesh(dp, pp, tp, sp)")
+        h = self.hops
+        return Place(h["dp"], h["pp"], h["tp"], h["sp"],
+                     self.pair(*LM_DATA_AXES))
+
+
+class Place(NamedTuple):
+    """A rank's hops along the model's axes: ``dp``, ``pp``, ``tp``,
+    ``sp``, and ``data``, the ``("dp", "sp")`` pair the LM's gradients
+    and loss reduce over.  ``RankMesh.place()`` gives it; an emulated
+    world builds one from its own hops."""
+    dp: Hop
+    pp: Hop
+    tp: Hop
+    sp: Hop
+    data: HopPair
+
+    def coord(self) -> dict:
+        """``{axis: (index, size)}`` of the four axes."""
+        return {a: (h.index, h.size) for a, h in
+                zip(AXES, (self.dp, self.pp, self.tp, self.sp))}
+
 
 def make_mesh(dp: int = 1, pp: int = 1, tp: int = 1, sp: int = 1) -> RankMesh:
-    """A ``(dp, pp, tp, sp)`` mesh over the world's ranks."""
-    return RankMesh(AXES, (dp, pp, tp, sp))
+    """A ``(dp, pp, tp, sp)`` mesh over the world's ranks, with the
+    ``("dp", "sp")`` pair."""
+    return RankMesh(AXES, (dp, pp, tp, sp), pairs=(LM_DATA_AXES,))
+
+
+def place_ranks(rank: int, dp: int = 1, pp: int = 1, tp: int = 1,
+                sp: int = 1) -> dict:
+    """The members of each hop of ``rank``'s place in ``make_mesh(dp, pp,
+    tp, sp)``, by hop name (the four axes and ``"dp*sp"``, the ``("dp",
+    "sp")`` pair's flat hop): the layout for a world that builds its
+    hops another way, as ``chip_smoke.py``'s emulated ranks do."""
+    shape = (dp, pp, tp, sp)
+    dims = {a: (i,) for i, a in enumerate(AXES)}
+    dims["*".join(LM_DATA_AXES)] = tuple(AXES.index(a)
+                                         for a in LM_DATA_AXES)
+    return {name: next(row.tolist() for row in _axis_rows(shape, d)
+                       if rank in row)
+            for name, d in dims.items()}
 
 
 def hierarchical_mesh(local_size: int | None = None) -> RankMesh:
@@ -338,35 +398,20 @@ def _hier_local_split(dp: int) -> int:
     return 0
 
 
-def refuse_sequence_axis(axes: dict[str, int]) -> None:
-    """Refuse a data mesh with ``sp > 1``.  Trap: the sequence-parallel
-    LM reduces its gradients over ``("dp", "sp")`` (the reference's LM
-    step names both, ``horovod_tpu/parallel/sharding.py:134-140``), but
-    the optimizer's default axis under a data mesh is dp alone, so each
-    sp rank would apply the gradient of its own sequence chunk and the
-    replicas would drift apart without an error."""
-    sp = int(axes.get("sp", 1))
-    if sp > 1:
-        raise NotImplementedError(
-            f"a data mesh with sp={sp} ({canonical_spec(axes)!r}) needs "
-            "the ('dp', 'sp') gradient reduction of the sequence-parallel "
-            "LM, which is not ported yet (ROADMAP.md Queue A item 10); "
-            "leave HOROVOD_MESH unset and build the sequence groups with "
-            "parallel.mesh.sequence_groups(dp, sp)")
-
-
 def build_data_mesh(axes: dict[str, int]) -> RankMesh:
-    """The named data mesh of ``axes`` over the world: dp outermost; under
-    hierarchical mode dp becomes the ``("dpc", "dpl")`` pair (cross
-    major), and the pair's flat hop is the dp group."""
-    refuse_sequence_axis(axes)
+    """The named data mesh of ``axes`` over the world: dp outermost, with
+    the ``("dp", "sp")`` pair; under hierarchical mode dp becomes the
+    ``("dpc", "dpl")`` pair (cross major), the pair's flat hop is the dp
+    group, and there is no ``"dp"`` axis to pair with sp (the
+    reference's mesh has none either, ``horovod_tpu/parallel/mesh.py:
+    216-219``)."""
     dp, pp, tp, sp = (int(axes.get(a, 1)) for a in AXES)
     local = _hier_local_split(dp)
     if local:
         return RankMesh(HIER_DATA_AXES + AXES[1:],
                         (dp // local, local, pp, tp, sp),
                         pairs=(HIER_DATA_AXES,))
-    return RankMesh(AXES, (dp, pp, tp, sp))
+    return make_mesh(dp, pp, tp, sp)
 
 
 def active_spec() -> dict[str, int] | None:
@@ -458,13 +503,15 @@ def resolve_hops(axis_name=None):
             and all(isinstance(a, str) for a in ax):
         mesh = _basics._state.data_mesh
         if mesh is None or tuple(ax) not in mesh.flat:
+            have = sorted(mesh.flat) if mesh is not None else []
             raise HorovodTpuError(
-                f"a reduction over the axis pair {tuple(ax)} needs the "
-                "data mesh's ('dpc', 'dpl') split (HOROVOD_MESH with "
-                "HOROVOD_HIERARCHICAL_ALLREDUCE and _LOCAL_SIZE) or a "
-                "HopPair (hierarchical_mesh().pair('cross', 'local')); "
-                "reductions over other axis pairs arrive with tensor "
-                "parallelism (ROADMAP.md Queue A item 10)")
+                f"the axis pair {tuple(ax)} has no process groups: the "
+                f"data mesh built at init() has the pairs {have} (the "
+                "('dp', 'sp') pair of HOROVOD_MESH, or its ('dpc', "
+                "'dpl') split under HOROVOD_HIERARCHICAL_ALLREDUCE and "
+                "_LOCAL_SIZE, which has no 'dp' axis); pass a HopPair "
+                "(make_mesh(...).pair('dp', 'sp'), "
+                "hierarchical_mesh().pair('cross', 'local')) instead")
         return mesh.pair(*ax)
     raise HorovodTpuError(f"unknown axis_name {axis_name!r}")
 

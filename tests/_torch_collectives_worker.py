@@ -14,7 +14,11 @@ stages 0-3 on the card (:func:`zero_resnet_main`); ``sp`` the sequence
 parallel attention and the LM at dp x sp (:func:`sp_main`);
 ``sp_cards`` the LM at full width at sp = 4 and at dp = 2 x sp = 2 on four
 cards (:func:`sp_cards_main`), ``sp_cards_ref`` its one-card run
-(:func:`sp_cards_ref_main`); ``mesh`` the named data mesh
+(:func:`sp_cards_ref_main`); ``mp`` the tensor- and expert-parallel
+cases (:func:`mp_main`), ``mp_cards`` the bench LM under the
+model-parallel meshes on four cards (:func:`mp_cards_main`),
+``mp_cards_ref`` its one-card tp = 1 run (:func:`mp_cards_ref_main`);
+``mesh`` the named data mesh and the broadcast and alltoall refusals
 (:func:`mesh_main`), ``data_plane`` the hierarchical reductions and Adasum
 (:func:`data_plane_main`), ``dp_cards`` ResNet-50 through them on four
 cards (:func:`dp_cards_main`).
@@ -951,6 +955,295 @@ def sp_cards_main(device: str):
 
 
 # ---------------------------------------------------------------------------
+# Tensor and expert parallelism (tests/test_torch_model_parallel.py)
+# ---------------------------------------------------------------------------
+
+#: the LM cases: (name, world, mesh axes, moe_every, how the place is
+#: named, whether each dp rank trains on the same rows); "data" is the
+#: data mesh of ``init(mesh=...)``, "make" ``make_mesh``
+MP_CASES = (
+    ("tp2", 2, dict(dp=1, tp=2, sp=1), 0, "sizes", False),
+    ("moe dp2", 2, dict(dp=2, tp=1, sp=1), 2, "make", False),
+    ("moe dp2 same rows", 2, dict(dp=2, tp=1, sp=1), 2, "make", True),
+    ("dp2 x tp2", 4, dict(dp=2, tp=2, sp=1), 0, "make", False),
+    ("tp2 x sp2", 4, dict(dp=1, tp=2, sp=2), 0, "make", False),
+    ("HOROVOD_MESH=dp:2,sp:2", 4, dict(dp=2, tp=1, sp=2), 0, "data",
+     False),
+    ("moe dp2 x sp2", 4, dict(dp=2, tp=1, sp=2), 2, "make", False),
+)
+MP_BATCH, MP_STEPS, MP_LR = 4, 3, 0.5
+#: the moe_layer case: tokens per rank, width, hidden width, experts per
+#: rank, capacity factor (tests/test_pipeline_moe.py's)
+MOE_T, MOE_D, MOE_FF, MOE_E_LOCAL, MOE_CAP = 32, 8, 16, 2, 1.5
+
+
+def mp_tokens(case) -> tuple:
+    """The global (tokens, targets) of an LM case: ``MP_BATCH`` rows of
+    ``synthetic_tokens`` (seed 1), or for a same-rows case its first
+    ``MP_BATCH / dp`` rows repeated on every dp rank."""
+    from horovod_tpu_torch.train_step import synthetic_tokens
+
+    _, _, axes, _, _, same = case
+    tok, tgt = synthetic_tokens(MP_BATCH, SP_LM["max_seq"], SP_LM["vocab"],
+                                seed=1, device="cpu")
+    if same:
+        rows = MP_BATCH // axes["dp"]
+        tok, tgt = (t[:rows].repeat(axes["dp"], 1) for t in (tok, tgt))
+    return tok, tgt
+
+
+def fg_inputs(r: int) -> dict:
+    """The f/g case: ``x`` and ``c`` shared, ``w`` this rank's."""
+    rng = np.random.RandomState(40)
+    x, c = (rng.randn(3, 4).astype(np.float32) for _ in range(2))
+    w = np.random.RandomState(41 + r).randn(3, 4).astype(np.float32)
+    return {"x": x, "c": c, "w": w}
+
+
+def moe_inputs(ep: int) -> dict:
+    """The moe_layer case's global arrays (tests/test_pipeline_moe.py's
+    draw): router (D, E), w_in (E, D, FF), w_out (E, FF, D), x (ep, T,
+    D)."""
+    rng = np.random.RandomState(2)
+    e = ep * MOE_E_LOCAL
+    return {"router": rng.randn(MOE_D, e).astype(np.float32) * 0.5,
+            "w_in": rng.randn(e, MOE_D, MOE_FF).astype(np.float32) * 0.3,
+            "w_out": rng.randn(e, MOE_FF, MOE_D).astype(np.float32) * 0.3,
+            "x": rng.randn(ep, MOE_T, MOE_D).astype(np.float32)}
+
+
+def fg_case(hop, r: int) -> dict:
+    """``out = reduce_from_tp(copy_to_tp(x) * w)``, ``sum(out * c)``
+    differentiated: out, dx, dw."""
+    from horovod_tpu_torch.parallel.sharding import (copy_to_tp,
+                                                     reduce_from_tp)
+
+    a = {k: torch.from_numpy(v) for k, v in fg_inputs(r).items()}
+    x = a["x"].clone().requires_grad_()
+    w = a["w"].clone().requires_grad_()
+    out = reduce_from_tp(copy_to_tp(x, hop) * w, hop)
+    (out * a["c"]).sum().backward()
+    return {"out": out.detach(), "dx": x.grad, "dw": w.grad}
+
+
+def moe_case(hop, r: int, dtype) -> dict:
+    """This rank's ``moe_layer`` over ``hop`` on its tokens and experts:
+    out, aux, the routes (expert, keep) and, in float32, the gradients of
+    ``sum(out**2) + 0.01 * aux``."""
+    from horovod_tpu_torch.parallel.moe import moe_layer, route
+
+    g = moe_inputs(hop.size)
+    lo, hi = r * MOE_E_LOCAL, (r + 1) * MOE_E_LOCAL
+    x = torch.from_numpy(g["x"][r]).to(dtype).requires_grad_()
+    router = torch.from_numpy(g["router"]).requires_grad_()
+    w_in = torch.from_numpy(g["w_in"][lo:hi].copy()).requires_grad_()
+    w_out = torch.from_numpy(g["w_out"][lo:hi].copy()).requires_grad_()
+    out, aux = moe_layer(x, router, w_in, w_out, hop,
+                         capacity_factor=MOE_CAP)
+    _, idx, _, _, _, keep, _ = route(x.detach(), router.detach(), MOE_CAP)
+    res = {"out": out.detach(), "aux": float(aux), "idx": idx,
+           "keep": keep.any(-1).int()}
+    if dtype == torch.float32:
+        ((out.float() ** 2).sum() + 0.01 * aux).backward()
+        res.update(dx=x.grad, drouter=router.grad, dw_in=w_in.grad,
+                   dw_out=w_out.grad)
+    return res
+
+
+def mp_lm_case(case) -> dict:
+    """An LM case on this rank: ``MP_STEPS`` SGD steps (lr ``MP_LR``)
+    through ``lm_train_step`` with ``lm_optimizer`` on the rank's block of
+    the batch: the losses, the rank's coordinate and local weights (JAX
+    layout), and the reduction groups."""
+    from horovod_tpu_torch.models import transformer as TT
+    from horovod_tpu_torch.parallel.mesh import make_mesh
+    from horovod_tpu_torch.train_step import (lm_optimizer, lm_train_step,
+                                              shard_tokens)
+
+    _, _, axes, moe_every, how, _ = case
+    cfg = TT.TransformerConfig(**SP_LM, dtype="float32",
+                               moe_every=moe_every)
+    if how == "sizes":
+        model = TT.Transformer(cfg, seed=0, device="cpu", tp=axes["tp"])
+    else:
+        mesh = hvd.data_mesh() if how == "data" else make_mesh(
+            dp=axes["dp"], tp=axes["tp"], sp=axes["sp"])
+        model = TT.Transformer(cfg, seed=0, device="cpu", mesh=mesh)
+    opt = lm_optimizer(model, TF.sgd(model.parameters(), MP_LR))
+    coord = model.coord()
+    (d, _), (s, _) = coord["dp"], coord["sp"]
+    tok, tgt = (shard_tokens(t, axes["dp"], axes["sp"], d, s)
+                for t in mp_tokens(case))
+    losses = [float(lm_train_step(model, opt, tok, tgt))
+              for _ in range(MP_STEPS)]
+    place = model.place
+    hops = dict(zip(("dp", "pp", "tp", "sp", "dp*sp"),
+                    (*place[:4], place.data.flat)))
+    return {"losses": losses, "coord": coord,
+            "groups": [list(a) for a in opt.axes],
+            "hops": {k: list(h.ranks) for k, h in hops.items()},
+            "weights": interop.transformer_to_jax(model)}
+
+
+def mp_main(device: str):
+    """Every case of this world size: the f/g pair and ``moe_layer`` (f32
+    and bf16 tokens) over the world, then each LM case of
+    :data:`MP_CASES`, the data-mesh case after a re-init under its
+    ``HOROVOD_MESH``."""
+    from horovod_tpu_torch.parallel.mesh import make_mesh
+
+    hvd.init(device=device)
+    n, r = hvd.size(), hvd.rank()
+    out = {"rank": r}
+    if n == 2:
+        hop = make_mesh(tp=2).hops["tp"]
+        out["fg"] = fg_case(hop, r)
+        ep = make_mesh(dp=2).hops["dp"]
+        out["moe f32"] = moe_case(ep, r, torch.float32)
+        out["moe bf16"] = moe_case(ep, r, torch.bfloat16)
+    for case in MP_CASES:
+        if case[1] != n:
+            continue
+        if case[4] == "data":
+            _reinit_shutdown()
+            hvd.init(device=device, mesh=case[2])
+        out[case[0]] = mp_lm_case(case)
+    _reinit_shutdown()
+    print(json.dumps(enc(out)))
+
+
+#: the bench LM on four cards (test_four_cards_model_parallel_lm):
+#: (name, HOROVOD_MESH or None for the sequence_groups run, moe_every)
+MP_CARD_CASES = (("sequence_groups dp2 x sp2", None, 0),
+                 ("HOROVOD_MESH=dp:2,sp:2", "dp:2,sp:2", 0),
+                 ("HOROVOD_MESH=dp:2,tp:2", "dp:2,tp:2", 0),
+                 ("HOROVOD_MESH=dp:4 MoE", "dp:4", 2))
+MP_CARD_SEQ, MP_CARD_BATCH, MP_CARD_STEPS = 1024, 16, 3
+
+
+def _save_tree(path: str, tree: dict, coord=None) -> None:
+    """A JAX-layout tree of numpy arrays (and the rank's coordinate) as
+    one ``.npz`` file."""
+    flat = {}
+
+    def walk(t, prefix):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                walk(v, prefix + k + "/")
+            else:
+                flat[prefix + k] = np.asarray(v, np.float32)
+
+    walk(tree, "")
+    if coord is not None:
+        flat["coord"] = np.asarray([coord[a] for a in ("dp", "pp", "tp",
+                                                       "sp")])
+    np.savez(path, **flat)
+
+
+def mp_card_lm(model, opt, tok, tgt, sp_group, grads_path: str) -> dict:
+    """``MP_CARD_STEPS`` steps of ``lm_train_step``: per step the launches,
+    global loss, time and a digest of the replicated weights (every leaf
+    but the experts); the peak memory; the step-1 gradient (after the
+    reduction) saved at ``grads_path``."""
+    from horovod_tpu_torch.ops import flash_attention as FA
+    from horovod_tpu_torch.train_step import lm_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    shared = [p for n, p in model.named_parameters()
+              if not n.startswith("moe.") or n.endswith("router")]
+    res = {"launches": [], "losses": [], "times": [], "digests": []}
+    for step in range(MP_CARD_STEPS):
+        FA.reset_launch_counts()
+        TF.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = lm_train_step(model, opt, tok, tgt, sp_group)
+        torch.cuda.synchronize()
+        res["times"].append(time.perf_counter() - t0)
+        res["losses"].append(float(loss))
+        res["launches"].append({**FA.LAUNCHES, "adam": TF.LAUNCHES["adam"]})
+        if step == 0:
+            _save_tree(grads_path, interop.transformer_to_jax(model,
+                                                              grads=True),
+                       model.coord())
+        res["digests"].append(_digest(shared))
+        _progress(f"{grads_path}: step {step} {res['times'][-1]:.4f} s")
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return res
+
+
+def mp_cards_ref_main(device: str):
+    """One card at tp = 1 running the dp:2,tp:2 case's function: the same
+    full weights with ``wqkv`` permuted by ``tp_equivalent_wqkv``, the
+    global batch, fused Adam; its step-1 gradient saved (in that
+    layout) under ``HVD_TEST_REF_DIR``."""
+    from horovod_tpu_torch.models import transformer as TT
+    from horovod_tpu_torch.train_step import synthetic_tokens
+
+    os.environ["HOROVOD_FUSED_UPDATE"] = "1"
+    hvd.init(device=device)
+    cfg = TT.TransformerConfig(**SP_CARD_LM, max_seq=MP_CARD_SEQ)
+    params = TT.init_params(np.random.RandomState(0), cfg)
+    params["layers"]["wqkv"] = TT.tp_equivalent_wqkv(
+        params["layers"]["wqkv"], 2)
+    model = TT.Transformer(cfg, params=params)
+    opt = hvd.DistributedOptimizer(hvd.fused_update.adam(model.parameters(),
+                                                         3e-4))
+    tok, tgt = synthetic_tokens(MP_CARD_BATCH, MP_CARD_SEQ, cfg.vocab, seed=1)
+    out = mp_card_lm(model, opt, tok, tgt, None, os.path.join(
+        os.environ["HVD_TEST_REF_DIR"], "ref_tp1.npz"))
+    hvd.shutdown()
+    print(json.dumps(out))
+
+
+def mp_cards_main(device: str):
+    """``MP_CARD_CASES`` on four cards, the world re-initialized under each
+    case's mesh; each rank's step-1 gradient saved under
+    ``HVD_TEST_REF_DIR`` (``<case index>_<rank>.npz``)."""
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.models import transformer as TT
+    from horovod_tpu_torch.parallel.mesh import sequence_groups
+    from horovod_tpu_torch.train_step import (lm_optimizer, shard_tokens,
+                                              synthetic_tokens)
+
+    os.environ["HOROVOD_FUSED_UPDATE"] = "1"
+    out = {}
+    for i, (name, spec, moe_every) in enumerate(MP_CARD_CASES):
+        os.environ.pop("HOROVOD_MESH", None)
+        hvd.init(device=device, mesh=spec)
+        r = hvd.rank()
+        cfg = TT.TransformerConfig(**SP_CARD_LM, max_seq=MP_CARD_SEQ,
+                                   moe_every=moe_every)
+        batch = synthetic_tokens(MP_CARD_BATCH, MP_CARD_SEQ, cfg.vocab,
+                                 seed=1)
+        if spec is None:
+            group, (d, s) = sequence_groups(2, 2)
+            dp, sp = 2, 2
+            model = TT.Transformer(cfg, seed=0)
+            opt = hvd.DistributedOptimizer(hvd.fused_update.adam(
+                model.parameters(), 3e-4))
+        else:
+            group = None
+            model = TT.Transformer(cfg, seed=0, mesh=hvd.data_mesh())
+            opt = lm_optimizer(model, hvd.fused_update.adam(
+                model.parameters(), 3e-4))
+            c = model.coord()
+            (d, dp), (s, sp) = c["dp"], c["sp"]
+        tok, tgt = (shard_tokens(t, dp, sp, d, s) for t in batch)
+        out[name] = mp_card_lm(model, opt, tok, tgt, group, os.path.join(
+            os.environ["HVD_TEST_REF_DIR"], f"{i}_{r}.npz"))
+        out[name]["coord"] = dict(model.coord(), dp=(d, dp), sp=(s, sp))
+        del model, opt
+        dist.barrier()
+        _reinit_shutdown()
+    out["rank"] = r
+    print(json.dumps(out))
+
+
+# ---------------------------------------------------------------------------
 # The data plane: named mesh axes (tests/test_torch_mesh.py), hierarchical
 # reductions and Adasum (tests/test_torch_data_plane.py)
 # ---------------------------------------------------------------------------
@@ -1109,8 +1402,164 @@ def mesh_main(device: str):
         out["nosplit"] = list(M.build_data_mesh({"dp": 4}).axis_names)
         del os.environ["HOROVOD_HIERARCHICAL_ALLREDUCE"]
         del os.environ["HOROVOD_HIERARCHICAL_LOCAL_SIZE"]
+    if spec:
+        _rotate_coordinator()
     hvd.shutdown()
+    if spec:
+        out["sequence_mesh"] = sequence_mesh_forms(device)
+        out["queue_c"] = queue_c_checks(device, r)
+        out["lm_without_mesh"] = lm_without_mesh_checks(device)
+        os.environ["HOROVOD_MESH"] = spec
     print(json.dumps({k: enc(v) for k, v in out.items()}))
+
+
+def _rotate_coordinator() -> None:
+    """Point ``HOROVOD_COORDINATOR_ADDR`` at a port rank 0 picks now, so
+    that the world's next ``init()`` does not meet the store of the one
+    about to shut down (call it before ``shutdown``)."""
+    import torch.distributed as dist
+    from horovod_tpu_torch.common.util import free_port
+
+    port = torch.tensor([free_port() if dist.get_rank() == 0 else 0],
+                        device=hvd.device())
+    dist.broadcast(port, src=0)
+    os.environ["HOROVOD_COORDINATOR_ADDR"] = f"127.0.0.1:{int(port)}"
+
+
+def _reinit_shutdown() -> None:
+    _rotate_coordinator()
+    hvd.shutdown()
+
+
+#: how a data mesh with a sequence axis is named (tests/test_torch_mesh.py)
+SEQ_MESH_FORMS = ("knob", "spec", "dict", "build")
+
+
+def sequence_mesh_forms(device: str) -> dict:
+    """``dp:2,sp:2`` named each way of :data:`SEQ_MESH_FORMS`: the mesh's
+    axes, this rank's dp and sp hops, the ``("dp", "sp")`` pair that
+    ``resolve_hops`` gives, the default axis and the model-parallel
+    extent."""
+    from horovod_tpu_torch.parallel import mesh as M
+
+    out = {}
+    for form in SEQ_MESH_FORMS:
+        os.environ["HOROVOD_MESH"] = "dp:2,sp:2" if form == "knob" else ""
+        arg = {"spec": "dp:2,sp:2", "dict": {"dp": 2, "sp": 2}}.get(form)
+        hvd.init(device=device, mesh=arg)
+        mesh = (M.build_data_mesh({"dp": 2, "sp": 2}) if form == "build"
+                else hvd.data_mesh())
+        pair = mesh.pair("dp", "sp")
+        place = mesh.place()
+        out[form] = {
+            "axes": [list(mesh.axis_names), list(mesh.shape)],
+            "dp": [list(mesh.hops["dp"].ranks), mesh.hops["dp"].index],
+            "sp": [list(mesh.hops["sp"].ranks), mesh.hops["sp"].index],
+            "pair": [list(pair.flat.ranks), pair.flat.index,
+                     list(pair.cross.ranks), list(pair.local.ranks)],
+            "place_data": list(place.data.flat.ranks),
+        }
+        if form != "build":
+            hops = M.resolve_hops(("dp", "sp"))
+            out[form]["resolved"] = [list(hops.flat.ranks), hops.flat.index]
+            out[form]["default"] = str(M.resolve_axis())
+            out[form]["mp"] = M.model_parallel_size()
+        _reinit_shutdown()
+    return out
+
+
+def _refused(fn):
+    """The message of the ``HorovodTpuError`` that ``fn()`` raises, or
+    ``None`` when it returns."""
+    try:
+        fn()
+    except hvd.HorovodTpuError as exc:
+        return str(exc)
+    return None
+
+
+def queue_c_checks(device: str, r: int) -> dict:
+    """ROADMAP Queue C's two repairs on this world of 4: under ``dp:2,
+    tp:2`` and ``dp:2,sp:2``, with weights seeded differently on every
+    rank, ``broadcast_parameters``, ``broadcast_optimizer_state`` and
+    ``broadcast_object`` raise and leave the weights alone; under
+    ``dp:4`` split (cross 2, local 2), ``alltoall`` over the default
+    axis (the pair) and over the named pair raises, and over one axis of
+    it runs."""
+    from horovod_tpu_torch.parallel import mesh as M
+
+    out = {}
+    for spec in ("dp:2,tp:2", "dp:2,sp:2"):
+        os.environ["HOROVOD_MESH"] = spec
+        hvd.init(device=device)
+        torch.manual_seed(1000 + r)
+        model = torch.nn.Linear(3, 2)
+        opt = TF.adam(model.parameters(), 0.1)
+        before = [p.detach().clone() for p in model.parameters()]
+        out[spec] = {
+            "params": _refused(
+                lambda: hvd.broadcast_parameters(model, root_rank=0)),
+            "state": _refused(
+                lambda: hvd.broadcast_optimizer_state(opt, root_rank=0)),
+            "object": _refused(
+                lambda: hvd.broadcast_object({"rank": r}, root_rank=0)),
+            "skipping": _refused(
+                lambda: hvd.broadcast_skipping_shards(opt, root_rank=0)),
+            "weights": model.weight.detach(),
+            "unchanged": all(torch.equal(a, b) for a, b in
+                             zip(before, model.parameters())),
+        }
+        _reinit_shutdown()
+    os.environ.update({"HOROVOD_MESH": "dp:4",
+                       "HOROVOD_HIERARCHICAL_ALLREDUCE": "1",
+                       "HOROVOD_HIERARCHICAL_LOCAL_SIZE": "2"})
+    hvd.init(device=device)
+    x = torch.arange(4.0) + 10 * r
+    out["alltoall"] = {
+        "default_axis": list(M.resolve_axis()),
+        "default": _refused(lambda: hvd.alltoall(x)),
+        "pair": _refused(lambda: hvd.alltoall(x, axis_name=("dpc", "dpl"))),
+        "hop_pair": _refused(lambda: hvd.alltoall(
+            x, axis_name=M.resolve_hops(("dpc", "dpl")))),
+        "local": hvd.alltoall(x[:2], axis_name="dpl"),
+    }
+    _reinit_shutdown()
+    del os.environ["HOROVOD_HIERARCHICAL_ALLREDUCE"]
+    del os.environ["HOROVOD_HIERARCHICAL_LOCAL_SIZE"]
+    return out
+
+
+def lm_without_mesh_checks(device: str) -> dict:
+    """Under ``HOROVOD_MESH=dp:2,sp:2``, one step of an LM without a mesh
+    on the data mesh's sequence group: ``lm_train_step`` refuses a
+    ``DistributedOptimizer`` over the default dp axis (the sp replicas
+    would drift apart) and a plain optimizer, and trains with one over
+    ``("dp", "sp")``, the world."""
+    from horovod_tpu_torch.models import transformer as TT
+    from horovod_tpu_torch.train_step import (lm_train_step, shard_tokens,
+                                              synthetic_tokens)
+
+    os.environ["HOROVOD_MESH"] = "dp:2,sp:2"
+    hvd.init(device=device)
+    mesh = hvd.data_mesh()
+    d, s = mesh.hops["dp"].index, mesh.hops["sp"].index
+    model = TT.Transformer(TT.TransformerConfig(**SP_LM, dtype="float32"),
+                           seed=0, device="cpu")
+    tok, tgt = (shard_tokens(t, 2, 2, d, s) for t in synthetic_tokens(
+        MP_BATCH, SP_LM["max_seq"], SP_LM["vocab"], device="cpu"))
+
+    def step(axis_name=None, wrap=True):
+        opt = TF.sgd(model.parameters(), MP_LR)
+        if wrap:
+            opt = hvd.DistributedOptimizer(opt, axis_name=axis_name)
+        return float(lm_train_step(model, opt, tok, tgt,
+                                   mesh.hops["sp"].group))
+
+    out = {"default": _refused(step),
+           "plain": _refused(lambda: step(wrap=False)),
+           "pair": step(("dp", "sp"))}
+    _reinit_shutdown()
+    return out
 
 
 def dp_inputs(rank: int) -> dict:
@@ -1430,5 +1879,6 @@ if __name__ == "__main__":
     {"collectives": main, "resnet": resnet_main, "overlap": overlap_main,
      "zero": zero_main, "zero_resnet": zero_resnet_main,
      "sp": sp_main, "sp_cards": sp_cards_main,
-     "sp_cards_ref": sp_cards_ref_main, "mesh": mesh_main,
+     "sp_cards_ref": sp_cards_ref_main, "mesh": mesh_main, "mp": mp_main,
+     "mp_cards": mp_cards_main, "mp_cards_ref": mp_cards_ref_main,
      "data_plane": data_plane_main, "dp_cards": dp_cards_main}[mode](dev)

@@ -2,8 +2,8 @@
 their plain versions (B1-B3 also in one launch over many leaves), and
 short training runs through them; on a machine with
 four cards, the collectives and the lossy wire over NCCL, ZeRO, sequence
-parallelism and the data plane (named mesh axes, the two-level
-reductions, Adasum).
+parallelism, the data plane (named mesh axes, the two-level
+reductions, Adasum) and the LM under tensor and expert parallelism.
 Marked ``cuda``; each skips (with its reason) where no CUDA device is
 present.  This file imports no JAX, so it runs on a GPU machine without
 it::
@@ -756,6 +756,136 @@ def test_four_cards_sequence_parallel_lm(tmp_path):
               f"largest (abs, row) errors against the one-call kernels "
               f"{outs[0]['attention'][layout]['errors']}; on "
               f"4 x {card.strip()}")
+
+
+def _npz_tree(path: str):
+    """A tree saved by ``_torch_collectives_worker._save_tree`` and its
+    coordinate (``{axis: (index, size)}`` or ``None``)."""
+    with np.load(path) as z:
+        tree, coord = {}, None
+        for k in z.files:
+            if k == "coord":
+                coord = {a: tuple(int(x) for x in v) for a, v in
+                         zip(("dp", "pp", "tp", "sp"), z[k])}
+                continue
+            d = tree
+            *head, leaf = k.split("/")
+            for h in head:
+                d = d.setdefault(h, {})
+            d[leaf] = z[k]
+    return tree, coord
+
+
+def _flat(tree) -> np.ndarray:
+    return np.concatenate([
+        _flat(tree[k]) if isinstance(tree[k], dict)
+        else np.asarray(tree[k], np.float64).reshape(-1)
+        for k in sorted(tree)])
+
+
+def test_four_cards_model_parallel_lm(tmp_path):
+    """The bench LM (vocab 32768, d_model 768, 12 x 64 heads, 12 layers,
+    d_ff 3072, seq 1024, global batch 16, bf16, fused Adam 3e-4), 3 steps
+    over NCCL on four cards, the world re-initialized per case:
+    (1) the LM without a mesh on ``sequence_groups(2, 2)`` with the
+    world average;
+    (2) ``HOROVOD_MESH=dp:2,sp:2``, the model on the data mesh and
+    ``lm_optimizer`` (the ``("dp", "sp")`` sum): losses and the step-1
+    gradient bit for bit equal to (1)'s, the weights bit for bit on every
+    rank; (3) ``HOROVOD_MESH=dp:2,tp:2``: against one card at tp = 1 whose
+    ``wqkv`` is ``tp_equivalent_wqkv`` of the same weights (losses within
+    rtol 1e-3, the step-1 gradient joined from every rank's shards within
+    0.1 relative L2), each tp column's weights bit for bit over dp; (4)
+    ``HOROVOD_MESH=dp:4`` with a Switch-MoE MLP every second layer (8
+    experts, 2 per card): losses finite and equal on every rank, the
+    replicated weights bit for bit.  Launches per step: 12 (s + 1) of
+    each of B8-B10 on sequence rank s, 12 under tp and ep; one B3 per
+    reduction group (two with MoE).  Prints the median step, tokens/s per
+    card and per-rank peak memory."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    import os
+    import statistics
+    import subprocess
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from _torch_collectives_worker import (MP_CARD_BATCH, MP_CARD_CASES,
+                                           MP_CARD_SEQ, SP_CARD_LM, spawn)
+
+    from horovod_tpu_torch.models import transformer as TT
+
+    env = {"HVD_TEST_REF_DIR": str(tmp_path)}
+    ref = spawn(1, "cuda", timeout=600, mode="mp_cards_ref",
+                env_extra=env)[0]
+    outs = spawn(4, "cuda", timeout=1200, mode="mp_cards", env_extra=env)
+    card = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    names = [c[0] for c in MP_CARD_CASES]
+    flash = ("flash_block_step", "flash_bwd_dq", "flash_bwd_dkv")
+    cfg = TT.TransformerConfig(**SP_CARD_LM, max_seq=MP_CARD_SEQ)
+
+    def grads(i):
+        """Case ``i``'s step-1 gradient (rank 0's where nothing is
+        sharded, else joined from every rank's shards)."""
+        parts = [_npz_tree(str(tmp_path / f"{i}_{r}.npz")) for r in range(4)]
+        if MP_CARD_CASES[i][1] != "dp:2,tp:2":
+            return _flat(parts[0][0])
+        full = TT.unshard_params([(c, t) for t, c in parts], cfg)
+        full["layers"]["wqkv"] = TT.tp_equivalent_wqkv(
+            full["layers"]["wqkv"], 2)
+        return _flat(full)
+
+    for i, (name, spec, moe) in enumerate(MP_CARD_CASES):
+        for o in outs:
+            r = o[name]
+            s = r["coord"]["sp"][0]
+            want = dict.fromkeys(flash, 12 * (s + 1)) | {
+                "adam": 2 if moe else 1}
+            assert r["launches"] == [want] * len(r["launches"]), \
+                (name, o["rank"], r["launches"])
+            assert all(math.isfinite(v) for v in r["losses"]), name
+            assert r["losses"] == outs[0][name]["losses"], name
+        for step in range(len(outs[0][name]["losses"])):
+            by_col = {}
+            for o in outs:
+                by_col.setdefault(o[name]["coord"]["tp"][0], set()).add(
+                    o[name]["digests"][step])
+            assert all(len(v) == 1 for v in by_col.values()), (name, step)
+    base, base_grad = outs[0][names[0]], grads(0)
+    # the ("dp", "sp") sum of the loss over the global token count is the
+    # world average of the local mean scaled by a power of two: the same
+    # bits
+    assert outs[0][names[1]]["losses"] == base["losses"]
+    np.testing.assert_array_equal(grads(1), base_grad)
+    rel = {names[1]: 0.0}
+    ref_grad = _flat(_npz_tree(str(tmp_path / "ref_tp1.npz"))[0])
+    np.testing.assert_allclose(outs[0][names[2]]["losses"], ref["losses"],
+                               rtol=1e-3)
+    g = grads(2)
+    rel[names[2]] = float(np.linalg.norm(g - ref_grad)
+                          / np.linalg.norm(ref_grad))
+    assert rel[names[2]] < 0.1, rel[names[2]]
+    against = {names[1]: "the sequence_groups run",
+               names[2]: "one card at tp = 1"}
+    for name in names:
+        med = [statistics.median(o[name]["times"][1:]) for o in outs]
+        print(f"[four cards] LM {name} (seq {MP_CARD_SEQ}, global batch "
+              f"{MP_CARD_BATCH}): losses {outs[0][name]['losses']}"
+              + (f"; step-1 gradient relative L2 {rel[name]:.3e} from "
+                 f"{against[name]}" if name in rel else "")
+              + f"; median step {min(med):.4f}-{max(med):.4f} s over ranks "
+              f"= {MP_CARD_BATCH * MP_CARD_SEQ / max(med) / 4:.1f} tokens/s "
+              f"per card; rank 0 steps {outs[0][name]['times']} s; peak "
+              f"{[o[name]['peak_bytes'] for o in outs]} B per rank; "
+              f"launches per step {outs[0][name]['launches'][0]}; on "
+              f"4 x {card.strip()}")
+    one = statistics.median(ref["times"][1:])
+    print(f"[four cards] one card at tp = 1 (tp-equivalent wqkv): losses "
+          f"{ref['losses']}; median step {one:.4f} s = "
+          f"{MP_CARD_BATCH * MP_CARD_SEQ / one:.1f} tokens/s; peak "
+          f"{ref['peak_bytes']} B; on {card.strip()}")
 
 
 def test_four_cards_data_plane():

@@ -18,9 +18,15 @@
      for bit; int8 within one shared scale per step);
    - the groups (dp {0, 2} and {1, 3}), the default axis, every entry
      reducing over dp only, and ``build_data_mesh``'s layouts (with the
-     hierarchical split) against the JAX package's.
+     hierarchical split) against the JAX package's;
+   - re-initialized under ``dp:2,sp:2`` (knob, spec, dict, built): the
+     sp groups and the ``("dp", "sp")`` pair; ROADMAP Queue C's repairs:
+     the broadcast helpers raising under ``dp:2,tp:2`` and ``dp:2,sp:2``
+     with weights seeded differently per rank, and ``alltoall`` raising
+     over the ``(dpc, dpl)`` pair of ``dp:4``.
 """
 
+import math
 import os
 import sys
 
@@ -48,7 +54,7 @@ from horovod_tpu_torch.parallel import mesh as M
 
 sys.path.insert(0, os.path.dirname(__file__))
 from _torch_collectives_worker import (MESH_GRID, MESH_LR,  # noqa: E402
-                                       MESH_STEPS, spawn)
+                                       MESH_STEPS, SEQ_MESH_FORMS, spawn)
 from test_torch_collectives import _f  # noqa: E402
 
 KNOBS = ("HOROVOD_MESH", "HOROVOD_HIERARCHICAL_ALLREDUCE",
@@ -248,29 +254,6 @@ def test_init_mesh_rejections(monkeypatch):
     assert not hvd.is_initialized()
 
 
-@pytest.mark.parametrize("form", ["knob", "spec", "dict", "build"])
-def test_data_mesh_refuses_sequence_axis(form, monkeypatch):
-    """A data mesh with sp > 1 raises, naming ROADMAP item 10, before any
-    process group: the optimizer would reduce the sequence-parallel LM's
-    gradients over dp alone (the reference's LM step reduces over
-    ("dp", "sp")) and the replicas would drift apart."""
-    # init(mesh=) exports the knob before it refuses: undo it at teardown
-    monkeypatch.setenv("HOROVOD_MESH", "")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        if form == "knob":
-            monkeypatch.setenv("HOROVOD_MESH", "dp:2,sp:2")
-            hvd.init(device="cpu")
-        elif form == "spec":
-            hvd.init(device="cpu", mesh="dp:2,sp:2")
-        elif form == "dict":
-            hvd.init(device="cpu", mesh={"dp": 1, "sp": 2})
-        else:
-            M.build_data_mesh({"dp": 2, "sp": 2})
-    assert not hvd.is_initialized() and not dist.is_initialized()
-    # sp = 1 stays a data mesh (the refusal reads the extent, not the name)
-    assert M.parse_mesh_spec("dp:1,sp:1")["sp"] == 1
-
-
 def test_init_flat_world_default():
     hvd.init(device="cpu")
     try:
@@ -279,8 +262,10 @@ def test_init_flat_world_default():
         assert M.resolve_hops().name == "hvd"
         with pytest.raises(HorovodTpuError, match="no process group"):
             M.resolve_hops("tp")
-        with pytest.raises(HorovodTpuError, match="item 10"):
-            M.resolve_hops(("dp", "tp"))
+        # the ("dp", "sp") pair is the data mesh's: the flat world has none
+        with pytest.raises(HorovodTpuError,
+                           match=r"\('dp', 'sp'\) has no process groups"):
+            M.resolve_hops(("dp", "sp"))
     finally:
         hvd.shutdown()
 
@@ -394,6 +379,99 @@ def test_entries_reduce_over_dp_only(worlds):
         assert o["rs"] == seg.tolist()
         a2a = np.concatenate([np.arange(2.0) + 2 * d + 10 * c for c in col])
         assert o["a2a"] == a2a.tolist()
+
+
+@pytest.mark.parametrize("form", SEQ_MESH_FORMS)
+def test_data_mesh_with_sequence_axis(worlds, form):
+    """``dp:2,sp:2`` named by the knob, a spec, a dict, or built from the
+    axes after a flat init: rank ``2d + s`` has the dp group ``{s, 2 +
+    s}``, the sp group ``{2d, 2d + 1}``, and the ``("dp", "sp")`` pair
+    (cross = dp, local = sp) over all four ranks, dp-major, which
+    ``resolve_hops(("dp", "sp"))`` returns and the LM's place reduces
+    over.  The default axis stays dp and sp counts as model-parallel (the
+    reference's ``model_parallel_size``)."""
+    _, mesh = worlds
+    for r, o in enumerate(mesh):
+        got = o["sequence_mesh"][form]
+        d, s_ = divmod(r, 2)
+        assert got["axes"] == [list(M.AXES), [2, 1, 1, 2]]
+        assert got["dp"] == [[s_, 2 + s_], d]
+        assert got["sp"] == [[2 * d, 2 * d + 1], s_]
+        assert got["pair"] == [[0, 1, 2, 3], r, [s_, 2 + s_],
+                               [2 * d, 2 * d + 1]]
+        assert got["place_data"] == [0, 1, 2, 3]
+        if form != "build":
+            assert got["resolved"] == [[0, 1, 2, 3], r]
+            assert got["default"] == "dp"
+            assert got["mp"] == JM.model_parallel_size(
+                {"dp": 2, "pp": 1, "tp": 1, "sp": 2}) == 2
+
+
+def test_lm_without_mesh_refuses_a_partial_average(worlds):
+    """Under ``HOROVOD_MESH=dp:2,sp:2`` an LM without a mesh is whole on
+    every rank: ``lm_train_step`` refuses an optimizer that averages over
+    the default dp axis (2 of the 4 ranks: each sp rank would apply its
+    own chunk's gradient and the replicas drift apart with no error) or
+    not at all, naming the data-mesh recipe; over ``("dp", "sp")`` it
+    trains, the global loss equal on every rank."""
+    _, mesh = worlds
+    for o in mesh:
+        got = o["lm_without_mesh"]
+        assert "reduces over 2 (axis 'dp')" in got["default"], got
+        assert "reduces over 1 (axis None)" in got["plain"], got
+        for msg in (got["default"], got["plain"]):
+            assert "Transformer(..., mesh=hvd.data_mesh())" in msg
+            assert "lm_optimizer" in msg
+        assert math.isfinite(got["pair"])
+        assert got["pair"] == mesh[0]["lm_without_mesh"]["pair"]
+
+
+def _eager_refusal() -> str:
+    """The head of the reference's message (``horovod_tpu/ops/eager.py:
+    126-133``)."""
+    return ("eager collectives reduce over the whole world and cannot "
+            "honor a data mesh with model-parallel axes")
+
+
+@pytest.mark.parametrize("spec", ["dp:2,tp:2", "dp:2,sp:2"])
+def test_broadcast_helpers_refuse_a_model_parallel_mesh(worlds, spec):
+    """ROADMAP Queue C, repaired: under a data mesh with tp or sp > 1 the
+    broadcast helpers raise the reference's error on every rank (its
+    helpers run on the eager plane, which refuses such a mesh), and the
+    weights, seeded differently on every rank, stay each rank's own.
+    Before the repair ranks 1 and 3 of ``dp:2,tp:2`` took rank 1's
+    weights and nothing raised."""
+    _, mesh = worlds
+    weights = []
+    for o in mesh:
+        got = o["queue_c"][spec]
+        for what in ("params", "state", "object", "skipping"):
+            assert got[what] is not None, f"{what} returned under {spec}"
+            assert got[what].startswith(_eager_refusal()), got[what]
+            assert repr(spec) in got[what]
+        assert got["unchanged"]
+        weights.append(np.asarray(got["weights"]))
+    for r in range(1, len(weights)):
+        assert not np.array_equal(weights[r], weights[0])
+
+
+def test_alltoall_refuses_an_axis_pair(worlds):
+    """ROADMAP Queue C, repaired: under ``dp:4`` split into (cross 2,
+    local 2) the default axis is the ``("dpc", "dpl")`` pair, and
+    ``alltoall`` over it, named or as a ``HopPair``, raises the
+    reference's message (``horovod_tpu/ops/collectives.py:857-860``);
+    over one axis of the pair it runs."""
+    _, mesh = worlds
+    msg = ("alltoall over a hierarchical (cross, local) axis pair is "
+           "not supported; pass a single mesh axis name")
+    for r, o in enumerate(mesh):
+        got = o["queue_c"]["alltoall"]
+        assert got["default_axis"] == list(M.HIER_DATA_AXES)
+        for what in ("default", "pair", "hop_pair"):
+            assert got[what] == msg, what
+        c, _ = divmod(r, 2)
+        assert got["local"] == [10.0 * (2 * c) + r % 2,
+                                10.0 * (2 * c + 1) + r % 2]
 
 
 def test_build_data_mesh_layouts(worlds):

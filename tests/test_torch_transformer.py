@@ -202,16 +202,62 @@ def test_synthetic_tokens_are_the_bench_batch():
     np.testing.assert_array_equal(tgt.numpy(), rng.randint(0, 100, (4, 16)))
 
 
-@pytest.mark.parametrize("what", ["moe", "pp", "tp"])
+@pytest.mark.parametrize("what", ["pp"])
 def test_unported_parallelism_raises(what):
+    """Pipeline parallelism is the one axis not ported (ROADMAP item
+    10d): pp > 1 raises, given as a size or by the rank's place."""
     _, tcfg = _cfgs("float32")
-    if what == "moe":
-        tcfg = dataclasses.replace(tcfg, moe_every=2)
-        with pytest.raises(NotImplementedError, match="MoE"):
-            TT.init_params(np.random.RandomState(0), tcfg)
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        TT.Transformer(tcfg, device="cpu", **(
-            {what: 2} if what != "moe" else {}))
+    with pytest.raises(NotImplementedError, match="Queue A item 10d"):
+        TT.Transformer(tcfg, device="cpu", **{what: 2})
+
+
+@pytest.mark.parametrize("ep", [1, 2])
+def test_moe_init_params_bit_identical(ep):
+    """With ``moe_every`` the MoE tree (``ep * experts_per_rank``
+    experts) is drawn after the layers, as the JAX package draws it."""
+    jcfg, tcfg = (dataclasses.replace(c, moe_every=2)
+                  for c in _cfgs("float32"))
+    ref = JT.init_params(np.random.RandomState(3), jcfg, ep=ep)
+    ours = TT.init_params(np.random.RandomState(3), tcfg, ep=ep)
+    jax.tree_util.tree_map(
+        lambda a, b: np.testing.assert_array_equal(a, np.asarray(b)),
+        ours, ref)
+    assert ours["moe"]["w_in"].shape == (1, 2 * ep, 32, 64)
+
+
+def test_moe_loss_and_gradients_match_jax():
+    """One forward and backward of the MoE model at world 1 (both
+    experts here, the dense MLP of the MoE layer unused) against
+    ``jax.value_and_grad(loss_fn)``: the loss (with ``0.01 * aux``) and
+    every gradient, the unused ``w1``/``w2`` of layer 1 zero on both
+    sides."""
+    jcfg, tcfg = (dataclasses.replace(c, moe_every=2)
+                  for c in _cfgs("float32"))
+    params = TT.init_params(np.random.RandomState(0), tcfg)
+    tok, tgt, jtok, jtgt = _tokens()
+    mesh = make_mesh(dp=1, pp=1, tp=1, sp=1, devices=jax.devices()[:1])
+    spec = JT.param_specs(jcfg)
+    fn = jax.jit(shard_map(
+        lambda p, a, b: jax.value_and_grad(JT.loss_fn)(p, a, b, jcfg),
+        mesh=mesh, check_vma=False, in_specs=(spec, P("dp", "sp"),
+                                              P("dp", "sp")),
+        out_specs=(P(), spec)))
+    jloss, jgrads = fn(jax.tree_util.tree_map(jnp.asarray, params), jtok,
+                       jtgt)
+    model = TT.Transformer(tcfg, params=params, device="cpu")
+    logits, aux = model(tok, with_aux=True)
+    loss = TT.loss_fn(logits, tgt, aux)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
+    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+             for n, p in model.named_parameters()}
+    assert grads["layers.1.w1"].abs().max() == 0
+    for name, g in grads.items():
+        parts = name.split(".")
+        path = (parts[0], parts[2]) if len(parts) == 3 else (name,)
+        ref = np.asarray(jgrads[path[0]][path[1]][int(parts[1])]
+                         if len(path) == 2 else jgrads[name])
+        _scaled_close(g.numpy(), ref, 1e-4, name)
 
 
 @pytest.mark.parametrize("impl", ["xla", "blockwise"])
