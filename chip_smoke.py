@@ -168,7 +168,28 @@ Phases (any failure exits non-zero and prints no result line):
    reduction group) per rank per step; (c) the CPU tests' small LM
    (float32, SGD 0.5) at tp 2, then with MoE at ep 2, 3 steps on the
    card (kernels) and on the CPU (plain versions): losses within rtol
-   1e-4, weights within 1e-4 of each tensor's largest magnitude.
+   1e-4, weights within 1e-4 of each tensor's largest magnitude;
+18. pipeline parallelism in the LM over emulated worlds on the card
+   (phase 17's ``EmulatedWorld``, whose hops also emulate
+   ``Hop.permute``; each rank's own peak memory kept): (a) the bench LM
+   (batch 16, fused Adam, 3 steps) at pp 2 under GPipe with 2
+   microbatches against one card at pp = 1: the step-1 loss within rtol
+   1e-3, the step-1 layer gradient joined from both stages within 0.1
+   relative L2 of twice pp = 1's (the reference's factor: its
+   broadcast's backward sums the cotangents over pp); exactly 12 of each
+   of B8-B10 and one B3 per rank per step; the payload bytes per rank
+   per step over pp equal to the reckoning (2 microbatches of
+   activations or gradients, and the (16, 1024, 768) bf16 result all-
+   reduced each way); each rank's peak memory; (b) the interleaved
+   schedule at ``pp_virtual=2`` (5 schedule steps): losses within rtol
+   2e-2 of (a)'s, the step-1 gradient within 0.1 relative L2 of (a)'s in
+   the permuted storage order, launches as (a)'s; (c) ``pp_remat`` on
+   (a): the gradient within 0.1 relative L2 of (a)'s, 24 B8 and 12 of
+   B9 and B10 per rank per step, the peaks beside (a)'s; (d) the CPU
+   tests' small LM (float32, SGD 0.5) at pp 2 under GPipe and the
+   interleaved schedule, 3 steps on the card (kernels) and on the CPU
+   (plain versions): every rank's losses within rtol 1e-4 and weights
+   within 1e-4 of each tensor's largest magnitude.
 
 Then the run's wall time, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
@@ -2716,13 +2737,22 @@ class EmulatedWorld:
     rank it keeps the kernel launches (``counters``: the wrappers'
     ``LAUNCHES`` dicts), the time of the work before each transfer
     (``ms``, keyed by the hop and transfer it ends at; the device is
-    synchronized there) and the payload bytes sent per hop (``wire``)."""
+    synchronized there), the transfers it joined (``calls``, keyed
+    likewise) and the payload bytes sent per hop (``wire``).  With
+    ``memory`` it keeps each rank's own peak device memory (``peak``):
+    one rank runs at a time, so what is allocated between two of its
+    transfers is its own (the transfer's result is counted to nobody,
+    at most one payload per rank)."""
 
-    def __init__(self, torch, n: int, counters=(), sync: bool = True):
+    def __init__(self, torch, n: int, counters=(), sync: bool = True,
+                 memory: bool = False):
         import collections
         import threading
 
         self.torch, self.n, self.counters, self.sync = torch, n, counters, sync
+        self.memory = memory
+        self.held, self.peak, self._mem0 = [0] * n, [0] * n, [0] * n
+        self.calls = [collections.Counter() for _ in range(n)]
         self.cond = threading.Condition()
         self.turn = 0
         self.state = ["run"] * n
@@ -2739,11 +2769,18 @@ class EmulatedWorld:
 
     def _start(self, r: int) -> None:
         self._t0[r], self._snap[r] = time.perf_counter(), self._counts()
+        if self.memory:
+            self._mem0[r] = self.torch.cuda.memory_allocated()
+            self.torch.cuda.reset_peak_memory_stats()
 
     def _stop(self, r: int, label: str) -> None:
         if self.sync:
             self.torch.cuda.synchronize()
         self.ms[r][label] += (time.perf_counter() - self._t0[r]) * 1e3
+        if self.memory:
+            top = self.torch.cuda.max_memory_allocated() - self._mem0[r]
+            self.peak[r] = max(self.peak[r], self.held[r] + top)
+            self.held[r] += self.torch.cuda.memory_allocated() - self._mem0[r]
         for k, v in self._counts().items():
             if v != self._snap[r][k]:
                 self.launches[r][k] += v - self._snap[r][k]
@@ -2774,6 +2811,7 @@ class EmulatedWorld:
         r = hop.rank
         with self.cond:
             self._stop(r, f"{hop.name}.{label}")
+            self.calls[r][f"{hop.name}.{label}"] += 1
             self.wire[r][hop.name] += nbytes
             n = self.seq.get((r, hop.key), 0)
             self.seq[(r, hop.key)] = n + 1
@@ -2916,6 +2954,25 @@ def _emu_hop_class():
             return self._go("exchange", t, lambda xs: [
                 xs[xs[i][1]][0].clone() for i in range(len(xs))],
                 payload=(t, peer))
+
+        def permute(self, t, pairs, like=None):
+            # every member calls it with the same pairs: one transfer of
+            # the group, the bytes counted to the pairs' sources only
+            pairs = [(int(a), int(b)) for a, b in pairs]
+            if not pairs:
+                return None
+            sent = t if any(a == self.index for a, _ in pairs) else None
+
+            def combine(xs):
+                outs = [None] * len(xs)
+                for a, b in pairs:
+                    outs[b] = xs[a].clone()
+                return outs
+
+            return self.world.transfer(
+                self, "permute", sent,
+                0 if sent is None else sent.numel() * sent.element_size(),
+                combine)
 
     return EmuHop
 
@@ -3250,14 +3307,14 @@ TP_LOSS_RTOL, LM_GRAD_REL = 1e-3, 0.1
 MOE_TOL = dict(rtol=1e-4, atol=1e-5)    # tests/test_pipeline_moe.py:283
 
 
-def emulated_place(world, r: int, dp: int, tp: int):
-    """Rank ``r``'s place in an emulated ``make_mesh(dp, 1, tp, 1)`` of
+def emulated_place(world, r: int, dp: int, tp: int, pp: int = 1):
+    """Rank ``r``'s place in an emulated ``make_mesh(dp, pp, tp, 1)`` of
     ``world``: ``place_ranks``'s layout over the world's hops."""
     from horovod_tpu_torch.parallel.mesh import (AXES, HopPair, Place,
                                                  place_ranks)
 
     h = {name: world.hop(r, ranks, name)
-         for name, ranks in place_ranks(r, dp=dp, tp=tp).items()}
+         for name, ranks in place_ranks(r, dp=dp, pp=pp, tp=tp).items()}
     return Place(*(h[a] for a in AXES), HopPair(h["dp"], h["sp"],
                                                 h["dp*sp"]))
 
@@ -3268,9 +3325,10 @@ def _adam_launches(TF, groups) -> int:
 
 
 def _mp_world(torch, device: str, n: int, dp: int, tp: int, cfg, params,
-              tokens, make_opt, steps: int, counters, collect=None):
+              tokens, make_opt, steps: int, counters, collect=None,
+              pp: int = 1, memory: bool = False):
     """``steps`` of ``lm_train_step`` with ``lm_optimizer`` on every rank
-    of an emulated ``(dp, tp)`` world on ``device`` (the port's own
+    of an emulated ``(dp, pp, tp)`` world on ``device`` (the port's own
     functions; the backward runs on each rank's thread).  Returns the
     world, and per rank its losses, coordinate, trained local tree and
     ``collect(model)`` after the first step."""
@@ -3279,11 +3337,12 @@ def _mp_world(torch, device: str, n: int, dp: int, tp: int, cfg, params,
     from horovod_tpu_torch.train_step import (lm_optimizer, lm_train_step,
                                               shard_tokens)
 
-    world = EmulatedWorld(torch, n, counters, sync=device == "cuda")
+    world = EmulatedWorld(torch, n, counters, sync=device == "cuda",
+                          memory=memory)
 
     def rank(r):
         with torch.autograd.set_multithreading_enabled(False):
-            place = emulated_place(world, r, dp, tp)
+            place = emulated_place(world, r, dp, tp, pp)
             model = Transformer(cfg, params=params, device=device,
                                 mesh=place)
             opt = lm_optimizer(model, make_opt(model.parameters()))
@@ -3623,6 +3682,285 @@ def model_parallel(hvd, torch, gpu: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Pipeline parallelism (phase 18): emulated pp ranks on one card
+# ---------------------------------------------------------------------------
+
+PP_N, PP_BATCH, PP_STEPS = 2, 16, 3   # 18a-c: pp 2, the bench batch
+PP_MICRO = 2                          # pp_microbatches
+PP_VIRTUAL = 2                        # 18b: chunks per rank
+# 18a: the step-1 loss against pp = 1; the layer gradient against pp
+# times pp = 1's (the reference's factor: its psum's backward sums the
+# cotangents over pp) at phase 15's bf16 LM limit; 18b: the losses
+# against 18a's (tests/test_transformer.py:115)
+PP_LOSS_RTOL, PP_SCHEDULE_RTOL = 1e-3, 2e-2
+
+
+def _pp_reference(hvd, torch, cfg, params, tokens) -> tuple:
+    """One card at pp = 1: the step-1 loss and gradient (the full tree,
+    numpy) of the bench LM with fused Adam."""
+    from horovod_tpu_torch import interop
+    from horovod_tpu_torch.models.transformer import Transformer
+    from horovod_tpu_torch.train_step import lm_train_step
+
+    model = Transformer(cfg, params=params)
+    opt = hvd.DistributedOptimizer(hvd.fused_update.adam(
+        model.parameters(), 3e-4))
+    tok, tgt = (t.cuda() for t in tokens)
+    loss = float(lm_train_step(model, opt, tok, tgt))
+    grads = interop.transformer_to_jax(model, grads=True)
+    del model, opt
+    torch.cuda.empty_cache()
+    return loss, grads
+
+
+def _pp_run(hvd, torch, cfg, params, tokens, counters, tag: str) -> dict:
+    """``PP_STEPS`` steps of the bench LM at an emulated pp = ``PP_N``
+    with fused Adam: the world, each rank's results (the step-1 gradient
+    collected), the launches each rank counted per step, each rank's
+    peak memory and payload bytes per step over the pp hop."""
+    from horovod_tpu_torch import interop
+    from horovod_tpu_torch.ops import flash_attention as FA
+    from horovod_tpu_torch.optim import fused_update as TF
+
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FA.reset_launch_counts()
+    TF.reset_launch_counts()
+    t0 = time.perf_counter()
+    world, outs = _mp_world(
+        torch, "cuda", PP_N, 1, 1, cfg, params, tokens,
+        lambda ps: hvd.fused_update.adam(ps, 3e-4), PP_STEPS, counters,
+        collect=lambda m: interop.transformer_to_jax(m, grads=True),
+        pp=PP_N, memory=True)
+    torch.cuda.synchronize()
+    res = {"world": world, "outs": outs, "seconds": time.perf_counter() - t0,
+           "launches": [{k: world.launches[r][k] // PP_STEPS
+                         for k in (*FLASH, "adam")} for r in range(PP_N)],
+           "peak": list(world.peak),
+           "wire": [world.wire[r]["pp"] / PP_STEPS for r in range(PP_N)],
+           "calls": [{k: v // PP_STEPS for k, v in world.calls[r].items()}
+                     for r in range(PP_N)]}
+    for r, o in enumerate(outs):
+        if not all(math.isfinite(x) for x in o["losses"]):
+            raise AssertionError(f"{tag} rank {r}: losses {o['losses']}")
+    return res
+
+
+def _pp_grads(cfg, outs) -> dict:
+    """The step-1 gradient joined from every stage (the full tree in
+    storage order; the replicated leaves the last stage's)."""
+    from horovod_tpu_torch.interop import transformer_to_jax_full
+
+    return transformer_to_jax_full(
+        [(o["coord"], o["collected"]) for o in outs], cfg)
+
+
+def _rel(a: dict, b: dict) -> float:
+    """The relative L2 distance of tree ``a`` from tree ``b``."""
+    import numpy as np
+
+    x, y = (_flat_tree(np, t).astype(np.float64) for t in (a, b))
+    return float(np.linalg.norm(x - y) / np.linalg.norm(y))
+
+
+def _hold_pp_launches(res: dict, want: dict, tag: str) -> None:
+    for r, got in enumerate(res["launches"]):
+        if got != want:
+            raise AssertionError(f"{tag} rank {r}: launches per step {got},"
+                                 f" expected {want}")
+
+
+def pipeline_parallel(hvd, torch, gpu: str) -> dict:
+    """Phase 18 (a-d): the bench LM at an emulated pp = 2 (GPipe, the
+    interleaved schedule, ``pp_remat``) against one card at pp = 1 and
+    against each other, and the small LM on the card against the CPU."""
+    import dataclasses
+
+    import numpy as np
+
+    from horovod_tpu_torch.models.transformer import (TransformerConfig,
+                                                      init_params,
+                                                      storage_order)
+    from horovod_tpu_torch.ops import flash_attention as FA
+    from horovod_tpu_torch.optim import fused_update as TF
+    from horovod_tpu_torch.parallel.pipeline import interleaved_schedule
+    from horovod_tpu_torch.train_step import synthetic_tokens
+
+    t0 = time.perf_counter()
+    counters = (FA.LAUNCHES, TF.LAUNCHES)
+    cfg = TransformerConfig(**LM, max_seq=LM_SEQ, pp_microbatches=PP_MICRO)
+    params = init_params(np.random.RandomState(0), cfg)
+    tokens = synthetic_tokens(PP_BATCH, LM_SEQ, cfg.vocab, seed=1,
+                              device="cpu")
+    ref_loss, ref_grads = _pp_reference(hvd, torch, cfg, params, tokens)
+    twice = {k: PP_N * v for k, v in ref_grads["layers"].items()}
+    per_stage = cfg.n_layers // PP_N
+    adam = _adam_launches(TF, [3 + 6 * per_stage])
+    want = dict.fromkeys(FLASH, per_stage * PP_MICRO) | {"adam": adam}
+    mb_bytes = (PP_BATCH // PP_MICRO) * LM_SEQ * cfg.d_model * 2   # bf16
+    out_bytes = PP_BATCH * LM_SEQ * cfg.d_model * 2
+    # stage 0 sends each microbatch's activations, stage 1 each one's
+    # gradient back; the broadcast all-reduces the (B, L, d) result
+    # forward and its cotangent backward
+    want_wire = PP_MICRO * mb_bytes + 2 * out_bytes
+
+    # (a) GPipe
+    a = _pp_run(hvd, torch, cfg, params, tokens, counters, "18a")
+    _hold_pp_launches(a, want, "18a gpipe")
+    for r, o in enumerate(a["outs"]):
+        if not math.isclose(o["losses"][0], ref_loss, rel_tol=PP_LOSS_RTOL):
+            raise AssertionError(f"18a rank {r}: step-1 loss "
+                                 f"{o['losses'][0]} vs pp = 1 {ref_loss}")
+    if a["wire"] != [want_wire] * PP_N:
+        raise AssertionError(f"18a: bytes per step over pp {a['wire']}, "
+                             f"expected {want_wire}")
+    a_grads = _pp_grads(cfg, a["outs"])
+    rel_a = _rel(a_grads["layers"], twice)
+    rel_a1 = _rel(a_grads["layers"], ref_grads["layers"])
+    if not rel_a <= LM_GRAD_REL:
+        raise AssertionError(f"18a: step-1 layer gradient {rel_a} relative "
+                             f"L2 from {PP_N} x pp = 1's")
+    log(f"[pp] 18a GPipe, bench LM at emulated pp {PP_N} ({per_stage} "
+        f"layers per stage, {PP_MICRO} microbatches of "
+        f"{PP_BATCH // PP_MICRO} rows), seq {LM_SEQ}, bf16, fused Adam, "
+        f"{PP_STEPS} steps: losses per rank "
+        f"{[o['losses'] for o in a['outs']]}; pp = 1 step-1 loss "
+        f"{ref_loss} (rtol {PP_LOSS_RTOL}); step-1 layer gradient joined "
+        f"from both stages {rel_a:.3e} relative L2 from {PP_N} x pp = 1's "
+        f"(limit {LM_GRAD_REL}; {rel_a1:.3e} from 1 x); launches per rank "
+        f"per step {a['launches']}; transfers per rank per step "
+        f"{a['calls']}; payload bytes per rank per step over pp "
+        f"{a['wire']} (reckoned {PP_MICRO} x {mb_bytes} + 2 x {out_bytes});"
+        f" peak memory per rank {a['peak']} B "
+        f"({[round(p / 2**30, 2) for p in a['peak']]} GiB); "
+        f"{a['seconds']:.1f} s; on {gpu}")
+
+    # (b) the interleaved schedule, storage in the permuted order
+    cfg_b = dataclasses.replace(cfg, pp_schedule="interleaved",
+                                pp_virtual=PP_VIRTUAL)
+    steps = interleaved_schedule(PP_N, PP_VIRTUAL, PP_MICRO)[0]
+    if steps != PP_MICRO * PP_VIRTUAL + PP_N - 1:
+        raise AssertionError(f"18b: the schedule takes {steps} steps")
+    b = _pp_run(hvd, torch, cfg_b, params, tokens, counters, "18b")
+    _hold_pp_launches(b, want, "18b interleaved")
+    for r, (ob, oa) in enumerate(zip(b["outs"], a["outs"])):
+        for x, y in zip(ob["losses"], oa["losses"]):
+            if not math.isclose(x, y, rel_tol=PP_SCHEDULE_RTOL):
+                raise AssertionError(f"18b rank {r}: losses {ob['losses']}"
+                                     f" vs gpipe {oa['losses']}")
+    rel_b = _rel(_pp_grads(cfg_b, b["outs"]),
+                 storage_order(a_grads, cfg_b, PP_N))
+    if not rel_b <= LM_GRAD_REL:
+        raise AssertionError(f"18b: step-1 gradient {rel_b} relative L2 "
+                             "from GPipe's (storage order)")
+    log(f"[pp] 18b interleaved, pp_virtual {PP_VIRTUAL} "
+        f"({cfg.n_layers // (PP_N * PP_VIRTUAL)} layers per chunk, "
+        f"{steps} schedule steps = M*V + P - 1): losses per rank "
+        f"{[o['losses'] for o in b['outs']]} (rtol {PP_SCHEDULE_RTOL} of "
+        f"18a's); step-1 gradient {rel_b:.3e} relative L2 from 18a's in "
+        f"the permuted storage order; launches per rank per step "
+        f"{b['launches']}; transfers per rank per step {b['calls']}; "
+        f"payload bytes per rank per step over pp {b['wire']}; peak memory "
+        f"per rank {b['peak']} B; {b['seconds']:.1f} s; on {gpu}")
+
+    # (c) pp_remat on (a)
+    cfg_c = dataclasses.replace(cfg, pp_remat=True)
+    c = _pp_run(hvd, torch, cfg_c, params, tokens, counters, "18c")
+    _hold_pp_launches(c, dict(want, flash_block_step=2 * per_stage
+                              * PP_MICRO), "18c remat")
+    rel_c = _rel(_pp_grads(cfg, c["outs"]), a_grads)
+    if not rel_c <= LM_GRAD_REL:
+        raise AssertionError(f"18c: step-1 gradient {rel_c} relative L2 "
+                             "from 18a's")
+    log(f"[pp] 18c pp_remat: losses per rank "
+        f"{[o['losses'] for o in c['outs']]}; step-1 gradient "
+        f"{rel_c:.3e} relative L2 from 18a's; launches per rank per step "
+        f"{c['launches']}; peak memory per rank {c['peak']} B "
+        f"({[round(p / 2**30, 2) for p in c['peak']]} GiB) against 18a's "
+        f"{a['peak']} B; {c['seconds']:.1f} s; on {gpu}")
+    res = {"a": a, "b": b, "c": c}
+    for k in res:
+        res[k] = {"launches": res[k]["launches"][0], "peak": res[k]["peak"],
+                  "wire": res[k]["wire"], "losses": [
+                      o["losses"] for o in res[k]["outs"]]}
+    res.update(ref_loss=ref_loss, grad_rel={"a": rel_a, "b": rel_b,
+                                            "c": rel_c})
+    torch.cuda.empty_cache()
+    res["d"] = small_pp_reference(hvd, torch, gpu)
+    log(f"[pp] phase 18 took {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def small_pp_reference(hvd, torch, gpu: str) -> dict:
+    """Phase 18d: the CPU tests' small LM (float32, SGD lr 0.5) at an
+    emulated pp 2 under GPipe and the interleaved schedule (2 chunks of
+    one layer per rank), 3 steps on the card (kernels) and on the CPU
+    (plain versions) from the same weights and batch: every rank's
+    losses within rtol 1e-4 and weights within 1e-4 of each tensor's
+    largest magnitude (TF32 off)."""
+    import numpy as np
+
+    from horovod_tpu_torch.models.transformer import (TransformerConfig,
+                                                      init_params)
+    from horovod_tpu_torch.ops import flash_attention as FA
+    from horovod_tpu_torch.optim import fused_update as TF
+    from horovod_tpu_torch.train_step import synthetic_tokens
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {}
+    try:
+        for name, fields in (("gpipe", {}),
+                             ("interleaved", dict(pp_schedule="interleaved",
+                                                  pp_virtual=2))):
+            cfg = TransformerConfig(**MP_SMALL, dtype="float32", **fields)
+            params = init_params(np.random.RandomState(0), cfg)
+            tokens = synthetic_tokens(MP_SMALL_BATCH, MP_SMALL["max_seq"],
+                                      cfg.vocab, seed=1, device="cpu")
+            runs = {}
+            for dev in ("cuda", "cpu"):
+                FA.reset_launch_counts()
+                TF.reset_launch_counts()
+                world, outs = _mp_world(
+                    torch, dev, PP_N, 1, 1, cfg, params, tokens,
+                    lambda ps: hvd.fused_update.sgd(ps, MP_SMALL_LR),
+                    MP_STEPS, (FA.LAUNCHES, TF.LAUNCHES), pp=PP_N)
+                runs[dev] = (outs, [dict(w) for w in world.launches])
+            worst = 0.0
+            for r, (g, c) in enumerate(zip(runs["cuda"][0], runs["cpu"][0])):
+                for x, y in zip(g["losses"], c["losses"]):
+                    if not math.isclose(x, y, rel_tol=1e-4):
+                        raise AssertionError(
+                            f"small pp {name} rank {r}: card losses "
+                            f"{g['losses']} vs CPU {c['losses']}")
+                x, y = _flat_tree(np, g["tree"]), _flat_tree(np, c["tree"])
+                worst = max(worst, float(np.abs(x - y).max())
+                            / float(np.abs(y).max()))
+                _trees_within(g["tree"], c["tree"], 1e-4,
+                              f"small pp {name} rank {r}")
+            per = cfg.n_layers // PP_N * cfg.pp_microbatches
+            want = {k: per * MP_STEPS for k in FLASH}
+            want["sgd"] = MP_STEPS
+            for r, counts in enumerate(runs["cuda"][1]):
+                got = {k: counts.get(k, 0) for k in want}
+                if got != want:
+                    raise AssertionError(f"small pp {name} rank {r}: card "
+                                         f"launches {got}, expected {want}")
+            log(f"[pp] 18d small LM pp {PP_N} {name} (float32, SGD "
+                f"{MP_SMALL_LR}, {MP_STEPS} steps): card and CPU agree on "
+                f"every rank (rank 0 losses {runs['cuda'][0][0]['losses']} "
+                f"vs {runs['cpu'][0][0]['losses']}; worst weight error "
+                f"{worst:.2e} of the largest magnitude; rtol 1e-4 loss, "
+                f"1e-4 weights); card launches per rank {want}; on {gpu}")
+            res[name] = {"launches": {k: runs["cuda"][1][0].get(k, 0)
+                                      for k in want}, "worst": worst}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    return res
+
+
 def run(args) -> int:
     t_start = time.perf_counter()
     card = pin_one_card()
@@ -3725,6 +4063,8 @@ def run(args) -> int:
     data_plane["degenerate"] = data_plane_degenerate(hvd, torch, gpu)
     torch.cuda.empty_cache()
     mp = model_parallel(hvd, torch, gpu)
+    torch.cuda.empty_cache()
+    pp = pipeline_parallel(hvd, torch, gpu)
     hvd.shutdown()
 
     launches = {**path["launches"], **lm["launches"],
@@ -3765,7 +4105,10 @@ def run(args) -> int:
                 "zero_tail_launches": zero_tail["adam"],
                 # phase 17, per emulated rank over MP_STEPS steps
                 "launches_tp": mp["tp"]["launches"]["adam"],
-                "launches_ep": mp["ep"]["launches"]["adam"]}
+                "launches_ep": mp["ep"]["launches"]["adam"],
+                # phase 18, per emulated rank per step (a, b, c)
+                "launches_pp": {k: pp[k]["launches"]["adam"]
+                                for k in "abc"}}
                if kind == "adam" else {}),
             **({"ms_vgg16": vgg_times["ms"],
                 "plain_ms_vgg16": vgg_times["plain_ms"],
@@ -3818,6 +4161,9 @@ def run(args) -> int:
             # phase 17, per emulated rank over MP_STEPS steps
             "launches_tp": mp["tp"]["launches"][name],
             "launches_ep": mp["ep"]["launches"][name],
+            # phase 18, per emulated rank per step: GPipe, interleaved,
+            # pp_remat
+            "launches_pp": {k: pp[k]["launches"][name] for k in "abc"},
             "cores": "bf16 on the tensor cores (wgmma), f32 on the CUDA "
                      "cores",
             **({"ms_with_dkv": t["ms_with_dkv"],

@@ -196,38 +196,45 @@ def _lm_tree(tensors: dict) -> dict:
 
 
 def _local(tree: dict, model) -> dict:
-    """This rank's shards of a full JAX-layout tree (the tree itself for
-    a model without a mesh)."""
+    """This rank's shards of a full JAX-layout tree in storage order (the
+    tree itself for a model without a mesh)."""
     if model.place is None:
         return tree
-    from horovod_tpu_torch.models.transformer import shard_params
+    from horovod_tpu_torch.models.transformer import cut_params
 
-    return shard_params(tree, model.cfg, model.coord())
+    return cut_params(tree, model.cfg, model.coord())
 
 
-def transformer_from_jax(params: dict, model):
-    """Load the JAX package's full transformer ``params`` (a nested dict
-    of numpy arrays, ``layers/*`` and ``moe/*`` stacked) into the port's
-    ``Transformer``, cut to its shards on a mesh; every key on both
-    sides must map.  Returns ``model``."""
-    _lm_load(_lm_tensors(model, lambda p: p), _local(params, model),
-             "params")
+def transformer_from_jax(params: dict, model, local: bool = False):
+    """Load the JAX package's transformer ``params`` (a nested dict of
+    numpy arrays, ``layers/*`` and ``moe/*`` stacked) into the port's
+    ``Transformer``; every key on both sides must map.  The tree is the
+    full one in the reference's storage order (as its placed arrays hold
+    it: under the interleaved schedule at pp > 1 the layers permuted by
+    ``interleave_layer_order``), cut to the model's shards on a mesh; or
+    with ``local=True`` this rank's own shards already (the reference
+    device's ``addressable_shards``: the replicated leaves of pp ranks
+    drift apart, see ``models/transformer.py``).  Returns ``model``."""
+    _lm_load(_lm_tensors(model, lambda p: p),
+             params if local else _local(params, model), "params")
     return model
 
 
 def transformer_to_jax(model, grads: bool = False) -> dict:
     """The port transformer's parameters (or, with ``grads=True``, their
     ``.grad``) as the JAX package's tree of numpy arrays: this rank's
-    shards on a mesh (:func:`transformer_to_jax_full` joins them)."""
+    shards on a mesh, the layers in storage order
+    (:func:`transformer_to_jax_full` joins them)."""
     return _lm_tree(_lm_tensors(model,
                                 (lambda p: p.grad) if grads else
                                 (lambda p: p)))
 
 
 def transformer_to_jax_full(parts, cfg) -> dict:
-    """The full JAX tree from every rank's :func:`transformer_to_jax`:
-    ``parts`` is a list of ``(model.coord(), tree)``, one per rank (or
-    at least one per shard)."""
+    """The full JAX tree, in storage order, from every rank's
+    :func:`transformer_to_jax`: ``parts`` is a list of ``(model.coord(),
+    tree)``, one per rank (or at least one per shard; of a replicated
+    leaf the last part's)."""
     from horovod_tpu_torch.models.transformer import unshard_params
 
     return unshard_params(parts, cfg)

@@ -1,6 +1,6 @@
 """Decoder-only transformer LM: the counterpart of
-``horovod_tpu/models/transformer.py`` at one rank of its dp x tp x sp
-mesh, with optional Switch-MoE layers whose experts shard over dp.
+``horovod_tpu/models/transformer.py`` at one rank of its dp x pp x tp x
+sp mesh, with optional Switch-MoE layers whose experts shard over dp.
 
 - **Parallelism.**  ``Transformer(cfg, ..., mesh=...)`` takes the
   rank's place in a mesh (a ``RankMesh`` from ``make_mesh(dp, pp, tp,
@@ -15,8 +15,21 @@ mesh, with optional Switch-MoE layers whose experts shard over dp.
   :func:`~horovod_tpu_torch.parallel.moe.moe_layer` over the dp hop,
   replicated over tp.  Without a mesh the model is whole on this rank
   and ``forward(tokens, sp_group)`` takes a sequence group of
-  :func:`horovod_tpu_torch.parallel.mesh.sequence_groups`.  Pipeline
-  parallelism is not ported (ROADMAP.md Queue A item 10d).
+  :func:`horovod_tpu_torch.parallel.mesh.sequence_groups`.
+- **Pipeline parallelism.**  At pp > 1 a rank holds its stage's
+  ``n_layers / pp`` blocks (the layer stacks' pp shard; under
+  ``pp_schedule="interleaved"`` of the stacks permuted by
+  :func:`interleave_layer_order` first, as the reference stores them).
+  Every rank embeds, stage 0 feeds ``pp_microbatches`` microbatches of
+  rows to :func:`~horovod_tpu_torch.parallel.pipeline.gpipe` or
+  :func:`~horovod_tpu_torch.parallel.pipeline.interleaved_pipeline`
+  over the pp hop, and every rank computes ``ln_f`` and the tied head
+  from the broadcast result.  As on the reference, the broadcast's
+  backward sums the cotangents over pp and nothing sums the replicated
+  leaves' gradients over pp: the layer gradients are pp times those of
+  pp = 1, and each pp rank's ``embed``, ``pos`` and ``ln_f`` train
+  apart (ROADMAP.md, "Handled, kept as traps").  MoE layers under pp
+  raise, as there.
 - **The wqkv layout.**  A rank reshapes its local ``wqkv`` columns as
   ``(3, n_heads / tp, head_dim)``, as the reference does, so at tp > 1
   the same full weights give another function than at tp = 1;
@@ -53,6 +66,7 @@ from horovod_tpu_torch.common.util import resolve_device, true_divide
 from horovod_tpu_torch.parallel.mesh import (Place, RankMesh, group_place,
                                              make_mesh)
 from horovod_tpu_torch.parallel.moe import moe_layer
+from horovod_tpu_torch.parallel.pipeline import gpipe, interleaved_pipeline
 from horovod_tpu_torch.parallel.ring_attention import ring_attention
 from horovod_tpu_torch.parallel.sharding import (P, copy_to_tp,
                                                  grad_reduce_axes,
@@ -62,15 +76,16 @@ from horovod_tpu_torch.parallel.sharding import (P, copy_to_tp,
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 LAYER_KEYS = ("wqkv", "wo", "w1", "w2", "ln1", "ln2")
 MOE_KEYS = ("router", "w_in", "w_out")
-PIPELINE_ITEM = "ROADMAP.md Queue A item 10d"
 
 
 @dataclass(frozen=True)
 class TransformerConfig:
     """The JAX package's config, same fields and defaults.  The port
     always runs the kernels, so ``attn_impl`` takes only ``None`` or
-    ``"pallas"``; the ``pp_*`` fields are checked as there and carried
-    only for parity (pipeline parallelism is not ported)."""
+    ``"pallas"``; the ``pp_*`` fields are checked as there and read at
+    pp > 1: ``pp_microbatches`` splits this rank's rows, ``pp_schedule``
+    and ``pp_virtual`` pick the schedule, ``pp_remat`` recomputes each
+    pipeline item in the backward."""
     vocab: int = 32000
     d_model: int = 512
     n_heads: int = 8
@@ -201,10 +216,40 @@ def _set(tree: dict, path, value) -> None:
     tree[path[-1]] = value
 
 
-def shard_params(params: dict, cfg: TransformerConfig, coord: dict) -> dict:
+def interleave_layer_order(n_layers: int, pp: int, n_virtual: int):
+    """Storage permutation for the interleaved pipeline (the reference's,
+    ``transformer.py:355-369``): rank p's contiguous pp shard must hold
+    global chunks p, p+pp, ... in slot order (each chunk =
+    n_layers/(pp*n_virtual) consecutive layers)."""
+    D = pp * n_virtual
+    if n_layers % D:
+        raise ValueError(f"n_layers {n_layers} not divisible by "
+                         f"{pp} stages x {n_virtual} virtual chunks")
+    per = n_layers // D
+    order = []
+    for p in range(pp):
+        for v in range(n_virtual):
+            c = v * pp + p
+            order.extend(range(c * per, (c + 1) * per))
+    return np.asarray(order)
+
+
+def storage_order(params: dict, cfg: TransformerConfig, pp: int) -> dict:
+    """``params`` (layers in model order) in the order the reference
+    stores them at pp stages: under ``pp_schedule="interleaved"`` at pp
+    > 1 the layer stacks permuted by :func:`interleave_layer_order`
+    (``shard_params``, ``transformer.py:384-388``), else unchanged."""
+    if cfg.pp_schedule != "interleaved" or pp == 1:
+        return params
+    order = interleave_layer_order(cfg.n_layers, pp, cfg.pp_virtual)
+    return dict(params, layers={k: np.asarray(v)[order]
+                                for k, v in params["layers"].items()})
+
+
+def cut_params(params: dict, cfg: TransformerConfig, coord: dict) -> dict:
     """The local arrays of the rank at ``coord`` (``{axis: (index,
-    size)}``, :meth:`Transformer.coord`) cut from the full tree
-    ``params`` by :func:`param_specs`; unsharded leaves whole."""
+    size)}``, :meth:`Transformer.coord`) cut by :func:`param_specs` from
+    the full tree ``params`` in storage order; unsharded leaves whole."""
     out: dict = {}
     for path, a, spec in _leaves(params, param_specs(cfg)):
         a = np.asarray(a)
@@ -212,10 +257,18 @@ def shard_params(params: dict, cfg: TransformerConfig, coord: dict) -> dict:
     return out
 
 
+def shard_params(params: dict, cfg: TransformerConfig, coord: dict) -> dict:
+    """The reference's ``shard_params`` for the rank at ``coord``: the
+    full tree in model order put in :func:`storage_order` and cut to its
+    shards (:func:`cut_params`)."""
+    return cut_params(storage_order(params, cfg, coord.get("pp", (0, 1))[1]),
+                      cfg, coord)
+
+
 def unshard_params(parts, cfg: TransformerConfig) -> dict:
-    """The full tree from every rank's local tree: ``parts`` is a list of
-    ``(coord, local tree)`` that covers every shard (replicas may
-    repeat)."""
+    """The full tree, in storage order, from every rank's local tree:
+    ``parts`` is a list of ``(coord, local tree)`` that covers every
+    shard (replicas may repeat; the last one given wins)."""
     coord0, tree0 = parts[0]
     out: dict = {}
     for path, a, spec in _leaves(tree0, param_specs(cfg)):
@@ -272,34 +325,41 @@ class Block(nn.Module):
         """``x`` (B, Lc, d_model) -> (x, aux): ``tp`` is the tensor hop,
         ``moe`` this layer's :class:`MoE` (or ``None``: the dense MLP)
         over the dp hop ``dp``; aux is ``None`` for the dense MLP."""
-        cfg = self.cfg
-        cd = cfg.compute_dtype
-        b, lc, dm = x.shape
-        nh = self.wqkv.shape[1] // (3 * cfg.head_dim)   # n_heads / tp
-        h = _rmsnorm(x, self.ln1)
-        h = copy_to_tp(h, tp)        # Megatron "f"
-        qkv = h.to(cd) @ self.wqkv.to(cd)
-        qkv = qkv.reshape(b, lc, 3, nh, cfg.head_dim)
-        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        attn = ring_attention(q, k, v, sp_group, causal=True)
-        attn = attn.reshape(b, lc, nh * cfg.head_dim)
-        proj = (attn.to(cd) @ self.wo.to(cd)).float()
-        proj = reduce_from_tp(proj, tp)  # Megatron "g", in float32
-        x = x + proj.to(x.dtype)
+        lp = {key: getattr(self, key) for key in LAYER_KEYS}
+        return block(self.cfg, lp, x, sp_group, tp, moe, dp)
 
-        h = _rmsnorm(x, self.ln2)
-        aux = None
-        if moe is not None:
-            out, aux = moe_layer(h.reshape(b * lc, dm), moe.router,
-                                 moe.w_in, moe.w_out, dp)
-            mlp = out.reshape(b, lc, dm).float()
-        else:
-            h = copy_to_tp(h, tp)
-            ff = F.gelu((h.to(cd) @ self.w1.to(cd)).float(),
-                        approximate="tanh").to(cd)
-            mlp = (ff @ self.w2.to(cd)).float()
-            mlp = reduce_from_tp(mlp, tp)
-        return x + mlp.to(x.dtype), aux
+
+def block(cfg: TransformerConfig, lp: dict, x, sp_group=None, tp=None,
+          moe=None, dp=None):
+    """:meth:`Block.forward` on the layer weights ``lp`` (a dict of the
+    ``LAYER_KEYS`` tensors): the form a pipeline stage runs."""
+    cd = cfg.compute_dtype
+    b, lc, dm = x.shape
+    nh = lp["wqkv"].shape[1] // (3 * cfg.head_dim)   # n_heads / tp
+    h = _rmsnorm(x, lp["ln1"])
+    h = copy_to_tp(h, tp)        # Megatron "f"
+    qkv = h.to(cd) @ lp["wqkv"].to(cd)
+    qkv = qkv.reshape(b, lc, 3, nh, cfg.head_dim)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    attn = ring_attention(q, k, v, sp_group, causal=True)
+    attn = attn.reshape(b, lc, nh * cfg.head_dim)
+    proj = (attn.to(cd) @ lp["wo"].to(cd)).float()
+    proj = reduce_from_tp(proj, tp)  # Megatron "g", in float32
+    x = x + proj.to(x.dtype)
+
+    h = _rmsnorm(x, lp["ln2"])
+    aux = None
+    if moe is not None:
+        out, aux = moe_layer(h.reshape(b * lc, dm), moe.router,
+                             moe.w_in, moe.w_out, dp)
+        mlp = out.reshape(b, lc, dm).float()
+    else:
+        h = copy_to_tp(h, tp)
+        ff = F.gelu((h.to(cd) @ lp["w1"].to(cd)).float(),
+                    approximate="tanh").to(cd)
+        mlp = (ff @ lp["w2"].to(cd)).float()
+        mlp = reduce_from_tp(mlp, tp)
+    return x + mlp.to(x.dtype), aux
 
 
 class MoE(nn.Module):
@@ -334,10 +394,12 @@ class Transformer(nn.Module):
     group comes from ``forward``.  Weights come from ``params`` (the full
     tree as :func:`init_params` returns it, cut to this rank's shards)
     or else from ``init_params(RandomState(seed), cfg, ep=dp)``.
-    Without ``mesh``, ``tp > 1`` builds ``make_mesh(dp=world // tp,
-    tp=tp)`` (every rank must build the model, in one order); ``pp``
-    and ``tp`` are the mesh's when it is given.  pp > 1 is not ported.
-    Runs on ``device`` (default ``cuda``)."""
+    Without ``mesh``, ``pp > 1`` or ``tp > 1`` builds ``make_mesh(dp=
+    world // (pp * tp), pp=pp, tp=tp)`` (every rank must build the
+    model, in one order); ``pp`` and ``tp`` are the mesh's when it is
+    given.  At pp > 1 ``params`` is in model order (the storage order is
+    made here) and the rows of ``tokens`` must split into
+    ``pp_microbatches``.  Runs on ``device`` (default ``cuda``)."""
 
     def __init__(self, cfg: TransformerConfig, params: dict | None = None,
                  seed: int = 0, device=None, pp: int = 1, tp: int = 1,
@@ -349,15 +411,16 @@ class Transformer(nn.Module):
         place = _place_of(mesh)
         if place is not None:
             pp, tp = place.pp.size, place.tp.size
-        if pp > 1:
+        if pp > 1 and cfg.moe_every:
             raise NotImplementedError(
-                f"pipeline parallelism (pp={pp}) is not ported yet "
-                f"({PIPELINE_ITEM})")
+                "MoE layers under pipeline parallelism are not supported "
+                "yet; use moe_every=0 when pp > 1.")
         if cfg.n_heads % tp:
             raise HorovodTpuError(
                 f"n_heads={cfg.n_heads} does not split over tp={tp}")
-        if place is None and tp > 1:
-            place = make_mesh(dp=_basics.size() // tp, tp=tp).place()
+        if place is None and (pp > 1 or tp > 1):
+            place = make_mesh(dp=_basics.size() // (pp * tp), pp=pp,
+                              tp=tp).place()
         super().__init__()
         self.cfg = cfg
         self.place = place
@@ -378,7 +441,7 @@ class Transformer(nn.Module):
         stack = params["layers"]
         self.layers = nn.ModuleList(
             Block(cfg, {key: stack[key][i] for key in LAYER_KEYS})
-            for i in range(cfg.n_layers))
+            for i in range(len(stack["ln1"])))   # n_layers / pp
         self.moe_ids = moe_layer_ids(cfg)
         self.moe = nn.ModuleList(
             MoE({key: params["moe"][key][k] for key in MOE_KEYS})
@@ -409,14 +472,47 @@ class Transformer(nn.Module):
         pos = s * lc + torch.arange(lc, device=tokens.device)
         x = (self.embed[tokens] + self.pos[pos]).to(cd)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        moe = dict(zip(self.moe_ids, self.moe))
-        for i, blk in enumerate(self.layers):
-            x, a = blk(x, sp_group, tp, moe.get(i), dp)
-            if a is not None:
-                aux = aux + a
+        if place is not None and place.pp.size > 1:
+            x = self._pipeline(x, sp_group, tp)
+        else:
+            moe = dict(zip(self.moe_ids, self.moe))
+            for i, blk in enumerate(self.layers):
+                x, a = blk(x, sp_group, tp, moe.get(i), dp)
+                if a is not None:
+                    aux = aux + a
         x = _rmsnorm(x, self.ln_f)
         logits = (x.to(cd) @ self.embed.to(cd).T).float()
         return (logits, aux) if with_aux else logits
+
+    def _pipeline(self, x, sp_group, tp):
+        """This rank's blocks as a pipeline stage over the pp hop (the
+        reference's ``forward``, ``transformer.py:225-255``): ``x`` split
+        by rows into ``pp_microbatches``, the broadcast result joined."""
+        cfg = self.cfg
+        b, lc, dm = x.shape
+        m = cfg.pp_microbatches
+        if b % m:
+            raise HorovodTpuError(f"{b} rows do not split into "
+                                  f"pp_microbatches={m}")
+        micro = x.reshape(m, b // m, lc, dm)
+        layers = [{key: getattr(blk, key) for key in LAYER_KEYS}
+                  for blk in self.layers]
+
+        def stage(lps, h):
+            for lp in lps:
+                h, _ = block(cfg, lp, h, sp_group, tp)
+            return h
+
+        hop = self.place.pp
+        if cfg.pp_schedule == "interleaved":
+            per = len(layers) // cfg.pp_virtual
+            chunks = [layers[v * per:(v + 1) * per]
+                      for v in range(cfg.pp_virtual)]
+            y = interleaved_pipeline(stage, chunks, micro, cfg.pp_virtual,
+                                     hop, remat=cfg.pp_remat)
+        else:
+            y = gpipe(stage, layers, micro, hop, remat=cfg.pp_remat)
+        return y.reshape(b, lc, dm)
 
     def reduce_axes(self) -> dict:
         """Parameter name -> the data axes its gradient sums over

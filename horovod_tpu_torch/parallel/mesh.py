@@ -124,6 +124,50 @@ class Hop:
             w.wait()
         return recv
 
+    def permute(self, t, pairs, like=None):
+        """``lax.ppermute`` over the axis: ``pairs`` are ``(src, dst)``
+        axis indices, no source or destination twice.  This member sends
+        ``t`` to the ``dst`` of its ``(index, dst)`` pair and returns what
+        the source of its ``(src, index)`` pair sent (a new tensor shaped
+        like ``like``, default ``t``), or ``None`` where no pair ends
+        here; ``t`` may be ``None`` where none starts here.  Every member
+        calls it with the same pairs; only the pairs' members move data,
+        in one ``batch_isend_irecv``.  The first call runs one all-reduce
+        over the axis: NCCL builds a group's communicator at its first
+        collective, and a batch of point-to-point operations may be that
+        first only where every member takes part."""
+        pairs = [(int(s), int(d)) for s, d in pairs]
+        for end in (0, 1):
+            if len({p[end] for p in pairs}) < len(pairs):
+                raise HorovodTpuError(f"permute pairs {pairs} repeat a "
+                                      f"{('source', 'destination')[end]}")
+        dst = next((d for s, d in pairs if s == self.index), None)
+        src = next((s for s, d in pairs if d == self.index), None)
+        if dst is not None and t is None:
+            raise HorovodTpuError(f"permute: member {self.index} of "
+                                  f"{self.name!r} sends but holds nothing")
+        if src == self.index:
+            return t.clone()
+        if not pairs:
+            return None
+        ref = t if t is not None else like
+        if self.size > 1 and not getattr(self, "_p2p_ready", False):
+            dist.all_reduce(torch.zeros(1, device=ref.device),
+                            group=self.group)
+            self._p2p_ready = True
+        ops, recv = [], None
+        if dst is not None:
+            ops.append(dist.P2POp(dist.isend, t.contiguous(),
+                                  self.ranks[dst], self.group))
+        if src is not None:
+            recv = torch.empty_like(t if like is None else like)
+            ops.append(dist.P2POp(dist.irecv, recv, self.ranks[src],
+                                  self.group))
+        if ops:
+            for w in dist.batch_isend_irecv(ops):
+                w.wait()
+        return recv
+
 
 class HopPair(NamedTuple):
     """A ``(cross, local)`` axis pair and ``flat``, the axis of both

@@ -37,7 +37,8 @@ from horovod_tpu_torch.optim.distributed import (DistributedOptimizer,
                                                  zero3_full_params)
 from horovod_tpu_torch.parallel import mesh as _pmesh
 
-#: the Queue A item that ZeRO under tensor or expert parallelism waits for
+#: the Queue A item that ZeRO under tensor, pipeline or expert
+#: parallelism waits for
 ZERO_MODEL_PARALLEL_ITEM = "ROADMAP.md Queue A item 10e"
 
 
@@ -89,11 +90,13 @@ def _refuse_partial_average(optimizer) -> None:
 
 
 def _refuse_zero_model_parallel(model, stage: int) -> None:
-    if stage and (model.coord()["tp"][1] > 1 or model.moe_ids):
+    c = model.coord()
+    if stage and (c["tp"][1] > 1 or c["pp"][1] > 1 or model.moe_ids):
         raise NotImplementedError(
-            f"ZeRO stage {stage} with tensor parallelism or MoE layers is "
-            f"not ported yet ({ZERO_MODEL_PARALLEL_ITEM}): the shards "
-            "would cut across leaves that reduce over different axes")
+            f"ZeRO stage {stage} with tensor or pipeline parallelism or "
+            f"MoE layers is not ported yet ({ZERO_MODEL_PARALLEL_ITEM}): "
+            "the shards would cut across leaves that reduce over "
+            "different axes or live on other stages")
 
 
 class _LMOptimizer:
@@ -169,8 +172,11 @@ def lm_optimizer(model, optimizer, **kwargs) -> _LMOptimizer:
     ``model.parameters()``; its class and hyperparameters are copied per
     group and its own state dropped) split by reduction group, each
     group wrapped in ``DistributedOptimizer(..., op=Sum, axis_name=<the
-    group's hop>, **kwargs)``.  ZeRO stages 1-3 with tp > 1 or MoE
-    layers raise ``NotImplementedError``."""
+    group's hop>, **kwargs)``: the hops of this rank's place, so at pp >
+    1 or tp > 1 the ``("dp", "sp")`` group is the one at this rank's
+    ``(pp, tp)`` coordinate and no gradient is summed over pp or tp.
+    ZeRO stages 1-3 with tp > 1, pp > 1 or MoE layers raise
+    ``NotImplementedError``."""
     return _LMOptimizer(model, optimizer, **kwargs)
 
 
@@ -188,7 +194,8 @@ def lm_train_step(model, optimizer, tokens: torch.Tensor,
     """One transformer LM step (forward, the reference's loss, backward,
     optimizer step) on this rank's rows and sequence chunk
     (:func:`shard_tokens`); returns the global loss, the reference's
-    ``psum`` over ``("dp", "sp")``.
+    ``psum`` over ``("dp", "sp")`` (at pp > 1 this rank's own: the pp
+    ranks' heads drift apart, as the reference's do).
 
     A model on a mesh takes an :func:`lm_optimizer`: the local loss is
     divided by the global token count and each gradient summed over its

@@ -18,6 +18,9 @@ cards (:func:`sp_cards_main`), ``sp_cards_ref`` its one-card run
 cases (:func:`mp_main`), ``mp_cards`` the bench LM under the
 model-parallel meshes on four cards (:func:`mp_cards_main`),
 ``mp_cards_ref`` its one-card tp = 1 run (:func:`mp_cards_ref_main`);
+``pp`` the pipeline cases (:func:`pp_main`), ``pp_cards`` the bench
+LM under pipeline parallelism on four cards (:func:`pp_cards_main`),
+``pp_cards_ref`` its one-card pp = 1 run (:func:`pp_cards_ref_main`);
 ``mesh`` the named data mesh and the broadcast and alltoall refusals
 (:func:`mesh_main`), ``data_plane`` the hierarchical reductions and Adasum
 (:func:`data_plane_main`), ``dp_cards`` ResNet-50 through them on four
@@ -1244,6 +1247,200 @@ def mp_cards_main(device: str):
 
 
 # ---------------------------------------------------------------------------
+# Pipeline parallelism (tests/test_torch_pipeline.py)
+# ---------------------------------------------------------------------------
+
+#: the generic pipeline cases: (name, schedule, n_virtual, layers per
+#: chunk, remat, broadcast_result); every world size runs each
+PIPE_CASES = (("gpipe", "gpipe", 1, 2, False, True),
+              ("gpipe remat", "gpipe", 1, 2, True, True),
+              ("gpipe unbroadcast", "gpipe", 1, 2, False, False),
+              ("interleaved", "interleaved", 2, 1, False, True),
+              ("interleaved remat", "interleaved", 2, 1, True, True))
+PIPE_M, PIPE_MB, PIPE_F = 4, 2, 3
+#: the LM cases: (name, world, mesh axes, config fields, how the place
+#: is named: "make" ``make_mesh``, "data" the data mesh of ``init``)
+PP_CASES = (
+    ("pp2 gpipe", 2, dict(dp=1, pp=2, tp=1, sp=1), {}, "make"),
+    ("pp2 interleaved", 2, dict(dp=1, pp=2, tp=1, sp=1),
+     dict(n_layers=8, pp_schedule="interleaved", pp_virtual=2), "make"),
+    ("pp2 remat", 2, dict(dp=1, pp=2, tp=1, sp=1), dict(pp_remat=True),
+     "make"),
+    ("dp2 x pp2", 4, dict(dp=2, pp=2, tp=1, sp=1), {}, "make"),
+    ("pp2 x tp2", 4, dict(dp=1, pp=2, tp=2, sp=1), {}, "make"),
+    ("pp2 x sp2", 4, dict(dp=1, pp=2, tp=1, sp=2), {}, "make"),
+    ("HOROVOD_MESH=dp:2,pp:2", 4, dict(dp=2, pp=2, tp=1, sp=1), {},
+     "data"),
+)
+
+
+def pipe_inputs(case, nstages: int) -> dict:
+    """A generic case's arrays: the layer stack ``w`` (P*V*L, F, F), the
+    microbatches ``x`` (M, MB, F) and the loss's cotangent ``c``."""
+    _, _, v, per, _, _ = case
+    rng = np.random.RandomState(7)
+    return {"w": rng.randn(nstages * v * per, PIPE_F, PIPE_F).astype(
+                np.float32) * 0.5,
+            "x": rng.randn(PIPE_M, PIPE_MB, PIPE_F).astype(np.float32),
+            "c": rng.randn(PIPE_M, PIPE_MB, PIPE_F).astype(np.float32)}
+
+
+def pipe_case(case, hop) -> dict:
+    """``sum(out * c)`` through the case's pipeline over ``hop``: the
+    output and the gradients of this rank's stage weights and of the
+    microbatches."""
+    from horovod_tpu_torch.parallel import pipeline as PL
+
+    _, schedule, v, _, remat, bcast = case
+    a = pipe_inputs(case, hop.size)
+    w = torch.from_numpy(a["w"])
+    if schedule == "gpipe":
+        w = PL.stage_split({"w": w}, hop.size, hop.index)["w"]
+    else:
+        w = PL.interleaved_stage_split({"w": w}, hop.size, v,
+                                       hop.index)["w"]
+    w = w.clone().requires_grad_()
+    x = torch.from_numpy(a["x"]).requires_grad_()
+
+    def stage(wp, h):
+        for layer in wp:
+            h = torch.tanh(h @ layer)
+        return h
+
+    out = PL.pipeline(stage, w, x, hop, schedule=schedule, n_virtual=v,
+                      broadcast_result=bcast, remat=remat)
+    (out * torch.from_numpy(a["c"])).sum().backward()
+    return {"out": out.detach(), "dw": w.grad, "dx": x.grad}
+
+
+def pp_lm_case(case) -> dict:
+    """An LM case on this rank: ``MP_STEPS`` SGD steps (lr ``MP_LR``) of
+    the small LM through ``lm_train_step`` with ``lm_optimizer`` on the
+    rank's block of ``MP_BATCH`` x 64 tokens: the losses, the coordinate,
+    the local weights (JAX layout, storage order), the step-1 gradient,
+    the hops of the place and of each optimizer group."""
+    from horovod_tpu_torch.models import transformer as TT
+    from horovod_tpu_torch.parallel.mesh import flat_hop, make_mesh
+    from horovod_tpu_torch.train_step import (lm_optimizer, lm_train_step,
+                                              shard_tokens)
+
+    _, _, axes, fields, how = case
+    cfg = TT.TransformerConfig(**dict(SP_LM, **fields), dtype="float32")
+    mesh = hvd.data_mesh() if how == "data" else make_mesh(**axes)
+    model = TT.Transformer(cfg, seed=0, device="cpu", mesh=mesh)
+    opt = lm_optimizer(model, TF.sgd(model.parameters(), MP_LR))
+    coord = model.coord()
+    (d, _), (s, _) = coord["dp"], coord["sp"]
+    tok, tgt = (shard_tokens(t, axes["dp"], axes["sp"], d, s)
+                for t in mp_tokens((None, None, axes, 0, None, False)))
+    losses, grads = [], None
+    for step in range(MP_STEPS):
+        losses.append(float(lm_train_step(model, opt, tok, tgt)))
+        if step == 0:
+            grads = interop.transformer_to_jax(model, grads=True)
+    place = model.place
+    hops = dict(zip(("dp", "pp", "tp", "sp", "dp*sp"),
+                    (*place[:4], place.data.flat)))
+    return {"losses": losses, "coord": coord, "grads": grads,
+            "groups": [list(a) for a in opt.axes],
+            "group_ranks": [list(flat_hop(o.axis_name).ranks)
+                            for o in opt.optimizers],
+            "hops": {k: list(h.ranks) for k, h in hops.items()},
+            "layers": len(model.layers),
+            "weights": interop.transformer_to_jax(model)}
+
+
+def pp_main(device: str):
+    """Every generic case at pp = world size, then each LM case of
+    :data:`PP_CASES` of this world size, the data-mesh case after a
+    re-init under its ``HOROVOD_MESH``."""
+    from horovod_tpu_torch.parallel.mesh import make_mesh
+
+    hvd.init(device=device)
+    n, r = hvd.size(), hvd.rank()
+    out = {"rank": r}
+    hop = make_mesh(pp=n).hops["pp"]
+    for case in PIPE_CASES:
+        out[case[0]] = pipe_case(case, hop)
+    for case in PP_CASES:
+        if case[1] != n:
+            continue
+        if case[4] == "data":
+            _reinit_shutdown()
+            hvd.init(device=device, mesh=case[2])
+        out[case[0]] = pp_lm_case(case)
+    _reinit_shutdown()
+    print(json.dumps(enc(out)))
+
+
+#: the bench LM under pipeline parallelism on four cards
+#: (test_four_cards_pipeline_lm): (name, make_mesh axes, config fields)
+PP_CARD_CASES = (
+    ("dp2 x pp2 gpipe", dict(dp=2, pp=2), {}),
+    ("pp4 interleaved v3 m4", dict(pp=4),
+     dict(pp_schedule="interleaved", pp_virtual=3, pp_microbatches=4)),
+    ("pp2 x sp2 gpipe", dict(pp=2, sp=2), {}),
+)
+PP_CARD_SEQ, PP_CARD_BATCH = 1024, 16
+
+
+def pp_cards_ref_main(device: str):
+    """One card at pp = 1: the bench LM (``SP_CARD_LM``, seq
+    ``PP_CARD_SEQ``, batch ``PP_CARD_BATCH``, fused Adam 3e-4) through
+    :func:`mp_card_lm`; its step-1 gradient saved as ``ref_pp1.npz``
+    under ``HVD_TEST_REF_DIR``."""
+    from horovod_tpu_torch.models import transformer as TT
+    from horovod_tpu_torch.train_step import synthetic_tokens
+
+    os.environ["HOROVOD_FUSED_UPDATE"] = "1"
+    hvd.init(device=device)
+    cfg = TT.TransformerConfig(**SP_CARD_LM, max_seq=PP_CARD_SEQ)
+    model = TT.Transformer(cfg, seed=0)
+    opt = hvd.DistributedOptimizer(hvd.fused_update.adam(model.parameters(),
+                                                         3e-4))
+    tok, tgt = synthetic_tokens(PP_CARD_BATCH, PP_CARD_SEQ, cfg.vocab, seed=1)
+    out = mp_card_lm(model, opt, tok, tgt, None, os.path.join(
+        os.environ["HVD_TEST_REF_DIR"], "ref_pp1.npz"))
+    hvd.shutdown()
+    print(json.dumps(out))
+
+
+def pp_cards_main(device: str):
+    """``PP_CARD_CASES`` on four cards, one world, a ``make_mesh`` per
+    case: :func:`mp_card_lm` on the model built on it with
+    ``lm_optimizer``; each rank's step-1 gradient saved under
+    ``HVD_TEST_REF_DIR`` (``pp<case index>_<rank>.npz``)."""
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.models import transformer as TT
+    from horovod_tpu_torch.parallel.mesh import make_mesh
+    from horovod_tpu_torch.train_step import (lm_optimizer, shard_tokens,
+                                              synthetic_tokens)
+
+    os.environ["HOROVOD_FUSED_UPDATE"] = "1"
+    hvd.init(device=device)
+    r = hvd.rank()
+    out = {"rank": r}
+    for i, (name, axes, fields) in enumerate(PP_CARD_CASES):
+        cfg = TT.TransformerConfig(**SP_CARD_LM, max_seq=PP_CARD_SEQ,
+                                   **fields)
+        model = TT.Transformer(cfg, seed=0, mesh=make_mesh(**axes))
+        opt = lm_optimizer(model, hvd.fused_update.adam(model.parameters(),
+                                                        3e-4))
+        c = model.coord()
+        (d, dp), (s, sp) = c["dp"], c["sp"]
+        tok, tgt = (shard_tokens(t, dp, sp, d, s) for t in synthetic_tokens(
+            PP_CARD_BATCH, PP_CARD_SEQ, cfg.vocab, seed=1))
+        out[name] = mp_card_lm(model, opt, tok, tgt, None, os.path.join(
+            os.environ["HVD_TEST_REF_DIR"], f"pp{i}_{r}.npz"))
+        out[name]["coord"] = c
+        del model, opt
+        dist.barrier()
+    _reinit_shutdown()
+    print(json.dumps(out))
+
+
+# ---------------------------------------------------------------------------
 # The data plane: named mesh axes (tests/test_torch_mesh.py), hierarchical
 # reductions and Adasum (tests/test_torch_data_plane.py)
 # ---------------------------------------------------------------------------
@@ -1881,4 +2078,6 @@ if __name__ == "__main__":
      "sp": sp_main, "sp_cards": sp_cards_main,
      "sp_cards_ref": sp_cards_ref_main, "mesh": mesh_main, "mp": mp_main,
      "mp_cards": mp_cards_main, "mp_cards_ref": mp_cards_ref_main,
+     "pp": pp_main, "pp_cards": pp_cards_main,
+     "pp_cards_ref": pp_cards_ref_main,
      "data_plane": data_plane_main, "dp_cards": dp_cards_main}[mode](dev)

@@ -3,7 +3,8 @@ their plain versions (B1-B3 also in one launch over many leaves), and
 short training runs through them; on a machine with
 four cards, the collectives and the lossy wire over NCCL, ZeRO, sequence
 parallelism, the data plane (named mesh axes, the two-level
-reductions, Adasum) and the LM under tensor and expert parallelism.
+reductions, Adasum) and the LM under tensor, expert and pipeline
+parallelism.
 Marked ``cuda``; each skips (with its reason) where no CUDA device is
 present.  This file imports no JAX, so it runs on a GPU machine without
 it::
@@ -885,6 +886,80 @@ def test_four_cards_model_parallel_lm(tmp_path):
     print(f"[four cards] one card at tp = 1 (tp-equivalent wqkv): losses "
           f"{ref['losses']}; median step {one:.4f} s = "
           f"{MP_CARD_BATCH * MP_CARD_SEQ / one:.1f} tokens/s; peak "
+          f"{ref['peak_bytes']} B; on {card.strip()}")
+
+
+def test_four_cards_pipeline_lm(tmp_path):
+    """The bench LM (vocab 32768, d_model 768, 12 x 64 heads, 12 layers,
+    d_ff 3072, seq 1024, global batch 16, bf16, fused Adam 3e-4), 3 steps
+    over NCCL on four cards, one ``make_mesh`` per case: (1) dp 2 x pp 2,
+    GPipe, 2 microbatches; (2) pp 4, the interleaved schedule with
+    ``pp_virtual=3`` and 4 microbatches; (3) pp 2 x sp 2, GPipe, beside
+    the KV ring.  Each against one card at pp = 1 (phase 18a's bounds):
+    the step-1 loss of every rank within rtol 1e-3, and the step-1 layer
+    gradient joined from every rank's shards (storage order) within 0.1
+    relative L2 of pp times pp = 1's, the reference's factor.  Launches
+    per rank per step: 12 (s + 1) of each of B8-B10 on sequence rank s,
+    one B3.  Prints the step time per rank, tokens/s per card and the
+    peak memory per rank."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    import os
+    import statistics
+    import subprocess
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from _torch_collectives_worker import (PP_CARD_BATCH, PP_CARD_CASES,
+                                           PP_CARD_SEQ, SP_CARD_LM, spawn)
+
+    from horovod_tpu_torch.models import transformer as TT
+
+    env = {"HVD_TEST_REF_DIR": str(tmp_path)}
+    ref = spawn(1, "cuda", timeout=600, mode="pp_cards_ref",
+                env_extra=env)[0]
+    outs = spawn(4, "cuda", timeout=1200, mode="pp_cards", env_extra=env)
+    card = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    flash = ("flash_block_step", "flash_bwd_dq", "flash_bwd_dkv")
+    ref_tree = _npz_tree(str(tmp_path / "ref_pp1.npz"))[0]
+    one = statistics.median(ref["times"][1:])
+    for i, (name, axes, fields) in enumerate(PP_CARD_CASES):
+        cfg = TT.TransformerConfig(**SP_CARD_LM, max_seq=PP_CARD_SEQ,
+                                   **fields)
+        pp = axes["pp"]
+        for o in outs:
+            r = o[name]
+            s = r["coord"]["sp"][0]
+            want = dict.fromkeys(flash, 12 * (s + 1)) | {"adam": 1}
+            assert r["launches"] == [want] * len(r["launches"]), \
+                (name, o["rank"], r["launches"])
+            assert all(math.isfinite(v) for v in r["losses"]), name
+            np.testing.assert_allclose(r["losses"][0], ref["losses"][0],
+                                       rtol=1e-3, err_msg=name)
+        parts = [_npz_tree(str(tmp_path / f"pp{i}_{k}.npz"))
+                 for k in range(4)]
+        full = TT.unshard_params([(c, t) for t, c in parts], cfg)
+        want = TT.storage_order(ref_tree, cfg, pp)
+        g, w = _flat(full["layers"]), pp * _flat(want["layers"])
+        rel = float(np.linalg.norm(g - w) / np.linalg.norm(w))
+        assert rel < 0.1, (name, rel)
+        med = [statistics.median(o[name]["times"][1:]) for o in outs]
+        print(f"[four cards] LM {name} (seq {PP_CARD_SEQ}, global batch "
+              f"{PP_CARD_BATCH}, {cfg.pp_microbatches} microbatches): "
+              f"losses per rank {[o[name]['losses'] for o in outs]}; "
+              f"step-1 layer gradient {rel:.3e} relative L2 from {pp} x "
+              f"pp = 1's; median step per rank {med} s = "
+              f"{PP_CARD_BATCH * PP_CARD_SEQ / max(med) / 4:.1f} tokens/s "
+              f"per card; rank 0 steps {outs[0][name]['times']} s; peak "
+              f"{[o[name]['peak_bytes'] for o in outs]} B per rank; "
+              f"launches per step per rank "
+              f"{[o[name]['launches'][0] for o in outs]}; on "
+              f"4 x {card.strip()}")
+    print(f"[four cards] one card at pp = 1: losses {ref['losses']}; "
+          f"median step {one:.4f} s = "
+          f"{PP_CARD_BATCH * PP_CARD_SEQ / one:.1f} tokens/s; peak "
           f"{ref['peak_bytes']} B; on {card.strip()}")
 
 

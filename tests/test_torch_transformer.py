@@ -204,11 +204,15 @@ def test_synthetic_tokens_are_the_bench_batch():
 
 @pytest.mark.parametrize("what", ["pp"])
 def test_unported_parallelism_raises(what):
-    """Pipeline parallelism is the one axis not ported (ROADMAP item
-    10d): pp > 1 raises, given as a size or by the rank's place."""
+    """Pipeline parallelism is ported (``tests/test_torch_pipeline.py``);
+    what stays unsupported is MoE layers under it, as on the reference
+    (``horovod_tpu/models/transformer.py:220-223``): pp > 1 with
+    ``moe_every`` raises, given as a size, before any mesh is built."""
     _, tcfg = _cfgs("float32")
-    with pytest.raises(NotImplementedError, match="Queue A item 10d"):
-        TT.Transformer(tcfg, device="cpu", **{what: 2})
+    with pytest.raises(NotImplementedError,
+                       match="MoE layers under pipeline parallelism"):
+        TT.Transformer(dataclasses.replace(tcfg, moe_every=2),
+                       device="cpu", **{what: 2})
 
 
 @pytest.mark.parametrize("ep", [1, 2])
