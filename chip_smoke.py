@@ -189,7 +189,25 @@ Phases (any failure exits non-zero and prints no result line):
    tests' small LM (float32, SGD 0.5) at pp 2 under GPipe and the
    interleaved schedule, 3 steps on the card (kernels) and on the CPU
    (plain versions): every rank's losses within rtol 1e-4 and weights
-   within 1e-4 of each tensor's largest magnitude.
+   within 1e-4 of each tensor's largest magnitude;
+19. local SGD / DiLoCo over phase 16's emulated (cross 2, local 2)
+   world: (a) the bench step (ResNet-50 224 px, batch 256 per rank, each
+   rank its own seeded batch, bf16, ``fused_update.sgd(0.1,
+   momentum=0.9)`` under ``LocalSGD`` at H = 2, deterministic cuDNN), 4
+   inner steps with syncs after steps 2 and 4, at stages 0 and 2 on the
+   none, int8 and int4 outer wires: one B1 per rank per inner step and
+   one encode and two decode launches (B4/B5, B6/B7) per lossy sync; the
+   cross-hop bytes per sync as reckoned (``ls_cross_bytes``: nothing
+   during the inner steps); a slice's ranks bit-identical after every
+   inner step and all four after every sync; stage 2 bit for bit stage
+   0 on the none wire; each new anchor within the float32 rounding (plus
+   half a quantization step through the outer step on a lossy wire) of a
+   float64 recomputation from the ranks' anchors, parameters, residuals
+   and velocity; per-rank ms of the inner step and the sync (each rank's
+   own work, one at a time) and the outer-state bytes; (b) SmallCNN
+   (float32, TF32 off) under ``LocalSGD`` at stage 0 on the int8 wire,
+   4 steps on the card and on the CPU: losses within rtol 1e-4, weights
+   within 1e-5 of each tensor's largest magnitude.
 
 Then the run's wall time, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
@@ -2785,6 +2803,15 @@ class EmulatedWorld:
             if v != self._snap[r][k]:
                 self.launches[r][k] += v - self._snap[r][k]
 
+    def busy_ms(self, r: int) -> float:
+        """Rank ``r``'s work so far, called from its own thread (which
+        holds the device): its time between transfers, the open interval
+        to now included, the device synchronized first."""
+        if self.sync:
+            self.torch.cuda.synchronize()
+        return (sum(self.ms[r].values())
+                + (time.perf_counter() - self._t0[r]) * 1e3)
+
     def _pass(self, r: int) -> None:
         """Hand the device to the next runnable rank after ``r``."""
         for k in range(1, self.n + 1):
@@ -3961,6 +3988,340 @@ def small_pp_reference(hvd, torch, gpu: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Local SGD / DiLoCo (phase 19): the bench step over an emulated world
+# ---------------------------------------------------------------------------
+
+LS_H, LS_STEPS = 2, 4
+LS_LR, LS_MU = 0.7, 0.9                 # HOROVOD_OUTER_LR / _MOMENTUM
+#: 19a's cases: (zero_stage, outer wire)
+LS_CASES = ((0, "none"), (0, "int8"), (0, "int4"), (2, "none"),
+            (2, "int8"), (2, "int4"))
+LS_CODEC = {"none": (), "int8": ("quantize", "dequantize"),
+            "int4": ("pack4", "unpack4")}
+#: 19b: SmallCNN, float32, batch and image size per emulated rank
+LS_SMALL_BATCH, LS_SMALL_SIZE, LS_SMALL_TOL = 16, 32, 1e-5
+
+
+def ls_cross_bytes(stage: int, wire: str) -> int:
+    """The bytes one rank sends over the cross hop per outer sync: the
+    whole fused delta at stage 0, its local shard at stage 2 (the buffer
+    padded to a multiple of the local size); float32, or the int8
+    payload (int4: packed two per byte) in blocks of ``QBLOCK`` plus one
+    float32 scale per block (the scales' ``max``)."""
+    n = -(-N_PARAMS // DP_LOCAL) if stage else N_PARAMS
+    if wire == "none":
+        return 4 * n
+    nb = -(-n // QBLOCK)
+    return nb * QBLOCK // (1 if wire == "int8" else 2) + 4 * nb
+
+
+def _ulp32(torch, x):
+    x = x.float().abs()
+    return (torch.nextafter(x, torch.full_like(x, math.inf)) - x).double()
+
+
+def _hold_sync(Q, torch, pre, post, r: int, k: int, wire: str) -> float:
+    """Sync ``k`` of rank ``r`` against float64: the new anchor within
+    the float32 rounding of the outer step (two ulps of the result, and
+    four ulps of each delta's operands through ``lr * (1 + mu + mu^2)``)
+    plus, on a lossy wire, half a quantization step of the block (and
+    the rounding of ``x / scale``) through ``lr * (1 + mu)`` (the cross
+    sum is within ``nc * scale / 2``);
+    returns the largest share of the tolerance used."""
+    l_ = r % DP_LOCAL
+    partners = [c * DP_LOCAL + l_ for c in range(DP_CROSS)]
+    red = 0.0
+    e = None
+    deltas32 = []
+    for q in partners:
+        a, v, res, p = pre[q][k]
+        d = a.double() - p.double()
+        d32 = a.float() - p.float()
+        if res is not None:
+            d = d + res.double()
+            d32 = d32 + res
+        deltas32.append(d32)
+        red = red + d
+        u = _ulp32(torch, torch.maximum(a.float().abs(), p.float().abs()))
+        e = u if e is None else torch.maximum(e, u)
+        del d
+    red = red / DP_CROSS
+    a, v, _, _ = pre[r][k]
+    v = LS_MU * v.double() + red
+    ref = a.double() - LS_LR * (red + LS_MU * v)
+    tol = 2 * _ulp32(torch, ref) + LS_LR * (1 + LS_MU + LS_MU ** 2) * 4 * e
+    if wire != "none":
+        qmax = (Q.sum_safe_qmax if wire == "int8" else Q.sum_safe_qmax4)(
+            DP_CROSS)
+        amax = torch.stack([Q.block_absmax(Q._to_blocks(d, QBLOCK)[0])
+                            for d in deltas32]).amax(0)
+        s = Q._scales(amax, qmax).double()
+        # half a step, and the float32 rounding of x / scale (a
+        # relative 2^-23 of values up to qmax)
+        tol = tol + LS_LR * (1 + LS_MU) * torch.repeat_interleave(
+            s * (0.5 + qmax * 2.0 ** -22), QBLOCK)[:ref.numel()]
+    err = (post[r][k].double() - ref).abs()
+    worst = float((err / tol).max())
+    if worst > 1:
+        raise AssertionError(f"local SGD {wire} rank {r} sync {k + 1}: the "
+                             f"new anchor is {worst:.3f} of its tolerance "
+                             "from the float64 recomputation")
+    return worst
+
+
+def _ls_case(hvd, Q, TF, torch, models, batches, stage: int, wire: str,
+             base=None) -> dict:
+    """One 19a case: every emulated rank runs ``LS_STEPS`` inner steps of
+    ``train_step`` under ``LocalSGD`` over its (cross, local) pair and
+    ``maybe_outer_sync`` after each; returns what the checks read."""
+    from horovod_tpu_torch.train_step import train_step
+
+    world = EmulatedWorld(torch, DP_N, (TF.LAUNCHES, Q.LAUNCHES))
+    flat = [[] for _ in range(DP_N)]       # weights after each step / sync
+    pre = [[] for _ in range(DP_N)]
+    post = [[] for _ in range(DP_N)]
+    inner_ms = [[] for _ in range(DP_N)]
+    sync_ms = [[] for _ in range(DP_N)]
+
+    def weights(m):
+        return torch.cat([p.detach().reshape(-1) for p in m.parameters()])
+
+    def rank(r):
+        m = models[r]
+        opt = hvd.LocalSGD(
+            hvd.fused_update.sgd(m.parameters(), 0.1, momentum=0.9), h=LS_H,
+            axis_name=world.pair(r, DP_LOCAL), zero_stage=stage,
+            compression=hvd.Compression.lookup(wire))
+        x, y = batches[r]
+        losses = []
+        for step in range(1, LS_STEPS + 1):
+            t = world.busy_ms(r)
+            with torch.autograd.set_multithreading_enabled(False):
+                losses.append(train_step(m, opt, x, y))
+            inner_ms[r].append(world.busy_ms(r) - t)
+            flat[r].append(weights(m))
+            if opt.should_sync(step):
+                o = opt.outer
+                pre[r].append((o.anchor[0].clone(), o.velocity[0].clone(),
+                               None if o.residual is None
+                               else o.residual[0].clone(),
+                               opt._current_bufs()[0].clone()))
+                t = world.busy_ms(r)
+                opt.maybe_outer_sync(step)
+                sync_ms[r].append(world.busy_ms(r) - t)
+                post[r].append(o.anchor[0].clone())
+                flat[r].append(weights(m))
+        return [float(x) for x in losses], opt.outer_state_bytes()
+
+    TF.reset_launch_counts()
+    Q.reset_launch_counts()
+    outs = world.run(rank)
+    what = f"local SGD stage {stage} {wire}"
+    # every rank's weights: one slice's ranks equal after each inner
+    # step, all four after each sync
+    k = 0
+    for step in range(1, LS_STEPS + 1):
+        for c in range(DP_CROSS):
+            a, b = (flat[c * DP_LOCAL + l_][k] for l_ in range(DP_LOCAL))
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what} step {step}: the ranks of "
+                                     f"slice {c} differ")
+        k += 1
+        if step % LS_H == 0:
+            if not all(torch.equal(flat[r][k], flat[0][k])
+                       for r in range(DP_N)):
+                raise AssertionError(f"{what} sync after step {step}: the "
+                                     "four ranks differ")
+            k += 1
+    if base is not None:
+        for r in range(DP_N):
+            if not all(torch.equal(a, b) for a, b in zip(flat[r], base[r])):
+                raise AssertionError(f"{what} rank {r}: not bit for bit "
+                                     "stage 0's weights")
+    worst = max(_hold_sync(Q, torch, pre, post, r, j, wire)
+                for r in range(DP_N) for j in range(len(pre[r])))
+    del pre, post
+    syncs = LS_STEPS // LS_H
+    want = {"momentum": LS_STEPS}
+    if wire != "none":
+        enc, dec = LS_CODEC[wire]
+        want.update({enc: syncs, dec: 2 * syncs})
+    cross = ls_cross_bytes(stage, wire)
+    for r in range(DP_N):
+        if dict(world.launches[r]) != want:
+            raise AssertionError(f"{what} rank {r}: launches "
+                                 f"{dict(world.launches[r])}, expected "
+                                 f"{want}")
+        if world.wire[r]["cross"] != syncs * cross:
+            raise AssertionError(f"{what} rank {r}: {world.wire[r]['cross']}"
+                                 f" B over the cross hop, expected {syncs} x "
+                                 f"{cross}")
+    losses = [o[0] for o in outs]
+    if not all(math.isfinite(v) for ls in losses for v in ls):
+        raise AssertionError(f"{what}: losses {losses}")
+    return {"flat": flat if base is None and wire == "none" else None,
+            "losses": losses, "outer_bytes": [o[1] for o in outs],
+            "launches": [dict(x) for x in world.launches],
+            "cross_bytes": [world.wire[r]["cross"] for r in range(DP_N)],
+            "local_bytes": [world.wire[r]["local"] for r in range(DP_N)],
+            "inner_ms": [statistics.median(x[1:]) for x in inner_ms],
+            "sync_ms": [statistics.median(x) for x in sync_ms],
+            "worst": worst}
+
+
+def local_sgd_emulated(hvd, torch, gpu: str, model_fn=None,
+                       batch: int = BATCH, size: int = 224,
+                       classes: int = 1000) -> dict:
+    """Phase 19a: the bench step (ResNet-50 224 px, batch 256 per rank,
+    bf16, fused momentum SGD) under ``LocalSGD`` at H = 2 over an
+    emulated (cross 2, local 2) world, 4 inner steps per case, the
+    cases of ``LS_CASES``; deterministic cuDNN (stage 2 must equal stage
+    0 bit for bit)."""
+    import copy
+
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.ops import quantization as Q
+    from horovod_tpu_torch.optim import fused_update as TF
+    from horovod_tpu_torch.train_step import synthetic_batch
+
+    t0 = time.perf_counter()
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.benchmark, cudnn.deterministic)
+    cudnn.benchmark, cudnn.deterministic = False, True
+    out = {}
+    try:
+        if model_fn is None:
+            def model_fn():
+                return ResNet50(num_classes=classes, dtype=torch.bfloat16,
+                                seed=0)
+        models = [model_fn()]
+        models += [copy.deepcopy(models[0]) for _ in range(DP_N - 1)]
+        init = [t.detach().clone() for t in models[0].state_dict().values()]
+        batches = [synthetic_batch(batch, size, classes, seed=100 + r)
+                   for r in range(DP_N)]
+        base = None
+        for stage, wire in LS_CASES:
+            for m in models:
+                with torch.no_grad():
+                    for t, v in zip(m.state_dict().values(), init):
+                        t.copy_(v)
+            res = _ls_case(hvd, Q, TF, torch, models, batches, stage, wire,
+                           base=base if (stage, wire) == (2, "none")
+                           else None)
+            if (stage, wire) == (0, "none"):
+                base = res["flat"]
+            res.pop("flat")
+            out[f"stage {stage} {wire}"] = res
+            log(f"[local sgd] 19a stage {stage} {wire}: {LS_STEPS} inner "
+                f"steps, syncs after steps {LS_H} and {2 * LS_H}; the ranks "
+                f"of a slice bit-identical after every inner step, all four "
+                f"after every sync"
+                + ("; bit for bit stage 0's weights"
+                   if (stage, wire) == (2, "none") else "")
+                + f"; new anchors within {res['worst']:.6f} of the tolerance "
+                f"of the float64 recomputation; launches per rank "
+                f"{res['launches'][0]}; cross bytes per rank per sync "
+                f"{res['cross_bytes'][0] // (LS_STEPS // LS_H)} (reckoned "
+                f"{ls_cross_bytes(stage, wire)}), local bytes per rank over "
+                f"the run {res['local_bytes'][0]}; outer state "
+                f"{res['outer_bytes'][0]} B per rank; per-rank ms of work "
+                f"alone: inner step {[round(x, 4) for x in res['inner_ms']]}"
+                f", sync {[round(x, 4) for x in res['sync_ms']]}; losses "
+                f"rank 0 {res['losses'][0]}; on {gpu}")
+        del base, models, batches, init
+    finally:
+        cudnn.benchmark, cudnn.deterministic = flags
+        torch.cuda.empty_cache()
+    log(f"[local sgd] phase 19a took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def small_local_sgd_reference(hvd, torch, gpu: str) -> dict:
+    """Phase 19b: SmallCNN (float32, TF32 off) under ``LocalSGD`` at
+    stage 0 on the int8 outer wire, H = 2, 4 steps, over the emulated
+    (cross 2, local 2) world on the card (kernels) and on the CPU (plain
+    versions), each rank its own batch: losses within rtol 1e-4 and
+    weights within ``LS_SMALL_TOL`` of each tensor's largest magnitude."""
+    from horovod_tpu_torch.models.mnist import SmallCNN
+    from horovod_tpu_torch.ops import quantization as Q
+    from horovod_tpu_torch.optim import fused_update as TF
+    from horovod_tpu_torch.train_step import synthetic_batch, train_step
+
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    runs = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            world = EmulatedWorld(torch, DP_N, (TF.LAUNCHES, Q.LAUNCHES),
+                                  sync=dev == "cuda")
+            batches = [synthetic_batch(LS_SMALL_BATCH, LS_SMALL_SIZE, 10,
+                                       seed=200 + r, device=dev)
+                       for r in range(DP_N)]
+
+            def rank(r, dev=dev, world=world, batches=batches):
+                m = SmallCNN(num_classes=10, seed=7, device=dev)
+                opt = hvd.LocalSGD(
+                    hvd.fused_update.sgd(m.parameters(), 0.1, momentum=0.9),
+                    h=LS_H, axis_name=world.pair(r, DP_LOCAL), zero_stage=0,
+                    compression=hvd.Compression.int8)
+                losses = []
+                for step in range(1, LS_STEPS + 1):
+                    with torch.autograd.set_multithreading_enabled(False):
+                        losses.append(float(train_step(m, opt, *batches[r])))
+                    opt.maybe_outer_sync(step)
+                return losses, [t.detach().cpu() for t in
+                                m.state_dict().values()]
+
+            TF.reset_launch_counts()
+            Q.reset_launch_counts()
+            runs[dev] = (world, world.run(rank))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+    worst = 0.0
+    for r, ((lg, wg), (lc, wc)) in enumerate(zip(runs["cuda"][1],
+                                                 runs["cpu"][1])):
+        for a, b in zip(lg, lc):
+            if not math.isclose(a, b, rel_tol=1e-4):
+                raise AssertionError(f"19b rank {r}: card losses {lg} vs "
+                                     f"CPU {lc}")
+        for i, (a, b) in enumerate(zip(wg, wc)):
+            err = float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                   1e-30)
+            worst = max(worst, err)
+            if err > LS_SMALL_TOL:
+                raise AssertionError(f"19b rank {r} tensor {i}: card and CPU "
+                                     f"differ by {err} of its scale")
+    want = {"momentum": LS_STEPS, "quantize": LS_STEPS // LS_H,
+            "dequantize": 2 * LS_STEPS // LS_H}
+    for r in range(DP_N):
+        if dict(runs["cuda"][0].launches[r]) != want:
+            raise AssertionError(f"19b rank {r}: card launches "
+                                 f"{dict(runs['cuda'][0].launches[r])}, "
+                                 f"expected {want}")
+    log(f"[local sgd] 19b SmallCNN {LS_SMALL_SIZE} px, batch "
+        f"{LS_SMALL_BATCH} per rank, float32, LocalSGD stage 0 int8, H = "
+        f"{LS_H}, {LS_STEPS} steps over the emulated (cross {DP_CROSS}, "
+        f"local {DP_LOCAL}) world: card and CPU agree on every rank (rank 0 "
+        f"losses {runs['cuda'][1][0][0]} vs {runs['cpu'][1][0][0]}; worst "
+        f"weight error {worst:.2e} of the largest magnitude; rtol 1e-4 "
+        f"loss, {LS_SMALL_TOL} weights); card launches per rank {want}; on "
+        f"{gpu}")
+    return {"worst": worst, "launches": want}
+
+
+def local_sgd(hvd, torch, gpu: str) -> dict:
+    """Phase 19 (a-b)."""
+    t0 = time.perf_counter()
+    out = {"a": local_sgd_emulated(hvd, torch, gpu),
+           "b": small_local_sgd_reference(hvd, torch, gpu)}
+    log(f"[local sgd] phase 19 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def run(args) -> int:
     t_start = time.perf_counter()
     card = pin_one_card()
@@ -4065,6 +4426,8 @@ def run(args) -> int:
     mp = model_parallel(hvd, torch, gpu)
     torch.cuda.empty_cache()
     pp = pipeline_parallel(hvd, torch, gpu)
+    torch.cuda.empty_cache()
+    lsgd = local_sgd(hvd, torch, gpu)
     hvd.shutdown()
 
     launches = {**path["launches"], **lm["launches"],
@@ -4099,7 +4462,11 @@ def run(args) -> int:
             **({"torch_mul_ms": t["torch_mul_ms"]} if kind == "sgd" else {}),
             **({"launches_zero_resnet50": {
                     n: r["launches"]["momentum"] for n, r in zero.items()},
-                "zero_tail_launches": zero_tail["momentum"]}
+                "zero_tail_launches": zero_tail["momentum"],
+                # phase 19a, per emulated rank over LS_STEPS inner steps
+                "launches_local_sgd": {
+                    n: r["launches"][0]["momentum"]
+                    for n, r in lsgd["a"].items()}}
                if kind == "momentum" else {}),
             **({"launches_zero_lm": zero_lm["launches"]["adam"],
                 "zero_tail_launches": zero_tail["adam"],
@@ -4181,6 +4548,10 @@ def run(args) -> int:
             "replaces": REPLACES[kind],
             # the compressors' round trips of the 161 ResNet-50 leaves
             "launches": wire["launches"][kind],
+            # phase 19a, per emulated rank over its LS_STEPS // LS_H syncs
+            "launches_local_sgd": {
+                n: r["launches"][0].get(kind, 0)
+                for n, r in lsgd["a"].items()},
             "max_abs_err": max(codec_errs[kind], wire["errs"][kind]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -8,6 +8,9 @@ the CPU), with the JAX package's public names::
     opt = hvd.DistributedOptimizer(
         hvd.fused_update.sgd(model.parameters(), 0.1, momentum=0.9))
 
+``hvd.LocalSGD`` wraps the same optimizer in the local-SGD / DiLoCo
+regime over a ``(cross, local)`` axis pair.
+
 Importing the package builds nothing and touches no device.
 """
 
@@ -29,3 +32,5 @@ from horovod_tpu_torch.optim.distributed import (  # noqa: F401
     allreduce_gradients_with_feedback, broadcast_object,
     broadcast_optimizer_state, broadcast_parameters,
     broadcast_skipping_shards, zero3_full_params, zero3_shard_params)
+from horovod_tpu_torch.optim.local_sgd import (  # noqa: F401
+    LocalSGD, LocalSGDOptimizer)

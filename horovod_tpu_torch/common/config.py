@@ -96,6 +96,27 @@ _KNOBS: dict[str, Knob] = {
         "Local extent of the dp axis's (dpc, dpl) split: used when "
         "1 < L < dp and L divides dp; 0 (the default) splits nothing.  "
         "Must agree on every rank."),
+    "local_sgd_h": Knob(
+        "HOROVOD_LOCAL_SGD_H", 0, int,
+        "Outer-sync period H of the local-SGD / DiLoCo regime "
+        "(optim/local_sgd.py): 0 or 1 = off (every step synchronous); H "
+        ">= 2 reduces the inner steps over the local hop only and "
+        "exchanges the parameter deltas over the cross hop every H-th "
+        "step.  Must agree on every rank."),
+    "outer_lr": Knob(
+        "HOROVOD_OUTER_LR", 0.7, float,
+        "Learning rate of the local-SGD outer Nesterov step on the "
+        "averaged parameter delta.  Must agree on every rank."),
+    "outer_momentum": Knob(
+        "HOROVOD_OUTER_MOMENTUM", 0.9, float,
+        "Nesterov momentum of the local-SGD outer step.  Must agree on "
+        "every rank."),
+    "local_sgd_compression": Knob(
+        "HOROVOD_LOCAL_SGD_COMPRESSION", "", str,
+        "Wire mode of the local-SGD outer sync's cross hop: none | fp16 "
+        "| bf16 | int8 | int4 | topk (empty = HOROVOD_COMPRESSION).  The "
+        "inner steps' local reduction stays full precision.  Must agree "
+        "on every rank."),
     "log_level": Knob(
         "HOROVOD_LOG_LEVEL", "warning", str,
         "trace | debug | info | warning | error | fatal."),

@@ -412,3 +412,263 @@ def zero3_params_from_jax(shards, layout, params_tree: dict, model,
     for g, shard in enumerate(zp.shards):
         with torch.no_grad():
             shard.copy_(_rank_shard(leaves, zp.layout, g, basics.rank()))
+
+
+# ---------------------------------------------------------------------------
+# Local SGD: the JAX package's ``LocalSGDState`` (the inner optimizer's
+# state, the ``OuterState`` buffers, ``inner_steps``).  Its fused buffers
+# hold the leaves in the JAX tree's flatten order and flax layout; the
+# port's hold the optimizer's parameter order and torch layout, so each
+# buffer is split per leaf, mapped like the weights, and fused again.  A
+# buffer is the whole fused buffer of this rank's slice: at ZeRO stages
+# 1-3 the local shards concatenated in local order (each rank keeps its
+# own segment; a slice's residual elements each live on one rank).
+# ---------------------------------------------------------------------------
+
+
+class JaxLayout(NamedTuple):
+    """The JAX package's ``_ShardLayout``: per dtype group (keys are
+    dtype names) the member leaf indices in flatten order, their sizes,
+    the padded length and the shard length."""
+    keys: tuple
+    idxs: tuple
+    sizes: tuple
+    padded: tuple
+    shard: tuple
+
+
+class OuterBuffers(NamedTuple):
+    """The JAX ``OuterState``'s buffers as host arrays (one per dtype
+    group of ``layout``; ``residual`` ``None`` on a lossless wire) and its
+    ``kind``."""
+    anchor: list
+    velocity: list
+    residual: list | None
+    layout: JaxLayout
+    kind: str
+
+
+class LocalSGDState(NamedTuple):
+    """``LocalSGDState`` as host values: ``inner_state`` maps each moment
+    of the inner optimizer (``trace``; ``mu``, ``nu`` and ``count``) to a
+    flax-layout tree at stage 0 or to the fused buffers of ``layout`` at
+    stages 1-3; ``outer`` is ``None`` when the regime is off."""
+    inner_state: dict
+    outer: OuterBuffers | None
+    inner_steps: int
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def _ls_leaves(model, optimizer, zp):
+    """The port's fused order: ``(names, shapes by name, dtypes by
+    name)``."""
+    if zp is not None:
+        dtypes = {}
+        for g, key in enumerate(zp.layout.keys):
+            for i in zp.layout.idxs[g]:
+                dtypes[zp.names[i]] = key
+        return list(zp.names), dict(zip(zp.names, zp.shapes)), dtypes
+    by_id = {id(p): name for name, p in model.named_parameters()}
+    params = optimizer.inner._params_all
+    names = [by_id[id(p)] for p in params]
+    return (names, {n: tuple(p.shape) for n, p in zip(names, params)},
+            {n: p.dtype for n, p in zip(names, params)})
+
+
+def _skeleton(names, shapes) -> dict:
+    """Zeros shaped like the JAX parameter tree (flax layout)."""
+    items = []
+    for name in names:
+        path = _flax_path(name)
+        a = np.zeros(shapes[name], np.float32)
+        items.append((path, _to_flax_layout(path[-1], a)))
+    return _nest(items)
+
+
+def _jax_layout(tree: dict, dtypes: dict, n: int) -> JaxLayout:
+    groups: dict = {}
+    leaves = list(_jax_leaves(tree))
+    for i, (path, _) in enumerate(leaves):
+        groups.setdefault(_dtype_name(dtypes[_torch_name(path)]),
+                          []).append(i)
+    keys, idxs, sizes, padded, shard = [], [], [], [], []
+    for key, ii in groups.items():
+        sz = tuple(int(np.prod(np.shape(leaves[i][1]))) for i in ii)
+        p = sum(sz) + (-sum(sz)) % n
+        keys.append(key)
+        idxs.append(tuple(ii))
+        sizes.append(sz)
+        padded.append(p)
+        shard.append(p // n)
+    return JaxLayout(tuple(keys), tuple(idxs), tuple(sizes), tuple(padded),
+                     tuple(shard))
+
+
+class _LSMap:
+    """The two layouts of one local-SGD optimizer's buffers: the port's
+    (``port``, a ``ShardLayout``) and the JAX package's (``jax``, over as
+    many shards), and the maps between their full buffers."""
+
+    def __init__(self, model, optimizer, zp, port_layout):
+        self.names, self.shapes, self.dtypes = _ls_leaves(model, optimizer,
+                                                          zp)
+        self.model, self.port = model, port_layout
+        self.tree = _skeleton(self.names, self.shapes)
+        self.jax = _jax_layout(self.tree, self.dtypes,
+                               port_layout.padded[0] // port_layout.shard[0])
+        self.hop = _local_hop(optimizer)
+
+    def to_jax(self, bufs: list, sharded: bool) -> list:
+        """Port buffers (this rank's shards when ``sharded``) -> the JAX
+        layout's full buffers of the slice."""
+        from horovod_tpu_torch.ops import quantization as _quant
+
+        named = {}
+        for g, buf in enumerate(bufs):
+            buf = buf.detach()
+            if sharded:
+                buf = _quant._all_gather(buf, self.hop)
+            off = 0
+            for i, sz in zip(self.port.idxs[g], self.port.sizes[g]):
+                name = self.names[i]
+                named[name] = buf[off:off + sz].reshape(self.shapes[name])
+                off += sz
+        tree = _to_tree((name, named[name]) for name in self.names)
+        leaves = [a for _, a in _jax_leaves(tree)]
+        out = []
+        for g in range(len(self.jax.keys)):
+            flat = np.concatenate([leaves[i].reshape(-1)
+                                   for i in self.jax.idxs[g]])
+            out.append(np.pad(flat, (0, self.jax.padded[g] - flat.size)))
+        return out
+
+    def from_jax(self, bufs: list, like: list, sharded: bool) -> list:
+        """JAX full buffers (``bufs``, in ``self.jax`` or the given JAX
+        layout) -> port buffers like ``like`` (this rank's local shard
+        when ``sharded``)."""
+        from horovod_tpu_torch.optim.distributed import (_fuse_group,
+                                                         _rank_shard)
+
+        tensors = {name: torch.empty(self.shapes[name],
+                                     dtype=self.dtypes[name])
+                   for name in self.names}
+        _from_jax_fused(bufs, self.jax, self.tree, self.model, tensors,
+                        "local-SGD state")
+        leaves = [tensors[name] for name in self.names]
+        idx = self.hop.index if sharded else 0
+        out = []
+        for g, dst in enumerate(like):
+            src = (_rank_shard(leaves, self.port, g, idx) if sharded
+                   else _fuse_group(leaves, self.port, g))
+            out.append(src.to(dtype=dst.dtype, device=dst.device))
+        return out
+
+
+def _local_hop(optimizer):
+    from horovod_tpu_torch.parallel import mesh as _pmesh
+
+    return _pmesh.flat_hop(optimizer.inner_axis)
+
+
+def _inner_bufs(optimizer):
+    """The inner optimizer's per-group state dicts at stages 1-3."""
+    if optimizer.zero_stage == 3:
+        return [optimizer.inner.optimizer.state[p]
+                for p in optimizer.inner._params_all]
+    return optimizer.shard_state
+
+
+def local_sgd_to_jax(model, optimizer, zp=None) -> LocalSGDState:
+    """A ``LocalSGD`` optimizer's state in the JAX package's layout (see
+    :class:`LocalSGDState`).  At stages 1-3 the shards are gathered over
+    the local hop: every rank of the slice calls it.  ``zp`` is the
+    model's ``Zero3Params`` at stage 3."""
+    stage = optimizer.zero_stage
+    sharded = stage >= 1
+    port = zp.layout if stage == 3 else (
+        optimizer.inner.layout if sharded else None)
+    inner: dict = {}
+    if stage == 0:
+        opt = optimizer.inner.optimizer
+        params = dict(model.named_parameters())
+        for key, v in opt.state[next(iter(params.values()))].items():
+            inner[key] = (_to_tree((n, opt.state[p][key])
+                                   for n, p in params.items())
+                          if isinstance(v, torch.Tensor) else np.asarray(v))
+    else:
+        m = _LSMap(model, optimizer, zp, port)
+        states = _inner_bufs(optimizer)
+        for key, v in states[0].items():
+            if isinstance(v, torch.Tensor):
+                inner[key] = m.to_jax([st[key] for st in states], True)
+            else:
+                inner[key] = np.asarray(v)
+    outer = None
+    o = optimizer.outer
+    if o is not None:
+        m = _LSMap(model, optimizer, zp, o.layout)
+        conv = [m.to_jax(bufs, o.kind != "full") for bufs in
+                (o.anchor, o.velocity, o.residual or [])]
+        outer = OuterBuffers(conv[0], conv[1],
+                             conv[2] if o.residual is not None else None,
+                             m.jax, o.kind)
+    return LocalSGDState(inner, outer, int(optimizer.inner_steps))
+
+
+def local_sgd_from_jax(state, model, optimizer, zp=None) -> None:
+    """Load the JAX package's local-SGD state into a ``LocalSGD``
+    optimizer of ``model`` built alike (stage, wire, pair).  ``state``
+    has ``inner_state``, ``outer`` and ``inner_steps`` as
+    :class:`LocalSGDState` describes them (the JAX ``OuterState``'s
+    lists of full buffers of this rank's slice, and its ``layout``);
+    ``zp`` is the model's ``Zero3Params`` at stage 3."""
+    stage = optimizer.zero_stage
+    sharded = stage >= 1
+    inner = state.inner_state or {}
+    if stage == 0:
+        opt = optimizer.inner.optimizer
+        params = dict(model.named_parameters())
+        for key, v in inner.items():
+            if isinstance(v, dict):
+                _load({n: opt.state[p][key] for n, p in params.items()}, v,
+                      key)
+            else:
+                for p in params.values():
+                    opt.state[p][key] = int(np.asarray(v))
+    elif inner:
+        port = zp.layout if stage == 3 else optimizer.inner.layout
+        m = _LSMap(model, optimizer, zp, port)
+        states = _inner_bufs(optimizer)
+        for key, v in inner.items():
+            if key == "count":
+                for st in states:
+                    st[key] = int(np.asarray(v))
+                continue
+            new = m.from_jax(v, [st[key] for st in states], True)
+            with torch.no_grad():
+                for st, t in zip(states, new):
+                    st[key].copy_(t)
+    o, jo = optimizer.outer, state.outer
+    if (o is None) != (jo is None):
+        raise ValueError("the JAX state and the optimizer disagree on "
+                         "whether the local-SGD regime is active")
+    if o is not None:
+        if (o.residual is None) != (jo.residual is None):
+            raise ValueError("the JAX state and the optimizer disagree on "
+                             "whether the outer wire is lossy")
+        m = _LSMap(model, optimizer, zp, o.layout)
+        m.jax = JaxLayout(*(tuple(getattr(jo.layout, f))
+                            for f in JaxLayout._fields))
+        for name in ("anchor", "velocity", "residual"):
+            dst = getattr(o, name)
+            if dst is None:
+                continue
+            new = m.from_jax([np.asarray(b) for b in getattr(jo, name)],
+                             dst, o.kind != "full")
+            with torch.no_grad():
+                for d, t in zip(dst, new):
+                    d.copy_(t)
+    optimizer.inner_steps = int(np.asarray(state.inner_steps))

@@ -293,6 +293,7 @@ def zero3_shard_params(params, axis_name=None) -> Zero3Params:
         shard = torch.nn.Parameter(
             _rank_shard(leaves, layout, g, idx).clone())
         shard._hvd_zero3 = True
+        shard._hvd_zero3_layout = layout
         shards.append(shard)
     zp = Zero3Params(shards, layout, names,
                      [tuple(t.shape) for t in leaves], axis_name)

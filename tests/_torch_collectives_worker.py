@@ -24,7 +24,8 @@ LM under pipeline parallelism on four cards (:func:`pp_cards_main`),
 ``mesh`` the named data mesh and the broadcast and alltoall refusals
 (:func:`mesh_main`), ``data_plane`` the hierarchical reductions and Adasum
 (:func:`data_plane_main`), ``dp_cards`` ResNet-50 through them on four
-cards (:func:`dp_cards_main`).
+cards (:func:`dp_cards_main`); ``local_sgd`` and ``ls_cards`` the
+local-SGD cases of ``tests/_torch_local_sgd_worker.py``.
 ``HVD_TEST_FEEDBACK`` may name a ``.npy`` file of per-rank residuals
 that the lossy optimizer case loads before its second step;
 ``HVD_TEST_INTEROP`` a pickle, written by ``tests/test_torch_zero.py``,
@@ -2070,6 +2071,18 @@ def dp_cards_main(device: str):
     print(json.dumps({"rank": int(os.environ["HOROVOD_RANK"]), **out}))
 
 
+def local_sgd_main(device: str):
+    from _torch_local_sgd_worker import local_sgd_main as run
+
+    run(device)
+
+
+def ls_cards_main(device: str):
+    from _torch_local_sgd_worker import ls_cards_main as run
+
+    run(device)
+
+
 if __name__ == "__main__":
     dev = sys.argv[1] if len(sys.argv) > 1 else "cpu"
     mode = sys.argv[2] if len(sys.argv) > 2 else "collectives"
@@ -2080,4 +2093,5 @@ if __name__ == "__main__":
      "mp_cards": mp_cards_main, "mp_cards_ref": mp_cards_ref_main,
      "pp": pp_main, "pp_cards": pp_cards_main,
      "pp_cards_ref": pp_cards_ref_main,
-     "data_plane": data_plane_main, "dp_cards": dp_cards_main}[mode](dev)
+     "data_plane": data_plane_main, "dp_cards": dp_cards_main,
+     "local_sgd": local_sgd_main, "ls_cards": ls_cards_main}[mode](dev)

@@ -3,8 +3,8 @@ their plain versions (B1-B3 also in one launch over many leaves), and
 short training runs through them; on a machine with
 four cards, the collectives and the lossy wire over NCCL, ZeRO, sequence
 parallelism, the data plane (named mesh axes, the two-level
-reductions, Adasum) and the LM under tensor, expert and pipeline
-parallelism.
+reductions, Adasum), the LM under tensor, expert and pipeline
+parallelism, and ResNet-50 under local SGD.
 Marked ``cuda``; each skips (with its reason) where no CUDA device is
 present.  This file imports no JAX, so it runs on a GPU machine without
 it::
@@ -1057,6 +1057,123 @@ def test_four_cards_data_plane():
           f"{[o['hier']['grad_max_rel'] for o in outs]}; two-rank flat run "
           f"median step {statistics.median(two[0]['flat2']['times'][1:]):.4f}"
           f" s; on 4 x {card.strip()}")
+
+
+ITEMSIZE = {"torch.float32": 4, "torch.bfloat16": 2, "torch.int8": 1}
+
+
+def _bytes_on(calls, ranks) -> int:
+    """Payload bytes of the recorded transfers over the group ``ranks``."""
+    return sum(n * ITEMSIZE[dt] for _, dt, n, rk in calls if rk == ranks)
+
+
+def test_four_cards_local_sgd_resnet50():
+    """The bench step under local SGD on four cards: ResNet-50 at full
+    width (224 px, batch 256 per card, bf16, fused momentum SGD),
+    ``HOROVOD_MESH=dp:4`` with ``HOROVOD_HIERARCHICAL_ALLREDUCE=1`` and
+    ``HOROVOD_HIERARCHICAL_LOCAL_SIZE=2`` (cross 2 x local 2), 6 steps at
+    H = 2, deterministic cuDNN: H = 1 equal bit for bit to the
+    synchronous two-level ``DistributedOptimizer``; stage 0 on the none
+    wire, stage 0 and stage 2 on int8 with error feedback: from a
+    recording wrapper around ``torch.distributed`` no transfer on a cross
+    group during the inner steps and one cross reduction per dtype group
+    per sync (none: one float32 ``all_reduce`` of the fused delta or its
+    local shard; int8: the scales' ``max`` and one int8 payload), a
+    slice's ranks identical after every step and all four after every
+    sync, one B1 per step and one B4 and two B5 per int8 sync, finite
+    losses.  Prints the median inner step and sync, the synchronous step
+    on the same wire, the cross bytes per rank per H steps of both, and
+    the peak memory per rank."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    import os
+    import statistics
+    import subprocess
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from _torch_collectives_worker import spawn
+    from _torch_local_sgd_worker import LS_CARD_CASES, LS_CARD_H, \
+        LS_CARD_STEPS
+
+    outs = spawn(4, "cuda", timeout=1500, mode="ls_cards")
+    card = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    n = 25_557_032
+    for name, h, stage, comp in LS_CARD_CASES:
+        sync_key = f"sync {stage} {comp}"
+        for o in outs:
+            c, l_ = divmod(o["rank"], 2)
+            cross, local = [l_, 2 + l_], [2 * c, 2 * c + 1]
+            assert (o["cross"], o["local"]) == (cross, local)
+            r = o[name]
+            assert all(math.isfinite(v) for v in r["losses"]), name
+            if h == 1:
+                assert r["digests"] == o[sync_key]["digests"], o["rank"]
+                assert not r["sync_s"]
+                continue
+            shard = n // 2 if stage else n
+            nb = -(-shard // 256)
+            for step, calls in enumerate(r["calls"], 1):
+                assert calls and all(x[3] == local for x in calls), \
+                    (name, step)
+                want = {"momentum": 1, "quantize": 0, "dequantize": 0,
+                        "pack4": 0, "unpack4": 0}
+                if comp == "int8" and step % h == 0:
+                    want.update(quantize=1, dequantize=2)
+                assert r["launches"][step - 1] == want, (name, step)
+            assert len(r["sync_calls"]) == LS_CARD_STEPS // h
+            for calls in r["sync_calls"]:
+                on_cross = [x[:3] for x in calls if x[3] == cross]
+                if comp == "none":
+                    assert on_cross == [["all_reduce", "torch.float32",
+                                         shard]], name
+                else:
+                    assert on_cross == [
+                        ["all_reduce", "torch.float32", nb],
+                        ["all_reduce", "torch.int8", nb * 256]], name
+                rest = [x for x in calls if x[3] != cross]
+                assert all(x[3] == local for x in rest), name
+                assert len(rest) == (1 if stage else 0), name
+        for step in range(LS_CARD_STEPS):
+            for c in range(2):
+                assert outs[2 * c][name]["digests"][step] == \
+                    outs[2 * c + 1][name]["digests"][step], (name, step)
+            if h > 1 and (step + 1) % h == 0:
+                assert len({o[name]["digests"][step] for o in outs}) == 1, \
+                    (name, step)
+        if h == 1:
+            continue
+        inner = [o[name]["median_inner_s"] for o in outs]
+        sync = [o[name]["median_sync_s"] for o in outs]
+        syn = [o[sync_key]["median_inner_s"] for o in outs]
+        o0 = outs[0]
+        cross0 = [0, 2]
+        ls_bytes = sum(_bytes_on(x, cross0)
+                       for x in o0[name]["calls"][:h]) + \
+            _bytes_on(o0[name]["sync_calls"][0], cross0)
+        sync_bytes = sum(_bytes_on(x, cross0)
+                         for x in o0[sync_key]["calls"][:h])
+        print(f"[four cards] local SGD {name}: ResNet-50 batch 256 per "
+              f"card, H = {h}: losses {o0[name]['losses']}; median inner "
+              f"step {min(inner):.4f}-{max(inner):.4f} s, sync "
+              f"{min(sync):.4f}-{max(sync):.4f} s over ranks; synchronous "
+              f"two-level DistributedOptimizer on the same wire "
+              f"{min(syn):.4f}-{max(syn):.4f} s per step; cross bytes per "
+              f"rank per {h} steps {ls_bytes} (synchronous {sync_bytes}); "
+              f"peak {[o[name]['peak_bytes'] for o in outs]} B per rank "
+              f"(synchronous {[o[sync_key]['peak_bytes'] for o in outs]}); "
+              f"outer state {o0[name]['outer_bytes']} B, optimizer state "
+              f"{o0[name]['state_bytes']} B per rank; on 4 x {card.strip()}")
+    per_h = statistics.median(
+        [o["stage 0 none"]["median_inner_s"] * LS_CARD_H
+         + o["stage 0 none"]["median_sync_s"] for o in outs])
+    print(f"[four cards] local SGD: stage 0 none, {LS_CARD_H} inner steps "
+          f"and one sync {per_h:.4f} s against {LS_CARD_H} synchronous "
+          f"steps "
+          f"{LS_CARD_H * statistics.median([o['sync 0 none']['median_inner_s'] for o in outs]):.4f}"
+          f" s (median over ranks); on 4 x {card.strip()}")
 
 
 # ---------------------------------------------------------------------------
