@@ -207,7 +207,33 @@ Phases (any failure exits non-zero and prints no result line):
    own work, one at a time) and the outer-state bytes; (b) SmallCNN
    (float32, TF32 off) under ``LocalSGD`` at stage 0 on the int8 wire,
    4 steps on the card and on the CPU: losses within rtol 1e-4, weights
-   within 1e-5 of each tensor's largest magnitude.
+   within 1e-5 of each tensor's largest magnitude;
+20. the eager negotiated plane: (a) the process's runtime at world 1
+   over NCCL: the 161 gradient leaves of the main path's model (224 px,
+   batch 256, bf16) through ``hvd.allreduce_async`` under their frontend
+   names ``allreduce.<param>``, one allgather, broadcast, reducescatter
+   and alltoall, each equal to its input bit for bit, the rounds and the
+   median round latency; then ``horovod_tpu_torch.torch.
+   DistributedOptimizer(torch.optim.SGD(lr=0.01))`` 3 steps, bit for bit
+   with plain SGD (deterministic cuDNN); (b) an emulated world of 4: four
+   ``BackgroundRuntime``s, each with its own ``KVController`` over one
+   in-process ``DictTransport`` and an ``EagerExecutor`` over phase 16's
+   ``EmulatedWorld`` flat hop (a runtime holds its rank's turn on the
+   device while it executes a response); each rank submits its own
+   64-image shard's 161 gradients in hook order rotated by a seeded shift
+   and drives its runtime's cycles, two steps on each of the none, int8
+   and int4 wires (fresh runtimes per wire): every rank the same bits;
+   none bit for bit with phase 16's in-trace ``grouped_allreduce``;
+   int8/int4 each fused response bit for bit with ``quantized_allreduce``
+   on the CPU (the plain versions) and within n * scale / 2 of the float
+   sum; one encode and one decode launch per fused response per rank
+   (none on the none wire); step 2 served by the cache's fast path (a
+   fast round, no explicit request); then, with the background threads
+   started, a shape mismatch raising the coordinator's message on every
+   rank, the runtimes reducing afterwards, and a join with uneven work
+   returning the last rank to join; per rank the rounds, fast rounds and
+   responses per step, payload bytes per response and the work before
+   each transfer.
 
 Then the run's wall time, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
@@ -2760,10 +2786,15 @@ class EmulatedWorld:
     ``memory`` it keeps each rank's own peak device memory (``peak``):
     one rank runs at a time, so what is allocated between two of its
     transfers is its own (the transfer's result is counted to nobody,
-    at most one payload per rank)."""
+    at most one payload per rank).
+
+    With ``free`` the ranks start off the device: any thread then takes
+    rank ``r``'s turn for a span with :meth:`hold` (the eager plane's
+    background threads hold it while they execute a response, and
+    negotiate between their spans without it)."""
 
     def __init__(self, torch, n: int, counters=(), sync: bool = True,
-                 memory: bool = False):
+                 memory: bool = False, free: bool = False):
         import collections
         import threading
 
@@ -2772,8 +2803,8 @@ class EmulatedWorld:
         self.held, self.peak, self._mem0 = [0] * n, [0] * n, [0] * n
         self.calls = [collections.Counter() for _ in range(n)]
         self.cond = threading.Condition()
-        self.turn = 0
-        self.state = ["run"] * n
+        self.turn = None if free else 0
+        self.state = ["free" if free else "run"] * n
         self.slots, self.outs, self.seq = {}, {}, {}
         self.launches = [collections.Counter() for _ in range(n)]
         self.ms = [collections.Counter() for _ in range(n)]
@@ -2820,7 +2851,8 @@ class EmulatedWorld:
                 self.turn = nxt
                 self.cond.notify_all()
                 return
-        if any(s != "done" for s in self.state) and self.error is None:
+        if any(s == "wait" for s in self.state) \
+                and "free" not in self.state and self.error is None:
             self.error = RuntimeError("emulated transfers deadlocked: "
                                       f"rank states {self.state}")
         self.turn = None
@@ -2831,6 +2863,31 @@ class EmulatedWorld:
             self.cond.wait()
         if self.error is not None:
             raise RuntimeError("another emulated rank failed")
+
+    def hold(self, r: int):
+        """Rank ``r``'s turn on the device for the span of a ``with``
+        block, taken by whatever thread runs it: it waits its turn, its
+        transfers pass the device as :meth:`run`'s do, and at the end the
+        rank is free again (off the rota until its next span)."""
+        import contextlib
+
+        @contextlib.contextmanager
+        def span():
+            with self.cond:
+                self.state[r] = "run"
+                if self.turn is None:
+                    self.turn = r
+                self._wait_turn(r)
+                self._start(r)
+            try:
+                yield
+            finally:
+                with self.cond:
+                    self._stop(r, "end")
+                    self.state[r] = "free"
+                    self._pass(r)
+
+        return span()
 
     def transfer(self, hop, label: str, payload, nbytes: int, combine):
         """One member's part of a transfer over ``hop``: its payload in,
@@ -4322,6 +4379,474 @@ def local_sgd(hvd, torch, gpu: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the eager negotiated plane
+# ---------------------------------------------------------------------------
+
+EAGER_WIRES = ("none", "int8", "int4")
+EAGER_STEPS = 2
+EAGER_CODEC = {"none": (), "int8": ("quantize", "dequantize"),
+               "int4": ("pack4", "unpack4")}
+EAGER_SHARD = 64          # images per emulated rank (phase 16's shards)
+EAGER_TIMEOUT_S = 300.0   # the emulated controllers' wire deadline
+
+
+class DictTransport:
+    """An in-process key-value store shared by the emulated ranks'
+    controllers (the six methods of the port's ``StoreTransport``)."""
+
+    def __init__(self):
+        import threading
+
+        self.store, self.cv = {}, threading.Condition()
+
+    def set(self, key, value):
+        with self.cv:
+            self.store[key] = value
+            self.cv.notify_all()
+
+    set_overwrite = set
+
+    def set_once(self, key, value):
+        with self.cv:
+            self.store.setdefault(key, value)
+            self.cv.notify_all()
+
+    def get_blocking(self, key, timeout_s):
+        with self.cv:
+            if not self.cv.wait_for(lambda: key in self.store, timeout_s):
+                raise TimeoutError(key)
+            return self.store[key]
+
+    def try_get(self, key):
+        with self.cv:
+            return self.store.get(key)
+
+    def delete(self, key):
+        with self.cv:
+            self.store.pop(key, None)
+
+
+def _hook_order(torch, model, images, labels) -> list:
+    """One backward: the parameters in the order their post-accumulate
+    hooks fired, and their gradients."""
+    from horovod_tpu_torch.train_step import softmax_cross_entropy
+
+    order = []
+    hooks = [p.register_post_accumulate_grad_hook(order.append)
+             for p in model.parameters()]
+    model.zero_grad(set_to_none=True)
+    softmax_cross_entropy(model(images), labels).backward()
+    for h in hooks:
+        h.remove()
+    return order
+
+
+def eager_world1(hvd, torch, gpu: str, device: str = "cuda",
+                 model_fn=None, batch: int = BATCH, size: int = 224,
+                 classes: int = 1000) -> dict:
+    """Phase 20a: the process's eager runtime at world 1 over NCCL: the
+    161 gradient leaves of the main path's model through
+    ``hvd.allreduce_async`` under their frontend names, one op of each
+    other kind, equal to their inputs bit for bit; then the frontend's
+    ``DistributedOptimizer(torch.optim.SGD(lr=0.01))`` 3 steps, bit for
+    bit with the plain optimizer (deterministic cuDNN)."""
+    import horovod_tpu_torch.torch as thvd
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.ops import eager as E
+    from horovod_tpu_torch.train_step import synthetic_batch, train_step
+
+    if model_fn is None:
+        def model_fn():
+            return ResNet50(num_classes=classes, dtype=torch.bfloat16,
+                            seed=0)
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.benchmark, cudnn.deterministic)
+    cudnn.benchmark, cudnn.deterministic = False, True
+    try:
+        model = model_fn()
+        names = {id(p): n for n, p in model.named_parameters()}
+        images, labels = synthetic_batch(batch, size, classes, seed=0,
+                                         device=device)
+        order = _hook_order(torch, model, images, labels)
+        rt = E._runtime()
+        rounds0, resp0 = rt.rounds, rt.responses
+        rt.round_seconds.clear()
+        handles = [(p.grad, hvd.allreduce_async(
+            p.grad, name=f"allreduce.{names[id(p)]}")) for p in order]
+        x = torch.arange(4 * 6, dtype=torch.float32,
+                         device=device).reshape(4, 6)
+        others = {"allgather": hvd.allgather_async(x, name="w1.gather"),
+                  "broadcast": hvd.broadcast_async(x, 0, name="w1.bcast"),
+                  "reducescatter": hvd.reducescatter_async(
+                      x, name="w1.rs")}
+        outs = [(g, hvd.synchronize(h)) for g, h in handles]
+        outs += [(x, hvd.synchronize(h)) for h in others.values()]
+        outs.append((x, hvd.alltoall(x, name="w1.a2a")))
+        torch.cuda.synchronize()
+        for i, (want, got) in enumerate(outs):
+            if not torch.equal(got, want):
+                raise AssertionError(f"20a: eager result {i} differs from "
+                                     "its input at world 1")
+        lat = sorted(rt.round_seconds)
+        rounds, responses = rt.rounds - rounds0, rt.responses - resp0
+        del handles, outs, order
+        # the frontend against the plain optimizer
+        weights = {}
+        for which in ("frontend", "plain"):
+            m = model_fn()
+            sgd = torch.optim.SGD(m.parameters(), lr=0.01)
+            opt = sgd if which == "plain" else thvd.DistributedOptimizer(
+                sgd, named_parameters=m.named_parameters())
+            steps = []
+            for _ in range(SGD_STEPS):
+                train_step(m, opt, images, labels)
+                steps.append([p.detach().clone() for p in m.parameters()])
+            weights[which] = steps
+            del m, sgd, opt
+        for k, (a, b) in enumerate(zip(weights["frontend"],
+                                       weights["plain"])):
+            if not all(torch.equal(u, v) for u, v in zip(a, b)):
+                raise AssertionError(f"20a: the frontend's step {k + 1} "
+                                     "differs from plain SGD at world 1")
+        del weights, model
+    finally:
+        cudnn.benchmark, cudnn.deterministic = flags
+    out = {"rounds": rounds, "responses": responses,
+           "median_round_ms": lat[len(lat) // 2] * 1e3 if lat else None}
+    log(f"[eager] 20a world 1 over NCCL: {len(names)} ResNet-50 gradient "
+        f"leaves (224 px, batch {batch}, bf16) through "
+        f"hvd.allreduce_async under their frontend names, and one "
+        f"allgather, broadcast, reducescatter and alltoall: equal to the "
+        f"inputs bit for bit; {rounds} rounds, {responses} responses, "
+        f"median round {out['median_round_ms']} ms (host clock, "
+        f"negotiation and dispatch); the frontend's "
+        f"DistributedOptimizer(SGD(lr=0.01)) {SGD_STEPS} steps bit for bit "
+        f"with plain SGD; on {gpu}")
+    return out
+
+
+def _emu_runtime_class(world):
+    """A ``BackgroundRuntime`` of ``world``'s rank: it holds the rank's
+    turn on the device while it executes a response, and logs each
+    response's names, launches and payload bytes."""
+    import collections
+
+    from horovod_tpu_torch.runtime.background import BackgroundRuntime
+
+    class EmuRuntime(BackgroundRuntime):
+        log = None
+
+        def _execute(self, resp):
+            r = self.rank
+            la = collections.Counter(world.launches[r])
+            wi = collections.Counter(world.wire[r])
+            with world.hold(r):
+                super()._execute(resp)
+            if self.log is not None and resp.kind not in ("join", "error"):
+                self.log.append({
+                    "kind": resp.kind, "names": list(resp.names),
+                    "launches": dict(collections.Counter(
+                        world.launches[r]) - la),
+                    "wire_bytes": sum((collections.Counter(
+                        world.wire[r]) - wi).values())})
+
+    return EmuRuntime
+
+
+def _emu_runtimes(torch, world, device: str, epoch: int) -> list:
+    from horovod_tpu_torch.ops.eager import HandleManager
+    from horovod_tpu_torch.ops.eager_exec import EagerExecutor
+    from horovod_tpu_torch.runtime.controller import KVController
+
+    transport = DictTransport()
+    cls = _emu_runtime_class(world)
+    return [cls(r, world.n, KVController(transport, r, world.n, epoch,
+                                         timeout=EAGER_TIMEOUT_S),
+                EagerExecutor(world.flat(r), device), HandleManager(),
+                start=False) for r in range(world.n)]
+
+
+def _threads(fn, n: int) -> list:
+    """``fn(r)`` on ``n`` threads; their results (a failure re-raised)."""
+    import threading
+
+    out, errs = [None] * n, []
+
+    def body(r):
+        try:
+            out[r] = fn(r)
+        except BaseException as exc:  # noqa: BLE001 -- re-raised below
+            errs.append(exc)
+
+    ts = [threading.Thread(target=body, args=(r,), daemon=True)
+          for r in range(n)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=EAGER_TIMEOUT_S)
+    if errs:
+        raise errs[0]
+    if any(t.is_alive() for t in ts):
+        raise AssertionError("an emulated rank did not finish")
+    return out
+
+
+def _eager_step(rt, submissions) -> dict:
+    """One rank's step: its submissions ``(name, tensor)`` in its order,
+    then cycles driven by this thread until every handle is done."""
+    hm, handles = rt.hm, []
+    for name, t in submissions:
+        h = hm.allocate()
+        rt.enqueue("allreduce", t, name, 1, h, None)
+        handles.append((name, h))
+    while not all(hm.poll(h) for _, h in handles):
+        rt.run_cycle()
+    return {name: hm.wait(h) for name, h in handles}
+
+
+def _stats(rt) -> tuple:
+    c = rt.controller
+    return (rt.rounds, c.fast_rounds, rt.responses, c.explicit_requests)
+
+
+def _eager_wire_checks(Q, torch, wire, grads, log0, outs, device, gpu):
+    """20b on a lossy wire: each fused response of step 1 bit for bit
+    with the same buffers through ``quantized_allreduce`` on the CPU
+    (the plain versions) over an emulated world, and within n * scale /
+    2 of the float sum."""
+    from horovod_tpu_torch.common.util import true_divide
+    from horovod_tpu_torch.ops import collectives as C
+
+    n = len(grads)
+    qmax = (Q.sum_safe_qmax if wire == "int8" else Q.sum_safe_qmax4)(n)
+    worst = 0.0
+    for resp in log0:
+        flats = [torch.cat([grads[r][name].reshape(-1)
+                            for name in resp["names"]]).cpu()
+                 for r in range(n)]
+        cpu = EmulatedWorld(torch, n, sync=False)
+        sums = cpu.run(lambda r: C.quantized_allreduce(
+            flats[r], op=C.Sum, block_size=QBLOCK, mode=wire,
+            overlap=False, axis_name=cpu.flat(r)))
+        got = torch.cat([outs[name].reshape(-1) for name in resp["names"]])
+        want = true_divide(sums[0], n)
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"20b {wire}: the response "
+                                 f"{resp['names'][:2]}... differs from "
+                                 "quantized_allreduce's plain versions")
+        p2d = [Q._to_blocks(f, QBLOCK)[0] for f in flats]
+        s = Q._scales(torch.stack([Q.block_absmax(p) for p in p2d])
+                      .amax(0), qmax)
+        exact = sum(f.double() for f in flats)
+        bound = n * torch.repeat_interleave(
+            half_scale(s.double(), qmax), QBLOCK)[:exact.numel()]
+        err = (sums[0].double() - exact).abs()
+        if bool((err > bound).any()):
+            raise AssertionError(f"20b {wire}: beyond n * scale / 2 of the "
+                                 "float sum")
+        worst = max(worst, float((err / bound.clamp_min(1e-30)).max()))
+        del flats, sums, p2d, exact, bound, err
+    return worst
+
+
+def eager_emulated(hvd, torch, gpu: str, device: str = "cuda",
+                   model_fn=None, size: int = 224,
+                   classes: int = 1000) -> dict:
+    """Phase 20b: four ``BackgroundRuntime``s, each with its own
+    ``KVController`` over one in-process ``DictTransport`` and an
+    ``EagerExecutor`` over phase 16's ``EmulatedWorld`` flat hop; each
+    rank's thread submits its own 64-image shard's 161 gradients in
+    hook order rotated by a seeded shift and drives its runtime's cycles
+    (scripted submissions: every rank's requests reach round 1 whole);
+    two steps per wire, a mismatch and a join with the background
+    threads started."""
+    import numpy as np
+
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.ops import quantization as Q
+    from horovod_tpu_torch.train_step import synthetic_batch
+
+    t0 = time.perf_counter()
+    if model_fn is None:
+        def model_fn():
+            return ResNet50(num_classes=classes, dtype=torch.bfloat16,
+                            seed=0)
+    n = DP_N
+    model = model_fn()
+    names = {id(p): f"allreduce.{k}" for k, p in model.named_parameters()}
+    grads, orders = [], []
+    for r in range(n):
+        images, labels = synthetic_batch(EAGER_SHARD, size, classes,
+                                         seed=100 + r, device=device)
+        order = _hook_order(torch, model, images, labels)
+        orders.append([names[id(p)] for p in order])
+        grads.append({names[id(p)]: p.grad.detach().clone() for p in order})
+        del images, labels
+    model.zero_grad(set_to_none=True)
+    del model
+    shifts = np.random.RandomState(20).randint(0, len(orders[0]), n)
+    subs = [[(k, grads[r][k]) for k in orders[r][s:] + orders[r][:s]]
+            for r, s in enumerate(shifts)]
+    # phase 16's in-trace reduction of the same gradients
+    ref_world = EmulatedWorld(torch, n, sync=device == "cuda")
+    keys = orders[0]
+    ref = ref_world.run(lambda r: C.grouped_allreduce(
+        [grads[r][k] for k in keys], axis_name=ref_world.flat(r)))
+    ref = dict(zip(keys, ref[0]))
+    out = {}
+    for epoch, wire in enumerate(EAGER_WIRES, 1):
+        os.environ["HOROVOD_COMPRESSION"] = wire
+        world = EmulatedWorld(torch, n, (Q.LAUNCHES,),
+                              sync=device == "cuda", free=True)
+        rts = _emu_runtimes(torch, world, device, epoch)
+        Q.reset_launch_counts()
+        steps = []
+        try:
+            for step in range(EAGER_STEPS):
+                for rt in rts:
+                    rt.log = []
+                before = [_stats(rt) for rt in rts]
+                res = _threads(lambda r: _eager_step(rts[r], subs[r]), n)
+                after = [_stats(rt) for rt in rts]
+                st = [dict(zip(("rounds", "fast_rounds", "responses",
+                                "explicit"), (a - b for a, b in
+                                              zip(after[r], before[r]))))
+                      for r in range(n)]
+                for k in keys:
+                    for r in range(1, n):
+                        if not torch.equal(res[r][k], res[0][k]):
+                            raise AssertionError(
+                                f"20b {wire} step {step + 1}: rank {r}'s "
+                                f"{k} differs from rank 0's")
+                    if wire == "none" and not torch.equal(res[0][k], ref[k]):
+                        raise AssertionError(
+                            f"20b none step {step + 1}: {k} differs from "
+                            "phase 16's in-trace grouped_allreduce")
+                for r, rt in enumerate(rts):
+                    want = dict.fromkeys(EAGER_CODEC[wire], 1)
+                    for resp in rt.log:
+                        if resp["launches"] != want:
+                            raise AssertionError(
+                                f"20b {wire} rank {r}: launches "
+                                f"{resp['launches']} for one response, "
+                                f"expected {want}")
+                if step == 1:
+                    if any(s["fast_rounds"] < 1 or s["explicit"]
+                           for s in st):
+                        raise AssertionError(
+                            f"20b {wire} step 2: not served by the cache's "
+                            f"fast path: {st}")
+                    for k in keys:
+                        if not torch.equal(res[0][k], steps[0]["out"][k]):
+                            raise AssertionError(
+                                f"20b {wire}: step 2's {k} differs from "
+                                "step 1's")
+                steps.append({"out": res[0], "stats": st,
+                              "log": [list(rt.log) for rt in rts]})
+            worst = (_eager_wire_checks(Q, torch, wire, grads,
+                                        steps[0]["log"][0],
+                                        steps[0]["out"], device, gpu)
+                     if wire != "none" else None)
+            launches = [dict(world.launches[r]) for r in range(n)]
+            if wire == "none":
+                checks = _eager_errors_and_join(torch, rts, device)
+            for rt in rts:
+                rt.stop()
+        finally:
+            os.environ["HOROVOD_COMPRESSION"] = "none"
+        out[wire] = {
+            "stats": [s["stats"] for s in steps],
+            "responses": [len(s["log"][0]) for s in steps],
+            "wire_bytes": [[x["wire_bytes"] for x in s["log"][0]]
+                           for s in steps],
+            "launches": launches, "worst": worst,
+            "ms": [dict(world.ms[r]) for r in range(n)]}
+        log(f"[eager] 20b {wire}: 4 emulated ranks, 161 ResNet-50 "
+            f"gradients of a {EAGER_SHARD}-image shard each, hook order "
+            f"rotated by {list(map(int, shifts))}; every rank the same bits"
+            + ("; bit for bit phase 16's in-trace grouped_allreduce"
+               if wire == "none" else
+               f"; each fused response bit for bit quantized_allreduce's "
+               f"plain versions on the CPU, within {worst:.4f} of n * "
+               f"scale / 2 of the float sum")
+            + f"; per step and rank rounds/fast rounds/responses/explicit "
+            f"requests {[s['stats'] for s in steps]}; responses per step "
+            f"{out[wire]['responses']}; payload bytes per response (rank "
+            f"0) {out[wire]['wire_bytes']}; launches per rank over both "
+            f"steps {launches}; per rank ms of work before each transfer "
+            f"{out[wire]['ms']}; on {gpu}")
+        del rts, world, steps
+    out["checks"] = checks
+    log(f"[eager] 20b: a mismatched shape raised on every rank "
+        f"({checks['mismatch']!r}), the runtimes worked afterwards, join "
+        f"with uneven work returned {checks['join']} on every rank; phase "
+        f"20b took {time.perf_counter() - t0:.1f} s")
+    del grads, ref
+    return out
+
+
+def _eager_errors_and_join(torch, rts, device: str) -> dict:
+    """20b with the runtimes' background threads running: a shape
+    mismatch on one rank fails every rank's handle with the
+    coordinator's message, the runtimes still reduce afterwards, and a
+    join with uneven work (rank 3 reduces twice more) returns rank 3
+    everywhere."""
+    from horovod_tpu_torch.common.types import HorovodTpuError
+
+    for rt in rts:
+        rt.start()
+    n = len(rts)
+
+    def rank(r):
+        rt, hm = rts[r], rts[r].hm
+        h = hm.allocate()
+        rt.enqueue("allreduce", torch.ones(8 + (r == n - 1), device=device),
+                   "eager.bad", 1, h, None)
+        try:
+            hm.wait(h)
+            msg = None
+        except HorovodTpuError as exc:
+            msg = str(exc)
+        h = hm.allocate()
+        rt.enqueue("allreduce", torch.ones(4, device=device), "eager.after",
+                   2, h, None)
+        after = hm.wait(h)
+        extra = []
+        if r == n - 1:
+            for k in range(2):
+                h = hm.allocate()
+                rt.enqueue("allreduce", torch.full((3,), 6.0, device=device),
+                           f"eager.uneven.{k}", 2, h, None)
+                extra.append(hm.wait(h))
+        return msg, after, extra, rt.join()
+
+    res = _threads(rank, n)
+    # the first rank to submit gives the table its shape: either order
+    want = {f"Mismatched shapes for tensor eager.bad: {a} vs {b}."
+            for a, b in (("(8,)", "(9,)"), ("(9,)", "(8,)"))}
+    for r, (msg, after, extra, last) in enumerate(res):
+        if msg not in want or msg != res[0][0]:
+            raise AssertionError(f"20b rank {r}: mismatch raised {msg!r}")
+        if not torch.equal(after.cpu(), torch.full((4,), float(n))):
+            raise AssertionError(f"20b rank {r}: the runtime did not reduce "
+                                 "after the mismatch")
+        if last != n - 1 or any(not torch.equal(
+                e.cpu(), torch.full((3,), 6.0)) for e in extra):
+            raise AssertionError(f"20b rank {r}: join returned {last}")
+    return {"mismatch": res[0][0], "join": n - 1}
+
+
+def eager_plane(hvd, torch, gpu: str) -> dict:
+    """Phase 20 (a-b)."""
+    t0 = time.perf_counter()
+    out = {"a": eager_world1(hvd, torch, gpu),
+           "b": eager_emulated(hvd, torch, gpu)}
+    log(f"[eager] phase 20 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def run(args) -> int:
     t_start = time.perf_counter()
     card = pin_one_card()
@@ -4428,6 +4953,8 @@ def run(args) -> int:
     pp = pipeline_parallel(hvd, torch, gpu)
     torch.cuda.empty_cache()
     lsgd = local_sgd(hvd, torch, gpu)
+    torch.cuda.empty_cache()
+    eager = eager_plane(hvd, torch, gpu)
     hvd.shutdown()
 
     launches = {**path["launches"], **lm["launches"],
@@ -4552,6 +5079,12 @@ def run(args) -> int:
             "launches_local_sgd": {
                 n: r["launches"][0].get(kind, 0)
                 for n, r in lsgd["a"].items()},
+            # phase 20b, per emulated rank over EAGER_STEPS steps of the
+            # eager plane on each wire (one per fused float response)
+            "launches_eager": {w: eager["b"][w]["launches"][0].get(kind, 0)
+                               for w in EAGER_WIRES},
+            "eager_responses": {w: eager["b"][w]["responses"]
+                                for w in EAGER_WIRES},
             "max_abs_err": max(codec_errs[kind], wire["errs"][kind]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -11,18 +11,32 @@ the CPU), with the JAX package's public names::
 ``hvd.LocalSGD`` wraps the same optimizer in the local-SGD / DiLoCo
 regime over a ``(cross, local)`` axis pair.
 
+The top-level ``allreduce``, ``allgather``, ``broadcast``,
+``reducescatter`` and ``alltoall`` (with their ``_async`` and in-place
+spellings, ``poll``, ``synchronize``, ``join`` and ``barrier``) are the
+eager ops of the negotiated plane, as in the JAX package; the in-trace
+functions are ``hvd.collectives.<name>``.  ``horovod_tpu_torch.torch`` is
+the hook-driven PyTorch frontend on the eager plane.
+
 Importing the package builds nothing and touches no device.
 """
 
 from horovod_tpu_torch.common.basics import (  # noqa: F401
     cross_rank, cross_size, data_mesh, data_parallel_size, device, init,
     is_initialized, local_rank, local_size, rank, shutdown, size)
-from horovod_tpu_torch.common.types import HorovodTpuError  # noqa: F401
+from horovod_tpu_torch.common.types import (  # noqa: F401
+    HorovodTpuError, RanksDownError, StalledError)
+from horovod_tpu_torch.ops import collectives  # noqa: F401  (in-trace API)
 from horovod_tpu_torch.ops.collectives import (  # noqa: F401
-    Adasum, Average, Sum, allgather, allreduce, alltoall, broadcast,
-    cross_allreduce, grouped_allreduce, grouped_quantized_allreduce,
-    grouped_reducescatter, hierarchical_allgather, hierarchical_allreduce,
-    local_allreduce, quantized_allreduce, reducescatter)
+    Adasum, Average, Sum, cross_allreduce, grouped_allreduce,
+    grouped_quantized_allreduce, grouped_reducescatter,
+    hierarchical_allgather, hierarchical_allreduce, local_allreduce,
+    quantized_allreduce)
+from horovod_tpu_torch.ops.eager import (  # noqa: F401
+    allgather, allgather_async, allreduce, allreduce_, allreduce_async,
+    allreduce_async_, alltoall, barrier, broadcast, broadcast_,
+    broadcast_async, broadcast_async_, join, poll, reducescatter,
+    reducescatter_async, synchronize)
 from horovod_tpu_torch.ops.compression import Compression  # noqa: F401
 from horovod_tpu_torch.parallel.mesh import (  # noqa: F401
     hierarchical_mesh, make_mesh, parse_mesh_spec)

@@ -42,6 +42,10 @@ class _State:
         self.device = torch.device("cpu")
         self.data_mesh = None   # parallel.mesh.RankMesh of HOROVOD_MESH
         self.data_axes = None   # its axis sizes, e.g. {'dp': 4, 'tp': 2}
+        self.epoch = 0          # init() generation: namespaces eager keys
+        self.eager_hop = None   # the eager plane's world (its own group)
+        self.eager_pair = None  # its (cross, local) pair, or None
+        self.background = None  # runtime.background.BackgroundRuntime
 
 
 _state = _State()
@@ -98,7 +102,9 @@ def init(device=None, timeout_s: float = 300.0, mesh=None) -> None:
         _state.cross_rank = _env_int("HOROVOD_CROSS_RANK", 0)
         _state.cross_size = _env_int("HOROVOD_CROSS_SIZE", 1)
         _state.device = dev
+        _state.epoch += 1
         _state.initialized = True
+        _build_eager_groups()
         if axes is not None:
             _build_data_mesh(axes)
         _log.debug(f"init: backend={backend} size={size} device={dev}",
@@ -177,13 +183,55 @@ def _build_data_mesh(axes) -> None:
                f"{_state.data_axes}", rank=_state.rank)
 
 
+def _build_eager_groups() -> None:
+    """The eager plane's own process group over the world (and, when
+    ``HOROVOD_HIERARCHICAL_ALLREDUCE``/``_ALLGATHER`` admit a (cross,
+    local) split, its local and cross groups), built here on every rank
+    in one order: the background thread's collectives never share a
+    communicator with the caller's in-trace ones, and a rank that joins
+    early never has to build a group late."""
+    from horovod_tpu_torch.parallel import mesh as _pmesh
+
+    size, rank = _state.size, _state.rank
+    group = dist.new_group(list(range(size))) if size > 1 else None
+    _state.eager_hop = _pmesh.Hop(range(size), rank, group, "eager")
+    _state.eager_pair = None
+    if size > 1 and (_config.get("hierarchical_allreduce")
+                     or _config.get("hierarchical_allgather")):
+        local, warn = _pmesh.hier_admissibility(
+            size, rank, _state.local_size, _state.cross_size,
+            _state.cross_rank, _state.local_rank)
+        if warn:
+            _log.warning(warn, rank=rank)
+        if local:
+            shape = (size // local, local)
+            _state.eager_pair = _pmesh.HopPair(
+                _pmesh._axis_groups(shape, (0,), rank, "eager_cross"),
+                _pmesh._axis_groups(shape, (1,), rank, "eager_local"),
+                _state.eager_hop)
+    if size > 1 and dist.get_backend() == "gloo":
+        # gloo connects a new group eagerly: nobody leaves init while a
+        # peer still connects
+        dist.barrier()
+
+
 def shutdown() -> None:
+    """Stop the eager runtime (its shutdown round stops every rank's),
+    then tear the process groups down."""
     with _state.lock:
         if not _state.initialized:
             return
+        if _state.background is not None:
+            _state.background.stop()
+            _state.background = None
+            if _state.size > 1:
+                # no rank tears down the store while a peer still reads
+                # the shutdown round from it
+                dist.barrier()
         if dist.is_initialized():
             dist.destroy_process_group()
         _state.data_mesh = _state.data_axes = None
+        _state.eager_hop = _state.eager_pair = None
         _state.initialized = False
 
 

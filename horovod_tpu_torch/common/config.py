@@ -117,6 +117,38 @@ _KNOBS: dict[str, Knob] = {
         "| bf16 | int8 | int4 | topk (empty = HOROVOD_COMPRESSION).  The "
         "inner steps' local reduction stays full precision.  Must agree "
         "on every rank."),
+    "fusion_threshold": Knob(
+        "HOROVOD_FUSION_THRESHOLD", 64 * 1024 * 1024, int,
+        "Eager plane: the bytes one fused response may hold (default "
+        "64 MiB).  Must agree on every rank."),
+    "cycle_time_ms": Knob(
+        "HOROVOD_CYCLE_TIME", 5.0, float,
+        "Eager plane: the background thread's cycle in ms (default 5): at "
+        "most one negotiation round per cycle under sustained load."),
+    "cache_capacity": Knob(
+        "HOROVOD_CACHE_CAPACITY", 1024, int,
+        "Eager plane: response-cache entries (default 1024); 0 disables "
+        "the cache and its bit fast path.  Must agree on every rank."),
+    "ragged_allgather": Knob(
+        "HOROVOD_RAGGED_ALLGATHER", "auto", str,
+        "Eager plane: a ragged allgather's strategy: auto (the cheaper "
+        "in bytes), psum (every rank's rows at their offsets in one "
+        "zero buffer, one sum) or pad (pad to the longest, gather, "
+        "trim).  Must agree on every rank."),
+    "stall_check_disable": Knob(
+        "HOROVOD_STALL_CHECK_DISABLE", False, _parse_bool,
+        "Eager plane: disable the stall inspector."),
+    "stall_warning_time": Knob(
+        "HOROVOD_STALL_CHECK_TIME_SECONDS", 60.0, float,
+        "Eager plane: seconds before rank 0 warns of a tensor some ranks "
+        "have not submitted."),
+    "stall_shutdown_time": Knob(
+        "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS", 0.0, float,
+        "Eager plane: seconds after which such a stall fails every "
+        "pending tensor (0 = never)."),
+    "wire_timeout": Knob(
+        "HOROVOD_WIRE_TIMEOUT_SECONDS", 600.0, float,
+        "Eager plane: deadline of one wait on the negotiation store."),
     "log_level": Knob(
         "HOROVOD_LOG_LEVEL", "warning", str,
         "trace | debug | info | warning | error | fatal."),
@@ -165,6 +197,11 @@ def get(name: str) -> Any:
         return k.parse(raw)
     except (ValueError, TypeError):
         return k.default
+
+
+def is_set(name: str) -> bool:
+    """True when the knob's env var is set to a non-blank value."""
+    return bool(os.environ.get(_KNOBS[name].env, "").strip())
 
 
 def set_knob(name: str, value: Any) -> None:

@@ -48,3 +48,7 @@ def debug(msg: str, rank: int | None = None) -> None:
 
 def warning(msg: str, rank: int | None = None) -> None:
     log(WARNING, msg, rank)
+
+
+def error(msg: str, rank: int | None = None) -> None:
+    log(ERROR, msg, rank)

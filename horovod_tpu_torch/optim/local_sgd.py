@@ -81,23 +81,12 @@ def outer_compression(compression=None):
 
 def _hier_local_size() -> int:
     """The local group size when this job's layout has a (cross, local)
-    split, else 0 (``horovod_tpu/ops/xla_exec.py:_hier_admissibility``):
-    every host runs the same number of ranks and ranks are
-    host-contiguous, so rank ``r`` sits at ``(r // local, r % local)``.
-    ``HOROVOD_HIERARCHICAL_LOCAL_SIZE`` overrides the launcher's local
-    size."""
+    split, else 0 (:func:`~horovod_tpu_torch.parallel.mesh.
+    hier_admissibility`, the rule the eager plane's groups follow)."""
     st = _basics._state
-    if st.size <= 1:
-        return 0
-    forced = int(_config.get("hierarchical_local_size"))
-    local = forced if forced else st.local_size
-    if local <= 1 or st.size % local:
-        return 0
-    if not forced and (st.local_size * st.cross_size != st.size
-                       or st.rank != st.cross_rank * st.local_size
-                       + st.local_rank):
-        return 0
-    return local
+    return _pmesh.hier_admissibility(st.size, st.rank, st.local_size,
+                                     st.cross_size, st.cross_rank,
+                                     st.local_rank)[0]
 
 
 def local_sgd_topology():

@@ -309,6 +309,35 @@ def hierarchical_mesh(local_size: int | None = None) -> RankMesh:
                     pairs=(("cross", "local"),))
 
 
+def hier_admissibility(size: int, rank: int, local_size: int,
+                       cross_size: int, cross_rank: int, local_rank: int):
+    """``(local, warn)``: the local group size when a (cross, local)
+    split of the world exists, else ``(0, reason or None)``
+    (``xla_exec.py:_hier_admissibility``).  ``HOROVOD_HIERARCHICAL_
+    LOCAL_SIZE`` overrides the launcher's local size; otherwise ranks
+    must be host-contiguous and every host the same size, so rank ``r``
+    sits at ``(r // local, r % local)``.  The one rule for the eager
+    plane's groups and local SGD's topology."""
+    if size <= 1:
+        return 0, None
+    forced = int(_config.get("hierarchical_local_size"))
+    local = forced if forced else local_size
+    if local <= 1 or size % local:
+        if forced:
+            return 0, (
+                f"HOROVOD_HIERARCHICAL_LOCAL_SIZE={forced} does not give "
+                f"a 2-level split of world size {size}; using flat "
+                "collectives")
+        return 0, None
+    if not forced:
+        if local_size * cross_size != size or \
+                rank != cross_rank * local_size + local_rank:
+            return 0, ("hierarchical collectives requested but ranks are "
+                       "not host-contiguous/homogeneous; falling back to "
+                       "flat")
+    return local, None
+
+
 def sequence_groups(dp: int, sp: int):
     """This rank's sequence group and its place ``(d, s)`` in a ``(dp,
     sp)`` layout of the world: the sp axis of ``make_mesh(dp=dp,

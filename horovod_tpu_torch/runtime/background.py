@@ -1,0 +1,367 @@
+"""Background runtime: the tensor queue and the thread that negotiates
+and executes it (counterpart of ``horovod_tpu/runtime/background.py``).
+
+Parity with the reference's core runtime (``horovod/common/operations.cc``):
+framework threads only enqueue (``EnqueueTensorAllreduce``,
+``operations.cc:803``) into a mutex-guarded tensor queue
+(``tensor_queue.{h,cc}``); one background thread runs negotiation rounds
+no more often than the cycle time (``RunLoopOnce``,
+``operations.cc:550-600``), executes the negotiated fused collectives
+and completes the handles.  Framework threads never touch the wire.
+
+On CUDA each entry carries the ready event recorded on its submitting
+thread's current stream at enqueue; the executor's stream waits on it
+before reading, and the handle's done event is what :func:`synchronize`
+makes the caller's stream wait on (the reference's
+``horovod/torch/ready_event.cc``).  The JAX package's metrics, flight
+recorder, fault injection, autotuner, timeline and health hooks belong
+to runtime planes the port has not ported yet (ROADMAP.md Queue A items
+7b and 12).
+"""
+
+from __future__ import annotations
+
+import collections
+import threading
+import time
+
+import torch
+
+from horovod_tpu_torch.common import config as _config
+from horovod_tpu_torch.common import logging as _log
+from horovod_tpu_torch.common.types import (DuplicateNameError, RanksDownError,
+                                            Status, dtype_code,
+                                            dtype_from_code)
+from horovod_tpu_torch.runtime.controller import RANKS_DOWN_PREFIX, Request
+
+
+class _Entry:
+    __slots__ = ("name", "kind", "op", "root_rank", "tensor", "handle",
+                 "postprocess", "out", "ready")
+
+    def __init__(self, name, kind, op, root_rank, tensor, handle,
+                 postprocess, out=None, ready=None):
+        self.name = name
+        self.kind = kind
+        self.op = op
+        self.root_rank = root_rank
+        self.tensor = tensor
+        self.handle = handle
+        self.postprocess = postprocess
+        self.out = out        # the tensor the result is written into
+        self.ready = ready    # CUDA event: the tensor is ready to read
+
+
+class TensorQueue:
+    """Mutex-guarded name table + FIFO (reference ``tensor_queue.h:28-64``).
+    A duplicate name before completion raises (reference ``common.h:161``)."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._fifo: list[_Entry] = []
+        self._table: dict[str, _Entry] = {}
+
+    def add(self, entry: _Entry) -> None:
+        with self._lock:
+            if entry.name in self._table:
+                raise DuplicateNameError(
+                    f"Requested to {entry.kind} a tensor with the same name "
+                    f"as another tensor that is currently being processed. "
+                    f"If you want to request another tensor, pass a "
+                    f"different tensor name. Tensor name: {entry.name}")
+            self._table[entry.name] = entry
+            self._fifo.append(entry)
+
+    def pop_pending(self) -> list[_Entry]:
+        with self._lock:
+            out, self._fifo = self._fifo, []
+            return out
+
+    def drain_all(self) -> list[_Entry]:
+        """Remove and return every outstanding entry, queued or
+        negotiating (on shutdown or failure, so no handle hangs)."""
+        with self._lock:
+            out = list(self._table.values())
+            self._table.clear()
+            self._fifo = []
+            return out
+
+    def finalize(self, name: str) -> "_Entry | None":
+        with self._lock:
+            return self._table.pop(name, None)
+
+    def outstanding(self) -> int:
+        with self._lock:
+            return len(self._table)
+
+
+class BackgroundRuntime:
+    """One rank's tensor queue, controller and executor, and the thread
+    that drives them.  ``start=False`` leaves the thread unstarted: the
+    caller then drives the rounds with :meth:`run_cycle` (several
+    runtimes in one process, each on a thread of the caller's), or
+    starts the thread later with :meth:`start`."""
+
+    def __init__(self, rank: int, world: int, controller, executor,
+                 handle_manager, start: bool = True) -> None:
+        self.rank = rank
+        self.world = world
+        self.controller = controller
+        self.executor = executor
+        self.hm = handle_manager
+        self.queue = TensorQueue()
+        self._counters: dict[str, int] = {}
+        self._counter_lock = threading.Lock()
+        self._stop_requested = threading.Event()
+        self._wake = threading.Event()
+        self._stopped = threading.Event()
+        self._join_requested = threading.Event()
+        self._join_done = threading.Event()
+        self._join_result = -1
+        self._error: str | None = None
+        self._error_class: type | None = None
+        # the plane's counters: responses executed (join and error
+        # included), negotiation rounds, and each round's host seconds
+        # (negotiation and dispatch of its responses)
+        self.responses = 0
+        self.rounds = 0
+        self.round_seconds = collections.deque(maxlen=4096)
+        # held while a response executes: a barrier issued from another
+        # thread must not interleave with it on the eager group
+        self._exec_lock = threading.Lock()
+        self._thread = threading.Thread(
+            target=self._run, name=f"hvd-background-{rank}", daemon=True)
+        if start:
+            self._thread.start()
+
+    def start(self) -> None:
+        self._thread.start()
+
+    # -- framework-thread API ---------------------------------------------
+
+    def autoname(self, kind: str) -> str:
+        with self._counter_lock:
+            i = self._counters.get(kind, 0)
+            self._counters[kind] = i + 1
+        return f"{kind}.noname.{i}"
+
+    def enqueue(self, kind, tensor, name, op, handle, postprocess,
+                root_rank=-1, out=None) -> None:
+        """Queue ``tensor`` for ``kind``; ``out`` (optional) receives the
+        result in place."""
+        if self._stopped.is_set() or self._error:
+            self.hm.mark_done(handle, Status.aborted(
+                self._error or "Horovod-TPU runtime has been shut down.",
+                self._error_class), None)
+            return
+        if not isinstance(tensor, torch.Tensor):
+            tensor = torch.as_tensor(tensor)
+        ready = None
+        if tensor.is_cuda:
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(tensor.device))
+        name = name or self.autoname(kind)
+        entry = _Entry(name, kind, op, root_rank, tensor, handle,
+                       postprocess, out, ready)
+        try:
+            self.queue.add(entry)
+        except DuplicateNameError:
+            self.hm.mark_done(handle, Status.aborted("duplicate name"), None)
+            raise
+        # a stop() racing this enqueue: nothing would process the entry
+        if self._stopped.is_set():
+            if self.queue.finalize(name) is not None:
+                self.hm.mark_done(handle, Status.aborted(
+                    self._error or
+                    "Horovod-TPU runtime has been shut down.",
+                    self._error_class), None)
+        # wake the loop: one op should not wait out a whole cycle
+        self._wake.set()
+
+    def flush(self, timeout: float = 600.0) -> None:
+        deadline = time.monotonic() + timeout
+        while self.queue.outstanding() and time.monotonic() < deadline:
+            time.sleep(0.001)
+
+    def barrier(self) -> None:
+        """Wait for this rank's queued ops, then for every rank (one sum
+        on the eager group, issued between two responses)."""
+        self.flush()
+        with self._exec_lock:
+            self.executor.barrier()
+
+    def join(self) -> int:
+        """Block until every rank joins; the last rank to join."""
+        self._join_done.clear()
+        self._join_requested.set()
+        self._wake.set()
+        self._join_done.wait()
+        return self._join_result
+
+    def stop(self) -> None:
+        self._stop_requested.set()
+        self._wake.set()
+        if self._thread.is_alive():
+            self._thread.join(timeout=30)
+
+    # -- background loop ---------------------------------------------------
+
+    def _run(self) -> None:
+        while True:
+            cycle_s = _config.get("cycle_time_ms") / 1000.0
+            t0 = time.monotonic()
+            try:
+                stop = self.run_cycle()
+            except Exception as exc:  # noqa: BLE001 -- never die silently
+                _log.error(f"background loop error: {exc!r}",
+                           rank=self.rank)
+                self._error = f"Horovod-TPU background failure: {exc!r}"
+                self._fail_outstanding()
+                stop = True
+            if stop:
+                break
+            elapsed = time.monotonic() - t0
+            if elapsed < cycle_s:
+                self._wake.wait(cycle_s - elapsed)
+            self._wake.clear()
+        self._stopped.set()
+        self._fail_outstanding()
+        if self._join_requested.is_set():
+            self._join_done.set()
+
+    def run_cycle(self) -> bool:
+        """One cycle: negotiate what is pending (when this rank or a peer
+        has work) and execute the responses.  Returns True when the
+        world stops."""
+        pending = self.queue.pop_pending()
+        joined = self._join_requested.is_set()
+        shutdown = self._stop_requested.is_set()
+        have_work = bool(pending) or joined or shutdown
+        ctl = self.controller
+        if hasattr(ctl, "should_participate"):
+            # an outstanding entry, or a half-arrived negotiation on the
+            # coordinator, keeps rounds running (so the stall inspector
+            # sees a rank that never shows up)
+            coord = getattr(ctl, "coordinator", None)
+            waiting = bool(self.queue.outstanding()) or bool(
+                coord is not None and (coord.table.entries or coord.joined))
+            if not ctl.should_participate(have_work or waiting):
+                return False
+            if have_work or waiting:
+                ctl.kick()
+        elif not have_work and not self.queue.outstanding():
+            return False
+
+        t0 = time.perf_counter()
+        requests = [Request(e.name, e.kind, e.op, dtype_code(e.tensor.dtype),
+                            tuple(e.tensor.shape), e.root_rank)
+                    for e in pending]
+        result = ctl.negotiate(requests, joined, shutdown)
+        if result.should_stop and self._error is None and not shutdown:
+            # a coordinator-initiated stop (the round-0 cfg mismatch):
+            # its reason reaches every outstanding and late handle
+            for resp in result.responses:
+                if resp.kind == "error" and resp.error:
+                    self._error = resp.error
+                    if resp.error.startswith(RANKS_DOWN_PREFIX):
+                        self._error_class = RanksDownError
+                    break
+        for resp in result.responses:
+            self._execute(resp)
+        self.rounds += 1
+        self.round_seconds.append(time.perf_counter() - t0)
+        if result.all_joined and self._join_requested.is_set():
+            # cleared here, not in the waiting thread, so the next cycle
+            # does not mark this rank joined again
+            self._join_requested.clear()
+            self._join_result = result.last_joined
+            self._join_done.set()
+        return result.should_stop
+
+    def _fail_outstanding(self) -> None:
+        msg = self._error or "Horovod-TPU runtime has been shut down."
+        for entry in self.queue.drain_all():
+            if entry.handle is not None:
+                self.hm.mark_done(
+                    entry.handle,
+                    Status.aborted(msg, self._error_class), None)
+
+    # -- response execution (the data plane) ------------------------------
+
+    def _execute(self, resp) -> None:
+        with self._exec_lock:
+            self._execute_locked(resp)
+
+    def _execute_locked(self, resp) -> None:
+        self.responses += 1
+        if resp.kind == "join":
+            return
+        if resp.kind == "error":
+            exc_class = (RanksDownError if resp.error
+                         and resp.error.startswith(RANKS_DOWN_PREFIX)
+                         else None)
+            for name in resp.names:
+                entry = self.queue.finalize(name)
+                if entry is not None:
+                    self.hm.mark_done(
+                        entry.handle,
+                        Status.precondition(resp.error, exc_class), None)
+            return
+
+        entries, zeros = [], []
+        dtype = dtype_from_code(resp.dtype_code)
+        for name, shape in zip(resp.names, resp.shapes):
+            entry = self.queue.finalize(name)
+            if entry is None:
+                # this rank joined: zeros of the negotiated shape (zero
+                # rows of an allgather; reference GetTensorEntriesFrom-
+                # Response), made in work()
+                if resp.kind == "allgather":
+                    shape = (0,) + tuple(shape[1:])
+                zeros.append((len(entries), tuple(shape)))
+                entry = _Entry(name, resp.kind, resp.op, resp.root_rank,
+                               None, None, None)
+            entries.append(entry)
+        inputs = [e.tensor for e in entries if e.tensor is not None]
+
+        def work():
+            # the zeros are filled on the executor's stream, so the
+            # fused copy that reads them is ordered after the fill
+            for i, shape in zeros:
+                entries[i].tensor = torch.zeros(
+                    shape, dtype=dtype, device=self.executor.device)
+            # the postprocess runs on the executor's stream too
+            outs = self._dispatch(resp, entries)
+            return [e.postprocess(o) if e.postprocess is not None else o
+                    for e, o in zip(entries, outs)]
+
+        try:
+            outs, done = self.executor.execute(
+                work, inputs, [e.ready for e in entries])
+            status = Status.ok()
+        except Exception as exc:  # noqa: BLE001 -- fails the handles
+            outs, done = [None] * len(entries), None
+            status = Status.unknown(
+                f"Collective {resp.kind} failed: {exc!r}")
+            _log.error(status.reason, rank=self.rank)
+        for entry, out in zip(entries, outs):
+            if entry.handle is not None:
+                self.hm.mark_done(entry.handle, status, out, done)
+
+    def _dispatch(self, resp, entries):
+        ex = self.executor
+        tensors = [e.tensor for e in entries]
+        if resp.kind == "allreduce":
+            return ex.fused_allreduce(tensors, resp.op,
+                                      [e.out for e in entries])
+        if resp.kind == "broadcast":
+            return ex.fused_broadcast(tensors, resp.root_rank,
+                                      [e.out for e in entries])
+        if resp.kind == "allgather":
+            sizes = list(resp.first_dims) or None
+            return [ex.allgather(t, sizes=sizes) for t in tensors]
+        if resp.kind == "alltoall":
+            return [ex.alltoall(t) for t in tensors]
+        if resp.kind == "reducescatter":
+            return [ex.reducescatter(t, resp.op) for t in tensors]
+        raise RuntimeError(f"unknown response kind {resp.kind}")

@@ -25,7 +25,9 @@ LM under pipeline parallelism on four cards (:func:`pp_cards_main`),
 (:func:`mesh_main`), ``data_plane`` the hierarchical reductions and Adasum
 (:func:`data_plane_main`), ``dp_cards`` ResNet-50 through them on four
 cards (:func:`dp_cards_main`); ``local_sgd`` and ``ls_cards`` the
-local-SGD cases of ``tests/_torch_local_sgd_worker.py``.
+local-SGD cases of ``tests/_torch_local_sgd_worker.py``; ``eager`` and
+``eager_cards`` the eager plane's cases of
+``tests/_torch_eager_worker.py``.
 ``HVD_TEST_FEEDBACK`` may name a ``.npy`` file of per-rank residuals
 that the lossy optimizer case loads before its second step;
 ``HVD_TEST_INTEROP`` a pickle, written by ``tests/test_torch_zero.py``,
@@ -132,17 +134,17 @@ def main(device: str):
     out = {"topology": [hvd.rank(), hvd.size(), hvd.local_rank(),
                         hvd.local_size(), hvd.cross_rank(),
                         hvd.cross_size()]}
-    out["avg"] = hvd.allreduce(t["x"], op=hvd.Average)
-    out["sum"] = hvd.allreduce(t["x"], op=hvd.Sum)
+    out["avg"] = hvd.collectives.allreduce(t["x"], op=hvd.Average)
+    out["sum"] = hvd.collectives.allreduce(t["x"], op=hvd.Sum)
     assert torch.equal(t["x"].cpu(), torch.from_numpy(inp["x"])), \
         "input modified"
-    out["fp16"] = hvd.allreduce(t["x"], compression=hvd.Compression.fp16)
+    out["fp16"] = hvd.collectives.allreduce(t["x"], compression=hvd.Compression.fp16)
     grouped = hvd.grouped_allreduce(
         [t["a"], t["b"].to(torch.bfloat16), t["c"], t["d"]], op=hvd.Sum)
     out["grouped_dtypes"] = [str(g.dtype) for g in grouped]
     out["grouped"] = grouped
     out["grouped_avg"] = hvd.grouped_allreduce([t["a"], t["d"]])
-    out["bcast"] = hvd.broadcast(t["x"], root_rank=1)
+    out["bcast"] = hvd.collectives.broadcast(t["x"], root_rank=1)
 
     model = torch.nn.Linear(3, 2).to(dev)
     with torch.no_grad():
@@ -196,12 +198,12 @@ def lossy(dev, r: int, n: int) -> dict:
     out = {}
     for mode in ("int8", "int4", "topk"):
         comp = hvd.Compression.lookup(mode)
-        out[f"{mode}_sum"] = hvd.allreduce(t["v"], op=hvd.Sum,
+        out[f"{mode}_sum"] = hvd.collectives.allreduce(t["v"], op=hvd.Sum,
                                            compression=comp)
-        out[f"{mode}_avg"] = hvd.allreduce(t["v"], compression=comp)
+        out[f"{mode}_avg"] = hvd.collectives.allreduce(t["v"], compression=comp)
         out[f"{mode}_ef"] = list(hvd.quantized_allreduce(
             t["v"], op=hvd.Sum, with_error=True, mode=mode))
-    out["grid"] = hvd.allreduce(t["grid"], op=hvd.Sum,
+    out["grid"] = hvd.collectives.allreduce(t["grid"], op=hvd.Sum,
                                 compression=hvd.Compression.int8)
     leaves = [t["ga"], t["gb"], t["gd"].to(torch.bfloat16), t["gc"]]
     outs, errs = hvd.grouped_quantized_allreduce(leaves, op=hvd.Sum,
@@ -212,11 +214,11 @@ def lossy(dev, r: int, n: int) -> dict:
         leaves, compression=hvd.Compression.int4)
     for mode in RS_MODES:
         comp = hvd.Compression.lookup(mode)
-        out[f"rs_{mode}"] = hvd.reducescatter(t["rs"], compression=comp)
-    out["rs_int8_avg"] = hvd.reducescatter(
+        out[f"rs_{mode}"] = hvd.collectives.reducescatter(t["rs"], compression=comp)
+    out["rs_int8_avg"] = hvd.collectives.reducescatter(
         t["rs"], op=hvd.Average, compression=hvd.Compression.int8)
-    out["allgather"] = hvd.allgather(t["ag"])
-    out["alltoall"] = hvd.alltoall(t["a2a"])
+    out["allgather"] = hvd.collectives.allgather(t["ag"])
+    out["alltoall"] = hvd.collectives.alltoall(t["a2a"])
 
     # two DistributedOptimizer(sgd(0.1), compression=int8) steps
     m = _W(dev)
@@ -334,8 +336,8 @@ def overlap_main(device: str):
                                            overlap=True)
     out["grouped_q"] = list(hvd.grouped_quantized_allreduce(
         [t["ga"], t["gb"]], op=hvd.Sum, with_error=True, overlap=True))
-    out["rs"] = hvd.reducescatter(t["rs"], overlap=True)
-    out["allreduce"] = hvd.allreduce(t["rand"], overlap=True)
+    out["rs"] = hvd.collectives.reducescatter(t["rs"], overlap=True)
+    out["allreduce"] = hvd.collectives.allreduce(t["rand"], overlap=True)
     for stage in (0, 1):
         for ovl in (False, True):
             ws = [torch.nn.Parameter(torch.zeros(s, device=dev))
@@ -1582,12 +1584,12 @@ def mesh_main(device: str):
         out["sizes"] = [M.data_parallel_size(), M.model_parallel_size(),
                         hvd.data_parallel_size()]
         x = torch.tensor([float(d), float(r)], device=dev)
-        out["sum"] = hvd.allreduce(x, op=hvd.Sum)
-        out["avg_world"] = hvd.allreduce(x, axis_name="hvd")
-        out["bcast"] = hvd.broadcast(x, root_rank=1)
-        out["gather"] = hvd.allgather(x[None])
-        out["rs"] = hvd.reducescatter(torch.arange(4.0, device=dev) * (r + 1))
-        out["a2a"] = hvd.alltoall(torch.arange(4.0, device=dev) + 10 * r)
+        out["sum"] = hvd.collectives.allreduce(x, op=hvd.Sum)
+        out["avg_world"] = hvd.collectives.allreduce(x, axis_name="hvd")
+        out["bcast"] = hvd.collectives.broadcast(x, root_rank=1)
+        out["gather"] = hvd.collectives.allgather(x[None])
+        out["rs"] = hvd.collectives.reducescatter(torch.arange(4.0, device=dev) * (r + 1))
+        out["a2a"] = hvd.collectives.alltoall(torch.arange(4.0, device=dev) + 10 * r)
         built = M.build_data_mesh({"dp": 2, "tp": 2})
         out["built"] = [list(built.axis_names), list(built.shape)]
         os.environ.update({"HOROVOD_HIERARCHICAL_ALLREDUCE": "1",
@@ -1715,11 +1717,11 @@ def queue_c_checks(device: str, r: int) -> dict:
     x = torch.arange(4.0) + 10 * r
     out["alltoall"] = {
         "default_axis": list(M.resolve_axis()),
-        "default": _refused(lambda: hvd.alltoall(x)),
-        "pair": _refused(lambda: hvd.alltoall(x, axis_name=("dpc", "dpl"))),
-        "hop_pair": _refused(lambda: hvd.alltoall(
+        "default": _refused(lambda: hvd.collectives.alltoall(x)),
+        "pair": _refused(lambda: hvd.collectives.alltoall(x, axis_name=("dpc", "dpl"))),
+        "hop_pair": _refused(lambda: hvd.collectives.alltoall(
             x, axis_name=M.resolve_hops(("dpc", "dpl")))),
-        "local": hvd.alltoall(x[:2], axis_name="dpl"),
+        "local": hvd.collectives.alltoall(x[:2], axis_name="dpl"),
     }
     _reinit_shutdown()
     del os.environ["HOROVOD_HIERARCHICAL_ALLREDUCE"]
@@ -1854,7 +1856,7 @@ def data_plane_main(device: str):
             out[f"hier_{size}_{op}"] = C.hierarchical_allreduce(
                 x, pair.local, pair.cross, op=op)
             _knob(False)
-            out[f"flat_{size}_{op}"] = hvd.allreduce(x, op=op,
+            out[f"flat_{size}_{op}"] = hvd.collectives.allreduce(x, op=op,
                                                      axis_name=pair)
             _knob(True)
     h = C.hierarchical_allreduce(torch.full((3, 5), 2.0, dtype=torch.bfloat16,
@@ -1874,12 +1876,12 @@ def data_plane_main(device: str):
     _knob(True)
     out["gather"] = C.hierarchical_allgather(
         torch.full((1, 3), float(r), device=dev), pair.local, pair.cross)
-    out["gather_default"] = hvd.allgather(
+    out["gather_default"] = hvd.collectives.allgather(
         torch.full((1, 3), float(r), device=dev), axis_name=pair)
     # the lossy wire: flat over the pair (knob off), cross hop only (on)
     adasum_x = torch.from_numpy(np.random.RandomState(3).randn(n, 32)
                                 .astype(np.float32)[r]).to(dev)
-    out["hier_adasum"] = hvd.allreduce(adasum_x, op=hvd.Adasum,
+    out["hier_adasum"] = hvd.collectives.allreduce(adasum_x, op=hvd.Adasum,
                                        axis_name=pair)
     for on in (False, True):
         _knob(on)
@@ -1890,10 +1892,10 @@ def data_plane_main(device: str):
                     t["q"], op=hvd.Sum, with_error=True, mode=mode,
                     axis_name=pair))
             out[f"q_{mode}_{on}_calls"] = rec.calls
-            out[f"rs_{mode}_{on}"] = hvd.reducescatter(
+            out[f"rs_{mode}_{on}"] = hvd.collectives.reducescatter(
                 t["qr"], compression=hvd.Compression.lookup(mode),
                 axis_name=pair)
-        out[f"rs_none_{on}"] = hvd.reducescatter(t["qr"], axis_name=pair)
+        out[f"rs_none_{on}"] = hvd.collectives.reducescatter(t["qr"], axis_name=pair)
         # error feedback over the pair: the running mean of the reduced
         # gradient converges to the exact mean
         res = [torch.zeros(512, device=dev)]
@@ -1904,13 +1906,13 @@ def data_plane_main(device: str):
             steps.append(red)
         out[f"ef_{on}"] = steps
     _knob(False)
-    out["q_exact"] = hvd.allreduce(t["q"], axis_name=pair)
+    out["q_exact"] = hvd.collectives.allreduce(t["q"], axis_name=pair)
     # Adasum: flat over the world, identical vectors, fused leaves with
     # per-leaf segments (f32 and bf16), and over the pair
     ad = torch.from_numpy(np.random.RandomState(0).randn(n, 32)
                           .astype(np.float32)[r]).to(dev)
-    out["adasum"] = hvd.allreduce(ad, op=hvd.Adasum)
-    out["adasum_same"] = hvd.allreduce(torch.full((16,), 3.0, device=dev),
+    out["adasum"] = hvd.collectives.allreduce(ad, op=hvd.Adasum)
+    out["adasum_same"] = hvd.collectives.allreduce(torch.full((16,), 3.0, device=dev),
                                        op=hvd.Adasum)
     leaves = [torch.from_numpy(a).to(dev) for a in inp["leaves"]]
     for dt in (torch.float32, torch.bfloat16):
@@ -2083,6 +2085,18 @@ def ls_cards_main(device: str):
     run(device)
 
 
+def eager_main(device: str):
+    from _torch_eager_worker import eager_main as run
+
+    run(device)
+
+
+def eager_cards_main(device: str):
+    from _torch_eager_worker import eager_cards_main as run
+
+    run(device)
+
+
 if __name__ == "__main__":
     dev = sys.argv[1] if len(sys.argv) > 1 else "cpu"
     mode = sys.argv[2] if len(sys.argv) > 2 else "collectives"
@@ -2094,4 +2108,5 @@ if __name__ == "__main__":
      "pp": pp_main, "pp_cards": pp_cards_main,
      "pp_cards_ref": pp_cards_ref_main,
      "data_plane": data_plane_main, "dp_cards": dp_cards_main,
-     "local_sgd": local_sgd_main, "ls_cards": ls_cards_main}[mode](dev)
+     "local_sgd": local_sgd_main, "ls_cards": ls_cards_main,
+     "eager": eager_main, "eager_cards": eager_cards_main}[mode](dev)

@@ -346,8 +346,8 @@ def test_world_of_one_without_env(monkeypatch):
         assert (hvd.rank(), hvd.size(), hvd.local_rank(), hvd.local_size(),
                 hvd.cross_rank(), hvd.cross_size()) == (0, 1, 0, 1, 0, 1)
         x = torch.arange(6, dtype=torch.float32)
-        assert torch.equal(hvd.allreduce(x), x)
-        assert torch.equal(hvd.allreduce(x, op=hvd.Sum), x)
+        assert torch.equal(hvd.collectives.allreduce(x), x)
+        assert torch.equal(hvd.collectives.allreduce(x, op=hvd.Sum), x)
     finally:
         hvd.shutdown()
     assert not hvd.is_initialized()
@@ -378,17 +378,17 @@ def test_unported_modes_raise(monkeypatch):
                       ("HOROVOD_HEALTH_SKIP_NONFINITE", "item 12")):
         monkeypatch.setenv(env, "1")
         with pytest.raises(NotImplementedError, match=item):
-            hvd.allreduce(x, compression=hvd.Compression.int8)
+            hvd.collectives.allreduce(x, compression=hvd.Compression.int8)
         with pytest.raises(NotImplementedError, match=item):
             hvd.grouped_allreduce([x])
         with pytest.raises(NotImplementedError, match=item):
-            hvd.reducescatter(x)
+            hvd.collectives.reducescatter(x)
         with pytest.raises(NotImplementedError, match=item):
-            hvd.allgather(x)
+            hvd.collectives.allgather(x)
         with pytest.raises(NotImplementedError, match=item):
-            hvd.alltoall(x)
+            hvd.collectives.alltoall(x)
         with pytest.raises(NotImplementedError, match=item):
-            hvd.broadcast(x)
+            hvd.collectives.broadcast(x)
         with pytest.raises(NotImplementedError, match=item):
             hvd.DistributedOptimizer(TF.sgd([w], 0.1),
                                      compression=hvd.Compression.int8)
@@ -401,14 +401,14 @@ def test_unported_modes_raise(monkeypatch):
     hvd.init(device="cpu")
     try:
         y = torch.arange(3, dtype=torch.float32)
-        assert torch.equal(hvd.allreduce(y, compression=hvd.Compression.int8),
+        assert torch.equal(hvd.collectives.allreduce(y, compression=hvd.Compression.int8),
                            y)
         assert torch.equal(hvd.grouped_allreduce([y])[0], y)
-        assert torch.equal(hvd.reducescatter(y), y)
-        assert torch.equal(hvd.allgather(y), y)
-        assert torch.equal(hvd.alltoall(y), y)
-        assert torch.equal(hvd.broadcast(y), y)
-        assert torch.equal(hvd.allreduce(y, op=hvd.Adasum), y)
+        assert torch.equal(hvd.collectives.reducescatter(y), y)
+        assert torch.equal(hvd.collectives.allgather(y), y)
+        assert torch.equal(hvd.collectives.alltoall(y), y)
+        assert torch.equal(hvd.collectives.broadcast(y), y)
+        assert torch.equal(hvd.collectives.allreduce(y, op=hvd.Adasum), y)
         w.grad = torch.ones(2)
         hvd.DistributedOptimizer(TF.sgd([w], 0.5),
                                  compression=hvd.Compression.int8).step()
@@ -445,7 +445,7 @@ def test_integer_average_at_world_one_matches_jax(monkeypatch):
         monkeypatch.delenv(k, raising=False)
     hvd.init(device="cpu")
     try:
-        one = hvd.allreduce(torch.from_numpy(x), op=hvd.Average)
+        one = hvd.collectives.allreduce(torch.from_numpy(x), op=hvd.Average)
         group = hvd.grouped_allreduce([torch.from_numpy(x),
                                        torch.from_numpy(f)], op=hvd.Average)
     finally:

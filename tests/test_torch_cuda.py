@@ -4,7 +4,8 @@ short training runs through them; on a machine with
 four cards, the collectives and the lossy wire over NCCL, ZeRO, sequence
 parallelism, the data plane (named mesh axes, the two-level
 reductions, Adasum), the LM under tensor, expert and pipeline
-parallelism, and ResNet-50 under local SGD.
+parallelism, ResNet-50 under local SGD and through the eager plane's
+frontend.
 Marked ``cuda``; each skips (with its reason) where no CUDA device is
 present.  This file imports no JAX, so it runs on a GPU machine without
 it::
@@ -1174,6 +1175,75 @@ def test_four_cards_local_sgd_resnet50():
           f"steps "
           f"{LS_CARD_H * statistics.median([o['sync 0 none']['median_inner_s'] for o in outs]):.4f}"
           f" s (median over ranks); on 4 x {card.strip()}")
+
+
+def test_four_cards_eager_frontend_resnet50():
+    """The eager plane on four cards: ResNet-50 at full width (224 px,
+    batch 256 per card, bf16) trained 6 steps by the frontend's
+    hook-driven ``horovod_tpu_torch.torch.DistributedOptimizer(
+    torch.optim.SGD(0.1, momentum=0.9))`` over NCCL on the none and the
+    int8 wire (``HOROVOD_COMPRESSION``), beside the in-trace
+    ``DistributedOptimizer`` (stage 0, the same SGD, the none wire) on the
+    same batches, deterministic cuDNN: on the none wire the step-1
+    weights within 1e-6 relative L2 of the in-trace run's (NCCL's sum
+    order moves with the fusion; the int8 wire's distance is printed),
+    every rank identical after every step, finite losses; no B4
+    or B5 on the none wire and one B4 and one B5 per fused float response
+    on the int8 wire; join with uneven work on the cards returns the
+    last rank and its sums see the joined ranks' zeros.  Prints per rank
+    the median step, rounds, fast rounds and responses per step, B4/B5
+    launches per step and the peak memory, beside the in-trace step."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    import os
+    import subprocess
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from _torch_collectives_worker import spawn
+    from _torch_eager_worker import CARD_CASES, CARD_STEPS, JOIN_EXTRA
+
+    outs = spawn(4, "cuda", timeout=900, mode="eager_cards")
+    card = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    for case, wire in CARD_CASES:
+        for step in range(CARD_STEPS):
+            assert len({o[case]["digests"][step] for o in outs}) == 1, \
+                (case, step)
+        for o in outs:
+            r = o[case]
+            assert all(math.isfinite(v) for v in r["losses"]), case
+            if case == "eager none":
+                assert r["step1_rel_l2"] <= 1e-6, r["step1_rel_l2"]
+            if case != "intrace":
+                for step, launches in enumerate(r["launches"]):
+                    n = r["responses"][step]
+                    if wire == "none":
+                        assert launches == {"quantize": 0,
+                                            "dequantize": 0}, case
+                    else:
+                        # one per fused float response: every response
+                        # of this step is one, none is an error or join
+                        assert launches == {"quantize": n,
+                                            "dequantize": n}, (case, step)
+            print(f"[four cards] {case}: rank {o['rank']} median step "
+                  f"{r['median_step_s']:.4f} s (in-trace "
+                  f"{o['intrace']['median_step_s']:.4f} s); peak "
+                  f"{r['peak_bytes']} B (in-trace "
+                  f"{o['intrace']['peak_bytes']} B)"
+                  + ("" if case == "intrace" else
+                     f"; step-1 weights {r['step1_rel_l2']:.3e} relative "
+                     f"L2 from the in-trace run; rounds per step "
+                     f"{r['rounds']}, fast rounds {r['fast_rounds']}, "
+                     f"responses {r['responses']}, explicit requests "
+                     f"{r['explicit']}, B4/B5 per step {r['launches']}, "
+                     f"median round {r['round_ms']:.3f} ms")
+                  + f"; losses {r['losses']}; on 4 x {card.strip()}")
+    for o in outs:
+        assert o["join"]["join"] == 3, o["rank"]
+        assert o["join"]["extra"] == ([0.0] * JOIN_EXTRA if o["rank"] == 3
+                                      else []), o["rank"]
 
 
 # ---------------------------------------------------------------------------

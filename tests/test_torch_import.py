@@ -46,7 +46,11 @@ def test_no_jax_side_module_is_imported():
               "ops.flash_attention", "parallel.ring_attention",
               "models.transformer", "ops.quantization", "models.layers",
               "models.mnist", "models.vgg", "models.inception",
-              "ops.batch_norm", "parallel.mesh", "parallel.ulysses"):
+              "ops.batch_norm", "parallel.mesh", "parallel.ulysses",
+              "runtime.wire", "runtime.cache", "runtime.stall",
+              "runtime.controller", "runtime.background", "ops.eager",
+              "ops.eager_exec", "torch", "torch.mpi_ops",
+              "torch.compression"):
         assert f"horovod_tpu_torch.{m}" in res["modules"]
 
 

@@ -225,7 +225,7 @@ def test_init_mesh_builds_data_mesh(form):
         hop = M.resolve_hops()
         assert (hop.name, hop.ranks, hop.index) == ("dp", (0,), 0)
         x = torch.arange(4.0)
-        assert torch.equal(hvd.allreduce(x), x)
+        assert torch.equal(hvd.collectives.allreduce(x), x)
     finally:
         hvd.shutdown()
         os.environ.pop("HOROVOD_MESH", None)

@@ -262,7 +262,7 @@ def test_world_of_one_shortcuts(world1, monkeypatch):
     assert bounds == jovl.bucket_bounds(1003, 4)
     assert torch.equal(torch.cat(outs), x)
     assert outs[0].data_ptr() == x.data_ptr()
-    assert torch.equal(hvd.allreduce(x, overlap=True), x)
+    assert torch.equal(hvd.collectives.allreduce(x, overlap=True), x)
     assert torch.equal(hvd.grouped_allreduce([x, i], overlap=True)[1], i)
 
 

@@ -468,8 +468,8 @@ def test_world_of_one_is_an_identity(world1, monkeypatch, mode):
     assert torch.equal(outs[0], x) and torch.equal(outs[1], torch.arange(4))
     assert not any(e.any() for e in errs)
     comp = hvd.Compression.lookup(mode)
-    assert torch.equal(hvd.allreduce(x, compression=comp), x)
-    assert torch.equal(hvd.reducescatter(x, compression=comp), x)
+    assert torch.equal(hvd.collectives.allreduce(x, compression=comp), x)
+    assert torch.equal(hvd.collectives.reducescatter(x, compression=comp), x)
     assert calls == []
 
 
@@ -491,7 +491,7 @@ def test_adasum_with_a_lossy_codec_raises(world1, mode):
     comp = hvd.Compression.lookup(mode)
     x = torch.zeros(4)
     with pytest.raises(hvd.HorovodTpuError, match="Adasum"):
-        hvd.allreduce(x, op=hvd.Adasum, compression=comp)
+        hvd.collectives.allreduce(x, op=hvd.Adasum, compression=comp)
     with pytest.raises(hvd.HorovodTpuError, match="Adasum"):
         hvd.grouped_allreduce([x], op=hvd.Adasum, compression=comp)
     w = torch.nn.Parameter(torch.zeros(2))
