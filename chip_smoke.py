@@ -233,7 +233,30 @@ Phases (any failure exits non-zero and prints no result line):
    rank, the runtimes reducing afterwards, and a join with uneven work
    returning the last rank to join; per rank the rounds, fast rounds and
    responses per step, payload bytes per response and the work before
-   each transfer.
+   each transfer;
+21. the rest of the eager plane and the training paths on it, over four
+   emulated runtimes started on their own threads (phase 20b's, over the
+   eager module's handle manager; each emulated rank's thread bound to
+   its runtime with ``ops.eager.bound_runtime``), on the captured
+   gradients of the main path's model's 161 leaves (four 64-image
+   shards): (a) ``DistributedOptimizer(fused_update.sgd(0.1,
+   momentum=0.9), eager=True)`` at stages 1, 2 and 3 on the none and int8
+   wires, two steps: on the none wire bit for bit the in-trace stage
+   over the same emulated world, on int8 within the wire's bound of the
+   none wire; per rank, from the wrappers' launch counters, one B1 per
+   step and one B4 and one B5 per reduce-scatter response (none on the
+   none wire, no B6/B7 on either), the responses, the
+   payload bytes and the optimizer state; (b) local SGD's eager regime
+   (no axis pair; (cross 2, local 2); H = 2; 4 inner steps) bit for bit
+   the in-trace ``LocalSGD`` over the emulated pair, nothing on the cross
+   hop in an inner step and one float32 delta per sync; (c)
+   ``HOROVOD_CONTROL_FANOUT=2``: stage 2's responses byte-identical to the
+   flat plane's; (d) liveness at 0.2 s / 2 s: one emulated rank stops
+   beating and answering, the other three raise ``RanksDownError`` naming
+   it within the timeout plus 5 s; (e) the native wire codec
+   (``csrc/wire.cc``, built with ``g++``) is the one loaded; the median
+   round latency of phase 20b's step with the native and the Python
+   codec, and a cold round's messages alone through each.
 
 Then the run's wall time, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
@@ -4546,6 +4569,7 @@ def _emu_runtime_class(world):
             if self.log is not None and resp.kind not in ("join", "error"):
                 self.log.append({
                     "kind": resp.kind, "names": list(resp.names),
+                    "resp": json.dumps(resp.wire(), sort_keys=True),
                     "launches": dict(collections.Counter(
                         world.launches[r]) - la),
                     "wire_bytes": sum((collections.Counter(
@@ -4847,6 +4871,554 @@ def eager_plane(hvd, torch, gpu: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the rest of the eager plane, and training on it
+# ---------------------------------------------------------------------------
+
+ZE_STAGES, ZE_WIRES, ZE_STEPS = (1, 2, 3), ("none", "int8"), 2
+ZE_CHUNKS = 4           # HOROVOD_ZERO_PREFETCH_CHUNKS' default
+ZE_LR, ZE_MU = 0.1, 0.9
+PHASE21_DEVICE = "cuda"  # "cpu" rehearses the phase without a card
+HB_INTERVAL, HB_TIMEOUT = 0.2, 2.0
+CODEC_ROUNDS = 200      # 21e: rounds of the codec alone, per codec
+
+
+def _rank_launches(mod):
+    """Books ``mod.LAUNCHES`` (the kernel wrappers' launch counter) per
+    emulated rank while active: the counter is swapped for a dict that
+    credits each increment to the incrementing thread's rank (its
+    ``rank.r``, set by the caller), and afterwards the original counter
+    takes the total.  Yields the per-rank ``collections.Counter``s."""
+    import collections
+    import contextlib
+    import threading
+
+    rank, seen = threading.local(), threading.local()
+    per = {}
+
+    class Booked(dict):
+        def __getitem__(self, k):
+            v = dict.__getitem__(self, k)
+            seen.k, seen.v = k, v
+            return v
+
+        def __setitem__(self, k, v):
+            r = getattr(rank, "r", None)
+            if r is not None:
+                base = seen.v if getattr(seen, "k", None) == k \
+                    else dict.get(self, k, 0)
+                per.setdefault(r, collections.Counter())[k] += v - base
+            seen.k = None
+            dict.__setitem__(self, k, v)
+
+    @contextlib.contextmanager
+    def active():
+        orig = mod.LAUNCHES
+        mod.LAUNCHES = Booked(orig)
+        try:
+            yield per
+        finally:
+            orig.update(mod.LAUNCHES)
+            mod.LAUNCHES = orig
+
+    return rank, active
+
+
+def _bound_runtimes(torch, world, device: str, epoch: int, local=None,
+                    fanout=None, transport=None, transports=None) -> list:
+    """Four started ``BackgroundRuntime``s of ``world`` over the eager
+    module's handle manager, each rank's controller over one in-process
+    store (``transports[r]`` where given) and its executor over the
+    world's flat hop (and its (cross, local) pair with ``local``)."""
+    from horovod_tpu_torch.ops import eager as E
+    from horovod_tpu_torch.ops.eager_exec import EagerExecutor
+    from horovod_tpu_torch.runtime.controller import KVController
+
+    transport = transport or DictTransport()
+    cls = _emu_runtime_class(world)
+    rts = [cls(r, world.n, KVController(
+        (transports or {}).get(r, transport), r, world.n, epoch,
+        timeout=EAGER_TIMEOUT_S, fanout=fanout),
+        EagerExecutor(world.flat(r), device,
+                      pair=world.pair(r, local) if local else None),
+        E.handle_manager, start=False) for r in range(world.n)]
+    for rt in rts:
+        rt.log = []
+        rt.start()
+    return rts
+
+
+def _ze_rank(hvd, torch, stage: int, weights, grads, axis, eager: bool,
+             comp) -> tuple:
+    """One emulated rank's ``ZE_STEPS`` steps of ``DistributedOptimizer(
+    fused_update.sgd(ZE_LR, ZE_MU))`` at ``stage`` on its captured
+    gradients (stage 3: ``zero3_shard_params`` cut over ``axis`` and a
+    loss linear in the weights, whose cotangents are the gradients):
+    the weights and the optimizer-state bytes."""
+    names = [f"p{i}" for i in range(len(weights))]
+    ps = [torch.nn.Parameter(w.clone()) for w in weights]
+    kw = {"eager": True} if eager else {"axis_name": axis}
+    if stage == 3:
+        zp = hvd.zero3_shard_params(list(zip(names, ps)), axis_name=axis)
+        opt = hvd.DistributedOptimizer(
+            hvd.fused_update.sgd(zp.shards, ZE_LR, momentum=ZE_MU),
+            zero_stage=3, compression=comp, **kw)
+        # the eager wire's mode is the knob's
+        fkw = {"eager": True} if eager else {"compression": comp}
+        for _ in range(ZE_STEPS):
+            opt.zero_grad()
+            full = hvd.zero3_full_params(zp, **fkw)
+            # the backward on this rank's thread (CUDA's autograd would
+            # run every rank's on one device thread)
+            with torch.autograd.set_multithreading_enabled(False):
+                sum((full[k] * g).sum()
+                    for k, g in zip(names, grads)).backward()
+            opt.step()
+        full = hvd.zero3_full_params(zp, **fkw)
+        ws = [full[k].detach() for k in names]
+    else:
+        opt = hvd.DistributedOptimizer(
+            hvd.fused_update.sgd(ps, ZE_LR, momentum=ZE_MU),
+            zero_stage=stage, compression=comp, **kw)
+        for _ in range(ZE_STEPS):
+            for p, g in zip(ps, grads):
+                p.grad = g.clone()
+            opt.step()
+        ws = [p.detach() for p in ps]
+    return ws, opt.state_bytes()
+
+
+def _ze_intrace(hvd, Q, TF, torch, stage: int, wire: str, weights,
+                grads) -> dict:
+    world = EmulatedWorld(torch, DP_N, (TF.LAUNCHES, Q.LAUNCHES))
+    comp = hvd.Compression.lookup(wire)
+    outs = world.run(lambda r: _ze_rank(hvd, torch, stage, weights,
+                                        grads[r], world.flat(r), False,
+                                        comp))
+    return {"weights": [o[0] for o in outs], "state": [o[1] for o in outs],
+            "launches": [dict(x) for x in world.launches]}
+
+
+def _ze_eager(hvd, Q, TF, torch, stage: int, wire: str, weights, grads,
+              epoch: int, fanout=None) -> dict:
+    """Four emulated ranks on the eager wire: runtimes started, each
+    rank's thread bound to its own (``ops.eager.bound_runtime``)."""
+    from horovod_tpu_torch.ops import eager as E
+
+    os.environ["HOROVOD_COMPRESSION"] = wire
+    world = EmulatedWorld(torch, DP_N, (Q.LAUNCHES,), free=True)
+    rts = _bound_runtimes(torch, world, PHASE21_DEVICE, epoch,
+                           fanout=fanout)
+    rank, active = _rank_launches(TF)
+    comp = hvd.Compression.lookup(wire)
+
+    def body(r):
+        rank.r = r
+        with E.bound_runtime(rts[r]):
+            return _ze_rank(hvd, torch, stage, weights, grads[r],
+                            world.flat(r), True, comp)
+
+    try:
+        TF.reset_launch_counts()
+        with active() as booked:
+            outs = _threads(body, DP_N)
+        torch.cuda.synchronize()
+        b1_total = TF.LAUNCHES["momentum"]
+    finally:
+        os.environ["HOROVOD_COMPRESSION"] = "none"
+        for rt in rts:
+            rt.stop()
+    logs = [rt.log for rt in rts]
+    codec = [{k: sum(x["launches"].get(k, 0) for x in lg)
+              for k in CODECS} for lg in logs]
+    return {"weights": [o[0] for o in outs], "state": [o[1] for o in outs],
+            "b1": [booked.get(r, {}).get("momentum", 0)
+                   for r in range(DP_N)],
+            "b1_total": b1_total, "codec": codec,
+            "responses": [len(lg) for lg in logs],
+            "kinds": [sorted({x["kind"] for x in lg}) for lg in logs],
+            "wire_bytes": [sum(x["wire_bytes"] for x in lg) for lg in logs],
+            "resp": [[x["resp"] for x in lg] for lg in logs],
+            "round_ms": statistics.median(
+                [s * 1e3 for rt in rts for s in rt.round_seconds])}
+
+
+def _ze_bound(torch, Q, weights, grads, want) -> float:
+    """The int8 wire's bound on the weights after ``ZE_STEPS`` momentum
+    steps: each step's reduced gradient within half a quantization step
+    (a block's scale is at most the largest magnitude of any rank's
+    gradient over ``sum_safe_qmax(n)``), and the float32 rounding of ``x
+    / scale``, of the float mean, through ``lr * (1 + (1 + mu))``, plus
+    four ulps of the weights; returns the largest share used by
+    ``want`` against the none wire's weights."""
+    amax = max(float(g.abs().max()) for gs in grads for g in gs)
+    qmax = Q.sum_safe_qmax(DP_N)
+    step = amax / qmax
+    worst = 0.0
+    for got, ref in zip(want[0], want[1]):
+        tol = ZE_LR * (2 + ZE_MU) * step * (0.5 + qmax * 2.0 ** -22) \
+            + 4 * _ulp32(torch, ref)
+        worst = max(worst, float(((got.double() - ref.double()).abs()
+                                  / tol).max()))
+    return worst
+
+
+def eager_zero_emulated(hvd, torch, gpu: str) -> dict:
+    """21a and 21c: ``DistributedOptimizer(..., eager=True)`` at stages
+    1-3 over four emulated runtimes on the none and int8 wires, each
+    beside the in-trace stage over the same emulated world; the
+    hierarchical plane (fanout 2) at stage 2 beside the flat one."""
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.ops import quantization as Q
+    from horovod_tpu_torch.optim import fused_update as TF
+
+    model = ResNet50(num_classes=1000, dtype=torch.bfloat16, seed=0)
+    grads = _resnet_grads(torch, model)
+    weights = [p.detach().clone() for p in model.parameters()]
+    del model
+    out, epoch = {}, 100
+    for stage in ZE_STAGES:
+        ref = _ze_intrace(hvd, Q, TF, torch, stage, "none", weights, grads)
+        for wire in ZE_WIRES:
+            epoch += 1
+            res = _ze_eager(hvd, Q, TF, torch, stage, wire, weights, grads,
+                            epoch)
+            what = f"21a stage {stage} {wire}"
+            for r in range(DP_N):
+                if not all(torch.equal(a, b) for a, b in
+                           zip(res["weights"][r], res["weights"][0])):
+                    raise AssertionError(f"{what}: rank {r}'s weights differ "
+                                         "from rank 0's")
+                if res["b1"][r] != ZE_STEPS:
+                    raise AssertionError(f"{what} rank {r}: {res['b1'][r]} "
+                                         f"B1 launches, expected {ZE_STEPS}")
+                n_rs = ZE_STEPS * (1 if stage == 1 else ZE_CHUNKS) \
+                    if wire == "int8" else 0
+                want = {"quantize": n_rs, "dequantize": n_rs, "pack4": 0,
+                        "unpack4": 0}
+                if res["codec"][r] != want:
+                    raise AssertionError(f"{what} rank {r}: codec launches "
+                                         f"{res['codec'][r]}, expected {want}")
+            if res["b1_total"] != DP_N * ZE_STEPS:
+                raise AssertionError(f"{what}: {res['b1_total']} B1 launches "
+                                     f"for {DP_N} ranks x {ZE_STEPS} steps")
+            if wire == "none":
+                for r in range(DP_N):
+                    if not all(torch.equal(a, b) for a, b in
+                               zip(res["weights"][r], ref["weights"][r])):
+                        raise AssertionError(f"{what} rank {r}: not bit for "
+                                             "bit the in-trace stage")
+                res["worst"] = None
+                base = res
+            else:
+                res["worst"] = _ze_bound(
+                    torch, Q, weights, grads,
+                    (res["weights"][0], base["weights"][0]))
+                if res["worst"] > 1:
+                    raise AssertionError(f"{what}: {res['worst']:.3f} of the "
+                                         "int8 wire's bound from the none "
+                                         "wire")
+            out[f"stage {stage} {wire}"] = {
+                k: res[k] for k in ("b1", "codec", "responses", "wire_bytes",
+                                    "state", "worst", "round_ms")}
+            log(f"[eager] 21a stage {stage} {wire}: four emulated runtimes, "
+                f"the 161 ResNet-50 leaves' captured gradients ({ZE_STEPS} "
+                f"steps, fused momentum SGD, eager=True): "
+                + ("bit for bit the in-trace stage over the same world"
+                   if wire == "none" else
+                   f"{res['worst']:.6f} of the int8 wire's bound from the "
+                   "none wire")
+                + f"; per rank over {ZE_STEPS} steps B1 {res['b1']}, B4-B7 "
+                f"{res['codec']}; responses per rank {res['responses']} "
+                f"({res['kinds'][0]}); payload bytes per rank "
+                f"{res['wire_bytes']}; optimizer state per rank "
+                f"{res['state']} B (in-trace {ref['state']} B); median round "
+                f"{res['round_ms']:.3f} ms; on {gpu}")
+            if stage == 2 and wire == "none":
+                epoch += 1
+                hier = _ze_eager(hvd, Q, TF, torch, stage, wire, weights,
+                                 grads, epoch, fanout=2)
+                for r in range(DP_N):
+                    if hier["resp"][r] != res["resp"][r]:
+                        raise AssertionError(f"21c rank {r}: the hierarchical "
+                                             "plane's responses differ from "
+                                             "the flat plane's")
+                    if not all(torch.equal(a, b) for a, b in
+                               zip(hier["weights"][r], res["weights"][r])):
+                        raise AssertionError(f"21c rank {r}: weights differ "
+                                             "from the flat plane's")
+                out["hier"] = {"responses": hier["responses"],
+                               "round_ms": hier["round_ms"]}
+                log(f"[eager] 21c HOROVOD_CONTROL_FANOUT=2 (2 slices of 2): "
+                    f"stage 2's {hier['responses'][0]} responses per rank "
+                    f"byte-identical to the flat plane's, weights bit for "
+                    f"bit; median round {hier['round_ms']:.3f} ms (flat "
+                    f"{res['round_ms']:.3f} ms); on {gpu}")
+            del res
+        del ref
+    del grads, weights, base
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ls_rank(hvd, torch, weights, grads, axis, wire_counter) -> dict:
+    """One emulated rank's ``LS_STEPS`` inner steps under ``LocalSGD(h=
+    LS_H)`` (stage 0, fused momentum SGD) on its captured gradients, over
+    ``axis`` (``None``: the eager regime), ``maybe_outer_sync`` after
+    each; the weights after every step and sync, and per step the
+    cross-hop bytes it added."""
+    ps = [torch.nn.Parameter(w.clone()) for w in weights]
+    kw = {} if axis is None else {"axis_name": axis}
+    opt = hvd.LocalSGD(hvd.fused_update.sgd(ps, 0.1, momentum=0.9), h=LS_H,
+                       compression=hvd.Compression.none, **kw)
+    flat, cross = [], []
+    for step in range(1, LS_STEPS + 1):
+        c0 = wire_counter()
+        for p, g in zip(ps, grads):
+            p.grad = g.clone()
+        opt.step()
+        c1 = wire_counter()
+        opt.maybe_outer_sync(step)
+        cross.append((c1 - c0, wire_counter() - c1))
+        flat.append(torch.cat([p.detach().reshape(-1) for p in ps]))
+    return {"flat": flat, "cross": cross, "eager": opt.eager}
+
+
+def eager_local_sgd_emulated(hvd, torch, gpu: str) -> dict:
+    """21b: local SGD's eager regime (no pair) over four emulated
+    runtimes with a (cross 2, local 2) pair, against the in-trace
+    ``LocalSGD`` over the emulated pair."""
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.ops import eager as E
+    from horovod_tpu_torch.optim import fused_update as TF
+
+    model = ResNet50(num_classes=1000, dtype=torch.bfloat16, seed=0)
+    grads = _resnet_grads(torch, model)
+    weights = [p.detach().clone() for p in model.parameters()]
+    del model
+    world = EmulatedWorld(torch, DP_N, (TF.LAUNCHES,))
+    ref = world.run(lambda r: _ls_rank(
+        hvd, torch, weights, grads[r], world.pair(r, DP_LOCAL),
+        lambda: world.wire[r]["cross"]))
+    os.environ["HOROVOD_LOCAL_SGD_H"] = str(LS_H)
+    ew = EmulatedWorld(torch, DP_N, (TF.LAUNCHES,), free=True)
+    rts = _bound_runtimes(torch, ew, PHASE21_DEVICE, 200, local=DP_LOCAL)
+
+    def body(r):
+        with E.bound_runtime(rts[r]):
+            return _ls_rank(hvd, torch, weights, grads[r], None,
+                            lambda: ew.wire[r]["cross"])
+
+    try:
+        res = _threads(body, DP_N)
+    finally:
+        os.environ.pop("HOROVOD_LOCAL_SGD_H", None)
+        for rt in rts:
+            rt.stop()
+    sync_bytes = ls_cross_bytes(0, "none")
+    scopes = sorted({x["names"][0].split(".")[1] for x in rts[0].log})
+    for r in range(DP_N):
+        if not res[r]["eager"]:
+            raise AssertionError(f"21b rank {r}: LocalSGD did not take the "
+                                 "eager regime")
+        for k, (a, b) in enumerate(zip(res[r]["flat"], ref[r]["flat"])):
+            if not torch.equal(a, b):
+                raise AssertionError(f"21b rank {r} step {k + 1}: not bit "
+                                     "for bit the in-trace LocalSGD over the "
+                                     "pair")
+        for step, (inner, sync) in enumerate(res[r]["cross"], 1):
+            want = sync_bytes if step % LS_H == 0 else 0
+            if inner or sync != want:
+                raise AssertionError(f"21b rank {r} step {step}: {inner} B "
+                                     f"over the cross hop in the inner step, "
+                                     f"{sync} B in the sync (expected 0 and "
+                                     f"{want})")
+    if scopes != ["cross", "local"]:
+        raise AssertionError(f"21b: response scopes {scopes}")
+    out = {"cross": res[0]["cross"], "local_bytes": ew.wire[0]["local"],
+           "responses": len(rts[0].log)}
+    log(f"[eager] 21b local SGD's eager regime, (cross 2, local 2), H = "
+        f"{LS_H}, {LS_STEPS} inner steps on the 161 ResNet-50 leaves' "
+        f"captured gradients: bit for bit the in-trace LocalSGD over the "
+        f"emulated pair after every step and sync on every rank; cross-hop "
+        f"bytes per step (inner, sync) {out['cross']} (a sync reckoned "
+        f"{sync_bytes}); local bytes {out['local_bytes']}; "
+        f"{out['responses']} localsgd.local./localsgd.cross. responses per "
+        f"rank; on {gpu}")
+    del res, ref, grads, weights
+    torch.cuda.empty_cache()
+    return out
+
+
+class _DyingTransport:
+    """A rank's view of the store that fails every call once ``dead``:
+    the rank stops beating and stops answering."""
+
+    def __init__(self, inner):
+        self.inner, self.dead = inner, False
+
+    def __getattr__(self, name):
+        fn = getattr(self.inner, name)
+
+        def call(*a, **kw):
+            if self.dead:
+                raise ConnectionError("this emulated rank is down")
+            return fn(*a, **kw)
+        return call
+
+
+def eager_liveness_emulated(hvd, torch, gpu: str) -> dict:
+    """21d: four emulated runtimes with ``HOROVOD_HEARTBEAT_INTERVAL`` 0.2
+    s and ``_TIMEOUT_SECONDS`` 2 s; after one allreduce rank 3 stops
+    beating and answering; the other three, each submitting an
+    allreduce, raise ``RanksDownError`` naming rank 3."""
+    from horovod_tpu_torch.common.types import RanksDownError
+    from horovod_tpu_torch.ops import eager as E
+
+    env = {"HOROVOD_HEARTBEAT_INTERVAL": str(HB_INTERVAL),
+           "HOROVOD_HEARTBEAT_TIMEOUT_SECONDS": str(HB_TIMEOUT)}
+    os.environ.update(env)
+    store = DictTransport()
+    dying = _DyingTransport(store)
+    world = EmulatedWorld(torch, DP_N, (), free=True)
+    try:
+        rts = _bound_runtimes(torch, world, PHASE21_DEVICE, 300,
+                              transport=store,
+                              transports={DP_N - 1: dying})
+    finally:
+        for k in env:
+            os.environ.pop(k)
+    try:
+        def warm(r):
+            with E.bound_runtime(rts[r]):
+                return hvd.allreduce(torch.ones(4, device=PHASE21_DEVICE),
+                                     op=hvd.Sum, name="hb.warm")
+        warm_outs = _threads(warm, DP_N)
+        if any(float(o.sum()) != 4 * DP_N for o in warm_outs):
+            raise AssertionError("21d: the warm-up allreduce is wrong")
+        dying.dead = True
+        t_dead = time.monotonic()
+
+        def survivor(r):
+            with E.bound_runtime(rts[r]):
+                try:
+                    hvd.allreduce(torch.ones(4, device=PHASE21_DEVICE),
+                                  op=hvd.Sum, name="hb.after")
+                except RanksDownError as exc:
+                    return time.monotonic() - t_dead, list(exc.ranks), \
+                        str(exc)
+                return None
+
+        got = _threads(survivor, DP_N - 1)
+    finally:
+        for rt in rts:
+            rt.stop()
+    for r, g in enumerate(got):
+        if g is None or g[1] != [DP_N - 1]:
+            raise AssertionError(f"21d rank {r}: {g!r} instead of "
+                                 f"RanksDownError naming [{DP_N - 1}]")
+        if g[0] > HB_TIMEOUT + 5:
+            raise AssertionError(f"21d rank {r}: raised {g[0]:.2f} s after "
+                                 "the death")
+    out = {"detect_s": [g[0] for g in got]}
+    log(f"[eager] 21d liveness (interval {HB_INTERVAL} s, timeout "
+        f"{HB_TIMEOUT} s): emulated rank {DP_N - 1} stopped beating; ranks "
+        f"0-{DP_N - 2} raised RanksDownError naming [{DP_N - 1}] after "
+        f"{[round(x, 3) for x in out['detect_s']]} s; {got[0][2][:160]!r}")
+    return out
+
+
+def _codec_round_msgs(names_shapes) -> tuple:
+    """A cold round's messages of one rank of four: its request list (161
+    requests, every rank the same) and the coordinator's response list."""
+    from horovod_tpu_torch.runtime import controller as C
+
+    reqs = [C.Request(n, "allreduce", 1, 8, s) for n, s in names_shapes]
+    coord = C.Coordinator(DP_N)
+    for r in range(DP_N):
+        coord.ingest(r, reqs, False, False)
+    resps, _ = coord.compute_responses()
+    rank_msg = {"b": [], "i": [], "req": [q.wire() for q in reqs],
+                "j": False, "x": False}
+    resp_msg = {"resp": [p.wire() for p in resps], "i": [], "x": False,
+                "aj": False, "lj": -1}
+    return rank_msg, resp_msg
+
+
+def eager_codec_emulated(hvd, torch, gpu: str) -> dict:
+    """21e: the native codec is the one loaded; the median round latency
+    (``BackgroundRuntime.round_seconds``) of phase 20b's step (four
+    emulated runtimes, the 161 ResNet-50 gradients of a 64-image shard
+    each) with the native and with the pure-Python codec, and a cold
+    round's messages alone through each (rank 0 decodes four request
+    lists and encodes the response list)."""
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.runtime import wire as W
+    from horovod_tpu_torch.train_step import synthetic_batch
+
+    if not W.native_loaded():
+        raise AssertionError("21e: the native wire codec is not loaded")
+    model = ResNet50(num_classes=1000, dtype=torch.bfloat16, seed=0)
+    names = {id(p): f"allreduce.{k}" for k, p in model.named_parameters()}
+    images, labels = synthetic_batch(EAGER_SHARD, 224, 1000, seed=100,
+                                     device=PHASE21_DEVICE)
+    order = _hook_order(torch, model, images, labels)
+    subs = [(names[id(p)], p.grad.detach().clone()) for p in order]
+    shapes = [(names[id(p)], tuple(p.shape)) for p in order]
+    del model, images, labels, order
+    rank_msg, resp_msg = _codec_round_msgs(shapes)
+    out, loaded = {}, W._native
+    for native in (True, False):
+        # the Python codec's round: the module without its native one
+        W._native = loaded if native else None
+        try:
+            world = EmulatedWorld(torch, DP_N, (), free=True,
+                                  sync=PHASE21_DEVICE == "cuda")
+            rts = _emu_runtimes(torch, world, PHASE21_DEVICE, 400 + native)
+            for step in range(EAGER_STEPS + 1):
+                _threads(lambda r: _eager_step(rts[r], subs), DP_N)
+            lat = sorted(s * 1e3 for rt in rts for s in rt.round_seconds)
+            for rt in rts:
+                rt.stop()
+            t0 = time.perf_counter()
+            for _ in range(CODEC_ROUNDS):
+                blob = W.dumps_rank(rank_msg)
+                for _ in range(DP_N):
+                    W.loads_rank(blob)
+                W.loads_resp(W.dumps_resp(resp_msg))
+            codec_ms = (time.perf_counter() - t0) * 1e3 / CODEC_ROUNDS
+        finally:
+            W._native = loaded
+        key = "native" if native else "python"
+        out[key] = {"median_round_ms": lat[len(lat) // 2],
+                    "rounds": len(lat), "codec_ms": codec_ms}
+        del rts, world
+    log(f"[eager] 21e the native wire codec (csrc/wire.cc, g++) is loaded; "
+        f"phase 20b's step (4 emulated runtimes, 161 ResNet-50 gradients, "
+        f"{EAGER_STEPS + 1} steps): median round "
+        f"{out['native']['median_round_ms']:.3f} ms native, "
+        f"{out['python']['median_round_ms']:.3f} ms Python (host clock, "
+        f"negotiation and dispatch); a cold round's messages alone (rank 0: "
+        f"encode its list, decode four, encode and decode the response "
+        f"list of {len(resp_msg['resp'])}): "
+        f"{out['native']['codec_ms']:.3f} ms native, "
+        f"{out['python']['codec_ms']:.3f} ms Python; on {gpu}")
+    del subs
+    torch.cuda.empty_cache()
+    return out
+
+
+def eager_training(hvd, torch, gpu: str) -> dict:
+    """Phase 21 (a-e)."""
+    t0 = time.perf_counter()
+    out = {"a": eager_zero_emulated(hvd, torch, gpu),
+           "b": eager_local_sgd_emulated(hvd, torch, gpu),
+           "d": eager_liveness_emulated(hvd, torch, gpu),
+           "e": eager_codec_emulated(hvd, torch, gpu)}
+    log(f"[eager] phase 21 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def run(args) -> int:
     t_start = time.perf_counter()
     card = pin_one_card()
@@ -4955,6 +5527,8 @@ def run(args) -> int:
     lsgd = local_sgd(hvd, torch, gpu)
     torch.cuda.empty_cache()
     eager = eager_plane(hvd, torch, gpu)
+    torch.cuda.empty_cache()
+    eager21 = eager_training(hvd, torch, gpu)
     hvd.shutdown()
 
     launches = {**path["launches"], **lm["launches"],
@@ -4993,7 +5567,13 @@ def run(args) -> int:
                 # phase 19a, per emulated rank over LS_STEPS inner steps
                 "launches_local_sgd": {
                     n: r["launches"][0]["momentum"]
-                    for n, r in lsgd["a"].items()}}
+                    for n, r in lsgd["a"].items()},
+                # phase 21a, per emulated rank over ZE_STEPS steps of the
+                # eager regime (one on the shard per step), the wrapper's
+                # own counter booked per rank
+                "launches_eager_zero": {
+                    n: r["b1"][0] for n, r in eager21["a"].items()
+                    if n != "hier"}}
                if kind == "momentum" else {}),
             **({"launches_zero_lm": zero_lm["launches"]["adam"],
                 "zero_tail_launches": zero_tail["adam"],
@@ -5085,6 +5665,11 @@ def run(args) -> int:
                                for w in EAGER_WIRES},
             "eager_responses": {w: eager["b"][w]["responses"]
                                 for w in EAGER_WIRES},
+            # phase 21a, per emulated rank over ZE_STEPS steps of the
+            # eager ZeRO regime (one per reduce-scatter response)
+            "launches_eager_zero": {
+                n: r["codec"][0][kind]
+                for n, r in eager21["a"].items() if n != "hier"},
             "max_abs_err": max(codec_errs[kind], wire["errs"][kind]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -7,6 +7,10 @@ keyed by a hash of its source and flags, so an edited source rebuilds
 and an unchanged one is reused; a file lock keeps two ranks (or
 threads) from building the same library at once.  A missing ``nvcc`` or a failed build
 raises: there is no fallback.
+
+:func:`load_host_extension` builds a host C++ source the same way with
+``g++`` against the running interpreter's headers (a CPython extension,
+such as the negotiation wire's codec ``csrc/wire.cc``) and imports it.
 """
 
 from __future__ import annotations
@@ -14,9 +18,11 @@ from __future__ import annotations
 import ctypes
 import fcntl
 import hashlib
+import importlib.util
 import os
 import shutil
 import subprocess
+import sysconfig
 import threading
 import time
 
@@ -89,3 +95,50 @@ def load(name: str) -> ctypes.CDLL:
                 build_info[name] = info
             lib = _libs.setdefault(name, ctypes.CDLL(out))
     return lib
+
+
+HOST_FLAGS = ("-O2", "-fPIC", "-shared", "-std=c++17")
+_modules: dict = {}
+
+
+def load_host_extension(mod_name: str, source: str):
+    """The CPython extension ``mod_name`` built from ``csrc/<source>``
+    with ``g++`` (at first use, into :data:`BUILD_DIR` keyed by a hash
+    of the source, the flags and the interpreter's ABI, under the same
+    file lock as the kernels) and imported.  A failed build raises."""
+    with _lock:
+        mod = _modules.get(mod_name)
+    if mod is not None:
+        return mod
+    src_path = os.path.join(CSRC, source)
+    include = sysconfig.get_paths()["include"]
+    suffix = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
+    with open(src_path, "rb") as f:
+        key = hashlib.sha256(f.read() + " ".join(HOST_FLAGS).encode()
+                             + include.encode() + suffix.encode()
+                             ).hexdigest()
+    out = os.path.join(BUILD_DIR, f"{mod_name}_{key[:16]}{suffix}")
+    if not os.path.exists(out):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        with open(os.path.join(BUILD_DIR, f"{mod_name}.lock"), "w") as lockf:
+            fcntl.flock(lockf, fcntl.LOCK_EX)
+            try:
+                if not os.path.exists(out):
+                    tmp = f"{out}.{os.getpid()}.tmp"
+                    cmd = ["g++", *HOST_FLAGS, f"-I{include}", src_path,
+                           "-o", tmp]
+                    proc = subprocess.run(cmd, capture_output=True,
+                                          text=True)
+                    if proc.returncode != 0:
+                        raise HorovodTpuError(
+                            f"g++ failed building {mod_name} "
+                            f"(rc={proc.returncode}):\n{' '.join(cmd)}\n"
+                            f"{proc.stdout}{proc.stderr}")
+                    os.replace(tmp, out)
+            finally:
+                fcntl.flock(lockf, fcntl.LOCK_UN)
+    spec = importlib.util.spec_from_file_location(mod_name, out)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with _lock:
+        return _modules.setdefault(mod_name, mod)

@@ -185,8 +185,10 @@ def _build_data_mesh(axes) -> None:
 
 def _build_eager_groups() -> None:
     """The eager plane's own process group over the world (and, when
-    ``HOROVOD_HIERARCHICAL_ALLREDUCE``/``_ALLGATHER`` admit a (cross,
-    local) split, its local and cross groups), built here on every rank
+    ``HOROVOD_HIERARCHICAL_ALLREDUCE``/``_ALLGATHER`` or the local-SGD
+    regime (``HOROVOD_LOCAL_SGD_H >= 2``) ask for it and the layout
+    admits a (cross, local) split, its local and cross groups), built
+    here on every rank
     in one order: the background thread's collectives never share a
     communicator with the caller's in-trace ones, and a rank that joins
     early never has to build a group late."""
@@ -197,7 +199,8 @@ def _build_eager_groups() -> None:
     _state.eager_hop = _pmesh.Hop(range(size), rank, group, "eager")
     _state.eager_pair = None
     if size > 1 and (_config.get("hierarchical_allreduce")
-                     or _config.get("hierarchical_allgather")):
+                     or _config.get("hierarchical_allgather")
+                     or int(_config.get("local_sgd_h") or 0) > 1):
         local, warn = _pmesh.hier_admissibility(
             size, rank, _state.local_size, _state.cross_size,
             _state.cross_rank, _state.local_rank)

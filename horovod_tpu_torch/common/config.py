@@ -149,6 +149,23 @@ _KNOBS: dict[str, Knob] = {
     "wire_timeout": Knob(
         "HOROVOD_WIRE_TIMEOUT_SECONDS", 600.0, float,
         "Eager plane: deadline of one wait on the negotiation store."),
+    "heartbeat_interval": Knob(
+        "HOROVOD_HEARTBEAT_INTERVAL", 2.0, float,
+        "Eager plane: seconds between this rank's liveness beats; 0 "
+        "turns liveness and the coordinated abort off.  Must agree on "
+        "every rank."),
+    "heartbeat_timeout": Knob(
+        "HOROVOD_HEARTBEAT_TIMEOUT_SECONDS", 20.0, float,
+        "Eager plane: seconds a peer's beat may stay unchanged before "
+        "the peer is declared dead and every survivor raises "
+        "RanksDownError.  Must agree on every rank."),
+    "control_fanout": Knob(
+        "HOROVOD_CONTROL_FANOUT", 8, int,
+        "Eager plane: worlds larger than this negotiate through slices "
+        "of about this many ranks, each led by its lowest rank (the "
+        "launcher's local size or HOROVOD_HIERARCHICAL_LOCAL_SIZE when "
+        "it divides the world); 0 keeps every world flat.  Must agree "
+        "on every rank."),
     "log_level": Knob(
         "HOROVOD_LOG_LEVEL", "warning", str,
         "trace | debug | info | warning | error | fatal."),

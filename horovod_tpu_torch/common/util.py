@@ -16,6 +16,21 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def reserve_port() -> tuple[socket.socket, int]:
+    """A loopback port held for a server that another process (or a later
+    ``init()``) will start: ``(socket, port)``.  The socket is bound with
+    ``SO_REUSEADDR`` and never listens, so while it is open the kernel
+    gives the port to no other ``bind(0)`` or outgoing connection, and a
+    server binding with ``SO_REUSEADDR`` (as c10d's ``TCPStore`` does) can
+    still take it.  :func:`free_port` releases its port at once, and
+    anything started before the server binds may take it.  Close the
+    socket once the server is up."""
+    s = socket.socket()
+    s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    s.bind(("127.0.0.1", 0))
+    return s, s.getsockname()[1]
+
+
 def true_divide(x: torch.Tensor, c) -> torch.Tensor:
     """``x / c`` as a true division by a broadcast tensor.  PyTorch
     divides by a Python scalar through its reciprocal, which rounds

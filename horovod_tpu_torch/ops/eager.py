@@ -19,6 +19,7 @@ result; it does not block the host on the device.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import torch
@@ -104,12 +105,47 @@ class HandleManager:
 
 
 handle_manager = HandleManager()
+_bound = threading.local()
+
+
+@contextlib.contextmanager
+def bound_runtime(rt):
+    """Route this thread's eager ops to ``rt``, a ``BackgroundRuntime``
+    built over :data:`handle_manager`, instead of the process's runtime
+    (several emulated ranks in one process, each on a thread of its
+    own)."""
+    prev = getattr(_bound, "rt", None)
+    _bound.rt = rt
+    try:
+        yield rt
+    finally:
+        _bound.rt = prev
+
+
+def plane_place() -> tuple[int, int]:
+    """``(rank, world)`` of the eager plane this thread's ops run on."""
+    rt = _runtime()
+    return rt.rank, rt.world
+
+
+def plane_pair():
+    """The (cross, local) ``HopPair`` of the eager plane this thread's ops
+    run on, or ``None`` when it has none (it does not start the
+    process's runtime)."""
+    rt = getattr(_bound, "rt", None)
+    if rt is not None:
+        return rt.executor.pair
+    return _basics._state.eager_pair
 
 
 def _runtime():
-    """The process's background runtime, started on first use (reference
+    """This thread's bound runtime (:func:`bound_runtime`), else the
+    process's background runtime, started on first use (reference
     ``InitializeHorovodOnce``, ``operations.cc:604-650``) over the eager
     group :func:`~horovod_tpu_torch.common.basics.init` built."""
+    rt = getattr(_bound, "rt", None)
+    if rt is not None:
+        return rt
     st = _basics._state
     if not st.initialized:
         raise HorovodTpuError(
@@ -278,3 +314,18 @@ def barrier() -> None:
     """Wait until this rank's queued ops are done, then until every rank
     reaches the barrier (one sum on the eager group)."""
     _runtime().barrier()
+
+
+def check_liveness() -> None:
+    """Sweep the peers' heartbeats now: raises
+    :class:`~horovod_tpu_torch.common.types.RanksDownError` when a peer is
+    silent past ``HOROVOD_HEARTBEAT_TIMEOUT_SECONDS`` or a coordinated
+    abort was broadcast.  The negotiated plane sweeps by itself every
+    round; this is for loops that run long stretches of in-trace steps
+    between eager ops.  A no-op before the first eager op (the runtime,
+    and with it the heartbeat, starts there) and at one rank."""
+    st = _basics._state
+    ctl = getattr(st.background, "controller", None)
+    fn = getattr(ctl, "check_liveness", None)
+    if fn is not None:
+        fn()

@@ -18,6 +18,10 @@ rounds and divides as the in-trace plane does:
   without error feedback (B4/B5, B6/B7); the two-level split under
   ``HOROVOD_HIERARCHICAL_ALLREDUCE``
   (``parallel.mesh.hier_admissibility``); the bucketed schedule under ``HOROVOD_OVERLAP``;
+* a ``localsgd.local.``/``localsgd.cross.``-scoped allreduce (local SGD's
+  eager regime) over that hop of the (cross, local) pair only
+  (``xla_exec.py:416-512``): the local hop in full precision, the cross
+  hop on the outer sync's wire;
 * reducescatter along axis 0, zero-padded to ``ceil(d0 / size)`` rows;
 * allgather, ragged from the response's first dims
   (``HOROVOD_RAGGED_ALLGATHER``) or equal-size;
@@ -61,6 +65,25 @@ def wire_mode(dtype: torch.dtype) -> str:
 
 def _quant_block() -> int | None:
     return int(_config.get("quant_block_size")) or None
+
+
+def outer_wire_mode(dtype: torch.dtype) -> str:
+    """The mode of a ``localsgd.cross.`` response's payload of ``dtype``
+    (``xla_exec.py:_pseudo_wire_compression``):
+    ``HOROVOD_LOCAL_SGD_COMPRESSION``, else ``HOROVOD_COMPRESSION``, while
+    the regime is on (``HOROVOD_LOCAL_SGD_H >= 2``), else ``none``; a
+    cast that would not shrink the payload and a non-floating payload
+    are ``none`` too."""
+    mode = "none"
+    if int(_config.get("local_sgd_h") or 0) > 1:
+        mode = str(_config.get("local_sgd_compression")
+                   or _config.get("compression")).strip().lower() or "none"
+    Compression.lookup(mode)  # fail fast on a misspelt knob
+    if not dtype.is_floating_point:
+        return "none"
+    if mode in _CASTS and dtype.itemsize <= _CASTS[mode].itemsize:
+        return "none"
+    return mode
 
 
 class EagerExecutor:
@@ -188,6 +211,46 @@ class EagerExecutor:
             red = red.to(in_dtype)
         if op == _AVERAGE:
             red = true_divide(red, n).to(in_dtype)
+        return self._split(red, tensors, outs)
+
+    def scoped_allreduce(self, tensors, op: int, scope: str,
+                         outs=None) -> list:
+        """One reduction of a fused bucket over one hop of the eager
+        plane's (cross, local) pair: ``scope`` ``"local"`` in full
+        precision, ``"cross"`` on :func:`outer_wire_mode`'s wire (B4/B5,
+        B6/B7 for int8/int4, without error feedback).  Average divides
+        by that hop's size.  Without a pair every rank is its own slice:
+        the local reduction is the identity, the cross one the world's."""
+        if scope not in ("local", "cross"):
+            raise HorovodTpuError(
+                f"unknown reduction scope {scope!r}: expected 'local' or "
+                "'cross'")
+        if op == _ADASUM:
+            raise HorovodTpuError(
+                "scoped (local-SGD) reductions support Sum/Average only: "
+                "the Adasum projection needs the full reduction")
+        if self.pair is not None:
+            hop = self.pair.local if scope == "local" else self.pair.cross
+        elif scope == "local":
+            return self._identity(tensors, outs)
+        else:
+            hop = self.hop
+        if hop.size == 1:
+            return self._identity(tensors, outs)
+        in_dtype = tensors[0].dtype
+        flat = self._fuse(tensors)
+        mode = "none" if scope == "local" else outer_wire_mode(in_dtype)
+        wire = flat
+        if mode in _CASTS:
+            wire, mode = flat.to(_CASTS[mode]), "none"
+        if mode in _LOSSY:
+            red, _ = _quant._lossy_psum_impl(wire, mode, _quant_block(),
+                                             None, False, hop)
+        else:
+            red = hop.all_reduce(wire)
+        red = red.to(in_dtype)
+        if op == _AVERAGE:
+            red = true_divide(red, hop.size).to(in_dtype)
         return self._split(red, tensors, outs)
 
     @staticmethod

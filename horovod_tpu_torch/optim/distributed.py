@@ -42,11 +42,21 @@ mesh's dp axis when ``HOROVOD_MESH`` names one, else the world; a
 that axis's total and a rank's shard its cross-major index
 (``collectives.shard_index``).  ``op=Adasum`` runs at stage 0 only.
 
-The port runs the reference's in-trace regime (``shard_map``): its
-collectives are direct NCCL/gloo calls.  At stages 2-3 the schedule is
-bucketed already; ``overlap`` there chose the reference's ``ppermute``
-ring over one ``psum_scatter`` per bucket, and one NCCL call is the
-port's counterpart of both.
+By default the port runs the reference's in-trace regime (``shard_map``):
+its collectives are direct NCCL/gloo calls.  At stages 2-3 the schedule
+is bucketed already; ``overlap`` there chose the reference's
+``ppermute`` ring over one ``psum_scatter`` per bucket, and one NCCL call
+is the port's counterpart of both.
+
+``eager=True`` runs the reference's eager regime instead (its ``update``
+called outside ``jit``): every reduction is a negotiated op of the eager
+plane (:mod:`horovod_tpu_torch.ops.eager`), so it gets the plane's
+``join()``, response cache and coordinated abort.  Stage 0 submits one
+fused allreduce per dtype group; stage 1 one reduce-scatter and one
+all-gather per group; stages 2-3 one per bucket; the eager wire applies
+``HOROVOD_COMPRESSION`` inside the negotiated response, without error
+feedback, and applies the op itself (the tail divides by nothing at
+stages 1-2).  The shards are cut over the world.
 """
 
 from __future__ import annotations
@@ -64,9 +74,10 @@ from horovod_tpu_torch.common import config as _config
 from horovod_tpu_torch.common.types import HorovodTpuError
 from horovod_tpu_torch.common.util import true_divide
 from horovod_tpu_torch.ops import collectives as _coll
+from horovod_tpu_torch.ops import eager as _eager
 from horovod_tpu_torch.ops import overlap as _ovl
 from horovod_tpu_torch.ops import quantization as _quant
-from horovod_tpu_torch.ops.collectives import Adasum, Average
+from horovod_tpu_torch.ops.collectives import Adasum, Average, Sum
 from horovod_tpu_torch.ops.compression import (Compression,
                                                active_compression,
                                                is_quantized, wire_mode)
@@ -243,6 +254,108 @@ def _bucketed_scatter_group(leaves, layout: ShardLayout, g: int, n: int,
 
 
 # ---------------------------------------------------------------------------
+# The eager regime: the same collectives as negotiated ops
+# ---------------------------------------------------------------------------
+
+
+def _dtype_label(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def _check_eager_mesh() -> None:
+    """The eager wire is the flat world: with tp/pp/sp extents on the
+    data mesh it would average model-sharded values across islands
+    (``horovod_tpu/optim/distributed.py:175-186``)."""
+    if _pmesh.model_parallel_size() > 1:
+        raise HorovodTpuError(
+            "eager collectives are flat-world and cannot honor a data "
+            "mesh with model-parallel axes "
+            f"({_pmesh.canonical_spec(_pmesh.active_spec())!r}); run the "
+            "gradient reduction in-trace (eager=False) or drop the "
+            "tp/pp/sp extents from HOROVOD_MESH")
+
+
+def eager_fused_allreduce(leaves, op: int, compression=Compression.none,
+                          scope: str | None = None) -> list:
+    """One negotiated allreduce per dtype group of ``leaves``, each group
+    raveled into one flat buffer named ``grad_buffer.<dtype>.<count>``
+    (``localsgd.<scope>.<dtype>.<count>`` for a scoped reduction), all
+    submitted before the first is waited for; the results split back
+    (``_eager_fused_pytree_allreduce``).  A lossy ``compression`` is the
+    wire's business (``HOROVOD_COMPRESSION``): it passes as none here."""
+    if is_quantized(compression):
+        compression = Compression.none
+    prefix = "grad_buffer" if scope is None else f"localsgd.{scope}"
+    groups: dict = {}
+    for i, leaf in enumerate(leaves):
+        groups.setdefault(leaf.dtype, []).append(i)
+    handles = []
+    for dtype, idxs in groups.items():
+        flat = torch.cat([leaves[i].reshape(-1) for i in idxs])
+        handles.append((idxs, _eager.allreduce_async(
+            flat, op=op, name=f"{prefix}.{_dtype_label(dtype)}.{len(idxs)}",
+            compression=compression)))
+    out: list = [None] * len(leaves)
+    for idxs, h in handles:
+        red = _eager.synchronize(h)
+        off = 0
+        for i in idxs:
+            n = leaves[i].numel()
+            out[i] = red[off:off + n].view(leaves[i].shape)
+            off += n
+    return out
+
+
+def _eager_scatter(leaves, layout: ShardLayout, op: int, n: int,
+                   chunks=None) -> list:
+    """Every group's shard of the reduced gradient on the eager wire:
+    one reduce-scatter per group (``chunks`` 1, stage 1) or one per
+    bucket piece (stages 2-3, the pieces assembled span-wise as
+    in-trace), named by group, padded length and bucket so every rank
+    submits the same names (``_bucketed_eager_scatter``)."""
+    handles = []
+    for g, key in enumerate(layout.keys):
+        bounds = _ovl.bucket_bounds(layout.shard[g], _zero_chunks(chunks))
+        name = f"shard_rs.{_dtype_label(key)}.{layout.padded[g]}"
+        if chunks == 1:
+            handles.append([_eager.reducescatter_async(
+                _fuse_group(leaves, layout, g), op=op, name=name)])
+            continue
+        handles.append([_eager.reducescatter_async(
+            _coll.fuse_bucket_piece(leaves, layout.idxs[g],
+                                    layout.sizes[g], layout.padded[g], n,
+                                    s, e, key),
+            op=op, name=f"{name}.{k}of{len(bounds)}")
+            for k, (s, e) in enumerate(bounds)])
+    return [torch.cat([_eager.synchronize(h) for h in hs])
+            if len(hs) > 1 else _eager.synchronize(hs[0])
+            for hs in handles]
+
+
+def _eager_gather(shards, layout: ShardLayout, prefix: str,
+                  chunks=None) -> list:
+    """Every group's shard all-gathered on the eager wire, bucket by
+    bucket: per group ``(bucket outputs, bounds)`` for
+    ``collectives.leaf_from_buckets`` (``chunks`` 1: one all-gather of
+    the whole shard, ``_bucketed_eager_gather``)."""
+    handles = []
+    for g, key in enumerate(layout.keys):
+        shard = shards[g].detach()
+        bounds = _ovl.bucket_bounds(int(shard.shape[0]),
+                                    _zero_chunks(chunks))
+        name = f"{prefix}.{_dtype_label(key)}.{layout.padded[g]}"
+        if chunks != 1:
+            handles.append(([_eager.allgather_async(
+                shard[s:e], name=f"{name}.{k}of{len(bounds)}")
+                for k, (s, e) in enumerate(bounds)], bounds))
+        else:
+            handles.append(([_eager.allgather_async(shard, name=name)],
+                            bounds))
+    return [([_eager.synchronize(h) for h in hs], bounds)
+            for hs, bounds in handles]
+
+
+# ---------------------------------------------------------------------------
 # ZeRO-3: shard-resident parameters
 # ---------------------------------------------------------------------------
 
@@ -325,23 +438,34 @@ class _Zero3Gather(torch.autograd.Function):
     ``bwd``); under a lossy wire without error feedback."""
 
     @staticmethod
-    def forward(ctx, zp, qmode, chunks, axis, *shards):
+    def forward(ctx, zp, qmode, chunks, axis, eager, *shards):
         ctx.zp, ctx.qmode, ctx.chunks, ctx.axis = zp, qmode, chunks, axis
-        sets = [_ovl.prefetched_gather_flat_shard(s, chunks, axis)
-                for s in shards]
-        return tuple(_leaves_from_buckets(sets, zp.layout, zp.shapes,
-                                          _pmesh.axis_total(axis)))
+        ctx.eager = eager
+        if eager:
+            sets = _eager_gather(shards, zp.layout, "zero3_ag", chunks)
+            n = _eager.plane_place()[1]
+        else:
+            sets = [_ovl.prefetched_gather_flat_shard(s, chunks, axis)
+                    for s in shards]
+            n = _pmesh.axis_total(axis)
+        return tuple(_leaves_from_buckets(sets, zp.layout, zp.shapes, n))
 
     @staticmethod
     def backward(ctx, *cts):
         zp, lay = ctx.zp, ctx.zp.layout
-        n = _pmesh.axis_total(ctx.axis)
+        n = _eager.plane_place()[1] if ctx.eager \
+            else _pmesh.axis_total(ctx.axis)
         cts = list(cts)
         for g, key in enumerate(lay.keys):
             for i in lay.idxs[g]:
                 if cts[i] is None:
                     cts[i] = torch.zeros(zp.shapes[i], dtype=key,
                                          device=zp.shards[g].device)
+        if ctx.eager:
+            # summed on the negotiated wire (its mode is the knob's)
+            gshards = _eager_scatter(cts, lay, Sum, n, ctx.chunks)
+            return (None,) * 5 + tuple(
+                s.to(key) for s, key in zip(gshards, lay.keys))
         gshards = []
         for g, key in enumerate(lay.keys):
             q = ctx.qmode != "none" and key.is_floating_point
@@ -349,11 +473,12 @@ class _Zero3Gather(torch.autograd.Function):
                 cts, lay, g, n, ctx.qmode if q else False, False, None,
                 chunks=ctx.chunks, axis_name=ctx.axis)
             gshards.append(shard.to(key))
-        return (None, None, None, None, *gshards)
+        return (None, None, None, None, None, *gshards)
 
 
 def zero3_full_params(zp: Zero3Params, compression=None,
-                      chunks: int | None = None, axis_name=None) -> dict:
+                      chunks: int | None = None, axis_name=None,
+                      eager: bool = False) -> dict:
     """The full parameters of ``zp`` for the forward, as a mapping of name
     to tensor (for ``torch.func.functional_call``): per group
     ``HOROVOD_ZERO_PREFETCH_CHUNKS`` bucket all-gathers, every one started
@@ -363,17 +488,31 @@ def zero3_full_params(zp: Zero3Params, compression=None,
     gradients (``zp.shards[g].grad``); under a lossy ``compression``
     that scatter rides the lossy wire, without error feedback.
     ``axis_name`` (default: the axis ``zp`` was sharded over) must span
-    the ranks the shards were cut for."""
+    the ranks the shards were cut for.
+
+    ``eager=True`` mirrors the stage-3 ``DistributedOptimizer(...,
+    eager=True)``: the all-gathers and the backward's reduce-scatters
+    are negotiated ops of the eager plane (``_zero3_full_eager`` and the
+    scatter of the reference's eager update), one per bucket, over the
+    plane's world and on the wire ``HOROVOD_COMPRESSION`` names, so it
+    refuses a ``compression`` or ``axis_name``."""
+    if eager and (compression is not None or axis_name is not None):
+        raise HorovodTpuError(
+            "zero3_full_params(eager=True) gathers over the eager plane's "
+            "world on the wire HOROVOD_COMPRESSION names: pass no "
+            "compression or axis_name")
     compression = _resolve_compression(compression)
     qmode = wire_mode(compression) if is_quantized(compression) else "none"
     axis = zp.axis_name if axis_name is None else axis_name
-    if _pmesh.axis_total(axis) * zp.layout.shard[0] != zp.layout.padded[0]:
+    eager = eager and _eager.plane_place()[1] > 1
+    n = _eager.plane_place()[1] if eager else _pmesh.axis_total(axis)
+    if n * zp.layout.shard[0] != zp.layout.padded[0]:
         raise HorovodTpuError(
             f"zero3_full_params over {axis!r}: the shards were cut for "
             f"{zp.layout.padded[0] // zp.layout.shard[0]} ranks "
             f"({zp.axis_name!r})")
     leaves = _Zero3Gather.apply(zp, qmode, _zero_chunks(chunks), axis,
-                                *zp.shards)
+                                eager, *zp.shards)
     return dict(zip(zp.names, leaves))
 
 
@@ -421,11 +560,14 @@ class _DistributedOptimizer:
     optimizer's."""
 
     def __init__(self, optimizer, compression, backward_passes_per_step,
-                 op, zero_stage, sharded, overlap, axis_name):
+                 op, zero_stage, sharded, overlap, axis_name, eager=False):
         if not isinstance(optimizer, torch.optim.Optimizer):
             raise TypeError("DistributedOptimizer expects a "
                             f"torch.optim.Optimizer (got {type(optimizer)!r})")
         _config.refuse_not_ported()
+        self.eager = bool(eager)
+        if self.eager:
+            _check_eager_mesh()
         stage = _resolve_zero_stage(zero_stage, sharded)
         self.compression = _resolve_compression(compression)
         if is_quantized(self.compression):
@@ -464,7 +606,9 @@ class _DistributedOptimizer:
         self._params_all = [p for g in optimizer.param_groups
                             for p in g["params"]]
         if stage == 0:
-            if is_quantized(self.compression) \
+            # the eager wire keeps no error feedback: its negotiated
+            # response does not expose the local quantization error
+            if is_quantized(self.compression) and not self.eager \
                     and self.backward_passes_per_step == 1:
                 self.residuals = dict(zip(
                     self._params_all,
@@ -480,11 +624,21 @@ class _DistributedOptimizer:
                 "optimizer over the returned Zero3Params' shards, not over "
                 "the full parameters.")
 
+    def _n(self) -> int:
+        """The shard count: the eager plane's world on the eager wire,
+        else the total of ``axis_name``."""
+        return _eager.plane_place()[1] if self.eager \
+            else _pmesh.axis_total(self.axis_name)
+
+    def _index(self) -> int:
+        return _eager.plane_place()[0] if self.eager \
+            else _pmesh.shard_index(self.axis_name)
+
     def _init_sharded(self) -> None:
         _hyperparameters(self.optimizer)
         leaves = self._params_all
-        n = _pmesh.axis_total(self.axis_name)
-        r = _pmesh.shard_index(self.axis_name)
+        n = self._n()
+        r = self._index()
         self.layout = lay = _shard_layout(leaves, n)
         dev = leaves[0].device
         if self.fused_spec is not None:
@@ -502,7 +656,7 @@ class _DistributedOptimizer:
                                          self._shard_params)
         # the shard state replaces the wrapped optimizer's full-size state
         self.optimizer.state.clear()
-        if is_quantized(self.compression):
+        if is_quantized(self.compression) and not self.eager:
             self.residual = [
                 torch.zeros(p if k.is_floating_point else 0,
                             dtype=torch.float32, device=dev)
@@ -546,7 +700,10 @@ class _DistributedOptimizer:
                 f"{self.zero_stage} never holds; step() scatters them")
         params = self._params()
         grads = [p.grad for p in params]
-        if self.residuals is None:
+        if self.eager:
+            reduced = eager_fused_allreduce(grads, self.op,
+                                            self.compression)
+        elif self.residuals is None:
             reduced = allreduce_gradients(grads, op=self.op,
                                           compression=self.compression,
                                           overlap=self.overlap,
@@ -593,29 +750,72 @@ class _DistributedOptimizer:
         if self.zero_stage:
             self._sharded_step()
             return loss
-        params = self.synchronize()
+        self._update(self.synchronize())
+        return loss
+
+    def _update(self, params) -> None:
+        """Stage 0's update from the reduced ``p.grad`` of ``params``: the
+        fused tail (one launch per dtype group) or the wrapped
+        optimizer's ``step()``."""
         if self.fused_spec is None:
             self.optimizer.step()
-            return loss
+            return
         with torch.no_grad():
             updates = _fused.fused_update_tree(
                 self.fused_spec, [p.grad for p in params],
                 [self.optimizer.state[p] for p in params])
             if params:
                 torch._foreach_add_(params, updates)
-        return loss
 
     def _navg(self) -> int:
-        return _pmesh.axis_total(self.axis_name) if self.op == Average \
-            else 1
+        return self._n() if self.op == Average else 1
 
     @torch.no_grad()
     def _sharded_step(self) -> None:
         """Stages 1-2: scatter, the tail on the shards, gather and apply."""
-        lay, n = self.layout, _pmesh.axis_total(self.axis_name)
+        lay, n = self.layout, self._n()
         leaves = self._params_all
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in leaves]
+        if self.eager:
+            # the wire applies the op: the tail divides by nothing
+            gshards = _eager_scatter(grads, lay, self.op, n,
+                                     self._eager_chunks())
+        else:
+            gshards = self._trace_scatter(grads, n)
+        del grads
+        navg = 1 if self.eager else self._navg()
+        if self._inner is None:
+            upds = _fused.fused_update_groups(self.fused_spec, gshards,
+                                              self._group_state, navg,
+                                              lay.keys)
+            self._apply_shards(upds, add=True)
+            return
+        # the wrapped optimizer's class on the shard: current values in,
+        # the (divided, cast) shard gradient as its gradient
+        r = self._index()
+        hyper = _hyperparameters(self.optimizer)
+        if not isinstance(self._inner, (_fused.SGD, _fused.Adam)):
+            self._inner.param_groups[0].update(hyper)
+        for g, (sp, s, key) in enumerate(zip(self._shard_params, gshards,
+                                             lay.keys)):
+            sp.copy_(_rank_shard(leaves, lay, g, r))
+            sp.grad = (true_divide(s, navg) if navg > 1 else s).to(key)
+        self._inner.step()
+        for sp in self._shard_params:
+            sp.grad = None
+        self._apply_shards(self._shard_params, add=False)
+
+    def _eager_chunks(self):
+        """The eager wire's buckets: one per group at stage 1, the
+        stage-2/3 pipeline's after (``_bucketed_eager_scatter``)."""
+        return None if self.zero_stage >= 2 else 1
+
+    def _trace_scatter(self, grads, n: int) -> list:
+        """Every group's shard of the summed gradient, in-trace: the
+        fused buffer at stage 1, bucket by bucket at stage 2; under a
+        lossy compressor with the residual re-injected and updated."""
+        lay = self.layout
         quantized = is_quantized(self.compression)
         qmode = wire_mode(self.compression) if quantized else "none"
         gshards = []
@@ -636,39 +836,28 @@ class _DistributedOptimizer:
             if err is not None:
                 self.residual[g] = err
             gshards.append(shard)
-        del grads
-        navg = self._navg()
-        if self._inner is None:
-            upds = _fused.fused_update_groups(self.fused_spec, gshards,
-                                              self._group_state, navg,
-                                              lay.keys)
-            self._apply_shards(upds, add=True)
-            return
-        # the wrapped optimizer's class on the shard: current values in,
-        # the (divided, cast) shard gradient as its gradient
-        r = _pmesh.shard_index(self.axis_name)
-        hyper = _hyperparameters(self.optimizer)
-        if not isinstance(self._inner, (_fused.SGD, _fused.Adam)):
-            self._inner.param_groups[0].update(hyper)
-        for g, (sp, s, key) in enumerate(zip(self._shard_params, gshards,
-                                             lay.keys)):
-            sp.copy_(_rank_shard(leaves, lay, g, r))
-            sp.grad = (true_divide(s, navg) if navg > 1 else s).to(key)
-        self._inner.step()
-        for sp in self._shard_params:
-            sp.grad = None
-        self._apply_shards(self._shard_params, add=False)
+        return gshards
 
     def _apply_shards(self, shards, add: bool) -> None:
         """Gather every group's update shards (``add``: added to the
         parameters) or new value shards (copied into them): at stage 1
         one all-gather per group, at stage 2 bucket by bucket with each
         leaf reassembled from the bucket results."""
-        lay, n = self.layout, _pmesh.axis_total(self.axis_name)
+        lay, n = self.layout, self._n()
         leaves = self._params_all
+        sets = None
+        if self.eager:
+            sets = _eager_gather(shards, lay, "shard_ag",
+                                 self._eager_chunks())
         for g in range(len(lay.keys)):
-            if self.zero_stage >= 2:
-                outs, bounds = _ovl.prefetched_gather_flat_shard(
+            buckets = None
+            if sets is not None:
+                if self.zero_stage >= 2:
+                    buckets = sets[g]
+                else:
+                    full = sets[g][0][0]
+            elif self.zero_stage >= 2:
+                buckets = _ovl.prefetched_gather_flat_shard(
                     shards[g], _zero_chunks(), self.axis_name)
             else:
                 full = _coll._gather_flat_shard(shards[g],
@@ -676,8 +865,8 @@ class _DistributedOptimizer:
                                                 axis_name=self.axis_name)
             off, dst, src = 0, [], []
             for i, sz in zip(lay.idxs[g], lay.sizes[g]):
-                if self.zero_stage >= 2:
-                    flat = _coll.leaf_from_buckets(outs, bounds, n,
+                if buckets is not None:
+                    flat = _coll.leaf_from_buckets(*buckets, n,
                                                    lay.shard[g], off, sz)
                 else:
                     flat = full[off:off + sz]
@@ -713,7 +902,8 @@ def DistributedOptimizer(optimizer, compression=None,
                          backward_passes_per_step: int = 1,
                          op: int = Average, zero_stage: int | None = None,
                          sharded: bool | None = None,
-                         overlap: bool | None = None, axis_name=None):
+                         overlap: bool | None = None, axis_name=None,
+                         eager: bool = False):
     """Wrap a ``torch.optim.Optimizer`` with cross-rank gradient
     averaging (Horovod's contract).  ``compression=None`` reads the
     ``HOROVOD_COMPRESSION`` knob.  With ``backward_passes_per_step=k``
@@ -731,10 +921,20 @@ def DistributedOptimizer(optimizer, compression=None,
     reduced in ``HOROVOD_OVERLAP_CHUNKS`` pipelined buckets.
     ``axis_name=None`` reduces over the data mesh's dp axis when one is
     named (``HOROVOD_MESH``), else over the world; the sharded stages
-    cut one shard per rank of that axis."""
+    cut one shard per rank of that axis.
+
+    ``eager=True`` is the counterpart of calling the reference's
+    ``update`` outside ``jit``: every reduction becomes a negotiated op
+    of the eager plane (one fused allreduce per dtype group at stage 0,
+    one reduce-scatter and all-gather per group at stage 1, one per
+    bucket at stages 2-3; at stage 3 train through
+    ``zero3_full_params(zp, eager=True)``), over the world, on the wire
+    ``HOROVOD_COMPRESSION`` names and without error feedback.  It
+    refuses a data mesh with model-parallel axes.  The default,
+    ``False``, is the in-trace regime."""
     return _DistributedOptimizer(optimizer, compression,
                                  backward_passes_per_step, op, zero_stage,
-                                 sharded, overlap, axis_name)
+                                 sharded, overlap, axis_name, eager)
 
 
 # ---------------------------------------------------------------------------

@@ -28,12 +28,19 @@ the regime is off or degenerate) and ``inner_steps``.  BatchNorm running
 statistics are buffers, not parameters: the outer sync leaves each
 rank's own, as the reference's does.
 
-Not here: the reference's eager regime (the ``localsgd.local.`` /
-``localsgd.cross.`` scopes) waits for the eager plane (ROADMAP.md Queue
-A item 7): an active regime over a world of several slices without an
-axis pair raises at construction.  The ``hvd_local_sgd_h`` gauge and
-the goodput ledger's outer-sync accounting wait for the runtime planes
-(item 12).
+Without an axis pair, an active regime over several slices runs the
+reference's eager regime (``horovod_tpu/optim/local_sgd.py:283-305,
+430-453``) on the negotiated plane instead: each inner step submits one
+``localsgd.local.``-scoped fused allreduce per dtype group (the executor
+reduces it over the eager plane's local hop only, in full precision) and
+then the raw inner update; the outer sync submits one
+``localsgd.cross.``-scoped fused allreduce of the float32 deltas (over
+the cross hop only, on the wire ``HOROVOD_LOCAL_SGD_COMPRESSION`` or
+``HOROVOD_COMPRESSION`` names, without error feedback) and then the
+Nesterov step.  It runs at stage 0 only.  The eager plane builds its
+(cross, local) groups at ``init()`` when ``HOROVOD_LOCAL_SGD_H >= 2``.
+The ``hvd_local_sgd_h`` gauge and the goodput ledger's outer-sync
+accounting wait for the runtime planes (ROADMAP.md Queue A item 12).
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ from horovod_tpu_torch.common import basics as _basics
 from horovod_tpu_torch.common import config as _config
 from horovod_tpu_torch.common.types import HorovodTpuError
 from horovod_tpu_torch.ops import collectives as _coll
+from horovod_tpu_torch.ops import eager as _eager
 from horovod_tpu_torch.ops import quantization as _quant
 from horovod_tpu_torch.ops.collectives import Average, Sum
 from horovod_tpu_torch.ops.compression import Compression, is_quantized
@@ -55,10 +63,6 @@ from horovod_tpu_torch.parallel import mesh as _pmesh
 __all__ = ["LocalSGD", "LocalSGDOptimizer", "OuterState", "resolved_h",
            "outer_compression", "local_sgd_topology", "is_local_sgd_state",
            "inner_window_position"]
-
-#: the Queue A item the eager regime waits for
-EAGER_ITEM = "ROADMAP.md Queue A item 7"
-
 
 def resolved_h(h=None) -> int:
     """The outer-sync period: an explicit ``h`` wins, else the
@@ -172,6 +176,8 @@ class LocalSGDOptimizer:
         self.op = op
         self.zero_stage = _dist._resolve_zero_stage(zero_stage, sharded)
         self.degenerate = False
+        #: the eager regime (no axis pair over several slices)
+        self.eager = False
         self.inner_steps = 0
         self.outer = None
         resolved = _pmesh.resolve_axis(axis_name)
@@ -207,6 +213,8 @@ class LocalSGDOptimizer:
                     and tuple(self.pair) == _pmesh.HIER_DATA_AXES:
                 spec = _pmesh.active_spec() or {}
                 cross_extent = spec.get(_pmesh.HIER_DATA_AXES[0])
+        elif _eager.plane_pair() is not None:
+            cross_extent = _eager.plane_pair().cross.size
         else:
             topo = local_sgd_topology()
             cross_extent = 1 if topo is None else topo[0]
@@ -218,15 +226,21 @@ class LocalSGDOptimizer:
                 "local axis" % self.h, stacklevel=3)
             self.degenerate = True
         elif self.pair is None:
-            raise HorovodTpuError(
-                f"local-SGD with H={self.h} over {cross_extent} slices "
-                "needs a (cross, local) axis pair: without one the "
-                "reference runs its eager regime, which is not ported "
-                f"({EAGER_ITEM}).  Run the step over the hierarchical "
-                "data mesh (HOROVOD_MESH with HOROVOD_HIERARCHICAL_"
-                "ALLREDUCE=1 and HOROVOD_HIERARCHICAL_LOCAL_SIZE, giving "
-                "the (dpc, dpl) pair) or pass axis_name=(cross, local) "
-                "explicitly")
+            # the eager regime: the scoped reductions of the negotiated
+            # plane stand in for the pair
+            if self.zero_stage != 0:
+                raise HorovodTpuError(
+                    "eager local-SGD composes with zero_stage=0 only; run "
+                    "the step in-trace (over a (cross, local) axis pair) "
+                    "for ZeRO 1-3")
+            _dist._check_eager_mesh()
+            if _eager.plane_pair() is None:
+                raise HorovodTpuError(
+                    f"eager local-SGD with H={self.h} over {cross_extent} "
+                    "slices needs the eager plane's (cross, local) "
+                    "groups, which init() builds when HOROVOD_LOCAL_SGD_H "
+                    ">= 2: set the knob before init()")
+            self.eager = True
 
         # the inner wire is the local hop in full precision: the
         # compressor belongs to the cross hop
@@ -253,11 +267,29 @@ class LocalSGDOptimizer:
 
     def step(self, closure=None):
         """One inner step: the inner ``DistributedOptimizer``'s (the
-        local hop only when the regime is active)."""
-        loss = self.inner.step(closure)
+        local hop only when the regime is active); in the eager regime
+        one ``localsgd.local.``-scoped fused allreduce per dtype group,
+        then the raw inner update."""
+        if self.eager:
+            loss = None
+            if closure is not None:
+                with torch.enable_grad():
+                    loss = closure()
+            self._eager_inner_step()
+        else:
+            loss = self.inner.step(closure)
         if self.active:
             self.inner_steps += 1
         return loss
+
+    @torch.no_grad()
+    def _eager_inner_step(self) -> None:
+        params = self.inner._params()
+        grads = [p.grad for p in params]
+        reduced = _dist.eager_fused_allreduce(grads, self.op, scope="local")
+        if params:
+            torch._foreach_copy_(grads, reduced)
+        self.inner._update(params)
 
     # -- the outer loop --------------------------------------------------
 
@@ -297,7 +329,9 @@ class LocalSGDOptimizer:
             return [torch.zeros(a.shape, dtype=torch.float32,
                                 device=a.device) for a in anchors]
 
-        return OuterState(anchors, zeros(), zeros() if lossy else None,
+        # the eager wire keeps no error feedback
+        return OuterState(anchors, zeros(),
+                          zeros() if lossy and not self.eager else None,
                           layout, kind)
 
     def _current_bufs(self) -> list:
@@ -336,6 +370,9 @@ class LocalSGDOptimizer:
             self.inner_steps = 0
             return
         outer = self.outer
+        if self.eager:
+            self._outer_sync_eager()
+            return
         with_err = outer.residual is not None
         cur = self._current_bufs()
         for g in range(len(outer.anchor)):
@@ -353,6 +390,22 @@ class LocalSGDOptimizer:
                 outer.residual[g] = err
             del red, err
         del cur
+        self._write_back()
+        self.inner_steps = 0
+
+    def _outer_sync_eager(self) -> None:
+        """The eager outer sync: one ``localsgd.cross.``-scoped fused
+        allreduce of every group's float32 delta, then Nesterov."""
+        outer = self.outer
+        cur = self._current_bufs()
+        deltas = [a.to(torch.float32) - c.to(torch.float32)
+                  for a, c in zip(outer.anchor, cur)]
+        del cur
+        reds = _dist.eager_fused_allreduce(deltas, self.op, scope="cross")
+        del deltas
+        for g, red in enumerate(reds):
+            outer.anchor[g], outer.velocity[g] = self._nesterov(red, g)
+        del reds
         self._write_back()
         self.inner_steps = 0
 

@@ -13,10 +13,16 @@ On CUDA each entry carries the ready event recorded on its submitting
 thread's current stream at enqueue; the executor's stream waits on it
 before reading, and the handle's done event is what :func:`synchronize`
 makes the caller's stream wait on (the reference's
-``horovod/torch/ready_event.cc``).  The JAX package's metrics, flight
+``horovod/torch/ready_event.cc``).
+
+The controller's heartbeat starts with the runtime; a coordinated abort
+(:class:`~horovod_tpu_torch.common.types.RanksDownError`, raised by the
+controller's liveness sweep or observed from a peer) fails every
+outstanding handle with the abort's message, and the runtime refuses new
+work the same way from then on.  The JAX package's metrics, flight
 recorder, fault injection, autotuner, timeline and health hooks belong
-to runtime planes the port has not ported yet (ROADMAP.md Queue A items
-7b and 12).
+to runtime planes the port has not ported yet (ROADMAP.md Queue A item
+12).
 """
 
 from __future__ import annotations
@@ -32,7 +38,8 @@ from horovod_tpu_torch.common import logging as _log
 from horovod_tpu_torch.common.types import (DuplicateNameError, RanksDownError,
                                             Status, dtype_code,
                                             dtype_from_code)
-from horovod_tpu_torch.runtime.controller import RANKS_DOWN_PREFIX, Request
+from horovod_tpu_torch.runtime.controller import (RANKS_DOWN_PREFIX, Request,
+                                                 reduction_scope)
 
 
 class _Entry:
@@ -132,9 +139,12 @@ class BackgroundRuntime:
         self._thread = threading.Thread(
             target=self._run, name=f"hvd-background-{rank}", daemon=True)
         if start:
-            self._thread.start()
+            self.start()
 
     def start(self) -> None:
+        # liveness: this rank beats for as long as the runtime lives
+        if hasattr(self.controller, "start_heartbeat"):
+            self.controller.start_heartbeat()
         self._thread.start()
 
     # -- framework-thread API ---------------------------------------------
@@ -203,6 +213,8 @@ class BackgroundRuntime:
         self._wake.set()
         if self._thread.is_alive():
             self._thread.join(timeout=30)
+        if hasattr(self.controller, "close"):
+            self.controller.close()
 
     # -- background loop ---------------------------------------------------
 
@@ -212,6 +224,14 @@ class BackgroundRuntime:
             t0 = time.monotonic()
             try:
                 stop = self.run_cycle()
+            except RanksDownError as exc:
+                # the coordinated abort: every pending and later handle
+                # fails with the dead ranks, the round and the silence
+                _log.error(f"coordinated abort: {exc}", rank=self.rank)
+                self._error = str(exc)
+                self._error_class = RanksDownError
+                self._fail_outstanding()
+                stop = True
             except Exception as exc:  # noqa: BLE001 -- never die silently
                 _log.error(f"background loop error: {exc!r}",
                            rank=self.rank)
@@ -352,6 +372,10 @@ class BackgroundRuntime:
         ex = self.executor
         tensors = [e.tensor for e in entries]
         if resp.kind == "allreduce":
+            scope = reduction_scope(resp.names[0])
+            if scope is not None:
+                return ex.scoped_allreduce(tensors, resp.op, scope,
+                                           [e.out for e in entries])
             return ex.fused_allreduce(tensors, resp.op,
                                       [e.out for e in entries])
         if resp.kind == "broadcast":

@@ -13,13 +13,18 @@ The wire is a key-value store: :class:`StoreTransport` over the default
 process group's ``torch.distributed`` store, or any object with the same
 six methods (the tests' ``DictTransport``).  Messages are the binary
 request and response lists of :mod:`horovod_tpu_torch.runtime.wire`,
-keyed by round.  This is the JAX package's flat protocol; its heartbeat
-and coordinated abort, the hierarchical exchange and the autotuner's
-parameter broadcast are not ported yet (ROADMAP.md Queue A item 7b).
+keyed by round.  This is the JAX package's protocol: the flat star on
+rank 0, or above ``HOROVOD_CONTROL_FANOUT`` the two-level star on slice
+leaders (:func:`control_topology`), with heartbeats and the coordinated
+abort (:class:`HeartbeatPublisher`, :meth:`KVController.check_liveness`).
+The autotuner's parameter broadcast, the flight recorder and the plane's
+metrics are not ported yet (ROADMAP.md Queue A item 12).
 """
 
 from __future__ import annotations
 
+import json
+import threading
 import time
 import zlib
 from dataclasses import dataclass, field
@@ -34,13 +39,10 @@ from horovod_tpu_torch.runtime.stall import StallInspector
 JOIN_NAME = "__hvd_join__"
 RANKS_DOWN_PREFIX = RanksDownError.WIRE_PREFIX
 
-# The JAX package's values for its knobs the port does not read yet
-# (ROADMAP.md Queue A items 7b and 12): round0_cfg sends what the JAX
-# package sends with them unset, so a world of the two packages'
-# controllers agrees at round 0.
-HEARTBEAT_INTERVAL_S = 2.0
-HEARTBEAT_TIMEOUT_S = 20.0
-CONTROL_FANOUT = 8
+# The JAX package's value for a knob the port does not read yet
+# (ROADMAP.md Queue A item 12): round0_cfg sends what the JAX package
+# sends with it unset, so a world of the two packages' controllers
+# agrees at round 0.
 CHECKPOINT_REPLICAS = 2
 
 
@@ -296,14 +298,17 @@ def _mesh_code() -> int:
     return _pmesh.mesh_signature(_pmesh.parse_mesh_spec(spec))
 
 
-def round0_cfg() -> list:
+def round0_cfg(hb_interval: float | None = None,
+               hb_timeout: float | None = None,
+               control_fanout: int | None = None) -> list:
     """The round-0 handshake's i64 vector, in the JAX package's layout
     (``horovod_tpu/runtime/controller.py:round0_cfg``): every knob whose
     divergence across ranks would deadlock or corrupt the negotiated
-    wire.  Each entry reads the port's knob where the port has it; the
-    heartbeat, elastic, checkpoint and fanout entries send the JAX
-    package's values for those knobs unset, and the refused adaptive and
-    health knobs 0."""
+    wire.  Each entry reads the port's knob where the port has it (the
+    heartbeat pair and the control fanout included, in ms and as is);
+    the elastic and checkpoint entries send the JAX package's values
+    for those knobs unset, and the refused adaptive and health knobs 0.
+    A controller passes its own liveness and fanout values."""
     cmodes = _active_wire_modes()
     qbs = (_config.get("quant_block_size")
            if cmodes & {"int8", "int4"} else 0)
@@ -312,14 +317,20 @@ def round0_cfg() -> list:
     hier = (_config.get("hierarchical_allreduce")
             or _config.get("hierarchical_allgather"))
     stage = int(_config.get("zero_stage"))
+    if hb_interval is None:
+        hb_interval = max(float(_config.get("heartbeat_interval")), 0)
+    if hb_timeout is None:
+        hb_timeout = max(float(_config.get("heartbeat_timeout") or 0), 0)
+    if control_fanout is None:
+        control_fanout = max(int(_config.get("control_fanout")), 0)
     return [_config.get("cache_capacity"),
             _config.get("fusion_threshold"),
             _mode_code(str(_config.get("compression")).strip().lower(),
                        _COMPRESSION_WIRE_CODES),
             qbs,
             1 if _config.get("sharded_optimizer") else 0,
-            int(round(HEARTBEAT_INTERVAL_S * 1000)),
-            int(round(HEARTBEAT_TIMEOUT_S * 1000)),
+            int(round(hb_interval * 1000)),
+            int(round(hb_timeout * 1000)),
             0,                                   # HOROVOD_ELASTIC
             1 if _config.get("overlap") else 0,
             int(_config.get("overlap_chunks"))
@@ -339,7 +350,7 @@ def round0_cfg() -> list:
             CHECKPOINT_REPLICAS,
             *_local_sgd_codes(),
             _mesh_code(),
-            CONTROL_FANOUT]
+            int(control_fanout)]
 
 
 #: Env names of the knobs in round0_cfg's vector, in its order.
@@ -378,8 +389,8 @@ ROUND0_KNOB_ENVS = (
 def reduction_scope(name: str) -> str | None:
     """The axis scope a negotiated allreduce is pinned to by its name:
     ``localsgd.local.`` and ``localsgd.cross.`` prefixes (local SGD's
-    eager regime, which the port does not run yet) never fuse with each
-    other or with world-scoped tensors."""
+    eager regime) never fuse with each other or with world-scoped
+    tensors; the executor reduces them over that hop only."""
     if name.startswith("localsgd.local."):
         return "local"
     if name.startswith("localsgd.cross."):
@@ -420,6 +431,75 @@ def fuse_singles(singles: list) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The hierarchical control plane
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ControlTopology:
+    """The slice map of the hierarchical control plane: contiguous rank
+    ranges of ``slice_size`` (the last may be ragged), each led by its
+    lowest rank.  Rank 0 leads slice 0 and is the global coordinator, so
+    the root handles one merged message per slice instead of one per
+    rank."""
+
+    world: int
+    slice_size: int
+
+    @property
+    def n_slices(self) -> int:
+        return -(-self.world // self.slice_size)
+
+    def slice_of(self, rank: int) -> int:
+        return rank // self.slice_size
+
+    def leader_of(self, slice_id: int) -> int:
+        return slice_id * self.slice_size
+
+    def is_leader(self, rank: int) -> bool:
+        return rank % self.slice_size == 0
+
+    def members(self, slice_id: int) -> list[int]:
+        lo = slice_id * self.slice_size
+        return list(range(lo, min(lo + self.slice_size, self.world)))
+
+    def leaders(self) -> list[int]:
+        return [self.leader_of(s) for s in range(self.n_slices)]
+
+
+def _slice_size_candidates(world: int) -> list[int]:
+    """Physical groupings preferred over the raw fanout when they cut
+    the world evenly: the launcher's local size (when every host holds
+    as many ranks) and ``HOROVOD_HIERARCHICAL_LOCAL_SIZE``."""
+    from horovod_tpu_torch.common import basics as _basics
+
+    cands: list[int] = []
+    st = _basics._state
+    if st.initialized and st.local_size * st.cross_size == st.size:
+        cands.append(int(st.local_size))
+    cands.append(int(_config.get("hierarchical_local_size")))
+    return cands
+
+
+def control_topology(world: int,
+                     fanout: int | None = None) -> ControlTopology | None:
+    """The slice map for ``world``, or ``None`` for the flat plane.  The
+    hierarchy starts at ``world > fanout >= 2`` (fanout 0 keeps any
+    world flat); the slice size is a physical grouping that divides the
+    world evenly where there is one, else the fanout."""
+    if fanout is None:
+        fanout = max(int(_config.get("control_fanout")), 0)
+    if fanout < 2 or world <= fanout:
+        return None
+    size = int(fanout)
+    for cand in _slice_size_candidates(world):
+        if 1 < cand < world and world % cand == 0:
+            size = cand
+            break
+    return ControlTopology(world, size)
+
+
 _warned_wire_coupling = False
 
 
@@ -441,6 +521,55 @@ def wire_timeout() -> float:
             f"to {wt:.0f}s). Set HOROVOD_WIRE_TIMEOUT_SECONDS "
             "explicitly to restore the old deadline.")
     return max(wt, 0.001)
+
+
+class HeartbeatPublisher:
+    """The thread that publishes this rank's liveness beat: ``seq:wall``
+    (a counter and the wall clock) at ``hvd<epoch>/hb/<rank>`` every
+    ``HOROVOD_HEARTBEAT_INTERVAL`` seconds, the first beat at once.
+    Peers sweep the key; one that stops changing for
+    ``HOROVOD_HEARTBEAT_TIMEOUT_SECONDS`` marks the rank dead and starts
+    the coordinated abort.  A failed publish is swallowed: a rank that
+    cannot reach the store is down, and the peers' sweep reports it."""
+
+    def __init__(self, transport, key: str, interval_s: float):
+        self.t = transport
+        self.key = key
+        self.interval_s = interval_s
+        self._seq = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._run, name="hvd-heartbeat", daemon=True)
+        self._thread.start()
+
+    def _publish(self) -> None:
+        self._seq += 1
+        value = f"{self._seq}:{time.time():.6f}"
+        setter = getattr(self.t, "set_overwrite", None)
+        try:
+            if setter is not None:
+                setter(self.key, value)
+            else:
+                self.t.set(self.key, value)
+        except Exception:  # noqa: BLE001 -- the peers' sweep reports it
+            try:
+                self.t.delete(self.key)
+                self.t.set(self.key, value)
+            except Exception:  # noqa: BLE001
+                pass
+
+    def _run(self) -> None:
+        self._publish()
+        while not self._stop.wait(self.interval_s):
+            self._publish()
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=2)
+        try:
+            self.t.delete(self.key)
+        except Exception:  # noqa: BLE001 -- the store may be gone
+            pass
 
 
 # ---------------------------------------------------------------------------
@@ -468,7 +597,7 @@ class LocalController:
 
 class KVController:
     """Several processes negotiating over a key-value store (the JAX
-    package's flat protocol).
+    package's protocol).
 
     Round protocol (lazy cycles: an idle cycle costs one ``try_get``):
       * a rank with pending work "kicks" round r (``k/<r>``);
@@ -480,18 +609,32 @@ class KVController:
         each rank rebuilds and fuses the responses from its own cache;
       * everyone executes the list in order and moves to round r+1.
         Rank 0 deletes round r-2's keys.
-    Round 0 carries :func:`round0_cfg` from every rank; a mismatch fails
-    every rank with one error response.  ``timeout`` (default
-    :func:`wire_timeout`) bounds each wait on the store."""
+    Above ``fanout`` (:func:`control_topology`) the exchange is two-level
+    (:meth:`_exchange_hier`): members post to their slice leader, each
+    leader forwards one merged message to rank 0 and fans the response
+    list back down; the responses are byte-identical to the flat
+    plane's.  Round 0 carries :func:`round0_cfg` from every rank; a
+    mismatch fails every rank with one error response.  ``timeout``
+    (default :func:`wire_timeout`) bounds each wait on the store.
+
+    Liveness (``HOROVOD_HEARTBEAT_INTERVAL`` and ``_TIMEOUT_SECONDS`` both
+    above 0, once :meth:`start_heartbeat` has run): every rank beats, and
+    sweeps the peers of its ring (:meth:`_sweep_ring`) between wait
+    slices and at every cycle; a peer silent past the timeout fails the
+    sweeping rank with :class:`RanksDownError` after it made the abort
+    visible to every survivor (:meth:`_broadcast_abort`)."""
 
     def __init__(self, transport, rank: int, world: int, epoch: int = 0,
-                 timeout: float | None = None):
+                 timeout: float | None = None, fanout: int | None = None):
         self.t = transport
         self.rank = rank
         self.world = world
         self.epoch = epoch
         self.round = 0
         self.coordinator = Coordinator(world) if rank == 0 else None
+        self._fanout = (max(int(_config.get("control_fanout")), 0)
+                        if fanout is None else max(int(fanout), 0))
+        self._hier = control_topology(world, self._fanout)
         self._timeout = wire_timeout() if timeout is None else timeout
         self.cache = (ResponseCache()
                       if _config.get("cache_capacity") > 0 else None)
@@ -499,11 +642,181 @@ class KVController:
         self.fast_rounds = 0
         # requests this rank shipped with their metadata (not as hit bits)
         self.explicit_requests = 0
+        # liveness: peer -> [last beat, monotonic time it last changed,
+        # suspected]
+        self._hb_interval = max(float(_config.get("heartbeat_interval")), 0)
+        self._hb_timeout = max(
+            float(_config.get("heartbeat_timeout") or 0), 0)
+        self._beats: dict[int, list] = {}
+        self._last_sweep = 0.0
+        self._sweep_cursor = 0
+        self._abort_key = self._key("a")
+        self._heartbeat: HeartbeatPublisher | None = None
 
     def _key(self, *parts) -> str:
         # epoch-namespaced: a shutdown() + init() generation never meets
         # the previous generation's keys
         return f"hvd{self.epoch}/" + "/".join(str(p) for p in parts)
+
+    # -- liveness ----------------------------------------------------------
+
+    def start_heartbeat(self) -> None:
+        """Start publishing this rank's beat (once); the background
+        runtime calls it when its loop starts."""
+        if self._heartbeat is None and self._hb_interval > 0 \
+                and self._hb_timeout > 0:
+            self._heartbeat = HeartbeatPublisher(
+                self.t, self._key("hb", self.rank), self._hb_interval)
+
+    def close(self) -> None:
+        if self._heartbeat is not None:
+            self._heartbeat.stop()
+            self._heartbeat = None
+
+    def _liveness_enabled(self) -> bool:
+        return (self._hb_interval > 0 and self._hb_timeout > 0
+                and self._heartbeat is not None)
+
+    def _sweep_ring(self) -> list[int]:
+        """The peers this rank watches: rank 0 and everyone in the flat
+        star; under the hierarchical plane a leader its slice's members
+        and rank 0 (rank 0 the other leaders), a member its leader."""
+        h = self._hier
+        if h is None:
+            return list(range(1, self.world)) if self.rank == 0 else [0]
+        s = h.slice_of(self.rank)
+        lead = h.leader_of(s)
+        if self.rank != lead:
+            return [lead]
+        ring = [m for m in h.members(s) if m != self.rank]
+        if self.rank == 0:
+            ring += [ld for ld in h.leaders() if ld != 0]
+        else:
+            ring.append(0)
+        return ring
+
+    def _sweep_budget_s(self, ring_len: int) -> float:
+        """One sweep's wire budget: one interval per 8 peers, between 1
+        and 8 intervals."""
+        base = max(self._hb_interval, 0.25)
+        return base * max(1.0, min(ring_len / 8.0, 8.0))
+
+    def _sweep_peers(self) -> list[tuple[int, float]]:
+        """One heartbeat sweep: ``[(dead rank, seconds silent)]``.  A
+        peer's clock starts at the first sweep that looks at it, so a
+        rank that never beats is flagged one timeout after that.  A sweep
+        that runs out of budget resumes at its cursor next time."""
+        now = time.monotonic()
+        ring = self._sweep_ring()
+        if len(ring) > 1:
+            start = self._sweep_cursor % len(ring)
+            peers = ring[start:] + ring[:start]
+        else:
+            start, peers = 0, ring
+        budget_deadline = now + self._sweep_budget_s(len(ring))
+        dead: list[tuple[int, float]] = []
+        for i, peer in enumerate(peers):
+            if i and time.monotonic() > budget_deadline:
+                self._sweep_cursor = (start + i) % len(ring)
+                break
+            try:
+                value = self.t.try_get(self._key("hb", peer))
+            except Exception:  # noqa: BLE001 -- no evidence of death
+                value = None
+            rec = self._beats.get(peer)
+            if rec is None:
+                self._beats[peer] = [value, now, False]
+                continue
+            if value is not None and value != rec[0]:
+                rec[0], rec[1], rec[2] = value, now, False
+            stale = now - rec[1]
+            if value is None or value == rec[0]:
+                if stale > self._hb_timeout / 2 and not rec[2]:
+                    rec[2] = True
+                if stale > self._hb_timeout:
+                    dead.append((peer, stale))
+        return dead
+
+    def _abort_message(self, dead: list[tuple[int, float]]) -> str:
+        ranks = sorted(r for r, _ in dead)
+        stale = max(s for _, s in dead)
+        return (f"{RANKS_DOWN_PREFIX} " + json.dumps({
+            "ranks": ranks, "round": self.round,
+            "elapsed": round(stale, 1), "by": self.rank}) +
+            f" — rank(s) {ranks} missed heartbeats for {stale:.1f}s "
+            f"(> HOROVOD_HEARTBEAT_TIMEOUT_SECONDS="
+            f"{self._hb_timeout:.0f}) at negotiation round {self.round}; "
+            "aborting all in-flight collectives. The rank(s) likely "
+            "crashed or were preempted.")
+
+    def _broadcast_abort(self, msg: str) -> None:
+        """Coordinator or leader: make the abort visible to every
+        survivor -- the abort key for pollers, and an error response
+        list at every response slot a peer may be waiting on: ``p/<r>``
+        (rank 0) and this leader's slice slot ``sp/<slice>/<r>``."""
+        payload = _wire.dumps_resp({
+            "resp": [Response(kind="error", names=[JOIN_NAME],
+                              error=msg).wire()],
+            "i": [], "x": True, "aj": False, "lj": -1})
+        try:
+            self.t.set_once(self._abort_key, msg)
+        except Exception:  # noqa: BLE001 -- best effort on a dying world
+            pass
+        if self.rank == 0:
+            try:
+                self.t.set_once(self._key("p", self.round), payload)
+            except Exception:  # noqa: BLE001
+                pass
+        if self._hier is not None and self._hier.is_leader(self.rank):
+            s = self._hier.slice_of(self.rank)
+            try:
+                self.t.set_once(self._key("sp", s, self.round), payload)
+            except Exception:  # noqa: BLE001
+                pass
+
+    def check_liveness(self) -> None:
+        """Sweep the heartbeats and raise :class:`RanksDownError` (after
+        the abort broadcast, on the coordinator or a leader) if a peer
+        is silent past the timeout, or if another rank already
+        broadcast an abort.  Throttled to one sweep per half interval
+        (at least 50 ms), so calling it every cycle is cheap."""
+        if not self._liveness_enabled():
+            return
+        now = time.monotonic()
+        if now - self._last_sweep < max(self._hb_interval / 2, 0.05):
+            return
+        self._last_sweep = now
+        abort = None
+        try:
+            abort = self.t.try_get(self._abort_key)
+        except Exception:  # noqa: BLE001 -- retried next sweep
+            pass
+        if abort:
+            raise RanksDownError(abort)
+        dead = self._sweep_peers()
+        if not dead:
+            return
+        msg = self._abort_message(dead)
+        _log.error(msg, rank=self.rank)
+        if self.rank == 0 or (self._hier is not None
+                              and self._hier.is_leader(self.rank)):
+            self._broadcast_abort(msg)
+        else:
+            # this rank's upstream died: leave the note for the others
+            try:
+                self.t.set_once(self._abort_key, msg)
+            except Exception:  # noqa: BLE001
+                pass
+        raise RanksDownError(msg)
+
+    def _poll_slice_s(self) -> float:
+        """A blocking wait's slice: half an interval (0.1-1 s) with
+        liveness on, so a death shows between slices; else at most 5 s."""
+        return (min(max(self._hb_interval / 2, 0.1), 1.0)
+                if self._liveness_enabled()
+                else min(self._timeout, 5.0))
+
+    # -- the wire ----------------------------------------------------------
 
     def _wire_timeout_error(self, key: str, rnd: int,
                             context: str) -> TimeoutError:
@@ -515,10 +828,10 @@ class KVController:
             "merely slow.")
 
     def _get_blocking(self, key: str, context: str) -> str:
-        """A wait on ``key`` in slices of at most 5 s, up to the wire
-        deadline."""
+        """A wait on ``key`` in slices (:meth:`_poll_slice_s`), up to the
+        wire deadline, with a liveness check after each slice."""
         deadline = time.monotonic() + self._timeout
-        slice_s = min(self._timeout, 5.0)
+        slice_s = self._poll_slice_s()
         while True:
             remaining = deadline - time.monotonic()
             if remaining <= 0:
@@ -529,12 +842,15 @@ class KVController:
             except Exception:  # noqa: BLE001 -- slice expired or transient
                 if time.monotonic() - t0 < 0.05:
                     time.sleep(min(slice_s, 0.05))
+            self.check_liveness()
 
     def _fair_gather(self, r: int, got: dict[int, str],
                      expected: dict[int, str], what: str) -> dict[int, str]:
         """Collect ``expected[peer] -> key`` payloads into ``got`` by
         polling every missing peer in turn (so one slow rank does not
-        delay noticing the others), up to the wire deadline."""
+        delay noticing the others), up to the wire deadline, with a
+        liveness check between sweeps.  Shared by the flat coordinator,
+        the slice leaders and the root's merge of the slices."""
         missing = list(expected)
         deadline = time.monotonic() + self._timeout
         while missing:
@@ -554,17 +870,51 @@ class KVController:
                 raise self._wire_timeout_error(
                     expected[missing[0]], r,
                     f"waiting for rank(s) {missing}'s {what}")
+            self.check_liveness()
             if not progressed:
                 time.sleep(0.001)
         return got
 
+    def _gather_request_lists(self, r: int, payload: str) -> list:
+        """The flat coordinator: every rank's round-``r`` request list."""
+        raws = self._fair_gather(
+            r, {0: payload},
+            {o: self._key("q", r, o) for o in range(1, self.world)},
+            "request lists")
+        return [raws[o] for o in range(self.world)]
+
     def should_participate(self, have_pending: bool) -> bool:
+        # liveness first: an idle rank notices a death or an abort too
+        self.check_liveness()
         if have_pending:
             return True
-        return self.t.try_get(self._key("k", self.round)) is not None
+        h = self._hier
+        if h is None:
+            return self.t.try_get(self._key("k", self.round)) is not None
+        # members poll their slice's kick key only; the leader relays
+        # kicks both ways between its slice and the world
+        s = h.slice_of(self.rank)
+        sk = self._key("sk", s, self.round)
+        if self.rank != h.leader_of(s):
+            return self.t.try_get(sk) is not None
+        k = self._key("k", self.round)
+        if self.t.try_get(k) is not None:
+            self.t.set_once(sk, "1")
+            return True
+        if self.t.try_get(sk) is not None:
+            self.t.set_once(k, "1")
+            return True
+        return False
 
     def kick(self) -> None:
-        self.t.set_once(self._key("k", self.round), "1")
+        h = self._hier
+        if h is None:
+            self.t.set_once(self._key("k", self.round), "1")
+            return
+        s = h.slice_of(self.rank)
+        if self.rank == h.leader_of(s):
+            self.t.set_once(self._key("k", self.round), "1")
+        self.t.set_once(self._key("sk", s, self.round), "1")
 
     def _coordinate(self, r: int, raws: list) -> str:
         """Rank 0: ingest every rank's round-``r`` payload, compute the
@@ -621,13 +971,72 @@ class KVController:
         self.t.set(self._key("p", r), resp_payload)
         return resp_payload
 
+    def _exchange_hier(self, r: int, payload: str) -> str:
+        """The two-level round-``r`` exchange: members post at
+        ``sq/<slice>/<r>/<rank>`` and wait on the slice's fan-down
+        ``sp/<slice>/<r>``; each leader gathers its slice, forwards one
+        merged message at ``gq/<r>/<slice>`` (rank 0 merges them all and
+        coordinates) and posts rank 0's response list to its slice."""
+        h = self._hier
+        s = h.slice_of(self.rank)
+        leader = h.leader_of(s)
+        if self.rank != leader:
+            self.t.set(self._key("sq", s, r, self.rank), payload)
+            return self._get_blocking(
+                self._key("sp", s, r),
+                "waiting for the slice leader's response fan-down")
+        merged = self._fair_gather(
+            r, {self.rank: payload},
+            {m: self._key("sq", s, r, m)
+             for m in h.members(s) if m != self.rank},
+            f"slice-{s} request lists")
+        merged_payload = json.dumps(
+            {str(k): v for k, v in sorted(merged.items())})
+        if self.rank == 0:
+            slices = self._fair_gather(
+                r, {0: merged_payload},
+                {h.leader_of(o): self._key("gq", r, o)
+                 for o in range(1, h.n_slices)},
+                "merged slice request lists")
+            raws: list = [None] * self.world
+            for mp in slices.values():
+                for rk, pl in json.loads(mp).items():
+                    raws[int(rk)] = pl
+            resp_payload = self._coordinate(r, raws)
+        else:
+            self.t.set(self._key("gq", r, s), merged_payload)
+            resp_payload = self._get_blocking(
+                self._key("p", r),
+                "waiting for the coordinator's response list")
+        self.t.set(self._key("sp", s, r), resp_payload)
+        return resp_payload
+
     def _gc(self, gc: int) -> None:
-        if self.rank != 0:
+        """Delete round ``gc``'s keys: rank 0 all of them on the flat
+        plane; under the hierarchy each leader its slice's, rank 0 also
+        the global ones."""
+        h = self._hier
+        if h is None:
+            if self.rank != 0:
+                return
+            self.t.delete(self._key("k", gc))
+            self.t.delete(self._key("p", gc))
+            for other in range(self.world):
+                self.t.delete(self._key("q", gc, other))
             return
-        self.t.delete(self._key("k", gc))
-        self.t.delete(self._key("p", gc))
-        for other in range(self.world):
-            self.t.delete(self._key("q", gc, other))
+        s = h.slice_of(self.rank)
+        if self.rank != h.leader_of(s):
+            return
+        self.t.delete(self._key("sp", s, gc))
+        self.t.delete(self._key("sk", s, gc))
+        for m in h.members(s):
+            if m != self.rank:
+                self.t.delete(self._key("sq", s, gc, m))
+        if self.rank == 0:
+            self.t.delete(self._key("k", gc))
+            self.t.delete(self._key("p", gc))
+            for o in range(1, h.n_slices):
+                self.t.delete(self._key("gq", gc, o))
 
     def negotiate(self, requests: list, joined: bool,
                   shutdown: bool) -> NegotiationResult:
@@ -656,15 +1065,14 @@ class KVController:
             "req": [q.wire() for q in explicit],
             "j": joined, "x": shutdown}
         if r == 0:
-            wire_msg["cfg"] = round0_cfg()
+            wire_msg["cfg"] = round0_cfg(self._hb_interval,
+                                         self._hb_timeout, self._fanout)
         payload = _wire.dumps_rank(wire_msg)
-        if self.rank == 0:
-            raws = self._fair_gather(
-                r, {0: payload},
-                {o: self._key("q", r, o) for o in range(1, self.world)},
-                "request lists")
+        if self._hier is not None:
+            resp_payload = self._exchange_hier(r, payload)
+        elif self.rank == 0:
             resp_payload = self._coordinate(
-                r, [raws[o] for o in range(self.world)])
+                r, self._gather_request_lists(r, payload))
         else:
             self.t.set(self._key("q", r, self.rank), payload)
             resp_payload = self._get_blocking(

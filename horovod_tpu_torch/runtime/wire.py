@@ -18,9 +18,12 @@ RespMsg ('P'): magic u8, flags u8 (1=shutdown, 2=all_joined, 4=fast,
    nshapes u16 + (ndims u8, dims i64[])[], nfd u16 + i64[]).
 
 The store carries strings, so the binary is base64-wrapped by
-``dumps_*``/``loads_*``.  The JAX package's native codec
-(``csrc/wire.cc``, byte-identical) is not ported yet: this one is the
-only codec, not a fallback.
+``dumps_*``/``loads_*``.  The codec is the native one,
+``horovod_tpu_torch/csrc/wire.cc`` (built with ``g++`` at first use,
+:func:`horovod_tpu_torch._build.load_host_extension`), byte-identical to
+this module's pure-Python one, which takes over with a logged warning
+when the build fails (``horovod_tpu/runtime/wire.py:241-282``).
+:func:`native_loaded` says which codec runs.
 """
 
 from __future__ import annotations
@@ -221,10 +224,55 @@ def _py_decode_resp_msg(buf: bytes) -> dict:
 # Public API (strings on the store)
 # ---------------------------------------------------------------------------
 
-encode_rank_msg = _py_encode_rank_msg
-decode_rank_msg = _py_decode_rank_msg
-encode_resp_msg = _py_encode_resp_msg
-decode_resp_msg = _py_decode_resp_msg
+# ---------------------------------------------------------------------------
+# The native codec
+# ---------------------------------------------------------------------------
+
+_native = None
+_native_tried = False
+
+
+def _load_native():
+    global _native, _native_tried
+    if _native_tried:
+        return _native
+    _native_tried = True
+    try:
+        from horovod_tpu_torch import _build
+
+        _native = _build.load_host_extension("_hvdtorchwire", "wire.cc")
+    except Exception as exc:  # noqa: BLE001 -- the same bytes, in Python
+        from horovod_tpu_torch.common import logging as _log
+
+        _log.warning("native wire codec unavailable (%r); using the "
+                     "pure-Python fallback" % (exc,))
+        _native = None
+    return _native
+
+
+def native_loaded() -> bool:
+    """True when the native codec is built, loaded and in use."""
+    return _load_native() is not None
+
+
+def encode_rank_msg(m: dict) -> bytes:
+    n = _load_native()
+    return n.encode_rank_msg(m) if n else _py_encode_rank_msg(m)
+
+
+def decode_rank_msg(b: bytes) -> dict:
+    n = _load_native()
+    return n.decode_rank_msg(b) if n else _py_decode_rank_msg(b)
+
+
+def encode_resp_msg(m: dict) -> bytes:
+    n = _load_native()
+    return n.encode_resp_msg(m) if n else _py_encode_resp_msg(m)
+
+
+def decode_resp_msg(b: bytes) -> dict:
+    n = _load_native()
+    return n.decode_resp_msg(b) if n else _py_decode_resp_msg(b)
 
 
 def dumps_rank(m: dict) -> str:

@@ -249,10 +249,12 @@ def zero3_train_step(model, zp, optimizer, images: torch.Tensor,
                      labels: torch.Tensor, axis_name=None) -> torch.Tensor:
     """:func:`train_step` at ZeRO stage 3: ``zp`` is the model's
     ``Zero3Params`` and ``optimizer`` the stage-3
-    ``DistributedOptimizer`` over its shards."""
+    ``DistributedOptimizer`` over its shards, whose regime (``eager``)
+    the gathers follow."""
     model.train()
     optimizer.zero_grad(set_to_none=True)
-    full = zero3_full_params(zp, axis_name=axis_name)
+    full = zero3_full_params(zp, axis_name=axis_name,
+                             eager=optimizer.eager)
     logits = torch.func.functional_call(model, full, (images,))
     loss = softmax_cross_entropy(logits, labels)
     loss.backward()
@@ -269,7 +271,7 @@ def zero3_lm_train_step(model, zp, optimizer, tokens: torch.Tensor,
     _refuse_partial_average(optimizer)
     model.train()
     optimizer.zero_grad(set_to_none=True)
-    full = zero3_full_params(zp)
+    full = zero3_full_params(zp, eager=optimizer.eager)
     loss = loss_fn(torch.func.functional_call(model, full, (tokens,)),
                    targets)
     loss.backward()

@@ -27,7 +27,10 @@ LM under pipeline parallelism on four cards (:func:`pp_cards_main`),
 cards (:func:`dp_cards_main`); ``local_sgd`` and ``ls_cards`` the
 local-SGD cases of ``tests/_torch_local_sgd_worker.py``; ``eager`` and
 ``eager_cards`` the eager plane's cases of
-``tests/_torch_eager_worker.py``.
+``tests/_torch_eager_worker.py``; ``eager_training``,
+``eager_training_cards`` and ``eager_kill_cards`` the eager regimes of
+ZeRO and local SGD and the coordinated abort of
+``tests/_torch_eager_training_worker.py``.
 ``HVD_TEST_FEEDBACK`` may name a ``.npy`` file of per-rank residuals
 that the lossy optimizer case loads before its second step;
 ``HVD_TEST_INTEROP`` a pickle, written by ``tests/test_torch_zero.py``,
@@ -90,13 +93,35 @@ def lossy_inputs(rank: int, n: int):
 RS_MODES = ("none", "int8", "int4")
 
 
+#: what a rank's stderr shows when its store could not bind the port
+BIND_FAILURE = ("EADDRINUSE", "address already in use")
+
+
+class PortTaken(AssertionError):
+    """Rank 0's store found the world's port taken."""
+
+
 def spawn(n: int, device: str = "cpu", timeout: float = 120.0,
           mode: str = "collectives", env_extra=None):
-    """Run ``n`` ranks of this script on a fresh port; their results."""
-    from horovod_tpu_torch.common.util import free_port
+    """Run ``n`` ranks of this script on a fresh port; their results.
+    The port is held (``util.reserve_port``) until the ranks exit, so no
+    other test's socket takes it before rank 0's store binds it; a world
+    whose rank shows a bind failure all the same runs once more, on a
+    port picked the plain way."""
+    from horovod_tpu_torch.common.util import free_port, reserve_port
 
+    held, port = reserve_port()
+    try:
+        return _spawn_world(n, device, timeout, mode, env_extra, port)
+    except PortTaken:
+        pass
+    finally:
+        held.close()
+    return _spawn_world(n, device, timeout, mode, env_extra, free_port())
+
+
+def _spawn_world(n, device, timeout, mode, env_extra, port):
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    port = free_port()
     procs = []
     for r in range(n):
         env = dict(os.environ)
@@ -113,8 +138,16 @@ def spawn(n: int, device: str = "cpu", timeout: float = 120.0,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     outs = []
     try:
-        for p in procs:
-            so, se = p.communicate(timeout=timeout)
+        for r, p in enumerate(procs):
+            try:
+                so, se = p.communicate(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                _, se = p.communicate()
+                raise AssertionError(f"rank {r} did not finish within "
+                                     f"{timeout} s:\n{se[-3000:]}")
+            if p.returncode != 0 and any(m in se for m in BIND_FAILURE):
+                raise PortTaken(f"port {port} taken:\n{se[-3000:]}")
             assert p.returncode == 0, f"rank failed:\n{se[-3000:]}"
             outs.append(json.loads(so.strip().splitlines()[-1]))
     finally:
@@ -405,7 +438,7 @@ def zero_run(kind: str, stage: int, data: str, dev, steps=None,
              compression=None, **kw):
     """``ZERO_STEPS`` steps of a ``DistributedOptimizer`` at ``stage``
     over the ``ZERO_LEAVES``; stage 3 through ``zero3_full_params``
-    (under ``compression``) with a loss linear in the weights (its
+    (under ``compression``, in the optimizer's regime) with a loss linear in the weights (its
     cotangents are the gradients).  Returns the weights, leaf by leaf,
     and the optimizer."""
     init, grads = zero_inputs(hvd.rank(), hvd.size(), data)
@@ -417,14 +450,16 @@ def zero_run(kind: str, stage: int, data: str, dev, steps=None,
             [(name, w) for (name, _), w in zip(ZERO_LEAVES, ws)])
         opt = hvd.DistributedOptimizer(_zero_opt(kind, zp.shards, h),
                                        zero_stage=3, **kw)
+        eager = kw.get("eager", False)
         for gs in grads:
             opt.zero_grad()
-            full = hvd.zero3_full_params(zp, compression=compression)
+            full = hvd.zero3_full_params(zp, compression=compression,
+                                         eager=eager)
             loss = sum((full[name] * torch.from_numpy(g).to(dev)).sum()
                        for (name, _), g in zip(ZERO_LEAVES, gs))
             loss.backward()
             opt.step()
-        full = hvd.zero3_full_params(zp)
+        full = hvd.zero3_full_params(zp, eager=eager)
         return [full[name].detach() for name, _ in ZERO_LEAVES], opt
     opt = hvd.DistributedOptimizer(_zero_opt(kind, ws, h), zero_stage=stage,
                                    **kw)
@@ -1618,12 +1653,24 @@ def _rotate_coordinator() -> None:
     that the world's next ``init()`` does not meet the store of the one
     about to shut down (call it before ``shutdown``)."""
     import torch.distributed as dist
-    from horovod_tpu_torch.common.util import free_port
 
-    port = torch.tensor([free_port() if dist.get_rank() == 0 else 0],
+    port = torch.tensor([held_port() if dist.get_rank() == 0 else 0],
                         device=hvd.device())
     dist.broadcast(port, src=0)
     os.environ["HOROVOD_COORDINATOR_ADDR"] = f"127.0.0.1:{int(port)}"
+
+
+_HELD_PORTS = []
+
+
+def held_port() -> int:
+    """A port this process holds until it exits (``util.reserve_port``),
+    for the store of a world's next ``init()``."""
+    from horovod_tpu_torch.common.util import reserve_port
+
+    sock, port = reserve_port()
+    _HELD_PORTS.append(sock)
+    return port
 
 
 def _reinit_shutdown() -> None:
@@ -2097,6 +2144,24 @@ def eager_cards_main(device: str):
     run(device)
 
 
+def eager_training_main(device: str):
+    from _torch_eager_training_worker import eager_training_main as run
+
+    run(device)
+
+
+def eager_training_cards_main(device: str):
+    from _torch_eager_training_worker import eager_training_cards_main as run
+
+    run(device)
+
+
+def eager_kill_cards_main(device: str):
+    from _torch_eager_training_worker import eager_kill_cards_main as run
+
+    run(device)
+
+
 if __name__ == "__main__":
     dev = sys.argv[1] if len(sys.argv) > 1 else "cpu"
     mode = sys.argv[2] if len(sys.argv) > 2 else "collectives"
@@ -2109,4 +2174,7 @@ if __name__ == "__main__":
      "pp_cards_ref": pp_cards_ref_main,
      "data_plane": data_plane_main, "dp_cards": dp_cards_main,
      "local_sgd": local_sgd_main, "ls_cards": ls_cards_main,
-     "eager": eager_main, "eager_cards": eager_cards_main}[mode](dev)
+     "eager": eager_main, "eager_cards": eager_cards_main,
+     "eager_training": eager_training_main,
+     "eager_training_cards": eager_training_cards_main,
+     "eager_kill_cards": eager_kill_cards_main}[mode](dev)

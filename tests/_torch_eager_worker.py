@@ -119,9 +119,9 @@ def lossy_case(inp, mode: str, rt, log) -> dict:
 def _split_world(r: int) -> None:
     """Re-initialize as two worlds of 2 ranks: {0, 1} and {2, 3}."""
     import torch.distributed as dist
-    from horovod_tpu_torch.common.util import free_port
+    from _torch_collectives_worker import held_port
 
-    ports = torch.tensor([free_port(), free_port()] if r == 0 else [0, 0])
+    ports = torch.tensor([held_port(), held_port()] if r == 0 else [0, 0])
     dist.broadcast(ports, src=0)
     hvd.shutdown()
     os.environ.update({

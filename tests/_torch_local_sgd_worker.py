@@ -266,7 +266,9 @@ def _state_np(state) -> dict:
 def refusal_cases(dev) -> dict:
     """The single-slice warning (no split: ``HOROVOD_LOCAL_SIZE`` is the
     world) and the refusal without a pair (a split from
-    ``HOROVOD_HIERARCHICAL_LOCAL_SIZE=2`` but no pair to run on)."""
+    ``HOROVOD_HIERARCHICAL_LOCAL_SIZE=2`` but no pair to run on, where
+    the eager regime would run but ``init()`` built no (cross, local)
+    groups for it: ``HOROVOD_LOCAL_SGD_H`` was not set then)."""
     from horovod_tpu_torch.optim import local_sgd as LS
 
     out = {}

@@ -1246,6 +1246,104 @@ def test_four_cards_eager_frontend_resnet50():
                                       else []), o["rank"]
 
 
+def test_four_cards_eager_zero_local_sgd_resnet50():
+    """The training paths on the eager plane on four cards: the bench
+    ResNet-50 step (224 px, batch 256 per card, bf16, fused momentum SGD,
+    deterministic cuDNN) under ``DistributedOptimizer(..., eager=True)``
+    at stages 2 and 3 on the none and int8 wires, each beside the
+    in-trace stage in the same call; local SGD (H = 2, (cross 2, local
+    2)) in its eager regime under ``HOROVOD_LOCAL_SIZE=2`` beside the
+    in-trace ``LocalSGD`` over the ``(dpc, dpl)`` pair; then, in a second
+    world at ``HOROVOD_HEARTBEAT_INTERVAL=0.2`` /
+    ``_TIMEOUT_SECONDS=2``, rank 3 SIGKILLed after step 3 of the eager
+    stage 2 and ranks 0-2 raising ``RanksDownError`` naming ``[3]``
+    within the timeout plus 5 s.  Every rank the same weights after the
+    last step (an outer sync under local SGD); on the
+    none wire the step-1 weights within 1e-6 relative L2 of the in-trace
+    run's; one B1 per step; on int8 one B4 and one B5 per reduce-scatter
+    response (the stage's buckets), none on the none wire.  Eager stage
+    2 on the none wire runs once more with the eager plane's rounds
+    through the pure-Python codec.  Prints per case and rank the
+    median, least and most of the 10 steps after two of warm-up (local
+    SGD: the inner and the sync steps apart), B1/B4/B5 per step, peak
+    memory, optimizer-state bytes per rank, the step-1 distance and the
+    median round of the case; then per case the spread over ranks."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    import os
+    import subprocess
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from _torch_collectives_worker import spawn
+    from _torch_eager_training_worker import (CARD_CASES, HB_CARD,
+                                              KILL_AFTER, spawn_kill)
+
+    card = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    outs = spawn(4, "cuda", timeout=1200, mode="eager_training_cards")
+    chunks = 4                       # HOROVOD_ZERO_PREFETCH_CHUNKS
+    cases = [(c, rg, st, w) for c, rg, st, w in CARD_CASES] + [
+        ("ls intrace", "intrace", 0, "none"), ("ls eager", "eager", 0,
+                                               "none")]
+    for case, regime, stage, wire in cases:
+        assert len({o[case]["digest"] for o in outs}) == 1, case
+        for o in outs:
+            r = o[case]
+            assert all(math.isfinite(v) for v in r["losses"]), case
+            for step in r["launches"]:
+                assert step["B1"] == 1, (case, r["launches"])
+                want = chunks if wire == "int8" else 0
+                assert step["B4"] == step["B5"] == want, (case, step)
+            if wire == "none":
+                assert r["step1_rel_l2"] <= 1e-6, (case, r["step1_rel_l2"])
+            if case == "ls eager":
+                assert r["eager"], o["rank"]
+            split = (f" (inner {r['median_inner_s']:.4f} s, sync "
+                     f"{r['median_sync_s']:.4f} s)"
+                     if "median_sync_s" in r else "")
+            print(f"[four cards] {case}: rank {o['rank']} step median "
+                  f"{r['median_step_s']:.4f} s, least "
+                  f"{r['min_step_s']:.4f} s, most {r['max_step_s']:.4f} s"
+                  f"{split}; B1/B4/B5 per step {r['launches']}; peak "
+                  f"{r['peak_bytes']} B; optimizer state "
+                  f"{r['state_bytes']} B per rank; step-1 weights "
+                  f"{r['step1_rel_l2']:.3e} relative L2 from the in-trace "
+                  f"run; median round {r['round_ms']} ms over "
+                  f"{r['rounds']} rounds; step times {r['step_s']}; losses "
+                  f"{r['losses']}; on 4 x {card.strip()}")
+        meds = [o[case]["median_step_s"] for o in outs]
+        rounds = [o[case]["round_ms"] for o in outs]
+        print(f"[four cards] {case}: over ranks, step medians "
+              f"{min(meds):.4f}-{max(meds):.4f} s, every timed step "
+              f"{min(o[case]['min_step_s'] for o in outs):.4f}-"
+              f"{max(o[case]['max_step_s'] for o in outs):.4f} s, median "
+              f"rounds {rounds} ms; on 4 x {card.strip()}")
+    old = {k: os.environ.get(k) for k in HB_CARD}
+    os.environ.update(HB_CARD)
+    try:
+        killed = spawn_kill(4, "cuda", "eager_kill_cards", timeout=900)
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    rc3, last3, err3 = killed[3]
+    assert rc3 == -9 and last3 and "killed_at" in last3, (rc3, err3)
+    for rank in range(3):
+        rc, res, err = killed[rank]
+        assert rc == 0 and res and "no_error" not in res, (rank, err)
+        assert res["ranks"] == [3] and res["step"] == KILL_AFTER + 1, res
+        took = res["raised_at"] - last3["killed_at"]
+        assert took < float(HB_CARD["HOROVOD_HEARTBEAT_TIMEOUT_SECONDS"]) \
+            + 5, (rank, took)
+        print(f"[four cards] SIGKILL of rank 3 after step {KILL_AFTER}: "
+              f"rank {rank} raised RanksDownError naming [3] {took:.3f} s "
+              f"after the kill; on 4 x {card.strip()}")
+
+
 # ---------------------------------------------------------------------------
 # BatchNorm N1-N4, held as chip_smoke.py holds them (bn_case): statistics
 # and sums within twice the plain version's error against a float64

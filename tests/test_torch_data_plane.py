@@ -50,7 +50,7 @@ from horovod_tpu.ops import collectives as jcoll
 from horovod_tpu.ops import quantization as jq
 from horovod_tpu.parallel import mesh as JM
 
-from horovod_tpu_torch.common.util import free_port
+from horovod_tpu_torch.common.util import reserve_port
 from horovod_tpu_torch.ops import adasum as A
 from horovod_tpu_torch.parallel import mesh as M
 
@@ -68,9 +68,14 @@ SUM, AVG = 2, 1
 
 @pytest.fixture(scope="module")
 def world():
-    return spawn(N, mode="data_plane", timeout=300, env_extra={
-        "HVD_TEST_COORD2": f"127.0.0.1:{free_port()}",
-        "HOROVOD_HIERARCHICAL_LOCAL_SIZE": str(DP_LOCAL)})
+    # the second world's port is held until the ranks exit
+    held, port = reserve_port()
+    try:
+        return spawn(N, mode="data_plane", timeout=300, env_extra={
+            "HVD_TEST_COORD2": f"127.0.0.1:{port}",
+            "HOROVOD_HIERARCHICAL_LOCAL_SIZE": str(DP_LOCAL)})
+    finally:
+        held.close()
 
 
 @pytest.fixture(scope="module")

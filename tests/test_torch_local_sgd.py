@@ -342,8 +342,9 @@ def test_world_refusals(world):
     """In the world of 4: no split (``HOROVOD_LOCAL_SIZE`` = 4) is one
     slice, so the regime warns and trains synchronously over the world;
     with ``HOROVOD_HIERARCHICAL_LOCAL_SIZE=2`` the job has two slices and
-    no pair, where the reference would take its eager regime: the port
-    raises at construction, naming the in-trace remedy and the item."""
+    no pair, where the eager regime runs; this world's ``init()`` ran
+    without ``HOROVOD_LOCAL_SGD_H``, so it built no (cross, local) groups
+    for it, and the port raises at construction, naming the knob."""
     grads = np.arange(N, dtype=np.float64)
     for o in world:
         ref = o["refusals"]
@@ -352,9 +353,9 @@ def test_world_refusals(world):
         np.testing.assert_allclose(_f(ref["degenerate_w"]),
                                    1 - 0.1 * grads.mean(), rtol=1e-6)
         assert ref["topology"] == [LS_CROSS, LS_LOCAL]
-        assert "(cross, local) axis pair" in ref["no_pair"]
-        assert "HOROVOD_HIERARCHICAL_LOCAL_SIZE" in ref["no_pair"]
-        assert LS.EAGER_ITEM in ref["no_pair"]
+        assert "(cross, local) groups" in ref["no_pair"]
+        assert "HOROVOD_LOCAL_SGD_H >= 2" in ref["no_pair"]
+        assert "before init()" in ref["no_pair"]
 
 
 # ---------------------------------------------------------------------------
