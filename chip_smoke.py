@@ -256,7 +256,25 @@ Phases (any failure exits non-zero and prints no result line):
    it within the timeout plus 5 s; (e) the native wire codec
    (``csrc/wire.cc``, built with ``g++``) is the one loaded; the median
    round latency of phase 20b's step with the native and the Python
-   codec, and a cold round's messages alone through each.
+   codec, and a cold round's messages alone through each;
+22. the observability planes: (a) the ResNet-50 bench step of phase 6
+   at world 1 over NCCL, two warm-up steps, then two rounds of 10 bare
+   and 10 observed steps in alternation (observed: ``hvd.trace_step``,
+   the on-card batch through ``hvd.wrap_data_loader``,
+   ``HOROVOD_FLIGHT_DIR`` and ``HOROVOD_GOODPUT_DIR`` set, the rank's
+   ``/metrics`` endpoint on a held port, scraped once at the end): one
+   B1 and 53 of each of N1-N4 per step in both modes, finite losses,
+   ``hvd_step_time_seconds`` counting the observed steps, the goodput
+   phases summing to the ledger's elapsed time, the scrape parsing as
+   Prometheus text, and the flight dump merged by
+   ``horovod_tpu_torch.trace`` holding one complete ``step`` span per
+   observed step whose split sums to its wall; both modes' median steps
+   and their ratio; (b) phase 20b's four emulated runtimes on the int8
+   wire over 2 steps: the background's wire-byte and logical-byte
+   counters equal to the bytes the emulated world moved, the
+   negotiation-latency histogram counting every round, one ``dispatch``
+   B/E pair per response, and one B4 and one B5 per fused float
+   response.
 
 Then the run's wall time, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
@@ -3005,7 +3023,7 @@ def _emu_hop_class():
     importable)."""
     import torch
 
-    from horovod_tpu_torch.parallel.mesh import Hop
+    from horovod_tpu_torch.parallel.mesh import Hop, note_sent
 
     def _sum(xs):
         acc = xs[0].clone()
@@ -3020,6 +3038,9 @@ def _emu_hop_class():
             self.world, self.rank, self.key = world, r, (name, tuple(ranks))
 
         def _go(self, label, t, combine, payload=None):
+            # the emulated transport reports what it sends, as the real
+            # one does (the eager plane's hvd_data_wire_bytes_total)
+            note_sent(t)
             return self.world.transfer(
                 self, label, t if payload is None else payload,
                 t.numel() * t.element_size(), combine)
@@ -3069,6 +3090,7 @@ def _emu_hop_class():
             if not pairs:
                 return None
             sent = t if any(a == self.index for a, _ in pairs) else None
+            note_sent(sent)
 
             def combine(xs):
                 outs = [None] * len(xs)
@@ -4674,6 +4696,38 @@ def _eager_wire_checks(Q, torch, wire, grads, log0, outs, device, gpu):
     return worst
 
 
+def _eager_shards(torch, device: str, model_fn=None, size: int = 224,
+                  classes: int = 1000) -> tuple:
+    """Phase 20b's submissions: each emulated rank's 64-image shard's
+    gradients in hook order, rotated by a seeded shift: ``(orders,
+    grads, subs, shifts)``."""
+    import numpy as np
+
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.train_step import synthetic_batch
+
+    if model_fn is None:
+        def model_fn():
+            return ResNet50(num_classes=classes, dtype=torch.bfloat16,
+                            seed=0)
+    model = model_fn()
+    names = {id(p): f"allreduce.{k}" for k, p in model.named_parameters()}
+    grads, orders = [], []
+    for r in range(DP_N):
+        images, labels = synthetic_batch(EAGER_SHARD, size, classes,
+                                         seed=100 + r, device=device)
+        order = _hook_order(torch, model, images, labels)
+        orders.append([names[id(p)] for p in order])
+        grads.append({names[id(p)]: p.grad.detach().clone() for p in order})
+        del images, labels
+    model.zero_grad(set_to_none=True)
+    del model
+    shifts = np.random.RandomState(20).randint(0, len(orders[0]), DP_N)
+    subs = [[(k, grads[r][k]) for k in orders[r][s:] + orders[r][:s]]
+            for r, s in enumerate(shifts)]
+    return orders, grads, subs, shifts
+
+
 def eager_emulated(hvd, torch, gpu: str, device: str = "cuda",
                    model_fn=None, size: int = 224,
                    classes: int = 1000) -> dict:
@@ -4685,34 +4739,13 @@ def eager_emulated(hvd, torch, gpu: str, device: str = "cuda",
     (scripted submissions: every rank's requests reach round 1 whole);
     two steps per wire, a mismatch and a join with the background
     threads started."""
-    import numpy as np
-
-    from horovod_tpu_torch.models.resnet import ResNet50
     from horovod_tpu_torch.ops import collectives as C
     from horovod_tpu_torch.ops import quantization as Q
-    from horovod_tpu_torch.train_step import synthetic_batch
 
     t0 = time.perf_counter()
-    if model_fn is None:
-        def model_fn():
-            return ResNet50(num_classes=classes, dtype=torch.bfloat16,
-                            seed=0)
     n = DP_N
-    model = model_fn()
-    names = {id(p): f"allreduce.{k}" for k, p in model.named_parameters()}
-    grads, orders = [], []
-    for r in range(n):
-        images, labels = synthetic_batch(EAGER_SHARD, size, classes,
-                                         seed=100 + r, device=device)
-        order = _hook_order(torch, model, images, labels)
-        orders.append([names[id(p)] for p in order])
-        grads.append({names[id(p)]: p.grad.detach().clone() for p in order})
-        del images, labels
-    model.zero_grad(set_to_none=True)
-    del model
-    shifts = np.random.RandomState(20).randint(0, len(orders[0]), n)
-    subs = [[(k, grads[r][k]) for k in orders[r][s:] + orders[r][:s]]
-            for r, s in enumerate(shifts)]
+    orders, grads, subs, shifts = _eager_shards(torch, device, model_fn,
+                                                size, classes)
     # phase 16's in-trace reduction of the same gradients
     ref_world = EmulatedWorld(torch, n, sync=device == "cuda")
     keys = orders[0]
@@ -5419,6 +5452,301 @@ def eager_training(hvd, torch, gpu: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: the observability planes
+# ---------------------------------------------------------------------------
+
+OBS_WARMUP, OBS_STEPS, OBS_ROUNDS = 2, 10, 2
+OBS_EMPTY = 1000   # empty observed steps of the host-cost reading
+PROM_LINE = (r'^[a-zA-Z_:][a-zA-Z0-9_:]*'
+             r'(\{([a-zA-Z_][a-zA-Z0-9_]*="([^"\\]|\\.)*",?)*\})?'
+             r' (-?[0-9.eE+-]+|\+Inf|-Inf|NaN)$')
+
+
+def _prometheus_text(text: str) -> int:
+    """Parse ``text`` as Prometheus text exposition 0.0.4: every line a
+    ``# HELP``/``# TYPE`` comment or a sample; returns the samples."""
+    import re
+
+    sample = re.compile(PROM_LINE)
+    n = 0
+    for line in text.splitlines():
+        if line.startswith("# HELP ") or line.startswith("# TYPE "):
+            if len(line.split(" ", 3)) < 3:
+                raise AssertionError(f"22a: bad comment line {line!r}")
+            continue
+        if not sample.match(line):
+            raise AssertionError(f"22a: not a Prometheus sample: {line!r}")
+        n += 1
+    return n
+
+
+def _obs_counts(TF, BN, steps: int, what: str) -> dict:
+    got = {**TF.LAUNCHES, **BN.LAUNCHES}
+    want = -(-161 // TF.capacity("momentum")) * steps
+    if got["momentum"] != want or any(
+            got[k] != RESNET50_BN * steps for k in BN_KERNELS):
+        raise AssertionError(f"22a {what}: launches {got} over {steps} "
+                             f"steps, expected {want} B1 and "
+                             f"{RESNET50_BN * steps} of each of N1-N4")
+    return {k: got[k] for k in ("momentum", *BN_KERNELS)}
+
+
+def _observer_host_us(hvd) -> float:
+    """The observers' host cost per step: ``OBS_EMPTY`` empty steps under
+    ``trace_step`` with a batch through ``wrap_data_loader``, less the
+    same loop bare, in microseconds (after 22a's checks: these steps
+    land on the histogram and the ring too)."""
+    import itertools
+
+    t0 = time.perf_counter()
+    for i, _ in enumerate(hvd.wrap_data_loader(
+            itertools.repeat(None, OBS_EMPTY))):
+        with hvd.trace_step(step=i):
+            pass
+    t1 = time.perf_counter()
+    for i, _ in enumerate(itertools.repeat(None, OBS_EMPTY)):
+        pass
+    t2 = time.perf_counter()
+    return ((t1 - t0) - (t2 - t1)) / OBS_EMPTY * 1e6
+
+
+def observability_resnet(hvd, torch, gpu: str) -> dict:
+    """22a: the bench step bare and observed, in alternation."""
+    import itertools
+    import tempfile
+    import urllib.request
+
+    from horovod_tpu_torch.common.util import reserve_port
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.ops import batch_norm as BN
+    from horovod_tpu_torch.optim import fused_update as TF
+    from horovod_tpu_torch.perf import goodput as GP
+    from horovod_tpu_torch.runtime import flight as FL
+    from horovod_tpu_torch.runtime import metrics as M
+    from horovod_tpu_torch.trace import analyze, merge_dumps
+    from horovod_tpu_torch.train_step import synthetic_batch, train_step
+
+    model = ResNet50(num_classes=1000, dtype=torch.bfloat16, seed=0)
+    opt = hvd.DistributedOptimizer(
+        hvd.fused_update.sgd(model.parameters(), 0.1, momentum=0.9))
+    images, labels = synthetic_batch(BATCH, 224, 1000, seed=0)
+    for _ in range(OBS_WARMUP):
+        train_step(model, opt, images, labels)
+    torch.cuda.synchronize()
+    tmp = tempfile.mkdtemp(prefix="hvd_obs_")
+    saved = {k: os.environ.get(k) for k in
+             ("HOROVOD_FLIGHT_DIR", "HOROVOD_GOODPUT_DIR",
+              "HOROVOD_METRICS_PORT")}
+    held, port = reserve_port()
+    os.environ["HOROVOD_METRICS_PORT"] = str(port)
+    try:
+        srv = M.start_rank_endpoint(0)
+    finally:
+        held.close()
+    if srv is None:
+        raise AssertionError("22a: the metrics endpoint did not start")
+    hist = M.registry().histogram("hvd_step_time_seconds")
+    hist0 = hist.total()
+    FL.reset()
+    times = {"bare": [], "observed": []}
+    losses, counts = [], {"bare": [], "observed": []}
+    step_id = 0
+    try:
+        for rnd in range(OBS_ROUNDS):
+            for mode in ("bare", "observed"):
+                observed = mode == "observed"
+                if observed:
+                    os.environ["HOROVOD_FLIGHT_DIR"] = tmp
+                    os.environ["HOROVOD_GOODPUT_DIR"] = tmp
+                else:
+                    os.environ.pop("HOROVOD_FLIGHT_DIR", None)
+                    os.environ.pop("HOROVOD_GOODPUT_DIR", None)
+                torch.cuda.synchronize()
+                TF.reset_launch_counts()
+                BN.reset_launch_counts()
+                if observed:
+                    batches = hvd.wrap_data_loader(itertools.repeat(
+                        (images, labels), OBS_STEPS))
+                    t0 = time.perf_counter()
+                    for x, y in batches:
+                        with hvd.trace_step(step=step_id):
+                            loss = train_step(model, opt, x, y)
+                            torch.cuda.synchronize()
+                        t1 = time.perf_counter()
+                        times[mode].append(t1 - t0)
+                        t0 = t1
+                        step_id += 1
+                        losses.append(float(loss))
+                else:
+                    for _ in range(OBS_STEPS):
+                        t0 = time.perf_counter()
+                        loss = train_step(model, opt, images, labels)
+                        torch.cuda.synchronize()
+                        times[mode].append(time.perf_counter() - t0)
+                        losses.append(float(loss))
+                counts[mode].append(_obs_counts(TF, BN, OBS_STEPS,
+                                                f"{mode} round {rnd + 1}"))
+        text = urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/metrics", timeout=30).read().decode()
+        flight_path = hvd.dump_flight_recorder()
+        ledger_path = GP.dump("explicit")
+    finally:
+        srv.close()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"22a: non-finite loss: {losses}")
+    n_obs = OBS_STEPS * OBS_ROUNDS
+    if hist.total() - hist0 != n_obs:
+        raise AssertionError(f"22a: hvd_step_time_seconds counted "
+                             f"{hist.total() - hist0}, not {n_obs}")
+    samples = _prometheus_text(text)
+    if f"hvd_step_time_seconds_count {hist.total():g}" not in text:
+        raise AssertionError("22a: the scrape misses the step histogram")
+    # the goodput ledger conserves the wall (tests/test_goodput.py:539)
+    rep = GP.load_report(tmp)
+    led = rep["ranks"][0]
+    tot = sum(led["phases"].values()) + led["unattributed_s"]
+    if not ledger_path or abs(tot - led["elapsed_s"]) \
+            > 0.02 * led["elapsed_s"] + 1e-6:
+        raise AssertionError(f"22a: goodput phases {tot} against elapsed "
+                             f"{led['elapsed_s']} ({ledger_path})")
+    # the flight dump, merged: one complete step span per observed step
+    out_path, dumps, offsets = merge_dumps(tmp)
+    if not flight_path or len(dumps) != 1:
+        raise AssertionError(f"22a: flight dumps {os.listdir(tmp)}")
+    with open(out_path) as f:
+        trace = json.load(f)
+    spans = {}
+    for ev in trace["traceEvents"]:
+        if ev.get("name", "").startswith("step ") and ev["ph"] in "BE":
+            if (ev.get("args") or {}).get("unfinished"):
+                raise AssertionError(f"22a: unfinished {ev['name']}")
+            spans[ev["name"]] = spans.get(ev["name"], "") + ev["ph"]
+    if spans != {f"step {i}": "BE" for i in range(n_obs)}:
+        raise AssertionError(f"22a: step spans {spans}")
+    ends = [e for e in dumps[0].of_kind("step") if e["ph"] == "E"]
+    for e in ends:
+        split = e["compute_s"] + e["blocked_s"] + e["input_wait_s"]
+        if abs(split - e["wall_s"]) > 5e-6:
+            raise AssertionError(f"22a: step {e['step']} split {split} "
+                                 f"against wall {e['wall_s']}")
+    report = analyze(dumps, offsets)
+    ph = report["phases"][0]
+    if ph["steps"] != n_obs or abs(
+            ph["step_compute_total_s"] + ph["step_blocked_total_s"]
+            + sum(e["input_wait_s"] for e in ends)
+            - sum(e["wall_s"] for e in ends)) > 1e-3:
+        raise AssertionError(f"22a: the analyzer's step split {ph}")
+    med = {k: statistics.median(v) for k, v in times.items()}
+    ratio = med["observed"] / med["bare"]
+    host_us = _observer_host_us(hvd)
+    out = {"median_s": med, "ratio": ratio, "times": times,
+           "observer_host_us": host_us,
+           "launches": counts, "samples": samples,
+           "goodput": {k: led[k] for k in ("elapsed_s", "goodput_ratio")},
+           "step_mean_s": ph["step_mean_s"]}
+    log(f"[obs] 22a ResNet-50 batch {BATCH} bf16, world 1 over NCCL, "
+        f"{OBS_ROUNDS} rounds of {OBS_STEPS} bare then {OBS_STEPS} "
+        f"observed steps after {OBS_WARMUP} of warm-up: median step bare "
+        f"{med['bare']:.4f} s, observed {med['observed']:.4f} s, ratio "
+        f"{ratio:.4f}; the observers' host cost alone {host_us:.1f} us per "
+        f"step ({OBS_EMPTY} empty steps); steps bare "
+        f"{[round(t, 4) for t in times['bare']]}, "
+        f"observed {[round(t, 4) for t in times['observed']]}; launches "
+        f"per round {counts}; {samples} samples scraped; the flight dump "
+        f"merged to {n_obs} complete step spans (analyzer mean "
+        f"{ph['step_mean_s']} s); goodput ledger elapsed "
+        f"{led['elapsed_s']:.1f} s, ratio {led['goodput_ratio']}; on {gpu}")
+    del model, opt, images, labels
+    torch.cuda.empty_cache()
+    return out
+
+
+def observability_eager(hvd, torch, gpu: str, device: str = "cuda",
+                        model_fn=None, size: int = 224,
+                        classes: int = 1000) -> dict:
+    """22b: phase 20b's world on the int8 wire, read through the
+    metrics registry and the flight ring (the emulated ranks share one
+    of each, so the checks sum over them)."""
+    from horovod_tpu_torch.ops import quantization as Q
+    from horovod_tpu_torch.runtime import flight as FL
+    from horovod_tpu_torch.runtime import metrics as M
+
+    n = DP_N
+    _, _, subs, _ = _eager_shards(torch, device, model_fn, size, classes)
+    wire_c = M.counter("hvd_data_wire_bytes_total")
+    logical_c = M.counter("hvd_data_logical_bytes_total")
+    neg = M.registry().histogram("hvd_negotiation_seconds")
+    os.environ["HOROVOD_COMPRESSION"] = "int8"
+    world = EmulatedWorld(torch, n, (Q.LAUNCHES,), sync=device == "cuda",
+                          free=True)
+    rts = _emu_runtimes(torch, world, device, 900)
+    for rt in rts:
+        rt.log = []
+    FL.reset()
+    Q.reset_launch_counts()
+    w0, l0, n0 = wire_c.total(), logical_c.total(), neg.total()
+    try:
+        for _ in range(EAGER_STEPS):
+            _threads(lambda r: _eager_step(rts[r], subs[r]), n)
+        wire_b, logical_b = wire_c.total() - w0, logical_c.total() - l0
+        rounds = sum(rt.rounds for rt in rts)
+        lat = neg.total() - n0
+        events = FL.recorder().snapshot()
+    finally:
+        for rt in rts:
+            rt.stop()
+        os.environ["HOROVOD_COMPRESSION"] = "none"
+    moved = sum(sum(world.wire[r].values()) for r in range(n))
+    logical = sum(t.numel() * t.element_size() for s in subs
+                  for _, t in s) * EAGER_STEPS
+    responses = sum(len(rt.log) for rt in rts)
+    disp = [e["ph"] for e in events if e["kind"] == "dispatch"]
+    want = dict.fromkeys(EAGER_CODEC["int8"], 1)
+    bad = [x["launches"] for rt in rts for x in rt.log
+           if x["launches"] != want]
+    if wire_b != moved or logical_b != logical:
+        raise AssertionError(f"22b: wire {wire_b} B / logical {logical_b} "
+                             f"B on the counters, the world moved {moved} "
+                             f"B of {logical} B")
+    if lat != rounds:
+        raise AssertionError(f"22b: {lat} negotiation latencies for "
+                             f"{rounds} rounds")
+    if disp.count("B") != responses or disp.count("E") != responses:
+        raise AssertionError(f"22b: dispatch spans {disp.count('B')} B / "
+                             f"{disp.count('E')} E for {responses} "
+                             "responses")
+    if bad or not responses:
+        raise AssertionError(f"22b: launches per response {bad}, expected "
+                             f"{want}")
+    out = {"wire_bytes": wire_b, "logical_bytes": logical_b,
+           "rounds": rounds, "responses": responses,
+           "launches": [dict(world.launches[r]) for r in range(n)]}
+    log(f"[obs] 22b {n} emulated runtimes, int8 wire, {EAGER_STEPS} steps: "
+        f"{wire_b} B on the wire of {logical_b} B logical (ratio "
+        f"{wire_b / logical_b:.4f}), as the emulated world moved; "
+        f"{rounds} rounds, each with its negotiation latency; {responses} "
+        f"responses, each with its dispatch span and one B4 and one B5; "
+        f"launches per rank {out['launches']}; on {gpu}")
+    del rts, world, subs
+    torch.cuda.empty_cache()
+    return out
+
+
+def observability(hvd, torch, gpu: str) -> dict:
+    """Phase 22 (a-b)."""
+    t0 = time.perf_counter()
+    out = {"a": observability_resnet(hvd, torch, gpu),
+           "b": observability_eager(hvd, torch, gpu)}
+    log(f"[obs] phase 22 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def run(args) -> int:
     t_start = time.perf_counter()
     card = pin_one_card()
@@ -5529,6 +5857,8 @@ def run(args) -> int:
     eager = eager_plane(hvd, torch, gpu)
     torch.cuda.empty_cache()
     eager21 = eager_training(hvd, torch, gpu)
+    torch.cuda.empty_cache()
+    obs = observability(hvd, torch, gpu)
     hvd.shutdown()
 
     launches = {**path["launches"], **lm["launches"],
@@ -5573,7 +5903,12 @@ def run(args) -> int:
                 # own counter booked per rank
                 "launches_eager_zero": {
                     n: r["b1"][0] for n, r in eager21["a"].items()
-                    if n != "hier"}}
+                    if n != "hier"},
+                # phase 22a, per round of OBS_STEPS steps, bare and
+                # observed
+                "launches_observability": {
+                    m: [c["momentum"] for c in v]
+                    for m, v in obs["a"]["launches"].items()}}
                if kind == "momentum" else {}),
             **({"launches_zero_lm": zero_lm["launches"]["adam"],
                 "zero_tail_launches": zero_tail["adam"],
@@ -5670,6 +6005,9 @@ def run(args) -> int:
             "launches_eager_zero": {
                 n: r["codec"][0][kind]
                 for n, r in eager21["a"].items() if n != "hier"},
+            # phase 22b, per emulated rank over EAGER_STEPS int8 steps
+            "launches_observability": [
+                x.get(kind, 0) for x in obs["b"]["launches"]],
             "max_abs_err": max(codec_errs[kind], wire["errs"][kind]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -5696,6 +6034,10 @@ def run(args) -> int:
             "launches_vgg16": cnn["vgg16"]["launches"][name],
             "launches_zero_resnet50": {n: r["launches"][name]
                                        for n, r in zero.items()},
+            # phase 22a, per round of OBS_STEPS steps, bare and observed
+            "launches_observability": {
+                m: [c[name] for c in v]
+                for m, v in obs["a"]["launches"].items()},
             "max_abs_err": e["max_abs_err"], "max_ulp": e["max_ulp"],
             "max_err_f64": e["max_err_f64"],
             "plain_err_f64": e["plain_err_f64"],
@@ -5718,6 +6060,9 @@ def run(args) -> int:
             "shapes": f"timed at {BN_SHAPES[BN_TIMED[0]]} bf16 (ResNet-50 "
                       f"bn_init); *_inception3 at {BN_SHAPES[BN_TIMED[1]]}",
         })
+    log(f"[obs] phase 22a: observed/bare median step ratio "
+        f"{obs['a']['ratio']:.4f} ({obs['a']['median_s']['observed']:.4f} "
+        f"against {obs['a']['median_s']['bare']:.4f} s) on {gpu}")
     log(f"[done] wall time {time.perf_counter() - t_start:.1f} s; CNN paths "
         + "; ".join(f"{n}: median step {r['median_s']:.4f} s, "
                     f"{CNN[n][1] / r['median_s']:.1f} img/s, peak "

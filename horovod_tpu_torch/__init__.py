@@ -18,6 +18,11 @@ eager ops of the negotiated plane, as in the JAX package; the in-trace
 functions are ``hvd.collectives.<name>``.  ``horovod_tpu_torch.torch`` is
 the hook-driven PyTorch frontend on the eager plane.
 
+Observability: ``hvd.metrics()`` (the metrics registry's snapshot),
+``hvd.trace_step``, ``hvd.data_wait``, ``hvd.wrap_data_loader`` and
+``hvd.dump_flight_recorder()``; ``python -m horovod_tpu_torch.trace`` and
+``python -m horovod_tpu_torch.perf goodput`` read the dumps.
+
 Importing the package builds nothing and touches no device.
 """
 
@@ -48,3 +53,7 @@ from horovod_tpu_torch.optim.distributed import (  # noqa: F401
     broadcast_skipping_shards, zero3_full_params, zero3_shard_params)
 from horovod_tpu_torch.optim.local_sgd import (  # noqa: F401
     LocalSGD, LocalSGDOptimizer)
+from horovod_tpu_torch.runtime.metrics import (  # noqa: F401
+    data_wait, metrics, trace_step, wrap_data_loader)
+from horovod_tpu_torch.runtime.flight import (  # noqa: F401
+    dump as dump_flight_recorder)

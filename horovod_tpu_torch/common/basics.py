@@ -11,13 +11,21 @@ larger one.
 ``init(mesh=...)`` (or ``HOROVOD_MESH``) names a data mesh: ``init``
 builds its process groups once, on every rank in the same order
 (``parallel/mesh.py``), and the gradient collectives reduce over its dp
-axis.
+axis.  At world > 1 ``init`` also starts the eager plane's background
+runtime (negotiation and heartbeats), as the JAX package does.
+
+``init`` and ``shutdown`` carry the observability hooks of the JAX
+package's: the goodput ledger's start and ``init`` phase, the
+``hvd_world_size``/``hvd_generation`` gauges, the per-rank metrics
+endpoint (``HOROVOD_METRICS_PORT``), the fatal-signal dump handlers and
+the ``init``/``shutdown`` flight records and dumps.
 """
 
 from __future__ import annotations
 
 import os
 import threading
+import time
 from datetime import timedelta
 
 import torch
@@ -46,9 +54,15 @@ class _State:
         self.eager_hop = None   # the eager plane's world (its own group)
         self.eager_pair = None  # its (cross, local) pair, or None
         self.background = None  # runtime.background.BackgroundRuntime
+        self.metrics_server = None     # per-rank /metrics endpoint
+        self.metrics_publisher = None  # KV snapshot publisher (12f)
 
 
 _state = _State()
+
+
+def state() -> _State:
+    return _state
 
 
 def _env_int(name: str, default: int) -> int:
@@ -68,6 +82,20 @@ def init(device=None, timeout_s: float = 300.0, mesh=None) -> None:
     with _state.lock:
         if _state.initialized:
             return
+        # the goodput ledger's wall clock starts at the first init();
+        # the bring-up lands in its "init" phase (advisory)
+        t_init = time.monotonic()
+        try:
+            from horovod_tpu_torch.perf import goodput as _goodput
+
+            _goodput.start()
+        except Exception:  # noqa: BLE001 -- observability never fails init
+            _goodput = None
+        from horovod_tpu_torch.runtime import faults as _faults
+
+        # a malformed HOROVOD_FAULT_SPEC, or its unported preempt: rule,
+        # fails before any group exists, at every world size
+        _faults.check_spec()
         _apply_mesh_arg(mesh)
         dev = resolve_device(device)
         size = _env_int("HOROVOD_SIZE", 1)
@@ -107,8 +135,46 @@ def init(device=None, timeout_s: float = 300.0, mesh=None) -> None:
         _build_eager_groups()
         if axes is not None:
             _build_data_mesh(axes)
+        _start_observability()
+        if _goodput is not None:
+            try:
+                _goodput.observe("init", time.monotonic() - t_init)
+            except Exception:  # noqa: BLE001
+                pass
         _log.debug(f"init: backend={backend} size={size} device={dev}",
                    rank=rank)
+    if _state.size > 1:
+        # every rank negotiates and beats from the start (reference
+        # InitializeHorovodOnce): a rank whose first eager op comes late
+        # is a late rank, not a dead one
+        from horovod_tpu_torch.ops import eager as _eager
+
+        _eager.start_runtime()
+
+
+def _start_observability() -> None:
+    """The metrics plane's topology gauges and per-rank endpoint, the
+    fatal-signal dump handlers and the ``init`` flight record
+    (``horovod_tpu/common/basics.py:248-300``)."""
+    from horovod_tpu_torch.runtime import flight as _flight
+    from horovod_tpu_torch.runtime import metrics as _metrics
+
+    _metrics.gauge(
+        "hvd_world_size", "Current world size.").set(_state.size)
+    _metrics.gauge(
+        "hvd_generation",
+        "Communicator generation (KV epoch; bumps on every "
+        "elastic re-form).").set(_state.epoch)
+    if _state.metrics_server is not None:
+        _state.metrics_server.close()
+    _state.metrics_server = _metrics.start_rank_endpoint(_state.rank)
+    if _state.metrics_publisher is not None:
+        _state.metrics_publisher.stop()
+    _state.metrics_publisher = _metrics.maybe_start_kv_publisher(
+        _state.rank, _state.size, _state.epoch)
+    _flight.install_signal_handlers()
+    _flight.record("init", rank=_state.rank, size=_state.size,
+                   generation=_state.epoch)
 
 
 def _apply_mesh_arg(mesh) -> None:
@@ -224,13 +290,32 @@ def shutdown() -> None:
     with _state.lock:
         if not _state.initialized:
             return
+        from horovod_tpu_torch.runtime import flight as _flight
+
+        _flight.record("shutdown", rank=_state.rank,
+                       generation=_state.epoch)
+        # the goodput ledger's final accounting beside the flight dumps
+        # (abort paths dump through flight.dump_on_failure)
+        try:
+            from horovod_tpu_torch.perf import goodput as _goodput
+
+            _goodput.dump("shutdown")
+        except Exception:  # noqa: BLE001 -- advisory
+            pass
         if _state.background is not None:
-            _state.background.stop()
-            _state.background = None
-            if _state.size > 1:
+            bg, _state.background = _state.background, None
+            bg.stop()
+            if _state.size > 1 and not bg.aborted():
                 # no rank tears down the store while a peer still reads
-                # the shutdown round from it
+                # the shutdown round from it (after a coordinated abort
+                # a peer is dead: nobody would meet this barrier)
                 dist.barrier()
+        if _state.metrics_server is not None:
+            _state.metrics_server.close()
+            _state.metrics_server = None
+        if _state.metrics_publisher is not None:
+            _state.metrics_publisher.stop()
+            _state.metrics_publisher = None
         if dist.is_initialized():
             dist.destroy_process_group()
         _state.data_mesh = _state.data_axes = None

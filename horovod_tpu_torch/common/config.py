@@ -166,6 +166,51 @@ _KNOBS: dict[str, Knob] = {
         "launcher's local size or HOROVOD_HIERARCHICAL_LOCAL_SIZE when "
         "it divides the world); 0 keeps every world flat.  Must agree "
         "on every rank."),
+    "flight_dir": Knob(
+        "HOROVOD_FLIGHT_DIR", "", str,
+        "Directory for flight-recorder dumps: every rank keeps an "
+        "in-memory ring of runtime events and dumps it here as JSONL on "
+        "a coordinated abort, a background failure, SIGTERM/SIGABRT or "
+        "hvd.dump_flight_recorder().  Merge and analyze with `python -m "
+        "horovod_tpu_torch.trace merge <dir>`.  Empty (default) disables "
+        "dumping; the ring still records."),
+    "flight_events": Knob(
+        "HOROVOD_FLIGHT_EVENTS", 4096, int,
+        "Flight-recorder ring capacity in events (default 4096; 0 "
+        "disables recording)."),
+    "goodput_dir": Knob(
+        "HOROVOD_GOODPUT_DIR", "", str,
+        "Directory for per-rank goodput ledger dumps "
+        "(goodput-r<k>-g<g>.json, on shutdown and on every failure "
+        "dump); empty falls back to HOROVOD_FLIGHT_DIR.  Report with "
+        "`python -m horovod_tpu_torch.perf goodput <dir>`."),
+    "goodput_slo": Knob(
+        "HOROVOD_GOODPUT_SLO", 0.0, float,
+        "Fleet goodput SLO in (0, 1] for the fleet report's burn-rate "
+        "alert; 0 (default) disarms it."),
+    "goodput_window": Knob(
+        "HOROVOD_GOODPUT_WINDOW_SECONDS", 300.0, float,
+        "Sliding window of the fleet goodput / dominant-bottleneck / "
+        "SLO-burn computation (default 300 s)."),
+    "goodput_unattributed_max": Knob(
+        "HOROVOD_GOODPUT_UNATTRIBUTED_MAX", 0.10, float,
+        "Unattributed share of wall-clock past which the goodput ledger "
+        "logs one warning (default 0.10; 0 disables)."),
+    "data_wait_min": Knob(
+        "HOROVOD_DATA_WAIT_MIN_SECONDS", 0.0, float,
+        "Noise floor of hvd.data_wait() / hvd.wrap_data_loader spans: "
+        "shorter waits are not recorded (default 0)."),
+    "metrics_port": Knob(
+        "HOROVOD_METRICS_PORT", 0, int,
+        "Prometheus-text metrics endpoint base port; 0 (default) "
+        "disables.  Each rank serves /metrics on base + rank."),
+    "fault_spec": Knob(
+        "HOROVOD_FAULT_SPEC", "", str,
+        "Deterministic fault injection on the control-plane wire "
+        "(testing only): comma-separated delay:<glob>:<dur>, "
+        "drop:<glob>[:<n>], die:rank<k>[:round<n>], slow:<rank>:<delay>, "
+        "nan:<nameglob>[:round<n>], inf:<nameglob>[:round<n>] specs "
+        "(preempt: waits for the preemption plane and raises)."),
     "log_level": Knob(
         "HOROVOD_LOG_LEVEL", "warning", str,
         "trace | debug | info | warning | error | fatal."),

@@ -46,6 +46,10 @@ def debug(msg: str, rank: int | None = None) -> None:
     log(DEBUG, msg, rank)
 
 
+def info(msg: str, rank: int | None = None) -> None:
+    log(INFO, msg, rank)
+
+
 def warning(msg: str, rank: int | None = None) -> None:
     log(WARNING, msg, rank)
 

@@ -83,6 +83,30 @@ from horovod_tpu_torch.ops.compression import (Compression,
                                                is_quantized, wire_mode)
 from horovod_tpu_torch.optim import fused_update as _fused
 from horovod_tpu_torch.parallel import mesh as _pmesh
+from horovod_tpu_torch.runtime import metrics as _metrics
+
+_M_FUSED_BYTES = _metrics.gauge(
+    "hvd_fusion_buffer_bytes",
+    "Flat fused-gradient buffer size per dtype group on the eager "
+    "path.")
+# ZeRO residency per chip (docs/zero.md), stamped from the layout after
+# the first step, when the wrapped optimizer's state exists
+_M_ZERO_STAGE = _metrics.gauge(
+    "hvd_zero_stage",
+    "Resolved ZeRO stage of the last-constructed DistributedOptimizer "
+    "(0 = replicated update).")
+_M_ZERO_PARAM_BYTES = _metrics.gauge(
+    "hvd_zero_param_bytes_per_chip",
+    "Resident parameter bytes per chip (1/world flat shards under "
+    "zero_stage=3, full replicas below).")
+_M_ZERO_GRAD_BYTES = _metrics.gauge(
+    "hvd_zero_grad_bytes_per_chip",
+    "Resident reduced-gradient bytes per chip (the rank-local shard "
+    "under zero_stage>=2; the full fused buffer below).")
+_M_ZERO_OPT_BYTES = _metrics.gauge(
+    "hvd_zero_opt_state_bytes_per_chip",
+    "Wrapped optimizer-state bytes per chip (shard-local from "
+    "zero_stage>=1 on).")
 
 
 def _resolve_compression(compression):
@@ -292,6 +316,8 @@ def eager_fused_allreduce(leaves, op: int, compression=Compression.none,
     handles = []
     for dtype, idxs in groups.items():
         flat = torch.cat([leaves[i].reshape(-1) for i in idxs])
+        _M_FUSED_BYTES.set(flat.numel() * flat.element_size(),
+                           dtype=_dtype_label(dtype))
         handles.append((idxs, _eager.allreduce_async(
             flat, op=op, name=f"{prefix}.{_dtype_label(dtype)}.{len(idxs)}",
             compression=compression)))
@@ -594,6 +620,21 @@ class _DistributedOptimizer:
         self.overlap = overlap
         self.zero_stage = stage
         self.fused_spec = _fused.resolve_spec(optimizer)
+        self._stamped = False
+        # the resolved schedule, as hvd.metrics() shows it (the knobs
+        # record only the request)
+        ovl = (bool(_config.get("overlap")) if overlap is None
+               else bool(overlap))
+        _metrics.gauge(
+            "hvd_overlap_chunks",
+            "Bucket count of the overlap ring schedule (0 = overlap "
+            "off).").set(
+                int(_config.get("overlap_chunks")) if ovl else 0)
+        _metrics.gauge(
+            "hvd_sharded_optimizer",
+            "1 when the ZeRO-1 sharded weight update is active.").set(
+                1 if stage >= 1 else 0)
+        _M_ZERO_STAGE.set(stage)
         self._counter = 0
         self._accum: dict = {}
         #: stage 0: parameter -> float32 error-feedback residual, or None
@@ -744,14 +785,38 @@ class _DistributedOptimizer:
                 loss = closure()
         if self.zero_stage == 3:
             self._zero3_step()
+        elif self.backward_passes_per_step > 1 and not self._accumulate():
             return loss
-        if self.backward_passes_per_step > 1 and not self._accumulate():
-            return loss
-        if self.zero_stage:
+        elif self.zero_stage:
             self._sharded_step()
-            return loss
-        self._update(self.synchronize())
+        else:
+            self._update(self.synchronize())
+        if not self._stamped:
+            self._stamp_zero_bytes()
         return loss
+
+    def _stamp_zero_bytes(self) -> None:
+        """The residency gauges, once the state exists (advisory)."""
+        self._stamped = True
+        try:
+            stage = self.zero_stage
+            if stage in (1, 2):
+                lay = self.layout
+                pbytes = gbytes = 0
+                for g, key in enumerate(lay.keys):
+                    item = key.itemsize
+                    pbytes += sum(lay.sizes[g]) * item
+                    gbytes += (lay.shard[g] if stage >= 2
+                               else lay.padded[g]) * item
+            else:
+                # stage 0 replicates, stage 3 holds only its shards
+                pbytes = gbytes = _state_bytes(
+                    [{"p": p} for p in self._params_all])
+            _M_ZERO_PARAM_BYTES.set(pbytes)
+            _M_ZERO_GRAD_BYTES.set(gbytes)
+            _M_ZERO_OPT_BYTES.set(self.state_bytes())
+        except Exception:  # noqa: BLE001 -- metrics never cost a step
+            pass
 
     def _update(self, params) -> None:
         """Stage 0's update from the reduced ``p.grad`` of ``params``: the

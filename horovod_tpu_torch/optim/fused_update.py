@@ -46,6 +46,7 @@ from horovod_tpu_torch.common import config as _config
 from horovod_tpu_torch.common import logging as _log
 from horovod_tpu_torch.common.types import HorovodTpuError
 from horovod_tpu_torch.common.util import true_divide
+from horovod_tpu_torch.runtime import metrics as _metrics
 
 _INT32_MAX = 2 ** 31 - 1
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -59,7 +60,11 @@ _KIND_CODES = {"sgd": 0, "momentum": 1, "adam": 2}
 LAUNCHES = {"sgd": 0, "momentum": 0, "adam": 0}
 
 _warned: set = set()
-_active = False
+_M_FUSED = _metrics.gauge(
+    "hvd_fused_update",
+    "1 when the Pallas-fused optimizer tail is active for the "
+    "last-constructed DistributedOptimizer, 0 when requested but "
+    "unavailable (untagged optimizer / unrecognized state).")
 
 
 class FusedSpec(NamedTuple):
@@ -216,13 +221,13 @@ def enabled() -> bool:
 
 def active() -> bool:
     """Whether the fused tail ran for the last-constructed optimizer
-    (``enabled()`` records the request, this the outcome)."""
-    return _active
+    (``enabled()`` records the request, this the outcome: the
+    ``hvd_fused_update`` gauge)."""
+    return bool(_M_FUSED.value())
 
 
 def _set_active(on: bool) -> None:
-    global _active
-    _active = on
+    _M_FUSED.set(1 if on else 0)
 
 
 def _warn_once(category: str, msg: str) -> None:

@@ -39,12 +39,17 @@ the cross hop only, on the wire ``HOROVOD_LOCAL_SGD_COMPRESSION`` or
 ``HOROVOD_COMPRESSION`` names, without error feedback) and then the
 Nesterov step.  It runs at stage 0 only.  The eager plane builds its
 (cross, local) groups at ``init()`` when ``HOROVOD_LOCAL_SGD_H >= 2``.
-The ``hvd_local_sgd_h`` gauge and the goodput ledger's outer-sync
-accounting wait for the runtime planes (ROADMAP.md Queue A item 12).
+The resolved H lands on the ``hvd_local_sgd_h`` gauge, and
+:meth:`LocalSGDOptimizer.maybe_outer_sync` times each sync (the device
+synchronized, as the JAX package blocks on its result) into the goodput
+ledger's ``comm_exposed`` phase and the ``hvd_outer_sync_*`` series
+(``perf.goodput.record_outer_sync``).  The commit-at-boundary warning
+of the elastic plane waits for ROADMAP.md Queue A item 12f.
 """
 
 from __future__ import annotations
 
+import time
 import warnings
 
 import torch
@@ -59,10 +64,16 @@ from horovod_tpu_torch.ops.collectives import Average, Sum
 from horovod_tpu_torch.ops.compression import Compression, is_quantized
 from horovod_tpu_torch.optim import distributed as _dist
 from horovod_tpu_torch.parallel import mesh as _pmesh
+from horovod_tpu_torch.runtime import metrics as _metrics
 
 __all__ = ["LocalSGD", "LocalSGDOptimizer", "OuterState", "resolved_h",
            "outer_compression", "local_sgd_topology", "is_local_sgd_state",
            "inner_window_position"]
+
+_M_OUTER_H = _metrics.gauge(
+    "hvd_local_sgd_h",
+    "Resolved outer-sync period H of the local-SGD regime (0 = "
+    "synchronous training, the regime is off).")
 
 def resolved_h(h=None) -> int:
     """The outer-sync period: an explicit ``h`` wins, else the
@@ -168,6 +179,7 @@ class LocalSGDOptimizer:
                             f"(got {type(optimizer)!r})")
         self.h = resolved_h(h)
         self.active = self.h > 1
+        _M_OUTER_H.set(self.h if self.active else 0)
         self.outer_lr = float(_config.get("outer_lr")
                               if outer_lr is None else outer_lr)
         self.outer_momentum = float(_config.get("outer_momentum")
@@ -447,8 +459,18 @@ class LocalSGDOptimizer:
         it) when ``step`` is a boundary; returns whether it ran."""
         if not self.should_sync(step):
             return False
+        from horovod_tpu_torch.perf import goodput as _goodput
+
+        t0 = time.perf_counter()
         (self.outer_sync if sync_fn is None else sync_fn)()
+        dev = next((p.device for p in self._sync_params()), None)
+        if dev is not None and dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        _goodput.record_outer_sync(time.perf_counter() - t0)
         return True
+
+    def _sync_params(self):
+        return (p for g in self.param_groups for p in g["params"])
 
 
 def LocalSGD(optimizer, h=None, axis_name=None, outer_lr=None,

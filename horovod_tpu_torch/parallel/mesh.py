@@ -25,7 +25,9 @@ any two-axis name is on the reference (``horovod_tpu/ops/collectives.py:
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -48,6 +50,35 @@ WORLD_AXIS = "hvd"
 LM_DATA_AXES = ("dp", "sp")
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+# Payload bytes this thread's transfers sent inside a counting_sent()
+# block (the eager plane's hvd_data_wire_bytes_total: what a response
+# really put on the wire, compression, padding and scales included).
+_sent = threading.local()
+
+
+@contextlib.contextmanager
+def counting_sent():
+    """Count the payload bytes every transfer this thread makes sends
+    (a member's own payload, once per transfer); yields a one-element
+    list holding the running total."""
+    prev = getattr(_sent, "box", None)
+    box = [0]
+    _sent.box = box
+    try:
+        yield box
+    finally:
+        _sent.box = prev
+        if prev is not None:
+            prev[0] += box[0]
+
+
+def note_sent(t) -> None:
+    """Add ``t``'s bytes to the open :func:`counting_sent` block (a
+    transport calls it for each payload it sends)."""
+    box = getattr(_sent, "box", None)
+    if box is not None and t is not None:
+        box[0] += t.numel() * t.element_size()
 
 
 # ---------------------------------------------------------------------------
@@ -74,6 +105,7 @@ class Hop:
     def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """Reduce ``t`` in place over the axis (``sum`` or ``max``)."""
         if self.size > 1:
+            note_sent(t)
             dist.all_reduce(t, op=_OPS[op], group=self.group)
         return t
 
@@ -88,6 +120,7 @@ class Hop:
         if self.size == 1:
             out.copy_(src.reshape(out.shape))
             return None
+        note_sent(src)
         return dist.reduce_scatter_tensor(out, src, group=self.group,
                                           async_op=async_op)
 
@@ -96,6 +129,7 @@ class Hop:
         if self.size == 1:
             out.copy_(src.reshape(out.shape))
             return None
+        note_sent(src)
         return dist.all_gather_into_tensor(out, src, group=self.group,
                                            async_op=async_op)
 
@@ -104,11 +138,13 @@ class Hop:
         if self.size == 1:
             out.copy_(src)
             return
+        note_sent(src)
         dist.all_to_all_single(out, src, group=self.group)
 
     def broadcast(self, t: torch.Tensor, root: int) -> torch.Tensor:
         """Overwrite ``t`` with member ``root``'s (an axis index)."""
         if self.size > 1:
+            note_sent(t)
             dist.broadcast(t, src=self.ranks[root], group=self.group)
         return t
 
@@ -117,6 +153,7 @@ class Hop:
         if peer == self.index:
             return t.clone()
         recv = torch.empty_like(t)
+        note_sent(t)
         works = dist.batch_isend_irecv([
             dist.P2POp(dist.isend, t, self.ranks[peer], self.group),
             dist.P2POp(dist.irecv, recv, self.ranks[peer], self.group)])
@@ -157,6 +194,7 @@ class Hop:
             self._p2p_ready = True
         ops, recv = [], None
         if dst is not None:
+            note_sent(t)
             ops.append(dist.P2POp(dist.isend, t.contiguous(),
                                   self.ranks[dst], self.group))
         if src is not None:

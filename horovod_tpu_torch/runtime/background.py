@@ -19,10 +19,18 @@ The controller's heartbeat starts with the runtime; a coordinated abort
 (:class:`~horovod_tpu_torch.common.types.RanksDownError`, raised by the
 controller's liveness sweep or observed from a peer) fails every
 outstanding handle with the abort's message, and the runtime refuses new
-work the same way from then on.  The JAX package's metrics, flight
-recorder, fault injection, autotuner, timeline and health hooks belong
-to runtime planes the port has not ported yet (ROADMAP.md Queue A item
-12).
+work the same way from then on; the flight ring dumps first
+(``flight.dump_on_failure``), as it does on a background failure and a
+coordinated stop.
+
+The loop records what the JAX package's does: the negotiation-latency
+and response-count histograms, the fast-round gauge, the dispatch
+seconds, and per response the wire bytes (what its transfers really
+sent, ``parallel.mesh.counting_sent``) and the logical bytes, with a
+``dispatch`` B/E span on the flight ring.  ``HOROVOD_FAULT_SPEC``'s
+``nan:``/``inf:`` rules poison payloads before dispatch
+(``runtime.faults.poison_entries``).  The autotuner, the timeline and
+the health taps wait for ROADMAP.md Queue A items 12d, 12g and 12h.
 """
 
 from __future__ import annotations
@@ -38,8 +46,47 @@ from horovod_tpu_torch.common import logging as _log
 from horovod_tpu_torch.common.types import (DuplicateNameError, RanksDownError,
                                             Status, dtype_code,
                                             dtype_from_code)
+from horovod_tpu_torch.runtime import flight as _flight
+from horovod_tpu_torch.runtime import metrics as _metrics
 from horovod_tpu_torch.runtime.controller import (RANKS_DOWN_PREFIX, Request,
-                                                 reduction_scope)
+                                                 reduction_scope,
+                                                 tensor_nbytes)
+
+_M_NEG_LAT = _metrics.histogram(
+    "hvd_negotiation_seconds",
+    "Wall time of one negotiation round (request post -> response "
+    "list executed locally).")
+_M_RESP_SIZE = _metrics.histogram(
+    "hvd_response_list_size",
+    "Responses per negotiated round (post-fusion launch count).",
+    lo=0, hi=12)
+_M_FAST_ROUNDS = _metrics.gauge(
+    "hvd_negotiation_fast_rounds",
+    "Rounds resolved via the cache-bit fast path since init.")
+_M_DISPATCH = _metrics.counter(
+    "hvd_comm_dispatch_seconds_total",
+    "Background-thread seconds executing negotiated collectives.")
+_M_WIRE_BYTES = _metrics.counter(
+    "hvd_data_wire_bytes_total",
+    "Data-plane bytes a negotiated response moves on the wire, after "
+    "HOROVOD_COMPRESSION, labeled by collective kind and by axis "
+    "(axis=local: ICI-only scoped reductions of the local-SGD inner "
+    "step; axis=cross: everything that crosses slices over DCN — "
+    "world-scoped collectives and local-SGD pseudo-gradient syncs).")
+_M_LOGICAL_BYTES = _metrics.counter(
+    "hvd_data_logical_bytes_total",
+    "Uncompressed payload bytes of the same responses — "
+    "wire/logical is the achieved compression ratio.")
+
+
+def _logical_nbytes(resp, dtype) -> int:
+    """Uncompressed payload bytes of a response (an allgather's: every
+    rank's negotiated rows), as the JAX package counts them."""
+    if resp.kind == "allgather" and resp.first_dims:
+        row = (tensor_nbytes(tuple(resp.shapes[0][1:]), dtype)
+               if len(resp.shapes[0]) > 1 else dtype.itemsize)
+        return sum(int(d) for d in resp.first_dims) * row
+    return sum(tensor_nbytes(s, dtype) for s in resp.shapes)
 
 
 class _Entry:
@@ -127,6 +174,7 @@ class BackgroundRuntime:
         self._join_result = -1
         self._error: str | None = None
         self._error_class: type | None = None
+        self._dumped_flight = False
         # the plane's counters: responses executed (join and error
         # included), negotiation rounds, and each round's host seconds
         # (negotiation and dispatch of its responses)
@@ -208,6 +256,10 @@ class BackgroundRuntime:
         self._join_done.wait()
         return self._join_result
 
+    def aborted(self) -> bool:
+        """True after a coordinated abort (a peer is down)."""
+        return self._error_class is RanksDownError
+
     def stop(self) -> None:
         self._stop_requested.set()
         self._wake.set()
@@ -230,13 +282,22 @@ class BackgroundRuntime:
                 _log.error(f"coordinated abort: {exc}", rank=self.rank)
                 self._error = str(exc)
                 self._error_class = RanksDownError
+                # the ring dumps before the handles fail: a survivor that
+                # exits on the RanksDownError still leaves its dump
+                _flight.dump_on_failure("ranks_down", flush_metrics=False)
+                self._dumped_flight = True
                 self._fail_outstanding()
+                _flight.flush_terminal_metrics()
                 stop = True
             except Exception as exc:  # noqa: BLE001 -- never die silently
                 _log.error(f"background loop error: {exc!r}",
                            rank=self.rank)
                 self._error = f"Horovod-TPU background failure: {exc!r}"
+                _flight.dump_on_failure("background_failure",
+                                        flush_metrics=False)
+                self._dumped_flight = True
                 self._fail_outstanding()
+                _flight.flush_terminal_metrics()
                 stop = True
             if stop:
                 break
@@ -246,6 +307,11 @@ class BackgroundRuntime:
             self._wake.clear()
         self._stopped.set()
         self._fail_outstanding()
+        if self._error and not self._dumped_flight:
+            # the one error path with no exception: a coordinator-
+            # initiated stop (the round-0 knob mismatch)
+            _flight.dump_on_failure("coordinated_stop")
+            self._dumped_flight = True
         if self._join_requested.is_set():
             self._join_done.set()
 
@@ -276,7 +342,13 @@ class BackgroundRuntime:
         requests = [Request(e.name, e.kind, e.op, dtype_code(e.tensor.dtype),
                             tuple(e.tensor.shape), e.root_rank)
                     for e in pending]
+        neg_t0 = time.perf_counter()
         result = ctl.negotiate(requests, joined, shutdown)
+        _M_NEG_LAT.observe(time.perf_counter() - neg_t0)
+        _M_RESP_SIZE.observe(len(result.responses))
+        fast = getattr(ctl, "fast_rounds", None)
+        if fast is not None:
+            _M_FAST_ROUNDS.set(fast)
         if result.should_stop and self._error is None and not shutdown:
             # a coordinator-initiated stop (the round-0 cfg mismatch):
             # its reason reaches every outstanding and late handle
@@ -342,6 +414,13 @@ class BackgroundRuntime:
                 entry = _Entry(name, resp.kind, resp.op, resp.root_rank,
                                None, None, None)
             entries.append(entry)
+        from horovod_tpu_torch.runtime import faults as _faults
+
+        if _faults.data_rules():
+            # nan:/inf: rules poison this rank's payload before dispatch
+            _faults.poison_entries(entries, self.rank,
+                                   int(getattr(self.controller, "round",
+                                               0) or 0))
         inputs = [e.tensor for e in entries if e.tensor is not None]
 
         def work():
@@ -355,15 +434,29 @@ class BackgroundRuntime:
             return [e.postprocess(o) if e.postprocess is not None else o
                     for e, o in zip(entries, outs)]
 
-        try:
-            outs, done = self.executor.execute(
-                work, inputs, [e.ready for e in entries])
-            status = Status.ok()
-        except Exception as exc:  # noqa: BLE001 -- fails the handles
-            outs, done = [None] * len(entries), None
-            status = Status.unknown(
-                f"Collective {resp.kind} failed: {exc!r}")
-            _log.error(status.reason, rank=self.rank)
+        scope = reduction_scope(resp.names[0]) \
+            if resp.kind == "allreduce" and resp.names else None
+        _flight.record("dispatch", ph="B", collective=resp.kind,
+                       n=len(entries), names=[e.name for e in entries[:8]])
+        disp_t0 = time.perf_counter()
+        from horovod_tpu_torch.parallel.mesh import counting_sent
+
+        with counting_sent() as sent:
+            try:
+                outs, done = self.executor.execute(
+                    work, inputs, [e.ready for e in entries])
+                status = Status.ok()
+            except Exception as exc:  # noqa: BLE001 -- fails the handles
+                outs, done = [None] * len(entries), None
+                status = Status.unknown(
+                    f"Collective {resp.kind} failed: {exc!r}")
+                _log.error(status.reason, rank=self.rank)
+        _M_DISPATCH.inc(time.perf_counter() - disp_t0, kind=resp.kind)
+        _M_WIRE_BYTES.inc(sent[0], kind=resp.kind,
+                          axis="local" if scope == "local" else "cross")
+        _M_LOGICAL_BYTES.inc(_logical_nbytes(resp, dtype), kind=resp.kind)
+        _flight.record("dispatch", ph="E", collective=resp.kind,
+                       ok=status.ok_p(), bytes=sent[0])
         for entry, out in zip(entries, outs):
             if entry.handle is not None:
                 self.hm.mark_done(entry.handle, status, out, done)

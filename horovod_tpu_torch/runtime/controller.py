@@ -17,8 +17,13 @@ keyed by round.  This is the JAX package's protocol: the flat star on
 rank 0, or above ``HOROVOD_CONTROL_FANOUT`` the two-level star on slice
 leaders (:func:`control_topology`), with heartbeats and the coordinated
 abort (:class:`HeartbeatPublisher`, :meth:`KVController.check_liveness`).
-The autotuner's parameter broadcast, the flight recorder and the plane's
-metrics are not ported yet (ROADMAP.md Queue A item 12).
+It records the JAX package's control-plane metrics (rounds, wire retries
+and timeouts, heartbeat publishes, gaps, staleness and sweep lag,
+coordinated aborts) and flight events (``round``, ``arrive``,
+``hb_pub``, ``hb_stale``, ``hb_fresh``, ``clk``, ``abort``,
+``wire_timeout``), and :func:`make_controller` wraps the transport in
+``HOROVOD_FAULT_SPEC``'s rules (``runtime/faults.py``).  The autotuner's
+parameter broadcast waits for ROADMAP.md Queue A item 12h.
 """
 
 from __future__ import annotations
@@ -32,12 +37,55 @@ from dataclasses import dataclass, field
 from horovod_tpu_torch.common import config as _config
 from horovod_tpu_torch.common import logging as _log
 from horovod_tpu_torch.common.types import RanksDownError, dtype_from_code
+from horovod_tpu_torch.runtime import flight as _flight
+from horovod_tpu_torch.runtime import metrics as _metrics
 from horovod_tpu_torch.runtime import wire as _wire
 from horovod_tpu_torch.runtime.cache import HIT, INVALID, ResponseCache
 from horovod_tpu_torch.runtime.stall import StallInspector
 
 JOIN_NAME = "__hvd_join__"
 RANKS_DOWN_PREFIX = RanksDownError.WIRE_PREFIX
+
+# Control-plane observability (docs/metrics.md): one lock + dict op per
+# record on the hot path.
+_M_ROUNDS = _metrics.counter(
+    "hvd_negotiation_rounds_total",
+    "Negotiation rounds completed, labeled path=fast|slow.")
+_M_RETRIES = _metrics.counter(
+    "hvd_wire_retries_total",
+    "Control-plane wire retries, labeled by op: KV client "
+    "reconnect-and-retry attempts plus controller blocking-get slice "
+    "expiries.")
+_M_TIMEOUTS = _metrics.counter(
+    "hvd_wire_timeouts_total",
+    "Control-plane waits that exhausted HOROVOD_WIRE_TIMEOUT_SECONDS.")
+_M_HB_PUB = _metrics.counter(
+    "hvd_heartbeat_publishes_total", "Heartbeat beats published.")
+_M_HB_FAIL = _metrics.counter(
+    "hvd_heartbeat_publish_failures_total",
+    "Heartbeat publishes that failed on the wire (swallowed; peers "
+    "observe the absence).")
+_M_HB_GAP = _metrics.gauge(
+    "hvd_heartbeat_publish_gap_seconds",
+    "Measured gap between this rank's consecutive heartbeat publishes "
+    "(should track HOROVOD_HEARTBEAT_INTERVAL; a larger value means "
+    "the publisher itself is being delayed).")
+_M_HB_STALE = _metrics.gauge(
+    "hvd_heartbeat_staleness_seconds",
+    "Seconds since each swept peer's heartbeat last changed, labeled "
+    "peer=<rank>.  Crossing HOROVOD_HEARTBEAT_TIMEOUT_SECONDS "
+    "triggers the coordinated abort.")
+_M_ABORTS = _metrics.counter(
+    "hvd_coordinated_aborts_total",
+    "Coordinated aborts this process observed or initiated.")
+_M_SWEEP_LAG = _metrics.gauge(
+    "hvd_heartbeat_sweep_lag_seconds",
+    "How far one full pass over this rank's heartbeat sweep ring runs "
+    "behind HOROVOD_HEARTBEAT_INTERVAL (0 when the budgeted sweep "
+    "keeps up).  A persistently positive value means peers are "
+    "sampled slower than they beat — the false-dead window is "
+    "silently widening; shrink the ring (hierarchical control plane) "
+    "or raise the interval.")
 
 # The JAX package's value for a knob the port does not read yet
 # (ROADMAP.md Queue A item 12): round0_cfg sends what the JAX package
@@ -537,6 +585,7 @@ class HeartbeatPublisher:
         self.key = key
         self.interval_s = interval_s
         self._seq = 0
+        self._last_pub: float | None = None
         self._stop = threading.Event()
         self._thread = threading.Thread(
             target=self._run, name="hvd-heartbeat", daemon=True)
@@ -544,7 +593,10 @@ class HeartbeatPublisher:
 
     def _publish(self) -> None:
         self._seq += 1
+        # the wall clock in the beat: each new beat a peer observes is a
+        # ``clk`` offset sample for the trace merge's clock alignment
         value = f"{self._seq}:{time.time():.6f}"
+        _flight.record("hb_pub", seq=self._seq)
         setter = getattr(self.t, "set_overwrite", None)
         try:
             if setter is not None:
@@ -556,7 +608,14 @@ class HeartbeatPublisher:
                 self.t.delete(self.key)
                 self.t.set(self.key, value)
             except Exception:  # noqa: BLE001
-                pass
+                _M_HB_FAIL.inc()
+                _flight.record("hb_pub_fail", seq=self._seq)
+        now = time.monotonic()
+        if self._last_pub is not None:
+            # publish to publish, the publish's own wire time included
+            _M_HB_GAP.set(now - self._last_pub)
+        self._last_pub = now
+        _M_HB_PUB.inc()
 
     def _run(self) -> None:
         self._publish()
@@ -650,6 +709,8 @@ class KVController:
         self._beats: dict[int, list] = {}
         self._last_sweep = 0.0
         self._sweep_cursor = 0
+        self._sweep_wrap_t: float | None = None
+        self._sweep_covered = 0
         self._abort_key = self._key("a")
         self._heartbeat: HeartbeatPublisher | None = None
 
@@ -672,6 +733,9 @@ class KVController:
         if self._heartbeat is not None:
             self._heartbeat.stop()
             self._heartbeat = None
+        # this world is over: its per-peer staleness series go with it
+        _M_HB_STALE.reset()
+        _M_SWEEP_LAG.reset()
 
     def _liveness_enabled(self) -> bool:
         return (self._hb_interval > 0 and self._hb_timeout > 0
@@ -701,6 +765,20 @@ class KVController:
         base = max(self._hb_interval, 0.25)
         return base * max(1.0, min(ring_len / 8.0, 8.0))
 
+    def _note_sweep_coverage(self, ring_len: int, probed: int) -> None:
+        """Publish the sweep-lag gauge: how far one complete pass over
+        the ring runs behind the heartbeat interval (0 = keeping up)."""
+        now = time.monotonic()
+        if self._sweep_wrap_t is None:
+            self._sweep_wrap_t = now
+        self._sweep_covered += probed
+        if self._sweep_covered >= ring_len:
+            period = now - self._sweep_wrap_t
+            _M_SWEEP_LAG.set(
+                max(0.0, period - max(self._hb_interval, 1e-9)))
+            self._sweep_wrap_t = now
+            self._sweep_covered = 0
+
     def _sweep_peers(self) -> list[tuple[int, float]]:
         """One heartbeat sweep: ``[(dead rank, seconds silent)]``.  A
         peer's clock starts at the first sweep that looks at it, so a
@@ -714,10 +792,12 @@ class KVController:
         else:
             start, peers = 0, ring
         budget_deadline = now + self._sweep_budget_s(len(ring))
+        probed = len(peers)
         dead: list[tuple[int, float]] = []
         for i, peer in enumerate(peers):
             if i and time.monotonic() > budget_deadline:
                 self._sweep_cursor = (start + i) % len(ring)
+                probed = i
                 break
             try:
                 value = self.t.try_get(self._key("hb", peer))
@@ -726,16 +806,41 @@ class KVController:
             rec = self._beats.get(peer)
             if rec is None:
                 self._beats[peer] = [value, now, False]
+                _M_HB_STALE.set(0.0, peer=str(peer))
+                if value is not None:
+                    self._clock_sample(peer, value)
                 continue
             if value is not None and value != rec[0]:
+                if rec[2]:
+                    _flight.record("hb_fresh", peer=peer,
+                                   stale_s=round(now - rec[1], 3))
                 rec[0], rec[1], rec[2] = value, now, False
+                self._clock_sample(peer, value)
             stale = now - rec[1]
+            _M_HB_STALE.set(stale, peer=str(peer))
             if value is None or value == rec[0]:
+                # once per silence, at half the deadline: when this rank
+                # first suspected the peer
                 if stale > self._hb_timeout / 2 and not rec[2]:
                     rec[2] = True
+                    _flight.record("hb_stale", peer=peer,
+                                   stale_s=round(stale, 3))
                 if stale > self._hb_timeout:
                     dead.append((peer, stale))
+        self._note_sweep_coverage(len(ring), probed)
         return dead
+
+    @staticmethod
+    def _clock_sample(peer: int, value: str) -> None:
+        """A ``clk`` offset sample from a newly observed beat: the
+        event's own wall stamp minus the publisher's ``peer_wall`` is
+        (this clock - peer clock) + the one-way publish latency; the
+        trace merge pairs both directions of a link to bound it."""
+        try:
+            peer_wall = float(value.split(":", 1)[1])
+        except (IndexError, ValueError):
+            return
+        _flight.record("clk", peer=int(peer), peer_wall=peer_wall)
 
     def _abort_message(self, dead: list[tuple[int, float]]) -> str:
         ranks = sorted(r for r, _ in dead)
@@ -792,10 +897,17 @@ class KVController:
         except Exception:  # noqa: BLE001 -- retried next sweep
             pass
         if abort:
-            raise RanksDownError(abort)
+            _M_ABORTS.inc()
+            exc = RanksDownError(abort)
+            _flight.record("abort", ranks=list(exc.ranks),
+                           round=exc.round, observed=True)
+            raise exc
         dead = self._sweep_peers()
         if not dead:
             return
+        _M_ABORTS.inc()
+        _flight.record("abort", ranks=sorted(r for r, _ in dead),
+                       round=self.round, observed=False)
         msg = self._abort_message(dead)
         _log.error(msg, rank=self.rank)
         if self.rank == 0 or (self._hier is not None
@@ -820,6 +932,8 @@ class KVController:
 
     def _wire_timeout_error(self, key: str, rnd: int,
                             context: str) -> TimeoutError:
+        _M_TIMEOUTS.inc(op="get_blocking")
+        _flight.record("wire_timeout", key=key, round=rnd)
         return TimeoutError(
             f"kv get({key}) timed out after "
             f"{self._timeout:.0f}s (rank {self.rank}, round "
@@ -840,6 +954,7 @@ class KVController:
             try:
                 return self.t.get_blocking(key, min(slice_s, remaining))
             except Exception:  # noqa: BLE001 -- slice expired or transient
+                _M_RETRIES.inc(op="get_blocking")
                 if time.monotonic() - t0 < 0.05:
                     time.sleep(min(slice_s, 0.05))
             self.check_liveness()
@@ -853,6 +968,9 @@ class KVController:
         the slice leaders and the root's merge of the slices."""
         missing = list(expected)
         deadline = time.monotonic() + self._timeout
+        # one retry tick per expired wait slice, as the blocking get
+        slice_s = self._poll_slice_s()
+        slice_mark = time.monotonic()
         while missing:
             progressed = False
             for other in list(missing):
@@ -863,6 +981,9 @@ class KVController:
                 if raw is not None:
                     got[other] = raw
                     missing.remove(other)
+                    # the arrival, on the gatherer's own clock: the
+                    # straggler analyzer's signal
+                    _flight.record("arrive", peer=other, round=r)
                     progressed = True
             if not missing:
                 break
@@ -872,11 +993,16 @@ class KVController:
                     f"waiting for rank(s) {missing}'s {what}")
             self.check_liveness()
             if not progressed:
+                now = time.monotonic()
+                if now - slice_mark >= slice_s:
+                    slice_mark = now
+                    _M_RETRIES.inc(op="get_blocking")
                 time.sleep(0.001)
         return got
 
     def _gather_request_lists(self, r: int, payload: str) -> list:
         """The flat coordinator: every rank's round-``r`` request list."""
+        _flight.record("arrive", peer=0, round=r)
         raws = self._fair_gather(
             r, {0: payload},
             {o: self._key("q", r, o) for o in range(1, self.world)},
@@ -932,6 +1058,7 @@ class KVController:
                        "would deadlock; a rank without heartbeats "
                        "would be declared dead by peers expecting "
                        "them). Shutting down.")
+                _flight.record("round", ph="E", round=r, error=True)
                 resp_payload = _wire.dumps_resp({
                     "resp": [Response(kind="error", names=names,
                                       error=err).wire()],
@@ -985,6 +1112,7 @@ class KVController:
             return self._get_blocking(
                 self._key("sp", s, r),
                 "waiting for the slice leader's response fan-down")
+        _flight.record("arrive", peer=self.rank, round=r)
         merged = self._fair_gather(
             r, {self.rank: payload},
             {m: self._key("sq", s, r, m)
@@ -1068,6 +1196,11 @@ class KVController:
             wire_msg["cfg"] = round0_cfg(self._hb_interval,
                                          self._hb_timeout, self._fanout)
         payload = _wire.dumps_rank(wire_msg)
+        # round open: this rank's request list hits the wire (names
+        # capped, so one large round cannot evict the ring)
+        _flight.record("round", ph="B", round=r, n_req=len(requests),
+                       n_hits=len(bits),
+                       names=[q.name for q in requests[:16]])
         if self._hier is not None:
             resp_payload = self._exchange_hier(r, payload)
         elif self.rank == 0:
@@ -1086,13 +1219,19 @@ class KVController:
 
         if "f" in msg:
             self.fast_rounds += 1
+            _M_ROUNDS.inc(path="fast")
             singles = [self.cache.response_for(b) for b in msg["f"]]
             for s in singles:
                 for name in s.names:
                     self._pending_shapes.pop(name, None)
+            _flight.record("round", ph="E", round=r, path="fast",
+                           n_resp=len(singles))
             return NegotiationResult(fuse_singles(singles),
                                      False, -1, should_stop=False)
+        _M_ROUNDS.inc(path="slow")
         responses = [Response.from_wire(w) for w in msg["resp"]]
+        _flight.record("round", ph="E", round=r, path="slow",
+                       n_resp=len(responses), stop=bool(msg["x"]))
         if self.cache is not None:
             self.cache.evict_bits(msg["i"])
             self.cache.record_responses(responses, self._pending_shapes)
@@ -1149,7 +1288,11 @@ class StoreTransport:
 
 def make_controller(rank: int, world: int, epoch: int = 0):
     """:class:`LocalController` for one rank, else a
-    :class:`KVController` over the default group's store."""
+    :class:`KVController` over the default group's store, wrapped in
+    ``HOROVOD_FAULT_SPEC``'s rules when the knob is set."""
     if world == 1:
         return LocalController()
-    return KVController(StoreTransport(epoch), rank, world, epoch)
+    from horovod_tpu_torch.runtime import faults as _faults
+
+    return KVController(_faults.maybe_wrap(StoreTransport(epoch), rank),
+                        rank, world, epoch)

@@ -6,8 +6,9 @@ after ``HOROVOD_STALL_CHECK_TIME_SECONDS`` (default 60), and, when
 ``HOROVOD_STALL_SHUTDOWN_TIME_SECONDS`` is positive, fail the stalled
 tensors after it (``stall_inspector.h:67-92``).  ``clock`` (default
 ``time.monotonic``) is injectable, so a test can age a tensor without
-sleeping.  The JAX package's stall gauge and flight events belong to
-the metrics plane, which is not ported yet.
+sleeping.  It keeps the JAX package's ``hvd_stalled_tensors`` gauge and
+records a ``stall`` flight event per warning and at the shutdown
+escalation.
 """
 
 from __future__ import annotations
@@ -16,6 +17,13 @@ import time
 
 from horovod_tpu_torch.common import config as _config
 from horovod_tpu_torch.common import logging as _log
+from horovod_tpu_torch.runtime import flight as _flight
+from horovod_tpu_torch.runtime import metrics as _metrics
+
+_M_STALLED = _metrics.gauge(
+    "hvd_stalled_tensors",
+    "Pending collectives older than HOROVOD_STALL_CHECK_TIME_SECONDS "
+    "on the coordinator (ranks are missing their submissions).")
 
 
 class StallInspector:
@@ -48,13 +56,19 @@ class StallInspector:
         warn_after = _config.get("stall_warning_time")
         shutdown_after = _config.get("stall_shutdown_time")
         stalled_msgs = []
+        stalled_count = 0
         for name, ranks in pending.items():
             first = self._first_seen.get(name)
             if first is None:
                 continue
             age = now - first
             missing = sorted(set(range(self.world_size)) - ranks)
+            if age > warn_after:
+                stalled_count += 1
             if shutdown_after > 0 and age > shutdown_after:
+                _M_STALLED.set(stalled_count)
+                _flight.record("stall", level="shutdown", name=name,
+                               missing=missing, age_s=round(age, 1))
                 return (f"Stalled collective operation {name}: ranks "
                         f"{missing} have not submitted it for {age:.0f}s "
                         f"(> HOROVOD_STALL_SHUTDOWN_TIME_SECONDS); "
@@ -63,8 +77,11 @@ class StallInspector:
             if warn_window and age > warn_after \
                     and name not in self._warned:
                 self._warned.add(name)
+                _flight.record("stall", level="warn", name=name,
+                               missing=missing, age_s=round(age, 1))
                 stalled_msgs.append(
                     f"{name} [missing ranks: {missing}]")
+        _M_STALLED.set(stalled_count)
         if stalled_msgs:
             _log.warning(
                 "One or more tensors were submitted to be reduced, "

@@ -275,17 +275,45 @@ def decode_resp_msg(b: bytes) -> dict:
     return n.decode_resp_msg(b) if n else _py_decode_resp_msg(b)
 
 
+_M_CTRL = None
+_flight_record = None
+
+
+def _wire_event(direction: str, msg: str, nbytes: int) -> None:
+    """The ``hvd_control_bytes_total`` counter and a ``wire`` flight
+    event per codec message (bound lazily: the codec imports no package
+    sibling)."""
+    global _M_CTRL, _flight_record
+    if _M_CTRL is None:
+        from horovod_tpu_torch.runtime import metrics as _metrics
+
+        _M_CTRL = _metrics.counter(
+            "hvd_control_bytes_total",
+            "Control-plane codec bytes (base64-wrapped negotiation "
+            "messages), labeled dir=tx|rx and msg=rank|resp.")
+    if _flight_record is None:
+        from horovod_tpu_torch.runtime.flight import record as _flight_record
+    _M_CTRL.inc(nbytes, dir=direction, msg=msg)
+    _flight_record("wire", dir=direction, msg=msg, bytes=nbytes)
+
+
 def dumps_rank(m: dict) -> str:
-    return base64.b64encode(encode_rank_msg(m)).decode()
+    s = base64.b64encode(encode_rank_msg(m)).decode()
+    _wire_event("tx", "rank", len(s))
+    return s
 
 
 def loads_rank(s: str) -> dict:
+    _wire_event("rx", "rank", len(s))
     return decode_rank_msg(base64.b64decode(s))
 
 
 def dumps_resp(m: dict) -> str:
-    return base64.b64encode(encode_resp_msg(m)).decode()
+    s = base64.b64encode(encode_resp_msg(m)).decode()
+    _wire_event("tx", "resp", len(s))
+    return s
 
 
 def loads_resp(s: str) -> dict:
+    _wire_event("rx", "resp", len(s))
     return decode_resp_msg(base64.b64decode(s))

@@ -29,7 +29,8 @@ local-SGD cases of ``tests/_torch_local_sgd_worker.py``; ``eager`` and
 ``eager_cards`` the eager plane's cases of
 ``tests/_torch_eager_worker.py``; ``eager_training``,
 ``eager_training_cards`` and ``eager_kill_cards`` the eager regimes of
-ZeRO and local SGD and the coordinated abort of
+ZeRO and local SGD and the coordinated abort, and
+``observability_cards`` eager stage 2 under ``hvd.trace_step``, of
 ``tests/_torch_eager_training_worker.py``.
 ``HVD_TEST_FEEDBACK`` may name a ``.npy`` file of per-rank residuals
 that the lossy optimizer case loads before its second step;
@@ -2162,6 +2163,12 @@ def eager_kill_cards_main(device: str):
     run(device)
 
 
+def observability_cards_main(device: str):
+    from _torch_eager_training_worker import observability_cards_main as run
+
+    run(device)
+
+
 if __name__ == "__main__":
     dev = sys.argv[1] if len(sys.argv) > 1 else "cpu"
     mode = sys.argv[2] if len(sys.argv) > 2 else "collectives"
@@ -2177,4 +2184,5 @@ if __name__ == "__main__":
      "eager": eager_main, "eager_cards": eager_cards_main,
      "eager_training": eager_training_main,
      "eager_training_cards": eager_training_cards_main,
-     "eager_kill_cards": eager_kill_cards_main}[mode](dev)
+     "eager_kill_cards": eager_kill_cards_main,
+     "observability_cards": observability_cards_main}[mode](dev)

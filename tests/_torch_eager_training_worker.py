@@ -17,6 +17,7 @@ that ride the eager plane, spawned through
 
 Each rank prints one JSON line."""
 
+import contextlib
 import hashlib
 import json
 import os
@@ -293,7 +294,8 @@ def _flat_weights(model, zp=None, eager=False):
     return torch.cat([p.detach().reshape(-1) for p in model.parameters()])
 
 
-def _card_run(case, regime, stage, wire, images, labels, refs, ls=False):
+def _card_run(case, regime, stage, wire, images, labels, refs, ls=False,
+              observe=False):
     """``CARD_STEPS`` bench steps of ResNet-50 (224 px, bf16, fused
     momentum SGD) at ``stage`` (``ls``: under ``LocalSGD(h=2)`` with the
     default axis, an outer sync at every boundary): per step its time,
@@ -301,7 +303,9 @@ def _card_run(case, regime, stage, wire, images, labels, refs, ls=False):
     steps after ``CARD_WARM`` (under ``ls`` also the median of the inner
     and of the sync steps apart); the peak memory, the optimizer-state
     bytes, the step-1 weights' relative L2 distance from ``refs``' run
-    and the median of the process runtime's rounds in this case."""
+    and the median of the process runtime's rounds in this case.  With
+    ``observe`` each step runs under ``hvd.trace_step(step=...)``, its
+    device synchronized inside the span."""
     import time
 
     from horovod_tpu_torch.models.resnet import ResNet50
@@ -336,13 +340,15 @@ def _card_run(case, regime, stage, wire, images, labels, refs, ls=False):
         TF.reset_launch_counts()
         Q.reset_launch_counts()
         t0 = time.perf_counter()
-        if zp is not None:
-            loss = zero3_train_step(model, zp, opt, images, labels)
-        else:
-            loss = train_step(model, opt, images, labels)
-            if ls:
-                opt.maybe_outer_sync(step)
-        torch.cuda.synchronize()
+        with (hvd.trace_step(step=step) if observe
+              else contextlib.nullcontext()):
+            if zp is not None:
+                loss = zero3_train_step(model, zp, opt, images, labels)
+            else:
+                loss = train_step(model, opt, images, labels)
+                if ls:
+                    opt.maybe_outer_sync(step)
+            torch.cuda.synchronize()
         res["step_s"].append(time.perf_counter() - t0)
         res["losses"].append(float(loss))
         res["launches"].append({"B1": TF.LAUNCHES["momentum"],
@@ -421,6 +427,30 @@ def eager_training_cards_main(device: str):
     out["ls eager"] = _card_run("eager", "eager", 0, "none", images, labels,
                                 refs, ls=True)
     del refs
+    hvd.shutdown()
+    print(json.dumps(enc(out)))
+
+
+def observability_cards_main(device: str):
+    """In-trace stage 2, then eager stage 2 on the none wire with every
+    step under ``hvd.trace_step``, ``CARD_STEPS`` bench steps each (the
+    flight, goodput and fault knobs come from the environment): each
+    case's step times and launches, the flight ring dumped, the goodput
+    ledger dumped at shutdown."""
+    from horovod_tpu_torch.train_step import synthetic_batch
+
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    os.environ["HOROVOD_FUSED_UPDATE"] = "1"
+    hvd.init(device=device)
+    r = hvd.rank()
+    images, labels = synthetic_batch(CARD_BATCH, 224, 1000, seed=100 + r)
+    out, refs = {"rank": r}, {}
+    out["intrace 2"] = _card_run("intrace 2", "intrace", 2, "none", images,
+                                 labels, refs)
+    out["eager 2 none"] = _card_run("eager 2 none", "eager", 2, "none",
+                                    images, labels, refs, observe=True)
+    out["flight"] = hvd.dump_flight_recorder()
     hvd.shutdown()
     print(json.dumps(enc(out)))
 

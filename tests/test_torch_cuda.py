@@ -1478,3 +1478,84 @@ def test_avgpool3_gradient_matches_cpu(card, dname):
     (y0, g0), (y1, g1) = out.values()
     torch.testing.assert_close(y1, y0, rtol=tol, atol=tol)
     torch.testing.assert_close(g1, g0, rtol=tol, atol=tol)
+
+
+def test_four_cards_observability_resnet50(tmp_path):
+    """The observability planes on four cards: the bench ResNet-50 step
+    (224 px, batch 256 per card, bf16, fused momentum SGD) at in-trace
+    stage 2, then at eager stage 2 on the none wire with every step under
+    ``hvd.trace_step`` on every rank, ``CARD_STEPS`` steps each, with
+    ``HOROVOD_FLIGHT_DIR`` and ``HOROVOD_GOODPUT_DIR`` set and
+    ``HOROVOD_FAULT_SPEC=delay@rank1:q/*:50ms``: the merged flight dumps'
+    analyzer ranks rank 1 first, and ``python -m horovod_tpu_torch.perf
+    goodput <dir>`` reports four ranks whose phases conserve their wall.
+    Then both cases again without the fault and without the directories:
+    per rank the median, least and most step (printed beside PR 15's
+    in-trace stage 2, 0.0615 s, and eager stage 2 none, 0.0789-0.0795 s;
+    the in-trace step now pays the eager runtime that ``init()``
+    starts)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    import json
+    import os
+    import subprocess
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from _torch_collectives_worker import spawn
+
+    from horovod_tpu_torch.trace import analyze
+    from horovod_tpu_torch.trace.merge import compute_offsets, load_dumps
+
+    card = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    obs = str(tmp_path / "obs")
+    outs = spawn(4, "cuda", timeout=900, mode="observability_cards",
+                 env_extra={"HOROVOD_FLIGHT_DIR": obs,
+                            "HOROVOD_GOODPUT_DIR": obs,
+                            # every step's span stays on the ring
+                            "HOROVOD_FLIGHT_EVENTS": "65536",
+                            "HOROVOD_FAULT_SPEC": "delay@rank1:q/*:50ms"})
+    bare = spawn(4, "cuda", timeout=900, mode="observability_cards")
+    for name, world in (("delay@rank1 50 ms, observed", outs),
+                        ("no fault", bare)):
+        for case in ("intrace 2", "eager 2 none"):
+            for o in world:
+                r = o[case]
+                assert all(math.isfinite(v) for v in r["losses"]), \
+                    (name, case, r)
+                assert all(s["B1"] == 1 for s in r["launches"]), \
+                    (name, case, r)
+                print(f"[four cards] {case}, {name}: rank {o['rank']} step "
+                      f"median {r['median_step_s']:.4f} s, least "
+                      f"{r['min_step_s']:.4f} s, most "
+                      f"{r['max_step_s']:.4f} s, median round "
+                      f"{r['round_ms']} ms, step-1 rel L2 "
+                      f"{r['step1_rel_l2']:.3g}; on 4 x {card.strip()}")
+    dumps = load_dumps(obs)
+    assert sorted(d.rank for d in dumps) == [0, 1, 2, 3], os.listdir(obs)
+    report = analyze(dumps, compute_offsets(dumps))
+    ranking = report["stragglers"]["ranking"]
+    assert ranking[0]["rank"] == 1, ranking
+    steps = {p["rank"]: p["steps"] for p in report["phases"]}
+    print(f"[four cards] the analyzer: straggler ranking "
+          f"{[(x['rank'], x['max_lateness_s'], x['last_count']) for x in ranking]}"
+          f"; trace_step spans per rank {steps}")
+    assert all(n == 12 for n in steps.values()), steps
+    p = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.perf", "goodput", obs,
+         "--json"], capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=os.path.dirname(
+            os.path.dirname(os.path.abspath(__file__)))))
+    assert p.returncode == 0, p.stderr
+    rep = json.loads(p.stdout)
+    assert rep["world"] == 4, rep
+    for s in rep["ranks"]:
+        tot = sum(s["phases"].values()) + s["unattributed_s"]
+        assert abs(tot - s["elapsed_s"]) <= 0.02 * s["elapsed_s"] + 1e-6, s
+    print(f"[four cards] goodput: fleet {rep['fleet_goodput']}, dominant "
+          f"{rep.get('dominant_bottleneck')}, per rank "
+          + "; ".join(f"{s['rank']}: comm_exposed "
+                      f"{s['phases'].get('comm_exposed', 0):.3f} s of "
+                      f"{s['elapsed_s']:.3f} s" for s in rep["ranks"]))

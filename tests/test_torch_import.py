@@ -50,7 +50,10 @@ def test_no_jax_side_module_is_imported():
               "runtime.wire", "runtime.cache", "runtime.stall",
               "runtime.controller", "runtime.background", "ops.eager",
               "ops.eager_exec", "torch", "torch.mpi_ops",
-              "torch.compression"):
+              "torch.compression", "runtime.flight", "runtime.metrics",
+              "runtime.faults", "perf", "perf.goodput", "perf.__main__",
+              "trace", "trace.merge", "trace.analyze", "trace.perfetto",
+              "trace.__main__"):
         assert f"horovod_tpu_torch.{m}" in res["modules"]
 
 

@@ -13,9 +13,16 @@ the JAX package's (``tests/test_fault_tolerance.py:198-283``,
    raises within the heartbeat deadline.
 2. A gloo world of 3 running a loop of eager allreduces with
    ``HOROVOD_HEARTBEAT_INTERVAL=0.2`` and
-   ``HOROVOD_HEARTBEAT_TIMEOUT_SECONDS=2``: rank 2 SIGKILLs itself, and
-   ranks 0 and 1 raise ``RanksDownError`` naming ``[2]`` within the
-   timeout plus 5 s (``tests/test_fault_tolerance.py:599``).
+   ``HOROVOD_HEARTBEAT_TIMEOUT_SECONDS=2``: rank 2 SIGKILLs itself once
+   both survivors have posted that their step-5 collective completed,
+   and ranks 0 and 1 raise ``RanksDownError`` naming ``[2]`` within the
+   timeout plus 5 s (``tests/test_fault_tolerance.py:599``), shut down,
+   and leave flight dumps naming the dead rank.  Rank 0's process holds
+   the store, so it exits only after rank 1 has raised: otherwise rank 1
+   can lose the store before it reads the abort and rightly report rank
+   0 gone.  A gloo world of 2 whose
+   rank 1 makes its first eager op 4 s after ``init()``: both ranks
+   return the sum (the runtime starts at ``init()``).
 """
 
 import json
@@ -248,20 +255,25 @@ def test_liveness_off_without_knobs(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# 2. SIGKILL in a gloo world of 3
+# 2. Spawned gloo worlds: a SIGKILL in a world of 3, a late first op in 2
 # ---------------------------------------------------------------------------
 
 KILL_SCRIPT = r"""
 import json, os, signal, sys, time
+from datetime import timedelta
 import torch
+import torch.distributed as dist
 import horovod_tpu_torch as hvd
 
 hvd.init(device="cpu")
 rank = hvd.rank()
+store = dist.distributed_c10d._get_default_store()
 done = 0
 for i in range(400):
     if rank == 2 and i == 6:
-        time.sleep(0.3)          # every rank is past step 5's collective
+        # every survivor's step-5 collective has completed: the death
+        # fails the negotiation of step 6, never a gloo collective
+        store.wait(["kill/step5/0", "kill/step5/1"], timedelta(seconds=60))
         print(json.dumps({"rank": 2, "killed_at": time.time()}), flush=True)
         os.kill(os.getpid(), signal.SIGKILL)
     try:
@@ -269,9 +281,20 @@ for i in range(400):
                             name="loop")
         assert torch.equal(out, torch.full((4,), 6.0)), out
         done += 1
+        if i == 5:
+            store.set(f"kill/step5/{rank}", "1")
     except hvd.RanksDownError as e:
-        print(json.dumps({"rank": rank, "raised_at": time.time(),
+        raised_at = time.time()
+        # rank 0's process holds the store the abort travels through:
+        # it leaves only once the other survivor has raised too
+        store.set(f"kill/raised/{rank}", "1")
+        if rank == 0:
+            store.wait(["kill/raised/1"], timedelta(seconds=60))
+        t0 = time.monotonic()
+        hvd.shutdown()   # returns after the coordinated abort
+        print(json.dumps({"rank": rank, "raised_at": raised_at,
                           "ranks": list(e.ranks), "done": done,
+                          "shutdown_s": time.monotonic() - t0,
                           "msg": str(e)}), flush=True)
         os._exit(0)
     time.sleep(0.02)
@@ -279,30 +302,44 @@ print(json.dumps({"rank": rank, "no_error": True}), flush=True)
 os._exit(0)
 """
 
+LATE_SCRIPT = r"""
+import json, time
+import torch
+import horovod_tpu_torch as hvd
 
-def test_sigkill_rank_raises_ranks_down_on_survivors():
+hvd.init(device="cpu")
+rank = hvd.rank()
+if rank == 1:
+    time.sleep(4.0)   # twice the heartbeat timeout before its first op
+out = hvd.allreduce(torch.ones(4) * (rank + 1), op=hvd.Sum, name="late")
+print(json.dumps({"rank": rank, "out": out.tolist()}), flush=True)
+hvd.shutdown()
+"""
+
+
+def _spawn(script: str, n: int, extra: dict, timeout: float = 120):
+    """``n`` ranks of ``script`` on a held coordinator port: ``[(rc,
+    stdout, stderr)]`` per rank."""
     from horovod_tpu_torch.common.util import reserve_port
 
-    timeout_s = 2.0
     held, port = reserve_port()
     procs = []
     try:
-        for r in range(3):
+        for r in range(n):
             env = dict(os.environ)
             env.update({
-                "HOROVOD_RANK": str(r), "HOROVOD_SIZE": "3",
-                "HOROVOD_LOCAL_RANK": str(r), "HOROVOD_LOCAL_SIZE": "3",
+                "HOROVOD_RANK": str(r), "HOROVOD_SIZE": str(n),
+                "HOROVOD_LOCAL_RANK": str(r), "HOROVOD_LOCAL_SIZE": str(n),
                 "HOROVOD_COORDINATOR_ADDR": f"127.0.0.1:{port}",
-                "HOROVOD_HEARTBEAT_INTERVAL": "0.2",
-                "HOROVOD_HEARTBEAT_TIMEOUT_SECONDS": str(timeout_s),
                 "PYTHONPATH": REPO + os.pathsep + env.get("PYTHONPATH", ""),
             })
+            env.update(extra)
             procs.append(subprocess.Popen(
-                [sys.executable, "-c", KILL_SCRIPT], env=env,
+                [sys.executable, "-c", script], env=env,
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
         outs = []
-        for r, p in enumerate(procs):
-            so, se = p.communicate(timeout=180)
+        for p in procs:
+            so, se = p.communicate(timeout=timeout)
             outs.append((p.returncode, so, se))
     finally:
         held.close()
@@ -310,15 +347,66 @@ def test_sigkill_rank_raises_ranks_down_on_survivors():
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    rc2, so2, se2 = outs[2]
-    assert rc2 == -9, (rc2, se2[-2000:])
-    killed_at = json.loads(so2.strip().splitlines()[-1])["killed_at"]
+    return outs
+
+
+def _world_report(outs) -> str:
+    """Every rank's exit code, last stdout lines and stderr tail."""
+    return "\n".join(
+        f"--- rank {r} rc={rc}\n" + "\n".join(so.strip().splitlines()[-3:])
+        + f"\n[stderr]\n{se[-2000:]}" for r, (rc, so, se) in enumerate(outs))
+
+
+def _last_json(so: str) -> dict:
+    lines = so.strip().splitlines()
+    return json.loads(lines[-1]) if lines else {}
+
+
+def test_sigkill_rank_raises_ranks_down_on_survivors(tmp_path):
+    from horovod_tpu_torch.trace.merge import load_dumps
+
+    timeout_s = 2.0
+    flight = str(tmp_path / "flight")
+    outs = _spawn(KILL_SCRIPT, 3, {
+        "HOROVOD_HEARTBEAT_INTERVAL": "0.2",
+        "HOROVOD_HEARTBEAT_TIMEOUT_SECONDS": str(timeout_s),
+        "HOROVOD_FLIGHT_DIR": flight}, timeout=120)
+    report = _world_report(outs)
+    assert outs[2][0] == -9, report
+    killed_at = _last_json(outs[2][1])["killed_at"]
     for r in (0, 1):
-        rc, so, se = outs[r]
-        assert rc == 0, se[-3000:]
-        res = json.loads(so.strip().splitlines()[-1])
-        assert "no_error" not in res, (r, se[-3000:])
-        assert res["ranks"] == [2], res
-        assert res["done"] == 6, res
-        assert "rank(s) [2] missed heartbeats" in res["msg"], res
-        assert res["raised_at"] - killed_at < timeout_s + 5, res
+        rc, so, _ = outs[r]
+        assert rc == 0, report
+        res = _last_json(so)
+        assert "no_error" not in res, report
+        assert res["ranks"] == [2], report
+        assert res["done"] == 6, report
+        assert "rank(s) [2] missed heartbeats" in res["msg"], report
+        assert res["raised_at"] - killed_at < timeout_s + 5, report
+        assert res["shutdown_s"] < 30, report
+    # the survivors' failure dumps say whom they blamed and when: rank 0
+    # detected the silence; rank 1 took the abort from the broadcast
+    # (the abort key, or the error response list of its round)
+    dumps = {d.rank: d for d in load_dumps(flight)}
+    assert sorted(dumps) == [0, 1], (os.listdir(flight), report)
+    d0 = dumps[0]
+    assert d0.meta["reason"] == "ranks_down", (d0.meta, report)
+    aborts = d0.of_kind("abort")
+    assert [(a["ranks"], a["observed"]) for a in aborts] == [([2], False)], \
+        (aborts, report)
+    assert dumps[1].meta["reason"] in ("ranks_down", "coordinated_stop"), \
+        (dumps[1].meta, report)
+    assert all(a["ranks"] == [2] for a in dumps[1].of_kind("abort")), report
+
+
+def test_late_first_op_completes():
+    """Queue C 1: ``init()`` starts the runtime, so a rank whose first
+    eager op comes twice the heartbeat timeout after its peer's is late,
+    not dead: both ranks return the exact sum."""
+    outs = _spawn(LATE_SCRIPT, 2, {
+        "HOROVOD_HEARTBEAT_INTERVAL": "0.2",
+        "HOROVOD_HEARTBEAT_TIMEOUT_SECONDS": "2"}, timeout=120)
+    report = _world_report(outs)
+    for r, (rc, so, _) in enumerate(outs):
+        assert rc == 0, report
+        assert _last_json(so) == {"rank": r, "out": [3.0] * 4}, report
