@@ -274,15 +274,37 @@ Phases (any failure exits non-zero and prints no result line):
    counters equal to the bytes the emulated world moved, the
    negotiation-latency histogram counting every round, one ``dispatch``
    B/E pair per response, and one B4 and one B5 per fused float
-   response.
+   response;
+23. the training-health plane and the checkpoint: (a) the ResNet-50
+   bench step of phase 6, two warm-up steps, then two rounds of 10
+   steps health off and 10 with ``HOROVOD_HEALTH=1`` in alternation (one
+   B1 and 53 of each of N1-N4 per step in both modes, finite losses,
+   both medians and their ratio, the tap alone timed); the tail on one
+   set of captured gradients with health on and off, bit for bit; under
+   ``HOROVOD_HEALTH_SKIP_NONFINITE=1`` one step with
+   ``HOROVOD_FAULT_SPEC=nan:grads*``: parameters and trace bit for bit
+   as before it, no B1, ``hvd_nonfinite_total{float32, rank 0}`` > 0,
+   one step skipped, a ``health`` event on the flight ring, and the
+   next clean step one B1 that moves the weights; (c) that state
+   (parameters, BatchNorm buffers, trace) saved and restored into fresh
+   objects on the card bit for bit, the save and restore wall times
+   against the goodput ledger's ``checkpoint`` phase, and phase 14a's
+   emulated stage-2 trace shards at 4 ranks saved through their host
+   form and re-cut for 2, gathered bit for bit; (b) phase 20b's four
+   emulated runtimes on the int8 wire over 3 steps with health on and
+   ``nan@rank2:grad_buffer*:round2``: one verdict per fused response,
+   one naming rank 2 / float32, one B4 and one B5 per response; then
+   with ``HOROVOD_ADAPTIVE_COMPRESSION=1`` and the overlap schedule, a
+   finite ``hvd_compression_residual_ratio`` for each of 4 buckets.
 
 Then the run's wall time, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
 {...}}``.
 ``--profile FILE`` adds a device-time breakdown of the ResNet-50 path
 (table in FILE), the VGG-16, Inception-v3, transformer and long-context
-paths (tables in FILE with ``_vgg16``, ``_inception3``, ``_transformer``
-and ``_long`` before its suffix).
+paths and the health tap (tables in FILE with ``_vgg16``,
+``_inception3``, ``_transformer``, ``_long`` and ``_health`` before its
+suffix).
 """
 
 from __future__ import annotations
@@ -5747,6 +5769,433 @@ def observability(hvd, torch, gpu: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the training-health plane and the checkpoint
+# ---------------------------------------------------------------------------
+
+HEALTH_WARMUP, HEALTH_STEPS, HEALTH_ROUNDS = 2, 10, 2
+HEALTH_EAGER_STEPS = 3
+HEALTH_KNOBS = ("HOROVOD_HEALTH", "HOROVOD_HEALTH_SKIP_NONFINITE",
+                "HOROVOD_FAULT_SPEC", "HOROVOD_FLIGHT_DIR",
+                "HOROVOD_ADAPTIVE_COMPRESSION", "HOROVOD_OVERLAP",
+                "HOROVOD_COMPRESSION")
+
+
+class _EnvKnobs:
+    """Sets the health knobs for a block and puts back what was there."""
+
+    def __init__(self, **kv):
+        self.kv = kv
+
+    def __enter__(self):
+        self.old = {k: os.environ.get(k) for k in HEALTH_KNOBS}
+        for k, v in self.kv.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = str(v)
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _grads_and_state(model, opt) -> tuple:
+    params = list(model.parameters())
+    return ([p.detach().clone() for p in params],
+            [p.grad.detach().clone() for p in params],
+            [opt.optimizer.state[p]["trace"].clone() for p in params])
+
+
+def _same(xs, ys) -> bool:
+    import torch
+
+    return all(torch.equal(a, b) for a, b in zip(xs, ys))
+
+
+def health_resnet(hvd, torch, gpu: str, profile: str | None = None) -> dict:
+    """23a: the bench step health off and on in alternation, the tail on
+    captured gradients both ways, then a poisoned step under the skip
+    knob.  Returns the model and optimizer for 23c."""
+    import tempfile
+
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.ops import batch_norm as BN
+    from horovod_tpu_torch.optim import fused_update as TF
+    from horovod_tpu_torch.parallel import mesh as PM
+    from horovod_tpu_torch.runtime import faults as F
+    from horovod_tpu_torch.runtime import health as H
+    from horovod_tpu_torch.runtime import metrics as M
+    from horovod_tpu_torch.train_step import (softmax_cross_entropy,
+                                              synthetic_batch, train_step)
+
+    model = ResNet50(num_classes=1000, dtype=torch.bfloat16, seed=0)
+    opt = hvd.DistributedOptimizer(
+        hvd.fused_update.sgd(model.parameters(), 0.1, momentum=0.9))
+    images, labels = synthetic_batch(BATCH, 224, 1000, seed=0)
+    for _ in range(HEALTH_WARMUP):
+        train_step(model, opt, images, labels)
+    torch.cuda.synchronize()
+    H.reset()
+    times = {"off": [], "on": []}
+    losses, counts = [], {"off": [], "on": []}
+    for rnd in range(HEALTH_ROUNDS):
+        for mode in ("off", "on"):
+            with _EnvKnobs(HOROVOD_HEALTH=int(mode == "on")):
+                torch.cuda.synchronize()
+                TF.reset_launch_counts()
+                BN.reset_launch_counts()
+                for _ in range(HEALTH_STEPS):
+                    t0 = time.perf_counter()
+                    loss = train_step(model, opt, images, labels)
+                    torch.cuda.synchronize()
+                    times[mode].append(time.perf_counter() - t0)
+                    losses.append(float(loss))
+                counts[mode].append(_obs_counts(
+                    TF, BN, HEALTH_STEPS, f"23a health {mode} round "
+                    f"{rnd + 1}"))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"23a: non-finite loss: {losses}")
+    H.flush()
+    norm = M.gauge("hvd_grad_norm").value(group="all")
+    ratio_g = M.gauge("hvd_update_ratio").value(group="float32")
+    if not (norm > 0 and math.isfinite(norm) and ratio_g > 0):
+        raise AssertionError(f"23a: grad norm {norm}, update ratio "
+                             f"{ratio_g} not published")
+    med = {k: statistics.median(v) for k, v in times.items()}
+    ratio = med["on"] / med["off"]
+    # the tail on one set of captured gradients, health on and off
+    opt.zero_grad(set_to_none=True)
+    softmax_cross_entropy(model(images), labels).backward()
+    w0, g0, t0_ = _grads_and_state(model, opt)
+    params = list(model.parameters())
+    hop = PM.flat_hop(None)
+    grads = [p.grad for p in params]
+    # the statistics alone on the device (CUDA events over 10 calls),
+    # then the whole tap and the update ratio each as the host sees it
+    # (synchronized around one call, verdict published, median of 10)
+    stats_ms = cuda_ms(lambda: H.group_stats(grads), reps=10)
+
+    def serial_ms(fn):
+        times = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+            H.flush()
+        return statistics.median(times)
+
+    tap_ms = serial_ms(lambda: H.tap_gradients(grads, hop))
+    # the fused tail's updates are contiguous; a convolution's gradient
+    # on the card is channels-last
+    upds = [g.contiguous() for g in grads]
+    ratio_ms = serial_ms(lambda: H.tap_update_ratio(upds, params))
+    if profile:
+        stem, ext = os.path.splitext(profile)
+        profile_steps(
+            torch, lambda: (H.tap_gradients(grads, hop),
+                            H.tap_update_ratio(upds, params)),
+            (tap_ms + ratio_ms) / 1e3, f"{stem}_health{ext}",
+            {"staging copy": ["cat", "copy"],
+             "nonzero counts": ["count_nonzero", "nonzero", "ne_"],
+             "norms": ["norm", "reduce"]}, "health tap", steps=5)
+        H.flush()
+    del grads, upds
+    res = {}
+    for mode in ("on", "off"):
+        with torch.no_grad():
+            for p, w, g, t in zip(params, w0, g0, t0_):
+                p.copy_(w)
+                p.grad.copy_(g)
+                opt.optimizer.state[p]["trace"].copy_(t)
+        with _EnvKnobs(HOROVOD_HEALTH=int(mode == "on")):
+            opt.step()
+        torch.cuda.synchronize()
+        res[mode] = _grads_and_state(model, opt)
+    if not (_same(res["on"][0], res["off"][0])
+            and _same(res["on"][2], res["off"][2])):
+        raise AssertionError("23a: the tail with health on differs from "
+                             "the tail with health off")
+    del res, g0
+    # a poisoned step under the skip knob
+    tmp = tempfile.mkdtemp(prefix="hvd_health_")
+    H.reset()
+    with _EnvKnobs(HOROVOD_HEALTH=1, HOROVOD_HEALTH_SKIP_NONFINITE=1,
+                   HOROVOD_FLIGHT_DIR=tmp):
+        opt.zero_grad(set_to_none=True)
+        softmax_cross_entropy(model(images), labels).backward()
+        before = _grads_and_state(model, opt)
+        TF.reset_launch_counts()
+        with _EnvKnobs(HOROVOD_FAULT_SPEC="nan:grads*"):
+            opt.step()
+        torch.cuda.synchronize()
+        skip_b1 = TF.LAUNCHES["momentum"]
+        F._data_cache = ("", [])
+        after = _grads_and_state(model, opt)
+        nf = M.counter("hvd_nonfinite_total").value(group="float32",
+                                                    rank="0")
+        skipped = M.counter("hvd_health_skipped_steps_total").total()
+        flight_path = hvd.dump_flight_recorder()
+        with open(flight_path) as f:
+            kinds = [json.loads(ln).get("kind") for ln in f]
+        TF.reset_launch_counts()
+        loss = train_step(model, opt, images, labels)
+        torch.cuda.synchronize()
+        clean_b1 = TF.LAUNCHES["momentum"]
+        moved = not _same([p.detach() for p in model.parameters()],
+                          after[0])
+    if not (_same(before[0], after[0]) and _same(before[2], after[2])):
+        raise AssertionError("23a: the skipped step changed the "
+                             "parameters or the trace")
+    if not (nf > 0 and skipped == 1 and "health" in kinds
+            and skip_b1 == 0 and clean_b1 == -(-161 // TF.capacity(
+                "momentum")) and moved and math.isfinite(float(loss))):
+        raise AssertionError(
+            f"23a: skip step: nonfinite {nf}, skipped {skipped}, health "
+            f"event {'health' in kinds}, B1 {skip_b1} then {clean_b1}, "
+            f"moved {moved}, loss {float(loss)}")
+    out = {"median_s": med, "ratio": ratio, "times": times,
+           "launches": counts, "tap_ms": tap_ms, "stats_ms": stats_ms,
+           "ratio_ms": ratio_ms,
+           "skip": {"nonfinite": nf, "skipped": skipped,
+                    "b1_skipped_step": skip_b1, "b1_next_step": clean_b1},
+           "model": model, "opt": opt}
+    log(f"[health] 23a ResNet-50 batch {BATCH} bf16, world 1 over NCCL, "
+        f"{HEALTH_ROUNDS} rounds of {HEALTH_STEPS} steps health off then "
+        f"{HEALTH_STEPS} on after {HEALTH_WARMUP} of warm-up: median step "
+        f"off {med['off']:.4f} s, on {med['on']:.4f} s, ratio {ratio:.4f}; "
+        f"the tap alone (stats of the 161 gradients, the verdict "
+        f"all-gather and its copy to the host) {tap_ms:.4f} ms serially "
+        f"({100 * tap_ms / 1e3 / med['off']:.2f}% of the step), its "
+        f"statistics {stats_ms:.4f} ms on the device, the update ratio "
+        f"{ratio_ms:.4f} ms serially; steps off "
+        f"{[round(t, 4) for t in times['off']]}, "
+        f"on {[round(t, 4) for t in times['on']]}; launches per round "
+        f"{counts}; the tail on captured gradients bit for bit health on "
+        f"and off; under HOROVOD_HEALTH_SKIP_NONFINITE=1 a nan:grads* step "
+        f"held the parameters and the trace bit for bit with {skip_b1} B1 "
+        f"launches, hvd_nonfinite_total{{float32, rank 0}} {nf:g}, "
+        f"{skipped:g} step skipped, a health event on the flight ring; the "
+        f"next clean step launched {clean_b1} B1 and moved the weights; "
+        f"on {gpu}")
+    return out
+
+
+def health_eager(hvd, torch, gpu: str, device: str = "cuda",
+                 model_fn=None, size: int = 224,
+                 classes: int = 1000) -> dict:
+    """23b: phase 20b's four emulated runtimes on the int8 wire with
+    health on and ``nan@rank2:grad_buffer*:round2``; then the same with
+    ``HOROVOD_ADAPTIVE_COMPRESSION=1`` and the overlap schedule."""
+    from horovod_tpu_torch.ops import quantization as Q
+    from horovod_tpu_torch.optim import distributed as D
+    from horovod_tpu_torch.runtime import faults as F
+    from horovod_tpu_torch.runtime import health as H
+
+    n = DP_N
+    _, _, subs, _ = _eager_shards(torch, device, model_fn, size, classes)
+    # under the optimizer's eager names, which the fault rule matches
+    subs = [[("grad_buffer." + k.split(".", 1)[1], t) for k, t in sub]
+            for sub in subs]
+    verdicts = []
+    real = H.publish_verdict
+
+    def record(g, idx=None, groups=(), sentinel=True):
+        if idx in (None, 0):  # the emulated ranks share one verdict
+            verdicts.append((g.copy(), groups))
+        real(g, idx, groups, sentinel)
+
+    out = {}
+    for epoch, (name, knobs) in enumerate((
+            ("health", dict(HOROVOD_HEALTH=1, HOROVOD_COMPRESSION="int8",
+                            HOROVOD_FAULT_SPEC="nan@rank2:grad_buffer*:"
+                                               "round2")),
+            ("adaptive", dict(HOROVOD_HEALTH=1, HOROVOD_COMPRESSION="int8",
+                              HOROVOD_ADAPTIVE_COMPRESSION=1,
+                              HOROVOD_OVERLAP=1))), 950):
+        H.reset()
+        F._data_cache = ("", [])
+        D._M_RESID_RATIO.reset()
+        verdicts.clear()
+        H.publish_verdict = record
+        try:
+            with _EnvKnobs(**knobs):
+                world = EmulatedWorld(torch, n, (Q.LAUNCHES,),
+                                      sync=device == "cuda", free=True)
+                rts = _emu_runtimes(torch, world, device, epoch)
+                for rt in rts:
+                    rt.log = []
+                Q.reset_launch_counts()
+                try:
+                    # round 2 comes in the third step
+                    for _ in range(HEALTH_EAGER_STEPS):
+                        _threads(lambda r: _eager_step(rts[r], subs[r]), n)
+                finally:
+                    for rt in rts:
+                        rt.stop()
+                H.flush()
+        finally:
+            H.publish_verdict = real
+            F._data_cache = ("", [])
+        responses = sum(len(rt.log) for rt in rts)
+        bad = [v for v, g in verdicts if (v[:, 3::3] > 0).any()]
+        culprits = sorted({(int(row[0]), g[0]) for v, g in verdicts
+                           for row in v if row[3] > 0})
+        series = D._M_RESID_RATIO.series()
+        out[name] = {"responses": responses, "verdicts": len(verdicts),
+                     "poisoned_verdicts": len(bad), "culprits": culprits,
+                     "launches": [dict(world.launches[r])
+                                  for r in range(n)],
+                     "ratio_series": {s["labels"]["bucket"]: s["value"]
+                                      for s in series}}
+        if name == "health":
+            want = dict.fromkeys(EAGER_CODEC["int8"], 1)
+            wrong = [x["launches"] for rt in rts for x in rt.log
+                     if x["launches"] != want]
+            if wrong or not responses:
+                raise AssertionError(f"23b: launches per response {wrong}"
+                                     f", expected {want}")
+            if culprits != [(2, "float32")] or len(bad) != 1 \
+                    or len(verdicts) != responses // n:
+                raise AssertionError(
+                    f"23b: {len(verdicts)} verdicts published for "
+                    f"{responses} responses of {n} ranks, {len(bad)} "
+                    f"poisoned, culprits {culprits}")
+        else:
+            vals = out[name]["ratio_series"]
+            if sorted(vals) != [str(b) for b in range(4)] or not all(
+                    math.isfinite(v) for v in vals.values()):
+                raise AssertionError(f"23b: hvd_compression_residual_ratio "
+                                     f"{vals}, expected 4 finite buckets")
+        del world, rts
+    log(f"[health] 23b {n} emulated runtimes, int8 wire, "
+        f"{HEALTH_EAGER_STEPS} "
+        f"steps, HOROVOD_HEALTH=1 and nan@rank2:grad_buffer*:round2: "
+        f"{out['health']['verdicts']} verdicts published (one per fused "
+        f"response, the emulated ranks share the process), "
+        f"{out['health']['poisoned_verdicts']} naming "
+        f"{out['health']['culprits']}; one B4 and one B5 per fused float "
+        f"response (launches per rank {out['health']['launches']}); with "
+        f"HOROVOD_ADAPTIVE_COMPRESSION=1 and HOROVOD_OVERLAP=1 "
+        f"hvd_compression_residual_ratio per bucket "
+        f"{out['adaptive']['ratio_series']}; on {gpu}")
+    del subs
+    torch.cuda.empty_cache()
+    return out
+
+
+def health_checkpoint(hvd, torch, gpu: str, model, opt,
+                      device: str = "cuda") -> dict:
+    """23c: the ResNet-50 state after 23a (parameters, BatchNorm buffers,
+    the momentum trace) saved and restored into fresh objects on the
+    card, the goodput ledger's checkpoint seconds against the wall; then
+    phase 14a's emulated stage-2 shard states of a seeded trace over the
+    ResNet-50 leaves, saved at four emulated ranks through their host
+    form and re-cut for two."""
+    import shutil
+    import tempfile
+
+    from horovod_tpu_torch import checkpoint as ckpt
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.optim import distributed as D
+    from horovod_tpu_torch.perf import goodput as GP
+
+    tmp = tempfile.mkdtemp(prefix="hvd_ckpt_")
+    try:
+        state = {"model": model.state_dict(), "opt": opt.state_dict(),
+                 "step": 1}
+        GP.reset()
+        GP.start()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = ckpt.save(tmp, state, 1)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = ckpt.restore(tmp, 1)
+        restore_s = time.perf_counter() - t0
+        ledger_s = GP.ledger().snapshot()["phases"]["checkpoint"]
+        wall = save_s + restore_s
+        nbytes = os.path.getsize(os.path.join(path, "tree.pkl"))
+        fresh = ResNet50(num_classes=1000, dtype=torch.bfloat16, seed=1)
+        fopt = hvd.DistributedOptimizer(
+            hvd.fused_update.sgd(fresh.parameters(), 0.1, momentum=0.9))
+        fresh.load_state_dict(back["model"])
+        fopt.load_state_dict(back["opt"])
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(
+            model.state_dict().values(), fresh.state_dict().values()))
+        same_trace = all(
+            torch.equal(opt.optimizer.state[p]["trace"],
+                        fopt.optimizer.state[q]["trace"])
+            for p, q in zip(model.parameters(), fresh.parameters()))
+        on_card = all(p.device.type == device for p in fresh.parameters())
+        if not (same and same_trace and on_card):
+            raise AssertionError(f"23c: restored state equal {same}, trace "
+                                 f"{same_trace}, on the card {on_card}")
+        if abs(ledger_s - wall) > 0.02 * wall + 5e-3:
+            raise AssertionError(f"23c: goodput checkpoint {ledger_s} s "
+                                 f"against the wall {wall} s")
+        del back, fresh, fopt, state
+        # 14a's emulated stage-2 shard states at four ranks, re-cut for two
+        params = list(model.parameters())
+        gen = torch.Generator(device=device).manual_seed(14)
+        trace = [torch.randn(p.shape, device=device, generator=gen)
+                 for p in params]
+        lay = D._shard_layout(trace, ZERO_N)
+        shards = [D.ShardedState([{"trace": D._rank_shard(
+            trace, lay, 0, j).clone()}], None, lay) for j in range(ZERO_N)]
+        full = torch.cat([s.inner[0]["trace"] for s in shards])
+        host = D.sharded_state_to_host(shards[0], gather=lambda t: full)
+        ckpt.save(tmp, {"opt": host}, 2)
+        back = ckpt.restore(tmp, 2)["opt"]
+        cuts = [D.sharded_state_from_host(back, world=2, rank=r)
+                for r in range(2)]
+        again = torch.cat([c.inner[0]["trace"].to(device) for c in cuts])
+        total = sum(lay.sizes[0])
+        flat = torch.cat([t.reshape(-1) for t in trace])
+        if not (torch.equal(again[:total], flat)
+                and torch.equal(full[:total], flat)
+                and not bool(again[total:].any())):
+            raise AssertionError("23c: the 4-to-2 re-cut of the stage-2 "
+                                 "state differs from the saved state")
+        out = {"save_s": save_s, "restore_s": restore_s,
+               "ledger_s": ledger_s, "bytes": nbytes,
+               "reshard": {"padded4": lay.padded[0],
+                           "padded2": cuts[0].layout.padded[0]}}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        GP.reset()
+    log(f"[health] 23c checkpoint of the ResNet-50 state after 23a "
+        f"(parameters, BatchNorm buffers, momentum trace: tree.pkl "
+        f"{nbytes} B): save {save_s:.4f} s, restore {restore_s:.4f} s "
+        f"(the goodput ledger's checkpoint phase {ledger_s:.4f} s of "
+        f"{wall:.4f} s), restored into a fresh model and optimizer on the "
+        f"card bit for bit; phase 14a's stage-2 trace shards at 4 "
+        f"emulated ranks (padded {out['reshard']['padded4']}) saved "
+        f"through their host form and re-cut for 2 (padded "
+        f"{out['reshard']['padded2']}): gathered bit for bit; on {gpu}")
+    return out
+
+
+def health_plane(hvd, torch, gpu: str, profile: str | None = None) -> dict:
+    """Phase 23 (a-c)."""
+    t0 = time.perf_counter()
+    a = health_resnet(hvd, torch, gpu, profile)
+    model, opt = a.pop("model"), a.pop("opt")
+    out = {"a": a}
+    out["c"] = health_checkpoint(hvd, torch, gpu, model, opt)
+    del model, opt
+    torch.cuda.empty_cache()
+    out["b"] = health_eager(hvd, torch, gpu)
+    log(f"[health] phase 23 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def run(args) -> int:
     t_start = time.perf_counter()
     card = pin_one_card()
@@ -5859,6 +6308,8 @@ def run(args) -> int:
     eager21 = eager_training(hvd, torch, gpu)
     torch.cuda.empty_cache()
     obs = observability(hvd, torch, gpu)
+    torch.cuda.empty_cache()
+    health = health_plane(hvd, torch, gpu, args.profile)
     hvd.shutdown()
 
     launches = {**path["launches"], **lm["launches"],
@@ -5908,7 +6359,15 @@ def run(args) -> int:
                 # observed
                 "launches_observability": {
                     m: [c["momentum"] for c in v]
-                    for m, v in obs["a"]["launches"].items()}}
+                    for m, v in obs["a"]["launches"].items()},
+                # phase 23a, per round of HEALTH_STEPS steps, health off
+                # and on; then the skipped step and the next clean one
+                "launches_health": {
+                    m: [c["momentum"] for c in v]
+                    for m, v in health["a"]["launches"].items()},
+                "launches_health_skip": [
+                    health["a"]["skip"]["b1_skipped_step"],
+                    health["a"]["skip"]["b1_next_step"]]}
                if kind == "momentum" else {}),
             **({"launches_zero_lm": zero_lm["launches"]["adam"],
                 "zero_tail_launches": zero_tail["adam"],
@@ -6008,6 +6467,10 @@ def run(args) -> int:
             # phase 22b, per emulated rank over EAGER_STEPS int8 steps
             "launches_observability": [
                 x.get(kind, 0) for x in obs["b"]["launches"]],
+            # phase 23b, per emulated rank over EAGER_STEPS int8 steps
+            # with the health tap
+            "launches_health": [
+                x.get(kind, 0) for x in health["b"]["health"]["launches"]],
             "max_abs_err": max(codec_errs[kind], wire["errs"][kind]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -6038,6 +6501,10 @@ def run(args) -> int:
             "launches_observability": {
                 m: [c[name] for c in v]
                 for m, v in obs["a"]["launches"].items()},
+            # phase 23a, per round of HEALTH_STEPS steps, health off and on
+            "launches_health": {
+                m: [c[name] for c in v]
+                for m, v in health["a"]["launches"].items()},
             "max_abs_err": e["max_abs_err"], "max_ulp": e["max_ulp"],
             "max_err_f64": e["max_err_f64"],
             "plain_err_f64": e["plain_err_f64"],
@@ -6060,6 +6527,12 @@ def run(args) -> int:
             "shapes": f"timed at {BN_SHAPES[BN_TIMED[0]]} bf16 (ResNet-50 "
                       f"bn_init); *_inception3 at {BN_SHAPES[BN_TIMED[1]]}",
         })
+    log(f"[health] phase 23a: health on/off median step ratio "
+        f"{health['a']['ratio']:.4f} ({health['a']['median_s']['on']:.4f} "
+        f"against {health['a']['median_s']['off']:.4f} s); 23c save "
+        f"{health['c']['save_s']:.4f} s, restore "
+        f"{health['c']['restore_s']:.4f} s of {health['c']['bytes']} B; on "
+        f"{gpu}")
     log(f"[obs] phase 22a: observed/bare median step ratio "
         f"{obs['a']['ratio']:.4f} ({obs['a']['median_s']['observed']:.4f} "
         f"against {obs['a']['median_s']['bare']:.4f} s) on {gpu}")

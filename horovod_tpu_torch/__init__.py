@@ -19,9 +19,12 @@ functions are ``hvd.collectives.<name>``.  ``horovod_tpu_torch.torch`` is
 the hook-driven PyTorch frontend on the eager plane.
 
 Observability: ``hvd.metrics()`` (the metrics registry's snapshot),
-``hvd.trace_step``, ``hvd.data_wait``, ``hvd.wrap_data_loader`` and
-``hvd.dump_flight_recorder()``; ``python -m horovod_tpu_torch.trace`` and
-``python -m horovod_tpu_torch.perf goodput`` read the dumps.
+``hvd.trace_step``, ``hvd.data_wait``, ``hvd.wrap_data_loader``,
+``hvd.dump_flight_recorder()`` and the training-health plane
+``hvd.health`` (``HOROVOD_HEALTH``; ``hvd.health.observe_loss(loss)``
+feeds its sentinels); ``python -m horovod_tpu_torch.trace`` and
+``python -m horovod_tpu_torch.perf goodput|health`` read the dumps.
+``hvd.checkpoint`` saves, restores and resyncs training state.
 
 Importing the package builds nothing and touches no device.
 """
@@ -47,13 +50,17 @@ from horovod_tpu_torch.parallel.mesh import (  # noqa: F401
     hierarchical_mesh, make_mesh, parse_mesh_spec)
 from horovod_tpu_torch.optim import fused_update  # noqa: F401
 from horovod_tpu_torch.optim.distributed import (  # noqa: F401
-    DistributedOptimizer, Zero3Params, allreduce_gradients,
+    DistributedOptimizer, ShardedState, Zero3Params, allreduce_gradients,
     allreduce_gradients_with_feedback, broadcast_object,
     broadcast_optimizer_state, broadcast_parameters,
-    broadcast_skipping_shards, zero3_full_params, zero3_shard_params)
+    broadcast_skipping_shards, params_from_host, params_to_host,
+    sharded_state_from_host, sharded_state_to_host, zero3_full_params,
+    zero3_params_from_host, zero3_params_to_host, zero3_shard_params)
 from horovod_tpu_torch.optim.local_sgd import (  # noqa: F401
     LocalSGD, LocalSGDOptimizer)
 from horovod_tpu_torch.runtime.metrics import (  # noqa: F401
     data_wait, metrics, trace_step, wrap_data_loader)
 from horovod_tpu_torch.runtime.flight import (  # noqa: F401
     dump as dump_flight_recorder)
+from horovod_tpu_torch.runtime import health  # noqa: F401
+from horovod_tpu_torch import checkpoint  # noqa: F401

@@ -302,6 +302,17 @@ def shutdown() -> None:
             _goodput.dump("shutdown")
         except Exception:  # noqa: BLE001 -- advisory
             pass
+        # ...and the health monitor's, with every queued verdict
+        # published first (python -m horovod_tpu_torch.perf health
+        # covers healthy runs too)
+        try:
+            from horovod_tpu_torch.runtime import health as _health
+
+            _health.flush()
+            if _health._monitor is not None:
+                _health.dump("shutdown")
+        except Exception:  # noqa: BLE001 -- advisory
+            pass
         if _state.background is not None:
             bg, _state.background = _state.background, None
             bg.stop()

@@ -211,6 +211,72 @@ _KNOBS: dict[str, Knob] = {
         "drop:<glob>[:<n>], die:rank<k>[:round<n>], slow:<rank>:<delay>, "
         "nan:<nameglob>[:round<n>], inf:<nameglob>[:round<n>] specs "
         "(preempt: waits for the preemption plane and raises)."),
+    "health": Knob(
+        "HOROVOD_HEALTH", False, _parse_bool,
+        "Training-health plane (runtime/health.py): stat taps in "
+        "DistributedOptimizer (all ZeRO stages, overlap on/off) and the "
+        "eager executor's allreduce/reducescatter -- per-dtype-group grad "
+        "norm, max-abs and PRE-reduction nonfinite count published as "
+        "hvd_grad_norm / hvd_nonfinite_total{group,rank} with culprit-rank "
+        "attribution, the post-update update-to-weight ratio and the EWMA "
+        "divergence sentinels; one small per-rank verdict vector is "
+        "all-gathered per step.  Must agree on every rank (validated at "
+        "the round-0 handshake: the tap adds an all-gather to the "
+        "negotiated responses)."),
+    "health_skip_nonfinite": Knob(
+        "HOROVOD_HEALTH_SKIP_NONFINITE", False, _parse_bool,
+        "Skip-step contract: when the health verdict reports a nonfinite "
+        "gradient on ANY rank, the optimizer suppresses the step -- no "
+        "parameter and no optimizer state (momenta, error-feedback "
+        "residuals, shard state, the accumulation counter) changes.  "
+        "Requires HOROVOD_HEALTH=1.  Must agree on every rank (validated "
+        "at the round-0 handshake)."),
+    "health_ewma_alpha": Knob(
+        "HOROVOD_HEALTH_EWMA_ALPHA", 0.1, float,
+        "EWMA smoothing factor of the divergence sentinels' loss and "
+        "grad-norm baselines (default 0.1)."),
+    "health_sentinel_ratio": Knob(
+        "HOROVOD_HEALTH_SENTINEL_RATIO", 4.0, float,
+        "Divergence sentinel threshold: a sample breaches above this "
+        "multiple of its EWMA (default 4.0; 0 disables ratio breaches)."),
+    "health_trip_steps": Knob(
+        "HOROVOD_HEALTH_TRIP_STEPS", 3, int,
+        "Consecutive breaching samples before hvd_health_alert raises "
+        "(default 3)."),
+    "health_clear_steps": Knob(
+        "HOROVOD_HEALTH_CLEAR_STEPS", 20, int,
+        "Consecutive healthy samples before an active alert clears "
+        "(default 20)."),
+    "health_dir": Knob(
+        "HOROVOD_HEALTH_DIR", "", str,
+        "Directory for per-rank health snapshot dumps "
+        "(health-r<k>-g<g>.json, on shutdown and on every failure dump); "
+        "empty falls back to HOROVOD_FLIGHT_DIR.  Report with `python -m "
+        "horovod_tpu_torch.perf health <dir>`."),
+    "adaptive_compression": Knob(
+        "HOROVOD_ADAPTIVE_COMPRESSION", False, _parse_bool,
+        "Adaptive compression's guardrail signal: the error-feedback "
+        "paths and the eager wire's lossy responses publish "
+        "hvd_compression_residual_ratio per bucket, and the round-0 "
+        "handshake checks the int8/int4/topk knobs whatever "
+        "HOROVOD_COMPRESSION is.  The tuner that picks modes per bucket "
+        "(HOROVOD_AUTOTUNE) is not ported.  Must agree on every rank."),
+    "checkpoint_keep": Knob(
+        "HOROVOD_CHECKPOINT_KEEP", 0, int,
+        "Last-K checkpoint retention ring: after each save, complete "
+        "snapshots older than the newest K are pruned (0 keeps all)."),
+    "checkpoint_verify": Knob(
+        "HOROVOD_CHECKPOINT_VERIFY", True, _parse_bool,
+        "Verify snapshots against their MANIFEST.json (per-file SHA-256 "
+        "and size) on restore and discovery; a corrupt one is "
+        "quarantined as step_<N>.corrupt.  0 restores unverified "
+        "bytes."),
+    "checkpoint_replicas": Knob(
+        "HOROVOD_CHECKPOINT_REPLICAS", 2, int,
+        "Copies of each all_ranks shard dir per snapshot (default 2: the "
+        "owner and one ring-buddy replica under rep_<owner>_<holder>/); "
+        "0/1 disables replication.  Must agree on every rank (validated "
+        "at the round-0 handshake)."),
     "log_level": Knob(
         "HOROVOD_LOG_LEVEL", "warning", str,
         "trace | debug | info | warning | error | fatal."),
@@ -218,34 +284,6 @@ _KNOBS: dict[str, Knob] = {
         "HOROVOD_LOG_HIDE_TIME", False, _parse_bool,
         "Drop the timestamp from log lines."),
 }
-
-
-# Knobs of the JAX package whose feature is not ported yet and which,
-# set there, change the values the entry points compute or the
-# collectives they run: each one set raises instead of being ignored.
-# (The knobs ignored on purpose, each with its reason, are listed in
-# ROADMAP.md Queue C.)
-_NOT_PORTED = {
-    "HOROVOD_ADAPTIVE_COMPRESSION":
-        "the residual-ratio guardrail and its metrics (ROADMAP.md Queue A "
-        "item 12)",
-    "HOROVOD_HEALTH":
-        "the training-health taps of DistributedOptimizer (ROADMAP.md "
-        "Queue A item 12)",
-    "HOROVOD_HEALTH_SKIP_NONFINITE":
-        "the health plane's skip-step contract (ROADMAP.md Queue A item 12)",
-}
-
-
-def refuse_not_ported() -> None:
-    """Raise ``NotImplementedError`` if a knob of an unported feature is
-    set (to anything but an empty or false value)."""
-    for env, what in _NOT_PORTED.items():
-        raw = os.environ.get(env, "").strip().lower()
-        if raw not in ("", "0", "false", "no", "off"):
-            raise NotImplementedError(
-                f"{env}={os.environ[env]!r} asks for {what}, which is not "
-                "ported yet")
 
 
 def get(name: str) -> Any:

@@ -41,7 +41,6 @@ import bisect
 import torch
 import torch.nn.functional as F
 
-from horovod_tpu_torch.common import config as _config
 from horovod_tpu_torch.common.types import HorovodTpuError
 from horovod_tpu_torch.common.util import true_divide
 from horovod_tpu_torch.ops import adasum as _adasum
@@ -59,7 +58,6 @@ Adasum = 3
 
 
 def _check_op(op) -> None:
-    _config.refuse_not_ported()
     if op not in (Average, Sum, Adasum):
         raise HorovodTpuError(f"Unknown reduce op: {op}")
 
@@ -416,7 +414,6 @@ def hierarchical_allgather(tensor: torch.Tensor, local_axis, cross_axis):
 
 def allgather(tensor: torch.Tensor, axis_name=None) -> torch.Tensor:
     """Concatenate every rank's tensor along axis 0 (equal shapes)."""
-    _config.refuse_not_ported()
     if tensor.dim() == 0:
         raise HorovodTpuError("allgather requires rank >= 1 tensors")
     hops = _pmesh.resolve_hops(axis_name)
@@ -430,7 +427,6 @@ def alltoall(tensor: torch.Tensor, axis_name=None) -> torch.Tensor:
     tensor goes to the axis member ``j``, and the result stacks what
     every member sent here in axis order.  An
     axis pair is refused, as the reference refuses any two-axis name."""
-    _config.refuse_not_ported()
     ax = _pmesh.resolve_axis(axis_name)
     if isinstance(ax, HopPair) or (isinstance(ax, (tuple, list))
                                    and len(ax) == 2):
@@ -475,7 +471,6 @@ def grouped_reducescatter(tensors, op: int = Sum,
     if op not in (Average, Sum):
         raise HorovodTpuError(
             f"reducescatter supports Sum/Average only, got op={op}")
-    _config.refuse_not_ported()
     hops = _pmesh.resolve_hops(axis_name)
     if not tensors:
         return []
@@ -570,7 +565,6 @@ def broadcast(tensor: torch.Tensor, root_rank: int = 0,
               axis_name=None) -> torch.Tensor:
     """Return the value of ``tensor`` at axis index ``root_rank`` (the
     flat, cross-major index for a pair) on every rank of the axis."""
-    _config.refuse_not_ported()
     hop = _pmesh.flat_hop(axis_name)
     return hop.broadcast(tensor.detach().clone().contiguous(), root_rank)
 
@@ -579,7 +573,6 @@ def broadcast_(tensors, root_rank: int = 0, axis_name=None) -> None:
     """Overwrite each tensor in place with the value at axis index
     ``root_rank``, one collective per dtype (fused like
     :func:`grouped_allreduce`)."""
-    _config.refuse_not_ported()
     hop = _pmesh.flat_hop(axis_name)
     groups: dict = {}
     for t in tensors:

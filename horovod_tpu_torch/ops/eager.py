@@ -157,7 +157,7 @@ def plane_pair():
 def _runtime():
     """This thread's bound runtime (:func:`bound_runtime`), else the
     process's background runtime (:func:`start_runtime`), after the
-    refusals of the eager op path."""
+    eager op path's refusal of a data mesh with model-parallel axes."""
     rt = getattr(_bound, "rt", None)
     if rt is not None:
         return rt
@@ -165,12 +165,8 @@ def _runtime():
     if not st.initialized:
         raise HorovodTpuError(
             "Horovod-TPU has not been initialized; use hvd.init().")
-    from horovod_tpu_torch.common import config as _config
     from horovod_tpu_torch.parallel import mesh as _pmesh
 
-    # the health tap and the adaptive guardrail of the reference's eager
-    # programs are not ported (item 12): their knobs raise
-    _config.refuse_not_ported()
     if _pmesh.model_parallel_size() > 1:
         raise HorovodTpuError(
             "eager collectives reduce over the whole world and cannot "
@@ -187,7 +183,8 @@ def start_runtime():
     group :func:`~horovod_tpu_torch.common.basics.init` built (reference
     ``InitializeHorovodOnce``, ``operations.cc:604-650``).  ``init()``
     calls it at world > 1, so every rank beats and negotiates from the
-    start; the refusals stay on the op path (:func:`_runtime`), since
+    start; the model-parallel refusal stays on the op path
+    (:func:`_runtime`), since
     every rank of the port is a process and a model-parallel world must
     still initialize."""
     st = _basics._state

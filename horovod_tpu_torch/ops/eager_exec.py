@@ -27,6 +27,15 @@ rounds and divides as the in-trace plane does:
   (``HOROVOD_RAGGED_ALLGATHER``) or equal-size;
 * fused broadcast, alltoall and barrier.
 
+Under ``HOROVOD_HEALTH`` the floating allreduce and reducescatter
+responses (and a local-scoped one) carry the health plane's stat tap
+(``xla_exec.py:283-297``): the local statistics of the fused buffer
+before the reduction, the verdict all-gathered over the executor's own
+hop.  Under ``HOROVOD_ADAPTIVE_COMPRESSION`` a lossy allreduce also
+publishes its per-bucket dropped-mass ratio
+(``hvd_compression_residual_ratio``, ``xla_exec.py:302-330``): the
+negotiated wire keeps no error feedback, so the residual is lost.
+
 One rank is the identity, as on the reference.  On CUDA every response
 runs on the executor's own stream, after the ready events of its inputs
 (:meth:`EagerExecutor.execute`).
@@ -61,6 +70,54 @@ def wire_mode(dtype: torch.dtype) -> str:
     if mode in _CASTS and dtype.itemsize <= _CASTS[mode].itemsize:
         return "none"
     return mode
+
+
+def health_cfg():
+    """``(1, skip)`` when the training-health plane is on, else ``None``
+    (``xla_exec.health_cfg``): what decides, response by response,
+    whether the executor taps.  The port keeps no compiled program per
+    response, so nothing negotiated under one value replays under the
+    other; both knobs agree across ranks by the round-0 handshake."""
+    if not _config.get("health"):
+        return None
+    return (1, 1 if _config.get("health_skip_nonfinite") else 0)
+
+
+def _health_tap(flat, hop) -> None:
+    """The pre-reduction stat tap of a floating fused buffer over
+    ``hop`` (``xla_exec._health_tap``)."""
+    if health_cfg() is None or not flat.is_floating_point():
+        return
+    from horovod_tpu_torch.runtime import health as _health
+
+    _health.tap_block(flat, hop, _health.dtype_label(flat.dtype))
+
+
+def _eager_guard_signal(modes) -> bool:
+    """Whether a lossy response publishes its per-bucket loss ratio
+    (``xla_exec._eager_guard_signal``): under
+    ``HOROVOD_ADAPTIVE_COMPRESSION``, for a lossy mode."""
+    return (bool(_config.get("adaptive_compression"))
+            and any(m in _LOSSY for m in modes))
+
+
+def _publish_eager_loss(err, red, n: int, hop, chunks: int) -> None:
+    """``hvd_compression_residual_ratio`` of one lossy response: this
+    rank's dropped residual against the reduced buffer, per bucket
+    (``xla_exec._publish_eager_loss``)."""
+    if err is None:
+        return
+    from horovod_tpu_torch.optim.distributed import \
+        _report_bucket_residual_ratios
+
+    ferr = err.to(torch.float32).reshape(-1)
+    fred = red.to(torch.float32).reshape(-1)
+    pad = (-ferr.shape[0]) % max(int(n), 1)
+    if pad:
+        ferr = torch.cat([ferr, ferr.new_zeros(pad)])
+        fred = torch.cat([fred, fred.new_zeros(pad)])
+    _report_bucket_residual_ratios(ferr, fred, n, hop,
+                                   chunks=max(1, int(chunks)))
 
 
 def _quant_block() -> int | None:
@@ -179,6 +236,8 @@ class EagerExecutor:
         flat = self._fuse(tensors)
         n = self.size
         pair = self._two_level("hierarchical_allreduce")
+        if op != _ADASUM:
+            _health_tap(flat, pair.flat if pair is not None else self.hop)
         if op == _ADASUM:
             sizes = [t.numel() for t in tensors]
             red = _coll._adasum_buffer_reduce(
@@ -189,9 +248,13 @@ class EagerExecutor:
         if _overlap.enabled():
             # the schedule applies the mode (and HOROVOD_BUCKET_
             # COMPRESSION) bucket by bucket
-            red, _ = _overlap.overlapped_flat_reduce(
-                flat, op=_SUM, quantized=mode, block_size=_quant_block(),
-                axis_name=hops)
+            guard = _eager_guard_signal(_overlap.resolve_bucket_modes(
+                _overlap.configured_chunks(), mode, in_dtype))
+            red, err = _overlap.overlapped_flat_reduce(
+                flat, op=_SUM, quantized=mode, with_error=guard,
+                block_size=_quant_block(), axis_name=hops)
+            _publish_eager_loss(err, red, n, hops,
+                                _overlap.configured_chunks())
             red = red.to(in_dtype)
         else:
             wire = flat
@@ -202,6 +265,10 @@ class EagerExecutor:
                     wire, pair.local, pair.cross, op=_SUM,
                     compression=Compression.lookup(mode),
                     block_size=_quant_block())
+            elif mode in _LOSSY and _eager_guard_signal((mode,)):
+                red, err = _quant._lossy_psum_impl(
+                    wire, mode, _quant_block(), None, True, self.hop)
+                _publish_eager_loss(err, red, n, self.hop, 1)
             elif mode in _LOSSY:
                 red = _coll.quantized_allreduce(
                     wire, op=_SUM, block_size=_quant_block(), mode=mode,
@@ -239,6 +306,8 @@ class EagerExecutor:
             return self._identity(tensors, outs)
         in_dtype = tensors[0].dtype
         flat = self._fuse(tensors)
+        if scope == "local":
+            _health_tap(flat, hop)
         mode = "none" if scope == "local" else outer_wire_mode(in_dtype)
         wire = flat
         if mode in _CASTS:
@@ -277,6 +346,8 @@ class EagerExecutor:
             return tensor.clone()
         mode = wire_mode(tensor.dtype)
         pair = self._two_level("hierarchical_allreduce")
+        _health_tap(tensor.to(self.device).reshape(-1),
+                    pair.flat if pair is not None else self.hop)
         out = _coll.reducescatter(
             tensor.to(self.device), op=op,
             compression=Compression.lookup(mode),

@@ -57,6 +57,17 @@ all-gather per group; stages 2-3 one per bucket; the eager wire applies
 ``HOROVOD_COMPRESSION`` inside the negotiated response, without error
 feedback, and applies the op itself (the tail divides by nothing at
 stages 1-2).  The shards are cut over the world.
+
+Under ``HOROVOD_HEALTH`` (``runtime/health.py``) ``step()`` taps this
+rank's gradients before any reduction in the in-trace regime (one
+verdict all-gather over the axis) and publishes the update-to-weight
+ratio where the fused tail materializes the update; in the eager regime
+the executor taps each response instead.  ``HOROVOD_HEALTH_SKIP_NONFINITE``
+skips a step whose verdict holds a nonfinite without touching any state.
+Under ``HOROVOD_ADAPTIVE_COMPRESSION`` the error-feedback paths publish
+``hvd_compression_residual_ratio`` per bucket.  The host forms
+(:func:`sharded_state_to_host`, :func:`zero3_params_to_host` and their
+``_from_host``) carry the sharded stages' state across world sizes.
 """
 
 from __future__ import annotations
@@ -83,6 +94,8 @@ from horovod_tpu_torch.ops.compression import (Compression,
                                                is_quantized, wire_mode)
 from horovod_tpu_torch.optim import fused_update as _fused
 from horovod_tpu_torch.parallel import mesh as _pmesh
+from horovod_tpu_torch.runtime import faults as _faults
+from horovod_tpu_torch.runtime import health as _health
 from horovod_tpu_torch.runtime import metrics as _metrics
 
 _M_FUSED_BYTES = _metrics.gauge(
@@ -107,6 +120,112 @@ _M_ZERO_OPT_BYTES = _metrics.gauge(
     "hvd_zero_opt_state_bytes_per_chip",
     "Wrapped optimizer-state bytes per chip (shard-local from "
     "zero_stage>=1 on).")
+
+
+_M_RESID_RATIO = _metrics.gauge(
+    "hvd_compression_residual_ratio",
+    "Per-bucket error-feedback residual-to-reduced-gradient norm "
+    "ratio, published while HOROVOD_ADAPTIVE_COMPRESSION is on; the "
+    "adaptive tuner's bounded-loss guardrail pins a bucket back to "
+    "int8 when this exceeds "
+    "HOROVOD_COMPRESSION_MAX_RESIDUAL_RATIO (docs/compression.md).")
+
+
+def _publish_residual_ratios(ratios) -> None:
+    """Host side of the guardrail signal: one gauge series per bucket
+    index."""
+    arr = np.asarray(ratios).reshape(-1)
+    for b in range(arr.shape[0]):
+        v = float(arr[b])
+        if np.isfinite(v):
+            _M_RESID_RATIO.set(v, bucket=str(b))
+
+
+def _report_bucket_residual_ratios(err, ref, n, axis_name,
+                                   chunks: int = 1) -> None:
+    """The guardrail signal of adaptive compression: per bucket
+    ``||EF residual|| / ||reduced gradient||``, published deferred
+    (``health.flush``).  ``err`` is the full ``(n*L,)`` float32 residual
+    in segment layout; ``ref`` either this rank's ``(L,)`` reduced shard
+    (the ZeRO paths: bucket norms are summed over the axis) or the full
+    ``(n*L,)`` reduced buffer (the replicated path: already global).
+    Bucket bounds are :func:`overlap.bucket_bounds`', so the indices
+    match :func:`overlap.resolve_bucket_modes`.  One small all-reduce
+    over the axis; nothing unless ``HOROVOD_ADAPTIVE_COMPRESSION``."""
+    if not _config.get("adaptive_compression"):
+        return
+    from horovod_tpu_torch.runtime import health as _health
+
+    n = max(int(n), 1)
+    L = err.numel() // n
+    if L == 0:
+        return
+    hop = _pmesh.flat_hop(axis_name)
+    bounds = _ovl.bucket_bounds(L, max(1, int(chunks)))
+    e2d = err.reshape(n, L)
+    full_ref = ref.numel() == err.numel()
+    ref = ref.to(torch.float32)
+    r2d = ref.reshape(n, L) if full_ref else None
+    rvec = torch.stack([torch.linalg.vector_norm(e2d[:, s:e]).square()
+                        for s, e in bounds])
+    gvec = torch.stack([torch.linalg.vector_norm(
+        r2d[:, s:e] if full_ref else ref[s:e]).square()
+        for s, e in bounds])
+    hop.all_reduce(rvec)  # residuals are per-rank local
+    if not full_ref:
+        hop.all_reduce(gvec)  # shard slices are 1/n each
+    ratios = rvec.sqrt() / gvec.sqrt().clamp_min(1e-12)
+    _health._deferred.add(_publish_residual_ratios, ratios)
+
+
+def _ranges_sumsq(flats, ranges, k: int):
+    """Per bucket the sum of squares of a virtual concatenation of the
+    1-D ``flats`` over its ``ranges`` (``ranges[b]`` a list of ``[lo,
+    hi)`` windows), from views of the members (one ``_foreach_norm``),
+    never the concatenation."""
+    offsets = _coll._offsets([f.numel() for f in flats])
+    views, owner = [], []
+    for b, wins in enumerate(ranges):
+        for lo, hi in wins:
+            for j, f in enumerate(flats):
+                a, z = max(lo, offsets[j]), min(hi, offsets[j + 1])
+                if a < z:
+                    views.append(f[a - offsets[j]:z - offsets[j]])
+                    owner.append(b)
+    dev = flats[0].device
+    out = torch.zeros(k, dtype=torch.float32, device=dev)
+    if views:
+        norms = torch.stack(torch._foreach_norm(views)).to(torch.float32)
+        out.index_add_(0, torch.tensor(owner, device=dev), norms.square())
+    return out
+
+
+def _maybe_report_residual_ratio(new_res, reduced, axis_name,
+                                 overlap=None) -> None:
+    """The replicated path's guardrail signal: the fused float view the
+    grouped lossy allreduce ran on (float leaves in leaf order, padded
+    to the axis size) is read through views of the residual and reduced
+    leaves (:func:`_ranges_sumsq`), per bucket of its ``(n, L)`` segment
+    view; the residual sums are all-reduced over the axis."""
+    if not _config.get("adaptive_compression"):
+        return
+    from horovod_tpu_torch.runtime import health as _health
+
+    pairs = [(r.detach().reshape(-1), g.detach().reshape(-1))
+             for r, g in zip(new_res, reduced) if g.is_floating_point()]
+    if not pairs:
+        return
+    n = _pmesh.axis_total(axis_name)
+    total = sum(r.numel() for r, _ in pairs)
+    L = (total + (-total) % n) // n
+    chunks = _ovl.configured_chunks() if _ovl.enabled(overlap) else 1
+    bounds = _ovl.bucket_bounds(L, chunks)
+    ranges = [[(i * L + s, i * L + e) for i in range(n)] for s, e in bounds]
+    rvec = _ranges_sumsq([r for r, _ in pairs], ranges, len(bounds))
+    gvec = _ranges_sumsq([g for _, g in pairs], ranges, len(bounds))
+    _pmesh.flat_hop(axis_name).all_reduce(rvec)
+    ratios = rvec.sqrt() / gvec.sqrt().clamp_min(1e-12)
+    _health._deferred.add(_publish_residual_ratios, ratios)
 
 
 def _resolve_compression(compression):
@@ -201,6 +320,17 @@ class ShardLayout(NamedTuple):
     shard: tuple     # int per group (padded // world)
 
 
+class ShardedState(NamedTuple):
+    """A stage-1/2 ``DistributedOptimizer``'s shard-local state as one
+    value (``DistributedOptimizer.sharded_state()``): per dtype group the
+    state dict of this rank's shard (``inner``), the error-feedback
+    residuals (or None) and the layout they were cut for.  ``resync``
+    and ``broadcast_skipping_shards`` leave it alone."""
+    inner: list
+    residual: list | None
+    layout: ShardLayout
+
+
 def _shard_layout(leaves, n: int) -> ShardLayout:
     groups: dict = {}
     for i, leaf in enumerate(leaves):
@@ -217,6 +347,22 @@ def _shard_layout(leaves, n: int) -> ShardLayout:
         shard.append(p // n)
     return ShardLayout(tuple(keys), tuple(idxs), tuple(sizes),
                        tuple(padded), tuple(shard))
+
+
+def _shard_views(leaves, layout: ShardLayout, g: int, r: int) -> list:
+    """The members of segment ``r`` of group ``g``'s fused buffer as
+    views of the leaves (a leaf whole where the segment holds all of it;
+    the padding left out): no copy of the segment is made."""
+    L = layout.shard[g]
+    lo, hi, off, out = r * L, (r + 1) * L, 0, []
+    for i, sz in zip(layout.idxs[g], layout.sizes[g]):
+        a, b = max(lo, off), min(hi, off + sz)
+        if a < b:
+            leaf = leaves[i].detach()
+            out.append(leaf if b - a == sz
+                       else leaf.reshape(-1)[a - off:b - off])
+        off += sz
+    return out
 
 
 def _fuse_group(leaves, layout: ShardLayout, g: int) -> torch.Tensor:
@@ -282,10 +428,6 @@ def _bucketed_scatter_group(leaves, layout: ShardLayout, g: int, n: int,
 # ---------------------------------------------------------------------------
 
 
-def _dtype_label(dtype: torch.dtype) -> str:
-    return str(dtype).replace("torch.", "")
-
-
 def _check_eager_mesh() -> None:
     """The eager wire is the flat world: with tp/pp/sp extents on the
     data mesh it would average model-sharded values across islands
@@ -316,10 +458,10 @@ def eager_fused_allreduce(leaves, op: int, compression=Compression.none,
     handles = []
     for dtype, idxs in groups.items():
         flat = torch.cat([leaves[i].reshape(-1) for i in idxs])
-        _M_FUSED_BYTES.set(flat.numel() * flat.element_size(),
-                           dtype=_dtype_label(dtype))
+        label = _health.dtype_label(dtype)
+        _M_FUSED_BYTES.set(flat.numel() * flat.element_size(), dtype=label)
         handles.append((idxs, _eager.allreduce_async(
-            flat, op=op, name=f"{prefix}.{_dtype_label(dtype)}.{len(idxs)}",
+            flat, op=op, name=f"{prefix}.{label}.{len(idxs)}",
             compression=compression)))
     out: list = [None] * len(leaves)
     for idxs, h in handles:
@@ -342,7 +484,7 @@ def _eager_scatter(leaves, layout: ShardLayout, op: int, n: int,
     handles = []
     for g, key in enumerate(layout.keys):
         bounds = _ovl.bucket_bounds(layout.shard[g], _zero_chunks(chunks))
-        name = f"shard_rs.{_dtype_label(key)}.{layout.padded[g]}"
+        name = f"shard_rs.{_health.dtype_label(key)}.{layout.padded[g]}"
         if chunks == 1:
             handles.append([_eager.reducescatter_async(
                 _fuse_group(leaves, layout, g), op=op, name=name)])
@@ -369,7 +511,7 @@ def _eager_gather(shards, layout: ShardLayout, prefix: str,
         shard = shards[g].detach()
         bounds = _ovl.bucket_bounds(int(shard.shape[0]),
                                     _zero_chunks(chunks))
-        name = f"{prefix}.{_dtype_label(key)}.{layout.padded[g]}"
+        name = f"{prefix}.{_health.dtype_label(key)}.{layout.padded[g]}"
         if chunks != 1:
             handles.append(([_eager.allgather_async(
                 shard[s:e], name=f"{name}.{k}of{len(bounds)}")
@@ -590,7 +732,6 @@ class _DistributedOptimizer:
         if not isinstance(optimizer, torch.optim.Optimizer):
             raise TypeError("DistributedOptimizer expects a "
                             f"torch.optim.Optimizer (got {type(optimizer)!r})")
-        _config.refuse_not_ported()
         self.eager = bool(eager)
         if self.eager:
             _check_eager_mesh()
@@ -637,6 +778,7 @@ class _DistributedOptimizer:
         _M_ZERO_STAGE.set(stage)
         self._counter = 0
         self._accum: dict = {}
+        self._health_on = False
         #: stage 0: parameter -> float32 error-feedback residual, or None
         #: when the wrapper reduces without feedback
         self.residuals = None
@@ -714,6 +856,44 @@ class _DistributedOptimizer:
             return self._group_state
         return [self._inner.state[p] for p in self._shard_params]
 
+    def sharded_state(self) -> ShardedState:
+        """Stages 1-2: the shard-local state as a :class:`ShardedState`
+        (the tensors themselves, not copies), for ``checkpoint.save(...,
+        all_ranks=True)`` or :func:`sharded_state_to_host`."""
+        return ShardedState(self.shard_state, self.residual, self.layout)
+
+    @torch.no_grad()
+    def load_sharded_state(self, state: ShardedState) -> None:
+        """Stages 1-2: take ``state`` (restored, or re-cut for this world
+        by :func:`sharded_state_from_host`) as this rank's shard state:
+        tensors copied into place on their devices, other entries
+        taken as they are.  A layout cut for another world is
+        refused."""
+        if state.layout.padded != self.layout.padded \
+                or state.layout.shard != self.layout.shard:
+            raise HorovodTpuError(
+                f"load_sharded_state: the state was cut for padded "
+                f"lengths {state.layout.padded} / shards "
+                f"{state.layout.shard}, this optimizer's layout is "
+                f"{self.layout.padded} / {self.layout.shard} (restore "
+                "through sharded_state_from_host for another world size)")
+        for cur, new in zip(self.shard_state, state.inner):
+            for k, v in new.items():
+                if isinstance(v, torch.Tensor) and isinstance(
+                        cur.get(k), torch.Tensor):
+                    cur[k].copy_(v)
+                elif isinstance(v, torch.Tensor):
+                    dev = self._params_all[0].device
+                    cur[k] = v.to(dev)
+                else:
+                    cur[k] = v
+        if self.residual is not None:
+            for g, r in enumerate(self.residual):
+                if state.residual is not None:
+                    r.copy_(state.residual[g])
+                else:
+                    r.zero_()
+
     def state_bytes(self) -> int:
         """Bytes of optimizer state this rank holds (error-feedback
         residuals not counted)."""
@@ -754,6 +934,8 @@ class _DistributedOptimizer:
                 grads, [self.residuals[p] for p in params], op=self.op,
                 compression=self.compression, overlap=self.overlap,
                 axis_name=self.axis_name)
+            _maybe_report_residual_ratio(new, reduced, self.axis_name,
+                                         self.overlap)
             self.residuals.update(zip(params, new))
         if params:
             torch._foreach_copy_(grads, reduced)
@@ -783,6 +965,9 @@ class _DistributedOptimizer:
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
+        self._health_on = _health.enabled()
+        if self._health_on and not self.eager and not self._health_tap():
+            return loss
         if self.zero_stage == 3:
             self._zero3_step()
         elif self.backward_passes_per_step > 1 and not self._accumulate():
@@ -790,10 +975,64 @@ class _DistributedOptimizer:
         elif self.zero_stage:
             self._sharded_step()
         else:
-            self._update(self.synchronize())
+            params = self.synchronize()
+            if not self._skip_eager([p.grad for p in params]):
+                self._update(params)
         if not self._stamped:
             self._stamp_zero_bytes()
         return loss
+
+    # -- the training-health plane (``_health_wrap``) ----------------------
+
+    @torch.no_grad()
+    def _health_tap(self) -> bool:
+        """The in-trace stat tap on this rank's gradients before any
+        reduction (and before error feedback re-injects the residual):
+        the ``nan:``/``inf:`` round-less rules poison ``grads.<dtype>``
+        first, then one verdict all-gather over the reduction's axis.
+        Under ``HOROVOD_HEALTH_SKIP_NONFINITE`` a verdict with a
+        nonfinite from any rank skips the whole step, reductions
+        included: every rank reads the same gathered verdict, so all
+        skip together, and nothing (parameters, momenta, residuals,
+        shard state, the accumulation counter) changes.  Returns whether
+        the step goes on."""
+        params = self._params()
+        hop = _pmesh.flat_hop(self.axis_name)
+        if _faults.data_rules():
+            for p in params:
+                if p.grad.is_floating_point():
+                    p.grad = _faults.traced_poison(
+                        p.grad, f"grads.{_health.dtype_label(p.grad.dtype)}",
+                        hop.index)
+        gathered = _health.tap_gradients([p.grad for p in params], hop)
+        if gathered is None or not _health.skip_enabled() \
+                or not _health.verdict_bad(gathered):
+            return True
+        _health.flush()
+        _health.note_skip()
+        return False
+
+    def _skip_eager(self, tensors) -> bool:
+        """The eager regime's skip verdict (``apply_skip_eager``): a
+        nonfinite that rode the negotiated wire poisons the reduced
+        ``tensors`` identically on every rank, so their finiteness is the
+        verdict; one device-to-host read, under the skip knob only."""
+        if not (self.eager and self._health_on and _health.skip_enabled()):
+            return False
+        cnt = _health.nonfinite_count(tensors)
+        if cnt is None or not float(cnt) > 0:
+            return False
+        _health.note_skip()
+        return True
+
+    def _tap_ratio(self, updates, params) -> None:
+        """The post-update update-to-weight ratio (advisory)."""
+        if not self._health_on:
+            return
+        try:
+            _health.tap_update_ratio(updates, params)
+        except Exception:  # noqa: BLE001 -- a stat must never cost a step
+            pass
 
     def _stamp_zero_bytes(self) -> None:
         """The residency gauges, once the state exists (advisory)."""
@@ -829,6 +1068,7 @@ class _DistributedOptimizer:
             updates = _fused.fused_update_tree(
                 self.fused_spec, [p.grad for p in params],
                 [self.optimizer.state[p] for p in params])
+            self._tap_ratio(updates, params)
             if params:
                 torch._foreach_add_(params, updates)
 
@@ -850,11 +1090,20 @@ class _DistributedOptimizer:
             gshards = self._trace_scatter(grads, n)
         del grads
         navg = 1 if self.eager else self._navg()
+        # the eager skip verdict comes from the gathered update, after the
+        # tail has run on the shard: hold the state it overwrites
+        held = self._hold_state() if self.eager and self._health_on \
+            and _health.skip_enabled() else None
         if self._inner is None:
             upds = _fused.fused_update_groups(self.fused_spec, gshards,
                                               self._group_state, navg,
                                               lay.keys)
-            self._apply_shards(upds, add=True)
+            if self._health_on:
+                r = self._index()
+                self._tap_ratio(upds, [v for g in range(len(lay.keys))
+                                       for v in _shard_views(leaves, lay,
+                                                             g, r)])
+            self._apply_shards(upds, add=True, held=held)
             return
         # the wrapped optimizer's class on the shard: current values in,
         # the (divided, cast) shard gradient as its gradient
@@ -869,7 +1118,18 @@ class _DistributedOptimizer:
         self._inner.step()
         for sp in self._shard_params:
             sp.grad = None
-        self._apply_shards(self._shard_params, add=False)
+        self._apply_shards(self._shard_params, add=False, held=held)
+
+    def _hold_state(self) -> list:
+        """A copy of the shard state the tail overwrites (the eager skip
+        contract's snapshot at stages 1-2)."""
+        return [{k: v.clone() if isinstance(v, torch.Tensor) else v
+                 for k, v in st.items()} for st in self.shard_state]
+
+    def _restore_state(self, held) -> None:
+        for st, old in zip(self.shard_state, held):
+            st.clear()
+            st.update(old)
 
     def _eager_chunks(self):
         """The eager wire's buckets: one per group at stage 1, the
@@ -900,20 +1160,35 @@ class _DistributedOptimizer:
                     overlap=self.overlap, axis_name=self.axis_name)
             if err is not None:
                 self.residual[g] = err
+                if self.zero_stage >= 2 and n > 1:
+                    chunks = _zero_chunks()
+                elif _ovl.enabled(self.overlap):
+                    chunks = _ovl.configured_chunks()
+                else:
+                    chunks = 1
+                _report_bucket_residual_ratios(err, shard, n,
+                                               self.axis_name, chunks)
             gshards.append(shard)
         return gshards
 
-    def _apply_shards(self, shards, add: bool) -> None:
+    def _apply_shards(self, shards, add: bool, held=None) -> None:
         """Gather every group's update shards (``add``: added to the
         parameters) or new value shards (copied into them): at stage 1
         one all-gather per group, at stage 2 bucket by bucket with each
-        leaf reassembled from the bucket results."""
+        leaf reassembled from the bucket results.  ``held`` (the eager
+        skip contract): when the gathered result, the same on every
+        rank, holds a nonfinite, nothing is applied and the shard state
+        goes back to ``held``."""
         lay, n = self.layout, self._n()
         leaves = self._params_all
         sets = None
         if self.eager:
             sets = _eager_gather(shards, lay, "shard_ag",
                                  self._eager_chunks())
+            if held is not None and self._skip_eager(
+                    [t for outs, _ in sets for t in outs]):
+                self._restore_state(held)
+                return
         for g in range(len(lay.keys)):
             buckets = None
             if sets is not None:
@@ -950,12 +1225,16 @@ class _DistributedOptimizer:
         shards = self._params_all
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in shards]
+        if self._skip_eager(grads):
+            # the shard-local verdict, as the JAX package's eager update
+            return
         navg = self._navg()
         if self.fused_spec is not None:
             upds = _fused.fused_update_groups(
                 self.fused_spec, grads,
                 [self.optimizer.state[p] for p in shards], navg,
                 [p.dtype for p in shards])
+            self._tap_ratio(upds, shards)
             torch._foreach_add_(shards, upds)
             return
         for p, g in zip(shards, grads):
@@ -1000,6 +1279,196 @@ def DistributedOptimizer(optimizer, compression=None,
     return _DistributedOptimizer(optimizer, compression,
                                  backward_passes_per_step, op, zero_stage,
                                  sharded, overlap, axis_name, eager)
+
+
+# ---------------------------------------------------------------------------
+# Host forms: the world-independent state of the sharded stages
+# (``horovod_tpu/optim/distributed.py:1187-1470``)
+# ---------------------------------------------------------------------------
+
+
+class HostZero3Params:
+    """Host form of a :class:`Zero3Params`: the FULL parameters by name
+    as host arrays (``checkpoint.to_numpy``), independent of the world
+    size, so :func:`zero3_params_from_host` re-cuts them for any world.
+    Picklable; ``resync`` passes it through."""
+
+    def __init__(self, tree: dict):
+        self.tree = tree
+
+
+class HostShardedState:
+    """Host form of a :class:`ShardedState`: every shard-length tensor
+    all-gathered into its full fused buffer (host arrays), with the
+    layout it was cut for.  Picklable; ``resync`` passes it through."""
+
+    def __init__(self, inner, layout: ShardLayout, had_residual: bool):
+        self.inner = inner
+        self.layout = layout
+        self.had_residual = had_residual
+
+
+def _default_gather(axis_name):
+    def gather(t):
+        return _quant._all_gather(t.detach().reshape(-1).contiguous(),
+                                  _pmesh.flat_hop(axis_name))
+    return gather
+
+
+def _default_shard_world() -> int:
+    """The shard count of the re-cut helpers: the dp extent when a data
+    mesh is named, else the world size (1 before ``init``)."""
+    if not _basics.state().initialized:
+        return 1
+    return _basics.data_parallel_size()
+
+
+def zero3_params_to_host(zp: Zero3Params, gather=None) -> HostZero3Params:
+    """All-gather stage-3 shards into the full parameters on the host
+    (collective at a world > 1: every rank of ``zp.axis_name`` calls
+    it).  ``gather(shard)`` overrides the all-gather (an emulated world,
+    a test): it returns the full padded fused buffer of the shard's
+    group."""
+    from horovod_tpu_torch.checkpoint import to_numpy
+
+    gather = _default_gather(zp.axis_name) if gather is None else gather
+    lay = zp.layout
+    tree = {}
+    for g in range(len(lay.keys)):
+        full = gather(zp.shards[g]).detach().reshape(-1)
+        off = 0
+        for i, sz in zip(lay.idxs[g], lay.sizes[g]):
+            tree[zp.names[i]] = to_numpy(
+                full[off:off + sz].reshape(zp.shapes[i]))
+            off += sz
+    return HostZero3Params(tree)
+
+
+def zero3_params_from_host(host: HostZero3Params, world: int | None = None,
+                           rank: int | None = None, axis_name=None,
+                           device=None) -> Zero3Params:
+    """Re-cut a :func:`zero3_params_to_host` form for ``world`` ranks
+    (default: the dp extent, else the world): rank ``rank`` takes
+    segment ``rank`` of the re-padded fused buffers, as ``requires_grad``
+    shards on ``device`` (default: this rank's device, the CPU before
+    ``init``)."""
+    from horovod_tpu_torch.checkpoint import from_numpy
+
+    st = _basics.state()
+    n = world if world is not None else _default_shard_world()
+    r = rank if rank is not None else (
+        _pmesh.shard_index(axis_name) if st.initialized else 0)
+    if device is None:
+        device = st.device if st.initialized else "cpu"
+    names = list(host.tree)
+    leaves = [from_numpy(host.tree[k]) for k in names]
+    layout = _shard_layout(leaves, n)
+    shards = []
+    for g in range(len(layout.keys)):
+        shard = torch.nn.Parameter(
+            _rank_shard(leaves, layout, g, r).clone().to(device))
+        shard._hvd_zero3 = True
+        shard._hvd_zero3_layout = layout
+        shards.append(shard)
+    return Zero3Params(shards, layout, names,
+                       [tuple(t.shape) for t in leaves],
+                       _pmesh.resolve_axis(axis_name))
+
+
+def params_to_host(tree, gather=None):
+    """Host form of a parameter tree: tensors become host arrays and
+    :class:`Zero3Params` their :class:`HostZero3Params` (a collective at
+    a world > 1)."""
+    from horovod_tpu_torch.checkpoint import _map, to_numpy
+
+    def one(x):
+        if isinstance(x, Zero3Params):
+            return zero3_params_to_host(x, gather)
+        return to_numpy(x) if isinstance(x, torch.Tensor) else x
+
+    return _map(one, tree, leaves=(Zero3Params,))
+
+
+def params_from_host(tree, world: int | None = None,
+                     rank: int | None = None):
+    """The inverse of :func:`params_to_host`, re-cutting the stage-3
+    parameters for ``world`` ranks (CPU tensors elsewhere)."""
+    from horovod_tpu_torch.checkpoint import _from_host, _map
+
+    def one(x):
+        if isinstance(x, HostZero3Params):
+            return zero3_params_from_host(x, world, rank)
+        return _from_host(x)
+
+    return _map(one, tree, leaves=(HostZero3Params,))
+
+
+def sharded_state_to_host(state, gather=None, axis_name=None):
+    """Host form of a stage-1/2 optimizer state: ``state`` is a
+    ``DistributedOptimizer`` (its :meth:`sharded_state`, gathered over
+    its axis) or a :class:`ShardedState`.  Every shard-length 1-D tensor
+    is all-gathered into its full fused buffer (a collective at a world
+    > 1), other entries go to the host as they are; error-feedback
+    residuals are dropped (they restart at zero, as on the JAX
+    package).  ``gather(shard)`` overrides the all-gather."""
+    from horovod_tpu_torch.checkpoint import to_numpy
+
+    if isinstance(state, _DistributedOptimizer):
+        axis_name = state.axis_name if axis_name is None else axis_name
+        state = state.sharded_state()
+    gather = _default_gather(axis_name) if gather is None else gather
+    lens = {s for s in state.layout.shard if s > 0}
+
+    def g(v):
+        if isinstance(v, torch.Tensor):
+            if v.dim() == 1 and v.shape[0] in lens:
+                return to_numpy(gather(v))
+            return to_numpy(v)
+        return v
+
+    inner = [{k: g(v) for k, v in st.items()} for st in state.inner]
+    return HostShardedState(inner, state.layout, state.residual is not None)
+
+
+def sharded_state_from_host(host: HostShardedState, world: int | None = None,
+                            rank: int | None = None, axis_name=None
+                            ) -> ShardedState:
+    """Re-cut a :func:`sharded_state_to_host` form for ``world`` ranks
+    (default: the dp extent, else the world): each full buffer is trimmed
+    to its group's true size, re-padded to the new world and segment
+    ``rank`` taken (CPU tensors; :meth:`load_sharded_state` moves them).
+    Residuals restart at zero."""
+    from horovod_tpu_torch.checkpoint import from_numpy
+
+    st = _basics.state()
+    n = world if world is not None else _default_shard_world()
+    r = rank if rank is not None else (
+        _pmesh.shard_index(axis_name) if st.initialized else 0)
+    old = host.layout
+    totals = tuple(sum(sz) for sz in old.sizes)
+    padded = tuple(t + (-t) % n for t in totals)
+    new = ShardLayout(old.keys, old.idxs, old.sizes, padded,
+                      tuple(p // n for p in padded))
+
+    def cut(gi, v):
+        if not isinstance(v, (np.ndarray, dict)):
+            return v
+        t = from_numpy(v)
+        if not isinstance(t, torch.Tensor) or t.dim() != 1 \
+                or t.shape[0] != old.padded[gi]:
+            return t
+        buf = torch.zeros(new.padded[gi], dtype=t.dtype)
+        buf[:totals[gi]] = t[:totals[gi]]
+        return buf[r * new.shard[gi]:(r + 1) * new.shard[gi]].clone()
+
+    inner = [{k: cut(gi, v) for k, v in d.items()}
+             for gi, d in enumerate(host.inner)]
+    residual = None
+    if host.had_residual:
+        residual = [torch.zeros(new.padded[gi] if k.is_floating_point else 0,
+                                dtype=torch.float32)
+                    for gi, k in enumerate(new.keys)]
+    return ShardedState(inner, residual, new)
 
 
 # ---------------------------------------------------------------------------

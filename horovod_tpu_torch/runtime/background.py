@@ -29,8 +29,11 @@ seconds, and per response the wire bytes (what its transfers really
 sent, ``parallel.mesh.counting_sent``) and the logical bytes, with a
 ``dispatch`` B/E span on the flight ring.  ``HOROVOD_FAULT_SPEC``'s
 ``nan:``/``inf:`` rules poison payloads before dispatch
-(``runtime.faults.poison_entries``).  The autotuner, the timeline and
-the health taps wait for ROADMAP.md Queue A items 12d, 12g and 12h.
+(``runtime.faults.poison_entries``), where the executor's health tap
+sees them; under ``HOROVOD_HEALTH`` each round is marked once for the
+nonfinite alert's clear hysteresis (``health.note_wire_round``).  The
+timeline and the autotuner wait for ROADMAP.md Queue A items 12g and
+12h.
 """
 
 from __future__ import annotations
@@ -416,11 +419,17 @@ class BackgroundRuntime:
             entries.append(entry)
         from horovod_tpu_torch.runtime import faults as _faults
 
+        rnd = int(getattr(self.controller, "round", 0) or 0)
         if _faults.data_rules():
-            # nan:/inf: rules poison this rank's payload before dispatch
-            _faults.poison_entries(entries, self.rank,
-                                   int(getattr(self.controller, "round",
-                                               0) or 0))
+            # nan:/inf: rules poison this rank's payload before dispatch,
+            # so the executor's health tap sees the poison pre-reduction
+            _faults.poison_entries(entries, self.rank, rnd)
+        if _config.get("health"):
+            # a completed clean round counts once toward the nonfinite
+            # alert's clear hysteresis, whatever its responses
+            from horovod_tpu_torch.runtime import health as _health
+
+            _health.note_wire_round(rnd)
         inputs = [e.tensor for e in entries if e.tensor is not None]
 
         def work():

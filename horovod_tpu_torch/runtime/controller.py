@@ -87,13 +87,6 @@ _M_SWEEP_LAG = _metrics.gauge(
     "silently widening; shrink the ring (hierarchical control plane) "
     "or raise the interval.")
 
-# The JAX package's value for a knob the port does not read yet
-# (ROADMAP.md Queue A item 12): round0_cfg sends what the JAX package
-# sends with it unset, so a world of the two packages' controllers
-# agrees at round 0.
-CHECKPOINT_REPLICAS = 2
-
-
 @dataclass
 class Request:
     """One ready tensor (reference ``message.h:47-100``)."""
@@ -312,9 +305,17 @@ def _mode_code(mode: str, codes: dict) -> int:
 
 
 def _active_wire_modes() -> set:
+    """Every wire mode this rank's data plane can run: the uniform
+    ``HOROVOD_COMPRESSION`` knob plus any ``HOROVOD_BUCKET_COMPRESSION``
+    entries, and under ``HOROVOD_ADAPTIVE_COMPRESSION`` every lossy mode
+    (the JAX package's tuner may pick any later, and the block and ratio
+    knobs do not ride its proposals): the set that decides which
+    mode-scoped knobs the round-0 handshake checks."""
     modes = {str(_config.get("compression")).strip().lower() or "none"}
     spec = str(_config.get("bucket_compression")).strip().lower()
     modes.update(m.strip() for m in spec.split(":") if m.strip())
+    if _config.get("adaptive_compression"):
+        modes.update(("int8", "int4", "topk"))
     return modes
 
 
@@ -353,10 +354,11 @@ def round0_cfg(hb_interval: float | None = None,
     (``horovod_tpu/runtime/controller.py:round0_cfg``): every knob whose
     divergence across ranks would deadlock or corrupt the negotiated
     wire.  Each entry reads the port's knob where the port has it (the
-    heartbeat pair and the control fanout included, in ms and as is);
-    the elastic and checkpoint entries send the JAX package's values
-    for those knobs unset, and the refused adaptive and health knobs 0.
-    A controller passes its own liveness and fanout values."""
+    heartbeat pair and the control fanout included, in ms and as is;
+    the adaptive, health, skip and checkpoint-replica knobs included);
+    the elastic entry sends the JAX package's value for that knob unset
+    (it waits for ROADMAP.md Queue A item 12f).  A controller passes its
+    own liveness and fanout values."""
     cmodes = _active_wire_modes()
     qbs = (_config.get("quant_block_size")
            if cmodes & {"int8", "int4"} else 0)
@@ -387,15 +389,15 @@ def round0_cfg(hb_interval: float | None = None,
             int(_config.get("zero_prefetch_chunks")) if stage >= 2 else 0,
             topk_ppm,
             _bucket_modes_code(),
-            0,                                   # HOROVOD_ADAPTIVE_COMPRESSION
+            1 if _config.get("adaptive_compression") else 0,
             1 if _config.get("hierarchical_allreduce") else 0,
             1 if _config.get("hierarchical_allgather") else 0,
             int(_config.get("hierarchical_local_size")) if hier else 0,
             _mode_code(str(_config.get("ragged_allgather")).strip().lower(),
                        _RAGGED_WIRE_CODES),
-            0,                                   # HOROVOD_HEALTH
-            0,                                   # HOROVOD_HEALTH_SKIP_NONFINITE
-            CHECKPOINT_REPLICAS,
+            1 if _config.get("health") else 0,
+            1 if _config.get("health_skip_nonfinite") else 0,
+            max(int(_config.get("checkpoint_replicas") or 0), 0),
             *_local_sgd_codes(),
             _mesh_code(),
             int(control_fanout)]

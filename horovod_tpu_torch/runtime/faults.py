@@ -16,8 +16,9 @@ item 12f): :func:`parse_spec` parses it as the JAX package does, and
 every hook that would act on it (:func:`maybe_wrap`, :func:`data_rules`,
 :func:`check_spec` at ``init()``) raises ``NotImplementedError``, so it
 is never silently ignored.  ``nan:``/``inf:`` poison the eager wire's
-payloads here; their in-trace form (``traced_poison``) belongs to the
-health plane (item 12d).
+payloads (:func:`poison_entries`) and, in their round-less form, the
+in-trace optimizer's gradients under ``HOROVOD_HEALTH``
+(:func:`traced_poison`).
 
 Spec grammar (``HOROVOD_FAULT_SPEC``, comma-separated)::
 
@@ -477,3 +478,21 @@ def poison_entries(entries: list, rank: int, rnd: int) -> list:
                 f"{entry.name!r} at round {rnd}", rank=rank)
             break
     return entries
+
+
+def traced_poison(leaf, name: str, rank_index):
+    """In-trace poisoning hook (the DistributedOptimizer health tap):
+    returns ``leaf``, or a copy of it with element 0 set to NaN/Inf when
+    a ROUND-LESS nan/inf rule matches ``name`` (``grads.<dtype>``) and
+    its rank scope is ``rank_index`` (this rank's index over the
+    reduction's axis).  Round-scoped rules never apply here: no
+    negotiation round exists inside a step."""
+    rules = [r for r in data_rules()
+             if not r.round and fnmatch.fnmatch(name, r.pattern)
+             and (r.only_rank < 0 or r.only_rank == rank_index)]
+    if not rules or not leaf.numel():
+        return leaf
+    out = leaf.clone()  # keeps the layout (channels-last stays so)
+    for rule in rules:
+        out[(0,) * out.dim()] = _poison_value(rule.kind)
+    return out

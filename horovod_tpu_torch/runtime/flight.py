@@ -25,8 +25,9 @@ samples, writes one Perfetto/Chrome trace with a process per rank, and
 runs the straggler / critical-path analyzer.
 
 Import stays stdlib-only: the process meta reads ``common.basics``
-lazily.  The health plane's checkpoint event waits for its port
-(ROADMAP.md Queue A item 12d).
+lazily.  A dump records the goodput ledger's and the health monitor's
+checkpoint events first, and a failure dump writes their dumps beside
+the ring.
 """
 
 from __future__ import annotations
@@ -253,6 +254,25 @@ def dump(reason: str = "explicit", directory: str | None = None
                       for k, v in snap["phases"].items()})
     except Exception:
         pass
+    # Health checkpoint event beside the goodput one: the postmortem
+    # record carries the model-health verdict at dump time (nonfinite
+    # totals, active alerts), so the trace analyzer can answer "did it
+    # die BECAUSE it diverged".  Same sys.modules + signal-path rules as
+    # above (the monitor takes plain locks).
+    try:
+        _health = (None if _in_signal_handler
+                   else sys.modules.get("horovod_tpu_torch.runtime.health"))
+        if _health is not None and _health._monitor is not None:
+            hs = _health._monitor.snapshot()
+            if hs.get("nonfinite_events") or hs.get("alerts_total") \
+                    or hs.get("loss_observed"):
+                record("health", event="checkpoint", reason=reason,
+                       nonfinite_events=int(hs["nonfinite_events"]),
+                       skipped_steps=int(hs["skipped_steps"]),
+                       alerts_total=int(hs["alerts_total"]),
+                       active_alerts=list(hs["active_alerts"]))
+    except Exception:
+        pass
     record("dump", reason=reason)
     try:
         os.makedirs(d, exist_ok=True)
@@ -306,6 +326,15 @@ def dump_on_failure(reason: str, flush_metrics: bool = True) -> str | None:
                     else sys.modules.get("horovod_tpu_torch.perf.goodput"))
         if _goodput is not None:
             _goodput.dump(reason)
+    except Exception:
+        pass
+    # the health snapshot too: a diverged or NaN-poisoned run's verdict
+    # must survive the abort it probably caused
+    try:
+        _health = (None if _in_signal_handler
+                   else sys.modules.get("horovod_tpu_torch.runtime.health"))
+        if _health is not None and _health._monitor is not None:
+            _health.dump(reason)
     except Exception:
         pass
     if flush_metrics:

@@ -2169,6 +2169,17 @@ def observability_cards_main(device: str):
     run(device)
 
 
+def health_modes(mode: str):
+    """The health plane's and the checkpoint's worker modes
+    (``_torch_health_worker``)."""
+    import _torch_health_worker as W
+
+    return {"health": W.health_main, "health_culprit": W.culprit_main,
+            "checkpoint": W.checkpoint_main,
+            "health_cards": W.health_cards_main,
+            "health_cards_restore": W.health_cards_restore_main}[mode]
+
+
 if __name__ == "__main__":
     dev = sys.argv[1] if len(sys.argv) > 1 else "cpu"
     mode = sys.argv[2] if len(sys.argv) > 2 else "collectives"
@@ -2185,4 +2196,7 @@ if __name__ == "__main__":
      "eager_training": eager_training_main,
      "eager_training_cards": eager_training_cards_main,
      "eager_kill_cards": eager_kill_cards_main,
-     "observability_cards": observability_cards_main}[mode](dev)
+     "observability_cards": observability_cards_main,
+     **{m: lambda d, m=m: health_modes(m)(d)
+        for m in ("health", "health_culprit", "checkpoint",
+                  "health_cards", "health_cards_restore")}}[mode](dev)

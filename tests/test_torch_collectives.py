@@ -366,32 +366,27 @@ def test_unported_modes_raise(monkeypatch):
     w = torch.nn.Parameter(torch.zeros(2))
     from horovod_tpu_torch.optim import fused_update as TF
 
-    # knobs of features not ported yet raise instead of being ignored,
-    # from every collective entry and the optimizer (zero_stage=1..3,
-    # HOROVOD_OVERLAP, HOROVOD_BUCKET_COMPRESSION,
-    # HOROVOD_SHARDED_OPTIMIZER, HOROVOD_MESH and the hierarchical knobs
-    # are ported: tests/test_torch_zero.py, tests/test_torch_overlap.py,
-    # tests/test_torch_mesh.py and tests/test_torch_data_plane.py hold
-    # them against the JAX package)
-    for env, item in (("HOROVOD_ADAPTIVE_COMPRESSION", "item 12"),
-                      ("HOROVOD_HEALTH", "item 12"),
-                      ("HOROVOD_HEALTH_SKIP_NONFINITE", "item 12")):
+    # no knob of the JAX package is refused any more: the health plane
+    # and the adaptive guardrail's knobs, the last ones that raised, run
+    # from every collective entry and the optimizer
+    # (tests/test_torch_health.py holds them against the JAX package)
+    for env in ("HOROVOD_ADAPTIVE_COMPRESSION", "HOROVOD_HEALTH",
+                "HOROVOD_HEALTH_SKIP_NONFINITE"):
         monkeypatch.setenv(env, "1")
-        with pytest.raises(NotImplementedError, match=item):
+        for k in ("HOROVOD_SIZE", "HOROVOD_RANK"):
+            monkeypatch.delenv(k, raising=False)
+        hvd.init(device="cpu")
+        try:
             hvd.collectives.allreduce(x, compression=hvd.Compression.int8)
-        with pytest.raises(NotImplementedError, match=item):
             hvd.grouped_allreduce([x])
-        with pytest.raises(NotImplementedError, match=item):
             hvd.collectives.reducescatter(x)
-        with pytest.raises(NotImplementedError, match=item):
             hvd.collectives.allgather(x)
-        with pytest.raises(NotImplementedError, match=item):
             hvd.collectives.alltoall(x)
-        with pytest.raises(NotImplementedError, match=item):
             hvd.collectives.broadcast(x)
-        with pytest.raises(NotImplementedError, match=item):
             hvd.DistributedOptimizer(TF.sgd([w], 0.1),
                                      compression=hvd.Compression.int8)
+        finally:
+            hvd.shutdown()
         monkeypatch.delenv(env)
     # HOROVOD_MESH=dp:1 now runs: a one-rank data mesh, every entry
     # reducing over its dp axis

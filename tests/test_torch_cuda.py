@@ -1559,3 +1559,75 @@ def test_four_cards_observability_resnet50(tmp_path):
           + "; ".join(f"{s['rank']}: comm_exposed "
                       f"{s['phases'].get('comm_exposed', 0):.3f} s of "
                       f"{s['elapsed_s']:.3f} s" for s in rep["ranks"]))
+
+
+def test_four_cards_health_checkpoint_resnet50(tmp_path):
+    """The training-health plane and the checkpoint on four cards: the
+    bench ResNet-50 step (224 px, batch 256 per card, bf16, fused
+    momentum SGD) at eager stage 2 on the none wire, 6 steps with
+    ``HOROVOD_HEALTH`` off and 6 on, twice in alternation (the on/off
+    step ratio); then 8 steps under ``HOROVOD_HEALTH=1``,
+    ``HOROVOD_HEALTH_SKIP_NONFINITE=1`` and
+    ``nan@rank1:grad_buffer*:round3``, and 8 in-trace steps with
+    ``nan@rank1:grads*`` set for step 3 only: every rank's metrics name
+    rank 1 / float32, one step skipped on every rank, the weights finite
+    and the same on every rank.  Then an ``all_ranks`` save, a restore at
+    world 4 into fresh objects (bit for bit) and 2 steps; the host form
+    saved by rank 0 and restored in a world of 2 through
+    ``sharded_state_from_host``: the gathered trace equal to the saved
+    one bit for bit, and one step with a finite loss."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    import os
+    import statistics
+    import subprocess
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from _torch_collectives_worker import spawn
+
+    card = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    path = str(tmp_path / "ckpt")
+    outs = spawn(4, "cuda", timeout=900, mode="health_cards",
+                 env_extra={"HVD_TEST_CKPT": path})
+    for regime in ("eager", "intrace"):
+        digests = {o[regime]["digest"] for o in outs}
+        for o in outs:
+            r = o[regime]
+            assert r["nonfinite"] == [["1", "float32", 1.0]] or (
+                regime == "intrace" and r["nonfinite"]
+                and all(x[:2] == ["1", "float32"] for x in r["nonfinite"])
+            ), (regime, o["rank"], r["nonfinite"])
+            assert r["skipped"] == 1 and r["finite"], (regime, r)
+            assert all(math.isfinite(v) for v in r["losses"])
+        assert len(digests) == 1, (regime, digests)
+    for o in outs:
+        assert o["restored_equal"], o["rank"]
+        assert all(math.isfinite(v) for v in o["resumed_losses"])
+    med = {}
+    for flag in ("0", "1"):
+        med[flag] = [statistics.median(o[f"eager clean health={flag}"])
+                     for o in outs]
+    ratio = max(med["1"]) / max(med["0"])
+    print(f"[four cards] ResNet-50 eager stage 2, none wire: median step "
+          f"health off {min(med['0']):.4f}-{max(med['0']):.4f} s, on "
+          f"{min(med['1']):.4f}-{max(med['1']):.4f} s over ranks, ratio "
+          f"of the slowest ranks {ratio:.4f}; skip runs' steps (rank 0): "
+          f"eager "
+          f"{[round(t, 4) for t in outs[0]['eager']['times']]}, in-trace "
+          f"{[round(t, 4) for t in outs[0]['intrace']['times']]}; "
+          f"all_ranks save {[round(o['save_s'], 3) for o in outs]} s, "
+          f"restore {[round(o['restore_s'], 3) for o in outs]} s; on "
+          f"4 x {card.strip()}")
+    two = spawn(2, "cuda", timeout=600, mode="health_cards_restore",
+                env_extra={"HVD_TEST_CKPT": path})
+    want = outs[0]["full_trace_digest"]
+    for o in two:
+        assert o["saved_trace_digest"] == want
+        assert o["full_trace_digest"] == want, o["rank"]
+        assert math.isfinite(o["loss"])
+    print(f"[four cards] the world-4 stage-2 state re-cut for 2 ranks: "
+          f"gathered trace equal bit for bit; losses "
+          f"{[o['loss'] for o in two]}; on 2 x {card.strip()}")

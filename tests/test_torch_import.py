@@ -53,7 +53,7 @@ def test_no_jax_side_module_is_imported():
               "torch.compression", "runtime.flight", "runtime.metrics",
               "runtime.faults", "perf", "perf.goodput", "perf.__main__",
               "trace", "trace.merge", "trace.analyze", "trace.perfetto",
-              "trace.__main__"):
+              "trace.__main__", "runtime.health", "checkpoint"):
         assert f"horovod_tpu_torch.{m}" in res["modules"]
 
 

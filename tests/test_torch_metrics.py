@@ -235,13 +235,12 @@ def test_data_wait_and_wrap_data_loader_split_the_step():
 PORTED = ("runtime/controller.py", "runtime/background.py",
           "runtime/stall.py", "runtime/wire.py", "runtime/metrics.py",
           "ops/eager.py", "optim/distributed.py", "optim/fused_update.py",
-          "optim/local_sgd.py", "perf/goodput.py", "common/basics.py")
+          "optim/local_sgd.py", "perf/goodput.py", "common/basics.py",
+          "runtime/health.py", "checkpoint.py")
 
 #: Metrics those modules register that the port leaves out, each with
 #: the ROADMAP.md Queue A item that brings it.
-LEFT_OUT = {
-    "hvd_compression_residual_ratio": "12d (the residual-ratio guardrail)",
-}
+LEFT_OUT: dict = {}
 
 _KINDS = ("counter", "gauge", "histogram")
 
