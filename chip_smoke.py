@@ -297,6 +297,28 @@ Phases (any failure exits non-zero and prints no result line):
    with ``HOROVOD_ADAPTIVE_COMPRESSION=1`` and the overlap schedule, a
    finite ``hvd_compression_residual_ratio`` for each of 4 buckets.
 
+24. the elastic plane, every run launched by ``python -m
+   horovod_tpu_torch.run`` as a child (this script's hidden
+   ``--phase24-worker`` mode) on phase 6's ResNet-50 step with
+   deterministic cuDNN: (a) the port's native KV store builds into its
+   own library (``libhvdtorchkv_<hash>.so``), refuses a wrong secret,
+   and its set/get round trip over loopback (median of 1000, us); (b)
+   ``-np 1 --restart-attempts 1 --checkpoint-dir D``: attempt 0 commits
+   durably at steps 2 and 4, leaves a torn ``step_6`` staging dir and
+   SIGKILLs itself after step 5; the launcher restarts it with
+   ``HOROVOD_RESUME_STEP=4``; attempt 1's restored state equals the
+   step-4 snapshot and its step-8 parameters and trace equal an
+   uninterrupted 8-step launch's, bit for bit; the downtime and its
+   parts (respawn, ``init()``, restore, first step); (c) ``--elastic
+   -np 1`` committing durably every step, SIGTERM after step 3: the rank
+   drains at the agreed boundary with one emergency commit and exits 0,
+   the launcher classifies it ``preempted`` and returns 0; a second
+   launch on D resumes from that commit bit for bit; the drain time,
+   ``hvd_preempt_drain_seconds`` and the commit's wall time against
+   ``HOROVOD_PREEMPT_GRACE_SECONDS``.  Every launch holds one B1 and 53
+   of each of N1-N4 per step (the ``launches_restart`` and
+   ``launches_preempt`` keys of the kernels line).
+
 Then the run's wall time, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
 {...}}``.
@@ -6196,6 +6218,364 @@ def health_plane(hvd, torch, gpu: str, profile: str | None = None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The elastic plane (phase 24): the native KV store, restart from the last
+# complete checkpoint and the preemption drain, every run through
+# ``python -m horovod_tpu_torch.run`` on phase 6's ResNet-50 step
+# ---------------------------------------------------------------------------
+
+P24_STEPS = 8           # the uninterrupted and the restarted run
+P24_SAVES = (2, 4)      # attempt 0's durable commits
+P24_KILL = 5            # attempt 0 SIGKILLs itself after this step
+P24_NOTICE = 3          # the drain run SIGTERMs its rank after this step
+P24_RESUMED = 2         # steps the resumed drain run takes
+P24_KV_REPS = 1000
+P24_TAG = "phase24"
+
+
+def _p24_worker(mode: str, d: str) -> int:
+    """One rank of a phase-24 launch (``--phase24-worker MODE DIR``): the
+    ResNet-50 bench step with deterministic cuDNN.  ``restart``: an
+    attempt-0 run commits durably at ``P24_SAVES``, leaves a torn
+    ``step_6`` and SIGKILLs itself after step ``P24_KILL``; attempt 1
+    (``HOROVOD_RESUME_STEP``) restores that step and trains on to
+    ``P24_STEPS``.  ``plain``: ``P24_STEPS`` steps, no checkpoint.
+    ``drain``: elastic, a durable commit every step, SIGTERM after step
+    ``P24_NOTICE``.  ``resume``: elastic, restores the newest complete
+    commit and takes ``P24_RESUMED`` steps.  Prints one JSON line."""
+    t_proc = time.time()
+    import hashlib
+    import signal
+
+    import numpy as np
+    import torch
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import checkpoint as ckpt
+    from horovod_tpu_torch import elastic
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.ops import batch_norm as BN
+    from horovod_tpu_torch.ops import flash_attention as FA
+    from horovod_tpu_torch.ops import quantization as Q
+    from horovod_tpu_torch.optim import fused_update as TF
+    from horovod_tpu_torch.train_step import synthetic_batch, train_step
+
+    counters = (TF, FA, Q, BN)
+    out = {"mode": mode, "t_proc": t_proc,
+           "attempt": os.environ.get("HOROVOD_RESTART_ATTEMPT"),
+           "import_s": time.time() - t_proc}
+    t0 = time.time()
+    hvd.init()
+    out["init_s"] = time.time() - t0
+    t0 = time.time()
+    model = ResNet50(num_classes=1000, dtype=torch.bfloat16, seed=0)
+    opt = hvd.DistributedOptimizer(
+        hvd.fused_update.sgd(model.parameters(), 0.1, momentum=0.9))
+    images, labels = synthetic_batch(BATCH, 224, 1000, seed=0)
+    torch.cuda.synchronize()
+    out["build_s"] = time.time() - t0
+    state = elastic.ElasticState(
+        params=model, opt_state=opt,
+        checkpoint_dir=None if mode == "plain" else d)
+
+    def same_as(snap) -> bool:
+        now = {"params": elastic._params_to_host(model),
+               "opt_state": elastic._opt_to_host(opt)}
+
+        def eq(a, b):
+            # a snapshot read back from disk holds CPU tensors
+            a, b = (ckpt.to_numpy(x) if torch.is_tensor(x) else x
+                    for x in (a, b))
+            if isinstance(a, dict) and isinstance(b, dict):
+                return a.keys() == b.keys() and all(eq(a[k], b[k])
+                                                    for k in a)
+            if isinstance(a, (list, tuple)):
+                return len(a) == len(b) and all(map(eq, a, b))
+            if isinstance(a, np.ndarray):
+                return a.dtype == b.dtype and np.array_equal(a, b)
+            return a == b
+        return eq(now["params"], snap["params"]) and \
+            eq(now["opt_state"], snap["opt_state"])
+
+    def digest() -> str:
+        h = hashlib.sha256()
+        for v in model.state_dict().values():
+            h.update(v.detach().float().cpu().numpy().tobytes())
+        for st in opt.optimizer.state.values():
+            for k in sorted(st):
+                if torch.is_tensor(st[k]):
+                    h.update(st[k].float().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    resume = os.environ.get("HOROVOD_RESUME_STEP")
+    if mode == "restart" and resume is not None:
+        t0 = time.time()
+        snap = ckpt.restore(d, step=int(resume))
+        state.load(snap)
+        torch.cuda.synchronize()
+        out["restore_s"] = time.time() - t0
+        out["restored_equal"] = same_as(snap)
+        out["resumed_at"] = state.step
+    if mode == "resume":
+        t0 = time.time()
+        step = ckpt.latest_complete(d)
+        snap = ckpt.restore(d, step=step)
+        state.load(snap)
+        torch.cuda.synchronize()
+        out["restore_s"] = time.time() - t0
+        out["restored_equal"] = same_as(snap)
+        out["resumed_at"] = state.step
+        out["commit_step"] = int(snap["step"])
+    total = {"restart": P24_STEPS, "plain": P24_STEPS,
+             "drain": P24_STEPS,
+             "resume": state.step + P24_RESUMED}[mode]
+    losses, step_end, step_s = [], [], []
+    for m in counters:
+        m.reset_launch_counts()
+
+    def one_step() -> None:
+        t = time.time()
+        loss = train_step(model, opt, images, labels)
+        torch.cuda.synchronize()
+        state.step += 1
+        losses.append(float(loss))
+        step_end.append(time.time())
+        step_s.append(step_end[-1] - t)
+
+    def report(**extra) -> None:
+        out.update(extra)
+        out.update({"steps": len(losses), "losses": losses,
+                    "step_end": step_end, "step_s": step_s,
+                    "final_step": state.step,
+                    # every kernel's count, the off-path ones counted too
+                    "launches": {k: v for m in counters
+                                 for k, v in m.LAUNCHES.items()}})
+        print(json.dumps({P24_TAG: out}), flush=True)
+
+    if mode in ("restart", "plain"):
+        while state.step < total:
+            one_step()
+            if mode == "restart" and resume is None:
+                if state.step in P24_SAVES:
+                    state.commit()
+                if state.step == P24_KILL:
+                    torn = os.path.join(d, f"step_6.tmp.{os.getpid()}")
+                    os.makedirs(torn, exist_ok=True)
+                    with open(os.path.join(torn, "tree.pkl"), "wb") as f:
+                        f.write(b"torn")
+                    report(digest=digest(), t_kill=time.time())
+                    os.kill(os.getpid(), signal.SIGKILL)
+        report(digest=digest())
+        hvd.shutdown()
+        return 0
+
+    def train(state):
+        while state.step < total:
+            state.commit()
+            elastic.poll()
+            one_step()
+            if mode == "drain" and state.step == P24_NOTICE:
+                out["t_notice"] = time.time()
+                os.kill(os.getpid(), signal.SIGTERM)
+        state.commit()
+        return state
+
+    try:
+        elastic.run(state, train)
+    except SystemExit:
+        snap = hvd.metrics()["metrics"].get("hvd_preempt_drain_seconds", {})
+        series = (snap.get("series") or [{}])[0]
+        report(t_exit=time.time(), commit_s=state.last_commit_s,
+               drain_metric_s=series.get("sum"),
+               drain_commit_step=state.step, digest=digest())
+        raise
+    report(digest=digest())
+    hvd.shutdown()
+    return 0
+
+
+def _p24_launch(args: list, mode: str, d: str, timeout: float = 300,
+                **env_extra) -> tuple:
+    """Run ``python -m horovod_tpu_torch.run ARGS -- python chip_smoke.py
+    --phase24-worker MODE D``; its exit code, its workers' JSON records
+    in order, and its stderr."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env.update({"PYTHONPATH": root + os.pathsep + env.get("PYTHONPATH", ""),
+                "HOROVOD_FUSED_UPDATE": "1",
+                "HOROVOD_CHECKPOINT_KEEP": "2",
+                "HOROVOD_METRICS_PUBLISH_INTERVAL": "0"})
+    env.update(env_extra)
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.run", *args, "--",
+           sys.executable, os.path.abspath(__file__), "--phase24-worker",
+           mode, d]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=timeout, cwd=root)
+    recs = []
+    for ln in proc.stdout.splitlines():
+        _, _, rest = ln.partition(">:")
+        if rest.startswith("{") and P24_TAG in rest:
+            recs.append(json.loads(rest)[P24_TAG])
+    log(f"[elastic] {' '.join(args)} ({mode}): rc {proc.returncode}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    return proc.returncode, recs, proc.stderr
+
+
+def _p24_counts(rec: dict, what: str) -> dict:
+    """One B1 and RESNET50_BN of each of N1-N4 per step of a launch, and
+    no launch of any other kernel; every count as the launch counted it."""
+    n, got = rec["steps"], rec["launches"]
+    want = {k: 0 for k in got}
+    want.update({"momentum": n, **dict.fromkeys(BN_KERNELS,
+                                                RESNET50_BN * n)})
+    if got != want:
+        raise AssertionError(f"[elastic] {what}: {n} steps launched "
+                             f"{got}, want {want}")
+    return {"steps": n, **got}
+
+
+def kv_store_phase(gpu: str) -> dict:
+    """24a: the port's KV store builds (its own library), refuses a
+    wrong secret, and its set/get round trip over loopback."""
+    from horovod_tpu_torch import _build
+    from horovod_tpu_torch.runtime import kvstore
+
+    t0 = time.perf_counter()
+    path = kvstore.library_path()
+    info = _build.build_info[kvstore.LIB_NAME]
+    if "libhvdtorchkv_" not in os.path.basename(path):
+        raise AssertionError(f"[kv] the KV store loaded {path}")
+    log(f"[kv] built {path} in {info['seconds']:.1f} s "
+        f"(g++ log: {info['log'].strip() or 'reused'})")
+    srv = kvstore.KVStoreServer(secret=b"phase24-secret")
+    try:
+        try:
+            kvstore.KVStoreClient("127.0.0.1", srv.port,
+                                  connect_timeout_s=2, secret=b"wrong")
+        except OSError as exc:
+            log(f"[kv] a wrong secret is refused: {exc}")
+        else:
+            raise AssertionError("[kv] a wrong secret was accepted")
+        c = kvstore.KVStoreClient("127.0.0.1", srv.port,
+                                  secret=b"phase24-secret")
+        us = []
+        for i in range(P24_KV_REPS):
+            t = time.perf_counter()
+            c.set("rt", str(i))
+            got = c.try_get("rt")
+            us.append((time.perf_counter() - t) * 1e6)
+            if got != str(i):
+                raise AssertionError(f"[kv] read {got!r} after set {i}")
+        c.close()
+    finally:
+        srv.stop()
+    med = statistics.median(us)
+    log(f"[kv] set+get round trip over loopback: median {med:.1f} us of "
+        f"{P24_KV_REPS} (p90 {sorted(us)[int(0.9 * len(us))]:.1f} us), "
+        f"host of {gpu}; phase 24a {time.perf_counter() - t0:.1f} s")
+    return {"roundtrip_us": med, "library": os.path.basename(path)}
+
+
+def elastic_plane(gpu: str, work: str) -> dict:
+    """Phase 24: the KV store (a), a restart from the last complete
+    checkpoint against an uninterrupted launch (b), a preemption drain
+    and its resume (c), every run launched by the port's launcher."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    out = {"a": kv_store_phase(gpu)}
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    # 24b: restart from the last complete checkpoint
+    d = os.path.join(work, "restart")
+    rc, recs, err = _p24_launch(
+        ["-np", "1", "--restart-attempts", "1", "--checkpoint-dir", d],
+        "restart", d)
+    if rc != 0 or len(recs) != 2:
+        raise AssertionError(f"[elastic] restart launch rc {rc}, "
+                             f"{len(recs)} records:\n{err[-4000:]}")
+    if "resuming from complete checkpoint step 4" not in err:
+        raise AssertionError(f"[elastic] no resume from step 4:\n"
+                             f"{err[-3000:]}")
+    a0, a1 = recs
+    if a1["resumed_at"] != P24_SAVES[-1] or not a1["restored_equal"]:
+        raise AssertionError(f"[elastic] attempt 1 resumed at "
+                             f"{a1['resumed_at']}, restored state equal to"
+                             f" the step-4 snapshot: "
+                             f"{a1['restored_equal']}")
+    rc, plain, err = _p24_launch(["-np", "1"], "plain", d + "_plain")
+    if rc != 0 or len(plain) != 1:
+        raise AssertionError(f"[elastic] uninterrupted launch rc {rc}:\n"
+                             f"{err[-3000:]}")
+    plain = plain[0]
+    same = a1["digest"] == plain["digest"]
+    if not same:
+        raise AssertionError(
+            f"[elastic] the resumed step-{P24_STEPS} state (sha256 "
+            f"{a1['digest']}) differs from the uninterrupted launch's "
+            f"({plain['digest']}); losses {a1['losses']} against "
+            f"{plain['losses'][P24_SAVES[-1]:]}")
+    if a1["losses"] != plain["losses"][P24_SAVES[-1]:]:
+        raise AssertionError("[elastic] resumed losses differ")
+    last = a0["step_end"][-1]
+    first = a1["step_end"][0]
+    parts = {"respawn_s": a1["t_proc"] - a0["t_kill"],
+             "import_s": a1["import_s"], "init_s": a1["init_s"],
+             "build_s": a1["build_s"], "restore_s": a1["restore_s"],
+             "first_step_s": a1["step_s"][0]}
+    parts["other_s"] = (first - last) - sum(parts.values())
+    out["b"] = {"downtime_s": first - last, **parts,
+                "launches": {"attempt0": _p24_counts(a0, "attempt 0"),
+                             "attempt1": _p24_counts(a1, "attempt 1"),
+                             "plain": _p24_counts(plain, "uninterrupted")},
+                "bit_for_bit": same}
+    log(f"[elastic] 24b: step-{P24_STEPS} parameters and trace bit for bit"
+        f" with the uninterrupted launch; downtime (step {P24_KILL} end to "
+        f"the resumed step {P24_KILL} end) {first - last:.3f} s: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in parts.items())
+        + f"; on {gpu}")
+    # 24c: the preemption drain, then the resume on the same directory
+    d = os.path.join(work, "drain")
+    grace = float(os.environ.get("HOROVOD_PREEMPT_GRACE_SECONDS") or 30)
+    rc, recs, err = _p24_launch(["-np", "1", "--elastic"], "drain", d)
+    if rc != 0 or len(recs) != 1:
+        raise AssertionError(f"[elastic] drain launch rc {rc}:\n"
+                             f"{err[-4000:]}")
+    if "exited after graceful preemption drain (rc=0)" not in err:
+        raise AssertionError(f"[elastic] the drained rank was not "
+                             f"classified preempted:\n{err[-3000:]}")
+    dr = recs[0]
+    rc, recs, err = _p24_launch(["-np", "1", "--elastic"], "resume", d)
+    if rc != 0 or len(recs) != 1:
+        raise AssertionError(f"[elastic] resume launch rc {rc}:\n"
+                             f"{err[-4000:]}")
+    rs = recs[0]
+    if not rs["restored_equal"] or rs["commit_step"] != \
+            dr["drain_commit_step"] or rs["resumed_at"] != rs["commit_step"]:
+        raise AssertionError(f"[elastic] resume: {rs}, drain: {dr}")
+    drain_s = dr["t_exit"] - dr["t_notice"]
+    out["c"] = {"drain_s": drain_s, "metric_s": dr["drain_metric_s"],
+                "commit_s": dr["commit_s"], "grace_s": grace,
+                "commit_step": dr["drain_commit_step"],
+                "launches": {"drain": _p24_counts(dr, "drain"),
+                             "resume": _p24_counts(rs, "resume")}}
+    if drain_s > grace:
+        raise AssertionError(f"[elastic] drain {drain_s:.1f} s past the "
+                             f"{grace:.0f} s grace")
+    log(f"[elastic] 24c: SIGTERM after step {P24_NOTICE}, drained at the "
+        f"commit of step {dr['drain_commit_step']}; notice to exit "
+        f"{drain_s:.3f} s, hvd_preempt_drain_seconds "
+        f"{dr['drain_metric_s']:.3f} s, emergency commit {dr['commit_s']:.3f}"
+        f" s, against HOROVOD_PREEMPT_GRACE_SECONDS={grace:.0f}; resumed at "
+        f"step {rs['resumed_at']} bit for bit; on {gpu}")
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"[elastic] phase 24 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def run(args) -> int:
     t_start = time.perf_counter()
     card = pin_one_card()
@@ -6311,6 +6691,16 @@ def run(args) -> int:
     torch.cuda.empty_cache()
     health = health_plane(hvd, torch, gpu, args.profile)
     hvd.shutdown()
+    torch.cuda.empty_cache()
+    el = elastic_plane(gpu, os.path.join(_build.BUILD_DIR, "phase24"))
+
+    def p24(name: str) -> dict:
+        """A kernel's launches in phase 24's runs, as each run counted
+        them."""
+        return {"launches_restart": {k: c[name] for k, c in
+                                     el["b"]["launches"].items()},
+                "launches_preempt": {k: c[name] for k, c in
+                                     el["c"]["launches"].items()}}
 
     launches = {**path["launches"], **lm["launches"],
                 "sgd": sgd["launches"]["sgd"]}
@@ -6320,6 +6710,7 @@ def run(args) -> int:
         n_el = sum(math.prod(s) for s in shapes[kind])
         model = "transformer" if kind == "adam" else "ResNet-50"
         kernels.append({
+            **p24(kind),
             "name": f"fused_update.{kind}",
             "route": "cuda",
             "source": "horovod_tpu_torch/csrc/fused_update.cu",
@@ -6392,6 +6783,7 @@ def run(args) -> int:
     for name in FLASH:
         t, tl = timings[name], long_times[name]
         kernels.append({
+            **p24(name),
             "name": f"flash_attention.{name}",
             "route": "cuda",
             "source": "horovod_tpu_torch/csrc/flash_attention.cu",
@@ -6443,6 +6835,7 @@ def run(args) -> int:
     for kind in CODECS:
         t, tl = (codec_times[kind][k] for k in CODEC_BUFFERS)
         kernels.append({
+            **p24(kind),
             "name": f"quantization.{kind}",
             "route": "cuda",
             "source": "horovod_tpu_torch/csrc/quantization.cu",
@@ -6487,6 +6880,7 @@ def run(args) -> int:
         t, ti = (bn_times[name][k] for k in BN_TIMED)
         e = bn_errs[name]
         kernels.append({
+            **p24(name),
             "name": f"batch_norm.{name}",
             "route": "cuda",
             "source": "horovod_tpu_torch/csrc/batch_norm.cu",
@@ -6536,6 +6930,10 @@ def run(args) -> int:
     log(f"[obs] phase 22a: observed/bare median step ratio "
         f"{obs['a']['ratio']:.4f} ({obs['a']['median_s']['observed']:.4f} "
         f"against {obs['a']['median_s']['bare']:.4f} s) on {gpu}")
+    log(f"[elastic] phase 24: KV round trip {el['a']['roundtrip_us']:.1f} "
+        f"us; restart downtime {el['b']['downtime_s']:.3f} s; drain "
+        f"{el['c']['drain_s']:.3f} s (grace {el['c']['grace_s']:.0f} s); "
+        f"on {gpu}")
     log(f"[done] wall time {time.perf_counter() - t_start:.1f} s; CNN paths "
         + "; ".join(f"{n}: median step {r['median_s']:.4f} s, "
                     f"{CNN[n][1] / r['median_s']:.1f} img/s, peak "
@@ -6554,7 +6952,11 @@ def main() -> int:
                     help="also profile a few steps of each path; write the "
                          "profiler's tables to FILE, FILE_vgg16, "
                          "FILE_inception3, FILE_transformer and FILE_long")
+    ap.add_argument("--phase24-worker", nargs=2, metavar=("MODE", "DIR"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.phase24_worker:
+        return _p24_worker(*args.phase24_worker)
     try:
         return run(args)
     except Exception:

@@ -26,6 +26,11 @@ feeds its sentinels); ``python -m horovod_tpu_torch.trace`` and
 ``python -m horovod_tpu_torch.perf goodput|health`` read the dumps.
 ``hvd.checkpoint`` saves, restores and resyncs training state.
 
+Fault tolerance: ``python -m horovod_tpu_torch.run`` is the launcher
+(``hvdrun``: ``--restart-attempts``, ``--elastic``, ``--preempt``);
+``hvd.elastic`` is the survivor-continue driver (``ElasticState``,
+``hvd.elastic.run``) with the graceful-preemption plane under it.
+
 Importing the package builds nothing and touches no device.
 """
 
@@ -64,3 +69,6 @@ from horovod_tpu_torch.runtime.flight import (  # noqa: F401
     dump as dump_flight_recorder)
 from horovod_tpu_torch.runtime import health  # noqa: F401
 from horovod_tpu_torch import checkpoint  # noqa: F401
+from horovod_tpu_torch import elastic  # noqa: F401
+
+__version__ = "0.1.0"

@@ -10,7 +10,10 @@ raises: there is no fallback.
 
 :func:`load_host_extension` builds a host C++ source the same way with
 ``g++`` against the running interpreter's headers (a CPython extension,
-such as the negotiation wire's codec ``csrc/wire.cc``) and imports it.
+such as the negotiation wire's codec ``csrc/wire.cc``) and imports it;
+:func:`load_host_library` builds a host C++ source with a plain C
+interface (the KV store, ``csrc/kvstore.cc``) and loads it with
+:mod:`ctypes`.
 """
 
 from __future__ import annotations
@@ -98,7 +101,42 @@ def load(name: str) -> ctypes.CDLL:
 
 
 HOST_FLAGS = ("-O2", "-fPIC", "-shared", "-std=c++17")
+LIB_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-pthread", "-shared")
 _modules: dict = {}
+
+
+def _gxx(name: str, out: str, args: list) -> dict:
+    """Build ``out`` with ``g++ ARGS -o <tmp>`` unless it exists, under
+    ``name``'s file lock; the build's wall time, its output and ``out``.
+    A failed build raises."""
+    info = {"seconds": 0.0, "log": "", "path": out}
+    if os.path.exists(out):
+        return info
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, f"{name}.lock"), "w") as lockf:
+        fcntl.flock(lockf, fcntl.LOCK_EX)
+        try:
+            if os.path.exists(out):  # another rank built it meanwhile
+                return info
+            tmp = f"{out}.{os.getpid()}.tmp"
+            cmd = ["g++", *args, "-o", tmp]
+            t0 = time.monotonic()
+            try:
+                proc = subprocess.run(cmd, capture_output=True, text=True)
+            except OSError as exc:
+                raise HorovodTpuError(
+                    f"g++ could not run to build {name}: {exc}") from exc
+            if proc.returncode != 0:
+                raise HorovodTpuError(
+                    f"g++ failed building {name} (rc={proc.returncode}):"
+                    f"\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+            os.replace(tmp, out)
+            return {"seconds": time.monotonic() - t0,
+                    "log": f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+                           f"built {out}\n",
+                    "path": out}
+        finally:
+            fcntl.flock(lockf, fcntl.LOCK_UN)
 
 
 def load_host_extension(mod_name: str, source: str):
@@ -118,27 +156,32 @@ def load_host_extension(mod_name: str, source: str):
                              + include.encode() + suffix.encode()
                              ).hexdigest()
     out = os.path.join(BUILD_DIR, f"{mod_name}_{key[:16]}{suffix}")
-    if not os.path.exists(out):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        with open(os.path.join(BUILD_DIR, f"{mod_name}.lock"), "w") as lockf:
-            fcntl.flock(lockf, fcntl.LOCK_EX)
-            try:
-                if not os.path.exists(out):
-                    tmp = f"{out}.{os.getpid()}.tmp"
-                    cmd = ["g++", *HOST_FLAGS, f"-I{include}", src_path,
-                           "-o", tmp]
-                    proc = subprocess.run(cmd, capture_output=True,
-                                          text=True)
-                    if proc.returncode != 0:
-                        raise HorovodTpuError(
-                            f"g++ failed building {mod_name} "
-                            f"(rc={proc.returncode}):\n{' '.join(cmd)}\n"
-                            f"{proc.stdout}{proc.stderr}")
-                    os.replace(tmp, out)
-            finally:
-                fcntl.flock(lockf, fcntl.LOCK_UN)
+    _gxx(mod_name, out, [*HOST_FLAGS, f"-I{include}", src_path])
     spec = importlib.util.spec_from_file_location(mod_name, out)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     with _lock:
         return _modules.setdefault(mod_name, mod)
+
+
+def load_host_library(lib_name: str, source: str) -> ctypes.CDLL:
+    """The ctypes library ``lib<lib_name>_<hash>.so`` built from
+    ``csrc/<source>`` with ``g++`` (at first use, into :data:`BUILD_DIR`
+    keyed by a hash of the source and the flags, under the same file lock
+    as the kernels) and loaded.  :data:`build_info` records the build's
+    wall time, its output and the library's path.  A failed build
+    raises."""
+    with _lock:
+        lib = _libs.get(lib_name)
+    if lib is not None:
+        return lib
+    src_path = os.path.join(CSRC, source)
+    with open(src_path, "rb") as f:
+        key = hashlib.sha256(f.read() + " ".join(LIB_FLAGS).encode()
+                             ).hexdigest()
+    out = os.path.join(BUILD_DIR, f"lib{lib_name}_{key[:16]}.so")
+    info = _gxx(lib_name, out, [*LIB_FLAGS, src_path])
+    with _lock:
+        if info["seconds"] or lib_name not in build_info:
+            build_info[lib_name] = info
+        return _libs.setdefault(lib_name, ctypes.CDLL(out))

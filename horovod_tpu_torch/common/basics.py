@@ -2,8 +2,9 @@
 
 Reads the launcher's env contract (``HOROVOD_RANK/SIZE/LOCAL_RANK/
 LOCAL_SIZE/CROSS_RANK/CROSS_SIZE/COORDINATOR_ADDR``, exported by
-``horovod_tpu/run/launcher.py``), so the JAX package's launcher spawns
-ranks of this package unchanged.  With no env the world is one process.
+``python -m horovod_tpu_torch.run``; the JAX package's launcher spawns
+ranks of this package unchanged), else a pod orchestrator's
+(``run/pod.py``).  With no env the world is one process.
 The process group is started at every size -- ``nccl`` on CUDA, ``gloo``
 on the CPU -- so a one-process run takes the same collective path as a
 larger one.
@@ -13,6 +14,11 @@ builds its process groups once, on every rank in the same order
 (``parallel/mesh.py``), and the gradient collectives reduce over its dp
 axis.  At world > 1 ``init`` also starts the eager plane's background
 runtime (negotiation and heartbeats), as the JAX package does.
+
+:func:`teardown_distributed` is the bounded teardown an elastic re-form
+runs before it calls ``init`` again (``elastic.py``); on NCCL it aborts
+the communicators first, since a group with a dead member can hang a
+plain destroy.
 
 ``init`` and ``shutdown`` carry the observability hooks of the JAX
 package's: the goodput ledger's start and ``init`` phase, the
@@ -55,7 +61,14 @@ class _State:
         self.eager_pair = None  # its (cross, local) pair, or None
         self.background = None  # runtime.background.BackgroundRuntime
         self.metrics_server = None     # per-rank /metrics endpoint
-        self.metrics_publisher = None  # KV snapshot publisher (12f)
+        self.metrics_publisher = None  # KV snapshot publisher
+        # the card of the process's first init(): a re-init (an elastic
+        # re-form) keeps it, whatever local rank the new roster gives
+        # this process -- its tensors and its card stay together
+        self.first_device = None
+        # a peer of this generation is known dead (a liveness sweep
+        # raised RanksDownError): shutdown() then meets no barrier
+        self.peer_down = False
 
 
 _state = _State()
@@ -70,13 +83,55 @@ def _env_int(name: str, default: int) -> int:
     return int(raw) if raw.strip() else default
 
 
+def _platform_device():
+    """``cpu`` when ``HOROVOD_PLATFORM`` asks for the CPU, else None
+    (the default device, ``cuda``)."""
+    plat = str(_config.get("platform") or "").strip().lower()
+    return "cpu" if plat == "cpu" else None
+
+
+def _apply_pod_env() -> None:
+    """Without a launcher's ``HOROVOD_SIZE``/``HOROVOD_RANK``, take the
+    world from a pod orchestrator's environment (``run/pod.detect``),
+    exported as the launcher would.  Multislice (megascale) discovery
+    needs a cluster resolver ``torch.distributed`` does not have, and
+    raises."""
+    if "HOROVOD_SIZE" in os.environ or "HOROVOD_RANK" in os.environ:
+        return
+    from horovod_tpu_torch.run import pod as _pod
+
+    info = _pod.detect()
+    if info is None:
+        return
+    if info.auto:
+        found = sorted(k for k in os.environ if k.startswith("MEGASCALE_"))
+        raise HorovodTpuError(
+            f"pod metadata ({info.source}: {', '.join(found)}) asks for "
+            "multislice cluster resolution, which torch.distributed does "
+            "not have; launch with python -m horovod_tpu_torch.run or "
+            "export HOROVOD_RANK/SIZE/COORDINATOR_ADDR")
+    if info.size > 1:
+        os.environ.setdefault("HOROVOD_COORDINATOR_ADDR", info.coordinator)
+        os.environ["HOROVOD_RANK"] = str(info.rank)
+        os.environ["HOROVOD_SIZE"] = str(info.size)
+        _log.info(f"pod metadata ({info.source}): rank={info.rank} "
+                  f"size={info.size}", rank=info.rank)
+
+
 def init(device=None, timeout_s: float = 300.0, mesh=None) -> None:
     """Initialize the world.  ``device`` is where this rank computes:
     ``cuda`` (the default; local rank ``i`` takes card ``i``) or
-    ``cpu``.  ``mesh`` names the data mesh: a spec string
-    (``'dp:4,tp:2'``), an axis dict, or a mesh object whose axis names
-    come from ``parallel.mesh.AXES`` and include ``dp`` (a torch
-    ``DeviceMesh`` or a ``parallel.mesh.RankMesh``); it is exported as
+    ``cpu`` (also chosen by ``HOROVOD_PLATFORM=cpu``).  A re-init keeps
+    the card of the process's first ``init``.  The process group's
+    timeout is at least three heartbeat timeouts, so NCCL's watchdog
+    never tears a survivor down before the heartbeat's verdict; in
+    elastic mode on gloo it is ``max(3 heartbeat timeouts, 30 s)``: gloo
+    has no abort, and the op timeout is what releases a survivor that
+    waits on a peer which already left for a re-form.  ``mesh`` names
+    the data mesh: a spec string (``'dp:4,tp:2'``), an axis dict, or a
+    mesh object whose axis names come from ``parallel.mesh.AXES`` and
+    include ``dp`` (a torch ``DeviceMesh`` or a
+    ``parallel.mesh.RankMesh``); it is exported as
     ``HOROVOD_MESH`` and must agree with a ``HOROVOD_MESH`` already set.
     Idempotent until :func:`shutdown`."""
     with _state.lock:
@@ -93,11 +148,16 @@ def init(device=None, timeout_s: float = 300.0, mesh=None) -> None:
             _goodput = None
         from horovod_tpu_torch.runtime import faults as _faults
 
-        # a malformed HOROVOD_FAULT_SPEC, or its unported preempt: rule,
-        # fails before any group exists, at every world size
+        # a malformed HOROVOD_FAULT_SPEC fails before any group exists,
+        # at every world size
         _faults.check_spec()
         _apply_mesh_arg(mesh)
-        dev = resolve_device(device)
+        _apply_pod_env()
+        if device is None and _state.first_device is not None:
+            dev = _state.first_device
+        else:
+            dev = resolve_device(device if device is not None
+                                 else _platform_device())
         size = _env_int("HOROVOD_SIZE", 1)
         rank = _env_int("HOROVOD_RANK", 0)
         if not 0 <= rank < size:
@@ -121,15 +181,24 @@ def init(device=None, timeout_s: float = 300.0, mesh=None) -> None:
             backend = "nccl"
         else:
             backend = "gloo"
+        hb_timeout = float(_config.get("heartbeat_timeout") or 0)
+        pg_timeout = max(timeout_s, 3 * hb_timeout)
+        if backend == "gloo" and _config.get("elastic"):
+            # gloo has no abort that frees a rank's own pending op: a
+            # survivor waiting on a live peer that already left the
+            # collective for a re-form is released by the op timeout
+            pg_timeout = max(3 * hb_timeout, 30.0)
         if not dist.is_initialized():
             dist.init_process_group(
                 backend, init_method=f"tcp://{coord}", world_size=size,
-                rank=rank, timeout=timedelta(seconds=timeout_s))
+                rank=rank, timeout=timedelta(seconds=pg_timeout))
         _state.rank, _state.size = rank, size
         _state.local_rank, _state.local_size = local_rank, local_size
         _state.cross_rank = _env_int("HOROVOD_CROSS_RANK", 0)
         _state.cross_size = _env_int("HOROVOD_CROSS_SIZE", 1)
         _state.device = dev
+        if _state.first_device is None and dev.type == "cuda":
+            _state.first_device = dev
         _state.epoch += 1
         _state.initialized = True
         _build_eager_groups()
@@ -313,10 +382,12 @@ def shutdown() -> None:
                 _health.dump("shutdown")
         except Exception:  # noqa: BLE001 -- advisory
             pass
+        peer_down = _state.peer_down
         if _state.background is not None:
             bg, _state.background = _state.background, None
             bg.stop()
-            if _state.size > 1 and not bg.aborted():
+            peer_down = peer_down or bg.aborted()
+            if _state.size > 1 and not peer_down:
                 # no rank tears down the store while a peer still reads
                 # the shutdown round from it (after a coordinated abort
                 # a peer is dead: nobody would meet this barrier)
@@ -328,10 +399,60 @@ def shutdown() -> None:
             _state.metrics_publisher.stop()
             _state.metrics_publisher = None
         if dist.is_initialized():
-            dist.destroy_process_group()
+            if peer_down:
+                teardown_distributed()
+            else:
+                dist.destroy_process_group()
         _state.data_mesh = _state.data_axes = None
         _state.eager_hop = _state.eager_pair = None
+        _state.peer_down = False
         _state.initialized = False
+
+
+def abort_communicators() -> None:
+    """Abort every NCCL communicator of this generation (the coordinated
+    abort's data-plane half): a collective still waiting on a dead peer
+    fails instead of hanging, and the process groups are gone.  Gloo
+    needs nothing: a dead peer resets its connections.  Safe to call
+    from the background thread."""
+    if not dist.is_initialized() or dist.get_backend() != "nccl":
+        return
+    from torch.distributed import distributed_c10d as c10d
+
+    try:
+        # every group of the world, in one NCCL group call, and torch's
+        # registry cleared (a later init_process_group starts afresh)
+        c10d._abort_process_group()
+        _log.warning("aborted every NCCL communicator of generation "
+                     f"{_state.epoch} (_abort_process_group)",
+                     rank=_state.rank)
+    except Exception as exc:  # noqa: BLE001 -- best effort, dying world
+        _log.warning(f"NCCL abort failed: {exc!r}", rank=_state.rank)
+
+
+def teardown_distributed(timeout_s: float | None = None) -> bool:
+    """Destroy every process group (the default group, the eager plane's
+    and the data mesh's), bounded by ``HOROVOD_SHUTDOWN_TIMEOUT_SECONDS``:
+    on NCCL through the communicators' abort (a plain destroy of a group
+    with a dead member can hang), on gloo through a destroy run on a
+    helper thread.  Returns False when the deadline passed first (the
+    groups are then abandoned)."""
+    if not dist.is_initialized():
+        return True
+    timeout_s = (float(_config.get("shutdown_timeout"))
+                 if timeout_s is None else float(timeout_s))
+    if dist.get_backend() == "nccl":
+        work = abort_communicators
+    else:
+        work = dist.destroy_process_group
+    t = threading.Thread(target=work, name="hvd-teardown", daemon=True)
+    t.start()
+    t.join(max(timeout_s, 0.1))
+    if t.is_alive():
+        _log.warning(f"process-group teardown still running after "
+                     f"{timeout_s:.0f}s; abandoning it", rank=_state.rank)
+        return False
+    return True
 
 
 def is_initialized() -> bool:

@@ -26,7 +26,7 @@ import time
 import torch
 
 from horovod_tpu_torch.common import basics as _basics
-from horovod_tpu_torch.common.types import HorovodTpuError, Status
+from horovod_tpu_torch.common.types import HorovodTpuError, RanksDownError, Status
 from horovod_tpu_torch.ops.compression import Compression
 from horovod_tpu_torch.runtime import flight as _flight
 from horovod_tpu_torch.runtime import metrics as _metrics
@@ -352,4 +352,10 @@ def check_liveness() -> None:
     ctl = getattr(st.background, "controller", None)
     fn = getattr(ctl, "check_liveness", None)
     if fn is not None:
-        fn()
+        try:
+            fn()
+        except RanksDownError:
+            # this generation has a dead member: shutdown() skips its
+            # barrier and tears the groups down the bounded way
+            st.peer_down = True
+            raise

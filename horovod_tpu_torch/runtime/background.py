@@ -289,6 +289,13 @@ class BackgroundRuntime:
                 # exits on the RanksDownError still leaves its dump
                 _flight.dump_on_failure("ranks_down", flush_metrics=False)
                 self._dumped_flight = True
+                from horovod_tpu_torch.common import basics as _basics
+
+                if _basics.state().background is self:
+                    # NCCL waits on a dead peer forever: abort this
+                    # generation's communicators so a collective the
+                    # caller still waits on fails (gloo resets by itself)
+                    _basics.abort_communicators()
                 self._fail_outstanding()
                 _flight.flush_terminal_metrics()
                 stop = True

@@ -9,9 +9,11 @@ error Response on mismatch, ``controller.cc:378-611``), fuses ready
 responses up to the fusion threshold (``controller.cc:640-761``), tracks
 join and shutdown, and posts the ResponseList.
 
-The wire is a key-value store: :class:`StoreTransport` over the default
-process group's ``torch.distributed`` store, or any object with the same
-six methods (the tests' ``DictTransport``).  Messages are the binary
+The wire is a key-value store: the launcher's native KV server
+(``runtime/kvstore.KVStoreClient``) when ``hvdrun`` exported its
+rendezvous, else :class:`StoreTransport` over the default process
+group's ``torch.distributed`` store, or any object with the same six
+methods (the tests' ``DictTransport``).  Messages are the binary
 request and response lists of :mod:`horovod_tpu_torch.runtime.wire`,
 keyed by round.  This is the JAX package's protocol: the flat star on
 rank 0, or above ``HOROVOD_CONTROL_FANOUT`` the two-level star on slice
@@ -355,10 +357,9 @@ def round0_cfg(hb_interval: float | None = None,
     divergence across ranks would deadlock or corrupt the negotiated
     wire.  Each entry reads the port's knob where the port has it (the
     heartbeat pair and the control fanout included, in ms and as is;
-    the adaptive, health, skip and checkpoint-replica knobs included);
-    the elastic entry sends the JAX package's value for that knob unset
-    (it waits for ROADMAP.md Queue A item 12f).  A controller passes its
-    own liveness and fanout values."""
+    the adaptive, health, skip, checkpoint-replica and elastic knobs
+    included).  A controller passes its own liveness and fanout
+    values."""
     cmodes = _active_wire_modes()
     qbs = (_config.get("quant_block_size")
            if cmodes & {"int8", "int4"} else 0)
@@ -381,7 +382,7 @@ def round0_cfg(hb_interval: float | None = None,
             1 if _config.get("sharded_optimizer") else 0,
             int(round(hb_interval * 1000)),
             int(round(hb_timeout * 1000)),
-            0,                                   # HOROVOD_ELASTIC
+            1 if _config.get("elastic") else 0,
             1 if _config.get("overlap") else 0,
             int(_config.get("overlap_chunks"))
             if _config.get("overlap") else 0,
@@ -738,6 +739,13 @@ class KVController:
         # this world is over: its per-peer staleness series go with it
         _M_HB_STALE.reset()
         _M_SWEEP_LAG.reset()
+        # the launcher's KV client is this controller's own connection
+        closer = getattr(self.t, "close", None)
+        if closer is not None:
+            try:
+                closer()
+            except Exception:  # noqa: BLE001 -- the world is over
+                pass
 
     def _liveness_enabled(self) -> bool:
         return (self._hb_interval > 0 and self._hb_timeout > 0
@@ -1290,11 +1298,22 @@ class StoreTransport:
 
 def make_controller(rank: int, world: int, epoch: int = 0):
     """:class:`LocalController` for one rank, else a
-    :class:`KVController` over the default group's store, wrapped in
+    :class:`KVController` over the launcher's KV server when ``hvdrun``
+    exported its rendezvous (``HOROVOD_GLOO_RENDEZVOUS_ADDR``/``PORT``:
+    heartbeats, negotiation and the coordinated abort then outlive rank
+    0's process), else over the default group's store; wrapped in
     ``HOROVOD_FAULT_SPEC``'s rules when the knob is set."""
     if world == 1:
         return LocalController()
     from horovod_tpu_torch.runtime import faults as _faults
 
-    return KVController(_faults.maybe_wrap(StoreTransport(epoch), rank),
-                        rank, world, epoch)
+    addr = _config.get("rendezvous_addr")
+    port = _config.get("rendezvous_port")
+    if addr and port:
+        from horovod_tpu_torch.runtime.kvstore import KVStoreClient
+
+        transport = KVStoreClient(addr, port)
+    else:
+        transport = StoreTransport(epoch)
+    return KVController(_faults.maybe_wrap(transport, rank), rank, world,
+                        epoch)

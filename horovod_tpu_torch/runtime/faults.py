@@ -11,11 +11,9 @@ wrapped so that specific keys are delayed, specific writes are dropped,
 or a specific rank crashes at a specific negotiation round — all
 deterministic, so CI can assert exact behavior.
 
-In the port, ``preempt:`` needs the preemption plane (ROADMAP.md Queue A
-item 12f): :func:`parse_spec` parses it as the JAX package does, and
-every hook that would act on it (:func:`maybe_wrap`, :func:`data_rules`,
-:func:`check_spec` at ``init()``) raises ``NotImplementedError``, so it
-is never silently ignored.  ``nan:``/``inf:`` poison the eager wire's
+``preempt:`` delivers a notice to the preemption plane
+(``runtime/preemption.py``) at the rank's first transport op touching
+the round.  ``nan:``/``inf:`` poison the eager wire's
 payloads (:func:`poison_entries`) and, in their round-less form, the
 in-trace optimizer's gradients under ``HOROVOD_HEALTH``
 (:func:`traced_poison`).
@@ -306,7 +304,23 @@ class FaultyTransport:
                     os._exit(137)
                 continue
             if rule.kind == "preempt":
-                raise NotImplementedError(PREEMPT_NOT_PORTED)
+                # die:'s graceful sibling -- deliver the advance notice
+                # (the rank publishes and drains at its next step
+                # boundary) and let the op proceed; take() so the rule
+                # fires exactly once
+                if rule.rank == self.rank \
+                        and (rule.round == 0
+                             or (rnd is not None and rnd >= rule.round)) \
+                        and rule.remaining and rule.take():
+                    _log.warning(
+                        f"[fault] preempt:rank{rule.rank}:"
+                        f"round{rule.round} delivering notice on key "
+                        f"{stripped!r}", rank=self.rank)
+                    from horovod_tpu_torch.runtime import preemption
+
+                    preemption.notice(source="fault",
+                                      grace_s=rule.delay_s or None)
+                continue
             if rule.kind == "slow":
                 # chronic straggler: key-independent, never expires —
                 # every transport op of the scoped rank pays the tax
@@ -364,25 +378,12 @@ class FaultyTransport:
         return getattr(self.inner, name)
 
 
-PREEMPT_NOT_PORTED = (
-    "HOROVOD_FAULT_SPEC's preempt: rule asks for the preemption plane "
-    "(runtime/preemption.py), which is not ported yet (ROADMAP.md Queue "
-    "A item 12f)")
-
-
-def _refuse_preempt(rules: list[Rule]) -> list[Rule]:
-    if any(r.kind == "preempt" for r in rules):
-        raise NotImplementedError(PREEMPT_NOT_PORTED)
-    return rules
-
-
 def check_spec() -> None:
     """Parse ``HOROVOD_FAULT_SPEC`` (``init()`` calls this at every
-    world size): a malformed spec raises :class:`FaultSpecError`, a
-    ``preempt:`` rule ``NotImplementedError``."""
+    world size): a malformed spec raises :class:`FaultSpecError`."""
     spec = str(_config.get("fault_spec") or "").strip()
     if spec:
-        _refuse_preempt(parse_spec(spec))
+        parse_spec(spec)
 
 
 def maybe_wrap(transport, rank: int):
@@ -391,7 +392,7 @@ def maybe_wrap(transport, rank: int):
     spec = str(_config.get("fault_spec") or "").strip()
     if not spec:
         return transport
-    rules = _refuse_preempt(parse_spec(spec))
+    rules = parse_spec(spec)
     _log.warning(
         f"HOROVOD_FAULT_SPEC active ({spec!r}): injecting "
         f"{len(rules)} fault rule(s) into the control-plane transport "
@@ -423,7 +424,7 @@ def data_rules() -> list[Rule]:
     cached_spec, cached = _data_cache
     if spec == cached_spec:
         return cached
-    rules = [r for r in _refuse_preempt(parse_spec(spec))
+    rules = [r for r in parse_spec(spec)
              if r.kind in DATA_KINDS] if spec else []
     _data_cache = (spec, rules)
     return rules

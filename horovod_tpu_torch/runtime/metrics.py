@@ -9,10 +9,10 @@ read it:
 * a per-rank Prometheus-text HTTP endpoint
   (``HOROVOD_METRICS_PORT`` + rank, off by default);
 * ``aggregate_snapshots`` / ``aggregate_render``: the fleet merge of
-  published snapshots (pure functions over a ``key -> str`` getter).
-  The ranks' KV publisher needs the native KV store, which is not
-  ported yet (ROADMAP.md Queue A item 12f): ``maybe_start_kv_publisher``
-  returns ``None`` and ``HOROVOD_METRICS_PUBLISH_INTERVAL`` is ignored.
+  published snapshots (pure functions over a ``key -> str`` getter),
+  which the ranks' ``KVSnapshotPublisher`` feeds through the
+  launcher's KV store every ``HOROVOD_METRICS_PUBLISH_INTERVAL``
+  seconds (``maybe_start_kv_publisher``).
 
 Design constraints (``tests/test_torch_metrics.py``):
 
@@ -675,14 +675,92 @@ def _rank_key(epoch: int, rank: int) -> str:
     return f"hvd{epoch}/metrics/{rank}"
 
 
+class KVSnapshotPublisher:
+    """Background thread publishing this process's snapshot into the
+    rendezvous KV every ``HOROVOD_METRICS_PUBLISH_INTERVAL`` seconds
+    (0 disables).  Rank 0 additionally maintains ``metrics/index``
+    ({epoch, size}) — the head pointer the launcher aggregate follows
+    across elastic re-forms, which is what keeps a dead generation's
+    series from resurfacing.  Publish failures are swallowed:
+    observability must never take a healthy rank down.  All IO happens
+    on this thread; the training threads only touch in-memory
+    counters."""
+
+    def __init__(self, transport, rank: int, world: int, epoch: int,
+                 interval_s: float, own_transport: bool = False):
+        self.t = transport
+        self.rank = rank
+        self.world = world
+        self.epoch = epoch
+        self.interval_s = interval_s
+        self._own_transport = own_transport
+        self._host = socket.gethostname()
+        self._seq = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._run, name="hvd-metrics-pub", daemon=True)
+        self._thread.start()
+
+    def _payload(self) -> str:
+        self._seq += 1
+        _run_snapshot_hooks()
+        return json.dumps({
+            "meta": {"rank": self.rank, "host": self._host,
+                     "size": self.world, "generation": self.epoch,
+                     "seq": self._seq, "time": time.time()},
+            "metrics": _registry.snapshot()})
+
+    def publish(self) -> None:
+        setter = getattr(self.t, "set_overwrite", None) or self.t.set
+        try:
+            setter(_rank_key(self.epoch, self.rank), self._payload())
+            if self.rank == 0:
+                setter(INDEX_KEY, json.dumps(
+                    {"epoch": self.epoch, "size": self.world}))
+        except Exception:
+            pass
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            self.publish()
+
+    def stop(self) -> None:
+        self._stop.set()
+        # final flush so short-lived jobs still land their last counts
+        self.publish()
+        self._thread.join(timeout=2)
+        if self._own_transport:
+            closer = getattr(self.t, "close", None)
+            if closer is not None:
+                try:
+                    closer()
+                except Exception:
+                    pass
+
+
 def maybe_start_kv_publisher(rank: int, world: int, epoch: int):
-    """The ranks' KV snapshot publisher (``KVSnapshotPublisher`` in the
-    JAX package) runs over the launcher's native KV store
-    (``KVStoreClient``), which is not ported yet (ROADMAP.md Queue A item
-    12f): returns ``None``, so ``HOROVOD_METRICS_PUBLISH_INTERVAL`` is
-    ignored until then."""
-    del rank, world, epoch
-    return None
+    """Start the KV snapshot publisher over the launcher's rendezvous
+    store, on a dedicated client connection.  Deliberately independent
+    of the negotiation controller: an elastic world shrunk to size 1
+    runs a LocalController with no transport at all, yet its metrics
+    must keep reaching the launcher aggregate (the acceptance case:
+    the fleet view must show the post-re-form generation/size).
+    Returns None when publishing is off or no rendezvous is configured
+    (without the rendezvous KV there is no launcher-readable store)."""
+    interval = float(_config.get("metrics_publish_interval") or 0)
+    addr = _config.get("rendezvous_addr")
+    port = _config.get("rendezvous_port")
+    if interval <= 0 or not addr or not port:
+        return None
+    try:
+        from horovod_tpu_torch.runtime.kvstore import KVStoreClient
+
+        client = KVStoreClient(addr, port, connect_timeout_s=5.0)
+    except Exception as exc:  # observability must never fail init
+        _log.warning(f"metrics KV publisher unavailable: {exc}")
+        return None
+    return KVSnapshotPublisher(client, rank, world, epoch, interval,
+                               own_transport=True)
 
 
 def aggregate_snapshots(try_get, extra_snapshots=()) -> tuple[list, dict]:

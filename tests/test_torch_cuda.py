@@ -1631,3 +1631,210 @@ def test_four_cards_health_checkpoint_resnet50(tmp_path):
     print(f"[four cards] the world-4 stage-2 state re-cut for 2 ranks: "
           f"gathered trace equal bit for bit; losses "
           f"{[o['loss'] for o in two]}; on 2 x {card.strip()}")
+
+
+def test_four_cards_elastic_resnet50(tmp_path):
+    """Elastic training on four cards (``tests/_torch_elastic_train_script
+    .py``'s ``ELX_CARDS`` mode): ``python -m horovod_tpu_torch.run -np 4
+    --elastic --min-ranks 2`` over the ResNet-50 bench step (224 px, batch
+    256 per card, bf16, fused momentum SGD, in-trace ZeRO stage 2,
+    deterministic cuDNN), a commit every step, through four generations:
+    4 steps at world 4; ``--preempt 3`` (rank 3 drains, the survivors
+    re-form to 3 proactively, reason ``preempt``) and 4 steps; the
+    launcher's joiner on card 3 admitted at a commit boundary and 4 steps
+    at world 4; rank 2 SIGKILLed after it logs a step (the survivors
+    detect it, abort their NCCL communicators and re-form to 3, reason
+    ``failure``) and 4 steps.  After each re-form every rank's parameters
+    and gathered trace are bit-identical, the step counter follows the
+    commit, no two processes share a card; one B1 and 53 of each of N1-N4
+    per step, finite losses; the launcher returns 0.  Prints each
+    re-form's wall time and split (el/status), the kill's detection time
+    and the median step per generation."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    import json
+    import os
+    import re
+    import statistics
+    import subprocess
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    repo = os.path.dirname(here)
+    card = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    env = dict(os.environ)
+    env.update({"PYTHONPATH": repo + os.pathsep + env.get("PYTHONPATH", ""),
+                "ELX_CARDS": "1", "HOROVOD_FUSED_UPDATE": "1",
+                "HOROVOD_HEARTBEAT_INTERVAL": "0.2",
+                "HOROVOD_HEARTBEAT_TIMEOUT_SECONDS": "2",
+                "HOROVOD_ELASTIC_SETTLE_SECONDS": "1",
+                "HOROVOD_SHUTDOWN_TIMEOUT_SECONDS": "10",
+                "HOROVOD_METRICS_PUBLISH_INTERVAL": "0"})
+    env.pop("HOROVOD_PLATFORM", None)
+    out = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.run", "-np", "4",
+         "--elastic", "--min-ranks", "2", "--blacklist-cooldown-seconds",
+         "5", "--", sys.executable,
+         os.path.join(here, "_torch_elastic_train_script.py")],
+        env=env, capture_output=True, text=True, timeout=900, cwd=repo)
+    # HVD_TEST_LOG_DIR keeps the job's whole output (the assertion
+    # messages carry only its tail)
+    log_dir = os.environ.get("HVD_TEST_LOG_DIR")
+    if log_dir:
+        os.makedirs(log_dir, exist_ok=True)
+        with open(os.path.join(log_dir, "four_cards_elastic.log"), "w") as f:
+            f.write(out.stdout + "\n----- stderr -----\n" + out.stderr)
+    assert out.returncode == 0, out.stderr[-6000:]
+    ev = []
+    for ln in out.stdout.splitlines():
+        _, _, rest = ln.partition(">:")
+        if rest.startswith("{"):
+            ev.append(json.loads(rest))
+    enters = [e for e in ev if e["event"] == "enter"]
+    gens = {}
+    for e in enters:
+        gens.setdefault(e["gen"], []).append(e)
+    assert sorted(gens) == [1, 2, 3, 4], sorted(gens)
+    assert [len(gens[g]) for g in (1, 2, 3, 4)] == [4, 3, 4, 3]
+    assert sorted(e["uid"] for e in gens[2]) == ["rank0", "rank1", "rank2"]
+    assert "joiner1" in {e["uid"] for e in gens[3]}
+    assert sorted(e["uid"] for e in gens[4]) == ["joiner1", "rank0",
+                                                 "rank1"]
+    steps = [e for e in ev if e["event"] == "step"]
+    smi_seen = {}
+    for g, es in gens.items():
+        # bit-identical parameters and gathered trace on every rank
+        assert len({e["digest"] for e in es}) == 1, g
+        # the step counter follows the commit: 4 steps per generation
+        assert {e["step"] for e in es} == {4 * (g - 1)}, (g, es)
+        # no two processes on one card
+        devs = [e["device"] for e in es]
+        assert len(set(devs)) == len(devs), (g, devs)
+        assert all(e["device"] == f"cuda:{e['current']}" for e in es)
+        # nvidia-smi's view, read by rank 0 as the generation starts:
+        # one compute process on each card the generation's tensors name
+        # and none elsewhere, so no card holds two (a drained or killed
+        # process that has not left its card included).  Its pids are
+        # the container's view, so the check is by card.
+        apps, uuids = next(e["smi"] for e in es if e["rank"] == 0)
+        cards = sorted(u for _, u in apps)
+        assert cards == sorted(uuids[d.split(":")[1]] for d in devs), (
+            g, apps)
+        smi_seen[g] = len(cards)
+        gsteps = [s for s in steps if s["gen"] == g]
+        assert len(gsteps) == 4 * len(es), (g, len(gsteps))
+        for s in gsteps:
+            assert s["b1"] == 1 and s["bn"] == dict.fromkeys(
+                ("bn_stats", "bn_normalize", "bn_bwd_reduce", "bn_bwd_dx"),
+                53), s
+            assert math.isfinite(s["loss"]), s
+    joiner = next(e for e in gens[3] if e["uid"] == "joiner1")
+    assert joiner["device"] == "cuda:3", joiner
+    finals = [e for e in ev if e["event"] == "final"]
+    assert len(finals) == 3 and len({e["digest"] for e in finals}) == 1
+    assert all(e["step"] == 16 for e in finals)
+    status = [dict(re.findall(r'(\w+)=("[^"]*"|\[[^\]]*\]|[-\d.]+)', ln))
+              for ln in out.stderr.splitlines()
+              if "elastic re-form complete" in ln]
+    reasons = [json.loads(s["reason"]) for s in status]
+    assert reasons == ["preempt", "grow", "failure"], reasons
+    assert "exited after graceful preemption drain (rc=0)" in out.stderr
+    assert "aborted every NCCL communicator" in out.stderr
+    dying = next(e for e in ev if e["event"] == "dying")
+    detect = [e["t"] - dying["t"] for e in ev
+              if e["event"] == "reform_start" and e["reason"] == "failure"]
+    assert len(detect) == 3
+    for s in status:
+        print(f"[four cards] re-form gen {s.get('gen')} ({s.get('reason')},"
+              f" size {s.get('size')}): {s.get('reform_s')} s = teardown "
+              f"{s.get('teardown_s')} + rendezvous {s.get('rendezvous_s')} "
+              f"+ init {s.get('init_s')} + resync {s.get('resync_s')} s")
+    print(f"[four cards] the kill's detection (SIGKILL to re-form start on "
+          f"each survivor): {[round(d, 3) for d in detect]} s")
+    for g in (1, 2, 3, 4):
+        med = statistics.median(s["step_s"] for s in steps if s["gen"] == g)
+        print(f"[four cards] generation {g} (world {len(gens[g])}): median "
+              f"step {med:.4f} s, devices "
+              f"{sorted(e['device'] for e in gens[g])}")
+    print(f"[four cards] compute processes nvidia-smi listed at each "
+          f"generation's start, one per card of the generation: "
+          f"{smi_seen}; on 4 x {card.strip()}")
+
+
+def test_four_cards_elastic_clean_step():
+    """The elastic plane's cost on a clean step, four cards: the ResNet-50
+    bench step of ``test_four_cards_elastic_resnet50`` (224 px, batch 256
+    per card, bf16, fused momentum SGD, in-trace ZeRO stage 2,
+    deterministic cuDNN, the same liveness settings, a commit and a poll
+    before every step) launched by ``python -m horovod_tpu_torch.run -np
+    4`` without ``--elastic``, with it, with it and without it again, the
+    metrics publisher at its default interval.  Each launch: one B1 and
+    53 of each of N1-N4 per step, finite losses, the same parameters on
+    every rank, no re-form.  Prints the median step, commit and whole
+    iteration of each launch and the on/off ratio of the iterations."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    import json
+    import os
+    import statistics
+    import subprocess
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    repo = os.path.dirname(here)
+    card = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    total, warm = 12, 2
+    env = dict(os.environ)
+    env.update({"PYTHONPATH": repo + os.pathsep + env.get("PYTHONPATH", ""),
+                "ELX_CARDS": "clean", "ELX_TOTAL": str(total),
+                "HOROVOD_FUSED_UPDATE": "1",
+                "HOROVOD_HEARTBEAT_INTERVAL": "0.2",
+                "HOROVOD_HEARTBEAT_TIMEOUT_SECONDS": "2",
+                "HOROVOD_ELASTIC_SETTLE_SECONDS": "1",
+                "HOROVOD_SHUTDOWN_TIMEOUT_SECONDS": "10"})
+    for k in ("HOROVOD_PLATFORM", "HOROVOD_METRICS_PUBLISH_INTERVAL"):
+        env.pop(k, None)
+    runs = []
+    for on in (False, True, True, False):
+        out = subprocess.run(
+            [sys.executable, "-m", "horovod_tpu_torch.run", "-np", "4",
+             *(["--elastic", "--min-ranks", "2"] if on else []), "--",
+             sys.executable,
+             os.path.join(here, "_torch_elastic_train_script.py")],
+            env=env, capture_output=True, text=True, timeout=300, cwd=repo)
+        assert out.returncode == 0, out.stderr[-6000:]
+        assert "elastic re-form complete" not in out.stderr
+        ev = []
+        for ln in out.stdout.splitlines():
+            _, _, rest = ln.partition(">:")
+            if rest.startswith("{"):
+                ev.append(json.loads(rest))
+        steps = [e for e in ev if e["event"] == "step"]
+        finals = [e for e in ev if e["event"] == "final"]
+        assert len(steps) == 4 * total and len(finals) == 4
+        assert len({e["digest"] for e in finals}) == 1
+        assert all(e["elastic"] == on for e in steps)
+        for s in steps:
+            assert s["b1"] == 1 and s["bn"] == dict.fromkeys(
+                ("bn_stats", "bn_normalize", "bn_bwd_reduce", "bn_bwd_dx"),
+                53), s
+            assert math.isfinite(s["loss"]), s
+        timed = [s for s in steps if s["step"] > warm]
+        runs.append({"on": on, "digest": finals[0]["digest"],
+                     **{k: statistics.median(s[k] for s in timed)
+                        for k in ("step_s", "commit_s", "iter_s")}})
+    for r in runs:
+        print(f"[four cards] clean steps, elastic {'on ' if r['on'] else 'off'}"
+              f": median step {r['step_s']:.4f} s, commit "
+              f"{r['commit_s']:.4f} s, iteration {r['iter_s']:.4f} s "
+              f"(steps {warm + 1}-{total} of each rank)")
+    it = {on: statistics.mean(r["iter_s"] for r in runs if r["on"] == on)
+          for on in (False, True)}
+    print(f"[four cards] elastic on/off, whole iteration: "
+          f"{it[True] / it[False]:.4f}; final parameters equal across the "
+          f"four launches: {len({r['digest'] for r in runs}) == 1}; on 4 x "
+          f"{card.strip()}")

@@ -9,8 +9,9 @@
 * ``poison_entries`` on the same seeded numpy payloads poisons the same
   element the same way (a torch tensor here, a JAX array there), at the
   same round, once per round-scoped rule.
-* ``preempt:`` raises ``NotImplementedError`` naming ROADMAP item 12f at
-  every hook that would act on it, and at ``init()``.
+* ``preempt:`` (ROADMAP item 12f) delivers one preemption notice at the
+  scoped rank's first transport op touching its round, in both
+  packages, and ``init()`` accepts it.
 """
 
 from __future__ import annotations
@@ -204,33 +205,61 @@ def test_poison_entries_matches_jax(spec, rank, rounds, monkeypatch):
 
 
 def test_preempt_raises_naming_12f(monkeypatch):
+    """Item 12f ported: ``preempt:`` no longer raises.  Each package's
+    wrapper delivers one notice to its own preemption plane at the
+    scoped rank's first op touching round >= n, and lets the op
+    through."""
+    from horovod_tpu.runtime import preemption as jpre
+
+    from horovod_tpu_torch.runtime import preemption as tpre
+
     monkeypatch.setenv("HOROVOD_FAULT_SPEC", "delay:q/*:1ms,preempt:rank1")
-    for fn in (tfaults.check_spec, tfaults.data_rules,
-               lambda: tfaults.maybe_wrap(_Recorder(), 1)):
-        tfaults._data_cache = ("", [])
-        with pytest.raises(NotImplementedError, match="12f"):
-            fn()
-    ft = tfaults.FaultyTransport(_Recorder(), 1,
-                                 tfaults.parse_spec("preempt:rank1"))
-    with pytest.raises(NotImplementedError, match="12f"):
-        ft.set("hvd1/q/0/1", "v")
+    tfaults.check_spec()
+    tfaults._data_cache = ("", [])
+    assert tfaults.data_rules() == []
+    assert isinstance(tfaults.maybe_wrap(_Recorder(), 1),
+                      tfaults.FaultyTransport)
+    seen = {}
+    for name, mod, pre in (("jax", jfaults, jpre), ("port", tfaults, tpre)):
+        pre.reset()
+        rec = _Recorder()
+        ft = mod.FaultyTransport(rec, 1,
+                                 mod.parse_spec("preempt:rank1:round3"))
+        fired = []
+        for key in ("hvd1/q/1/1", "hvd1/hb/1", "hvd1/q/3/1", "hvd1/q/4/1"):
+            ft.set(key, "v")
+            fired.append(pre.noticed())
+        other = mod.FaultyTransport(_Recorder(), 0,
+                                    mod.parse_spec("preempt:rank1"))
+        other.set("hvd1/q/0/0", "v")
+        seen[name] = (fired, [c for c in rec.calls], pre._notice["source"])
+        pre.reset()
+    assert seen["port"] == seen["jax"]
+    assert seen["port"][0] == [False, False, True, True]
+    assert seen["port"][2] == "fault"
     tfaults._data_cache = ("", [])
 
 
 def test_init_refuses_preempt_and_bad_specs(monkeypatch):
+    """``init()`` accepts a ``preempt:`` rule now (item 12f) and still
+    refuses a malformed spec before any group exists."""
     import horovod_tpu_torch as hvd
 
     for k in ("HOROVOD_SIZE", "HOROVOD_RANK"):
         monkeypatch.delenv(k, raising=False)
-    for spec, err in (("preempt:rank0", NotImplementedError),
-                      ("delay:q/*", tfaults.FaultSpecError)):
-        monkeypatch.setenv("HOROVOD_FAULT_SPEC", spec)
+    monkeypatch.setenv("HOROVOD_FAULT_SPEC", "preempt:rank0")
+    hvd.shutdown()
+    try:
+        hvd.init(device="cpu")
+        assert hvd.is_initialized()
+    finally:
         hvd.shutdown()
-        try:
-            with pytest.raises(err):
-                hvd.init(device="cpu")
-        finally:
-            hvd.shutdown()
+    monkeypatch.setenv("HOROVOD_FAULT_SPEC", "delay:q/*")
+    try:
+        with pytest.raises(tfaults.FaultSpecError):
+            hvd.init(device="cpu")
+    finally:
+        hvd.shutdown()
 
 
 def test_maybe_wrap_reads_knob(monkeypatch):

@@ -53,7 +53,9 @@ def test_no_jax_side_module_is_imported():
               "torch.compression", "runtime.flight", "runtime.metrics",
               "runtime.faults", "perf", "perf.goodput", "perf.__main__",
               "trace", "trace.merge", "trace.analyze", "trace.perfetto",
-              "trace.__main__", "runtime.health", "checkpoint"):
+              "trace.__main__", "runtime.health", "checkpoint",
+              "runtime.kvstore", "runtime.preemption", "elastic", "run",
+              "run.__main__", "run.launcher", "run.pod", "run.exec_fn"):
         assert f"horovod_tpu_torch.{m}" in res["modules"]
 
 
@@ -78,6 +80,9 @@ def test_package_shares_no_code_with_the_jax_package():
                                    "MnistCNN"])
 def test_entry_points_raise_without_a_gpu(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    # the suite's conftest exports HOROVOD_PLATFORM=cpu, which init()
+    # honours as an explicit request for the CPU: this holds the default
+    monkeypatch.delenv("HOROVOD_PLATFORM", raising=False)
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models.inception import InceptionV3
     from horovod_tpu_torch.models.mnist import MnistCNN, SmallCNN
@@ -186,3 +191,32 @@ def test_cuda_codec_tensor_never_takes_the_plain_version(wrapper,
     with pytest.raises(HorovodTpuError, match="nvcc not found"):
         getattr(Q, wrapper)(*args[wrapper])
     assert calls == []
+
+
+@pytest.mark.parametrize("platform,device", [("cpu", "cpu"), ("CPU", "cpu"),
+                                             ("gpu", None), ("", None)])
+def test_platform_knob_is_an_explicit_cpu_request(platform, device,
+                                                  monkeypatch):
+    """``HOROVOD_PLATFORM=cpu`` makes ``init()`` place the rank on the
+    CPU (gloo); unset or naming the GPU it leaves ``cuda``, which raises
+    without a card."""
+    import horovod_tpu_torch as hvd
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for k in ("HOROVOD_SIZE", "HOROVOD_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("HOROVOD_PLATFORM", platform)
+    hvd.shutdown()
+    try:
+        if device is None:
+            with pytest.raises(hvd.HorovodTpuError, match="device='cpu'"):
+                hvd.init()
+        else:
+            hvd.init()
+            assert hvd.device().type == device
+            import torch.distributed as dist
+
+            assert dist.get_backend() == "gloo"
+    finally:
+        hvd.shutdown()
+

@@ -180,7 +180,12 @@ def test_rank_endpoint_knob_on_off(monkeypatch):
 
 
 def test_kv_publisher_waits_for_the_kv_store(monkeypatch):
+    """The publisher runs over the launcher's KV store: with no
+    rendezvous exported there is nothing to publish to (the publishing
+    case is in tests/test_torch_kvstore.py)."""
     monkeypatch.setenv("HOROVOD_METRICS_PUBLISH_INTERVAL", "0.5")
+    monkeypatch.delenv("HOROVOD_GLOO_RENDEZVOUS_ADDR", raising=False)
+    monkeypatch.delenv("HOROVOD_GLOO_RENDEZVOUS_PORT", raising=False)
     assert TM.maybe_start_kv_publisher(0, 2, 1) is None
 
 
@@ -236,7 +241,8 @@ PORTED = ("runtime/controller.py", "runtime/background.py",
           "runtime/stall.py", "runtime/wire.py", "runtime/metrics.py",
           "ops/eager.py", "optim/distributed.py", "optim/fused_update.py",
           "optim/local_sgd.py", "perf/goodput.py", "common/basics.py",
-          "runtime/health.py", "checkpoint.py")
+          "runtime/health.py", "checkpoint.py", "runtime/kvstore.py",
+          "runtime/preemption.py", "elastic.py", "run/launcher.py")
 
 #: Metrics those modules register that the port leaves out, each with
 #: the ROADMAP.md Queue A item that brings it.
