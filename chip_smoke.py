@@ -319,6 +319,29 @@ Phases (any failure exits non-zero and prints no result line):
    of each of N1-N4 per step (the ``launches_restart`` and
    ``launches_preempt`` keys of the kernels line).
 
+25. the timeline and the autotuner: (a) ``init()`` under
+   ``HOROVOD_TIMELINE`` and ``HOROVOD_TIMELINE_MARK_CYCLES`` at world 1
+   over NCCL, the ResNet-50 step (224 px, batch 256, bf16) with phase
+   20a's 161 gradients through ``hvd.allreduce_async_`` after the
+   backward and the fused momentum SGD's tail, 3 rounds of 4 steps with
+   the runtime's
+   writer detached and attached in alternation: the trace parses after
+   ``shutdown()``; each gradient's row holds ``NEGOTIATE_ALLREDUCE`` B
+   and E, ``RANK0_READY`` and ``XLA_ALLREDUCE`` B and E once per traced
+   step, plus ``CYCLE_START`` marks; one B1 and 53 of each of N1-N4 per
+   step both ways; both medians, their ratio and the writer's host time
+   per step (an event's stamp, append and flush timed alone, times the
+   events per step); (b) phase 20b's four emulated runtimes under
+   ``HOROVOD_AUTOTUNE``, ``HOROVOD_ADAPTIVE_COMPRESSION`` and
+   ``HOROVOD_OVERLAP`` with one-round sample windows, 6 steps: every rank
+   applied the same proposals at the same rounds and ran every round
+   under the same knobs; per response the mode of each bucket and its
+   B4-B7 launches equal to its modes' codec (the kernels' own counters);
+   each response's result bit for bit the same bucketed schedule's plain
+   versions on the CPU under the knobs it ran with; rank 0's samples,
+   pinning and final knobs (the ``launches_timeline`` and
+   ``launches_autotune`` keys of the kernels line).
+
 Then the run's wall time, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
 {...}}``.
@@ -6576,6 +6599,428 @@ def elastic_plane(gpu: str, work: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: the timeline and the autotuner
+# ---------------------------------------------------------------------------
+
+TL_WARM, TL_ROUNDS, TL_STEPS = 2, 3, 4  # 25a: warm-up; off/on rounds, steps
+TL_EVENT_REPS = 20000   # 25a: native writer calls timed on the host
+TUNE_STEPS = 6          # 25b: steps of the four emulated runtimes
+TUNE_ENV = {"HOROVOD_AUTOTUNE": "1", "HOROVOD_ADAPTIVE_COMPRESSION": "1",
+            "HOROVOD_OVERLAP": "1", "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE": "1",
+            "HOROVOD_AUTOTUNE_WARMUP_SAMPLES": "0",
+            "HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES": "3"}
+TUNED_KNOBS = ("fusion_threshold", "cycle_time_ms", "overlap_chunks",
+               "zero_prefetch_chunks", "hierarchical_allreduce",
+               "hierarchical_allgather", "bucket_compression")
+
+
+def _restore_env(saved: dict) -> None:
+    for k, v in saved.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+
+
+def timeline_world1(hvd, torch, gpu: str, device: str = "cuda",
+                    model_fn=None, batch: int = BATCH, size: int = 224,
+                    classes: int = 1000) -> dict:
+    """Phase 25a: ``init()`` under ``HOROVOD_TIMELINE`` and
+    ``HOROVOD_TIMELINE_MARK_CYCLES`` at world 1 over NCCL, the bench
+    ResNet-50 step (224 px, batch 256, bf16) on the eager plane: after
+    the backward, phase 20a's 161 gradients through
+    ``hvd.allreduce_async_`` in hook order under their frontend names,
+    then momentum SGD's fused tail over all of them
+    (``momentum_update_multi``: one B1, and 53 of each of N1-N4 per
+    step).  ``TL_ROUNDS`` rounds of ``TL_STEPS`` steps with the
+    runtime's writer detached (the knob unset) and attached, in
+    alternation; the trace parses, each gradient's row holds one
+    ``NEGOTIATE_ALLREDUCE`` B and E, one ``RANK0_READY`` and one
+    ``XLA_ALLREDUCE`` B and E per traced step, and cycle marks; both
+    medians and their ratio, and the writer's host time per step (an
+    event's stamp, append and flush timed alone, times the events per
+    step)."""
+    import tempfile
+
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.ops import batch_norm as BN
+    from horovod_tpu_torch.ops import eager as E
+    from horovod_tpu_torch.optim import fused_update as TF
+    from horovod_tpu_torch.runtime import timeline as TLM
+    from horovod_tpu_torch.train_step import (softmax_cross_entropy,
+                                              synthetic_batch)
+
+    if model_fn is None:
+        def model_fn():
+            return ResNet50(num_classes=classes, dtype=torch.bfloat16,
+                            seed=0)
+    tmp = tempfile.mkdtemp(prefix="hvd_tl_")
+    path = os.path.join(tmp, "timeline.json")
+    saved = {k: os.environ.get(k) for k in
+             ("HOROVOD_TIMELINE", "HOROVOD_TIMELINE_MARK_CYCLES")}
+    os.environ["HOROVOD_TIMELINE"] = path
+    os.environ["HOROVOD_TIMELINE_MARK_CYCLES"] = "1"
+    try:
+        hvd.init(device=device)
+        rt = E._runtime()
+        tl = rt.timeline
+        if tl is None or basics.state().timeline is not tl:
+            raise AssertionError("25a: the runtime opened no timeline")
+        coord = rt.controller.coordinator
+
+        def attach(on: bool) -> None:
+            rt.timeline = coord.timeline = tl if on else None
+
+        attach(False)
+        model = model_fn()
+        images, labels = synthetic_batch(batch, size, classes, seed=0,
+                                         device=device)
+        label = {id(p): f"allreduce.{n}" for n, p in model.named_parameters()}
+        order = [(label[id(p)], p) for p in
+                 _hook_order(torch, model, images, labels)]
+        names = [n for n, _ in order]
+        traces = [torch.zeros_like(p) for _, p in order]
+
+        def train_step():
+            model.train()
+            model.zero_grad(set_to_none=True)
+            loss = softmax_cross_entropy(model(images), labels)
+            loss.backward()
+            for h in [hvd.allreduce_async_(p.grad, name=n)
+                      for n, p in order]:
+                hvd.synchronize(h)
+            with torch.no_grad():
+                us, _ = TF.momentum_update_multi(
+                    [p.grad for _, p in order], traces, 1, 0.9, -0.1,
+                    t_outs=traces)
+                for (_, p), u in zip(order, us):
+                    p.add_(u)
+            return loss.detach()
+
+        for _ in range(TL_WARM):
+            train_step()
+        torch.cuda.synchronize()
+        times = {"off": [], "on": []}
+        counts = {"off": [], "on": []}
+        losses = []
+        for _ in range(TL_ROUNDS):
+            for mode in ("off", "on"):
+                attach(mode == "on")
+                TF.reset_launch_counts()
+                BN.reset_launch_counts()
+                for _ in range(TL_STEPS):
+                    t0 = time.perf_counter()
+                    loss = train_step()
+                    torch.cuda.synchronize()
+                    times[mode].append(time.perf_counter() - t0)
+                    losses.append(float(loss))
+                counts[mode].append({"momentum": TF.LAUNCHES["momentum"],
+                                     **{k: BN.LAUNCHES[k]
+                                        for k in BN_KERNELS}})
+        attach(True)
+        del model, images, labels, order, traces
+        hvd.shutdown()  # closes the writer: the footer lands
+        if basics.state().timeline is not None:
+            raise AssertionError("25a: shutdown() left the timeline open")
+    finally:
+        _restore_env(saved)
+    with open(path) as f:
+        events = json.load(f)
+    traced = TL_ROUNDS * TL_STEPS
+    rows = {e["tid"]: e["args"]["name"] for e in events
+            if e["ph"] == "M" and e["name"] == "thread_name"}
+    per: dict = {}
+    cycles = 0
+    for e in events:
+        if e["ph"] == "M":
+            continue
+        if e["tid"] == 0:
+            cycles += e["name"] == "CYCLE_START"
+            continue
+        key = (e["name"], e["ph"])
+        row = per.setdefault(rows[e["tid"]], {})
+        row[key] = row.get(key, 0) + 1
+    want = {("NEGOTIATE_ALLREDUCE", "B"): traced,
+            ("NEGOTIATE_ALLREDUCE", "E"): traced,
+            ("RANK0_READY", "i"): traced,
+            ("XLA_ALLREDUCE", "B"): traced, ("XLA_ALLREDUCE", "E"): traced}
+    if sorted(per) != sorted(names):
+        raise AssertionError(f"25a: {len(per)} rows in the trace, expected "
+                             f"the {len(names)} gradients")
+    for name in names:
+        if per[name] != want:
+            raise AssertionError(f"25a: row {name}: {per[name]}, expected "
+                                 f"{want}")
+    if cycles < 1:
+        raise AssertionError("25a: no CYCLE_START under "
+                             "HOROVOD_TIMELINE_MARK_CYCLES")
+    want_counts = {"momentum": TL_STEPS,
+                   **{k: TL_STEPS * RESNET50_BN for k in BN_KERNELS}}
+    for mode, cs in counts.items():
+        if any(c != want_counts for c in cs):
+            raise AssertionError(f"25a {mode}: launches {cs}, expected "
+                                 f"{want_counts} per round")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"25a: losses {losses}")
+    # the writer's cost on the runtime's threads, timed alone on a
+    # scratch writer: the events' stamps and appends, and the flushes
+    # that hand them to the native thread (one per FLUSH_AT events)
+    bench = TLM.make_timeline(os.path.join(tmp, "bench.json"))
+    t0 = time.perf_counter()
+    for _ in range(TL_EVENT_REPS):
+        bench.negotiate_start("allreduce.layer1.0.conv1.weight",
+                              "allreduce")
+    bench.flush()
+    call_us = (time.perf_counter() - t0) / TL_EVENT_REPS * 1e6
+    bench.close()
+    per_step = (sum(sum(r.values()) for r in per.values()) + cycles) / traced
+    med = {m: statistics.median(v) for m, v in times.items()}
+    out = {"median_s": med, "ratio": med["on"] / med["off"],
+           "events_per_step": per_step, "call_us": call_us,
+           "writer_ms_per_step": per_step * call_us / 1e3,
+           "cycles": cycles, "rows": len(per), "traced_steps": traced,
+           "launches": counts, "trace_bytes": os.path.getsize(path)}
+    log(f"[timeline] 25a world 1 over NCCL, the ResNet-50 step (224 px, "
+        f"batch {batch}, bf16) with its {len(names)} gradients through "
+        f"hvd.allreduce_async_ and the fused momentum SGD's tail, "
+        f"{TL_ROUNDS} x {TL_STEPS} steps "
+        f"each way: the trace ({out['trace_bytes']} B) parses; each of the "
+        f"{len(names)} gradients' rows holds NEGOTIATE_ALLREDUCE B/E, "
+        f"RANK0_READY and XLA_ALLREDUCE B/E once per traced step "
+        f"({traced}); {cycles} CYCLE_START marks; one B1 and "
+        f"{RESNET50_BN} of each of N1-N4 per step either way; median step "
+        f"on {med['on']:.4f} s, off {med['off']:.4f} s, ratio "
+        f"{out['ratio']:.4f}; {per_step:.1f} events per step at "
+        f"{call_us:.3f} us each (stamp, append and flush): "
+        f"{out['writer_ms_per_step']:.3f} ms of host time per step; on "
+        f"{gpu}")
+    return out
+
+
+def _tune_runtime_class(world):
+    """Phase 20b's ``EmuRuntime`` that also logs, per executed response,
+    the round, this rank's tuned knobs (and its cache probing), the wire
+    mode of each overlap bucket and its own B4-B7 launches (the codec
+    counters' changes the world booked to this rank)."""
+    import collections
+    import hashlib
+
+    from horovod_tpu_torch.common import config as C
+    from horovod_tpu_torch.common.types import dtype_from_code
+    from horovod_tpu_torch.ops import eager_exec as EX
+    from horovod_tpu_torch.ops import overlap as OV
+    from horovod_tpu_torch.runtime.background import BackgroundRuntime
+
+    class TuneRuntime(BackgroundRuntime):
+        log = None
+
+        def _execute(self, resp):
+            r = self.rank
+            if resp.kind in ("join", "error"):
+                with world.hold(r):
+                    super()._execute(resp)
+                return
+            knobs = {k: C.get(k) for k in TUNED_KNOBS}
+            knobs["cache_active"] = self.controller.cache_active
+            dtype = dtype_from_code(resp.dtype_code)
+            total = sum(math.prod(s) for s in resp.shapes)
+            shard = -(-total // self.world)
+            modes = OV.resolve_bucket_modes(
+                len(OV.bucket_bounds(shard)), EX.wire_mode(dtype), dtype)
+            # the world books each counter change to the rank whose turn
+            # it was (a transfer hands the device to the other ranks)
+            la = collections.Counter(world.launches[r])
+            with world.hold(r):
+                super()._execute(resp)
+            launches = {k: world.launches[r][k] - la[k] for k in CODECS}
+            self.log.append({
+                "round": self.controller.round - 1,
+                "digest": hashlib.sha256(json.dumps(
+                    knobs, sort_keys=True).encode()).hexdigest()[:16],
+                "knobs": knobs, "names": list(resp.names),
+                "modes": modes, "guard": EX._eager_guard_signal(modes),
+                "launches": launches})
+
+    return TuneRuntime
+
+
+def _want_codec(modes, guard: bool) -> dict:
+    """B4-B7 of one response on the overlap schedule: per lossy bucket
+    one encode and one decode, and one more decode for the residual when
+    the guardrail's signal is on (``quantization._dense_scatter_impl``)."""
+    want = dict.fromkeys(CODECS, 0)
+    for m in modes:
+        codec = EAGER_CODEC.get(m, ())
+        if codec:
+            want[codec[0]] += 1
+            want[codec[1]] += 1 + int(guard)
+    return want
+
+
+def autotune_emulated(hvd, torch, gpu: str, device: str = "cuda",
+                      model_fn=None, size: int = 224,
+                      classes: int = 1000) -> dict:
+    """Phase 25b: phase 20b's four emulated runtimes (one
+    ``DictTransport``, phase 16's ``EmulatedWorld``) under
+    ``HOROVOD_AUTOTUNE``, ``HOROVOD_ADAPTIVE_COMPRESSION`` and
+    ``HOROVOD_OVERLAP`` with one-round sample windows, ``TUNE_STEPS``
+    steps of each rank's 161 ResNet-50 gradients (its 64-image shard):
+    every rank applies the same proposals at the same rounds and
+    executes every round under the same knobs; per response the mode of
+    each bucket and its B4-B7 launches held to the mode's codec; each
+    response's result bit for bit the same bucketed schedule's plain
+    versions on the CPU over an emulated world under the knobs it ran
+    with (phase 20b's tolerance for every mode it runs); rank 0's
+    samples, pinning and the final knobs."""
+    import hashlib
+
+    from horovod_tpu_torch.common import config as C
+    from horovod_tpu_torch.common.util import true_divide
+    from horovod_tpu_torch.ops import overlap as OV
+    from horovod_tpu_torch.ops import quantization as Q
+    from horovod_tpu_torch.ops.eager import HandleManager
+    from horovod_tpu_torch.ops.eager_exec import EagerExecutor
+    from horovod_tpu_torch.runtime import metrics as M
+    from horovod_tpu_torch.runtime.controller import KVController
+
+    t0 = time.perf_counter()
+    n = DP_N
+    orders, grads, subs, shifts = _eager_shards(torch, device, model_fn,
+                                                size, classes)
+    keep = ("HOROVOD_COMPRESSION", "HOROVOD_BUCKET_COMPRESSION",
+            "HOROVOD_OVERLAP_CHUNKS", *TUNE_ENV,
+            *(C.knobs()[k].env for k in TUNED_KNOBS))
+    saved = {k: os.environ.get(k) for k in keep}
+    os.environ.update(TUNE_ENV)
+    os.environ["HOROVOD_COMPRESSION"] = "none"
+    # no step span in this phase: the tuner scores logical bytes per
+    # second, not an earlier phase's blocked time
+    M.gauge("hvd_step_phase_seconds_last").reset()
+    M.gauge("hvd_compression_residual_ratio").reset()
+    try:
+        world = EmulatedWorld(torch, n, (Q.LAUNCHES,),
+                              sync=device == "cuda", free=True)
+        transport = DictTransport()
+        cls = _tune_runtime_class(world)
+        rts = [cls(r, n, KVController(transport, r, n, 25,
+                                      timeout=EAGER_TIMEOUT_S),
+                   EagerExecutor(world.flat(r), device), HandleManager(),
+                   start=False) for r in range(n)]
+        if rts[0].pm is None or any(rt.pm is not None for rt in rts[1:]):
+            raise AssertionError("25b: the tuner is not rank 0's alone")
+        steps = []
+        for step in range(TUNE_STEPS):
+            for rt in rts:
+                rt.log = []
+            res = _threads(lambda r: _eager_step(rts[r], subs[r]), n)
+            for k in orders[0]:
+                for r in range(1, n):
+                    if not torch.equal(res[r][k], res[0][k]):
+                        raise AssertionError(f"25b step {step + 1}: rank "
+                                             f"{r}'s {k} differs")
+            seq0 = [(x["round"], x["digest"]) for x in rts[0].log]
+            for r, rt in enumerate(rts):
+                seq = [(x["round"], x["digest"]) for x in rt.log]
+                if seq != seq0:
+                    raise AssertionError(
+                        f"25b step {step + 1}: rank {r} ran rounds/knobs "
+                        f"{seq}, rank 0 {seq0}")
+                for x in rt.log:
+                    want = _want_codec(x["modes"], x["guard"])
+                    if x["launches"] != want:
+                        raise AssertionError(
+                            f"25b step {step + 1} rank {r}: launches "
+                            f"{x['launches']} for bucket modes "
+                            f"{x['modes']}, expected {want}")
+            steps.append({"out": res[0], "log": [list(rt.log) for rt in rts]})
+        tunes = [list(rt.controller.tunes) for rt in rts]
+        if not tunes[0] or any(t != tunes[0] for t in tunes):
+            raise AssertionError(f"25b: the ranks applied {tunes}")
+        pm = rts[0].pm
+        final = {k: C.get(k) for k in TUNED_KNOBS}
+        objective = pm._objective
+        # the reduction reference: per (names, knobs) the same schedule's
+        # plain versions on the CPU over an emulated world
+        refs, checked = {}, 0
+        for s in steps:
+            for x in s["log"][0]:
+                key = (tuple(x["names"]), x["digest"])
+                got = torch.cat([s["out"][k].reshape(-1)
+                                 for k in x["names"]]).cpu()
+                if key not in refs:
+                    for k in ("bucket_compression", "overlap_chunks"):
+                        os.environ[C.knobs()[k].env] = str(x["knobs"][k])
+                    flats = [torch.cat([grads[r][k].reshape(-1)
+                                        for k in x["names"]]).cpu()
+                             for r in range(n)]
+                    cpu = EmulatedWorld(torch, n, sync=False)
+                    sums = cpu.run(lambda r: OV.overlapped_flat_reduce(
+                        flats[r], op=2, quantized="none",
+                        with_error=x["guard"], block_size=QBLOCK,
+                        axis_name=cpu.flat(r))[0])
+                    dt = flats[0].dtype
+                    refs[key] = true_divide(sums[0].to(dt), n).to(dt)
+                    checked += 1
+                    del flats, sums
+                if not torch.equal(got, refs[key]):
+                    raise AssertionError(
+                        f"25b: the response {x['names'][:2]}... under "
+                        f"bucket modes {x['modes']} differs from the "
+                        "plain versions' schedule on the CPU")
+        for rt in rts:
+            rt.stop()
+    finally:
+        _restore_env(saved)
+        M.gauge("hvd_compression_residual_ratio").reset()
+    log0 = [x for s in steps for x in s["log"][0]]
+    per_mode = {}
+    for x in log0:
+        for m in x["modes"]:
+            per_mode[m] = per_mode.get(m, 0) + 1
+    launches = {k: sum(x["launches"][k] for x in log0) for k in CODECS}
+    out = {"samples": pm._samples_seen, "pinned": pm._pinned,
+           "objective": objective, "final": final,
+           "tunes": [[rnd, t] for rnd, t in tunes[0]],
+           "responses": [len(s["log"][0]) for s in steps],
+           "bucket_modes": per_mode, "launches": launches,
+           "launches_per_step": [
+               {k: sum(x["launches"][k] for x in s["log"][0])
+                for k in CODECS} for s in steps],
+           "configs": sorted({x["digest"] for x in log0}),
+           "checked": checked, "seconds": time.perf_counter() - t0}
+    digest = hashlib.sha256(json.dumps(out["tunes"], sort_keys=True)
+                            .encode()).hexdigest()[:16]
+    log(f"[autotune] 25b: 4 emulated ranks, 161 ResNet-50 gradients of a "
+        f"{EAGER_SHARD}-image shard each, {TUNE_STEPS} steps under "
+        f"HOROVOD_AUTOTUNE, HOROVOD_ADAPTIVE_COMPRESSION and HOROVOD_OVERLAP "
+        f"(1-round windows, 0 warm-up, 3 samples): every rank applied the "
+        f"same {len(out['tunes'])} proposals at rounds "
+        f"{[t[0] for t in out['tunes']]} (digest {digest}) and ran every "
+        f"round under the same knobs; rank 0 saw {out['samples']} samples "
+        f"({objective}), pinned {out['pinned']}; final knobs {final}; "
+        f"responses per step {out['responses']}; bucket modes run "
+        f"{per_mode}; B4-B7 launches per step (rank 0) "
+        f"{out['launches_per_step']}, each response's equal to its modes' "
+        f"codec; {checked} distinct (response, knobs) results bit for bit "
+        f"the schedule's plain versions on the CPU; phase 25b took "
+        f"{out['seconds']:.1f} s; on {gpu}")
+    del grads, steps, refs
+    return out
+
+
+def tuning_plane(hvd, torch, gpu: str) -> dict:
+    """Phase 25 (a-b)."""
+    t0 = time.perf_counter()
+    out = {"a": timeline_world1(hvd, torch, gpu)}
+    torch.cuda.empty_cache()
+    out["b"] = autotune_emulated(hvd, torch, gpu)
+    torch.cuda.empty_cache()
+    log(f"[autotune] phase 25 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def run(args) -> int:
     t_start = time.perf_counter()
     card = pin_one_card()
@@ -6693,6 +7138,7 @@ def run(args) -> int:
     hvd.shutdown()
     torch.cuda.empty_cache()
     el = elastic_plane(gpu, os.path.join(_build.BUILD_DIR, "phase24"))
+    tune = tuning_plane(hvd, torch, gpu)
 
     def p24(name: str) -> dict:
         """A kernel's launches in phase 24's runs, as each run counted
@@ -6758,7 +7204,12 @@ def run(args) -> int:
                     for m, v in health["a"]["launches"].items()},
                 "launches_health_skip": [
                     health["a"]["skip"]["b1_skipped_step"],
-                    health["a"]["skip"]["b1_next_step"]]}
+                    health["a"]["skip"]["b1_next_step"]],
+                # phase 25a, per round of TL_STEPS steps, the timeline
+                # detached and attached
+                "launches_timeline": {
+                    m: [c["momentum"] for c in v]
+                    for m, v in tune["a"]["launches"].items()}}
                if kind == "momentum" else {}),
             **({"launches_zero_lm": zero_lm["launches"]["adam"],
                 "zero_tail_launches": zero_tail["adam"],
@@ -6864,6 +7315,11 @@ def run(args) -> int:
             # with the health tap
             "launches_health": [
                 x.get(kind, 0) for x in health["b"]["health"]["launches"]],
+            # phase 25b, rank 0 over TUNE_STEPS steps under the tuner's
+            # per-bucket modes, and per step
+            "launches_autotune": tune["b"]["launches"][kind],
+            "launches_autotune_per_step": [
+                c[kind] for c in tune["b"]["launches_per_step"]],
             "max_abs_err": max(codec_errs[kind], wire["errs"][kind]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -6899,6 +7355,11 @@ def run(args) -> int:
             "launches_health": {
                 m: [c[name] for c in v]
                 for m, v in health["a"]["launches"].items()},
+            # phase 25a, per round of TL_STEPS steps, the timeline
+            # detached and attached
+            "launches_timeline": {
+                m: [c[name] for c in v]
+                for m, v in tune["a"]["launches"].items()},
             "max_abs_err": e["max_abs_err"], "max_ulp": e["max_ulp"],
             "max_err_f64": e["max_err_f64"],
             "plain_err_f64": e["plain_err_f64"],
@@ -6934,6 +7395,12 @@ def run(args) -> int:
         f"us; restart downtime {el['b']['downtime_s']:.3f} s; drain "
         f"{el['c']['drain_s']:.3f} s (grace {el['c']['grace_s']:.0f} s); "
         f"on {gpu}")
+    log(f"[timeline] phase 25a: timeline on/off median step ratio "
+        f"{tune['a']['ratio']:.4f} ({tune['a']['median_s']['on']:.4f} "
+        f"against {tune['a']['median_s']['off']:.4f} s), writer host time "
+        f"{tune['a']['writer_ms_per_step']:.3f} ms per step; 25b "
+        f"{tune['b']['samples']} samples, pinned {tune['b']['pinned']}, "
+        f"final knobs {tune['b']['final']}; on {gpu}")
     log(f"[done] wall time {time.perf_counter() - t_start:.1f} s; CNN paths "
         + "; ".join(f"{n}: median step {r['median_s']:.4f} s, "
                     f"{CNN[n][1] / r['median_s']:.1f} img/s, peak "

@@ -24,7 +24,13 @@ plain destroy.
 package's: the goodput ledger's start and ``init`` phase, the
 ``hvd_world_size``/``hvd_generation`` gauges, the per-rank metrics
 endpoint (``HOROVOD_METRICS_PORT``), the fatal-signal dump handlers and
-the ``init``/``shutdown`` flight records and dumps.
+the ``init``/``shutdown`` flight records and dumps.  ``shutdown`` and
+:func:`teardown_distributed` close rank 0's timeline
+(``HOROVOD_TIMELINE``), so an elastic re-form flushes the old
+generation's trace and the new rank 0 opens a fresh one.
+``HOROVOD_TIMELINE_JAX_PROFILER`` (the JAX package's device capture;
+its ``torch.profiler`` counterpart is ROADMAP.md Queue A 12i) is noted
+once at ``init`` and changes nothing.
 """
 
 from __future__ import annotations
@@ -60,6 +66,7 @@ class _State:
         self.eager_hop = None   # the eager plane's world (its own group)
         self.eager_pair = None  # its (cross, local) pair, or None
         self.background = None  # runtime.background.BackgroundRuntime
+        self.timeline = None    # rank 0's runtime.timeline writer
         self.metrics_server = None     # per-rank /metrics endpoint
         self.metrics_publisher = None  # KV snapshot publisher
         # the card of the process's first init(): a re-init (an elastic
@@ -72,6 +79,7 @@ class _State:
 
 
 _state = _State()
+_noted_unported: set = set()
 
 
 def state() -> _State:
@@ -201,6 +209,7 @@ def init(device=None, timeout_s: float = 300.0, mesh=None) -> None:
             _state.first_device = dev
         _state.epoch += 1
         _state.initialized = True
+        _note_unported(rank)
         _build_eager_groups()
         if axes is not None:
             _build_data_mesh(axes)
@@ -219,6 +228,28 @@ def init(device=None, timeout_s: float = 300.0, mesh=None) -> None:
         from horovod_tpu_torch.ops import eager as _eager
 
         _eager.start_runtime()
+
+
+def _note_unported(rank: int) -> None:
+    """Say once per process that a set knob of a feature this package
+    has not ported yet is ignored."""
+    env = "HOROVOD_TIMELINE_JAX_PROFILER"
+    if os.environ.get(env, "").strip() and env not in _noted_unported:
+        _noted_unported.add(env)
+        _log.warning(f"{env} is set: the device capture (a torch.profiler "
+                     "capture in this package) is not ported yet; "
+                     "ignoring it", rank=rank)
+
+
+def _close_timeline() -> None:
+    """Flush, join and drop rank 0's timeline writer (idempotent)."""
+    tl, _state.timeline = _state.timeline, None
+    if tl is not None:
+        try:
+            tl.close()
+        except Exception as exc:  # noqa: BLE001 -- advisory
+            _log.warning(f"timeline close failed: {exc!r}",
+                         rank=_state.rank)
 
 
 def _start_observability() -> None:
@@ -392,6 +423,7 @@ def shutdown() -> None:
                 # the shutdown round from it (after a coordinated abort
                 # a peer is dead: nobody would meet this barrier)
                 dist.barrier()
+        _close_timeline()
         if _state.metrics_server is not None:
             _state.metrics_server.close()
             _state.metrics_server = None
@@ -437,6 +469,9 @@ def teardown_distributed(timeout_s: float | None = None) -> bool:
     with a dead member can hang), on gloo through a destroy run on a
     helper thread.  Returns False when the deadline passed first (the
     groups are then abandoned)."""
+    # the generation's trace ends on a whole record before its world
+    # goes (shutdown() may have closed it already)
+    _close_timeline()
     if not dist.is_initialized():
         return True
     timeout_s = (float(_config.get("shutdown_timeout"))

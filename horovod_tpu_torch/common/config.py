@@ -313,9 +313,23 @@ _KNOBS: dict[str, Knob] = {
         "paths and the eager wire's lossy responses publish "
         "hvd_compression_residual_ratio per bucket, and the round-0 "
         "handshake checks the int8/int4/topk knobs whatever "
-        "HOROVOD_COMPRESSION is.  The tuner that picks modes per bucket "
-        "(HOROVOD_AUTOTUNE) is not ported.  Must agree on every rank.",
+        "HOROVOD_COMPRESSION is.  Under HOROVOD_AUTOTUNE the tuner on "
+        "rank 0 also proposes a wire mode per overlap bucket "
+        "(HOROVOD_BUCKET_COMPRESSION, from the ladder none -> bf16 -> "
+        "fp16 -> int8 -> int4 -> topk) behind the bounded-loss guardrail "
+        "(HOROVOD_COMPRESSION_MAX_RESIDUAL_RATIO and the health plane's "
+        "loss verdict), applied by every rank at one round.  Must agree "
+        "on every rank.",
         cli="--adaptive-compression", config_key="compression.adaptive"),
+    "compression_guard_ratio": Knob(
+        "HOROVOD_COMPRESSION_MAX_RESIDUAL_RATIO", 0.5, float,
+        "Bounded-loss guardrail for adaptive compression: when a "
+        "bucket's reported error-feedback residual-to-gradient norm "
+        "ratio exceeds this ceiling, the tuner pins that bucket back "
+        "to int8 instead of int4/topk (0 disables the aggressive "
+        "modes entirely for reported buckets).",
+        cli="--compression-max-residual-ratio",
+        config_key="compression.max_residual_ratio"),
     "checkpoint_keep": Knob(
         "HOROVOD_CHECKPOINT_KEEP", 0, int,
         "Last-K checkpoint retention ring: after each save, complete "
@@ -424,6 +438,48 @@ _KNOBS: dict[str, Knob] = {
         "launcher's aggregate /metrics endpoint); 0 disables.",
         cli="--metrics-publish-interval",
         config_key="metrics.publish_interval"),
+    "timeline": Knob(
+        "HOROVOD_TIMELINE", "", str,
+        "Chrome-trace timeline output path (rank 0 writes: per-tensor "
+        "rows of NEGOTIATE_<KIND>, RANK<k>_READY and XLA_<KIND> events; "
+        "reference operations.cc:403-411).",
+        cli="--timeline-filename", config_key="profiling.timeline_filename"),
+    "timeline_mark_cycles": Knob(
+        "HOROVOD_TIMELINE_MARK_CYCLES", False, _parse_bool,
+        "Emit background-cycle markers (CYCLE_START) into the timeline.",
+        cli="--timeline-mark-cycles",
+        config_key="profiling.timeline_mark_cycles"),
+    "autotune": Knob(
+        "HOROVOD_AUTOTUNE", False, _parse_bool,
+        "Bayesian autotuning of the eager plane's knobs on rank 0 "
+        "(fusion threshold, cycle time, cache, hierarchical reductions, "
+        "overlap and prefetch chunks, per-bucket compression modes; "
+        "reference parameter_manager.h:42).",
+        cli="--autotune", config_key="autotune.enabled"),
+    "autotune_log": Knob(
+        "HOROVOD_AUTOTUNE_LOG", "", str,
+        "CSV log of autotune samples.",
+        cli="--autotune-log-file", config_key="autotune.log_file"),
+    "autotune_warmup_samples": Knob(
+        "HOROVOD_AUTOTUNE_WARMUP_SAMPLES", 3, int,
+        "Discarded warmup windows before scoring.",
+        cli="--autotune-warmup-samples",
+        config_key="autotune.warmup_samples"),
+    "autotune_steps_per_sample": Knob(
+        "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE", 10, int,
+        "Background cycles per autotune scoring window.",
+        cli="--autotune-steps-per-sample",
+        config_key="autotune.steps_per_sample"),
+    "autotune_bayes_opt_max_samples": Knob(
+        "HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES", 20, int,
+        "Max Bayesian-optimization samples before pinning the best.",
+        cli="--autotune-bayes-opt-max-samples",
+        config_key="autotune.bayes_opt_max_samples"),
+    "autotune_gaussian_process_noise": Knob(
+        "HOROVOD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE", 0.8, float,
+        "GP observation-noise prior.",
+        cli="--autotune-gaussian-process-noise",
+        config_key="autotune.gaussian_process_noise"),
     "log_level": Knob(
         "HOROVOD_LOG_LEVEL", "warning", str,
         "trace | debug | info | warning | error | fatal.",

@@ -202,6 +202,9 @@ def start_runtime():
                     make_controller(st.rank, st.size, st.epoch),
                     EagerExecutor(st.eager_hop, st.device, st.eager_pair),
                     handle_manager)
+                # rank 0's timeline, closed by shutdown() and by an
+                # elastic teardown
+                st.timeline = st.background.timeline
     return st.background
 
 

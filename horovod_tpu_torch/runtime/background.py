@@ -31,14 +31,24 @@ sent, ``parallel.mesh.counting_sent``) and the logical bytes, with a
 ``nan:``/``inf:`` rules poison payloads before dispatch
 (``runtime.faults.poison_entries``), where the executor's health tap
 sees them; under ``HOROVOD_HEALTH`` each round is marked once for the
-nonfinite alert's clear hysteresis (``health.note_wire_round``).  The
-timeline and the autotuner wait for ROADMAP.md Queue A items 12g and
-12h.
+nonfinite alert's clear hysteresis (``health.note_wire_round``).
+
+On rank 0, under ``HOROVOD_TIMELINE``, the runtime opens the Chrome-trace
+timeline (``runtime/timeline.py``): ``NEGOTIATE_<KIND>`` from enqueue to
+the response, the coordinator's ``RANK<k>_READY`` ticks, ``XLA_<KIND>``
+around the executor's dispatch, ``overlap/*`` ticks per bucket and,
+under ``HOROVOD_TIMELINE_MARK_CYCLES``, a ``CYCLE_START`` per cycle; the
+writer is flushed and closed on stop and, before the handles fail, on a
+coordinated abort or a background failure.  Under ``HOROVOD_AUTOTUNE``
+rank 0 owns the ``ParameterManager``: every response's bytes feed it,
+it ticks after every round, and its proposal rides the next round's
+response list to every rank (at world 1 it applies at once).
 """
 
 from __future__ import annotations
 
 import collections
+import math
 import threading
 import time
 
@@ -178,6 +188,26 @@ class BackgroundRuntime:
         self._error: str | None = None
         self._error_class: type | None = None
         self._dumped_flight = False
+        # rank 0's autotuner and the proposal the next round carries
+        self.pm = None
+        self._pending_tune: dict | None = None
+        if rank == 0 and _config.get("autotune"):
+            from horovod_tpu_torch.runtime.parameter_manager import \
+                ParameterManager
+
+            self.pm = ParameterManager(
+                world=world,
+                hier_possible=getattr(executor, "pair", None) is not None)
+        # rank 0's timeline; its coordinator ticks the ranks' arrivals
+        self.timeline = None
+        tl_path = _config.get("timeline")
+        if tl_path and rank == 0:
+            from horovod_tpu_torch.runtime.timeline import make_timeline
+
+            self.timeline = make_timeline(tl_path)
+            coord = getattr(controller, "coordinator", None)
+            if coord is not None:
+                coord.timeline = self.timeline
         # the plane's counters: responses executed (join and error
         # included), negotiation rounds, and each round's host seconds
         # (negotiation and dispatch of its responses)
@@ -224,6 +254,8 @@ class BackgroundRuntime:
         name = name or self.autoname(kind)
         entry = _Entry(name, kind, op, root_rank, tensor, handle,
                        postprocess, out, ready)
+        if self.timeline:
+            self.timeline.negotiate_start(name, kind)
         try:
             self.queue.add(entry)
         except DuplicateNameError:
@@ -270,15 +302,32 @@ class BackgroundRuntime:
             self._thread.join(timeout=30)
         if hasattr(self.controller, "close"):
             self.controller.close()
+        self._close_timeline()
+
+    def _close_timeline(self) -> None:
+        """Flush and join the timeline's writer (idempotent): a dying
+        rank's trace ends on a whole record."""
+        if self.timeline:
+            try:
+                self.timeline.close()
+            except Exception as exc:  # noqa: BLE001 -- advisory
+                _log.warning(f"timeline close failed: {exc!r}",
+                             rank=self.rank)
 
     # -- background loop ---------------------------------------------------
 
     def _run(self) -> None:
         while True:
+            # re-read each cycle: the autotuner retunes it at runtime
             cycle_s = _config.get("cycle_time_ms") / 1000.0
             t0 = time.monotonic()
+            if self.timeline and _config.get("timeline_mark_cycles"):
+                self.timeline.mark_cycle()
             try:
                 stop = self.run_cycle()
+                if self.timeline:
+                    # the cycle's events to the native writer, in one call
+                    self.timeline.flush()
             except RanksDownError as exc:
                 # the coordinated abort: every pending and later handle
                 # fails with the dead ranks, the round and the silence
@@ -296,6 +345,9 @@ class BackgroundRuntime:
                     # generation's communicators so a collective the
                     # caller still waits on fails (gloo resets by itself)
                     _basics.abort_communicators()
+                # the trace is flushed before the handles fail: a
+                # survivor may exit on the RanksDownError at once
+                self._close_timeline()
                 self._fail_outstanding()
                 _flight.flush_terminal_metrics()
                 stop = True
@@ -306,6 +358,7 @@ class BackgroundRuntime:
                 _flight.dump_on_failure("background_failure",
                                         flush_metrics=False)
                 self._dumped_flight = True
+                self._close_timeline()
                 self._fail_outstanding()
                 _flight.flush_terminal_metrics()
                 stop = True
@@ -316,6 +369,8 @@ class BackgroundRuntime:
                 self._wake.wait(cycle_s - elapsed)
             self._wake.clear()
         self._stopped.set()
+        if self._error:
+            self._close_timeline()
         self._fail_outstanding()
         if self._error and not self._dumped_flight:
             # the one error path with no exception: a coordinator-
@@ -352,8 +407,9 @@ class BackgroundRuntime:
         requests = [Request(e.name, e.kind, e.op, dtype_code(e.tensor.dtype),
                             tuple(e.tensor.shape), e.root_rank)
                     for e in pending]
+        tune, self._pending_tune = self._pending_tune, None
         neg_t0 = time.perf_counter()
-        result = ctl.negotiate(requests, joined, shutdown)
+        result = ctl.negotiate(requests, joined, shutdown, tune=tune)
         _M_NEG_LAT.observe(time.perf_counter() - neg_t0)
         _M_RESP_SIZE.observe(len(result.responses))
         fast = getattr(ctl, "fast_rounds", None)
@@ -370,6 +426,18 @@ class BackgroundRuntime:
                     break
         for resp in result.responses:
             self._execute(resp)
+        if self.pm is not None:
+            self._pending_tune = self.pm.tick()
+            if self._pending_tune is not None and self.world == 1:
+                # no wire to ride: apply at once.  At world > 1 every
+                # rank, this one included, applies on the response
+                # list's receipt, so the knobs never diverge across
+                # ranks (a proposal of the last round is dropped on
+                # every rank alike)
+                from horovod_tpu_torch.runtime.parameter_manager import \
+                    apply_params
+
+                apply_params(self._pending_tune)
         self.rounds += 1
         self.round_seconds.append(time.perf_counter() - t0)
         if result.all_joined and self._join_requested.is_set():
@@ -405,6 +473,8 @@ class BackgroundRuntime:
             for name in resp.names:
                 entry = self.queue.finalize(name)
                 if entry is not None:
+                    if self.timeline:
+                        self.timeline.negotiate_end(name, entry.kind)
                     self.hm.mark_done(
                         entry.handle,
                         Status.precondition(resp.error, exc_class), None)
@@ -423,6 +493,8 @@ class BackgroundRuntime:
                 zeros.append((len(entries), tuple(shape)))
                 entry = _Entry(name, resp.kind, resp.op, resp.root_rank,
                                None, None, None)
+            if self.timeline:
+                self.timeline.negotiate_end(name, entry.kind)
             entries.append(entry)
         from horovod_tpu_torch.runtime import faults as _faults
 
@@ -452,6 +524,13 @@ class BackgroundRuntime:
 
         scope = reduction_scope(resp.names[0]) \
             if resp.kind == "allreduce" and resp.names else None
+        activity = f"XLA_{resp.kind.upper()}"
+        if self.timeline:
+            # the JAX package's activity name: a trace reader's tooling
+            # applies unchanged
+            for e in entries:
+                self.timeline.activity_start(e.name, activity)
+            self._mark_overlap_schedule(resp, entries)
         _flight.record("dispatch", ph="B", collective=resp.kind,
                        n=len(entries), names=[e.name for e in entries[:8]])
         disp_t0 = time.perf_counter()
@@ -468,14 +547,49 @@ class BackgroundRuntime:
                     f"Collective {resp.kind} failed: {exc!r}")
                 _log.error(status.reason, rank=self.rank)
         _M_DISPATCH.inc(time.perf_counter() - disp_t0, kind=resp.kind)
+        if self.timeline:
+            for e in entries:
+                self.timeline.activity_end(e.name, activity)
+        logical_b = _logical_nbytes(resp, dtype)
         _M_WIRE_BYTES.inc(sent[0], kind=resp.kind,
                           axis="local" if scope == "local" else "cross")
-        _M_LOGICAL_BYTES.inc(_logical_nbytes(resp, dtype), kind=resp.kind)
+        _M_LOGICAL_BYTES.inc(logical_b, kind=resp.kind)
+        if self.pm is not None:
+            # at world 1 nothing crosses a wire: the tuner scores the
+            # negotiated payload, as the JAX package's count does there
+            self.pm.record_bytes(sent[0] if self.world > 1 else logical_b,
+                                 logical_b)
         _flight.record("dispatch", ph="E", collective=resp.kind,
                        ok=status.ok_p(), bytes=sent[0])
         for entry, out in zip(entries, outs):
             if entry.handle is not None:
                 self.hm.mark_done(entry.handle, status, out, done)
+
+    def _mark_overlap_schedule(self, resp, entries) -> None:
+        """Per-bucket ``overlap/rs|compute|ag`` timeline ticks for a
+        response riding the overlap schedule (the host's issue order).
+        The reduce-scatter wire pads each tensor's leading dimension to
+        the world size, so its per-rank bucket space is the sum of
+        ``ceil(d0 / n)`` rows per tensor; an allreduce pads the flat
+        total."""
+        from horovod_tpu_torch.ops import overlap as _ovl
+        from horovod_tpu_torch.ops.eager_exec import _ADASUM
+
+        if resp.kind not in ("allreduce", "reducescatter") or \
+                resp.op == _ADASUM or self.world <= 1 or \
+                not _ovl.enabled():
+            return
+        if resp.kind == "reducescatter":
+            shard = sum(-(-int(s[0]) // self.world) * math.prod(s[1:])
+                        for s in resp.shapes)
+        else:
+            total = sum(math.prod(s) for s in resp.shapes)
+            shard = (total + (-total) % self.world) // self.world
+        name = entries[0].name
+        for b, (s, e) in enumerate(_ovl.bucket_bounds(shard)):
+            for phase in ("rs", "compute", "ag"):
+                self.timeline.overlap_phase(name, b, phase,
+                                            (e - s) * self.world)
 
     def _dispatch(self, resp, entries):
         ex = self.executor

@@ -24,12 +24,20 @@ and timeouts, heartbeat publishes, gaps, staleness and sweep lag,
 coordinated aborts) and flight events (``round``, ``arrive``,
 ``hb_pub``, ``hb_stale``, ``hb_fresh``, ``clk``, ``abort``,
 ``wire_timeout``), and :func:`make_controller` wraps the transport in
-``HOROVOD_FAULT_SPEC``'s rules (``runtime/faults.py``).  The autotuner's
-parameter broadcast waits for ROADMAP.md Queue A item 12h.
+``HOROVOD_FAULT_SPEC``'s rules (``runtime/faults.py``).  Under
+``HOROVOD_AUTOTUNE`` the coordinator attaches rank 0's pending knob
+proposal (``"t"``) to the round's response list, fast or slow, flat or
+hierarchical, and every rank applies it on receipt, before any fusion of
+that round (``parameter_manager.apply_params``; ``cache_enabled`` toggles
+this controller's cache probing).  Under ``HOROVOD_TIMELINE`` the
+coordinator ticks ``RANK<k>_READY`` on a tensor's row when rank k's
+request for it arrives (:attr:`Coordinator.timeline`, set by rank 0's
+runtime).
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import threading
 import time
@@ -207,7 +215,9 @@ class _MessageTable:
 
 
 class Coordinator:
-    """Rank 0's negotiation, independent of the transport."""
+    """Rank 0's negotiation, independent of the transport.  ``timeline``
+    (rank 0's runtime sets it under ``HOROVOD_TIMELINE``) receives a
+    ``RANK<k>_READY`` tick per arriving request."""
 
     def __init__(self, world: int):
         self.world = world
@@ -216,6 +226,7 @@ class Coordinator:
         self.last_joined = -1
         self.errors: dict[str, str] = {}
         self.stall = StallInspector(world)
+        self.timeline = None
 
     def ingest(self, rank: int, requests: list, joined: bool,
                shutdown: bool) -> bool:
@@ -229,6 +240,10 @@ class Coordinator:
                 self.errors[req.name] = err
             else:
                 self.stall.observe(req.name)
+                if self.timeline is not None:
+                    # which rank became ready when: the straggler signal
+                    # the timeline exists for (reference timeline.h:85-88)
+                    self.timeline.negotiate_rank_ready(req.name, rank)
         return shutdown
 
     def compute_responses(self) -> tuple[list, bool]:
@@ -648,7 +663,9 @@ class LocalController:
         self.fast_rounds = 0
 
     def negotiate(self, requests: list, joined: bool,
-                  shutdown: bool) -> NegotiationResult:
+                  shutdown: bool, tune: dict | None = None
+                  ) -> NegotiationResult:
+        # tune: one process, the runtime applied it already
         stop = self.coordinator.ingest(0, requests, joined, shutdown)
         responses, all_joined = self.coordinator.compute_responses()
         self.round += 1
@@ -704,6 +721,12 @@ class KVController:
         self.fast_rounds = 0
         # requests this rank shipped with their metadata (not as hit bits)
         self.explicit_requests = 0
+        # the autotuner's cache_enabled: probing on or off (recording
+        # runs either way, so every rank's cache stays bit-identical
+        # whatever round a rank applied the toggle at)
+        self.cache_active = True
+        # (round, knobs) of each tuner proposal this rank applied
+        self.tunes: collections.deque = collections.deque(maxlen=256)
         # liveness: peer -> [last beat, monotonic time it last changed,
         # suspected]
         self._hb_interval = max(float(_config.get("heartbeat_interval")), 0)
@@ -1052,9 +1075,10 @@ class KVController:
             self.t.set_once(self._key("k", self.round), "1")
         self.t.set_once(self._key("sk", s, self.round), "1")
 
-    def _coordinate(self, r: int, raws: list) -> str:
+    def _coordinate(self, r: int, raws: list, tune=None) -> str:
         """Rank 0: ingest every rank's round-``r`` payload, compute the
-        ResponseList, post it at ``p/<r>`` and return it."""
+        ResponseList (with the tuner's proposal ``tune`` as ``"t"``),
+        post it at ``p/<r>`` and return it."""
         msgs = [_wire.loads_rank(raw) for raw in raws]
         if r == 0:
             cfgs = {tuple(m["cfg"]) for m in msgs}
@@ -1087,7 +1111,10 @@ class KVController:
                 and not self.coordinator.table.entries
                 and not self.coordinator.joined)
         if fast:
-            resp_payload = _wire.dumps_resp({"f": msgs[0]["b"]})
+            fast_msg = {"f": msgs[0]["b"]}
+            if tune is not None:
+                fast_msg["t"] = tune
+            resp_payload = _wire.dumps_resp(fast_msg)
         else:
             stop = False
             for other, m in enumerate(msgs):
@@ -1101,14 +1128,17 @@ class KVController:
                 stop |= self.coordinator.ingest(other, reqs,
                                                 m["j"], m["x"])
             responses, all_joined = self.coordinator.compute_responses()
-            resp_payload = _wire.dumps_resp({
+            slow_msg = {
                 "resp": [p.wire() for p in responses],
                 "i": glob_inv, "x": stop, "aj": all_joined,
-                "lj": self.coordinator.last_joined})
+                "lj": self.coordinator.last_joined}
+            if tune is not None:
+                slow_msg["t"] = tune
+            resp_payload = _wire.dumps_resp(slow_msg)
         self.t.set(self._key("p", r), resp_payload)
         return resp_payload
 
-    def _exchange_hier(self, r: int, payload: str) -> str:
+    def _exchange_hier(self, r: int, payload: str, tune=None) -> str:
         """The two-level round-``r`` exchange: members post at
         ``sq/<slice>/<r>/<rank>`` and wait on the slice's fan-down
         ``sp/<slice>/<r>``; each leader gathers its slice, forwards one
@@ -1140,7 +1170,7 @@ class KVController:
             for mp in slices.values():
                 for rk, pl in json.loads(mp).items():
                     raws[int(rk)] = pl
-            resp_payload = self._coordinate(r, raws)
+            resp_payload = self._coordinate(r, raws, tune)
         else:
             self.t.set(self._key("gq", r, s), merged_payload)
             resp_payload = self._get_blocking(
@@ -1177,7 +1207,10 @@ class KVController:
                 self.t.delete(self._key("gq", gc, o))
 
     def negotiate(self, requests: list, joined: bool,
-                  shutdown: bool) -> NegotiationResult:
+                  shutdown: bool, tune: dict | None = None
+                  ) -> NegotiationResult:
+        """One round: this rank's requests out, the response list in.
+        ``tune`` (rank 0 only) is the tuner's pending proposal."""
         r = self.round
         # this rank's submitted shape per pending name: the cache's
         # probe key when the response (maybe of a later round) lands
@@ -1186,7 +1219,7 @@ class KVController:
         bits: list[int] = []
         invalid: list[int] = []
         explicit = requests
-        if self.cache is not None:
+        if self.cache is not None and self.cache_active:
             explicit = []
             for q in requests:
                 state, bit = self.cache.probe(q)
@@ -1212,10 +1245,10 @@ class KVController:
                        n_hits=len(bits),
                        names=[q.name for q in requests[:16]])
         if self._hier is not None:
-            resp_payload = self._exchange_hier(r, payload)
+            resp_payload = self._exchange_hier(r, payload, tune)
         elif self.rank == 0:
             resp_payload = self._coordinate(
-                r, self._gather_request_lists(r, payload))
+                r, self._gather_request_lists(r, payload), tune)
         else:
             self.t.set(self._key("q", r, self.rank), payload)
             resp_payload = self._get_blocking(
@@ -1223,6 +1256,18 @@ class KVController:
                 "waiting for the coordinator's response list")
 
         msg = _wire.loads_resp(resp_payload)
+        if "t" in msg:
+            # the coordinator's knob proposal (reference
+            # SynchronizeParameters): applied before any fusion below,
+            # so the fast path fuses with the same threshold on every
+            # rank this round; a proposal this rank cannot apply raises
+            from horovod_tpu_torch.runtime.parameter_manager import \
+                apply_params
+
+            apply_params(msg["t"])
+            if "cache_enabled" in msg["t"]:
+                self.cache_active = bool(msg["t"]["cache_enabled"])
+            self.tunes.append((r, dict(msg["t"])))
         self.round += 1
         if r >= 2:
             self._gc(r - 2)

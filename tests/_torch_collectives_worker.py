@@ -31,7 +31,9 @@ local-SGD cases of ``tests/_torch_local_sgd_worker.py``; ``eager`` and
 ``eager_training_cards`` and ``eager_kill_cards`` the eager regimes of
 ZeRO and local SGD and the coordinated abort, and
 ``observability_cards`` eager stage 2 under ``hvd.trace_step``, of
-``tests/_torch_eager_training_worker.py``.
+``tests/_torch_eager_training_worker.py``; ``timeline_ticks``,
+``autotune_sync`` and ``tuning_cards`` the timeline's and the
+autotuner's, of ``tests/_torch_tuning_worker.py``.
 ``HVD_TEST_FEEDBACK`` may name a ``.npy`` file of per-rank residuals
 that the lossy optimizer case loads before its second step;
 ``HVD_TEST_INTEROP`` a pickle, written by ``tests/test_torch_zero.py``,
@@ -2169,6 +2171,16 @@ def observability_cards_main(device: str):
     run(device)
 
 
+def tuning_modes(mode: str):
+    """The timeline's and the autotuner's worker modes
+    (``_torch_tuning_worker``)."""
+    import _torch_tuning_worker as W
+
+    return {"timeline_ticks": W.timeline_ticks_main,
+            "autotune_sync": W.autotune_sync_main,
+            "tuning_cards": W.tuning_cards_main}[mode]
+
+
 def health_modes(mode: str):
     """The health plane's and the checkpoint's worker modes
     (``_torch_health_worker``)."""
@@ -2199,4 +2211,6 @@ if __name__ == "__main__":
      "observability_cards": observability_cards_main,
      **{m: lambda d, m=m: health_modes(m)(d)
         for m in ("health", "health_culprit", "checkpoint",
-                  "health_cards", "health_cards_restore")}}[mode](dev)
+                  "health_cards", "health_cards_restore")},
+     **{m: lambda d, m=m: tuning_modes(m)(d)
+        for m in ("timeline_ticks", "autotune_sync", "tuning_cards")}}[mode](dev)

@@ -1838,3 +1838,89 @@ def test_four_cards_elastic_clean_step():
           f"{it[True] / it[False]:.4f}; final parameters equal across the "
           f"four launches: {len({r['digest'] for r in runs}) == 1}; on 4 x "
           f"{card.strip()}")
+
+
+def test_four_cards_timeline_autotune_resnet50(tmp_path):
+    """The timeline and the tuner on four cards: the bench ResNet-50 step
+    (224 px, batch 256 per card, bf16, fused momentum SGD) under
+    ``DistributedOptimizer(eager=True)`` at ZeRO stage 2, each phase its
+    own world generation: without the timeline, with it (rank 1 sleeps
+    1 s before step 5), without it, with it, then under
+    ``HOROVOD_AUTOTUNE`` (2 cycles a sample, 1 warm-up sample, 4
+    samples).  Rank 0's trace is valid JSON; every submitted row holds
+    ``RANK0_READY`` to ``RANK3_READY`` and a straggling step in which
+    rank 1's tick is later than the other three's by at least 0.95 of
+    the sleep on every gradient bucket's reduce-scatter row (the others'
+    host time to the same submission differs from rank 1's by a few
+    ms); every rank reports the same tuned knobs after every step and applied
+    the same proposals at the same rounds.  Prints the timeline's on/off
+    step ratio (medians over steps 3-10 but the straggling one)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    import json
+    import os
+    import subprocess
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from _torch_collectives_worker import spawn
+    from _torch_tuning_worker import STRAGGLE_S
+
+    card = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    trace = str(tmp_path / "timeline.json")
+    outs = spawn(4, "cuda", timeout=900, mode="tuning_cards",
+                 env_extra={"HVD_TEST_TRACE": trace,
+                            "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE": "2",
+                            "HOROVOD_AUTOTUNE_WARMUP_SAMPLES": "1",
+                            "HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES": "4"})
+    for o in outs:
+        for phase in ("off", "on", "off2", "on2", "tune"):
+            r = o[phase]
+            assert all(math.isfinite(v) for v in r["losses"]), (phase, r)
+            assert all(b == 1 for b in r["B1"]), (phase, r)
+    with open(trace) as f:
+        events = json.load(f)
+    rows = {e["tid"]: e["args"]["name"] for e in events
+            if e.get("ph") == "M" and e.get("name") == "thread_name"}
+    ticks: dict = {}
+    for e in events:
+        if e.get("ph") == "i" and e["name"].endswith("_READY"):
+            rk = int(e["name"][4:-6])
+            ticks.setdefault(rows[e["tid"]], {}).setdefault(rk, []).append(
+                e["ts"])
+    shard_rows = {n for n in rows.values() if n.startswith("shard_")}
+    assert shard_rows and shard_rows <= set(ticks), sorted(rows)
+    late = []
+    for name, per in ticks.items():
+        assert sorted(per) == [0, 1, 2, 3], (name, sorted(per))
+        if not name.startswith("shard_rs."):
+            continue  # the all-gathers start after every rank's scatter
+        # the k-th tick of each rank is one step's arrival (a fast round
+        # ingests no request, and ticks none)
+        n = min(len(v) for v in per.values())
+        gaps = [per[1][i] - max(per[k][i] for k in (0, 2, 3))
+                for i in range(n)]
+        late.append(max(gaps) / 1e6)
+        # the three others reach the same submission a few ms apart
+        # from rank 1's own host time: 0.95 of the sleep
+        assert max(gaps) >= 0.95 * STRAGGLE_S * 1e6, (name, gaps)
+    assert late, sorted(ticks)
+    knobs = [o["tune"]["knobs"] for o in outs]
+    assert all(k == knobs[0] for k in knobs), knobs
+    tunes = [o["tune"]["tunes"] for o in outs]
+    assert tunes[0] and all(t == tunes[0] for t in tunes), tunes
+    off = [o[p]["median_step_s"] for o in outs for p in ("off", "off2")]
+    on = [o[p]["median_step_s"] for o in outs for p in ("on", "on2")]
+    ratio = (sum(on) / len(on)) / (sum(off) / len(off))
+    print(f"[four cards] timeline on/off median step ratio {ratio:.4f} "
+          f"(off {[round(x, 4) for x in off]} s, on "
+          f"{[round(x, 4) for x in on]} s); rank 1's straggling tick "
+          f"later by {min(late):.4f}-{max(late):.4f} s over "
+          f"{len(ticks)} rows (sleep {STRAGGLE_S} s); tuner: "
+          f"{outs[0]['tune']['samples']} samples, pinned "
+          f"{outs[0]['tune']['pinned']}, proposals at rounds "
+          f"{[t[0] for t in tunes[0]]}, final knobs {knobs[0][-1]}, "
+          f"tuned step median {outs[0]['tune']['median_step_s']:.4f} s; "
+          f"on 4 x {card.strip()}")
