@@ -342,6 +342,29 @@ Phases (any failure exits non-zero and prints no result line):
    pinning and final knobs (the ``launches_timeline`` and
    ``launches_autotune`` keys of the kernels line).
 
+26. the autopilot on phase 6's ResNet-50 step (deterministic cuDNN):
+   (a) at world 1 in process, ``ElasticState(checkpoint_dir=D)`` under
+   ``HOROVOD_HEALTH=1`` and ``HOROVOD_CHECKPOINT_KEEP=4``, a commit
+   every 2 steps, 10 steps: a reference run with the autopilot off, then
+   ``HOROVOD_AUTOPILOT=1`` with step 5 poisoned once (``nan:grads*`` set
+   for that step): the nonfinite sentinel trips, the next commit is
+   stamped ``poisoned``, the commit's tick rolls back to the newest
+   healthy commit (step 4) and the loop replays; the final parameters,
+   BatchNorm buffers and momentum traces equal the reference's bit for
+   bit, ``rank_autopilot().stats()["rollbacks"] == 1`` and one
+   ``applied`` autopilot event on the ring; then under
+   ``HOROVOD_AUTOPILOT_DRY_RUN=1`` the verdict is ``dry_run`` and
+   nothing is restored; the tick's host time per commit (median, on
+   against off) and the rollback's wall time; (b) ``python -m
+   horovod_tpu_torch.run -np 1 --elastic --autopilot --checkpoint-dir D``
+   over the ``apdrain`` worker: the engaged line once, the rank's
+   ``--preempt 0`` applied through the ungated ``preempt_drain`` rule,
+   the rank drained with one emergency commit and exit 0, the launcher's
+   return 0, its flight dump holding the verdict with rank, uid and
+   source; the drain time beside 24c's.  One B1 and 53 of each of N1-N4
+   per step that ran, replayed steps included (the
+   ``launches_autopilot`` key of the kernels line).
+
 Then the run's wall time, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
 {...}}``.
@@ -5827,13 +5850,14 @@ HEALTH_KNOBS = ("HOROVOD_HEALTH", "HOROVOD_HEALTH_SKIP_NONFINITE",
 
 
 class _EnvKnobs:
-    """Sets the health knobs for a block and puts back what was there."""
+    """Sets environment knobs for a block and puts back what was there
+    (the health knobs, and any it was given)."""
 
     def __init__(self, **kv):
         self.kv = kv
 
     def __enter__(self):
-        self.old = {k: os.environ.get(k) for k in HEALTH_KNOBS}
+        self.old = {k: os.environ.get(k) for k in (*HEALTH_KNOBS, *self.kv)}
         for k, v in self.kv.items():
             if v is None:
                 os.environ.pop(k, None)
@@ -6264,8 +6288,11 @@ def _p24_worker(mode: str, d: str) -> int:
     (``HOROVOD_RESUME_STEP``) restores that step and trains on to
     ``P24_STEPS``.  ``plain``: ``P24_STEPS`` steps, no checkpoint.
     ``drain``: elastic, a durable commit every step, SIGTERM after step
-    ``P24_NOTICE``.  ``resume``: elastic, restores the newest complete
-    commit and takes ``P24_RESUMED`` steps.  Prints one JSON line."""
+    ``P24_NOTICE``.  ``apdrain`` (phase 26b): as ``drain``, but the notice
+    is ``python -m horovod_tpu_torch.run --preempt 0`` run from the rank,
+    which the launcher's autopilot turns into the drain.  ``resume``:
+    elastic, restores the newest complete commit and takes
+    ``P24_RESUMED`` steps.  Prints one JSON line."""
     t_proc = time.time()
     import hashlib
     import signal
@@ -6353,6 +6380,8 @@ def _p24_worker(mode: str, d: str) -> int:
         out["commit_step"] = int(snap["step"])
     total = {"restart": P24_STEPS, "plain": P24_STEPS,
              "drain": P24_STEPS,
+             # the drain must come before the steps run out
+             "apdrain": 4 * P24_STEPS,
              "resume": state.step + P24_RESUMED}[mode]
     losses, step_end, step_s = [], [], []
     for m in counters:
@@ -6402,6 +6431,14 @@ def _p24_worker(mode: str, d: str) -> int:
             if mode == "drain" and state.step == P24_NOTICE:
                 out["t_notice"] = time.time()
                 os.kill(os.getpid(), signal.SIGTERM)
+            if mode == "apdrain" and state.step == P24_NOTICE:
+                out["t_notice"] = time.time()
+                req = subprocess.run(
+                    [sys.executable, "-m", "horovod_tpu_torch.run",
+                     "--preempt", "0"], capture_output=True, text=True,
+                    timeout=60)
+                out["preempt_rc"] = req.returncode
+                out["t_sent"] = time.time()
         state.commit()
         return state
 
@@ -7021,6 +7058,330 @@ def tuning_plane(hvd, torch, gpu: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: the autopilot on phase 6's ResNet-50 step: the rank side's
+# rollback at world 1 in process, and the launcher's engine at -np 1
+# ---------------------------------------------------------------------------
+
+AP_STEPS, AP_EVERY, AP_POISON = 10, 2, 5   # 26a: steps, commit period,
+                                            # the step poisoned once
+AP_KEEP = 4                                 # HOROVOD_CHECKPOINT_KEEP
+
+
+def _ap_run(hvd, torch, model_fn, images, labels, ckdir: str, *,
+            autopilot: bool, dry_run: bool = False, poison=None,
+            sync=None) -> dict:
+    """One 26a run: a fresh model and fused momentum SGD under
+    ``ElasticState(checkpoint_dir=ckdir)``, ``HOROVOD_HEALTH=1`` and
+    ``HOROVOD_CHECKPOINT_KEEP``, a commit every ``AP_EVERY`` steps until
+    step ``AP_STEPS``; step ``poison``'s first run carries
+    ``HOROVOD_FAULT_SPEC=nan:grads*`` (the in-trace rule, set for that
+    one step).  Every commit's autopilot tick and every rollback are
+    timed on the host.  Returns the steps that ran, their losses, the
+    kernels' launches over the run, a digest of the parameters, the
+    BatchNorm buffers and the momentum traces, the engine's stats, the
+    ring's ``autopilot`` events and the commits' verdicts."""
+    import hashlib
+
+    from horovod_tpu_torch import checkpoint as ckpt
+    from horovod_tpu_torch import elastic
+    from horovod_tpu_torch.ops import batch_norm as BN
+    from horovod_tpu_torch.ops import flash_attention as FA
+    from horovod_tpu_torch.ops import quantization as Q
+    from horovod_tpu_torch.optim import fused_update as TF
+    from horovod_tpu_torch.runtime import autopilot as AP
+    from horovod_tpu_torch.runtime import faults as F
+    from horovod_tpu_torch.runtime import flight
+    from horovod_tpu_torch.runtime import health as H
+    from horovod_tpu_torch.train_step import train_step
+
+    sync = sync or torch.cuda.synchronize
+    counters = (TF, FA, Q, BN)
+    knobs = dict(HOROVOD_HEALTH=1, HOROVOD_AUTOPILOT=int(autopilot),
+                 HOROVOD_AUTOPILOT_DRY_RUN=int(dry_run),
+                 HOROVOD_CHECKPOINT_KEEP=AP_KEEP, HOROVOD_FAULT_SPEC=None)
+    ticks, rollbacks = [], []
+    real_tick = elastic._autopilot_tick
+    real_rb = elastic.ElasticState.rollback_to_healthy
+
+    def tick(state):
+        n = len(rollbacks)
+        t0 = time.perf_counter()
+        real_tick(state)
+        if len(rollbacks) == n:   # the rollback's tick is timed apart
+            ticks.append(time.perf_counter() - t0)
+
+    def rollback(state):
+        t0 = time.perf_counter()
+        step = real_rb(state)
+        sync()
+        rollbacks.append({"s": time.perf_counter() - t0, "to_step": step})
+        return step
+
+    with _EnvKnobs(**knobs):
+        AP.reset()
+        H.reset()
+        flight.reset()
+        model = model_fn()
+        opt = hvd.DistributedOptimizer(
+            hvd.fused_update.sgd(model.parameters(), 0.1, momentum=0.9))
+        state = elastic.ElasticState(params=model, opt_state=opt,
+                                     checkpoint_dir=ckdir)
+        elastic._autopilot_tick = tick
+        elastic.ElasticState.rollback_to_healthy = rollback
+        ran, losses, poisoned = [], [], False
+        try:
+            for m in counters:
+                m.reset_launch_counts()
+            while state.step < AP_STEPS:
+                if len(ran) >= 3 * AP_STEPS:
+                    raise AssertionError("[autopilot] 26a: the rollback "
+                                         "loop never converged")
+                if state.step % AP_EVERY == 0:
+                    state.commit()
+                hit = state.step == poison and not poisoned
+                poisoned = poisoned or hit
+                with _EnvKnobs(HOROVOD_FAULT_SPEC="nan:grads*" if hit
+                               else None):
+                    loss = train_step(model, opt, images, labels)
+                sync()
+                F._data_cache = ("", [])
+                ran.append(state.step)
+                losses.append(float(loss))
+                state.step += 1
+            launches = {k: v for m in counters
+                        for k, v in m.LAUNCHES.items()}
+        finally:
+            elastic._autopilot_tick = real_tick
+            elastic.ElasticState.rollback_to_healthy = real_rb
+        h = hashlib.sha256()
+        for v in model.state_dict().values():
+            h.update(v.detach().float().cpu().numpy().tobytes())
+        for st in opt.optimizer.state.values():
+            for k in sorted(st):
+                if torch.is_tensor(st[k]):
+                    h.update(st[k].float().cpu().numpy().tobytes())
+        finite = all(bool(torch.isfinite(v).all())
+                     for v in model.state_dict().values()
+                     if v.is_floating_point())
+        stats = AP.rank_autopilot().stats()
+        events = [{k: e.get(k) for k in ("rule", "act", "target",
+                                         "outcome", "evidence")}
+                  for e in flight.recorder().snapshot()
+                  if e["kind"] == "autopilot"]
+        verdicts = {s: ckpt.verdict_of(ckdir, s)
+                    for s in ckpt._complete_steps(ckdir)}
+        AP.reset()
+        H.reset()
+    return {"ran": ran, "losses": losses, "launches": launches,
+            "digest": h.hexdigest(), "finite": finite, "stats": stats,
+            "events": events, "verdicts": verdicts, "ticks": ticks,
+            "rollbacks": rollbacks}
+
+
+def _ap_counts(run: dict, what: str) -> dict:
+    """One B1 and RESNET50_BN of each of N1-N4 per step that ran
+    (replayed steps included), and no launch of any other kernel."""
+    n, got = len(run["ran"]), run["launches"]
+    want = {k: 0 for k in got}
+    want.update({"momentum": n, **dict.fromkeys(BN_KERNELS,
+                                                RESNET50_BN * n)})
+    if got != want:
+        raise AssertionError(f"[autopilot] {what}: {n} steps launched "
+                             f"{got}, want {want}")
+    return {"steps": n, **got}
+
+
+def autopilot_rollback(hvd, torch, gpu: str, work: str, device: str = "cuda",
+                       model_fn=None, batch: int = BATCH, size: int = 224,
+                       classes: int = 1000) -> dict:
+    """26a: phase 6's ResNet-50 step (deterministic cuDNN) at world 1 in
+    process, three runs of ``_ap_run``: autopilot off and unpoisoned (the
+    reference bits, and the tick's cost with the knob off); autopilot on
+    with step ``AP_POISON`` poisoned once: the nonfinite sentinel trips,
+    the next commit is stamped ``poisoned``, the tick rolls back to the
+    newest healthy commit and the loop replays, and the final parameters,
+    BatchNorm buffers and momentum traces equal the reference's bit for
+    bit after exactly one applied rollback (one ``applied`` autopilot
+    event on the ring, with its evidence); then the same under
+    ``HOROVOD_AUTOPILOT_DRY_RUN``: the verdict is ``dry_run`` and nothing
+    is restored."""
+    import shutil
+
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.train_step import synthetic_batch
+
+    if model_fn is None:
+        def model_fn():
+            return ResNet50(num_classes=classes, dtype=torch.bfloat16,
+                            seed=0)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    cudnn = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    hvd.init(device=None if device == "cuda" else device)
+    try:
+        images, labels = synthetic_batch(batch, size, classes, seed=0,
+                                         device=device)
+        runs = {}
+        for name, kw in (("off", dict(autopilot=False)),
+                         ("rollback", dict(autopilot=True,
+                                           poison=AP_POISON)),
+                         ("dry_run", dict(autopilot=True, dry_run=True,
+                                          poison=AP_POISON))):
+            d = os.path.join(work, name)
+            shutil.rmtree(d, ignore_errors=True)
+            runs[name] = _ap_run(hvd, torch, model_fn, images, labels, d,
+                                 sync=sync, **kw)
+            shutil.rmtree(d, ignore_errors=True)
+            if device == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        hvd.shutdown()
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = cudnn
+    off, rb, dry = runs["off"], runs["rollback"], runs["dry_run"]
+    if off["ran"] != list(range(AP_STEPS)) or not off["finite"] \
+            or off["stats"]["actions_total"] or off["events"]:
+        raise AssertionError(f"[autopilot] 26a: the reference run: {off}")
+    back = AP_POISON - AP_POISON % AP_EVERY
+    want_ran = list(range(AP_POISON + 1)) + list(range(back, AP_STEPS))
+    applied = [e for e in rb["events"] if e["outcome"] == "applied"]
+    others = {e["outcome"] for e in rb["events"]} - {"applied"}
+    if not (rb["stats"]["rollbacks"] == 1 and len(applied) == 1
+            and applied[0]["rule"] == "health_rollback"
+            and "nonfinite" in applied[0]["evidence"]["alerts"]
+            and others <= {"suppressed:cooldown"}
+            and len(rb["rollbacks"]) == 1
+            and rb["rollbacks"][0]["to_step"] == back):
+        raise AssertionError(f"[autopilot] 26a: want one applied rollback "
+                             f"to step {back}: stats {rb['stats']}, events "
+                             f"{rb['events']}, rollbacks {rb['rollbacks']}")
+    if "poisoned" not in rb["verdicts"].values():
+        raise AssertionError(f"[autopilot] 26a: no commit stamped "
+                             f"poisoned: {rb['verdicts']}")
+    if rb["ran"] != want_ran:
+        raise AssertionError(f"[autopilot] 26a: steps ran {rb['ran']}, "
+                             f"want {want_ran}")
+    if rb["digest"] != off["digest"] or not rb["finite"]:
+        raise AssertionError(
+            f"[autopilot] 26a: the rolled-back run's parameters, buffers "
+            f"and traces (sha256 {rb['digest']}) differ from the "
+            f"unpoisoned run's ({off['digest']}); losses {rb['losses']} "
+            f"against {off['losses']}")
+    replay = rb["losses"][AP_POISON + 1:]
+    if replay != off["losses"][back:]:
+        raise AssertionError(f"[autopilot] 26a: replayed losses {replay} "
+                             f"against {off['losses'][back:]}")
+    if not (dry["stats"]["rollbacks"] == 0
+            and dry["stats"]["by_outcome"].get("dry_run") == 1
+            and not dry["rollbacks"] and dry["ran"] == list(range(AP_STEPS))
+            and not dry["finite"]
+            and not any(e["outcome"] == "applied" for e in dry["events"])):
+        raise AssertionError(f"[autopilot] 26a: the dry run restored "
+                             f"something or recorded no dry_run verdict: "
+                             f"stats {dry['stats']}, ran {dry['ran']}, "
+                             f"finite {dry['finite']}")
+    counts = {n: _ap_counts(r, f"26a {n}") for n, r in runs.items()}
+    med = {n: statistics.median(r["ticks"]) for n, r in
+           (("on", rb), ("off", off))}
+    out = {"tick_ms": {k: v * 1e3 for k, v in med.items()},
+           "tick_ms_dry_run": statistics.median(dry["ticks"]) * 1e3,
+           "rollback_s": rb["rollbacks"][0]["s"],
+           "rolled_back_to": back, "ran": rb["ran"],
+           "evidence": applied[0]["evidence"],
+           "outcomes": rb["stats"]["by_outcome"],
+           "outcomes_dry_run": dry["stats"]["by_outcome"],
+           "verdicts": rb["verdicts"], "launches": counts}
+    log(f"[autopilot] 26a: step {AP_POISON} poisoned once; one rollback "
+        f"applied ({rb['stats']['by_outcome']}), evidence "
+        f"{applied[0]['evidence']}, to the commit of step {back} in "
+        f"{out['rollback_s']:.3f} s; steps ran {rb['ran']}; parameters, "
+        f"BatchNorm buffers and traces bit for bit with the unpoisoned "
+        f"run; commit verdicts {rb['verdicts']}; the dry run recorded "
+        f"{dry['stats']['by_outcome']} and restored nothing")
+    log(f"[autopilot] 26a: the tick's host time per commit, median "
+        f"{med['on'] * 1e3:.4f} ms with the autopilot on ({len(rb['ticks'])}"
+        f" ticks, the rollback's apart) against {med['off'] * 1e3:.4f} ms "
+        f"off ({len(off['ticks'])}); launches per run {counts}; on {gpu}")
+    return out
+
+
+def autopilot_launcher(gpu: str, work: str, drain_24c: float) -> dict:
+    """26b: ``python -m horovod_tpu_torch.run -np 1 --elastic --autopilot
+    --checkpoint-dir D`` over phase 24's worker in ``apdrain`` mode: the
+    engaged line once; the rank's ``--preempt 0`` request becomes the
+    ungated ``preempt_drain`` verdict, applied; the rank drains with one
+    emergency commit and exits 0, the launcher returns 0; the launcher's
+    flight dump holds the verdict with its rank, uid and source."""
+    import shutil
+
+    d = os.path.join(work, "apdrain")
+    fl = os.path.join(work, "apdrain_flight")
+    for x in (d, fl):
+        shutil.rmtree(x, ignore_errors=True)
+    rc, recs, err = _p24_launch(
+        ["-np", "1", "--elastic", "--autopilot", "--checkpoint-dir", d],
+        "apdrain", d, HOROVOD_FLIGHT_DIR=fl)
+    if rc != 0 or len(recs) != 1:
+        raise AssertionError(f"[autopilot] 26b: launch rc {rc}, "
+                             f"{len(recs)} records:\n{err[-4000:]}")
+    for line, n in (("[hvdrun autopilot] engaged: rules", 1),
+                    ("graceful drain ordered for rank 0 (uid rank0)", 1),
+                    ("exited after graceful preemption drain (rc=0)", 1),
+                    ("[hvdrun autopilot] 1 verdict(s): {'applied': 1}", 1)):
+        if err.count(line) != n:
+            raise AssertionError(f"[autopilot] 26b: {line!r} "
+                                 f"{err.count(line)} times, want {n}:\n"
+                                 f"{err[-4000:]}")
+    acts = []
+    for name in sorted(os.listdir(fl)):
+        if not (name.startswith("flight-") and name.endswith(".jsonl")):
+            continue
+        with open(os.path.join(fl, name)) as f:
+            lines = [json.loads(ln) for ln in f if ln.strip()]
+        if lines and "initialized" not in lines[0]["meta"]:
+            acts += [e for e in lines if e.get("kind") == "autopilot"]
+    if len(acts) != 1 or acts[0]["rule"] != "preempt_drain" \
+            or acts[0]["outcome"] != "applied" \
+            or {k: acts[0]["evidence"].get(k)
+                for k in ("rank", "uid", "source")} != {
+                    "rank": 0, "uid": "rank0", "source": "cli"}:
+        raise AssertionError(f"[autopilot] 26b: the launcher's dump "
+                             f"holds {acts}")
+    dr = recs[0]
+    if dr.get("preempt_rc") != 0:
+        raise AssertionError(f"[autopilot] 26b: --preempt 0 returned "
+                             f"{dr.get('preempt_rc')}")
+    drain_s = dr["t_exit"] - dr["t_notice"]
+    out = {"drain_s": drain_s, "after_cli_s": dr["t_exit"] - dr["t_sent"],
+           "metric_s": dr["drain_metric_s"],
+           "commit_s": dr["commit_s"], "commit_step": dr["drain_commit_step"],
+           "evidence": acts[0]["evidence"],
+           "launches": _p24_counts(dr, "26b apdrain")}
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"[autopilot] 26b: --preempt 0 after step {P24_NOTICE} went through"
+        f" preempt_drain (applied, evidence {acts[0]['evidence']}); drained "
+        f"at the commit of step {dr['drain_commit_step']}; request to exit "
+        f"{drain_s:.3f} s ({out['after_cli_s']:.3f} s after the --preempt "
+        f"command returned) against 24c's SIGTERM to exit {drain_24c:.3f} s, "
+        f"hvd_preempt_drain_seconds {dr['drain_metric_s']:.3f} s, emergency"
+        f" commit {dr['commit_s']:.3f} s; on {gpu}")
+    return out
+
+
+def autopilot_plane(hvd, torch, gpu: str, work: str,
+                    drain_24c: float) -> dict:
+    """Phase 26 (a-b)."""
+    t0 = time.perf_counter()
+    out = {"a": autopilot_rollback(hvd, torch, gpu, work)}
+    torch.cuda.empty_cache()
+    out["b"] = autopilot_launcher(gpu, work, drain_24c)
+    log(f"[autopilot] phase 26 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def run(args) -> int:
     t_start = time.perf_counter()
     card = pin_one_card()
@@ -7139,14 +7500,23 @@ def run(args) -> int:
     torch.cuda.empty_cache()
     el = elastic_plane(gpu, os.path.join(_build.BUILD_DIR, "phase24"))
     tune = tuning_plane(hvd, torch, gpu)
+    torch.cuda.empty_cache()
+    apl = autopilot_plane(hvd, torch, gpu,
+                          os.path.join(_build.BUILD_DIR, "phase26"),
+                          el["c"]["drain_s"])
 
     def p24(name: str) -> dict:
-        """A kernel's launches in phase 24's runs, as each run counted
-        them."""
+        """A kernel's launches in phase 24's and phase 26's runs, as each
+        run counted them."""
         return {"launches_restart": {k: c[name] for k, c in
                                      el["b"]["launches"].items()},
                 "launches_preempt": {k: c[name] for k, c in
-                                     el["c"]["launches"].items()}}
+                                     el["c"]["launches"].items()},
+                # 26a's three runs (replayed steps included) and 26b's
+                "launches_autopilot": {
+                    **{k: c[name] for k, c in
+                       apl["a"]["launches"].items()},
+                    "apdrain": apl["b"]["launches"][name]}}
 
     launches = {**path["launches"], **lm["launches"],
                 "sgd": sgd["launches"]["sgd"]}
@@ -7401,6 +7771,11 @@ def run(args) -> int:
         f"{tune['a']['writer_ms_per_step']:.3f} ms per step; 25b "
         f"{tune['b']['samples']} samples, pinned {tune['b']['pinned']}, "
         f"final knobs {tune['b']['final']}; on {gpu}")
+    log(f"[autopilot] phase 26: tick {apl['a']['tick_ms']['on']:.4f} ms per "
+        f"commit on against {apl['a']['tick_ms']['off']:.4f} ms off; "
+        f"rollback {apl['a']['rollback_s']:.3f} s; drain through the "
+        f"autopilot {apl['b']['drain_s']:.3f} s (24c {el['c']['drain_s']:.3f}"
+        f" s); on {gpu}")
     log(f"[done] wall time {time.perf_counter() - t_start:.1f} s; CNN paths "
         + "; ".join(f"{n}: median step {r['median_s']:.4f} s, "
                     f"{CNN[n][1] / r['median_s']:.1f} img/s, peak "

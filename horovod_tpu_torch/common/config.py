@@ -412,6 +412,78 @@ _KNOBS: dict[str, Knob] = {
         "exits 0; survivors re-form.  <= 0 disables the plane.",
         cli="--preempt-grace-seconds",
         config_key="fault_tolerance.preempt_grace"),
+    "autopilot": Knob(
+        "HOROVOD_AUTOPILOT", False, _parse_bool,
+        "Closed-loop supervisor (runtime/autopilot.py): the elastic "
+        "launcher's evidence sweep and the rank side's elastic commit act "
+        "on the observability planes: preemptive host blacklist on "
+        "sustained straggling, elastic shrink/grow on goodput SLO burn, "
+        "rollback to the newest healthy commit on a health sentinel trip, "
+        "and a comm-knob retune from measured exposed communication.  "
+        "Every verdict lands on the flight ring with its evidence.",
+        cli="--autopilot", config_key="autopilot.enabled"),
+    "autopilot_dry_run": Knob(
+        "HOROVOD_AUTOPILOT_DRY_RUN", False, _parse_bool,
+        "Autopilot shadow mode: every rule still evaluates, paces its "
+        "cooldowns and records would-have-acted verdicts (outcome "
+        "dry_run) on the flight ring, but no actuator fires.",
+        cli="--autopilot-dry-run", config_key="autopilot.dry_run"),
+    "autopilot_cooldown": Knob(
+        "HOROVOD_AUTOPILOT_COOLDOWN_SECONDS", 60.0, float,
+        "Per-rule refractory period: after a rule fires (or dry-run "
+        "fires) it cannot fire again for this long; its verdicts are "
+        "recorded as suppressed:cooldown.",
+        cli="--autopilot-cooldown-seconds", config_key="autopilot.cooldown"),
+    "autopilot_rate_limit": Knob(
+        "HOROVOD_AUTOPILOT_RATE_LIMIT", 4, int,
+        "Global action ceiling: at most this many autopilot actions (all "
+        "gated rules combined) per HOROVOD_AUTOPILOT_RATE_WINDOW_SECONDS; "
+        "excess verdicts are recorded as suppressed:rate_limit.",
+        cli="--autopilot-rate-limit", config_key="autopilot.rate_limit"),
+    "autopilot_rate_window": Knob(
+        "HOROVOD_AUTOPILOT_RATE_WINDOW_SECONDS", 600.0, float,
+        "Sliding window over which HOROVOD_AUTOPILOT_RATE_LIMIT counts "
+        "actions.",
+        cli="--autopilot-rate-window-seconds",
+        config_key="autopilot.rate_window"),
+    "autopilot_trip_ticks": Knob(
+        "HOROVOD_AUTOPILOT_TRIP_TICKS", 3, int,
+        "Hysteresis: consecutive evaluation ticks a condition must hold "
+        "(the same candidate for the straggler rule) before the rule "
+        "fires; health_rollback relies on the health sentinels' own "
+        "trip steps instead.",
+        cli="--autopilot-trip-ticks", config_key="autopilot.trip_ticks"),
+    "autopilot_straggler_factor": Knob(
+        "HOROVOD_AUTOPILOT_STRAGGLER_FACTOR", 4.0, float,
+        "Preemptive-blacklist breach multiple: a rank is a chronic "
+        "straggler when its heartbeat staleness exceeds this multiple of "
+        "the fleet's lower median, sustained for "
+        "HOROVOD_AUTOPILOT_TRIP_TICKS.",
+        cli="--autopilot-straggler-factor",
+        config_key="autopilot.straggler_factor"),
+    "autopilot_straggler_floor": Knob(
+        "HOROVOD_AUTOPILOT_STRAGGLER_FLOOR", 0.05, float,
+        "Absolute lateness floor (seconds) below which the straggler "
+        "rule never fires, whatever the relative factor.",
+        cli="--autopilot-straggler-floor",
+        config_key="autopilot.straggler_floor"),
+    "autopilot_burn_threshold": Knob(
+        "HOROVOD_AUTOPILOT_BURN_THRESHOLD", 2.0, float,
+        "SLO-burn elastic trigger: the shrink rule arms when the fleet "
+        "goodput alert fires and its burn rate (lost goodput over the "
+        "SLO's headroom) holds at or above this value for "
+        "HOROVOD_AUTOPILOT_TRIP_TICKS.  Needs HOROVOD_GOODPUT_SLO.",
+        cli="--autopilot-burn-threshold",
+        config_key="autopilot.burn_threshold"),
+    "autopilot_comm_fraction": Knob(
+        "HOROVOD_AUTOPILOT_COMM_FRACTION", 0.25, float,
+        "Retune trigger: when the goodput ledger's exposed communication "
+        "exceeds this fraction of exposed + compute for "
+        "HOROVOD_AUTOPILOT_TRIP_TICKS commits, the autopilot proposes a "
+        "comm-knob change (overlap chunks, or local SGD's H) through "
+        "parameter_manager.apply_params.",
+        cli="--autopilot-comm-fraction",
+        config_key="autopilot.comm_fraction"),
     "platform": Knob(
         "HOROVOD_PLATFORM", "", str,
         "Where init() places this rank when the caller names no device: "

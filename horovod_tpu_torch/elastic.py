@@ -474,6 +474,7 @@ class ElasticState:
 
     def commit(self) -> None:
         self._snapshot()
+        _autopilot_tick(self)
         _commit_boundary(self)
 
     def _snapshot(self) -> None:
@@ -562,8 +563,10 @@ class ElasticState:
         """Load the newest durable commit whose stamped health verdict
         is not ``"poisoned"``, broadcast it from rank 0 so every rank
         rewinds to the SAME snapshot, and restore device state from it.
-        Returns the step rolled back to; raises when no durable commits
-        exist or none is healthy."""
+        Returns the step rolled back to; raises ``HorovodTpuError`` when
+        no durable commit exists or none is healthy -- on every rank: rank
+        0's finding is broadcast, so no peer is left waiting in the
+        broadcast of a snapshot that never comes."""
         if not self.checkpoint_dir:
             raise HorovodTpuError(
                 "rollback_to_healthy() needs "
@@ -573,13 +576,18 @@ class ElasticState:
         from horovod_tpu_torch.optim.distributed import broadcast_object
 
         st = _basics.state()
-        if st.initialized and st.size > 1:
-            snap = _ckpt.restore(self.checkpoint_dir,
-                                 healthy_only=True) \
-                if st.rank == 0 else None
-            snap = broadcast_object(snap, root_rank=0)
-        else:
-            snap = _ckpt.restore(self.checkpoint_dir, healthy_only=True)
+        multi = st.initialized and st.size > 1
+        snap = missing = None
+        if not multi or st.rank == 0:
+            try:
+                snap = _ckpt.restore(self.checkpoint_dir,
+                                     healthy_only=True)
+            except FileNotFoundError as exc:
+                missing = str(exc)
+        if multi:
+            snap, missing = broadcast_object((snap, missing), root_rank=0)
+        if missing is not None:
+            raise HorovodTpuError(f"rollback_to_healthy(): {missing}")
         step = int(snap["step"])
         _flight.record("elastic", event="rollback_to_healthy",
                        step=step, commits=int(snap.get("commits", 0)))
@@ -600,6 +608,11 @@ def _commit_verdict(state: ElasticState) -> str | None:
     try:
         from horovod_tpu_torch.runtime import health as _health
 
+        # On the card a tap's verdict reaches the monitor at the next tap
+        # (a pinned copy behind an event): publish every queued one, so
+        # the commit right after a poisoned step is stamped poisoned and
+        # a rollback never lands on it
+        _health.flush()
         snap = _health.monitor().snapshot()
     except Exception:  # noqa: BLE001
         return None
@@ -611,6 +624,34 @@ def _commit_verdict(state: ElasticState) -> str | None:
             or marks[1] > prev[1]:
         return "poisoned"
     return "healthy"
+
+
+def _autopilot_tick(state: ElasticState) -> None:
+    """Rank-side autopilot hook, evaluated once per commit under
+    ``HOROVOD_AUTOPILOT``: rank 0 judges the health and comm rules, its
+    decision reaches every rank, and every rank rolls back (or retunes)
+    together.  Advisory, except for the package's own errors: a
+    rollback that finds no checkpoint directory or no healthy commit
+    raises ``HorovodTpuError`` to the caller; anything else warns and
+    leaves the commit standing -- unless it is the decision's exchange
+    failing on a dead peer (a reset gloo pair, an aborted NCCL
+    communicator), which the heartbeat sweep confirms: that is the
+    world's failure, raised as the ``RanksDownError`` the elastic driver
+    re-forms on, as for any other collective of the step."""
+    if not bool(_config.get("autopilot")):
+        return
+    try:
+        from horovod_tpu_torch.runtime import autopilot as _ap
+
+        _ap.rank_tick(state)
+    except HorovodTpuError:
+        raise
+    except Exception as exc:  # noqa: BLE001
+        if _basics.state().size > 1:
+            down = _confirmed_down(exc)
+            if down is not None:
+                raise down from exc
+        _log.warning(f"autopilot rank tick failed: {exc}")
 
 
 # ---------------------------------------------------------------------------
@@ -1073,6 +1114,39 @@ def _resync(state: ElasticState) -> None:
 # ---------------------------------------------------------------------------
 # Commit boundary: grow admission
 # ---------------------------------------------------------------------------
+
+
+# (generation, count) of the values rank 0 shared with share_from_rank0
+_shared = [0, 0]
+
+
+def share_from_rank0(value):
+    """Rank 0's ``value`` (JSON data) on every rank of the world, over the
+    rendezvous KV: rank 0 publishes it under a key of this generation's
+    n-th call and returns at once; every other rank waits for the key
+    with the commit boundary's liveness-checked wait, so a dead peer
+    raises :class:`RanksDownError` within the heartbeat timeout.  (A gloo
+    collective whose root has left on a dead peer instead waits out the
+    gloo op timeout, past the re-form's settle window.)  Call it at the
+    same loop points on every rank."""
+    st = _basics.state()
+    gen = generation()
+    if _shared[0] != gen:
+        _shared[:] = [gen, 0]
+    _shared[1] += 1
+    n = _shared[1]
+    t = _rv()
+    if st.rank == 0:
+        t.set_overwrite(f"el/share/g{gen}/{n}", json.dumps(value))
+        if n > 2:
+            # every rank read n - 2 before its step n - 1 collectives,
+            # which rank 0's step n - 1 completed against
+            t.delete(f"el/share/g{gen}/{n - 2}")
+        return value
+    from horovod_tpu_torch.runtime.controller import wire_timeout
+
+    return json.loads(_bounded_get(t, f"el/share/g{gen}/{n}",
+                                   wire_timeout(), liveness=True))
 
 
 def _commit_boundary(state: ElasticState) -> None:

@@ -17,8 +17,8 @@ No NIC-probe/driver-service fan-out: rank 0's ``torch.distributed``
 TCP store (``HOROVOD_COORDINATOR_ADDR``) and the launcher's own native
 KV server (``HOROVOD_GLOO_RENDEZVOUS_ADDR/PORT``, started for every job)
 replace it.  A KV server that fails to build raises.  The perf
-observatory's profile sweep and the autopilot are not ported: with their
-knobs set the launcher says so once and changes nothing else.
+observatory's profile sweep is not ported: with its knob set the
+launcher says so once and changes nothing else.
 """
 
 from __future__ import annotations
@@ -173,10 +173,31 @@ def _sweep_health_dir(base_env: dict) -> None:
               f"health {d}", file=sys.stderr)
 
 
+#: Why the autopilot's actuators never shed rank 0's process
+_RANK0_HELD = ("its process holds the default group's store, so its "
+               "death would end the job")
+
+
+def _shed_label(rank, live_label) -> str:
+    """The live process ``slo_burn_shrink`` sheds for the evidence's
+    bottleneck ``rank``, where ``live_label`` maps a rank of the current
+    generation to its live process's label (``None`` when it has none).
+    Raises, and the verdict is ``failed:*``, when the evidence names no
+    rank, the rank has no live process, or it is rank 0's."""
+    if rank is None:
+        raise LookupError("the evidence names no bottleneck rank")
+    label = live_label(rank)
+    if label is None:
+        raise LookupError(f"no live process at rank {rank}")
+    if label == live_label(0):
+        raise RuntimeError(f"the bottleneck is rank 0: {_RANK0_HELD}")
+    return label
+
+
 def _note_unported(base_env: dict) -> None:
-    """The perf observatory's profile sweep (ROADMAP.md Queue A 12i)
-    and the autopilot (12h) are not ported: with their knobs set, say so
-    once and change nothing else."""
+    """The perf observatory's profile sweep (ROADMAP.md Queue A 12i) is
+    not ported: with its knob set, say so once and change nothing
+    else."""
     try:
         every = int(base_env.get("HOROVOD_PROFILE_EVERY_N_STEPS", "0") or 0)
     except ValueError:
@@ -185,9 +206,6 @@ def _note_unported(base_env: dict) -> None:
         print("[hvdrun] HOROVOD_PROFILE_EVERY_N_STEPS is set: the perf "
               "observatory's profile sweep is not ported to this package "
               "yet; ignoring it", file=sys.stderr)
-    if _config._parse_bool(str(base_env.get("HOROVOD_AUTOPILOT", ""))):
-        print("[hvdrun] HOROVOD_AUTOPILOT is set: the autopilot is not "
-              "ported to this package yet; ignoring it", file=sys.stderr)
 
 
 @dataclass
@@ -1204,23 +1222,130 @@ def _launch_elastic(command: list[str], slots: list[SlotInfo],
     want = {"np": np_}
     returns: list[float] = []  # when each preempted slot comes back
 
-    def _resolve_uid(rank: int) -> str:
-        """Current-generation rank -> stable elastic uid (the address
-        ``request_drain`` wants).  Seed ranks start life as uid
-        ``rank<k>``, so that is also the safe fallback before the
-        first re-form publishes a roster."""
+    def _roster() -> dict:
+        """The current generation's rank -> stable elastic uid, as the
+        last re-form published it (empty before the first re-form)."""
         try:
             status = kvc.try_get("el/status")
             if status:
                 gen = json.loads(status).get("gen")
                 roster = kvc.try_get(f"el/g{gen}/roster")
                 if roster:
-                    for m in json.loads(roster).get("members") or []:
-                        if int(m.get("rank", -1)) == int(rank):
-                            return str(m["uid"])
+                    return {int(m["rank"]): str(m["uid"]) for m in
+                            json.loads(roster).get("members") or []}
         except (OSError, ValueError, TypeError, KeyError):
             pass
-        return f"rank{rank}"
+        return {}
+
+    def _resolve_uid(rank: int, roster: dict | None = None) -> str:
+        """Current-generation rank -> stable elastic uid (the address
+        ``request_drain`` wants).  Seed ranks start life as uid
+        ``rank<k>``, so that is also the safe fallback before the
+        first re-form publishes a roster."""
+        roster = _roster() if roster is None else roster
+        return roster.get(int(rank), f"rank{rank}")
+
+    # The closed-loop autopilot (runtime/autopilot.py): the policy engine
+    # that turns the evidence this loop aggregates -- the ranks'
+    # KV-published heartbeat staleness, the FleetGoodput SLO burn -- into
+    # fleet actions through the machinery above: preemptive host
+    # blacklist + coordinated shrink, SLO-burn shrink, recovery grow, and
+    # the graceful drain.  ``want`` is the elastic target size the respawn
+    # sweep steers toward; shrink and grow move it between --min-ranks
+    # and -np.
+    from horovod_tpu_torch.runtime import autopilot as _autopilot
+
+    def _live_label(rank, roster: dict | None = None) -> str | None:
+        """The live process at ``rank`` of the current generation: the
+        evidence numbers ranks as the ranks' snapshots do, the table is
+        keyed by the seed's labels, and a re-form renumbers."""
+        uid = _resolve_uid(int(rank), roster)
+        return next((lb for lb, r in live.items()
+                     if r.uid == uid and r.proc.poll() is None), None)
+
+    def _ap_blacklist(action) -> None:
+        host = action.evidence.get("host")
+        if host is None:
+            rec = live.get(_live_label(action.evidence.get("rank")) or "")
+            if rec is None:
+                raise LookupError(
+                    f"no live process for {action.target}")
+            host = rec.host
+        doomed = [lb for lb, r in live.items()
+                  if r.host == host and r.proc.poll() is None]
+        if live_members() - len(doomed) < min_ranks:
+            raise RuntimeError(
+                f"shedding {host} would drop below --min-ranks "
+                f"{min_ranks}")
+        if _live_label(0) in doomed:
+            raise RuntimeError(f"{host} holds rank 0: {_RANK0_HELD}")
+        blacklist.add(host)
+        m_blacklist.set(len(blacklist.active()))
+        for lb in doomed:
+            # not cancelled: the reap path records the death and
+            # stamps the blacklist again, so the audit story holds
+            _signal_rank(live[lb].proc, signal.SIGKILL)
+        action.evidence["killed"] = doomed
+        print(f"[hvdrun autopilot] preemptive blacklist of straggler "
+              f"host {host}: killed {doomed or 'no'} process(es); "
+              f"survivors re-form without it", file=sys.stderr)
+
+    def _ap_shrink(action) -> None:
+        if live_members() <= min_ranks:
+            raise RuntimeError(f"at the --min-ranks {min_ranks} floor")
+        roster = _roster()
+        label = _shed_label(action.evidence.get("bottleneck_rank"),
+                            lambda r: _live_label(r, roster))
+        rec = live[label]
+        rec.cancelled = True  # a deliberate shed: the host stays admissible
+        _signal_rank(rec.proc, signal.SIGKILL)
+        want["np"] = max(min_ranks, want["np"] - 1)
+        action.evidence["killed"] = [label]
+        action.evidence["target_np"] = want["np"]
+        print(f"[hvdrun autopilot] SLO-burn shrink: shed rank {label} "
+              f"on {rec.host} (elastic target now {want['np']})",
+              file=sys.stderr)
+
+    def _ap_grow(action) -> None:
+        if want["np"] >= np_:
+            raise RuntimeError(f"already at the launched -np {np_}")
+        want["np"] += 1
+        action.evidence["target_np"] = want["np"]
+        print(f"[hvdrun autopilot] SLO recovered: elastic target back "
+              f"to {want['np']} (respawn sweep grows on its next "
+              f"pass)", file=sys.stderr)
+
+    def _ap_preempt(action) -> None:
+        rank = int(action.evidence.get("rank"))
+        uid = _resolve_uid(rank)
+        _preemption.request_drain(
+            kvc, uid, grace_s=action.evidence.get("grace_s"),
+            source=str(action.evidence.get("source") or "launcher"))
+        action.evidence["uid"] = uid
+        print(f"[hvdrun autopilot] graceful drain ordered for rank "
+              f"{rank} (uid {uid})", file=sys.stderr)
+
+    ap = _autopilot.Autopilot.from_env(base_env, actuators={
+        "straggler_blacklist": _ap_blacklist,
+        "slo_burn_shrink": _ap_shrink,
+        "slo_recover_grow": _ap_grow,
+        "preempt_drain": _ap_preempt,
+    })
+    ap_fleet = None
+    ap_next = 0.0
+    if ap is not None:
+        from horovod_tpu_torch.perf import goodput as _goodput
+
+        # A FleetGoodput of its own on the job's SLO: the aggregate
+        # /metrics fleet updates only when scraped, and the autopilot
+        # must not depend on someone polling a dashboard.
+        ap_fleet = _goodput.FleetGoodput(
+            slo=_env_float("HOROVOD_GOODPUT_SLO", 0.0),
+            window_s=_env_float("HOROVOD_GOODPUT_WINDOW_SECONDS", 300.0))
+        print(f"[hvdrun autopilot] engaged"
+              f"{' (dry-run)' if ap.dry_run else ''}: rules "
+              f"{', '.join(_autopilot.RULES[:3] + ('preempt_drain',))}",
+              file=sys.stderr)
 
     # The launcher's OWN SIGTERM triggers a fleet-wide grace drain —
     # notice every live rank over the rendezvous KV, wait out
@@ -1264,17 +1389,20 @@ def _launch_elastic(command: list[str], slots: list[SlotInfo],
                     m_preempted.inc()
                     # Announced departure: the host stays admissible,
                     # and the elastic target shrinks so the respawn
-                    # sweep doesn't re-place a rank on doomed capacity
-                    # -- until the cooldown has passed: the maintenance
-                    # event is over and the capacity is back (the JAX
-                    # package leaves the return to its autopilot's
-                    # recovery grow)
+                    # sweep doesn't re-place a rank on doomed capacity.
+                    # With the autopilot engaged the capacity comes back
+                    # only through its recovery grow, as in the JAX
+                    # package; without it, once the cooldown has passed
+                    # (the maintenance event is over)
                     want["np"] = max(min_ranks, want["np"] - 1)
-                    returns.append(_time.monotonic() + cooldown)
+                    if ap is None:
+                        returns.append(_time.monotonic() + cooldown)
                     print(f"[hvdrun elastic] rank {label} on {rec.host} "
                           f"exited after graceful preemption drain "
                           f"(rc={rc}); host NOT blacklisted, elastic "
-                          f"target now {want['np']} for {cooldown:.0f}s",
+                          f"target now {want['np']}"
+                          + ("" if ap is not None
+                             else f" for {cooldown:.0f}s"),
                           file=sys.stderr)
                     continue
                 if disp == "finished":
@@ -1341,9 +1469,49 @@ def _launch_elastic(command: list[str], slots: list[SlotInfo],
                     # so the postmortem exists before the job ends.
                     _sweep_flight_dir(base_env,
                                       f"re-form gen {d.get('gen')}")
+            if ap is not None:
+                nowm = _time.monotonic()
+                if nowm >= ap_next:
+                    # The evidence sweep on its own cadence (the 0.25 s
+                    # poll is for reaping): pull the ranks' KV-published
+                    # snapshots, derive lateness and the SLO report, let
+                    # the engine judge.  A failure costs this sweep only.
+                    ap_next = nowm + 2.0
+                    try:
+                        snaps, _ = _metrics.aggregate_snapshots(
+                            kvc.try_get)
+                    except Exception:  # noqa: BLE001
+                        snaps = []
+                    # The blacklist's host names are this launcher's,
+                    # from the roster; on one host it could only shed
+                    # the whole job, so the straggler rule is not fed
+                    roster = _roster()
+                    by_uid = {r.uid: r.host for r in live.values()
+                              if r.proc.poll() is None}
+                    hosts = {}
+                    for snap in snaps:
+                        try:
+                            rk = int(((snap or {}).get("meta")
+                                      or {})["rank"])
+                        except (KeyError, TypeError, ValueError):
+                            continue
+                        host = by_uid.get(_resolve_uid(rk, roster))
+                        if host is not None:
+                            hosts[rk] = host
+                    try:
+                        _autopilot.launcher_observe(
+                            ap, snaps, fleet=ap_fleet, hosts=hosts,
+                            stragglers=len(set(by_uid.values())) > 1,
+                            stepped_only=True)
+                    except Exception as exc:  # noqa: BLE001
+                        print(f"[hvdrun autopilot] sweep failed: "
+                              f"{exc}", file=sys.stderr)
+                    ap.refresh_gauges()
             # --preempt actuator requests posted over the KV: resolve
             # the current rank to its stable uid and order the graceful
-            # drain.
+            # drain (through the autopilot's ungated preempt_drain rule
+            # when engaged, so the verdict and its evidence land on the
+            # audit trail; directly otherwise).
             try:
                 req = kvc.try_get("el/preempt_req")
             except OSError:
@@ -1356,11 +1524,18 @@ def _launch_elastic(command: list[str], slots: list[SlotInfo],
                 except (ValueError, TypeError, KeyError):
                     d, rank = {}, None
                 if rank is not None:
-                    _preemption.request_drain(
-                        kvc, _resolve_uid(rank), grace_s=d.get("grace_s"),
-                        source=str(d.get("source") or "cli"))
-                    print(f"[hvdrun elastic] graceful drain ordered for "
-                          f"rank {rank} (--preempt)", file=sys.stderr)
+                    if ap is not None:
+                        ap.observe_preemption(
+                            rank, source=str(d.get("source") or "cli"),
+                            grace_s=d.get("grace_s"))
+                    else:
+                        _preemption.request_drain(
+                            kvc, _resolve_uid(rank),
+                            grace_s=d.get("grace_s"),
+                            source=str(d.get("source") or "cli"))
+                        print(f"[hvdrun elastic] graceful drain ordered "
+                              f"for rank {rank} (--preempt)",
+                              file=sys.stderr)
             if term_signals["n"] and not drain["on"]:
                 drain["on"] = True
                 wait_s = max(0.0, min(grace_s, shutdown_s))
@@ -1444,6 +1619,18 @@ def _launch_elastic(command: list[str], slots: list[SlotInfo],
             except (ValueError, OSError):
                 pass
         _release(held)
+        if ap is not None and ap.actions:
+            # The verdicts live on the launcher's own flight ring: land
+            # them beside the rank dumps, so the merged trace carries
+            # every autopilot action with its evidence tuple.
+            from horovod_tpu_torch.runtime import flight as _flight
+
+            _flight.dump("launcher wrap-up",
+                         directory=base_env.get("HOROVOD_FLIGHT_DIR")
+                         or None)
+            ap_stats = ap.stats()
+            print(f"[hvdrun autopilot] {ap_stats['actions_total']} "
+                  f"verdict(s): {ap_stats['by_outcome']}", file=sys.stderr)
         _sweep_flight_dir(base_env, "wrap-up")
         _sweep_health_dir(base_env)
         _stop_metrics_aggregator(metrics_agg)

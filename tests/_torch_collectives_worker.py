@@ -33,7 +33,8 @@ ZeRO and local SGD and the coordinated abort, and
 ``observability_cards`` eager stage 2 under ``hvd.trace_step``, of
 ``tests/_torch_eager_training_worker.py``; ``timeline_ticks``,
 ``autotune_sync`` and ``tuning_cards`` the timeline's and the
-autotuner's, of ``tests/_torch_tuning_worker.py``.
+autotuner's, of ``tests/_torch_tuning_worker.py``; ``autopilot_rollback``
+the autopilot's rollback, of ``tests/_torch_autopilot_worker.py``.
 ``HVD_TEST_FEEDBACK`` may name a ``.npy`` file of per-rank residuals
 that the lossy optimizer case loads before its second step;
 ``HVD_TEST_INTEROP`` a pickle, written by ``tests/test_torch_zero.py``,
@@ -2181,6 +2182,12 @@ def tuning_modes(mode: str):
             "tuning_cards": W.tuning_cards_main}[mode]
 
 
+def autopilot_rollback_main(device: str):
+    from _torch_autopilot_worker import rollback_main
+
+    rollback_main(device)
+
+
 def health_modes(mode: str):
     """The health plane's and the checkpoint's worker modes
     (``_torch_health_worker``)."""
@@ -2213,4 +2220,5 @@ if __name__ == "__main__":
         for m in ("health", "health_culprit", "checkpoint",
                   "health_cards", "health_cards_restore")},
      **{m: lambda d, m=m: tuning_modes(m)(d)
-        for m in ("timeline_ticks", "autotune_sync", "tuning_cards")}}[mode](dev)
+        for m in ("timeline_ticks", "autotune_sync", "tuning_cards")},
+     "autopilot_rollback": autopilot_rollback_main}[mode](dev)

@@ -16,6 +16,11 @@ SIGTERMs itself after that step (a preemption notice);
 ``ELX_EAGER=1``: one eager allreduce per step (a negotiated round);
 ``ELX_GROW_AT``: a world below the launched size holds at that step,
 committing, until the launcher's joiner is admitted;
+``ELX_PREEMPT_STEP`` and ``ELX_PREEMPT_RANK``: rank 0 runs ``python -m
+horovod_tpu_torch.run --preempt <rank>`` after that step of the first
+generation (the operator's request, routed by the launcher);
+``ELX_TRACE=1``: each step's update inside ``hvd.trace_step`` (its
+goodput ledger's compute), the commit and ``elastic.poll()`` outside;
 ``ELX_COMMIT_EVERY``; ``ELX_STEP_SLEEP``.  Each rank prints JSON lines:
 ``{"event": "interrupt", ...}`` where it left the loop for a re-form or
 a drain, ``{"event": "recut", ...}`` after a re-form at ZeRO stage 1-3
@@ -23,6 +28,7 @@ a drain, ``{"event": "recut", ...}`` after a re-form at ZeRO stage 1-3
 "final", ...}``.
 """
 
+import contextlib
 import json
 import os
 import signal
@@ -71,6 +77,9 @@ def main() -> int:
     sleep_s = float(os.environ.get("ELX_STEP_SLEEP", "0"))
     eager = os.environ.get("ELX_EAGER") == "1"
     grow_at = int(os.environ.get("ELX_GROW_AT", "-1"))
+    preempt_step = int(os.environ.get("ELX_PREEMPT_STEP", "-1"))
+    preempt_rank = os.environ.get("ELX_PREEMPT_RANK", "")
+    trace = os.environ.get("ELX_TRACE") == "1"
     full = int(os.environ.get("HOROVOD_ELASTIC_NP", "0") or 0)
     from horovod_tpu_torch.optim import distributed as D
 
@@ -134,22 +143,33 @@ def main() -> int:
                         elastic._bounded_get(t, f"elx/at/{r}", 60.0)
                     emit(event="dying", uid=uid, step=state.step)
                     os.kill(os.getpid(), signal.SIGKILL)
-            if eager:
-                # one negotiated round per step (the rounds a preempt:
-                # fault rule counts)
-                hvd.allreduce(torch.ones(1), name="elx.tick")
-            if zero3:
-                opt.zero_grad()
-                wf = current()
-                # d/dwf of sum(wf * g) is g: the shard gradients are
-                # the world's sum of it, averaged by the tail
-                (wf * grad(wf.detach())).sum().backward()
-            else:
-                w.grad = grad(w.detach())
-            opt.step()
+            with (hvd.trace_step(state.step) if trace
+                  else contextlib.nullcontext()):
+                if eager:
+                    # one negotiated round per step (the rounds a
+                    # preempt: fault rule counts)
+                    hvd.allreduce(torch.ones(1), name="elx.tick")
+                if zero3:
+                    opt.zero_grad()
+                    wf = current()
+                    # d/dwf of sum(wf * g) is g: the shard gradients are
+                    # the world's sum of it, averaged by the tail
+                    (wf * grad(wf.detach())).sum().backward()
+                else:
+                    w.grad = grad(w.detach())
+                opt.step()
             state.step += 1
             if uid == notice_uid and state.step == notice_step:
                 os.kill(os.getpid(), signal.SIGTERM)
+            if state.step == preempt_step and hvd.rank() == 0 \
+                    and elastic.generation() == 1:
+                import subprocess
+
+                rc = subprocess.run(
+                    [sys.executable, "-m", "horovod_tpu_torch.run",
+                     "--preempt", preempt_rank], capture_output=True,
+                    text=True, timeout=60).returncode
+                emit(event="preempt_sent", uid=uid, step=state.step, rc=rc)
             if sleep_s:
                 time.sleep(sleep_s)
         state.commit()
@@ -347,6 +367,189 @@ def cards_main() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# The autopilot on four cards (tests/test_torch_cuda.py::
+# test_four_cards_autopilot_resnet50)
+# ---------------------------------------------------------------------------
+
+AP_STEPS, AP_EVERY, AP_POISON = 8, 2, 5   # the rollback launch
+AP_WAIT_S = 240.0   # the longest generations 1-2 wait for their event
+
+
+def autopilot_cards_main() -> int:
+    """The ResNet-50 bench step (224 px, batch 256 per card, bf16, fused
+    momentum SGD, in-trace ZeRO stage 2, deterministic cuDNN) under
+    ``--autopilot``, in one of two scenarios (``ELX_CARDS``):
+
+    ``autopilot_rollback``: two runs in one process, each a fresh model
+    under ``ElasticState(checkpoint_dir=ELX_CKPT/<run>)`` with a commit
+    every ``AP_EVERY`` steps to step ``AP_STEPS``: ``clean``, then
+    ``poisoned``, where rank 1's gradients carry NaN at step
+    ``AP_POISON``'s first run (the in-trace rule ``nan@rank1:grads*``,
+    which has no round, set for that one step on every rank).  Each run
+    emits its steps, its digest and rank 0's autopilot stats.
+
+    ``autopilot_slo``: each step spans ``hvd.trace_step`` around the
+    commit and the step, then ``elastic.poll()``.  The caller's
+    ``slow:<rank>`` rule slows that rank's controller transport, and so
+    its polls (outside the span: its ledger's unattributed time); the
+    other ranks wait at the next span's collectives (compute).  The rule
+    is read at ``init()`` by rank number, so it is dropped from the
+    environment once the first generation has started (and by a joiner
+    before its ``init()``): no survivor or joiner takes the slowness
+    over after a re-form.  Every rank publishes its metrics from
+    ``init()`` on; the launcher judges a rank's goodput once it has
+    booked a step.  Generation 1 trains
+    until the launcher sheds a rank, generation 2 until its joiner is
+    admitted, generation 3 takes ``GEN_STEPS`` steps.  ``ELX_DEVICE=cpu``
+    rehearses either on gloo (with the models patched small)."""
+    import hashlib
+
+    device = os.environ.get("ELX_DEVICE", "cuda")
+    scenario = os.environ["ELX_CARDS"]
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    if elastic.is_joiner():
+        os.environ.pop("HOROVOD_FAULT_SPEC", None)
+    hvd.init(device=None if device == "cuda" else device)
+    os.environ.pop("HOROVOD_FAULT_SPEC", None)
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.ops import batch_norm as BN
+    from horovod_tpu_torch.optim import distributed as D
+    from horovod_tpu_torch.optim import fused_update as TF
+    from horovod_tpu_torch.runtime import autopilot as AP
+    from horovod_tpu_torch.runtime import health as H
+    from horovod_tpu_torch.train_step import synthetic_batch, train_step
+
+    uid = os.environ.get("HOROVOD_ELASTIC_UID", "")
+    images, labels = synthetic_batch(256, 224, 1000, seed=0)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+    def build():
+        model = ResNet50(num_classes=1000, dtype=torch.bfloat16, seed=0)
+        opt = hvd.DistributedOptimizer(
+            hvd.fused_update.sgd(model.parameters(), 0.1, momentum=0.9),
+            zero_stage=2)
+        return model, opt
+
+    def digest(model, opt) -> str:
+        h = hashlib.sha256()
+        for v in model.state_dict().values():
+            h.update(v.detach().float().cpu().numpy().tobytes())
+        for st in D.sharded_state_to_host(opt).inner:   # the whole trace
+            for k in sorted(st):
+                if isinstance(st[k], np.ndarray):
+                    h.update(st[k].tobytes())
+        return h.hexdigest()
+
+    def counts() -> dict:
+        return {"b1": TF.LAUNCHES["momentum"],
+                "bn": {k: v for k, v in BN.LAUNCHES.items()}}
+
+    def one_step(model, opt, **extra) -> None:
+        TF.reset_launch_counts()
+        BN.reset_launch_counts()
+        t = time.perf_counter()
+        loss = float(train_step(model, opt, images, labels))
+        sync()
+        emit(event="step", uid=uid, rank=hvd.rank(), size=hvd.size(),
+             gen=elastic.generation(), loss=loss,
+             step_s=time.perf_counter() - t, t=time.time(), **extra,
+             **counts())
+
+    if scenario == "autopilot_rollback":
+        base = os.environ["ELX_CKPT"]
+        for run in ("clean", "poisoned"):
+            AP.reset()
+            H.reset()
+            model, opt = build()
+            state = elastic.ElasticState(
+                params=model, opt_state=opt,
+                checkpoint_dir=os.path.join(base, run))
+            ran, poisoned, rolled = [], False, []
+            real_rb = elastic.ElasticState.rollback_to_healthy
+
+            def rollback(self, real_rb=real_rb, rolled=rolled):
+                t0 = time.perf_counter()
+                step = real_rb(self)
+                sync()
+                rolled.append([step, time.perf_counter() - t0])
+                return step
+
+            elastic.ElasticState.rollback_to_healthy = rollback
+            while state.step < AP_STEPS:
+                assert len(ran) < 3 * AP_STEPS, "the rollback never ended"
+                if state.step % AP_EVERY == 0:
+                    state.commit()
+                hit = (run == "poisoned" and state.step == AP_POISON
+                       and not poisoned)
+                poisoned = poisoned or hit
+                if hit:
+                    os.environ["HOROVOD_FAULT_SPEC"] = "nan@rank1:grads*"
+                try:
+                    one_step(model, opt, run=run, step=state.step)
+                finally:
+                    os.environ.pop("HOROVOD_FAULT_SPEC", None)
+                ran.append(state.step)
+                state.step += 1
+            elastic.ElasticState.rollback_to_healthy = real_rb
+            ap = AP.rank_autopilot()
+            emit(event="run", run=run, uid=uid, rank=hvd.rank(),
+                 size=hvd.size(), ran=ran, digest=digest(model, opt),
+                 stats=ap.stats(), rollbacks=rolled,
+                 actions=[a.to_dict() for a in ap.actions])
+            del model, opt, state
+            if device == "cuda":
+                torch.cuda.empty_cache()
+        hvd.shutdown()
+        return 0
+
+    model, opt = build()
+    state = elastic.ElasticState(params=model, opt_state=opt, step=0)
+    real_reform = elastic._reform
+
+    def reform(state, dead=(), reason="failure"):
+        emit(event="reform_start", uid=uid, reason=reason,
+             dead=sorted(int(r) for r in dead), t=time.time())
+        return real_reform(state, dead=dead, reason=reason)
+
+    elastic._reform = reform
+
+    def train(state):
+        gen = elastic.generation()
+        smi = (_smi_apps() if device == "cuda" and hvd.rank() == 0
+               else None)
+        emit(event="enter", uid=uid, rank=hvd.rank(), size=hvd.size(),
+             gen=gen, step=state.step, pid=os.getpid(),
+             device=str(next(model.parameters()).device),
+             current=(torch.cuda.current_device() if device == "cuda"
+                      else -1), digest=digest(model, opt), smi=smi,
+             t=time.time())
+        taken, deadline = 0, time.monotonic() + AP_WAIT_S
+        while True:
+            if gen >= 3 and taken >= GEN_STEPS:
+                state.commit()
+                return state
+            assert time.monotonic() < deadline, \
+                f"generation {gen}: no re-form within {AP_WAIT_S:.0f} s"
+            with hvd.trace_step(state.step):
+                state.commit()
+                one_step(model, opt, step=state.step + 1)
+            state.step += 1
+            taken += 1
+            elastic.poll()
+
+    elastic.run(state, train)
+    emit(event="final", uid=uid, rank=hvd.rank(), size=hvd.size(),
+         gen=elastic.generation(), step=state.step,
+         digest=digest(model, opt), stats=elastic.stats())
+    hvd.shutdown()
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(cards_main() if os.environ.get("ELX_CARDS") in ("1", "clean")
+    cards = os.environ.get("ELX_CARDS")
+    sys.exit(cards_main() if cards in ("1", "clean")
+             else autopilot_cards_main() if cards in (
+                 "autopilot_rollback", "autopilot_slo")
              else main())

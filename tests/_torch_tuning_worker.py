@@ -8,7 +8,8 @@ line.
 ``autotune_sync``: 60 allreduces under ``HOROVOD_AUTOTUNE``
 (``tests/test_multiprocess.py::test_autotune_param_sync_2proc``); each
 rank reports whether its knobs changed, the rounds and values of every
-proposal its controller applied, and its knobs after every op.
+proposal its controller applied, and the knobs each op's response
+executed under.
 """
 
 import json
@@ -43,25 +44,39 @@ def timeline_ticks_main(device: str):
 def autotune_sync_main(device: str):
     hvd.init(device=device)
     r = hvd.rank()
+    rt = E._runtime()
+    # The knobs each op ran under, read by the background thread as the
+    # op's response executes: a proposal is applied on the receipt of
+    # its round's response list, before that round's responses execute,
+    # so this read is ordered with the round on every rank.  (A read on
+    # this thread after the op returns is not: the background thread may
+    # already have joined the next round and applied its proposal.)
+    ran_under = {}
+    execute = rt._execute
+
+    def recording_execute(resp):
+        now = knobs()
+        for name in resp.names:
+            ran_under[name] = now
+        execute(resp)
+
+    rt._execute = recording_execute
     start = knobs()
     changed = False
-    seen = []
     # every rank submits the same ops (SPMD): leaving early on a change
     # would shut down while peers still have pending tensors
     for i in range(60):
         out = hvd.allreduce(torch.ones(1024), op=hvd.Sum, name=f"t{i}")
         assert torch.equal(out, torch.full((1024,), 2.0))
-        now = knobs()
-        changed = changed or now != start
-        seen.append(now)
-    rt = E._runtime()
+        changed = changed or knobs() != start
+    seen = [ran_under[f"t{i}"] for i in range(60)]
     res = {"rank": r, "changed": changed,
            "tunes": [[rnd, t] for rnd, t in rt.controller.tunes],
            "pm": None if rt.pm is None else rt.pm._samples_seen,
            "pinned": bool(rt.pm is not None and rt.pm._pinned)}
     hvd.shutdown()
-    # the knobs each op saw: a rank that applied a proposal a round
-    # late would show it at another op here
+    # the knobs each op ran under: a rank that applied a proposal a
+    # round late would show it at another op here
     res["knobs"] = seen
     print(json.dumps(res))
 

@@ -1840,6 +1840,188 @@ def test_four_cards_elastic_clean_step():
           f"{card.strip()}")
 
 
+def test_four_cards_autopilot_resnet50(tmp_path):
+    """The autopilot on four cards: ``python -m horovod_tpu_torch.run -np 4
+    --elastic --min-ranks 2 --autopilot`` over the ResNet-50 bench step
+    (224 px, batch 256 per card, bf16, fused momentum SGD, in-trace ZeRO
+    stage 2, deterministic cuDNN; ``tests/_torch_elastic_train_script.py``
+    in its ``autopilot_*`` modes), the ranks publishing their metrics to
+    the launcher every 0.5 s from ``init()`` on (its evidence), at the
+    straggler rule's default floor (the sweep leaves that rule unfed, as
+    all four ranks share one host), twice:
+
+    1. Rollback (``HOROVOD_HEALTH=1``, a durable commit every 2 steps, 8
+       steps): an unpoisoned run, then a run whose step 5 carries NaN on
+       rank 1 (``nan@rank1:grads*``: the in-trace rule has no round, so
+       it is set for that one step).  Rank 0's tick applies one rollback,
+       every rank restores the commit of step 4 and replays, and the
+       final parameters and gathered traces are bit-identical on every
+       rank and to the unpoisoned run's.
+    2. SLO burn, then recovery: ``slow:3:0.5s`` slows rank 3's controller
+       transport, and so its liveness polls, which sit outside its
+       ``trace_step`` spans; ``HOROVOD_GOODPUT_SLO=0.95`` over a 4 s
+       window, 2 trip ticks.  The start, booked outside any span, burns
+       the SLO on every rank alike: the launcher judges a rank's goodput
+       only once it has stepped, and its actuators never shed rank 0,
+       whose death the job cannot survive in process.  The launcher's
+       ``slo_burn_shrink`` sheds the bottleneck rank (3) and the
+       survivors re-form to 3; once the window
+       is clean, ``slo_recover_grow`` raises the target and the respawn
+       sweep's joiner takes the freed card: the world is back to 4.  The
+       ``slow:`` rule names a rank number, which a later generation would
+       give to another process, so the script drops it from the
+       environment once generation 1 has started (a joiner before its
+       ``init()``): the slowness ends with the shed process.
+
+    After each re-form every rank's parameters and gathered trace are
+    bit-identical, no two processes share a card; one B1 and 53 of each of
+    N1-N4 per step; the launcher returns 0.  Prints each verdict's
+    evidence, each re-form's wall time, the rollback's and the median step
+    per generation."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    import json
+    import os
+    import re
+    import statistics
+    import subprocess
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    repo = os.path.dirname(here)
+    card = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    bn = dict.fromkeys(("bn_stats", "bn_normalize", "bn_bwd_reduce",
+                        "bn_bwd_dx"), 53)
+    log_dir = os.environ.get("HVD_TEST_LOG_DIR")
+
+    def launch(name: str, timeout: float, **extra):
+        env = dict(os.environ)
+        env.update({"PYTHONPATH": repo + os.pathsep
+                    + env.get("PYTHONPATH", ""),
+                    "HOROVOD_FUSED_UPDATE": "1",
+                    "HOROVOD_HEARTBEAT_INTERVAL": "0.2",
+                    "HOROVOD_HEARTBEAT_TIMEOUT_SECONDS": "3",
+                    "HOROVOD_ELASTIC_SETTLE_SECONDS": "1",
+                    "HOROVOD_SHUTDOWN_TIMEOUT_SECONDS": "10",
+                    "HOROVOD_METRICS_PUBLISH_INTERVAL": "0.5", **extra})
+        env.pop("HOROVOD_PLATFORM", None)
+        out = subprocess.run(
+            [sys.executable, "-m", "horovod_tpu_torch.run", "-np", "4",
+             "--elastic", "--min-ranks", "2", "--autopilot", "--",
+             sys.executable,
+             os.path.join(here, "_torch_elastic_train_script.py")],
+            env=env, capture_output=True, text=True, timeout=timeout,
+            cwd=repo)
+        if log_dir:
+            os.makedirs(log_dir, exist_ok=True)
+            with open(os.path.join(log_dir, f"four_cards_{name}.log"),
+                      "w") as f:
+                f.write(out.stdout + "\n----- stderr -----\n" + out.stderr)
+        assert out.returncode == 0, out.stderr[-6000:]
+        assert out.stderr.count("[hvdrun autopilot] engaged: rules") == 1
+        ev = []
+        for ln in out.stdout.splitlines():
+            _, _, rest = ln.partition(">:")
+            if rest.startswith("{"):
+                ev.append(json.loads(rest))
+        for s in (e for e in ev if e["event"] == "step"):
+            assert s["b1"] == 1 and s["bn"] == bn, s
+            assert math.isfinite(s["loss"]), s
+        return out, ev
+
+    # 1. rollback at the commit
+    out, ev = launch("autopilot_rollback", 600,
+                     ELX_CARDS="autopilot_rollback",
+                     ELX_CKPT=str(tmp_path / "ckpt"), HOROVOD_HEALTH="1",
+                     HOROVOD_CHECKPOINT_KEEP="4")
+    runs = {(e["run"], e["rank"]): e for e in ev if e["event"] == "run"}
+    assert sorted(runs) == [(r, k) for r in ("clean", "poisoned")
+                            for k in range(4)], sorted(runs)
+    digests = {e["digest"] for e in runs.values()}
+    assert len(digests) == 1, runs   # every rank, both runs
+    for k in range(4):
+        clean, pois = runs["clean", k], runs["poisoned", k]
+        assert clean["ran"] == list(range(8)) and not clean["rollbacks"]
+        assert pois["ran"] == [0, 1, 2, 3, 4, 5, 4, 5, 6, 7], pois["ran"]
+        assert [r[0] for r in pois["rollbacks"]] == [4], pois
+    judge = runs["poisoned", 0]
+    assert judge["stats"]["rollbacks"] == 1, judge["stats"]
+    applied = [a for a in judge["actions"] if a["outcome"] == "applied"]
+    assert len(applied) == 1 and applied[0]["rule"] == "health_rollback"
+    assert all(runs["poisoned", k]["actions"] == [] for k in (1, 2, 3))
+    print(f"[four cards] rollback: evidence {applied[0]['evidence']}; "
+          f"verdicts {judge['stats']['by_outcome']}; restore wall time "
+          f"per rank {[round(runs['poisoned', k]['rollbacks'][0][1], 3) for k in range(4)]}"
+          f" s; final state bit for bit with the unpoisoned run")
+
+    # 2. SLO burn, shrink, recovery, grow
+    fl = tmp_path / "flight"
+    out, ev = launch("autopilot_slo", 900, ELX_CARDS="autopilot_slo",
+                     HOROVOD_FAULT_SPEC="slow:3:0.5s",
+                     HOROVOD_GOODPUT_SLO="0.95",
+                     HOROVOD_GOODPUT_WINDOW_SECONDS="4",
+                     HOROVOD_AUTOPILOT_TRIP_TICKS="2",
+                     HOROVOD_AUTOPILOT_COOLDOWN_SECONDS="120",
+                     HOROVOD_FLIGHT_DIR=str(fl))
+    gens = {}
+    for e in (e for e in ev if e["event"] == "enter"):
+        gens.setdefault(e["gen"], []).append(e)
+    assert sorted(gens) == [1, 2, 3], sorted(gens)
+    assert [len(gens[g]) for g in (1, 2, 3)] == [4, 3, 4]
+    assert sorted(e["uid"] for e in gens[2]) == ["rank0", "rank1", "rank2"]
+    joiner = next(e for e in gens[3] if e["uid"] == "joiner1")
+    assert joiner["device"] == "cuda:3", joiner
+    for g, es in gens.items():
+        assert len({e["digest"] for e in es}) == 1, g
+        devs = [e["device"] for e in es]
+        assert len(set(devs)) == len(devs), (g, devs)
+        apps, uuids = next(e["smi"] for e in es if e["rank"] == 0)
+        assert sorted(u for _, u in apps) == sorted(
+            uuids[d.split(":")[1]] for d in devs), (g, apps)
+    finals = [e for e in ev if e["event"] == "final"]
+    assert len(finals) == 4 and len({e["digest"] for e in finals}) == 1
+    status = [dict(re.findall(r'(\w+)=("[^"]*"|\[[^\]]*\]|[-\d.]+)', ln))
+              for ln in out.stderr.splitlines()
+              if "elastic re-form complete" in ln]
+    assert [json.loads(s["reason"]) for s in status] == ["failure", "grow"]
+    acts = []
+    for name in os.listdir(fl):
+        if name.startswith("flight-") and name.endswith(".jsonl"):
+            with open(fl / name) as f:
+                lines = [json.loads(ln) for ln in f if ln.strip()]
+            if lines and "initialized" not in lines[0]["meta"]:
+                acts += [a for a in lines if a.get("kind") == "autopilot"]
+    assert not [a for a in acts if a["rule"] == "straggler_blacklist"], acts
+    applied = [a for a in acts if a["outcome"] == "applied"]
+    assert [a["rule"] for a in applied] == ["slo_burn_shrink",
+                                            "slo_recover_grow"], acts
+    shrink, grow = applied
+    assert shrink["evidence"]["bottleneck_rank"] == 3
+    assert shrink["evidence"]["killed"] == ["3"]
+    assert shrink["evidence"]["target_np"] == 3
+    assert grow["evidence"]["target_np"] == 4
+    assert "SLO-burn shrink: shed rank 3 on localhost" in out.stderr
+    for a in applied:
+        print(f"[four cards] {a['rule']}: evidence {a['evidence']}")
+    print(f"[four cards] autopilot verdicts: "
+          f"{sorted((a['rule'], a['outcome']) for a in acts)}")
+    for st in status:
+        print(f"[four cards] re-form gen {st.get('gen')} ({st.get('reason')},"
+              f" size {st.get('size')}): {st.get('reform_s')} s = teardown "
+              f"{st.get('teardown_s')} + rendezvous {st.get('rendezvous_s')} "
+              f"+ init {st.get('init_s')} + resync {st.get('resync_s')} s")
+    steps = [e for e in ev if e["event"] == "step"]
+    for g in (1, 2, 3):
+        med = statistics.median(s["step_s"] for s in steps if s["gen"] == g)
+        print(f"[four cards] generation {g} (world {len(gens[g])}): median "
+              f"step {med:.4f} s over "
+              f"{sum(1 for s in steps if s['gen'] == g)} rank-steps, "
+              f"devices {sorted(e['device'] for e in gens[g])}")
+    print(f"[four cards] on 4 x {card.strip()}")
+
+
 def test_four_cards_timeline_autotune_resnet50(tmp_path):
     """The timeline and the tuner on four cards: the bench ResNet-50 step
     (224 px, batch 256 per card, bf16, fused momentum SGD) under

@@ -247,11 +247,23 @@ def test_output_files_console_prefixes_and_failing_rank(tmp_path):
 
 
 def test_unported_knobs_are_named_once():
+    """The profile sweep's knob is named once, as not ported; the
+    autopilot is ported: the elastic launcher says once that it is
+    engaged, and a launch without --elastic (the JAX package's static
+    launcher runs no autopilot either) says nothing of it."""
     rc = _hvdrun(["-np", "1", "--", sys.executable, "-c", "pass"],
                  HOROVOD_PROFILE_EVERY_N_STEPS="5", HOROVOD_AUTOPILOT="1")
     assert rc.returncode == 0, rc.stderr
     assert rc.stderr.count("profile sweep is not ported") == 1
-    assert rc.stderr.count("autopilot is not ported") == 1
+    assert "autopilot" not in rc.stderr
+    rc = _hvdrun(["-np", "1", "--elastic", "--", sys.executable, "-c",
+                  "pass"],
+                 HOROVOD_PROFILE_EVERY_N_STEPS="5", HOROVOD_AUTOPILOT="1")
+    assert rc.returncode == 0, rc.stderr
+    assert rc.stderr.count("profile sweep is not ported") == 1
+    assert rc.stderr.count("[hvdrun autopilot] engaged: rules "
+                           "straggler_blacklist, slo_burn_shrink, "
+                           "slo_recover_grow, preempt_drain") == 1
 
 
 # ---------------------------------------------------------------------------

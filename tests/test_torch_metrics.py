@@ -242,7 +242,8 @@ PORTED = ("runtime/controller.py", "runtime/background.py",
           "ops/eager.py", "optim/distributed.py", "optim/fused_update.py",
           "optim/local_sgd.py", "perf/goodput.py", "common/basics.py",
           "runtime/health.py", "checkpoint.py", "runtime/kvstore.py",
-          "runtime/preemption.py", "elastic.py", "run/launcher.py")
+          "runtime/preemption.py", "elastic.py", "run/launcher.py",
+          "runtime/autopilot.py")
 
 #: Metrics those modules register that the port leaves out, each with
 #: the ROADMAP.md Queue A item that brings it.
