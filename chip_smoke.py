@@ -365,6 +365,20 @@ Phases (any failure exits non-zero and prints no result line):
    per step that ran, replayed steps included (the
    ``launches_autopilot`` key of the kernels line).
 
+27. the fleet simulator (``horovod_tpu_torch.runtime.simfleet``, host
+   only, no kernel; every ``HOROVOD_*`` knob cleared for its run) at the
+   JAX package's documented scale: ``run_trace(256, 16, 3)`` and
+   ``reform_storm(256, 16, 8)`` twice each, identical, the roster dense
+   at 248; ``coordinated_abort(32, 8, 5)`` reaching all 31 survivors;
+   ``measure_scaling(1024, 32, 3)`` at a root-message ratio of at least
+   8; ``local_sgd_scaling(256, 16, 4, 2)`` at a round ratio of at least
+   4; ``straggler_drill`` (and its dry run) and ``preempt_storm`` at
+   (256, 16), replayed; ``slo_burn_drill()``; ``rollback_drill()`` with
+   its parameters on the card: one rollback, bit-exact, the same
+   ``final_digest`` as the drill at ``device="cpu"``, and the dry run
+   not bit-exact.  Each scenario's wall time on a line of its own with
+   the card's name and power limit.
+
 Then the run's wall time, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
 {...}}``.
@@ -7382,6 +7396,139 @@ def autopilot_plane(hvd, torch, gpu: str, work: str,
     return out
 
 
+def _timed(name: str, gpu: str, fn, *args, **kw):
+    """``fn(*args, **kw)`` with its wall time logged on a line of its own
+    beside the card's name and power limit."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    dt = time.perf_counter() - t0
+    log(f"[simfleet] {name}: {dt:.3f} s wall on {gpu}")
+    return out, dt
+
+
+def fleet_simulator(gpu: str) -> dict:
+    """Phase 27: the port's fleet simulator (host only, no kernel) at the
+    JAX package's documented scale (``ci.sh``'s simfleet stages and the
+    CLI's defaults), every ``HOROVOD_*`` knob of the earlier phases
+    cleared for its run: 256-rank negotiation traces and 8-death re-form
+    storms replayed twice, identical, the roster dense; the coordinated
+    abort reaching all 31 survivors; the root-message ratio at 1024 ranks
+    at least 8; the local-SGD round economy at least H; the straggler and
+    preemption drills at 256 ranks (replayed, no death, the straggler's
+    host shed, every notice drained); the SLO-burn loop; the rollback
+    drill with its parameters on the card: one rollback, bit-exact with
+    its unpoisoned reference, and the same ``final_digest`` as the drill
+    on the CPU; its dry run not bit-exact."""
+    from horovod_tpu_torch.runtime import simfleet as SF
+
+    saved = {k: os.environ.pop(k) for k in list(os.environ)
+             if k.startswith("HOROVOD_")}
+    t_phase = time.perf_counter()
+    wall = {}
+    try:
+        (a, wall["trace"]) = _timed("run_trace(256, 16, 3)", gpu,
+                                    SF.run_trace, 256, 16, 3, 0)
+        b, _ = _timed("run_trace(256, 16, 3) replay", gpu,
+                      SF.run_trace, 256, 16, 3, 0)
+        if a != b or len(a) != 3:
+            raise AssertionError(f"[simfleet] 256-rank trace drift: {a} "
+                                 f"against {b}")
+        s1, wall["storm"] = _timed("reform_storm(256, 16, 8)", gpu,
+                                   SF.reform_storm, 256, 16, 8)
+        s2, _ = _timed("reform_storm(256, 16, 8) replay", gpu,
+                       SF.reform_storm, 256, 16, 8)
+        if s1 != s2 or s1["new_world"] != 248 or len(s1["victims"]) != 8:
+            raise AssertionError(f"[simfleet] storm: {s1} against {s2}")
+        ab, wall["abort"] = _timed("coordinated_abort(32, 8, 5)", gpu,
+                                   SF.coordinated_abort, 32, 8, 5)
+        if ab["died"] != [5] or not (ab["survivors_aborted"]
+                                     == ab["survivors_total"] == 31):
+            raise AssertionError(f"[simfleet] abort: {ab}")
+        sc, wall["scaling"] = _timed("measure_scaling(1024, 32, 3)", gpu,
+                                     SF.measure_scaling, 1024, 32, 3)
+        if not sc["ratio"] >= 8.0:
+            raise AssertionError(f"[simfleet] scaling ratio below 8: {sc}")
+        ls, wall["localsgd"] = _timed(
+            "local_sgd_scaling(256, 16, 4, 2)", gpu,
+            SF.local_sgd_scaling, 256, 16, 4, 2)
+        if not ls["cross_round_ratio"] >= 4.0:
+            raise AssertionError(f"[simfleet] local SGD: {ls}")
+        st, wall["straggler"] = _timed("straggler_drill(256, 16)", gpu,
+                                       SF.straggler_drill, 256, 16)
+        st2, _ = _timed("straggler_drill(256, 16) replay", gpu,
+                        SF.straggler_drill, 256, 16)
+        if st != st2 or st["deaths"] != [] or st["world_after"] != 255 \
+                or st["blacklisted"] != ["host-0003"]:
+            raise AssertionError(f"[simfleet] straggler: {st}")
+        dry, _ = _timed("straggler_drill(256, 16, dry_run)", gpu,
+                        SF.straggler_drill, 256, 16, dry_run=True)
+        if dry["blacklisted"] or dry["world_after"] != 256 or not any(
+                x["outcome"] == "dry_run" for x in dry["actions"]):
+            raise AssertionError(f"[simfleet] straggler dry run: {dry}")
+        pe, wall["preempt"] = _timed("preempt_storm(256, 16)", gpu,
+                                     SF.preempt_storm, 256, 16)
+        pe2, _ = _timed("preempt_storm(256, 16) replay", gpu,
+                        SF.preempt_storm, 256, 16)
+        if pe != pe2 or pe["deaths"] or pe["blacklisted"] \
+                or pe["drained"] != pe["victims"] \
+                or pe["world_after"] != 256 - len(pe["victims"]) \
+                or not all(x["outcome"] == "applied"
+                           for x in pe["actions"]):
+            raise AssertionError(f"[simfleet] preemption storm: {pe}")
+        burn, wall["burn"] = _timed("slo_burn_drill()", gpu,
+                                    SF.slo_burn_drill)
+        if burn != SF.slo_burn_drill() \
+                or burn["events"][0] != ["shrink", burn["victim"]] \
+                or ["grow", None] not in burn["events"] \
+                or burn["shed"] != [burn["victim"]]:
+            raise AssertionError(f"[simfleet] SLO burn: {burn}")
+        rb, wall["rollback"] = _timed("rollback_drill(device=cuda)", gpu,
+                                      SF.rollback_drill, device="cuda")
+        rb_cpu, wall["rollback_cpu"] = _timed(
+            "rollback_drill(device=cpu)", gpu, SF.rollback_drill,
+            device="cpu")
+        if rb["rollbacks"] != 1 or not rb["bit_exact"] \
+                or not rb["final_finite"] \
+                or rb["final_digest"] != rb_cpu["final_digest"]:
+            raise AssertionError(f"[simfleet] rollback on the card: {rb}; "
+                                 f"on the CPU: {rb_cpu}")
+        rb_dry, _ = _timed("rollback_drill(device=cuda, dry_run)", gpu,
+                           SF.rollback_drill, dry_run=True, device="cuda")
+        if rb_dry["bit_exact"] or rb_dry["actions"][0]["outcome"] \
+                != "dry_run":
+            raise AssertionError(f"[simfleet] rollback dry run: {rb_dry}")
+    finally:
+        _restore_env(saved)
+    out = {"wall_s": wall,
+           "trace_root_ops": a[-1]["root_ops"],
+           "storm_roster_digest": s1["roster_digest"],
+           "abort": ab,
+           "scaling": {k: sc[k] for k in ("flat_root_ops_per_round",
+                                          "hier_root_ops_per_round",
+                                          "ratio")},
+           "localsgd_ratio": ls["cross_round_ratio"],
+           "straggler_blacklisted": st["blacklisted"],
+           "preempt_drained": pe["drained"],
+           "burn_shed": burn["shed"],
+           "rollback_digest": rb["final_digest"],
+           # the monitor's loss is params @ params, a reduction the card
+           # orders its own way: whether the rest of the drill's record
+           # matched the CPU's too
+           "rollback_same_record_as_cpu": rb == rb_cpu}
+    log(f"[simfleet] phase 27: 256-rank trace {a[-1]['root_ops']} root "
+        f"ops/round; storm roster {s1['roster_digest']}; abort "
+        f"{ab['survivors_aborted']}/{ab['survivors_total']} survivors; "
+        f"world 1024 root ops/round flat {sc['flat_root_ops_per_round']} "
+        f"against hier {sc['hier_root_ops_per_round']}, ratio "
+        f"{sc['ratio']}; straggler shed {st['blacklisted']}; drained "
+        f"{pe['drained']}; burn shed {burn['shed']}; rollback digest "
+        f"{rb['final_digest']} on the card and the CPU (whole record "
+        f"equal: {out['rollback_same_record_as_cpu']})")
+    log(f"[simfleet] phase 27 took {time.perf_counter() - t_phase:.1f} s "
+        f"on {gpu}")
+    return out
+
+
 def run(args) -> int:
     t_start = time.perf_counter()
     card = pin_one_card()
@@ -7504,6 +7651,8 @@ def run(args) -> int:
     apl = autopilot_plane(hvd, torch, gpu,
                           os.path.join(_build.BUILD_DIR, "phase26"),
                           el["c"]["drain_s"])
+    hvd.shutdown()
+    fleet = fleet_simulator(gpu)
 
     def p24(name: str) -> dict:
         """A kernel's launches in phase 24's and phase 26's runs, as each
@@ -7776,6 +7925,9 @@ def run(args) -> int:
         f"rollback {apl['a']['rollback_s']:.3f} s; drain through the "
         f"autopilot {apl['b']['drain_s']:.3f} s (24c {el['c']['drain_s']:.3f}"
         f" s); on {gpu}")
+    log(f"[simfleet] phase 27: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in fleet["wall_s"].items())
+        + f"; scaling ratio {fleet['scaling']['ratio']}; on {gpu}")
     log(f"[done] wall time {time.perf_counter() - t_start:.1f} s; CNN paths "
         + "; ".join(f"{n}: median step {r['median_s']:.4f} s, "
                     f"{CNN[n][1] / r['median_s']:.1f} img/s, peak "

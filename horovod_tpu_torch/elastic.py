@@ -1149,31 +1149,59 @@ def share_from_rank0(value):
                                    wire_timeout(), liveness=True))
 
 
+# (generation, count) of this process's commit boundaries
+_boundaries = [0, 0]
+
+
+def _boundary_key(gen: int, n: int) -> str:
+    return f"el/c/g{gen}/{n}"
+
+
 def _commit_boundary(state: ElasticState) -> None:
-    """All ranks agree — via rank 0's verdict for THIS commit index —
-    whether pending joiners trigger a grow re-form now.  The per-index
-    key makes the decision deterministic across ranks: without it, two
-    ranks could observe the join registry around different commits and
-    re-form one step apart, deadlocking the stragglers."""
+    """All ranks agree — via rank 0's verdict for THIS boundary — whether
+    pending joiners trigger a grow re-form now.  The per-boundary key
+    makes the decision deterministic across ranks: without it, two ranks
+    could observe the join registry around different commits and re-form
+    one step apart, deadlocking the stragglers.
+
+    The key counts boundaries within the generation (every rank passes
+    one per ``commit()``), not ``state.commits``: a rollback or restore
+    rewinds ``commits``, and a peer keyed by it could read the verdict of
+    an earlier boundary -- a stale "grow" -- before rank 0 overwrote it,
+    and raise alone.  A joiner enters at a new generation, where every
+    count starts at 0; a restart attempt gets a fresh rendezvous
+    server."""
     if not enabled():
         return
     st = _basics.state()
     if not st.initialized:
         return
     t = _rv()
+    gen = generation()
+    prev = None
+    if _boundaries[0] != gen:
+        prev = list(_boundaries)
+        _boundaries[:] = [gen, 0]
+    _boundaries[1] += 1
+    n = _boundaries[1]
     c = state.commits
     if st.rank == 0:
         target = int(os.environ.get("HOROVOD_ELASTIC_NP", "0") or 0)
         joiners = scan_joiners(t, advance_cursor=True) \
             if (target <= 0 or st.size < target) else []
-        t.set_overwrite(f"el/c/{c}", "grow" if joiners else "ok")
-        if c > 2:
-            t.delete(f"el/c/{c - 2}")
+        t.set_overwrite(_boundary_key(gen, n), "grow" if joiners else "ok")
+        if n > 2:
+            t.delete(_boundary_key(gen, n - 2))
+        elif prev is not None and prev[0]:
+            # every rank left the old generation before this one formed
+            pg, pn = prev
+            for k in range(max(pn - 1, 1), pn + 1):
+                t.delete(_boundary_key(pg, k))
         grow = bool(joiners)
     else:
         from horovod_tpu_torch.runtime.controller import wire_timeout
 
-        grow = _bounded_get(t, f"el/c/{c}", wire_timeout(),
+        grow = _bounded_get(t, _boundary_key(gen, n), wire_timeout(),
                             liveness=True) == "grow"
     if grow:
         _log.info(

@@ -27,8 +27,8 @@ against the JAX package's (``horovod_tpu/runtime/autopilot.py``).
    ``--preempt`` through the ungated rule (the engaged line, the flight
    dump of the verdict), and the dry run.
 
-The fleet simulator's drills of ``tests/test_autopilot.py`` wait for the
-port of ``runtime/simfleet.py``.
+The fleet simulator's drills of ``tests/test_autopilot.py`` are held in
+``tests/test_torch_simfleet.py``.
 """
 
 import json

@@ -44,6 +44,7 @@ from horovod_tpu.run.launcher import Blacklist as JBlacklist
 
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch import elastic
+from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.common.types import HorovodTpuError, RanksDownError
 from horovod_tpu_torch.optim import distributed as D
 from horovod_tpu_torch.run.launcher import Blacklist
@@ -152,11 +153,12 @@ def test_commit_boundary_admits_joiners_with_interrupt(
     t = FakeTransport(fake_rendezvous)
     state = elastic.ElasticState(params={"w": np.ones(2)}, opt_state=None)
     state.commit()
-    assert t.try_get("el/c/1") == "ok"
+    gen = elastic.generation()
+    assert t.try_get(elastic._boundary_key(gen, 1)) == "ok"
     elastic.register_join(t, "uidJ", "hostJ")
     with pytest.raises(elastic.HostsUpdatedInterrupt):
         state.commit()
-    assert t.try_get("el/c/2") == "grow"
+    assert t.try_get(elastic._boundary_key(gen, 2)) == "grow"
     assert state._commit is not None and state.commits == 2
 
 
@@ -168,7 +170,97 @@ def test_commit_boundary_respects_target_size(
     elastic.register_join(t, "uidJ", "hostJ")
     state = elastic.ElasticState(params={"w": np.ones(2)}, opt_state=None)
     state.commit()
-    assert t.try_get("el/c/1") == "ok"
+    assert t.try_get(
+        elastic._boundary_key(elastic.generation(), 1)) == "ok"
+
+
+class _BoundaryWatch(FakeTransport):
+    """A FakeTransport that signals when a commit boundary's record is
+    waited for."""
+
+    def __init__(self, store):
+        super().__init__(store)
+        self.waiting = threading.Event()
+
+    def get_blocking(self, key, timeout_s):
+        if key.startswith("el/c/"):
+            self.waiting.set()
+        return super().get_blocking(key, timeout_s)
+
+
+def test_rollback_never_reads_an_earlier_boundarys_grow_record(
+        world1, monkeypatch):
+    """A joiner admitted at commit c-1, a rollback at commit c's tick to
+    the commit c-1 snapshot, and a peer that reaches the next boundary
+    before rank 0 does: the peer must wait for rank 0's verdict of THIS
+    boundary, not read commit c-1's "grow" and raise alone (the others
+    would hang at their next collective).  Each simulated rank keeps its
+    own boundary count, as its process would."""
+    monkeypatch.setenv("HOROVOD_ELASTIC", "1")
+    store = FakeStore()
+    t = _BoundaryWatch(store)
+    monkeypatch.setattr(elastic, "_rendezvous", t)
+    st = basics.state()
+    counts = {0: [0, 0], 1: [0, 0]}
+
+    def as_rank(r):
+        monkeypatch.setattr(st, "rank", r)
+        monkeypatch.setattr(elastic, "_boundaries", counts[r])
+
+    def boundary_all(state, grow):
+        for r in (0, 1):
+            as_rank(r)
+            if grow:
+                with pytest.raises(elastic.HostsUpdatedInterrupt):
+                    elastic._commit_boundary(state)
+            else:
+                elastic._commit_boundary(state)
+
+    state = elastic.ElasticState(params={"w": np.ones(2)}, opt_state=None)
+    state._snapshot()                                   # commit 1
+    boundary_all(state, grow=False)
+    elastic.register_join(t, "uidJ", "hostJ")
+    state._snapshot()                                   # commit 2: grow
+    snap2 = state._commit
+    boundary_all(state, grow=True)
+    # the re-form: the joiner is admitted into the next generation and
+    # every rank resumes from commit 2
+    t.set_overwrite("el/admitted/uidJ", "2")
+    monkeypatch.setattr(st, "epoch", st.epoch + 1)
+    state.restore()
+    state._snapshot()                                   # commit 3
+    boundary_all(state, grow=False)
+    # commit 4 is poisoned: its tick rolls every rank back to commit 3's
+    # predecessor, the admitted commit 2
+    state._snapshot()
+    state.load(snap2)
+    assert state.commits == 2
+    outcome = []
+
+    def peer():
+        try:
+            elastic._commit_boundary(state)
+            outcome.append("ok")
+        except elastic.HostsUpdatedInterrupt as exc:
+            outcome.append(f"raised alone: {exc}")
+
+    as_rank(1)
+    t.waiting.clear()
+    th = threading.Thread(target=peer)
+    th.start()
+    assert t.waiting.wait(10.0)
+    th.join(0.2)
+    as_rank(0)
+    elastic._commit_boundary(state)
+    th.join(10.0)
+    assert outcome == ["ok"]
+    gen = elastic.generation()
+    # rank 0 cleared the previous generation's records at its first
+    # boundary of this one
+    assert not [k for k in store.data
+                if k.startswith(f"el/c/g{gen - 1}/")]
+    assert sorted(k for k in store.data if k.startswith("el/c/")) == [
+        elastic._boundary_key(gen, 1), elastic._boundary_key(gen, 2)]
 
 
 # ---------------------------------------------------------------------------

@@ -54,7 +54,8 @@ def test_no_jax_side_module_is_imported():
               "runtime.faults", "perf", "perf.goodput", "perf.__main__",
               "trace", "trace.merge", "trace.analyze", "trace.perfetto",
               "trace.__main__", "runtime.health", "checkpoint",
-              "runtime.kvstore", "runtime.preemption", "elastic", "run",
+              "runtime.kvstore", "runtime.preemption", "runtime.simfleet",
+              "elastic", "run",
               "run.__main__", "run.launcher", "run.pod", "run.exec_fn"):
         assert f"horovod_tpu_torch.{m}" in res["modules"]
 
