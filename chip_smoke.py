@@ -379,6 +379,25 @@ Phases (any failure exits non-zero and prints no result line):
    not bit-exact.  Each scenario's wall time on a line of its own with
    the card's name and power limit.
 
+28. the perf observatory on phase 6's ResNet-50 step at world 1 over
+   NCCL: (a) two warm-up steps, one step under
+   ``torch.utils.flop_counter.FlopCounterMode`` (its count is
+   ``set_step_flops``), then 8 steps under ``hvd.trace_step`` with
+   ``HOROVOD_PROFILE_EVERY_N_STEPS=2`` and ``HOROVOD_PROFILE_KEEP=2``,
+   each timed with CUDA events inside its span and the analyzer joined
+   after it: at least 2 captures analyzed and 2 step directories kept;
+   each kept capture's device compute within [0.5, 1.05] of its step's
+   CUDA-event time, its comm 0 (world 1 runs no collective), the fused
+   tail's ``multi_kernel`` found once and each of N1-N4's kernels 53
+   times in it, equal to the wrappers' counters over that step; the
+   ``hvd_device_*`` gauges equal to the last analysis, ``hvd_mfu`` in
+   (0, 1], the goodput ledger booking ``comm_exposed`` from the device;
+   the event categories and counts of the capture printed; (b) two
+   rounds of 6 steps with the knob off and 6 with it on, in alternation:
+   the median of the un-sampled steps against the knob off, beside the
+   two off rounds' own ratio (the ``launches_profile`` key of the
+   kernels line).
+
 Then the run's wall time, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
 {...}}``.
@@ -7529,6 +7548,221 @@ def fleet_simulator(gpu: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 28: the perf observatory (sampled torch.profiler captures) on phase
+# 6's ResNet-50 step
+# ---------------------------------------------------------------------------
+
+PROF_EVERY, PROF_KEEP, PROF_STEPS = 2, 2, 8  # 28a: knob, rotation, steps
+PROF_ROUNDS, PROF_ROUND_STEPS = 2, 6         # 28b: off/on rounds, steps
+#: each counted kernel's name as a capture shows it (demangled), by the
+#: wrapper counter that counts its launches: B1's multi-leaf kernel, and
+#: N1-N4 (N1 and N3 launch their row-tile pass and one finalize each)
+PROF_KERNELS = {"momentum": r"(^|[\s:])multi_kernel<",
+                "bn_stats": r"(^|[\s:])finalize<false>",
+                "bn_normalize": r"(^|[\s:])normalize<",
+                "bn_bwd_reduce": r"(^|[\s:])finalize<true>",
+                "bn_bwd_dx": r"(^|[\s:])bwd_dx<"}
+PROF_ENV = ("HOROVOD_PROFILE_EVERY_N_STEPS", "HOROVOD_PROFILE_DIR",
+            "HOROVOD_PROFILE_KEEP", "HOROVOD_FUSED_UPDATE")
+
+
+def _capture_kernels(K, path: str) -> tuple:
+    """``({counter: kernels found}, {category: events}, device kernels,
+    the most frequent kernel names)`` of one Chrome trace."""
+    import collections
+    import re
+
+    with open(path) as f:
+        raw = json.load(f)["traceEvents"]
+    cats = collections.Counter(str(e.get("cat", e.get("ph"))) for e in raw)
+    names = collections.Counter(
+        e.name for p in K.read_trace(path).planes
+        if p.name.startswith("/device:") for e in K.device_work(p))
+    found = {k: sum(n for name, n in names.items() if re.search(pat, name))
+             for k, pat in PROF_KERNELS.items()}
+    return found, dict(cats), sum(names.values()), names.most_common(8)
+
+
+def perf_observatory(hvd, torch, gpu: str) -> dict:
+    """Phase 28 (a-b)."""
+    import tempfile
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.ops import batch_norm as BN
+    from horovod_tpu_torch.optim import fused_update as TF
+    from horovod_tpu_torch.perf import capture as C
+    from horovod_tpu_torch.perf import goodput as GP
+    from horovod_tpu_torch.perf import kineto as K
+    from horovod_tpu_torch.runtime import metrics as M
+    from horovod_tpu_torch.train_step import synthetic_batch, train_step
+
+    t_phase = time.perf_counter()
+    saved = {k: os.environ.get(k) for k in PROF_ENV}
+    os.environ["HOROVOD_FUSED_UPDATE"] = "1"
+    hvd.init()
+    model = ResNet50(num_classes=1000, dtype=torch.bfloat16, seed=0)
+    opt = hvd.DistributedOptimizer(
+        hvd.fused_update.sgd(model.parameters(), 0.1, momentum=0.9))
+    images, labels = synthetic_batch(BATCH, 224, 1000, seed=0)
+    for _ in range(2):
+        train_step(model, opt, images, labels)
+    with FlopCounterMode(display=False) as fc:
+        train_step(model, opt, images, labels)
+    flops = fc.get_total_flops()
+    torch.cuda.synchronize()
+    root = tempfile.mkdtemp(prefix="hvd_prof_")
+    sampled: list = []
+    start = C.maybe_start
+
+    def spy(step):
+        token = start(step)
+        sampled.append(token is not None)
+        return token
+
+    C.maybe_start = spy
+    try:
+        os.environ.update({"HOROVOD_PROFILE_EVERY_N_STEPS": str(PROF_EVERY),
+                           "HOROVOD_PROFILE_DIR": root,
+                           "HOROVOD_PROFILE_KEEP": str(PROF_KEEP)})
+        C.reset()
+        C.set_step_flops(flops)
+        captures0 = M.counter("hvd_profile_captures_total").total()
+        device0 = GP.ledger().snapshot()["exposed_source"].get("device", 0)
+        ev_ms, launches, losses = [], [], []
+        for step in range(PROF_STEPS):
+            TF.reset_launch_counts()
+            BN.reset_launch_counts()
+            e0, e1 = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+            with hvd.trace_step(step=step):
+                e0.record()
+                loss = train_step(model, opt, images, labels)
+                e1.record()
+            e1.synchronize()
+            ev_ms.append(e0.elapsed_time(e1))
+            losses.append(float(loss))
+            c = {**TF.LAUNCHES, **BN.LAUNCHES}
+            launches.append({k: c[k] for k in PROF_KERNELS})
+            C.drain(120)
+        captures = M.counter("hvd_profile_captures_total").total() - captures0
+        device = (GP.ledger().snapshot()["exposed_source"].get("device", 0)
+                  - device0)
+        rank_dir = os.path.join(root, "rank0")
+        kept = sorted(os.listdir(rank_dir))
+        if captures < 2 or len(kept) != PROF_KEEP:
+            raise AssertionError(f"28a: {captures} captures analyzed, kept "
+                                 f"{kept} (HOROVOD_PROFILE_KEEP={PROF_KEEP})")
+        ratios, cats = {}, {}
+        for d in kept:
+            with open(os.path.join(rank_dir, d, "analysis.json")) as f:
+                an = json.load(f)
+            step = an["captured_step"]
+            tot = an["totals"]
+            if not any(p.startswith("/device:GPU") for p in an["planes"]):
+                raise AssertionError(f"28a: step {step}'s capture holds no "
+                                     f"device plane: {an['planes']}")
+            ratios[step] = round(tot["compute_s_per_step"] * 1e3
+                                 / ev_ms[step], 4)
+            if not 0.5 <= ratios[step] <= 1.05:
+                raise AssertionError(
+                    f"28a: step {step}: device compute "
+                    f"{tot['compute_s_per_step']} s against "
+                    f"{ev_ms[step]:.3f} ms between its CUDA events")
+            if tot["comm_s"] != 0 or any(s["comm_by_kind"]
+                                         for s in an["steps"]):
+                raise AssertionError(f"28a: comm at world 1: {tot} "
+                                     f"{[s['comm_by_kind'] for s in an['steps']]}")
+            found, cats, n_dev, top = _capture_kernels(K, an["trace_path"])
+            want = {k: launches[step][k] for k in PROF_KERNELS}
+            if found != want or want["momentum"] != 1 or any(
+                    want[k] != RESNET50_BN for k in BN_KERNELS):
+                raise AssertionError(
+                    f"28a: step {step}: kernels in the capture {found}, "
+                    f"the wrappers counted {want}; most frequent {top}")
+            log(f"[perf] 28a step {step}: {n_dev} device events, "
+                f"{an['op_events']} op events, wall "
+                f"{tot['wall_s_per_step']} s, compute "
+                f"{tot['compute_s_per_step']} s, CUDA events "
+                f"{ev_ms[step]:.3f} ms, ratio {ratios[step]}, mfu "
+                f"{tot.get('mfu')}; kernels {found}; most frequent {top}")
+        snap = M.registry().snapshot()
+
+        def gauge(name):
+            return snap[name]["series"][0]["value"]
+
+        last = C.last_analysis()["totals"]
+        mfu = gauge("hvd_mfu")
+        if gauge("hvd_device_compute_seconds") !=                 last["compute_s_per_step"] or                 gauge("hvd_device_comm_exposed_seconds") != 0 or                 not 0 < mfu <= 1 or device < 1:
+            raise AssertionError(
+                f"28a: gauges compute {gauge('hvd_device_compute_seconds')}"
+                f" (last {last['compute_s_per_step']}), exposed "
+                f"{gauge('hvd_device_comm_exposed_seconds')}, mfu {mfu}; "
+                f"{device} steps booked from the device")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"28a: non-finite loss: {losses}")
+        log(f"[perf] 28a ResNet-50 batch {BATCH} bf16, world 1 over NCCL, "
+            f"{PROF_STEPS} steps at HOROVOD_PROFILE_EVERY_N_STEPS="
+            f"{PROF_EVERY}: {captures:g} captures, kept {kept}; "
+            f"FlopCounterMode {flops:.4g} FLOP per step; mfu {mfu}; "
+            f"compute/CUDA-event ratios {ratios}; {device} steps booked "
+            f"comm_exposed from the device; event categories of the last "
+            f"capture {cats}; CUDA-event ms {[round(x, 3) for x in ev_ms]}; "
+            f"on {gpu}")
+        # 28b: the un-sampled steps against the knob off, in alternation
+        times = {"off": [], "on": [], "sampled": []}
+        off_rounds = []
+        for _ in range(PROF_ROUNDS):
+            for mode in ("off", "on"):
+                if mode == "off":
+                    os.environ.pop("HOROVOD_PROFILE_EVERY_N_STEPS")
+                else:
+                    os.environ["HOROVOD_PROFILE_EVERY_N_STEPS"] = \
+                        str(PROF_EVERY)
+                rnd = []
+                for _ in range(PROF_ROUND_STEPS):
+                    del sampled[:]
+                    t0 = time.perf_counter()
+                    with hvd.trace_step():
+                        train_step(model, opt, images, labels)
+                        torch.cuda.synchronize()
+                    dt = time.perf_counter() - t0
+                    if mode == "off":
+                        rnd.append(dt)
+                    else:
+                        times["sampled" if any(sampled) else "on"].append(dt)
+                times["off"] += rnd
+                if mode == "off":
+                    off_rounds.append(statistics.median(rnd))
+                C.drain(120)
+        med = {k: statistics.median(v) for k, v in times.items() if v}
+        ratio = med["on"] / med["off"]
+        noise = max(off_rounds) / min(off_rounds)
+        log(f"[perf] 28b {PROF_ROUNDS} rounds of {PROF_ROUND_STEPS} steps "
+            f"knob off then {PROF_ROUND_STEPS} at {PROF_EVERY}: median step "
+            f"off {med['off']:.4f} s, un-sampled {med['on']:.4f} s (ratio "
+            f"{ratio:.4f}; the two off rounds' medians differ by "
+            f"{noise:.4f}x), sampled {med.get('sampled', float('nan')):.4f}"
+            f" s over {len(times['sampled'])} steps; on {gpu}")
+    finally:
+        C.maybe_start = start
+        C.reset()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    del model, opt, images, labels
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+    log(f"[perf] phase 28 took {time.perf_counter() - t_phase:.1f} s")
+    return {"captures": captures, "compute_ratios": ratios, "mfu": mfu,
+            "launches": launches, "ratio": ratio, "noise": noise,
+            "median_s": med, "flops": flops}
+
+
 def run(args) -> int:
     t_start = time.perf_counter()
     card = pin_one_card()
@@ -7653,6 +7887,7 @@ def run(args) -> int:
                           el["c"]["drain_s"])
     hvd.shutdown()
     fleet = fleet_simulator(gpu)
+    prof = perf_observatory(hvd, torch, gpu)
 
     def p24(name: str) -> dict:
         """A kernel's launches in phase 24's and phase 26's runs, as each
@@ -7728,7 +7963,10 @@ def run(args) -> int:
                 # detached and attached
                 "launches_timeline": {
                     m: [c["momentum"] for c in v]
-                    for m, v in tune["a"]["launches"].items()}}
+                    for m, v in tune["a"]["launches"].items()},
+                # phase 28a, per step under the sampled capture
+                "launches_profile": [c["momentum"]
+                                     for c in prof["launches"]]}
                if kind == "momentum" else {}),
             **({"launches_zero_lm": zero_lm["launches"]["adam"],
                 "zero_tail_launches": zero_tail["adam"],
@@ -7879,6 +8117,8 @@ def run(args) -> int:
             "launches_timeline": {
                 m: [c[name] for c in v]
                 for m, v in tune["a"]["launches"].items()},
+            # phase 28a, per step under the sampled capture
+            "launches_profile": [c[name] for c in prof["launches"]],
             "max_abs_err": e["max_abs_err"], "max_ulp": e["max_ulp"],
             "max_err_f64": e["max_err_f64"],
             "plain_err_f64": e["plain_err_f64"],
@@ -7928,6 +8168,11 @@ def run(args) -> int:
     log(f"[simfleet] phase 27: "
         + ", ".join(f"{k} {v:.3f} s" for k, v in fleet["wall_s"].items())
         + f"; scaling ratio {fleet['scaling']['ratio']}; on {gpu}")
+    log(f"[perf] phase 28: {prof['captures']} captures; device compute "
+        f"over the CUDA-event step {prof['compute_ratios']}; mfu "
+        f"{prof['mfu']}; un-sampled/off median step ratio "
+        f"{prof['ratio']:.4f} beside the off rounds' {prof['noise']:.4f}; "
+        f"on {gpu}")
     log(f"[done] wall time {time.perf_counter() - t_start:.1f} s; CNN paths "
         + "; ".join(f"{n}: median step {r['median_s']:.4f} s, "
                     f"{CNN[n][1] / r['median_s']:.1f} img/s, peak "

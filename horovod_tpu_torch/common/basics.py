@@ -27,10 +27,11 @@ endpoint (``HOROVOD_METRICS_PORT``), the fatal-signal dump handlers and
 the ``init``/``shutdown`` flight records and dumps.  ``shutdown`` and
 :func:`teardown_distributed` close rank 0's timeline
 (``HOROVOD_TIMELINE``), so an elastic re-form flushes the old
-generation's trace and the new rank 0 opens a fresh one.
-``HOROVOD_TIMELINE_JAX_PROFILER`` (the JAX package's device capture;
-its ``torch.profiler`` counterpart is ROADMAP.md Queue A 12i) is noted
-once at ``init`` and changes nothing.
+generation's trace and the new rank 0 opens a fresh one.  With
+``HOROVOD_TIMELINE_JAX_PROFILER`` set, ``init`` opens every rank's
+whole-run ``torch.profiler`` capture (``runtime.timeline.
+TorchProfilerBridge``), and both close it, so the old generation's trace
+lands before a re-form's ``init`` opens the next under ``gen<g>/``.
 """
 
 from __future__ import annotations
@@ -76,10 +77,12 @@ class _State:
         # a peer of this generation is known dead (a liveness sweep
         # raised RanksDownError): shutdown() then meets no barrier
         self.peer_down = False
+        self.profiler = None  # runtime.timeline.TorchProfilerBridge
 
 
 _state = _State()
-_noted_unported: set = set()
+# HOROVOD_TIMELINE_JAX_PROFILER dir -> the epoch that first opened it
+_PROF_DIR_EPOCH0: dict = {}
 
 
 def state() -> _State:
@@ -209,7 +212,7 @@ def init(device=None, timeout_s: float = 300.0, mesh=None) -> None:
             _state.first_device = dev
         _state.epoch += 1
         _state.initialized = True
-        _note_unported(rank)
+        _open_profiler_bridge()
         _build_eager_groups()
         if axes is not None:
             _build_data_mesh(axes)
@@ -230,15 +233,42 @@ def init(device=None, timeout_s: float = 300.0, mesh=None) -> None:
         _eager.start_runtime()
 
 
-def _note_unported(rank: int) -> None:
-    """Say once per process that a set knob of a feature this package
-    has not ported yet is ignored."""
-    env = "HOROVOD_TIMELINE_JAX_PROFILER"
-    if os.environ.get(env, "").strip() and env not in _noted_unported:
-        _noted_unported.add(env)
-        _log.warning(f"{env} is set: the device capture (a torch.profiler "
-                     "capture in this package) is not ported yet; "
-                     "ignoring it", rank=rank)
+def _open_profiler_bridge() -> None:
+    """The whole-run device capture of ``HOROVOD_TIMELINE_JAX_PROFILER``
+    (``horovod_tpu/common/basics.py:217-247``).  It starts here, not in
+    the background runtime, so a world of one records too."""
+    prof_dir = _config.get("jax_profiler")
+    if not prof_dir:
+        return
+    from horovod_tpu_torch.runtime.timeline import TorchProfilerBridge
+
+    # a prior generation's bridge still holding the profiler (a teardown
+    # path that never ran) is closed, so its trace lands and the new
+    # capture can start
+    _close_profiler()
+    # Generation is relative to the first time THIS process opened THIS
+    # logdir: a plain shutdown()+init() against a fresh dir gets the
+    # rank<k> layout; only a re-form over the same dir moves to
+    # gen<g>/rank<k>.
+    base = _PROF_DIR_EPOCH0.setdefault(str(prof_dir), _state.epoch)
+    try:
+        _state.profiler = TorchProfilerBridge(
+            prof_dir, _state.rank, generation=_state.epoch - base + 1,
+            device=_state.device)
+    except Exception as exc:  # noqa: BLE001 -- capture is advisory
+        _log.warning(f"torch.profiler capture unavailable: {exc!r}",
+                     rank=_state.rank)
+
+
+def _close_profiler() -> None:
+    """Stop the whole-run capture and write its trace (idempotent)."""
+    prof, _state.profiler = _state.profiler, None
+    if prof is not None:
+        try:
+            prof.close()
+        except Exception as exc:  # noqa: BLE001 -- advisory
+            _log.warning(f"torch.profiler capture close failed: {exc!r}",
+                         rank=_state.rank)
 
 
 def _close_timeline() -> None:
@@ -424,6 +454,7 @@ def shutdown() -> None:
                 # a peer is dead: nobody would meet this barrier)
                 dist.barrier()
         _close_timeline()
+        _close_profiler()
         if _state.metrics_server is not None:
             _state.metrics_server.close()
             _state.metrics_server = None
@@ -470,8 +501,10 @@ def teardown_distributed(timeout_s: float | None = None) -> bool:
     helper thread.  Returns False when the deadline passed first (the
     groups are then abandoned)."""
     # the generation's trace ends on a whole record before its world
-    # goes (shutdown() may have closed it already)
+    # goes (shutdown() may have closed it already); the device capture
+    # lands, and the re-init's next one can start
     _close_timeline()
+    _close_profiler()
     if not dist.is_initialized():
         return True
     timeout_s = (float(_config.get("shutdown_timeout"))

@@ -521,6 +521,45 @@ _KNOBS: dict[str, Knob] = {
         "Emit background-cycle markers (CYCLE_START) into the timeline.",
         cli="--timeline-mark-cycles",
         config_key="profiling.timeline_mark_cycles"),
+    "jax_profiler": Knob(
+        "HOROVOD_TIMELINE_JAX_PROFILER", "", str,
+        "Directory for a whole-run device capture: torch.profiler (CPU "
+        "and CUDA activities) records every rank from init() to "
+        "shutdown() and writes a Chrome trace under rank<k>/ "
+        "(gen<g>/rank<k>/ after an elastic re-form).  The name is the "
+        "JAX package's, kept for users' scripts.",
+        cli="--jax-profiler-dir", config_key="profiling.jax_profiler_dir"),
+    "profile_every_n": Knob(
+        "HOROVOD_PROFILE_EVERY_N_STEPS", 0, int,
+        "Sampled continuous device capture: every N-th hvd.trace_step() "
+        "span is captured with torch.profiler into a rotating per-rank "
+        "directory (HOROVOD_PROFILE_DIR), analyzed in the background by "
+        "the stdlib Chrome-trace reader, and published as "
+        "hvd_device_*/hvd_mfu gauges on the metrics plane.  0 (default) "
+        "disables.  Yields to the whole-run "
+        "HOROVOD_TIMELINE_JAX_PROFILER capture, which owns the profiler "
+        "when set.",
+        cli="--profile-every-n-steps", config_key="profiling.every_n_steps"),
+    "profile_dir": Knob(
+        "HOROVOD_PROFILE_DIR", "", str,
+        "Root directory for sampled step captures "
+        "(HOROVOD_PROFILE_EVERY_N_STEPS); each rank writes "
+        "rank<k>/step<n>/ with the Chrome trace plus its analysis.json.  "
+        "Empty (default) means ./hvd_profile.  Inspect with "
+        "`python -m horovod_tpu_torch.perf report <dir>`.",
+        cli="--profile-dir", config_key="profiling.profile_dir"),
+    "profile_keep": Knob(
+        "HOROVOD_PROFILE_KEEP", 4, int,
+        "How many sampled step captures each rank keeps (oldest rotated "
+        "out), bounding disk use on long runs.",
+        cli="--profile-keep", config_key="profiling.keep"),
+    "peak_flops": Knob(
+        "HOROVOD_PEAK_FLOPS_PER_CHIP", 0.0, float,
+        "Peak FLOP/s of one card used as the MFU denominator by the perf "
+        "observatory; 0 (default) takes the dense bf16 tensor-core peak "
+        "of the card's spec sheet (perf/attribution.py).  Set explicitly "
+        "for a card the table lacks, or to give CPU runs an MFU number.",
+        cli="--peak-flops-per-chip", config_key="profiling.peak_flops"),
     "autotune": Knob(
         "HOROVOD_AUTOTUNE", False, _parse_bool,
         "Bayesian autotuning of the eager plane's knobs on rank 0 "

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import contextlib
 import socket
 
 import torch
@@ -50,3 +51,15 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise HorovodTpuError(f"unsupported device {dev}")
     return dev
+
+
+def profiler_scope(name: str):
+    """A framework scope (``hvd_overlap_rs0``, ``hvd_zero3_ag1``, ...):
+    ``torch.profiler.record_function(name)`` while a profiler records,
+    else a no-op context.  The perf observatory resolves device work to
+    the outermost ``hvd_*`` scope around its launch; an unprofiled step
+    pays one flag read instead of a ``record_function``, which is a
+    dispatcher call even with no profiler running."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()

@@ -31,6 +31,12 @@ a top-k payload per bucket), so an error-feedback residual is the
 bucket-aligned slices of one full-buffer residual, zeros where a
 bucket's mode keeps none.  ``HOROVOD_BUCKET_COMPRESSION`` gives each
 bucket its own mode (:func:`resolve_bucket_modes`).
+
+Each bucket's collectives and math run under the reference's framework
+scopes (``hvd_overlap_rs<b>``, ``hvd_overlap_math<b>``,
+``hvd_overlap_ag<b>``; the ZeRO schedules pass theirs), which a
+``torch.profiler`` capture records and the perf observatory resolves
+device work to (``common.util.profiler_scope``).
 """
 
 from __future__ import annotations
@@ -38,7 +44,7 @@ from __future__ import annotations
 import torch
 
 from horovod_tpu_torch.common import config as _config
-from horovod_tpu_torch.common.util import true_divide
+from horovod_tpu_torch.common.util import profiler_scope, true_divide
 from horovod_tpu_torch.ops import compression as _compression
 from horovod_tpu_torch.ops import quantization as _quant
 from horovod_tpu_torch.parallel import mesh as _pmesh
@@ -299,7 +305,10 @@ def overlapped_flat_reduce(buf, op: int = _SUM, quantized=False,
 
     def finish(b, pending):
         shard, errs[b] = pending.wait()
-        gathers.append(start_gather(_bucket_math(shard, op, n), hops))
+        with profiler_scope(f"hvd_overlap_math{b}"):
+            shard = _bucket_math(shard, op, n)
+        with profiler_scope(f"hvd_overlap_ag{b}"):
+            gathers.append(start_gather(shard, hops))
 
     pending = None
     for b, (s, e) in enumerate(bounds):
@@ -308,7 +317,9 @@ def overlapped_flat_reduce(buf, op: int = _SUM, quantized=False,
             # the bucket rides the wire at its width through scatter,
             # math and gather, and widens only at reassembly
             piece, mode_b = piece.to(_CAST_WIRES[mode_b]), "none"
-        started = start_scatter(piece, mode_b, with_error, block_size, hops)
+        with profiler_scope(f"hvd_overlap_rs{b}"):
+            started = start_scatter(piece, mode_b, with_error, block_size,
+                                    hops)
         if pending is not None:
             finish(*pending)
         pending = (b, started)
@@ -353,8 +364,10 @@ def overlapped_scatter_flat_buffer(buf, quantized=False,
     errs: list = [None] * len(bounds)
     pending = None
     for b, (s, e) in enumerate(bounds):
-        started = start_scatter(_piece(seg, s, e), bmodes[b], with_error,
-                                block_size, hops)
+        piece = _piece(seg, s, e)
+        with profiler_scope(f"hvd_overlap_rs{b}"):
+            started = start_scatter(piece, bmodes[b], with_error,
+                                    block_size, hops)
         if pending is not None:
             pb, pw = pending
             shards[pb], errs[pb] = pw.wait()
@@ -369,18 +382,23 @@ def overlapped_scatter_flat_buffer(buf, quantized=False,
 
 
 def prefetched_gather_flat_shard(shard: torch.Tensor,
-                                 chunks: int | None = None, axis_name=None):
+                                 chunks: int | None = None, axis_name=None,
+                                 scope: str = "hvd_zero3_ag"):
     """All-gather a rank's 1-D shard bucket by bucket, every bucket's
-    gather started before the first is waited for.  Returns
-    ``(bucket_outs, bounds)``: bucket k's ``(n * Lb_k,)`` segment-order
-    result stays its own tensor (``collectives.leaf_from_buckets``
-    slices leaves out of it), so no full-size buffer is assembled.  A
-    world of one returns views of the shard."""
+    gather started (under the framework scope ``<scope><k>``) before the
+    first is waited for.  Returns ``(bucket_outs, bounds)``: bucket k's
+    ``(n * Lb_k,)`` segment-order result stays its own tensor
+    (``collectives.leaf_from_buckets`` slices leaves out of it), so no
+    full-size buffer is assembled.  A world of one returns views of the
+    shard."""
     hops = _pmesh.resolve_hops(axis_name)
     bounds = bucket_bounds(shard.shape[0], chunks)
     if _pmesh.flat_hop(hops).size == 1:
         return [shard[s:e] for s, e in bounds], bounds
-    started = [start_gather(shard[s:e], hops) for s, e in bounds]
+    started = []
+    for k, (s, e) in enumerate(bounds):
+        with profiler_scope(f"{scope}{k}"):
+            started.append(start_gather(shard[s:e], hops))
     return [p.wait() for p in started], bounds
 
 
@@ -392,4 +410,5 @@ def overlapped_gather_flat_shard(shard, axis_name=None):
     if n == 1:
         return shard
     return concat_columns(
-        prefetched_gather_flat_shard(shard, axis_name=hops)[0], n)
+        prefetched_gather_flat_shard(shard, axis_name=hops,
+                                     scope="hvd_overlap_ag")[0], n)

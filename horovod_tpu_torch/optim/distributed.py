@@ -83,7 +83,7 @@ import torch.distributed as dist
 from horovod_tpu_torch.common import basics as _basics
 from horovod_tpu_torch.common import config as _config
 from horovod_tpu_torch.common.types import HorovodTpuError
-from horovod_tpu_torch.common.util import true_divide
+from horovod_tpu_torch.common.util import profiler_scope, true_divide
 from horovod_tpu_torch.ops import collectives as _coll
 from horovod_tpu_torch.ops import eager as _eager
 from horovod_tpu_torch.ops import overlap as _ovl
@@ -380,7 +380,8 @@ def _rank_shard(leaves, layout: ShardLayout, g: int, r: int) -> torch.Tensor:
 
 def _bucketed_scatter_group(leaves, layout: ShardLayout, g: int, n: int,
                             quantized, with_error: bool, residual,
-                            chunks=None, axis_name=None):
+                            chunks=None, axis_name=None,
+                            scope: str = "hvd_zero2_rs"):
     """The stage-2 gradient scatter of group ``g``: K bucket pieces
     (column slices of the ``(n, L)`` segment view) assembled span-wise
     from the leaves (``collectives.fuse_bucket_piece``, the residual's
@@ -388,7 +389,8 @@ def _bucketed_scatter_group(leaves, layout: ShardLayout, g: int, n: int,
     bucket k is waited for, so at most two pieces are alive; the full
     fused buffer is never built.  Each bucket may carry its own mode
     (``HOROVOD_BUCKET_COMPRESSION``).  ``n`` is the total of
-    ``axis_name``.  Returns ``(shard, err)`` in the layout of
+    ``axis_name``.  Bucket k's scatter runs under the framework scope
+    ``<scope><k>``.  Returns ``(shard, err)`` in the layout of
     ``collectives._scatter_flat_buffer``."""
     L = layout.padded[g] // n
     bounds = _ovl.bucket_bounds(L, _zero_chunks(chunks))
@@ -410,8 +412,9 @@ def _bucketed_scatter_group(leaves, layout: ShardLayout, g: int, n: int,
         piece = _coll.fuse_bucket_piece(
             leaves, layout.idxs[g], layout.sizes[g], layout.padded[g], n,
             s, e, dtype, inject=inject)
-        started = _ovl.start_scatter(piece, bmodes[k], with_error,
-                                     axis_name=axis_name)
+        with profiler_scope(f"{scope}{k}"):
+            started = _ovl.start_scatter(piece, bmodes[k], with_error,
+                                         axis_name=axis_name)
         if pending is not None:
             finish(*pending)
         pending = (k, started)
@@ -639,7 +642,7 @@ class _Zero3Gather(torch.autograd.Function):
             q = ctx.qmode != "none" and key.is_floating_point
             shard, _ = _bucketed_scatter_group(
                 cts, lay, g, n, ctx.qmode if q else False, False, None,
-                chunks=ctx.chunks, axis_name=ctx.axis)
+                chunks=ctx.chunks, axis_name=ctx.axis, scope="hvd_zero3_rs")
             gshards.append(shard.to(key))
         return (None, None, None, None, None, *gshards)
 
@@ -1198,7 +1201,8 @@ class _DistributedOptimizer:
                     full = sets[g][0][0]
             elif self.zero_stage >= 2:
                 buckets = _ovl.prefetched_gather_flat_shard(
-                    shards[g], _zero_chunks(), self.axis_name)
+                    shards[g], _zero_chunks(), self.axis_name,
+                    scope="hvd_zero2_ag")
             else:
                 full = _coll._gather_flat_shard(shards[g],
                                                 overlap=self.overlap,

@@ -57,6 +57,7 @@ import torch
 from horovod_tpu_torch.common import basics as _basics
 from horovod_tpu_torch.common import config as _config
 from horovod_tpu_torch.common.types import HorovodTpuError
+from horovod_tpu_torch.common.util import profiler_scope
 from horovod_tpu_torch.ops import collectives as _coll
 from horovod_tpu_torch.ops import eager as _eager
 from horovod_tpu_torch.ops import quantization as _quant
@@ -392,9 +393,10 @@ class LocalSGDOptimizer:
                 - cur[g].to(torch.float32)
             if with_err:
                 delta = delta + outer.residual[g]
-            out = _coll.cross_allreduce(
-                delta, axis_name=self.pair, op=self.op,
-                compression=self.compression, with_error=with_err)
+            with profiler_scope(f"hvd_localsgd_outer{g}"):
+                out = _coll.cross_allreduce(
+                    delta, axis_name=self.pair, op=self.op,
+                    compression=self.compression, with_error=with_err)
             del delta
             red, err = out if with_err else (out, None)
             outer.anchor[g], outer.velocity[g] = self._nesterov(red, g)

@@ -20,8 +20,8 @@ into exclusive phases:
 * ``compute``     — the useful bucket: step wall the runtime cannot
   blame on anything else.  Goodput = compute / elapsed;
 * ``comm_exposed``— communication the overlap schedules failed to
-  hide: the ``trace_step`` blocked split (the sampled device capture
-  is ROADMAP.md Queue A item 12i);
+  hide: device truth when a sampled capture is live
+  (``perf/capture.py``), the ``trace_step`` blocked split otherwise;
 * ``checkpoint``  — checkpoint save/restore wall;
 * ``reform``      — elastic re-form wall (teardown/rendezvous/compile/
   resync split carried alongside);

@@ -17,8 +17,9 @@ No NIC-probe/driver-service fan-out: rank 0's ``torch.distributed``
 TCP store (``HOROVOD_COORDINATOR_ADDR``) and the launcher's own native
 KV server (``HOROVOD_GLOO_RENDEZVOUS_ADDR/PORT``, started for every job)
 replace it.  A KV server that fails to build raises.  The perf
-observatory's profile sweep is not ported: with its knob set the
-launcher says so once and changes nothing else.
+observatory's knobs (``--profile-every-n-steps``, ``--profile-dir``,
+``--profile-keep``, ``--peak-flops-per-chip``, ``--jax-profiler-dir``)
+reach the ranks through the environment, as every knob's flag does.
 """
 
 from __future__ import annotations
@@ -192,20 +193,6 @@ def _shed_label(rank, live_label) -> str:
     if label == live_label(0):
         raise RuntimeError(f"the bottleneck is rank 0: {_RANK0_HELD}")
     return label
-
-
-def _note_unported(base_env: dict) -> None:
-    """The perf observatory's profile sweep (ROADMAP.md Queue A 12i) is
-    not ported: with its knob set, say so once and change nothing
-    else."""
-    try:
-        every = int(base_env.get("HOROVOD_PROFILE_EVERY_N_STEPS", "0") or 0)
-    except ValueError:
-        every = 0
-    if every > 0:
-        print("[hvdrun] HOROVOD_PROFILE_EVERY_N_STEPS is set: the perf "
-              "observatory's profile sweep is not ported to this package "
-              "yet; ignoring it", file=sys.stderr)
 
 
 @dataclass
@@ -920,7 +907,6 @@ def _launch_once(command: list[str], slots: list[SlotInfo], this_host: str,
     coord = _coordinator(coord_host, local_only, held)
     kv_port = kv.port
     base_env = _base_env(env, job_secret, extra_env)
-    _note_unported(base_env)
     metrics_agg = _start_metrics_aggregator(base_env, kv, local_only,
                                             kv_addr, job_secret)
     procs: list[subprocess.Popen] = []
@@ -1085,7 +1071,6 @@ def _launch_elastic(command: list[str], slots: list[SlotInfo],
     base_env = _base_env(env, job_secret, extra_env)
     base_env["HOROVOD_ELASTIC"] = "1"
     base_env["HOROVOD_ELASTIC_NP"] = str(np_)
-    _note_unported(base_env)
     metrics_agg = _start_metrics_aggregator(base_env, kv, local_only,
                                             kv_addr, job_secret)
     # Launcher-side fleet-health metrics: merged into the aggregate

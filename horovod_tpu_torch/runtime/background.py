@@ -48,6 +48,7 @@ response list to every rank (at world 1 it applies at once).
 from __future__ import annotations
 
 import collections
+import contextlib
 import math
 import threading
 import time
@@ -198,6 +199,11 @@ class BackgroundRuntime:
             self.pm = ParameterManager(
                 world=world,
                 hier_possible=getattr(executor, "pair", None) is not None)
+        # the whole-run torch.profiler capture, which labels each
+        # response's dispatch (basics owns it and closes it)
+        from horovod_tpu_torch.common import basics as _basics
+
+        self.profiler = _basics.state().profiler
         # rank 0's timeline; its coordinator ticks the ranks' arrivals
         self.timeline = None
         tl_path = _config.get("timeline")
@@ -531,6 +537,8 @@ class BackgroundRuntime:
             for e in entries:
                 self.timeline.activity_start(e.name, activity)
             self._mark_overlap_schedule(resp, entries)
+        annotate = (self.profiler.annotate(f"hvd_{resp.kind}")
+                    if self.profiler else contextlib.nullcontext())
         _flight.record("dispatch", ph="B", collective=resp.kind,
                        n=len(entries), names=[e.name for e in entries[:8]])
         disp_t0 = time.perf_counter()
@@ -538,8 +546,9 @@ class BackgroundRuntime:
 
         with counting_sent() as sent:
             try:
-                outs, done = self.executor.execute(
-                    work, inputs, [e.ready for e in entries])
+                with annotate:
+                    outs, done = self.executor.execute(
+                        work, inputs, [e.ready for e in entries])
                 status = Status.ok()
             except Exception as exc:  # noqa: BLE001 -- fails the handles
                 outs, done = [None] * len(entries), None

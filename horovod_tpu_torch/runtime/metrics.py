@@ -24,12 +24,14 @@ Histograms use fixed log2 buckets (upper bounds ``2**k`` for ``k`` in
 ``[lo, hi]`` plus ``+Inf``) so cross-rank series are always mergeable
 without bucket negotiation.
 
-``trace_step`` opens a ``torch.profiler.record_function`` span named
-after the step, so a ``torch.profiler`` capture sees it.  Its wall
-clock is the host's: it does not synchronize the device, so a step
-whose kernels are still queued when the span closes is timed as far as
-the host got; a step that ends in ``torch.cuda.synchronize()`` is timed
-whole.
+``trace_step`` labels the step ``hvd_step#<n>`` for a running
+``torch.profiler`` capture, and under ``HOROVOD_PROFILE_EVERY_N_STEPS``
+captures every N-th span itself (``perf/capture.py``): the analysis
+publishes the ``hvd_device_*``/``hvd_mfu`` gauges, and the goodput
+ledger then books ``comm_exposed`` from the device.  Its wall clock is
+the host's: it does not synchronize the device, so a step whose kernels
+are still queued when the span closes is timed as far as the host got;
+a step that ends in ``torch.cuda.synchronize()`` is timed whole.
 """
 
 from __future__ import annotations
@@ -495,8 +497,10 @@ def trace_step(step: int | None = None, name: str = "hvd_step"):
     """Span one training step: wall time lands in the
     ``hvd_step_time_seconds`` histogram, split into compute / comm /
     blocked phases from the runtime's own accounting, and the span is
-    labelled for ``torch.profiler`` by one ``record_function(name)``.
-    The wall is the host's clock; the device is not synchronized."""
+    labelled for a running ``torch.profiler`` capture by one
+    ``record_function`` named ``<name>#<step>`` (``<name>`` without a
+    step), the form the perf observatory reads step numbers from.  The
+    wall is the host's clock; the device is not synchronized."""
     global _open_steps
     try:  # ledger clock starts at the first span of uninitialized runs
         from horovod_tpu_torch.perf import goodput as _goodput
@@ -512,11 +516,24 @@ def trace_step(step: int | None = None, name: str = "hvd_step"):
     _open_steps += 1
     _flight.record("step", ph="B",
                    step=int(step) if step is not None else -1)
+    # Sampled device capture: every N-th span is captured with
+    # torch.profiler and analyzed in the background into the
+    # hvd_device_*/hvd_mfu gauges.  Started BEFORE the step annotation
+    # opens so the annotation lands inside the capture; advisory -- a
+    # capture failure must never cost a training step.
+    cap = None
+    try:
+        if int(_config.get("profile_every_n") or 0) > 0:
+            from horovod_tpu_torch.perf import capture as _capture
+
+            cap = _capture.maybe_start(step)
+    except Exception:
+        cap = None
     ann = None
     try:  # advisory: the span only labels a torch.profiler capture
-        from torch.profiler import record_function
+        from horovod_tpu_torch.common.util import profiler_scope
 
-        ann = record_function(name)
+        ann = profiler_scope(name if step is None else f"{name}#{int(step)}")
         ann.__enter__()
     except Exception:
         ann = None
@@ -528,12 +545,23 @@ def trace_step(step: int | None = None, name: str = "hvd_step"):
                 ann.__exit__(None, None, None)
             except Exception:
                 pass
+        # Clock the step BEFORE the capture teardown below: stopping a
+        # sampled capture fences the card and writes the trace -- folding
+        # that into `wall` would make every N-th step an outlier in
+        # hvd_step_time_seconds.
         wall = time.perf_counter() - t0
         _open_steps = max(0, _open_steps - 1)
         blocked = min(max(0.0, _BLOCKED.total() - blocked0), wall)
         comm = min(max(0.0, _COMM.total() - comm0), wall)
         input_wait = min(max(0.0, _DATA_WAIT.total() - dwait0), wall)
         compile_d = max(0.0, _compile_total() - compile0)
+        if cap is not None:
+            try:
+                from horovod_tpu_torch.perf import capture as _capture
+
+                _capture.stop_and_analyze(cap)
+            except Exception:
+                pass
         compute = max(0.0, wall - blocked - input_wait)
         _STEP_HIST.observe(wall)
         _STEPS.inc()
@@ -549,13 +577,24 @@ def trace_step(step: int | None = None, name: str = "hvd_step"):
         _LAST.set(input_wait, phase="input_wait")
         # Goodput ledger (docs/goodput.md): this span's wall split into
         # exclusive phases by priority budget -- input_wait first (the
-        # measured starvation), then comm_exposed (the blocked split;
-        # the sampled device capture is ROADMAP.md Queue A item 12i),
+        # measured starvation), then comm_exposed (device truth when a
+        # sampled capture has landed, the blocked split otherwise),
         # then negotiated-compile wall that advanced during the span,
         # compute as the remainder.  Each clamped to what's left of the
         # wall so the step's phases sum to it exactly.
         try:
             exposed, exposed_src = blocked, "trace_step"
+            try:
+                if int(_config.get("profile_every_n") or 0) > 0:
+                    from horovod_tpu_torch.perf import capture as _capture
+
+                    la = _capture.last_analysis()
+                    dev = (la or {}).get("totals", {}).get(
+                        "comm_exposed_s_per_step")
+                    if dev is not None:
+                        exposed, exposed_src = float(dev), "device"
+            except Exception:
+                pass
             budget = wall - input_wait
             exposed = min(max(0.0, exposed), max(0.0, budget))
             budget -= exposed

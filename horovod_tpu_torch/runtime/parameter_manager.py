@@ -190,10 +190,9 @@ def _default_comm_signal():
     device-truth ``hvd_device_comm_exposed_seconds`` gauge when a
     sampled capture has published one, else the ``blocked`` phase of
     the last ``hvd.trace_step`` span (seconds the schedule failed to
-    hide).  This package publishes no device gauge until its sampled
-    ``torch.profiler`` capture is ported (ROADMAP.md Queue A 12i), so
-    the lookup falls through to the ``blocked`` phase; it is kept so
-    that capture needs no edit here."""
+    hide).  The gauge is published by the sampled ``torch.profiler``
+    capture (``HOROVOD_PROFILE_EVERY_N_STEPS``, ``perf/capture.py``);
+    without it the lookup falls through to the ``blocked`` phase."""
     from horovod_tpu_torch.runtime import metrics as _metrics
 
     try:

@@ -19,6 +19,10 @@ thread (``csrc/timeline.cc``, built at first use with ``g++``), which
 formats them and writes the file.  A writer that fails to build raises,
 naming the compiler's error: there is no fallback.  :class:`Timeline` is the plain Python
 writer the tests hold the native one against.
+
+:class:`TorchProfilerBridge` is the device-side capture of a whole run
+(``HOROVOD_TIMELINE_JAX_PROFILER``), the JAX package's
+``JaxProfilerBridge`` over ``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -128,6 +132,63 @@ class NativeTimeline:
             h, self._h = self._h, None
             if h:
                 self._lib.hvd_tl_close(h)
+
+
+class TorchProfilerBridge:
+    """Device-side tracing via ``torch.profiler``: the counterpart of
+    the JAX package's ``JaxProfilerBridge``.  A whole-run capture of the
+    CPU and, on a card, CUDA activities (CUPTI) under
+    ``<logdir>/rank<k>``; :meth:`close` writes it as a Chrome trace
+    (``<host>_<pid>.<ms>.pt.trace.json``), which Perfetto,
+    chrome://tracing and ``python -m horovod_tpu_torch.perf report``
+    read.  Enabled by ``HOROVOD_TIMELINE_JAX_PROFILER`` (the JAX
+    package's knob; every rank captures, since device activity is
+    per-process).
+
+    Elastic lifecycle: a re-form tears the world down and re-enters
+    ``init()`` in the same process -- the old bridge is closed first
+    (``teardown_distributed``, landing the old generation's trace) and
+    the new one opens under ``gen<g>/rank<k>``, so a re-formed
+    generation never writes into a prior generation's directory (ranks
+    are renumbered across re-forms).
+    """
+
+    def __init__(self, logdir: str, rank: int,
+                 generation: int = 1, device=None) -> None:
+        import atexit
+        import os
+
+        import torch
+
+        sub = (f"rank{rank}" if generation <= 1
+               else os.path.join(f"gen{generation}", f"rank{rank}"))
+        self._dir = os.path.join(logdir, sub)
+        os.makedirs(self._dir, exist_ok=True)
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if device is not None and torch.device(device).type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        self._prof = torch.profiler.profile(activities=acts)
+        self._prof.start()
+        self._active = True
+        # The trace only lands at close(); scripts that exit without
+        # hvd.shutdown() must still get their profile.
+        atexit.register(self.close)
+
+    def annotate(self, label: str):
+        """Context manager labelling framework work (e.g. the fused
+        dispatch of one negotiated response) in the trace."""
+        import torch
+
+        return torch.profiler.record_function(label)
+
+    def close(self) -> None:
+        """Stop the capture and write its trace (idempotent)."""
+        if self._active:
+            self._active = False
+            from horovod_tpu_torch.perf import capture as _capture
+
+            self._prof.stop()
+            self._prof.export_chrome_trace(_capture.trace_path(self._dir))
 
 
 def make_timeline(path: str) -> NativeTimeline:

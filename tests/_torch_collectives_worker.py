@@ -34,7 +34,9 @@ ZeRO and local SGD and the coordinated abort, and
 ``tests/_torch_eager_training_worker.py``; ``timeline_ticks``,
 ``autotune_sync`` and ``tuning_cards`` the timeline's and the
 autotuner's, of ``tests/_torch_tuning_worker.py``; ``autopilot_rollback``
-the autopilot's rollback, of ``tests/_torch_autopilot_worker.py``.
+the autopilot's rollback, of ``tests/_torch_autopilot_worker.py``;
+``perf`` and ``perf_cards`` the perf observatory's sampled captures, of
+``tests/_torch_perf_worker.py``.
 ``HVD_TEST_FEEDBACK`` may name a ``.npy`` file of per-rank residuals
 that the lossy optimizer case loads before its second step;
 ``HVD_TEST_INTEROP`` a pickle, written by ``tests/test_torch_zero.py``,
@@ -136,6 +138,11 @@ def _spawn_world(n, device, timeout, mode, env_extra, port):
             "HOROVOD_COORDINATOR_ADDR": f"127.0.0.1:{port}",
             "PYTHONPATH": repo + os.pathsep + env.get("PYTHONPATH", ""),
         })
+        if device == "cpu":
+            # torch's intra-op pool would take every core in every rank:
+            # under a loaded test run (six workers, each spawning worlds
+            # of up to four ranks) a world then starves its peers
+            env["OMP_NUM_THREADS"] = "1"
         env.update(env_extra or {})
         procs.append(subprocess.Popen(
             [sys.executable, WORKER, device, mode], env=env,
@@ -2182,6 +2189,13 @@ def tuning_modes(mode: str):
             "tuning_cards": W.tuning_cards_main}[mode]
 
 
+def perf_modes(mode: str):
+    """The perf observatory's worker modes (``_torch_perf_worker``)."""
+    import _torch_perf_worker as W
+
+    return {"perf": W.perf_main, "perf_cards": W.perf_cards_main}[mode]
+
+
 def autopilot_rollback_main(device: str):
     from _torch_autopilot_worker import rollback_main
 
@@ -2221,4 +2235,5 @@ if __name__ == "__main__":
                   "health_cards", "health_cards_restore")},
      **{m: lambda d, m=m: tuning_modes(m)(d)
         for m in ("timeline_ticks", "autotune_sync", "tuning_cards")},
+     **{m: lambda d, m=m: perf_modes(m)(d) for m in ("perf", "perf_cards")},
      "autopilot_rollback": autopilot_rollback_main}[mode](dev)

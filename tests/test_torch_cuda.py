@@ -2106,3 +2106,59 @@ def test_four_cards_timeline_autotune_resnet50(tmp_path):
           f"{[t[0] for t in tunes[0]]}, final knobs {knobs[0][-1]}, "
           f"tuned step median {outs[0]['tune']['median_step_s']:.4f} s; "
           f"on 4 x {card.strip()}")
+
+
+def test_four_cards_profile_resnet50(tmp_path):
+    """The perf observatory on four cards: the bench ResNet-50 step (224
+    px, batch 256 per card, bf16, fused momentum SGD) 8 steps under
+    ``hvd.trace_step`` with ``HOROVOD_PROFILE_EVERY_N_STEPS=2``, at stage
+    0 with the overlap engine and at ZeRO stage 2 with overlap on
+    (``tests/_torch_perf_worker.py``).  On every rank: at least two
+    captures analyzed, the NCCL kernels read as reduce-scatter and
+    all-gather comm, resolved to the case's ``hvd_overlap_*`` or
+    ``hvd_zero2_*`` scopes, hidden + exposed = comm, the goodput ledger
+    booking ``comm_exposed`` from the device, and the tuner's comm signal
+    the device gauge.  Prints each rank's hidden share of device comm."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    import os
+    import subprocess
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from _torch_collectives_worker import spawn
+    from _torch_perf_worker import PERF_CASES
+
+    card = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    outs = spawn(4, "cuda", timeout=900, mode="perf_cards",
+                 env_extra={"HOROVOD_PROFILE_DIR": str(tmp_path)})
+    for case, _, _, family in PERF_CASES:
+        for o in outs:
+            r = o[case]
+            la = r["analysis"]
+            tot = la["totals"]
+            assert all(math.isfinite(x) for x in r["losses"]), (case, r)
+            assert r["captures"] >= 2, (case, r["captures"])
+            kinds = set().union(*(s["comm_by_kind"] for s in la["steps"]))
+            scopes = set().union(*(s["scopes"] for s in la["steps"]))
+            assert {"reduce-scatter", "all-gather"} <= kinds, (case, kinds)
+            assert any(s.startswith(family) for s in scopes), (case, scopes)
+            assert tot["comm_s"] > 0
+            assert tot["comm_hidden_s"] + tot["comm_exposed_s"] == \
+                pytest.approx(tot["comm_s"], abs=2e-6)
+            assert r["exposed_source"].get("device", 0) > 0, r
+            assert r["tuner_signal"] == r["gauge"] == \
+                tot["comm_exposed_s_per_step"], r
+            print(f"[four cards] profile, {case}: rank {o['rank']} step "
+                  f"{la['captured_step']}: wall {tot['wall_s_per_step']} s,"
+                  f" compute {tot['compute_s_per_step']} s, comm "
+                  f"{tot['comm_s_per_step']} s, hidden "
+                  f"{tot['comm_hidden_s_per_step']} s, exposed "
+                  f"{tot['comm_exposed_s_per_step']} s, hidden share "
+                  f"{tot['comm_hidden_s'] / tot['comm_s']:.4f}; kinds "
+                  f"{la['steps'][0]['comm_by_kind']}; "
+                  f"{la['scopes_resolved']} scoped ops over "
+                  f"{len(scopes)} scopes; {r['captures']:g} captures; "
+                  f"on 4 x {card.strip()}")

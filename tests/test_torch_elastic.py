@@ -627,7 +627,7 @@ def test_kill_then_grow_back_with_the_launchers_joiner():
     assert "respawned replacement j1 on localhost slot 2" in out.stderr
     assert 'grown=["joiner1"]' in out.stderr and 'reason="grow"' in out.stderr
     grow = [e for e in ev if e["event"] == "interrupt"]
-    assert sorted(e["rank"] for e in grow) == [0, 1]
+    assert sorted(e["rank"] for e in grow) == [0, 1], (ev, out.stderr[-3000:])
     assert {e["kind"] for e in grow} == {"HostsUpdatedInterrupt"}
     # the grow boundary is one commit for every rank
     assert len({(e["step"], e["commits"]) for e in grow}) == 1

@@ -52,6 +52,8 @@ def test_no_jax_side_module_is_imported():
               "ops.eager_exec", "torch", "torch.mpi_ops",
               "torch.compression", "runtime.flight", "runtime.metrics",
               "runtime.faults", "perf", "perf.goodput", "perf.__main__",
+              "perf.kineto", "perf.attribution", "perf.capture",
+              "perf.report", "perf.compare",
               "trace", "trace.merge", "trace.analyze", "trace.perfetto",
               "trace.__main__", "runtime.health", "checkpoint",
               "runtime.kvstore", "runtime.preemption", "runtime.simfleet",

@@ -247,20 +247,33 @@ def test_output_files_console_prefixes_and_failing_rank(tmp_path):
 
 
 def test_unported_knobs_are_named_once():
-    """The profile sweep's knob is named once, as not ported; the
-    autopilot is ported: the elastic launcher says once that it is
-    engaged, and a launch without --elastic (the JAX package's static
-    launcher runs no autopilot either) says nothing of it."""
-    rc = _hvdrun(["-np", "1", "--", sys.executable, "-c", "pass"],
-                 HOROVOD_PROFILE_EVERY_N_STEPS="5", HOROVOD_AUTOPILOT="1")
+    """No knob of the launcher is left unported: the perf observatory's
+    knobs reach the ranks (flags and environment) and the launcher says
+    nothing of them; the autopilot is ported: the elastic launcher says
+    once that it is engaged, and a launch without --elastic (the JAX
+    package's static launcher runs no autopilot either) says nothing of
+    it."""
+    prog = ("import os, json; print(json.dumps({k: v for k, v in "
+            "os.environ.items() if k.startswith(('HOROVOD_PROFILE', "
+            "'HOROVOD_PEAK', 'HOROVOD_TIMELINE_JAX'))}))")
+    rc = _hvdrun(["-np", "1", "--profile-every-n-steps", "5",
+                  "--profile-dir", "/tmp/p", "--profile-keep", "2",
+                  "--peak-flops-per-chip", "1e15", "--jax-profiler-dir",
+                  "/tmp/j", "--", sys.executable, "-c", prog],
+                 HOROVOD_AUTOPILOT="1")
     assert rc.returncode == 0, rc.stderr
-    assert rc.stderr.count("profile sweep is not ported") == 1
-    assert "autopilot" not in rc.stderr
+    (line,) = [ln for ln in rc.stdout.splitlines() if ">:{" in ln]
+    assert json.loads(line.partition(">:")[2]) == {
+        "HOROVOD_PROFILE_EVERY_N_STEPS": "5", "HOROVOD_PROFILE_DIR": "/tmp/p",
+        "HOROVOD_PROFILE_KEEP": "2", "HOROVOD_PEAK_FLOPS_PER_CHIP": "1e15",
+        "HOROVOD_TIMELINE_JAX_PROFILER": "/tmp/j"}
+    assert "not ported" not in rc.stderr and "autopilot" not in rc.stderr
     rc = _hvdrun(["-np", "1", "--elastic", "--", sys.executable, "-c",
-                  "pass"],
+                  prog],
                  HOROVOD_PROFILE_EVERY_N_STEPS="5", HOROVOD_AUTOPILOT="1")
     assert rc.returncode == 0, rc.stderr
-    assert rc.stderr.count("profile sweep is not ported") == 1
+    assert '"HOROVOD_PROFILE_EVERY_N_STEPS": "5"' in rc.stdout
+    assert "not ported" not in rc.stderr
     assert rc.stderr.count("[hvdrun autopilot] engaged: rules "
                            "straggler_blacklist, slo_burn_shrink, "
                            "slo_recover_grow, preempt_drain") == 1

@@ -58,8 +58,7 @@ CASES = {c[0]: c for c in MP_CASES}
 @functools.lru_cache(maxsize=None)
 def _world(n: int) -> list:
     """Every case's results on a gloo world of ``n`` ranks."""
-    return spawn(n, "cpu", timeout=300, mode="mp",
-                 env_extra={"OMP_NUM_THREADS": "1"})
+    return spawn(n, "cpu", timeout=300, mode="mp")
 
 
 def _cfg(moe_every: int, jax_side: bool):

@@ -71,8 +71,7 @@ LM = {c[0]: c for c in PP_CASES}
 @functools.lru_cache(maxsize=None)
 def _world(n: int) -> list:
     """Every case's results on a gloo world of ``n`` ranks."""
-    return spawn(n, "cpu", timeout=300, mode="pp",
-                 env_extra={"OMP_NUM_THREADS": "1"})
+    return spawn(n, "cpu", timeout=300, mode="pp")
 
 
 def _scaled_close(ours, ref, what, tol=WEIGHT_TOL):

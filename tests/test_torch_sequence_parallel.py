@@ -68,8 +68,7 @@ RING_CASES = [name for name, fn, _ in SP_CASES if fn == "ring"]
 @functools.lru_cache(maxsize=None)
 def _world(n: int) -> list:
     """Every case's results on a gloo world of ``n`` ranks."""
-    return spawn(n, "cpu", timeout=300, mode="sp",
-                 env_extra={"OMP_NUM_THREADS": "1"})
+    return spawn(n, "cpu", timeout=300, mode="sp")
 
 
 def _gathered(n: int, key: str, what: str) -> np.ndarray:

@@ -395,17 +395,28 @@ def test_no_knob_no_timeline_no_tuner(fresh, monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-def test_jax_profiler_knob_noted_once(monkeypatch, capsys, fresh):
-    monkeypatch.setenv("HOROVOD_TIMELINE_JAX_PROFILER", "/tmp/unused")
-    monkeypatch.setattr(basics, "_noted_unported", set())
+def test_jax_profiler_knob_noted_once(monkeypatch, tmp_path, fresh):
+    """``HOROVOD_TIMELINE_JAX_PROFILER`` is ported: no "not ported" note;
+    each ``init()`` opens the whole-run ``torch.profiler`` capture (the
+    first under ``rank0/``, a re-init over the same directory under
+    ``gen<g>/rank0/``) and ``shutdown()`` lands its trace."""
+    from horovod_tpu_torch.perf.kineto import is_trace_file
+
+    monkeypatch.setenv("HOROVOD_TIMELINE_JAX_PROFILER", str(tmp_path))
     seen = []
     monkeypatch.setattr(basics._log, "warning",
                         lambda msg, rank=None: seen.append(msg))
     for _ in range(2):
         hvd.init(device="cpu")
+        assert basics.state().profiler is not None
         hvd.shutdown()
-    noted = [m for m in seen if "HOROVOD_TIMELINE_JAX_PROFILER" in m]
-    assert len(noted) == 1 and "not ported" in noted[0]
+        assert basics.state().profiler is None
+    assert not any("HOROVOD_TIMELINE_JAX_PROFILER" in m for m in seen), seen
+    traces = sorted(os.path.relpath(os.path.join(d, f), tmp_path)
+                    for d, _, fs in os.walk(tmp_path) for f in fs
+                    if is_trace_file(f))
+    assert len(traces) == 2 and traces[0].startswith("gen2")
+    assert traces[1].startswith("rank0"), traces
 
 
 def test_launcher_flags_export_the_knobs():
