@@ -397,6 +397,29 @@ Phases (any failure exits non-zero and prints no result line):
    the median of the un-sampled steps against the knob off, beside the
    two off rounds' own ratio (the ``launches_profile`` key of the
    kernels line).
+29. the invariant lint suite on the card (``horovod_tpu_torch/analysis``):
+   (a) ``python -m horovod_tpu_torch.analysis all --json`` in a
+   subprocess (the knob, concurrency and schedule passes, the program
+   set on the card): exit 0, the summary counts and the skipped rules
+   printed; (b) ``programs.run()`` in process, 8 emulated ranks on the
+   card: no finding (every preset clean, every control flagged), B4 and
+   B5 launched (their ``LAUNCHES`` equal to the kernel records) in the
+   lossy programs only, every int8 transfer of the hierarchical int8
+   program on a cross hop; (c) phase 6's ResNet-50 step at world 1 under
+   the recorder: ``single_fused_kernel`` holds (B1 recorded once per
+   step), N1-N4 recorded 53 times each, equal to their counters; the
+   positive control, the tail run leaf by leaf (``momentum_update``, one
+   buffer per leaf, 161 launches) is flagged ``SCHED-FUSED-TAIL``; the
+   aten and c10d op names of the step and of a world-1 NCCL all-reduce,
+   reduce-scatter and all-gather with their counts; (d) what the closed
+   hooks (``common/events.py``) add to that step: (i) each hook timed
+   against the work the parent did in its place (an inline
+   ``LAUNCHES`` bump; ``note_sent``), times the step's launches and hop
+   transfers, as a share of the step; (ii) three rounds of 8 steps with
+   each hook doing only the parent's work and 8 as shipped, in
+   alternation: the median step ratio beside the first arm's own
+   rounds' spread (the ``launches_analysis`` key of the kernels line on
+   B1, B4, B5 and N1-N4).
 
 Then the run's wall time, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
@@ -2936,299 +2959,6 @@ DP_N, DP_CROSS, DP_LOCAL = 4, 2, 2  # the emulated world and its pair
 DP_STEPS = 3                        # phase 16c's steps per run
 
 
-class EmulatedWorld:
-    """``n`` emulated ranks on one device, each a thread running the
-    port's own functions over emulated hops (:meth:`pair`, :meth:`flat`).
-    Only the transport is emulated: one thread runs at a time, and a
-    transfer completes when every member of its group has reached it,
-    its result computed in member order (sums as ``x0 + x1 + ...``).  Per
-    rank it keeps the kernel launches (``counters``: the wrappers'
-    ``LAUNCHES`` dicts), the time of the work before each transfer
-    (``ms``, keyed by the hop and transfer it ends at; the device is
-    synchronized there), the transfers it joined (``calls``, keyed
-    likewise) and the payload bytes sent per hop (``wire``).  With
-    ``memory`` it keeps each rank's own peak device memory (``peak``):
-    one rank runs at a time, so what is allocated between two of its
-    transfers is its own (the transfer's result is counted to nobody,
-    at most one payload per rank).
-
-    With ``free`` the ranks start off the device: any thread then takes
-    rank ``r``'s turn for a span with :meth:`hold` (the eager plane's
-    background threads hold it while they execute a response, and
-    negotiate between their spans without it)."""
-
-    def __init__(self, torch, n: int, counters=(), sync: bool = True,
-                 memory: bool = False, free: bool = False):
-        import collections
-        import threading
-
-        self.torch, self.n, self.counters, self.sync = torch, n, counters, sync
-        self.memory = memory
-        self.held, self.peak, self._mem0 = [0] * n, [0] * n, [0] * n
-        self.calls = [collections.Counter() for _ in range(n)]
-        self.cond = threading.Condition()
-        self.turn = None if free else 0
-        self.state = ["free" if free else "run"] * n
-        self.slots, self.outs, self.seq = {}, {}, {}
-        self.launches = [collections.Counter() for _ in range(n)]
-        self.ms = [collections.Counter() for _ in range(n)]
-        self.wire = [collections.Counter() for _ in range(n)]
-        self.error = None
-        self._t0, self._snap = [0.0] * n, [{}] * n
-        self._hop_cls = _emu_hop_class()
-
-    def _counts(self) -> dict:
-        return {k: v for c in self.counters for k, v in c.items()}
-
-    def _start(self, r: int) -> None:
-        self._t0[r], self._snap[r] = time.perf_counter(), self._counts()
-        if self.memory:
-            self._mem0[r] = self.torch.cuda.memory_allocated()
-            self.torch.cuda.reset_peak_memory_stats()
-
-    def _stop(self, r: int, label: str) -> None:
-        if self.sync:
-            self.torch.cuda.synchronize()
-        self.ms[r][label] += (time.perf_counter() - self._t0[r]) * 1e3
-        if self.memory:
-            top = self.torch.cuda.max_memory_allocated() - self._mem0[r]
-            self.peak[r] = max(self.peak[r], self.held[r] + top)
-            self.held[r] += self.torch.cuda.memory_allocated() - self._mem0[r]
-        for k, v in self._counts().items():
-            if v != self._snap[r][k]:
-                self.launches[r][k] += v - self._snap[r][k]
-
-    def busy_ms(self, r: int) -> float:
-        """Rank ``r``'s work so far, called from its own thread (which
-        holds the device): its time between transfers, the open interval
-        to now included, the device synchronized first."""
-        if self.sync:
-            self.torch.cuda.synchronize()
-        return (sum(self.ms[r].values())
-                + (time.perf_counter() - self._t0[r]) * 1e3)
-
-    def _pass(self, r: int) -> None:
-        """Hand the device to the next runnable rank after ``r``."""
-        for k in range(1, self.n + 1):
-            nxt = (r + k) % self.n
-            if self.state[nxt] == "run":
-                self.turn = nxt
-                self.cond.notify_all()
-                return
-        if any(s == "wait" for s in self.state) \
-                and "free" not in self.state and self.error is None:
-            self.error = RuntimeError("emulated transfers deadlocked: "
-                                      f"rank states {self.state}")
-        self.turn = None
-        self.cond.notify_all()
-
-    def _wait_turn(self, r: int) -> None:
-        while self.turn != r and self.error is None:
-            self.cond.wait()
-        if self.error is not None:
-            raise RuntimeError("another emulated rank failed")
-
-    def hold(self, r: int):
-        """Rank ``r``'s turn on the device for the span of a ``with``
-        block, taken by whatever thread runs it: it waits its turn, its
-        transfers pass the device as :meth:`run`'s do, and at the end the
-        rank is free again (off the rota until its next span)."""
-        import contextlib
-
-        @contextlib.contextmanager
-        def span():
-            with self.cond:
-                self.state[r] = "run"
-                if self.turn is None:
-                    self.turn = r
-                self._wait_turn(r)
-                self._start(r)
-            try:
-                yield
-            finally:
-                with self.cond:
-                    self._stop(r, "end")
-                    self.state[r] = "free"
-                    self._pass(r)
-
-        return span()
-
-    def transfer(self, hop, label: str, payload, nbytes: int, combine):
-        """One member's part of a transfer over ``hop``: its payload in,
-        its result (from ``combine(payloads in member order)``) out."""
-        r = hop.rank
-        with self.cond:
-            self._stop(r, f"{hop.name}.{label}")
-            self.calls[r][f"{hop.name}.{label}"] += 1
-            self.wire[r][hop.name] += nbytes
-            n = self.seq.get((r, hop.key), 0)
-            self.seq[(r, hop.key)] = n + 1
-            k = (hop.key, n)
-            self.slots.setdefault(k, {})[hop.index] = payload
-            if len(self.slots[k]) == hop.size:
-                slot = self.slots.pop(k)
-                self.outs[k] = dict(enumerate(combine(
-                    [slot[i] for i in range(hop.size)])))
-                if self.sync:  # the transport's own work, timed by nobody
-                    self.torch.cuda.synchronize()
-                for m in hop.ranks:
-                    self.state[m] = "run"
-            else:
-                self.state[r] = "wait"
-            self._pass(r)
-            self._wait_turn(r)
-            out = self.outs[k].pop(hop.index)
-            if not self.outs[k]:
-                del self.outs[k]
-            self._start(r)
-            return out
-
-    def run(self, fn) -> list:
-        """``fn(rank)`` on every emulated rank; their results."""
-        import threading
-
-        results = [None] * self.n
-
-        def body(r):
-            with self.cond:
-                try:
-                    self._wait_turn(r)
-                except RuntimeError:
-                    return
-                self._start(r)
-            try:
-                res = fn(r)
-            except BaseException as exc:  # noqa: BLE001 -- re-raised below
-                with self.cond:
-                    self.error = self.error or exc
-                    self.state[r] = "done"
-                    self.cond.notify_all()
-                return
-            with self.cond:
-                self._stop(r, "end")
-                results[r] = res
-                self.state[r] = "done"
-                self._pass(r)
-
-        threads = [threading.Thread(target=body, args=(r,), daemon=True)
-                   for r in range(self.n)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=900)
-        if self.error is not None:
-            raise self.error
-        if any(t.is_alive() for t in threads):
-            raise AssertionError("an emulated rank did not finish")
-        return results
-
-    def hop(self, r: int, ranks, name: str):
-        return self._hop_cls(self, r, ranks, name)
-
-    def flat(self, r: int):
-        """Rank ``r``'s hop over the whole emulated world."""
-        return self.hop(r, range(self.n), "flat")
-
-    def pair(self, r: int, local: int):
-        """Rank ``r``'s ``(cross, local)`` pair: ``local`` consecutive
-        ranks per local group, cross-major (``r = c * local + l``)."""
-        from horovod_tpu_torch.parallel.mesh import HopPair
-
-        c, l_ = divmod(r, local)
-        return HopPair(self.hop(r, range(l_, self.n, local), "cross"),
-                       self.hop(r, range(c * local, (c + 1) * local),
-                                "local"),
-                       self.flat(r))
-
-
-def _emu_hop_class():
-    """The ``Hop`` of an :class:`EmulatedWorld` (built when the port is
-    importable)."""
-    import torch
-
-    from horovod_tpu_torch.parallel.mesh import Hop, note_sent
-
-    def _sum(xs):
-        acc = xs[0].clone()
-        for x in xs[1:]:
-            acc.add_(x)
-        return acc
-
-    class EmuHop(Hop):
-        def __init__(self, world, r, ranks, name):
-            ranks = list(ranks)
-            super().__init__(ranks, ranks.index(r), None, name)
-            self.world, self.rank, self.key = world, r, (name, tuple(ranks))
-
-        def _go(self, label, t, combine, payload=None):
-            # the emulated transport reports what it sends, as the real
-            # one does (the eager plane's hvd_data_wire_bytes_total)
-            note_sent(t)
-            return self.world.transfer(
-                self, label, t if payload is None else payload,
-                t.numel() * t.element_size(), combine)
-
-        def all_reduce(self, t, op="sum"):
-            if self.size > 1:
-                def combine(xs):
-                    if op == "max":
-                        acc = xs[0].clone()
-                        for x in xs[1:]:
-                            torch.maximum(acc, x, out=acc)
-                    else:
-                        acc = _sum(xs)
-                    return [acc] * len(xs)
-                t.copy_(self._go(f"all_reduce({op})", t, combine))
-            return t
-
-        def reduce_scatter(self, out, src, async_op=False):
-            out.copy_(self._go("reduce_scatter", src, lambda xs: list(
-                _sum(xs).reshape(len(xs), -1))).reshape(out.shape))
-
-        def all_gather(self, out, src, async_op=False):
-            out.copy_(self._go("all_gather", src, lambda xs: [torch.cat(
-                [x.reshape(-1) for x in xs])] * len(xs)).reshape(out.shape))
-
-        def all_to_all(self, out, src):
-            out.copy_(self._go("all_to_all", src, lambda xs: [torch.cat(
-                [x.reshape(len(xs), -1)[j] for x in xs])
-                for j in range(len(xs))]).reshape(out.shape))
-
-        def broadcast(self, t, root):
-            t.copy_(self._go("broadcast", t,
-                             lambda xs: [xs[root]] * len(xs)))
-            return t
-
-        def exchange(self, t, peer):
-            # every member exchanges at an Adasum level: one transfer of
-            # the group, each member taking its peer's vector
-            return self._go("exchange", t, lambda xs: [
-                xs[xs[i][1]][0].clone() for i in range(len(xs))],
-                payload=(t, peer))
-
-        def permute(self, t, pairs, like=None):
-            # every member calls it with the same pairs: one transfer of
-            # the group, the bytes counted to the pairs' sources only
-            pairs = [(int(a), int(b)) for a, b in pairs]
-            if not pairs:
-                return None
-            sent = t if any(a == self.index for a, _ in pairs) else None
-            note_sent(sent)
-
-            def combine(xs):
-                outs = [None] * len(xs)
-                for a, b in pairs:
-                    outs[b] = xs[a].clone()
-                return outs
-
-            return self.world.transfer(
-                self, "permute", sent,
-                0 if sent is None else sent.numel() * sent.element_size(),
-                combine)
-
-    return EmuHop
-
-
 def _resnet_grads(torch, model) -> list:
     """The main path's model's gradient leaves for four seeded 64-image
     batch shards (the shards of phases 10 and 14a)."""
@@ -3251,6 +2981,7 @@ def _lossy_pair(Q, torch, flats, mode: str, gpu: str) -> dict:
     with_error=True, mode)`` on each emulated rank over the (cross 2,
     local 2) pair, on the card and (the plain versions) on the CPU."""
     from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.parallel.emulated import EmulatedWorld
 
     qmax = (Q.sum_safe_qmax if mode == "int8" else Q.sum_safe_qmax4)(DP_CROSS)
     enc = Q.quantize_plain if mode == "int8" else Q.quantize_pack4_plain
@@ -3329,6 +3060,7 @@ def _zero_pair(torch, kind: str, weights, grads, gpu: str) -> dict:
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.ops import collectives as C
     from horovod_tpu_torch.optim import fused_update as TF
+    from horovod_tpu_torch.parallel.emulated import EmulatedWorld
 
     res = {}
     for stage in (0, 2):
@@ -3387,6 +3119,7 @@ def _adasum_world(torch, grads, gpu: str) -> dict:
 
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.ops import adasum as A
+    from horovod_tpu_torch.parallel.emulated import EmulatedWorld
 
     out = {}
     for name, dtype, pair in (("f32", torch.float32, False),
@@ -3586,6 +3319,7 @@ def _mp_world(torch, device: str, n: int, dp: int, tp: int, cfg, params,
     ``collect(model)`` after the first step."""
     from horovod_tpu_torch import interop
     from horovod_tpu_torch.models.transformer import Transformer
+    from horovod_tpu_torch.parallel.emulated import EmulatedWorld
     from horovod_tpu_torch.train_step import (lm_optimizer, lm_train_step,
                                               shard_tokens)
 
@@ -3786,6 +3520,7 @@ def expert_parallel_emulated(hvd, torch, gpu: str) -> dict:
                                                       init_params)
     from horovod_tpu_torch.ops import flash_attention as FA
     from horovod_tpu_torch.optim import fused_update as TF
+    from horovod_tpu_torch.parallel.emulated import EmulatedWorld
     from horovod_tpu_torch.train_step import synthetic_tokens
 
     t0 = time.perf_counter()
@@ -4300,6 +4035,7 @@ def _ls_case(hvd, Q, TF, torch, models, batches, stage: int, wire: str,
     """One 19a case: every emulated rank runs ``LS_STEPS`` inner steps of
     ``train_step`` under ``LocalSGD`` over its (cross, local) pair and
     ``maybe_outer_sync`` after each; returns what the checks read."""
+    from horovod_tpu_torch.parallel.emulated import EmulatedWorld
     from horovod_tpu_torch.train_step import train_step
 
     world = EmulatedWorld(torch, DP_N, (TF.LAUNCHES, Q.LAUNCHES))
@@ -4471,6 +4207,7 @@ def small_local_sgd_reference(hvd, torch, gpu: str) -> dict:
     from horovod_tpu_torch.models.mnist import SmallCNN
     from horovod_tpu_torch.ops import quantization as Q
     from horovod_tpu_torch.optim import fused_update as TF
+    from horovod_tpu_torch.parallel.emulated import EmulatedWorld
     from horovod_tpu_torch.train_step import synthetic_batch, train_step
 
     prev = (torch.backends.cuda.matmul.allow_tf32,
@@ -4786,6 +4523,7 @@ def _eager_wire_checks(Q, torch, wire, grads, log0, outs, device, gpu):
     2 of the float sum."""
     from horovod_tpu_torch.common.util import true_divide
     from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.parallel.emulated import EmulatedWorld
 
     n = len(grads)
     qmax = (Q.sum_safe_qmax if wire == "int8" else Q.sum_safe_qmax4)(n)
@@ -4864,6 +4602,7 @@ def eager_emulated(hvd, torch, gpu: str, device: str = "cuda",
     threads started."""
     from horovod_tpu_torch.ops import collectives as C
     from horovod_tpu_torch.ops import quantization as Q
+    from horovod_tpu_torch.parallel.emulated import EmulatedWorld
 
     t0 = time.perf_counter()
     n = DP_N
@@ -5146,6 +4885,8 @@ def _ze_rank(hvd, torch, stage: int, weights, grads, axis, eager: bool,
 
 def _ze_intrace(hvd, Q, TF, torch, stage: int, wire: str, weights,
                 grads) -> dict:
+    from horovod_tpu_torch.parallel.emulated import EmulatedWorld
+
     world = EmulatedWorld(torch, DP_N, (TF.LAUNCHES, Q.LAUNCHES))
     comp = hvd.Compression.lookup(wire)
     outs = world.run(lambda r: _ze_rank(hvd, torch, stage, weights,
@@ -5160,6 +4901,7 @@ def _ze_eager(hvd, Q, TF, torch, stage: int, wire: str, weights, grads,
     """Four emulated ranks on the eager wire: runtimes started, each
     rank's thread bound to its own (``ops.eager.bound_runtime``)."""
     from horovod_tpu_torch.ops import eager as E
+    from horovod_tpu_torch.parallel.emulated import EmulatedWorld
 
     os.environ["HOROVOD_COMPRESSION"] = wire
     world = EmulatedWorld(torch, DP_N, (Q.LAUNCHES,), free=True)
@@ -5347,6 +5089,7 @@ def eager_local_sgd_emulated(hvd, torch, gpu: str) -> dict:
     from horovod_tpu_torch.models.resnet import ResNet50
     from horovod_tpu_torch.ops import eager as E
     from horovod_tpu_torch.optim import fused_update as TF
+    from horovod_tpu_torch.parallel.emulated import EmulatedWorld
 
     model = ResNet50(num_classes=1000, dtype=torch.bfloat16, seed=0)
     grads = _resnet_grads(torch, model)
@@ -5430,6 +5173,7 @@ def eager_liveness_emulated(hvd, torch, gpu: str) -> dict:
     allreduce, raise ``RanksDownError`` naming rank 3."""
     from horovod_tpu_torch.common.types import RanksDownError
     from horovod_tpu_torch.ops import eager as E
+    from horovod_tpu_torch.parallel.emulated import EmulatedWorld
 
     env = {"HOROVOD_HEARTBEAT_INTERVAL": str(HB_INTERVAL),
            "HOROVOD_HEARTBEAT_TIMEOUT_SECONDS": str(HB_TIMEOUT)}
@@ -5509,6 +5253,7 @@ def eager_codec_emulated(hvd, torch, gpu: str) -> dict:
     round's messages alone through each (rank 0 decodes four request
     lists and encodes the response list)."""
     from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.parallel.emulated import EmulatedWorld
     from horovod_tpu_torch.runtime import wire as W
     from horovod_tpu_torch.train_step import synthetic_batch
 
@@ -5797,6 +5542,7 @@ def observability_eager(hvd, torch, gpu: str, device: str = "cuda",
     metrics registry and the flight ring (the emulated ranks share one
     of each, so the checks sum over them)."""
     from horovod_tpu_torch.ops import quantization as Q
+    from horovod_tpu_torch.parallel.emulated import EmulatedWorld
     from horovod_tpu_torch.runtime import flight as FL
     from horovod_tpu_torch.runtime import metrics as M
 
@@ -6096,6 +5842,7 @@ def health_eager(hvd, torch, gpu: str, device: str = "cuda",
     ``HOROVOD_ADAPTIVE_COMPRESSION=1`` and the overlap schedule."""
     from horovod_tpu_torch.ops import quantization as Q
     from horovod_tpu_torch.optim import distributed as D
+    from horovod_tpu_torch.parallel.emulated import EmulatedWorld
     from horovod_tpu_torch.runtime import faults as F
     from horovod_tpu_torch.runtime import health as H
 
@@ -6952,6 +6699,7 @@ def autotune_emulated(hvd, torch, gpu: str, device: str = "cuda",
     from horovod_tpu_torch.ops import quantization as Q
     from horovod_tpu_torch.ops.eager import HandleManager
     from horovod_tpu_torch.ops.eager_exec import EagerExecutor
+    from horovod_tpu_torch.parallel.emulated import EmulatedWorld
     from horovod_tpu_torch.runtime import metrics as M
     from horovod_tpu_torch.runtime.controller import KVController
 
@@ -7763,6 +7511,295 @@ def perf_observatory(hvd, torch, gpu: str) -> dict:
             "median_s": med, "flops": flops}
 
 
+# ---------------------------------------------------------------------------
+# Phase 29: the invariant lint suite on the card
+# ---------------------------------------------------------------------------
+
+AN_ROUNDS, AN_ROUND_STEPS = 3, 8   # 29d: rounds, steps per mode and round
+HOOK_CALLS, HOOK_REPS = 200_000, 7  # 29d (i): calls per timing, timings
+
+
+def _hook_costs(torch) -> dict:
+    """29d (i): the host time of one closed event hook against the work
+    the parent did in its place (a ``LAUNCHES`` bump inline; the
+    ``note_sent`` call with its thread-local read), in ns per event,
+    each the median of :data:`HOOK_REPS` timings of :data:`HOOK_CALLS`
+    events, the two alternating."""
+    import collections
+    import threading
+
+    from horovod_tpu_torch.common import events
+
+    sent_tls = threading.local()
+
+    def note_sent(t):
+        box = getattr(sent_tls, "box", None)
+        if box is not None and t is not None:
+            box[0] += t.numel() * t.element_size()
+
+    class TwoRanks:
+        ranks = (0, 1)
+
+    hop, t, counts = TwoRanks(), torch.ones(4), collections.Counter()
+    calls = range(HOOK_CALLS)
+
+    def parent_launch():
+        for _ in calls:
+            counts["momentum"] += 1
+
+    def hook_launch():
+        for _ in calls:
+            events.note_launch(counts, "fused_update", "momentum")
+
+    def parent_transfer():
+        for _ in calls:
+            note_sent(t)
+
+    def hook_transfer():
+        for _ in calls:
+            events.note_transfer(hop, "all-reduce", t)
+
+    out = {}
+    for kind, parent, hook in (("launch", parent_launch, hook_launch),
+                               ("transfer", parent_transfer, hook_transfer)):
+        ns = {"parent_ns": [], "hook_ns": []}
+        for _ in range(HOOK_REPS):
+            for key, fn in (("parent_ns", parent), ("hook_ns", hook)):
+                t0 = time.perf_counter_ns()
+                fn()
+                ns[key].append((time.perf_counter_ns() - t0) / HOOK_CALLS)
+        out[kind] = {k: statistics.median(v) for k, v in ns.items()}
+        out[kind]["added_ns"] = out[kind]["hook_ns"] - out[kind]["parent_ns"]
+    return out
+
+
+def _analysis_cli(gpu: str) -> dict:
+    """29a: the CLI's ``all --json`` in a subprocess."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.analysis", "all",
+         "--json"], capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"29a: the lint CLI exited {proc.returncode}:"
+                             f"\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    doc = json.loads(proc.stdout)
+    log(f"[analysis] 29a `python -m horovod_tpu_torch.analysis all --json`:"
+        f" exit 0 in {wall:.1f} s; passes {doc['passes']}, summary "
+        f"{doc['summary']}, allowlisted "
+        f"{sorted({f['rule'] for f in doc['findings']})}, skipped "
+        f"{[x['rule'] for x in doc['skipped']]}; on {gpu}")
+    return {"summary": doc["summary"], "wall_s": wall}
+
+
+def _analysis_programs(torch, gpu: str) -> dict:
+    """29b: the program set over 8 emulated ranks on the card."""
+    import collections
+
+    from horovod_tpu_torch.analysis import programs as P
+    from horovod_tpu_torch.analysis import schedule_lint as SL
+    from horovod_tpu_torch.ops import quantization as Q
+
+    Q.reset_launch_counts()
+    progs = {}
+    t0 = time.perf_counter()
+    found = P.run(programs=progs)
+    wall = time.perf_counter() - t0
+    if found:
+        raise AssertionError("29b: the program set on the card has "
+                             "findings:\n" + "\n".join(f.render()
+                                                       for f in found))
+    recs = {label: collections.Counter(
+        r.opcode for prog in ps for r in prog.kernels("hvd.quantization."))
+        for label, ps in progs.items()}
+    for kind in ("quantize", "dequantize"):
+        n = sum(c[f"hvd.quantization.{kind}"] for c in recs.values())
+        if n != Q.LAUNCHES[kind]:
+            raise AssertionError(f"29b: {kind} recorded {n} times, counted "
+                                 f"{Q.LAUNCHES[kind]}")
+    for label, c in recs.items():
+        if (label in ("hier-int8", "flat-lossy")) != bool(c):
+            raise AssertionError(f"29b: {label}: codec kernel records {c}")
+    for r, prog in enumerate(progs["hier-int8"]):
+        c = collections.Counter(r_.opcode for r_ in prog.kernels())
+        if not (c["hvd.quantization.quantize"]
+                and c["hvd.quantization.dequantize"]):
+            raise AssertionError(f"29b: hier-int8 rank {r}: B4/B5 records "
+                                 f"{dict(c)}")
+        kinds = {SL._axis_kind(x, 4) for x in prog.collectives()
+                 if x.shapes and x.shapes[0].dtype == "s8"}
+        if kinds != {"cross"}:
+            raise AssertionError(f"29b: hier-int8 rank {r}: int8 transfers "
+                                 f"on {kinds}")
+    tally = {label: collections.Counter(
+        (x.opcode, SL._axis_kind(x, 4), x.shapes[0].dtype)
+        for x in ps[0].collectives()) for label, ps in progs.items()}
+    log(f"[analysis] 29b the program set over 8 emulated ranks on the card "
+        f"in {wall:.1f} s: no finding (every preset clean, every control "
+        f"flagged); B4/B5 launches {dict(Q.LAUNCHES)} equal to their "
+        f"records, per program {({k: dict(v) for k, v in recs.items()})}; "
+        f"rank 0's transfers (opcode, axis, dtype) "
+        f"{({k: {' '.join(map(str, t)): n for t, n in v.items()} for k, v in tally.items()})}; "
+        f"on {gpu}")
+    return {"launches": dict(Q.LAUNCHES), "wall_s": wall}
+
+
+def analysis_phase(hvd, torch, gpu: str) -> dict:
+    """Phase 29 (a-d)."""
+    import collections
+
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.analysis import schedule_lint as SL
+    from horovod_tpu_torch.common import events as _events
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.ops import batch_norm as BN
+    from horovod_tpu_torch.optim import fused_update as TF
+    from horovod_tpu_torch.train_step import synthetic_batch, train_step
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cli = _analysis_cli(gpu)
+    progs = _analysis_programs(torch, gpu)
+
+    # 29c: phase 6's step at world 1 under the recorder
+    os.environ["HOROVOD_FUSED_UPDATE"] = "1"
+    hvd.init()
+    model = ResNet50(num_classes=1000, dtype=torch.bfloat16, seed=0)
+    opt = hvd.DistributedOptimizer(
+        hvd.fused_update.sgd(model.parameters(), 0.1, momentum=0.9))
+    images, labels = synthetic_batch(BATCH, 224, 1000, seed=0)
+    for _ in range(2):
+        train_step(model, opt, images, labels)
+    torch.cuda.synchronize()
+    TF.reset_launch_counts()
+    BN.reset_launch_counts()
+    with SL.record(1, "resnet50-step") as prog:
+        loss = train_step(model, opt, images, labels)
+        torch.cuda.synchronize()
+    counts = {**TF.LAUNCHES, **BN.LAUNCHES}
+    b1 = -(-161 // TF.capacity("momentum"))
+    found = SL.check_program(prog, [SL.single_fused_kernel(
+        b1, label="resnet50-step")])
+    if found or not math.isfinite(float(loss)):
+        raise AssertionError("29c: " + "\n".join(f.render() for f in found)
+                             + f" (loss {float(loss)})")
+    kern = collections.Counter(r.opcode for r in prog.kernels())
+    want = {"hvd.fused_update.momentum": counts["momentum"],
+            **{f"hvd.batch_norm.{n}": counts[n] for n in BN_KERNELS}}
+    if dict(kern) != want or counts["momentum"] != b1 \
+            or any(counts[n] != RESNET50_BN for n in BN_KERNELS):
+        raise AssertionError(f"29c: kernel records {dict(kern)}, counters "
+                             f"{counts}")
+    # the positive control: the tail leaf by leaf, one buffer per leaf
+    leaves = [p.detach() for p in model.parameters()]
+    traces = [torch.zeros_like(p) for p in leaves]
+    with SL.record(1, "leaf-by-leaf") as ctl:
+        for g, t in zip(leaves, traces):
+            TF.momentum_update(g, t, 1, 0.9, -0.1)
+    flagged = SL.check_program(ctl, [SL.single_fused_kernel(
+        b1, label="leaf-by-leaf-control")])
+    n_leaf = len(ctl.kernels("hvd.fused_update."))
+    if [f.rule for f in flagged] != ["SCHED-FUSED-TAIL"] \
+            or n_leaf != len(leaves):
+        raise AssertionError(f"29c: the leaf-by-leaf control: {flagged}, "
+                             f"{n_leaf} launches of {len(leaves)} leaves")
+    x = torch.ones(1024, device="cuda")
+    out = torch.empty(1024 // dist.get_world_size(), device="cuda")
+    gat = torch.empty(1024, device="cuda")
+    with SL.record(1, "world1-nccl") as wprog:
+        dist.all_reduce(x)
+        dist.reduce_scatter_tensor(out, x)
+        dist.all_gather_into_tensor(gat, out)
+    torch.cuda.synchronize()
+    c10d = [(r.opcode, r.ranks) for r in wprog.records if r.via == "c10d"]
+    if [o for o, _ in c10d] != ["all-reduce", "reduce-scatter",
+                                "all-gather"] \
+            or any(rk != (0,) for _, rk in c10d):
+        raise AssertionError(f"29c: the world-1 NCCL ops recorded as {c10d}")
+    aten = collections.Counter(r.opcode for r in prog.records
+                               if r.via == "aten")
+    log(f"[analysis] 29c ResNet-50 batch {BATCH} bf16 at world 1, one step "
+        f"under the recorder: {len(prog.records)} records, "
+        f"single_fused_kernel({b1}) holds; kernel records {dict(kern)} "
+        f"equal to the counters; the leaf-by-leaf control "
+        f"({n_leaf} launches) flagged {[f.rule for f in flagged]}; "
+        f"{sum(aten.values())} aten ops of {len(aten)} kinds, the most "
+        f"frequent {aten.most_common(12)}; c10d ops of the step "
+        f"{sorted({r.opcode for r in prog.records if r.via == 'c10d'})}; "
+        f"a world-1 NCCL all-reduce, reduce-scatter and all-gather "
+        f"recorded as {c10d}, packets "
+        f"{sorted({r.name.rsplit('.', 1)[0] for r in wprog.records})}; "
+        f"on {gpu}")
+
+    # 29d: what the closed hooks add to the step.  The parent bumped
+    # LAUNCHES inline and called note_sent per transfer; the hooks are
+    # one call each in their place, so (i) times each event's hook
+    # against the parent's own work, and (ii) alternates steps with the
+    # hooks as shipped against steps with each hook doing only the
+    # parent's work (a call each, the closed branch gone).
+    n_launch = len(prog.kernels())
+    n_transfer = len([r for r in prog.records if r.via == "hop"])
+    micro = _hook_costs(torch)
+    added_s = (n_launch * micro["launch"]["added_ns"]
+               + n_transfer * micro["transfer"]["added_ns"]) * 1e-9
+    shipped = (_events.note_launch, _events.note_transfer)
+
+    def parent_launch(counts, module, kind, n=1):
+        counts[kind] += n
+
+    def parent_transfer(hop, opcode, sent, out=None, pairs=None):
+        box = getattr(_events._sent, "box", None)
+        if box is not None and sent is not None:
+            box[0] += sent.numel() * sent.element_size()
+
+    times = {"parent-work": [], "closed": []}
+    base_rounds = []
+    try:
+        for _ in range(AN_ROUNDS):
+            for mode in ("parent-work", "closed"):
+                _events.note_launch, _events.note_transfer = \
+                    (parent_launch, parent_transfer) \
+                    if mode == "parent-work" else shipped
+                rnd = []
+                for _ in range(AN_ROUND_STEPS):
+                    t0 = time.perf_counter()
+                    train_step(model, opt, images, labels)
+                    torch.cuda.synchronize()
+                    rnd.append(time.perf_counter() - t0)
+                times[mode] += rnd
+                if mode == "parent-work":
+                    base_rounds.append(statistics.median(rnd))
+    finally:
+        _events.note_launch, _events.note_transfer = shipped
+    med = {k: statistics.median(v) for k, v in times.items()}
+    ratio = med["closed"] / med["parent-work"]
+    noise = max(base_rounds) / min(base_rounds)
+    share = added_s / med["closed"]
+    log(f"[analysis] 29d (i) per event, closed hook against the parent's "
+        f"inline work ({HOOK_CALLS} calls, median of {HOOK_REPS}): launch "
+        f"{micro['launch']['hook_ns']:.1f} ns against "
+        f"{micro['launch']['parent_ns']:.1f} ns, transfer "
+        f"{micro['transfer']['hook_ns']:.1f} ns against "
+        f"{micro['transfer']['parent_ns']:.1f} ns; the step's "
+        f"{n_launch} launches and {n_transfer} hop transfers add "
+        f"{added_s * 1e6:.2f} us per step, {share:.3e} of the median step "
+        f"{med['closed']:.4f} s; (ii) {AN_ROUNDS} rounds of "
+        f"{AN_ROUND_STEPS} steps with each hook doing only the parent's "
+        f"work, then {AN_ROUND_STEPS} as shipped: median step "
+        f"{med['parent-work']:.4f} s against {med['closed']:.4f} s (ratio "
+        f"{ratio:.4f}; the parent-work rounds' medians differ by "
+        f"{noise:.4f}x); on {gpu}")
+    del model, opt, images, labels, leaves, traces, prog, ctl
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+    log(f"[analysis] phase 29 took {time.perf_counter() - t_phase:.1f} s")
+    return {"cli": cli, "programs": progs, "counts": counts,
+            "ratio": ratio, "noise": noise, "median_s": med,
+            "hook_ns": micro, "added_s": added_s, "share": share}
+
+
 def run(args) -> int:
     t_start = time.perf_counter()
     card = pin_one_card()
@@ -7888,6 +7925,7 @@ def run(args) -> int:
     hvd.shutdown()
     fleet = fleet_simulator(gpu)
     prof = perf_observatory(hvd, torch, gpu)
+    lint = analysis_phase(hvd, torch, gpu)
 
     def p24(name: str) -> dict:
         """A kernel's launches in phase 24's and phase 26's runs, as each
@@ -7966,7 +8004,9 @@ def run(args) -> int:
                     for m, v in tune["a"]["launches"].items()},
                 # phase 28a, per step under the sampled capture
                 "launches_profile": [c["momentum"]
-                                     for c in prof["launches"]]}
+                                     for c in prof["launches"]],
+                # phase 29c, the step under the schedule recorder
+                "launches_analysis": lint["counts"]["momentum"]}
                if kind == "momentum" else {}),
             **({"launches_zero_lm": zero_lm["launches"]["adam"],
                 "zero_tail_launches": zero_tail["adam"],
@@ -8077,6 +8117,10 @@ def run(args) -> int:
             "launches_autotune": tune["b"]["launches"][kind],
             "launches_autotune_per_step": [
                 c[kind] for c in tune["b"]["launches_per_step"]],
+            # phase 29b, the program set over 8 emulated ranks (the
+            # lossy programs' codec kernels)
+            **({"launches_analysis": lint["programs"]["launches"][kind]}
+               if kind in ("quantize", "dequantize") else {}),
             "max_abs_err": max(codec_errs[kind], wire["errs"][kind]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -8119,6 +8163,8 @@ def run(args) -> int:
                 for m, v in tune["a"]["launches"].items()},
             # phase 28a, per step under the sampled capture
             "launches_profile": [c[name] for c in prof["launches"]],
+            # phase 29c, the step under the schedule recorder
+            "launches_analysis": lint["counts"][name],
             "max_abs_err": e["max_abs_err"], "max_ulp": e["max_ulp"],
             "max_err_f64": e["max_err_f64"],
             "plain_err_f64": e["plain_err_f64"],
@@ -8173,6 +8219,13 @@ def run(args) -> int:
         f"{prof['mfu']}; un-sampled/off median step ratio "
         f"{prof['ratio']:.4f} beside the off rounds' {prof['noise']:.4f}; "
         f"on {gpu}")
+    log(f"[analysis] phase 29: the CLI's summary {lint['cli']['summary']}; "
+        f"the closed hooks add {lint['added_s'] * 1e6:.2f} us per ResNet-50 "
+        f"step ({lint['share']:.3e} of it; launch "
+        f"{lint['hook_ns']['launch']['added_ns']:.1f} ns, transfer "
+        f"{lint['hook_ns']['transfer']['added_ns']:.1f} ns per event); "
+        f"shipped/parent-work median step ratio {lint['ratio']:.4f} beside "
+        f"the parent-work rounds' {lint['noise']:.4f}; on {gpu}")
     log(f"[done] wall time {time.perf_counter() - t_start:.1f} s; CNN paths "
         + "; ".join(f"{n}: median step {r['median_s']:.4f} s, "
                     f"{CNN[n][1] / r['median_s']:.1f} img/s, peak "

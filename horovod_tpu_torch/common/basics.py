@@ -178,7 +178,7 @@ def init(device=None, timeout_s: float = 300.0, mesh=None) -> None:
         local_rank = _env_int("HOROVOD_LOCAL_RANK", rank)
         local_size = _env_int("HOROVOD_LOCAL_SIZE", size)
         if size > 1:
-            coord = os.environ.get("HOROVOD_COORDINATOR_ADDR", "").strip()
+            coord = str(_config.get("coordinator_addr")).strip()
             if not coord:
                 raise HorovodTpuError(
                     "HOROVOD_SIZE > 1 but HOROVOD_COORDINATOR_ADDR is not "

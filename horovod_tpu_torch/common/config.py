@@ -35,7 +35,8 @@ _KNOBS: dict[str, Knob] = {
         "HOROVOD_COMPRESSION", "none", str,
         "Gradient wire compression for allreduce: none | fp16 | bf16 "
         "(dtype casts) | int8 | int4 (block-scaled with shared per-block "
-        "scales) | topk (sparse index + value payload).",
+        "scales) | topk (sparse index + value payload).  Must agree on "
+        "every rank (validated at the round-0 handshake).",
         cli="--compression", config_key="compression.mode"),
     "quant_block_size": Knob(
         "HOROVOD_QUANT_BLOCK_SIZE", 256, int,
@@ -54,35 +55,43 @@ _KNOBS: dict[str, Knob] = {
         "replicated update; 1 optimizer state as rank-local 1/world "
         "shards; 2 also the gradients (bucket-wise reduce-scatter, no "
         "full fused buffer); 3 also the parameters (zero3_shard_params, "
-        "zero3_full_params).",
+        "zero3_full_params).  Must agree on every rank (validated at the "
+        "round-0 handshake).",
         cli="--zero-stage", config_key="optimizer.zero_stage"),
     "sharded_optimizer": Knob(
         "HOROVOD_SHARDED_OPTIMIZER", False, _parse_bool,
         "ZeRO stage 1 under its older name: read when HOROVOD_ZERO_STAGE "
-        "is 0.",
+        "is 0.  Must agree on every rank (validated at the round-0 "
+        "handshake).",
         cli="--sharded-optimizer", config_key="optimizer.sharded"),
     "zero_prefetch_chunks": Knob(
         "HOROVOD_ZERO_PREFETCH_CHUNKS", 4, int,
         "Buckets of the stage-2/3 pipelines: the gradient reduce-scatter "
         "and the stage-3 parameter all-gather run in this many column "
-        "buckets of the (world, shard) view.",
+        "buckets of the (world, shard) view.  Must agree on every rank "
+        "(validated at the round-0 handshake when HOROVOD_ZERO_STAGE >= "
+        "2).",
         cli="--zero-prefetch-chunks",
         config_key="optimizer.zero_prefetch_chunks"),
     "overlap": Knob(
         "HOROVOD_OVERLAP", False, _parse_bool,
         "Bucketed gradient communication: each fused buffer is reduced in "
         "HOROVOD_OVERLAP_CHUNKS buckets, bucket b+1's reduce-scatter "
-        "issued before bucket b's math and all-gather.",
+        "issued before bucket b's math and all-gather.  Must agree on "
+        "every rank (validated at the round-0 handshake).",
         cli="--overlap", config_key="overlap.enabled"),
     "overlap_chunks": Knob(
         "HOROVOD_OVERLAP_CHUNKS", 4, int,
-        "Bucket count of the overlap schedule (default 4).",
+        "Bucket count of the overlap schedule (default 4).  Must agree on "
+        "every rank (validated at the round-0 handshake when "
+        "HOROVOD_OVERLAP is on).",
         cli="--overlap-chunks", config_key="overlap.chunks"),
     "bucket_compression": Knob(
         "HOROVOD_BUCKET_COMPRESSION", "", str,
         "Per-bucket wire modes, colon-separated (e.g. 'int8:int4:topk'), "
         "cycled over the buckets of the overlap and stage-2/3 schedules; "
-        "empty: every bucket rides the call's own mode.",
+        "empty: every bucket rides the call's own mode.  Must agree on "
+        "every rank (validated at the round-0 handshake).",
         cli="--bucket-compression", config_key="compression.bucket_modes"),
     "mesh": Knob(
         "HOROVOD_MESH", "", str,
@@ -490,6 +499,10 @@ _KNOBS: dict[str, Knob] = {
         "'cpu' (gloo) is an explicit request for the CPU; unset or a GPU "
         "name leaves cuda (which raises without a card).",
         cli="--platform", config_key="tpu.platform"),
+    "coordinator_addr": Knob(
+        "HOROVOD_COORDINATOR_ADDR", "", str,
+        "host:port of rank 0's torch.distributed store (exported by "
+        "hvdrun; required when HOROVOD_SIZE > 1)."),
     "rendezvous_addr": Knob(
         "HOROVOD_GLOO_RENDEZVOUS_ADDR", "", str,
         "The launcher's KV server host (exported by hvdrun); when set with "

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from horovod_tpu_torch import _build
+from horovod_tpu_torch.common import events as _events
 from horovod_tpu_torch.common.types import HorovodTpuError
 from horovod_tpu_torch.common.util import true_divide
 
@@ -185,7 +186,7 @@ def _vec(x, *ptrs) -> int:
 def _launch(name: str, rc: int) -> None:
     if rc != 0:
         raise HorovodTpuError(f"{name} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    _events.note_launch(LAUNCHES, "batch_norm", name)
 
 
 def _stream(t) -> int:

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from horovod_tpu_torch import _build
+from horovod_tpu_torch.common import events as _events
 from horovod_tpu_torch.common.types import HorovodTpuError
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -268,7 +269,7 @@ def _launch(name: str, fn, q, *args) -> None:
     rc = fn(_DTYPE_CODES[q.dtype], *args, stream)
     if rc != 0:
         raise HorovodTpuError(f"{name} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    _events.note_launch(LAUNCHES, "flash_attention", name)
 
 
 def _dims(q, k, q_offset, k_offset, causal):

@@ -41,6 +41,7 @@ import torch.nn.functional as F
 
 from horovod_tpu_torch import _build
 from horovod_tpu_torch.common import config as _config
+from horovod_tpu_torch.common import events as _events
 from horovod_tpu_torch.common.types import HorovodTpuError
 from horovod_tpu_torch.common.util import true_divide
 from horovod_tpu_torch.parallel import mesh as _pmesh
@@ -236,7 +237,7 @@ def _launch(name: str, fn, ref: torch.Tensor, *args) -> None:
     rc = fn(*args, stream)
     if rc != 0:
         raise HorovodTpuError(f"{name} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    _events.note_launch(LAUNCHES, "quantization", name)
 
 
 def quantize_values(x2d, scales, qmax: int = _QMAX) -> torch.Tensor:

@@ -43,6 +43,7 @@ import torch
 
 from horovod_tpu_torch import _build
 from horovod_tpu_torch.common import config as _config
+from horovod_tpu_torch.common import events as _events
 from horovod_tpu_torch.common import logging as _log
 from horovod_tpu_torch.common.types import HorovodTpuError
 from horovod_tpu_torch.common.util import true_divide
@@ -364,7 +365,7 @@ def _launch(name: str, fn, g: torch.Tensor, *args) -> None:
     rc = fn(_DTYPE_CODES[g.dtype], *args, stream)
     if rc != 0:
         raise HorovodTpuError(f"{name} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    _events.note_launch(LAUNCHES, "fused_update", name)
 
 
 def sgd_update(g, navg: int, neg_lr: float, out=None):
@@ -491,7 +492,7 @@ def _multi(kind: str, grads, ins, outs, plain, launch) -> list:
         if rc != 0:
             raise HorovodTpuError(
                 f"{kind} kernel launch failed: CUDA error {rc}")
-        LAUNCHES[kind] += launches
+        _events.note_launch(LAUNCHES, "fused_update", kind, launches)
     return new
 
 

@@ -25,9 +25,7 @@ any two-axis name is on the reference (``horovod_tpu/ops/collectives.py:
 
 from __future__ import annotations
 
-import contextlib
 import math
-import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -36,6 +34,7 @@ import torch.distributed as dist
 
 from horovod_tpu_torch.common import basics as _basics
 from horovod_tpu_torch.common import config as _config
+from horovod_tpu_torch.common import events as _events
 from horovod_tpu_torch.common.types import HorovodTpuError
 
 AXES = ("dp", "pp", "tp", "sp")
@@ -51,36 +50,6 @@ LM_DATA_AXES = ("dp", "sp")
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
-# Payload bytes this thread's transfers sent inside a counting_sent()
-# block (the eager plane's hvd_data_wire_bytes_total: what a response
-# really put on the wire, compression, padding and scales included).
-_sent = threading.local()
-
-
-@contextlib.contextmanager
-def counting_sent():
-    """Count the payload bytes every transfer this thread makes sends
-    (a member's own payload, once per transfer); yields a one-element
-    list holding the running total."""
-    prev = getattr(_sent, "box", None)
-    box = [0]
-    _sent.box = box
-    try:
-        yield box
-    finally:
-        _sent.box = prev
-        if prev is not None:
-            prev[0] += box[0]
-
-
-def note_sent(t) -> None:
-    """Add ``t``'s bytes to the open :func:`counting_sent` block (a
-    transport calls it for each payload it sends)."""
-    box = getattr(_sent, "box", None)
-    if box is not None and t is not None:
-        box[0] += t.numel() * t.element_size()
-
-
 # ---------------------------------------------------------------------------
 # One axis as this rank sees it, and the transfers over it
 # ---------------------------------------------------------------------------
@@ -90,7 +59,9 @@ class Hop:
     """One reduction axis as this rank sees it: its member ranks (global,
     in axis order), this rank's index among them, and its process group
     (``None``: the default world group).  Each method is one transfer
-    over the axis; a hop of one rank moves nothing."""
+    over the axis, reported once to the data plane's event hooks
+    (``common/events.py``: its bytes, and an open receiver); a hop of
+    one rank moves nothing."""
 
     def __init__(self, ranks, index: int, group=None, name: str = ""):
         self.ranks = tuple(int(r) for r in ranks)
@@ -105,7 +76,7 @@ class Hop:
     def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """Reduce ``t`` in place over the axis (``sum`` or ``max``)."""
         if self.size > 1:
-            note_sent(t)
+            _events.note_transfer(self, "all-reduce", t)
             dist.all_reduce(t, op=_OPS[op], group=self.group)
         return t
 
@@ -120,7 +91,7 @@ class Hop:
         if self.size == 1:
             out.copy_(src.reshape(out.shape))
             return None
-        note_sent(src)
+        _events.note_transfer(self, "reduce-scatter", src, out)
         return dist.reduce_scatter_tensor(out, src, group=self.group,
                                           async_op=async_op)
 
@@ -129,7 +100,7 @@ class Hop:
         if self.size == 1:
             out.copy_(src.reshape(out.shape))
             return None
-        note_sent(src)
+        _events.note_transfer(self, "all-gather", src, out)
         return dist.all_gather_into_tensor(out, src, group=self.group,
                                            async_op=async_op)
 
@@ -138,13 +109,13 @@ class Hop:
         if self.size == 1:
             out.copy_(src)
             return
-        note_sent(src)
+        _events.note_transfer(self, "all-to-all", src, out)
         dist.all_to_all_single(out, src, group=self.group)
 
     def broadcast(self, t: torch.Tensor, root: int) -> torch.Tensor:
         """Overwrite ``t`` with member ``root``'s (an axis index)."""
         if self.size > 1:
-            note_sent(t)
+            _events.note_transfer(self, "broadcast", t)
             dist.broadcast(t, src=self.ranks[root], group=self.group)
         return t
 
@@ -153,7 +124,8 @@ class Hop:
         if peer == self.index:
             return t.clone()
         recv = torch.empty_like(t)
-        note_sent(t)
+        _events.note_transfer(self, "collective-permute", t, None,
+                              [(self.index, peer), (peer, self.index)])
         works = dist.batch_isend_irecv([
             dist.P2POp(dist.isend, t, self.ranks[peer], self.group),
             dist.P2POp(dist.irecv, recv, self.ranks[peer], self.group)])
@@ -188,13 +160,14 @@ class Hop:
         if not pairs:
             return None
         ref = t if t is not None else like
+        _events.note_transfer(self, "collective-permute",
+                              t if dst is not None else None, ref, pairs)
         if self.size > 1 and not getattr(self, "_p2p_ready", False):
             dist.all_reduce(torch.zeros(1, device=ref.device),
                             group=self.group)
             self._p2p_ready = True
         ops, recv = [], None
         if dst is not None:
-            note_sent(t)
             ops.append(dist.P2POp(dist.isend, t.contiguous(),
                                   self.ranks[dst], self.group))
         if src is not None:

@@ -26,7 +26,7 @@ coordinated stop.
 The loop records what the JAX package's does: the negotiation-latency
 and response-count histograms, the fast-round gauge, the dispatch
 seconds, and per response the wire bytes (what its transfers really
-sent, ``parallel.mesh.counting_sent``) and the logical bytes, with a
+sent, ``common.events.counting_sent``) and the logical bytes, with a
 ``dispatch`` B/E span on the flight ring.  ``HOROVOD_FAULT_SPEC``'s
 ``nan:``/``inf:`` rules poison payloads before dispatch
 (``runtime.faults.poison_entries``), where the executor's health tap
@@ -542,7 +542,7 @@ class BackgroundRuntime:
         _flight.record("dispatch", ph="B", collective=resp.kind,
                        n=len(entries), names=[e.name for e in entries[:8]])
         disp_t0 = time.perf_counter()
-        from horovod_tpu_torch.parallel.mesh import counting_sent
+        from horovod_tpu_torch.common.events import counting_sent
 
         with counting_sent() as sent:
             try:

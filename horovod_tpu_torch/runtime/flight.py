@@ -24,8 +24,9 @@ merge <dir>`` aligns rank clocks from the heartbeat-piggybacked ``clk``
 samples, writes one Perfetto/Chrome trace with a process per rank, and
 runs the straggler / critical-path analyzer.
 
-Import stays stdlib-only: the process meta reads ``common.basics``
-lazily.  A dump records the goodput ledger's and the health monitor's
+Import stays stdlib-only (the knobs come from the stdlib-only
+``common.config``): the process meta reads ``common.basics`` lazily.
+A dump records the goodput ledger's and the health monitor's
 checkpoint events first, and a failure dump writes their dumps beside
 the ring.
 """
@@ -39,10 +40,8 @@ import sys
 import threading
 import time
 
-# Resolved lazily (module import must stay dependency-free); the knob
-# names are owned by common/config.py.
-_ENV_EVENTS = "HOROVOD_FLIGHT_EVENTS"
-_ENV_DIR = "HOROVOD_FLIGHT_DIR"
+from horovod_tpu_torch.common import config as _config
+
 _DEFAULT_EVENTS = 4096
 
 
@@ -147,11 +146,7 @@ _recorder_lock = threading.RLock()
 
 
 def _capacity() -> int:
-    raw = os.environ.get(_ENV_EVENTS, "")
-    try:
-        return int(raw) if raw else _DEFAULT_EVENTS
-    except ValueError:
-        return _DEFAULT_EVENTS
+    return int(_config.get("flight_events"))
 
 
 def recorder() -> FlightRecorder:
@@ -181,7 +176,7 @@ def reset() -> None:
 
 
 def flight_dir() -> str:
-    return os.environ.get(_ENV_DIR, "")
+    return str(_config.get("flight_dir"))
 
 
 def _process_meta() -> dict:

@@ -36,7 +36,8 @@ ZeRO and local SGD and the coordinated abort, and
 autotuner's, of ``tests/_torch_tuning_worker.py``; ``autopilot_rollback``
 the autopilot's rollback, of ``tests/_torch_autopilot_worker.py``;
 ``perf`` and ``perf_cards`` the perf observatory's sampled captures, of
-``tests/_torch_perf_worker.py``.
+``tests/_torch_perf_worker.py``; ``schedule`` the schedule recorder over
+the world, of ``tests/_torch_analysis_worker.py``.
 ``HVD_TEST_FEEDBACK`` may name a ``.npy`` file of per-rank residuals
 that the lossy optimizer case loads before its second step;
 ``HVD_TEST_INTEROP`` a pickle, written by ``tests/test_torch_zero.py``,
@@ -2196,6 +2197,13 @@ def perf_modes(mode: str):
     return {"perf": W.perf_main, "perf_cards": W.perf_cards_main}[mode]
 
 
+def schedule_main(device: str):
+    """The schedule recorder over a real world (``_torch_analysis_worker``)."""
+    from _torch_analysis_worker import schedule_main as main_
+
+    main_(device)
+
+
 def autopilot_rollback_main(device: str):
     from _torch_autopilot_worker import rollback_main
 
@@ -2236,4 +2244,5 @@ if __name__ == "__main__":
      **{m: lambda d, m=m: tuning_modes(m)(d)
         for m in ("timeline_ticks", "autotune_sync", "tuning_cards")},
      **{m: lambda d, m=m: perf_modes(m)(d) for m in ("perf", "perf_cards")},
-     "autopilot_rollback": autopilot_rollback_main}[mode](dev)
+     "autopilot_rollback": autopilot_rollback_main,
+     "schedule": schedule_main}[mode](dev)

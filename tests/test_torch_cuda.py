@@ -2162,3 +2162,57 @@ def test_four_cards_profile_resnet50(tmp_path):
                   f"{la['scopes_resolved']} scoped ops over "
                   f"{len(scopes)} scopes; {r['captures']:g} captures; "
                   f"on 4 x {card.strip()}")
+
+
+def test_four_cards_schedule_lint():
+    """The schedule pass over four NCCL ranks as the (cross 2, local 2)
+    pair (``tests/_torch_analysis_worker.py``): ZeRO-2 at k = 4 with its
+    stage-1 control, overlap on and off, hierarchical int8 with the flat
+    int8 control, local SGD's inner step and outer sync (each preset's
+    control the other program).  On every rank: every preset clean and
+    every control flagged, the ``c10d`` records' ranks equal to the
+    hops' transfer by transfer, and B4/B5 launched in the lossy programs
+    only."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    import os
+    import subprocess
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from _torch_collectives_worker import spawn
+
+    card = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    outs = spawn(4, "cuda", timeout=600, mode="schedule")
+    want = {"zero2": [], "zero1-control": ["SCHED-FULLBUF"],
+            "overlap": [],
+            "overlap-off-control": ["SCHED-MESH-PLACEMENT",
+                                    "SCHED-MONOLITHIC"],
+            "hier-int8": [], "flat-int8-control": ["SCHED-LOSSY-PLACEMENT"],
+            "localsgd-inner": [], "localsgd-outer": [],
+            "localsgd-inner-control": ["SCHED-LOCALSGD-INNER"],
+            "localsgd-outer-control": ["SCHED-LOCALSGD-OUTER"]}
+    lossy = {"hier-int8", "flat-int8-control"}
+    for r, o in enumerate(outs):
+        assert {k: o[k]["rules"] for k in want} == want, r
+        assert o["basic"]["c10d"][:3] == o["basic"]["hop"]
+        for k, v in o.items():
+            if k in ("rank", "basic") or "hop" not in v:
+                continue
+            assert v["c10d"] == v["hop"], (r, k, v["c10d"], v["hop"])
+            codec = {n: c for n, c in v["kernels"].items()
+                     if n.startswith("hvd.quantization.")}
+            if k in lossy:
+                assert codec.get("hvd.quantization.quantize", 0) >= 1 and \
+                    codec.get("hvd.quantization.dequantize", 0) >= 1, \
+                    (r, k, codec)
+            else:
+                assert codec == {}, (r, k, codec)
+        print(f"[four cards] schedule lint, rank {r}: "
+              + "; ".join(f"{k} {v['rules']} hops "
+                          f"{[tuple(x) for x in v.get('hop', [])][:6]} "
+                          f"kernels {v.get('kernels')}"
+                          for k, v in o.items() if k not in ("rank", "basic"))
+              + f"; on 4 x {card.strip()}")

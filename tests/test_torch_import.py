@@ -58,7 +58,11 @@ def test_no_jax_side_module_is_imported():
               "trace.__main__", "runtime.health", "checkpoint",
               "runtime.kvstore", "runtime.preemption", "runtime.simfleet",
               "elastic", "run",
-              "run.__main__", "run.launcher", "run.pod", "run.exec_fn"):
+              "run.__main__", "run.launcher", "run.pod", "run.exec_fn",
+              "analysis", "analysis.findings", "analysis.allowlist",
+              "analysis.knob_lint", "analysis.concurrency_lint",
+              "analysis.schedule_lint", "analysis.programs",
+              "analysis.__main__", "parallel.emulated", "common.events"):
         assert f"horovod_tpu_torch.{m}" in res["modules"]
 
 
@@ -80,7 +84,7 @@ def test_package_shares_no_code_with_the_jax_package():
 @pytest.mark.parametrize("entry", ["init", "ResNet50", "synthetic_batch",
                                    "Transformer", "synthetic_tokens",
                                    "VGG16", "InceptionV3", "SmallCNN",
-                                   "MnistCNN"])
+                                   "MnistCNN", "schedule_pass"])
 def test_entry_points_raise_without_a_gpu(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     # the suite's conftest exports HOROVOD_PLATFORM=cpu, which init()
@@ -93,6 +97,7 @@ def test_entry_points_raise_without_a_gpu(entry, monkeypatch):
     from horovod_tpu_torch.models.transformer import (Transformer,
                                                       TransformerConfig)
     from horovod_tpu_torch.models.vgg import VGG16
+    from horovod_tpu_torch.analysis import programs
     from horovod_tpu_torch.train_step import synthetic_batch, synthetic_tokens
 
     small = TransformerConfig(vocab=16, d_model=16, n_heads=2, head_dim=8,
@@ -105,7 +110,8 @@ def test_entry_points_raise_without_a_gpu(entry, monkeypatch):
             "VGG16": lambda: VGG16(widths=(8, 8, 8, 8, 8), image_size=32),
             "InceptionV3": lambda: InceptionV3(num_classes=10),
             "SmallCNN": lambda: SmallCNN(num_classes=10),
-            "MnistCNN": lambda: MnistCNN()}[entry]
+            "MnistCNN": lambda: MnistCNN(),
+            "schedule_pass": programs.run}[entry]
     with pytest.raises(hvd.HorovodTpuError, match="device='cpu'"):
         call()
     assert not hvd.is_initialized()
