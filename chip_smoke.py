@@ -419,7 +419,31 @@ Phases (any failure exits non-zero and prints no result line):
    each hook doing only the parent's work and 8 as shipped, in
    alternation: the median step ratio beside the first arm's own
    rounds' spread (the ``launches_analysis`` key of the kernels line on
-   B1, B4, B5 and N1-N4).
+   B1, B4, B5 and N1-N4);
+30. the frontends (``horovod_tpu_torch.estimator``, ``keras``,
+   ``tensorflow``, ``mxnet``, ``spark``): (a) ``JaxEstimator.fit`` (the
+   in-trace plane) on MnistCNN at its published width (28x28x1, 10
+   classes, batch 64, ``--seed``'s synthetic data), ``sgd`` then
+   ``adam``, 2 epochs, through the launcher's run-function mode with
+   ``HOROVOD_FUSED_UPDATE=1``: the history finite, the rank's own
+   counters one B1 (then one B3) per step and no other kernel, rank 0's
+   checkpoint in the store equal to the returned state bit for bit,
+   ``predict`` on the card equal to a forward of that state; (b)
+   ``TorchEstimator.fit`` on ResNet-50 at full width (224 px, 1000
+   classes, ``sgd``), 2 steps of the main path's batch: 53 of each of
+   N1-N4 per step on the rank, ``predict`` on the card as in (a); the
+   model's pickle and a checkpoint of its state through the KV store,
+   timed, and ``fit`` timed; (c) the keras callbacks (broadcast, metric
+   average, warmup, a fractional schedule, a decay) drive a loop of
+   MnistCNN with ``torch.optim.SGD(momentum=0.9)`` under
+   ``DistributedOptimizer`` on the card: every batch's rate and momentum
+   equal to the JAX package's formula, the momentum restored after each
+   corrected batch, one broadcast; ``fused_update.sgd`` refused; (d) the
+   TF and MXNet probes as installed, the core names resolving, the Spark
+   gate, and float32 and bfloat16-representable arrays through the
+   shared numpy bridge to the card (allreduce, allgather, broadcast) and
+   back equal (the ``launches_estimator`` key of the kernels line on B1,
+   B3 and N1-N4).
 
 Then the run's wall time, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
@@ -7800,6 +7824,436 @@ def analysis_phase(hvd, torch, gpu: str) -> dict:
             "hook_ns": micro, "added_s": added_s, "share": share}
 
 
+# ---------------------------------------------------------------------------
+# Phase 30: the frontends (the estimators' fit() through the launcher's
+# run-function mode, the keras callbacks' loop, the TF/MXNet gates and
+# their numpy bridge)
+# ---------------------------------------------------------------------------
+
+P30_ROWS = 1024         # 30a: synthetic MNIST rows (16 steps of 64 per epoch)
+P30_BATCH = 64          # examples/jax_mnist.py:44
+P30_EPOCHS = 2
+P30_LR = {"sgd": 0.01, "adam": 1e-3}
+P30B_STEPS = 2          # 30b: ResNet-50 steps of the main path's batch
+P30C_STEPS, P30C_WARMUP = 4, 2   # 30c: batches per epoch, warmup epochs
+P30C_EPOCHS, P30C_LR, P30C_MOMENTUM = 4, 0.1, 0.9
+P30C_DECAY = 0.1        # 30c: the schedule's multiplier from epoch 3 on
+
+
+def _p30_env(root: str, device: str) -> dict:
+    """The environment a launched rank of phase 30 inherits: the package
+    beside this script, the fused tail on, no HOROVOD_* knob left over
+    from an earlier phase (``HOROVOD_PLATFORM=cpu`` for a CPU
+    rehearsal).  Returns what to restore."""
+    keys = [k for k in os.environ if k.startswith("HOROVOD_")]
+    saved = {k: os.environ.get(k) for k in keys + ["HOROVOD_FUSED_UPDATE",
+                                                   "PYTHONPATH"]}
+    for k in keys:
+        del os.environ[k]
+    os.environ["HOROVOD_FUSED_UPDATE"] = "1"
+    if device == "cpu":
+        os.environ["HOROVOD_PLATFORM"] = "cpu"
+    os.environ["PYTHONPATH"] = root + os.pathsep + (saved["PYTHONPATH"]
+                                                    or "")
+    return saved
+
+
+def _p30_restore(saved: dict) -> None:
+    for k in [k for k in os.environ if k.startswith("HOROVOD_")]:
+        del os.environ[k]
+    _restore_env(saved)
+
+
+def _p30_predict_check(torch, trained, fresh, x, what: str,
+                       device: str) -> float:
+    """``predict`` ran on ``device`` (the card) and equals a forward of
+    the returned state through a fresh module, bit for bit
+    (deterministic cuDNN)."""
+    import numpy as np
+
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.benchmark, cudnn.deterministic)
+    cudnn.benchmark, cudnn.deterministic = False, True
+    try:
+        if trained.device.type != device:
+            raise AssertionError(f"{what}: predict on {trained.device}")
+        got = trained.predict(x)
+        fresh.load_state_dict({k: v for k, v in trained.model.state_dict()
+                               .items()})
+        fresh.to(device).eval()
+        with torch.no_grad():
+            want = fresh(torch.from_numpy(x).to(device)).float().cpu() \
+                .numpy()
+    finally:
+        cudnn.benchmark, cudnn.deterministic = flags
+    if not np.array_equal(got, want):
+        raise AssertionError(f"{what}: predict differs from the forward of "
+                             f"the returned state by "
+                             f"{np.abs(got - want).max()}")
+    return float(np.abs(got).max())
+
+
+def estimator_intrace(torch, gpu: str, work: str, seed: int,
+                      device: str = "cuda") -> dict:
+    """30a: ``JaxEstimator.fit`` (the in-trace plane) on MnistCNN at its
+    published width, ``sgd`` then ``adam``, through ``run.run``.  The
+    launch counts are the card's (none on the CPU)."""
+    import io
+
+    import numpy as np
+
+    from horovod_tpu_torch.estimator import JaxEstimator, LocalStore
+    from horovod_tpu_torch.models.mnist import MnistCNN
+
+    rng = np.random.RandomState(seed)
+    x = rng.rand(P30_ROWS, 28, 28, 1).astype(np.float32)
+    y = rng.randint(0, 10, P30_ROWS)
+    steps = P30_EPOCHS * (P30_ROWS // P30_BATCH)
+    out = {}
+    for opt, kernel in (("sgd", "momentum"), ("adam", "adam")):
+        store = LocalStore(os.path.join(work, f"a-{opt}"))
+        est = JaxEstimator(model=MnistCNN(device="cpu", seed=seed),
+                           optimizer=opt, lr=P30_LR[opt], store=store,
+                           num_proc=1, batch_size=P30_BATCH,
+                           epochs=P30_EPOCHS, run_id=f"p30a-{opt}")
+        t0 = time.perf_counter()
+        trained = est.fit(x, y)
+        fit_s = time.perf_counter() - t0
+        hist = trained.history
+        if len(hist) != P30_EPOCHS or not all(map(math.isfinite, hist)):
+            raise AssertionError(f"[frontends] 30a {opt}: history {hist}")
+        counts = est.rank_results_[0][3]
+        want = {k: 0 for k in counts}
+        want.update({kernel: steps if device == "cuda" else 0,
+                     "allreduce_responses": P30_EPOCHS})
+        if counts != want:
+            raise AssertionError(f"[frontends] 30a {opt}: the rank counted "
+                                 f"{counts}, want {want}")
+        blob = torch.load(io.BytesIO(store.read_bytes(
+            f"{store.get_checkpoint_path(f'p30a-{opt}')}/last.ckpt")))
+        if blob["epoch"] != P30_EPOCHS - 1 or blob["history"] != hist or \
+                not all(torch.equal(v, trained.params[k])
+                        for k, v in blob["params"].items()) or \
+                blob["params"].keys() != trained.params.keys():
+            raise AssertionError(f"[frontends] 30a {opt}: the checkpoint "
+                                 "differs from the returned state")
+        peak = _p30_predict_check(torch, trained, MnistCNN(device="cpu"),
+                                  x[:256], f"30a {opt}", device)
+        out[opt] = {"history": hist, "steps": steps,
+                    "launches": counts[kernel], "fit_s": fit_s}
+        log(f"[frontends] 30a JaxEstimator({opt!r}) on MnistCNN, {steps} "
+            f"steps at batch {P30_BATCH}: history {hist}; the rank launched "
+            f"{kernel} {counts[kernel]} times (one per step), nothing else; "
+            f"checkpoint equal to the returned state bit for bit; predict "
+            f"on the card equal to the forward (|y| <= {peak:.3f}); fit "
+            f"{fit_s:.2f} s; on {gpu}")
+    return out
+
+
+def estimator_torch(torch, gpu: str, work: str, seed: int,
+                    device: str = "cuda", model_fn=None, batch: int = BATCH,
+                    size: int = 224, classes: int = 1000) -> dict:
+    """30b: ``TorchEstimator.fit`` on the port's ResNet-50 at full width
+    (224 px, 1000 classes), ``sgd``, ``P30B_STEPS`` steps of the main
+    path's batch, through ``run.run``; the model's pickle and a 102 MB
+    checkpoint through the KV store, timed."""
+    import io
+    import pickle
+
+    import numpy as np
+
+    from horovod_tpu_torch.estimator import (KVStore, LocalStore,
+                                             TorchEstimator)
+    from horovod_tpu_torch.models.resnet import ResNet50
+
+    model_fn = model_fn or ResNet50
+    model = model_fn(device="cpu")
+    # the spec's pickle through the KV store, as run.run sends it
+    kv = KVStore()
+    try:
+        t0 = time.perf_counter()
+        payload = pickle.dumps(model)
+        kv.write_bytes("p30/model", payload)
+        back = pickle.loads(kv.read_bytes("p30/model"))
+        pickle_s = time.perf_counter() - t0
+        if not all(torch.equal(a, b) for a, b in
+                   zip(model.state_dict().values(),
+                       back.state_dict().values())):
+            raise AssertionError("[frontends] 30b: the model's pickle came "
+                                 "back different")
+        buf = io.BytesIO()
+        torch.save(model.state_dict(), buf)
+        ckpt = buf.getvalue()
+        t0 = time.perf_counter()
+        kv.write_bytes("checkpoints/p30/last.ckpt", ckpt)
+        again = kv.read_bytes("checkpoints/p30/last.ckpt")
+        ckpt_s = time.perf_counter() - t0
+        if again != ckpt:
+            raise AssertionError("[frontends] 30b: the checkpoint came "
+                                 "back different")
+    finally:
+        kv.stop()
+    del back
+    rng = np.random.RandomState(seed)
+    n = P30B_STEPS * batch
+    x = rng.rand(n, size, size, 3).astype(np.float32)
+    y = rng.randint(0, classes, n)
+    store = LocalStore(os.path.join(work, "b"))
+    est = TorchEstimator(model=model, optimizer="sgd", lr=0.1, store=store,
+                         num_proc=1, batch_size=batch, epochs=1,
+                         run_id="p30b")
+    t0 = time.perf_counter()
+    trained = est.fit(x, y)
+    fit_s = time.perf_counter() - t0
+    hist = trained.history
+    if len(hist) != 1 or not math.isfinite(hist[0]):
+        raise AssertionError(f"[frontends] 30b: history {hist}")
+    counts = est.rank_results_[0][3]
+    want = {k: 0 for k in counts}
+    want.update({k: RESNET50_BN * P30B_STEPS if device == "cuda" else 0
+                 for k in BN_KERNELS})
+    want["allreduce_responses"] = counts["allreduce_responses"]
+    if counts != want or not counts["allreduce_responses"]:
+        raise AssertionError(f"[frontends] 30b: the rank counted {counts}, "
+                             f"want {want} and eager all-reduces")
+    del x
+    peak = _p30_predict_check(torch, trained, model_fn(device="cpu"),
+                              rng.rand(32, size, size, 3).astype(np.float32),
+                              "30b", device)
+    log(f"[frontends] 30b TorchEstimator('sgd') on ResNet-50 ({size} px, "
+        f"batch {batch}, {P30B_STEPS} steps): history {hist}; the rank "
+        f"launched N1-N4 {RESNET50_BN} times each per step, no other hand "
+        f"kernel, {counts['allreduce_responses']} eager all-reduce "
+        f"responses; predict on the card equal to the forward (|y| <= "
+        f"{peak:.3f}); the model's pickle ({len(payload)} B) through the KV "
+        f"store and back {pickle_s:.3f} s; a {len(ckpt)} B checkpoint "
+        f"through it {ckpt_s:.3f} s; fit {fit_s:.2f} s; on {gpu}")
+    return {"history": hist, "steps": P30B_STEPS,
+            "launches": {k: counts[k] for k in BN_KERNELS},
+            "pickle_s": pickle_s, "pickle_bytes": len(payload),
+            "ckpt_s": ckpt_s, "ckpt_bytes": len(ckpt), "fit_s": fit_s}
+
+
+def _p30c_want() -> list:
+    """The rate and the momentum inside every batch of 30c's loop, as the
+    JAX package's callbacks compute them (``horovod_tpu/keras/
+    callbacks.py:269-299``) at world 1, in their order of operations:
+    over ``[0, P30C_WARMUP)`` the warmup multiplier ``1/size * (e *
+    (size-1)/warmup + 1)`` with ``e = epoch + batch/steps + 1/steps``;
+    in epoch 2 the fractional schedule ``1 / (1 + epoch + batch/steps)``
+    every batch; from epoch 3 ``P30C_DECAY`` at batch 0.  On each batch
+    the rate is set on, the momentum is ``momentum * new / old`` (and
+    restored after the batch)."""
+    base, size, lr, out = P30C_LR, 1, P30C_LR, []
+    for epoch in range(P30C_EPOCHS):
+        for b in range(P30C_STEPS):
+            old = lr
+            if epoch < P30C_WARMUP:
+                e = epoch + float(b) / P30C_STEPS
+                e += 1.0 / P30C_STEPS
+                lr = base * (1.0 / size * (e * (size - 1) / P30C_WARMUP
+                                           + 1))
+            elif epoch == P30C_WARMUP:
+                lr = base * (1.0 / (1.0 + (epoch + float(b) / P30C_STEPS)))
+            elif b == 0:
+                lr = base * P30C_DECAY
+            else:
+                out.append((lr, P30C_MOMENTUM))
+                continue
+            out.append((lr, P30C_MOMENTUM * lr / old))
+    return out
+
+
+def callbacks_loop(hvd, torch, gpu: str, seed: int,
+                   device: str = "cuda") -> dict:
+    """30c: the keras callbacks drive an explicit loop on the card."""
+    import numpy as np
+
+    from horovod_tpu_torch import keras as hk
+    from horovod_tpu_torch.models.mnist import MnistCNN
+    from horovod_tpu_torch.optim import distributed as D
+    from horovod_tpu_torch.optim import fused_update as TF
+
+    model = MnistCNN(device=device, seed=seed)
+    opt = hvd.DistributedOptimizer(torch.optim.SGD(
+        model.parameters(), lr=P30C_LR, momentum=P30C_MOMENTUM))
+    state = hk.TrainingState(model, opt)
+    bcast = []
+    real = D.broadcast_parameters
+    D.broadcast_parameters = lambda *a: bcast.append(a) or real(*a)
+    try:
+        cbs = hk.CallbackList([
+            hk.BroadcastGlobalVariablesCallback(0),
+            hk.MetricAverageCallback(),
+            hk.LearningRateWarmupCallback(warmup_epochs=P30C_WARMUP,
+                                          steps_per_epoch=P30C_STEPS),
+            hk.LearningRateScheduleCallback(
+                lambda e: 1.0 / (1.0 + e), start_epoch=P30C_WARMUP,
+                end_epoch=P30C_WARMUP + 1, staircase=False,
+                steps_per_epoch=P30C_STEPS),
+            hk.LearningRateScheduleCallback(P30C_DECAY,
+                                            start_epoch=P30C_WARMUP + 1)],
+            state)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        xs = torch.rand(P30C_STEPS, P30_BATCH, 28, 28, 1, device=device,
+                        generator=gen)
+        ys = torch.randint(0, 10, (P30C_STEPS, P30_BATCH), device=device,
+                           generator=gen)
+        hp = hk.find_hyperparams(opt)
+        seen, losses = [], []
+        cbs.on_train_begin()
+        for epoch in range(P30C_EPOCHS):
+            cbs.on_epoch_begin(epoch)
+            for b in range(P30C_STEPS):
+                cbs.on_batch_begin(b)
+                inside = (hp["learning_rate"], hp["momentum"])
+                opt.zero_grad()
+                loss = torch.nn.functional.cross_entropy(model(xs[b]), ys[b])
+                loss.backward()
+                opt.step()
+                cbs.on_batch_end(b, {"loss": loss.item()})
+                seen.append((epoch, b, inside, hp["momentum"]))
+            logs = {"loss": loss.item()}
+            cbs.on_epoch_end(epoch, logs)
+            losses.append(logs["loss"])
+    finally:
+        D.broadcast_parameters = real
+    for (epoch, b, (lr, mom), after), (want_lr, want_mom) in zip(
+            seen, _p30c_want()):
+        if lr != want_lr or mom != want_mom or after != P30C_MOMENTUM:
+            raise AssertionError(
+                f"[frontends] 30c epoch {epoch} batch {b}: rate {lr}, "
+                f"momentum {mom} then {after}; the formula gives "
+                f"{want_lr}, {want_mom} then {P30C_MOMENTUM}")
+    if len(bcast) != 1 or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"[frontends] 30c: {len(bcast)} broadcasts, "
+                             f"losses {losses}")
+    fused = TF.sgd(MnistCNN(device=device).parameters(), 0.1,
+                   momentum=0.9)
+    cbs = hk.CallbackList([hk.LearningRateWarmupCallback(
+        warmup_epochs=1, steps_per_epoch=1)],
+        hk.TrainingState(model, hvd.DistributedOptimizer(fused)))
+    try:
+        cbs.on_train_begin()
+    except ValueError as exc:
+        refusal = str(exc)
+    else:
+        raise AssertionError("[frontends] 30c: fused_update.sgd under the "
+                             "callbacks was not refused")
+    log(f"[frontends] 30c the callbacks over {P30C_EPOCHS} epochs x "
+        f"{P30C_STEPS} batches of MnistCNN on the card: every batch's rate "
+        f"and momentum equal to the JAX formula (warmup over {P30C_WARMUP} "
+        f"epochs, 1/(1+e) per batch in epoch {P30C_WARMUP}, then "
+        f"x{P30C_DECAY}), the momentum corrected on each batch the rate was "
+        f"set on and restored after it; rates "
+        f"{[round(s[2][0], 6) for s in seen]}; the broadcast ran once; "
+        f"epoch losses {losses}; fused_update.sgd refused ({refusal[:60]}"
+        f"...); on {gpu}")
+    return {"rates": [s[2][0] for s in seen], "losses": losses,
+            "broadcasts": len(bcast)}
+
+
+def frontend_gates(hvd, torch, gpu: str, device: str = "cuda") -> dict:
+    """30d: the TensorFlow, MXNet and Spark gates on the card, and the
+    numpy bridge the TF and MXNet frontends share."""
+    import importlib.util
+
+    import numpy as np
+
+    import horovod_tpu_torch.mxnet as hmx
+    import horovod_tpu_torch.spark as hspark
+    import horovod_tpu_torch.tensorflow as htf
+    from horovod_tpu_torch.ops import eager as E
+    from horovod_tpu_torch.ops import numpy_bridge as NB
+
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("tensorflow", "mxnet", "pyspark", "ml_dtypes")}
+    if htf.tensorflow_built() != have["tensorflow"] or \
+            hmx.mxnet_built() != have["mxnet"]:
+        raise AssertionError(f"[frontends] 30d: the probes disagree with "
+                             f"the installation {have}")
+    if not have["tensorflow"] and (htf.allreduce is not hvd.allreduce
+                                   or htf.rank is not hvd.rank):
+        raise AssertionError("[frontends] 30d: the TF module's core names "
+                             "are not the port's")
+    if not have["pyspark"]:
+        try:
+            hspark.run(lambda: None, num_proc=1)
+        except ImportError as exc:
+            if "horovod_tpu_torch.estimator" not in str(exc):
+                raise
+        else:
+            raise AssertionError("[frontends] 30d: spark.run ran without "
+                                 "pyspark")
+    rng = np.random.RandomState(0)
+    f32 = rng.randn(3, 257).astype(np.float32)
+    # float32 values a bfloat16 holds exactly
+    bf = (rng.randint(-256, 256, (4, 33)) / 32.0).astype(np.float32)
+    got = {}
+    for name, arr, wire in (("float32", f32, None), ("bf16", bf, "bf16")):
+        t = NB.to_device(arr)
+        if t.device.type != device:
+            raise AssertionError(f"[frontends] 30d: the bridge put {name} "
+                                 f"on {t.device}")
+        if wire:
+            t = t.to(torch.bfloat16)
+        for op, fn in (("allreduce", lambda v: E.allreduce(v, op=E.Sum)),
+                       ("allgather", E.allgather),
+                       ("broadcast", lambda v: E.broadcast(v, 0))):
+            back = NB.to_host(fn(t), np.float32)
+            if back.dtype != np.float32 or not np.array_equal(back, arr):
+                raise AssertionError(f"[frontends] 30d: {name} through "
+                                     f"{op} came back different")
+        got[name] = True
+    if have["ml_dtypes"]:
+        import ml_dtypes
+
+        arr = bf.astype(ml_dtypes.bfloat16)
+        t = NB.to_device(arr)
+        back = NB.to_host(E.allreduce(t, op=E.Sum), arr.dtype)
+        if t.dtype != torch.bfloat16 or back.dtype != arr.dtype or \
+                not np.array_equal(back.view(np.int16), arr.view(np.int16)):
+            raise AssertionError("[frontends] 30d: a bfloat16 array came "
+                                 "back different")
+        got["bfloat16"] = True
+    log(f"[frontends] 30d the probes as installed {have} "
+        f"(tensorflow_built {htf.tensorflow_built()}, mxnet_built "
+        f"{hmx.mxnet_built()}); the core names resolve; spark.run gated; "
+        f"float32 {f32.shape} and bf16-representable {bf.shape} arrays "
+        f"through the bridge to the card (allreduce, allgather, "
+        f"broadcast) and back equal; on {gpu}")
+    return {"installed": have, "bridge": got}
+
+
+def frontends(hvd, torch, gpu: str, work: str, seed: int,
+              device: str = "cuda", **small) -> dict:
+    """Phase 30 (a-d); ``small`` (``model_fn``, ``batch``, ``size``,
+    ``classes``) cuts 30b's model and batch for a CPU rehearsal."""
+    import shutil
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    shutil.rmtree(work, ignore_errors=True)
+    saved = _p30_env(root, device)
+    try:
+        torch.cuda.empty_cache()
+        a = estimator_intrace(torch, gpu, work, seed, device)
+        torch.cuda.empty_cache()
+        b = estimator_torch(torch, gpu, work, seed, device, **small)
+        torch.cuda.empty_cache()
+        hvd.init(device=device)
+        try:
+            c = callbacks_loop(hvd, torch, gpu, seed, device)
+            d = frontend_gates(hvd, torch, gpu, device)
+        finally:
+            hvd.shutdown()
+    finally:
+        _p30_restore(saved)
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"[frontends] phase 30 took {time.perf_counter() - t_phase:.1f} s")
+    return {"a": a, "b": b, "c": c, "d": d}
+
+
 def run(args) -> int:
     t_start = time.perf_counter()
     card = pin_one_card()
@@ -7926,6 +8380,8 @@ def run(args) -> int:
     fleet = fleet_simulator(gpu)
     prof = perf_observatory(hvd, torch, gpu)
     lint = analysis_phase(hvd, torch, gpu)
+    fe = frontends(hvd, torch, gpu, os.path.join(_build.BUILD_DIR,
+                                                 "phase30"), args.seed)
 
     def p24(name: str) -> dict:
         """A kernel's launches in phase 24's and phase 26's runs, as each
@@ -8006,7 +8462,11 @@ def run(args) -> int:
                 "launches_profile": [c["momentum"]
                                      for c in prof["launches"]],
                 # phase 29c, the step under the schedule recorder
-                "launches_analysis": lint["counts"]["momentum"]}
+                "launches_analysis": lint["counts"]["momentum"],
+                # phase 30a, the rank of JaxEstimator.fit("sgd")
+                "launches_estimator": {
+                    "steps": fe["a"]["sgd"]["steps"],
+                    "launches": fe["a"]["sgd"]["launches"]}}
                if kind == "momentum" else {}),
             **({"launches_zero_lm": zero_lm["launches"]["adam"],
                 "zero_tail_launches": zero_tail["adam"],
@@ -8015,7 +8475,11 @@ def run(args) -> int:
                 "launches_ep": mp["ep"]["launches"]["adam"],
                 # phase 18, per emulated rank per step (a, b, c)
                 "launches_pp": {k: pp[k]["launches"]["adam"]
-                                for k in "abc"}}
+                                for k in "abc"},
+                # phase 30a, the rank of JaxEstimator.fit("adam")
+                "launches_estimator": {
+                    "steps": fe["a"]["adam"]["steps"],
+                    "launches": fe["a"]["adam"]["launches"]}}
                if kind == "adam" else {}),
             **({"ms_vgg16": vgg_times["ms"],
                 "plain_ms_vgg16": vgg_times["plain_ms"],
@@ -8165,6 +8629,9 @@ def run(args) -> int:
             "launches_profile": [c[name] for c in prof["launches"]],
             # phase 29c, the step under the schedule recorder
             "launches_analysis": lint["counts"][name],
+            # phase 30b, the rank of TorchEstimator.fit on ResNet-50
+            "launches_estimator": {"steps": fe["b"]["steps"],
+                                   "launches": fe["b"]["launches"][name]},
             "max_abs_err": e["max_abs_err"], "max_ulp": e["max_ulp"],
             "max_err_f64": e["max_err_f64"],
             "plain_err_f64": e["plain_err_f64"],
@@ -8226,6 +8693,12 @@ def run(args) -> int:
         f"{lint['hook_ns']['transfer']['added_ns']:.1f} ns per event); "
         f"shipped/parent-work median step ratio {lint['ratio']:.4f} beside "
         f"the parent-work rounds' {lint['noise']:.4f}; on {gpu}")
+    log(f"[frontends] phase 30: JaxEstimator.fit on MnistCNN "
+        + ", ".join(f"{k} {v['fit_s']:.2f} s" for k, v in fe["a"].items())
+        + f"; TorchEstimator.fit on ResNet-50 {fe['b']['fit_s']:.2f} s, the "
+        f"model's pickle through the KV store {fe['b']['pickle_s']:.3f} s "
+        f"({fe['b']['pickle_bytes']} B), a {fe['b']['ckpt_bytes']} B "
+        f"checkpoint through it {fe['b']['ckpt_s']:.3f} s; on {gpu}")
     log(f"[done] wall time {time.perf_counter() - t_start:.1f} s; CNN paths "
         + "; ".join(f"{n}: median step {r['median_s']:.4f} s, "
                     f"{CNN[n][1] / r['median_s']:.1f} img/s, peak "
@@ -8244,6 +8717,8 @@ def main() -> int:
                     help="also profile a few steps of each path; write the "
                          "profiler's tables to FILE, FILE_vgg16, "
                          "FILE_inception3, FILE_transformer and FILE_long")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of phase 30's synthetic data and weights")
     ap.add_argument("--phase24-worker", nargs=2, metavar=("MODE", "DIR"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args()

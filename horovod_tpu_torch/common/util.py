@@ -63,3 +63,22 @@ def profiler_scope(name: str):
     if torch._C._autograd._profiler_enabled():
         return torch.profiler.record_function(name)
     return contextlib.nullcontext()
+
+
+def validate_warmup_epochs(warmup_epochs) -> None:
+    """Loud failure for callers of the removed ``(initial_lr, epochs)``
+    positional ``LearningRateWarmupCallback`` signature: a fractional
+    count like ``0.001`` is the tell, and would otherwise silently
+    explode the rate on the first batch.  Integer-like values
+    (``np.int64``, ``5.0``) are fine."""
+    import numbers
+
+    integral = (isinstance(warmup_epochs, numbers.Integral)
+                or (isinstance(warmup_epochs, float)
+                    and warmup_epochs.is_integer()))
+    if not integral or warmup_epochs < 1:
+        raise TypeError(
+            f"warmup_epochs must be a positive integer, got "
+            f"{warmup_epochs!r}. (The optimizer should carry the "
+            "size-scaled LR; this callback no longer takes "
+            "initial_lr.)")

@@ -2216,3 +2216,99 @@ def test_four_cards_schedule_lint():
                           f"kernels {v.get('kernels')}"
                           for k, v in o.items() if k not in ("rank", "basic"))
               + f"; on 4 x {card.strip()}")
+
+
+def four_rank_estimators(tmp, device: str) -> dict:
+    """Both estimators at ``num_proc=4`` under ``HOROVOD_COMPRESSION=int8``
+    and ``HOROVOD_FUSED_UPDATE=1``, through the launcher: MnistCNN at its
+    published width (28x28x1, batch 64), 128 seeded rows per rank, 2
+    epochs; ``JaxEstimator("sgd")`` (the in-trace plane) and
+    ``TorchEstimator("sgd")`` (the eager plane).  Every rank's returned
+    state, history and counters, and each fit's seconds."""
+    import os
+    import time
+
+    from horovod_tpu_torch.estimator import (JaxEstimator, LocalStore,
+                                             TorchEstimator)
+    from horovod_tpu_torch.models.mnist import MnistCNN
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    saved = {k: os.environ.get(k) for k in (
+        "HOROVOD_COMPRESSION", "HOROVOD_FUSED_UPDATE", "HOROVOD_PLATFORM",
+        "OMP_NUM_THREADS", "PYTHONPATH")}
+    os.environ.update({"HOROVOD_COMPRESSION": "int8",
+                       "HOROVOD_FUSED_UPDATE": "1",
+                       "PYTHONPATH": repo + os.pathsep
+                       + (saved["PYTHONPATH"] or "")})
+    if device == "cpu":
+        os.environ.update({"HOROVOD_PLATFORM": "cpu", "OMP_NUM_THREADS": "1"})
+    else:
+        os.environ.pop("HOROVOD_PLATFORM", None)
+    rng = np.random.RandomState(4)
+    x = rng.rand(4 * 128, 28, 28, 1).astype(np.float32)
+    y = rng.randint(0, 10, 4 * 128)
+    out = {}
+    try:
+        for name, cls in (("intrace", JaxEstimator),
+                          ("torch", TorchEstimator)):
+            est = cls(model=MnistCNN(device="cpu"), optimizer="sgd",
+                      lr=0.01, store=LocalStore(str(tmp / name)),
+                      num_proc=4, batch_size=64, epochs=2)
+            t0 = time.perf_counter()
+            trained = est.fit(x, y)
+            out[name] = {"fit_s": time.perf_counter() - t0,
+                         "history": trained.history,
+                         "ranks": est.rank_results_,
+                         "steps": 2 * (128 // 64)}
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return out
+
+
+def test_four_cards_estimators(tmp_path):
+    """``JaxEstimator.fit`` and ``TorchEstimator.fit`` at ``num_proc=4``
+    on four cards under ``HOROVOD_COMPRESSION=int8``: the four ranks'
+    returned states equal bit for bit, the histories finite and equal on
+    every rank; from each rank's own counters, in-trace (stage 0 with
+    error feedback, PERF.md's B4/B5 rows) one B1, one B4 and two B5 per
+    step, plus one B4 and one B5 per eager all-reduce response (the
+    epoch's loss average); on the eager plane one B4 and one B5 per
+    fused float response and no B1 (``torch.optim.SGD``)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    import subprocess
+
+    card = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    out = four_rank_estimators(tmp_path, "cuda")
+    for name, r in out.items():
+        ranks = r["ranks"]
+        steps = r["steps"]
+        for state, hist, _, counts in ranks:
+            assert hist == ranks[0][1] and all(map(math.isfinite, hist))
+            assert state.keys() == ranks[0][0].keys()
+            for k, v in state.items():
+                assert torch.equal(v, ranks[0][0][k]), (name, k)
+            n = counts["allreduce_responses"]
+            assert n is not None and n >= 2, (name, counts)
+            if name == "intrace":
+                want = {"momentum": steps, "quantize": steps + n,
+                        "dequantize": 2 * steps + n}
+            else:
+                want = {"momentum": 0, "quantize": n, "dequantize": n}
+            assert {k: counts[k] for k in want} == want, (name, counts)
+            assert all(counts[k] == 0 for k in counts
+                       if k not in want and k != "allreduce_responses"), \
+                (name, counts)
+        print(f"[four cards] {name} estimator: fit {r['fit_s']:.2f} s, "
+              f"{steps} steps per rank, history {r['history']}; per rank "
+              + "; ".join(f"B1 {c['momentum']} B4 {c['quantize']} B5 "
+                          f"{c['dequantize']} over {c['allreduce_responses']}"
+                          f" eager all-reduce responses"
+                          for _, _, _, c in ranks)
+              + f"; on 4 x {card.strip()}")

@@ -1,7 +1,11 @@
 """``horovod_tpu_torch`` stands alone: importing every module of it pulls
 in no JAX-side module (``jax``, ``jaxlib``, ``flax``, ``optax``, or
-``horovod_tpu`` itself), and its entry points refuse to run on a machine
-without a GPU unless the caller asks for the CPU."""
+``horovod_tpu`` itself), with the optional frameworks (tensorflow, keras,
+mxnet, pyspark, pandas) absent as on the card's machine; only the
+modules the JAX package also builds on tensorflow need it.  With
+tensorflow present, the port's TF modules add no JAX-side module of
+their own.  The entry points refuse to run on a machine without a GPU
+unless the caller asks for the CPU."""
 
 import json
 import os
@@ -15,18 +19,41 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = r"""
-import importlib, json, pkgutil, sys
+import importlib, importlib.abc, json, pkgutil, sys
+# the optional frameworks are absent, as on the card's machine (here
+# importing tensorflow would itself pull in jax and pandas)
+OPTIONAL = ("tensorflow", "keras", "mxnet", "pyspark", "pandas")
+
+
+class _Absent(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in OPTIONAL:
+            raise ModuleNotFoundError(f"No module named {name!r}")
+        return None
+
+
+sys.meta_path.insert(0, _Absent())
 import horovod_tpu_torch
 mods = ["horovod_tpu_torch"] + [
     m.name for m in pkgutil.walk_packages(horovod_tpu_torch.__path__,
                                           "horovod_tpu_torch.")]
+failed = {}
 for m in mods:
-    importlib.import_module(m)
-banned = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
+    try:
+        importlib.import_module(m)
+    except ImportError as exc:
+        failed[m] = str(exc)
+banned = ("jax", "jaxlib", "flax", "optax", "horovod_tpu") + OPTIONAL
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in banned)
-print(json.dumps({"modules": mods, "bad": bad}))
+print(json.dumps({"modules": mods, "bad": bad, "failed": failed}))
 """
+
+#: the modules that import tensorflow where the JAX package's do
+#: (``tensorflow/mpi_ops.py``, ``tensorflow/keras/``); a walk without
+#: tensorflow cannot enter ``tensorflow.keras`` to list its callbacks
+NEED_TF = ("horovod_tpu_torch.tensorflow.mpi_ops",
+           "horovod_tpu_torch.tensorflow.keras")
 
 
 def test_no_jax_side_module_is_imported():
@@ -38,6 +65,9 @@ def test_no_jax_side_module_is_imported():
     assert out.returncode == 0, out.stderr[-3000:]
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == [], res["bad"]
+    assert sorted(res["failed"]) == sorted(NEED_TF), res["failed"]
+    for m, msg in res["failed"].items():
+        assert "tensorflow" in msg, (m, msg)
     # every module of the slice was imported
     for m in ("common.types", "common.logging", "common.config",
               "common.util", "common.basics", "ops.compression",
@@ -62,8 +92,45 @@ def test_no_jax_side_module_is_imported():
               "analysis", "analysis.findings", "analysis.allowlist",
               "analysis.knob_lint", "analysis.concurrency_lint",
               "analysis.schedule_lint", "analysis.programs",
-              "analysis.__main__", "parallel.emulated", "common.events"):
+              "analysis.__main__", "parallel.emulated", "common.events",
+              "estimator", "estimator.store", "estimator.dataframe",
+              "estimator.estimator", "spark", "spark.torch", "spark.keras",
+              "keras", "keras.callbacks", "tensorflow", "tensorflow.mpi_ops",
+              "tensorflow.keras", "mxnet", "mxnet.mpi_ops",
+              "ops.numpy_bridge"):
         assert f"horovod_tpu_torch.{m}" in res["modules"]
+
+
+_TF_PROBE = r"""
+import json, sys
+banned = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
+import tensorflow
+before = {m for m in sys.modules if m.split(".")[0] in banned}
+import horovod_tpu_torch.tensorflow as ptf
+import horovod_tpu_torch.tensorflow.keras
+import horovod_tpu_torch.tensorflow.keras.callbacks
+import horovod_tpu_torch.keras
+added = sorted({m for m in sys.modules if m.split(".")[0] in banned}
+               - before)
+print(json.dumps({"added": added, "built": ptf.tensorflow_built()}))
+"""
+
+
+def test_tensorflow_modules_add_no_jax_side_module():
+    """With tensorflow installed: the port's TF modules import, and add
+    no JAX-side module to what importing tensorflow brings itself."""
+    import importlib.util
+
+    if importlib.util.find_spec("tensorflow") is None:
+        pytest.skip("tensorflow is not installed")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-c", _TF_PROBE], env=env,
+                         capture_output=True, text=True, timeout=240,
+                         cwd=REPO)
+    assert out.returncode == 0, out.stderr[-3000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"added": [], "built": True}, res
 
 
 def test_package_shares_no_code_with_the_jax_package():
@@ -84,7 +151,8 @@ def test_package_shares_no_code_with_the_jax_package():
 @pytest.mark.parametrize("entry", ["init", "ResNet50", "synthetic_batch",
                                    "Transformer", "synthetic_tokens",
                                    "VGG16", "InceptionV3", "SmallCNN",
-                                   "MnistCNN", "schedule_pass"])
+                                   "MnistCNN", "schedule_pass",
+                                   "JaxTrainedModel", "TorchTrainedModel"])
 def test_entry_points_raise_without_a_gpu(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     # the suite's conftest exports HOROVOD_PLATFORM=cpu, which init()
@@ -98,6 +166,8 @@ def test_entry_points_raise_without_a_gpu(entry, monkeypatch):
                                                       TransformerConfig)
     from horovod_tpu_torch.models.vgg import VGG16
     from horovod_tpu_torch.analysis import programs
+    from horovod_tpu_torch.estimator import (JaxTrainedModel,
+                                             TorchTrainedModel)
     from horovod_tpu_torch.train_step import synthetic_batch, synthetic_tokens
 
     small = TransformerConfig(vocab=16, d_model=16, n_heads=2, head_dim=8,
@@ -111,7 +181,13 @@ def test_entry_points_raise_without_a_gpu(entry, monkeypatch):
             "InceptionV3": lambda: InceptionV3(num_classes=10),
             "SmallCNN": lambda: SmallCNN(num_classes=10),
             "MnistCNN": lambda: MnistCNN(),
-            "schedule_pass": programs.run}[entry]
+            "schedule_pass": programs.run,
+            "JaxTrainedModel": lambda: JaxTrainedModel(
+                torch.nn.Linear(2, 2), torch.nn.Linear(2, 2).state_dict(),
+                "run", []),
+            "TorchTrainedModel": lambda: TorchTrainedModel(
+                torch.nn.Linear(2, 2), torch.nn.Linear(2, 2).state_dict(),
+                "run", [])}[entry]
     with pytest.raises(hvd.HorovodTpuError, match="device='cpu'"):
         call()
     assert not hvd.is_initialized()
