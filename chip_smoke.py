@@ -444,6 +444,27 @@ Phases (any failure exits non-zero and prints no result line):
    shared numpy bridge to the card (allreduce, allgather, broadcast) and
    back equal (the ``launches_estimator`` key of the kernels line on B1,
    B3 and N1-N4).
+31. the persistent AOT cache (``horovod_tpu_torch/runtime/aot_cache.py``)
+   over the kernel and host-library builds: (a) two children
+   (``--phase31-worker MODE DIR``) against one fresh cache directory,
+   cold then warm, each ``init()`` on the card, the four ``.cu``
+   libraries loaded in parallel (one ``nvcc`` each when cold) and the
+   wire, KV-store and timeline libraries (``g++``); each launches B1 over
+   ResNet-50's 161 leaves, B4/B5 on its fused buffer, B8 at the LM's
+   (192, 1024, 64) bf16 and N1-N4 at ResNet-50's first BatchNorm from a
+   seeded generator, holds each against its plain version at phase 1's
+   tolerances, and reports each output's SHA-256, which must equal the
+   same kernels' in this process (loaded by phase 2 from ``_build/``):
+   cold misses 7 and hits 0, warm hits 7, misses 0 and evictions 0, and
+   the warm child's materializing seconds under half the cold child's;
+   (b) the ``fused_update`` entry truncated and a third child: one
+   eviction, one rebuild, six hits, the same digests; (c) in the cold
+   and warm children, ``compile_or_load`` of a small program on a CUDA
+   tensor in ``exec`` (AOTInductor) and ``export``: a hit the second
+   time, outputs equal to the eager program, warm seconds under the cold
+   (an ``exec`` that cannot build is printed as a failure and ``export``
+   is held alone) (the ``launches_aot_cache`` key of the kernels line on
+   B1, B4, B5, B8 and N1-N4).
 
 Then the run's wall time, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
@@ -8254,6 +8275,323 @@ def frontends(hvd, torch, gpu: str, work: str, seed: int,
     return {"a": a, "b": b, "c": c, "d": d}
 
 
+# phase 31: the libraries a rank loads, in the order a child loads them
+P31_CU = ("fused_update", "flash_attention", "quantization", "batch_norm")
+P31_LIBS = P31_CU + ("_hvdtorchwire", "hvdtorchkv", "hvdtorchtl")
+P31_TAG = "P31"
+P31_SEED = 31
+# the kernels phase 31 launches from cache-loaded libraries
+P31_KERNELS = ("momentum", "quantize", "dequantize", "flash_block_step",
+               *BN_KERNELS)
+P31_PROGRAM, P31_DEPTH = (1024, 1024), 16
+
+
+def _digest(torch, *ts) -> str:
+    """SHA-256 over the bytes of ``ts``: equal digests are equal bits."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.detach().contiguous().reshape(-1).view(torch.uint8)
+                 .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def p31_kernels(torch, TF, Q, FA, BN, shapes, hold: bool) -> dict:
+    """Phase 31's launches from a seeded generator: B1 over ``shapes``
+    (ResNet-50's leaves) in one launch, B4/B5 on the fused buffer at
+    qmax 127, B8 from a fresh state at the LM's shape, N1-N4 at
+    ResNet-50's first BatchNorm; each output's SHA-256, the launches
+    (read before any comparison), and with ``hold`` each held against
+    its plain version at phase 1's tolerances (B1, B4 and B5 bit for
+    bit; B8 ``ATTN_TOL`` and the bf16 bounds; N1-N4 by ``bn_case``'s
+    rules, on its own inputs)."""
+    gen = torch.Generator(device="cuda").manual_seed(P31_SEED)
+
+    def randn(*s):
+        return torch.randn(*s, device="cuda", generator=gen)
+
+    dig, errs = {}, {}
+    grads = [randn(s) for s in shapes]
+    ts = [randn(s) for s in shapes]
+    before = [t.clone() for t in ts] if hold else None
+    us, t2 = TF.momentum_update_multi(grads, ts, 1, 0.9, -0.1)
+    dig["momentum"] = _digest(torch, *us, *t2)
+    if hold:
+        res = {"momentum": {"max_abs_err": 0.0, "max_ulp": 0}}
+        want = zip(*[TF.momentum_plain(g, t, 1, 0.9, -0.1)
+                     for g, t in zip(grads, before)])
+        for gl, wl in zip((us, t2), want):
+            _hold_ulp(res, "momentum", gl, wl, 0, "phase 31 B1")
+        errs["momentum"] = res["momentum"]["max_abs_err"]
+    del grads, ts, before, us, t2
+    x2d, _ = Q._to_blocks(randn(N_PARAMS), QBLOCK)
+    s = Q._scales(Q.block_absmax(x2d), 127)
+    q = Q.quantize_values(x2d, s, 127)
+    d = Q.dequantize_values(q, s)
+    dig["quantize"] = _digest(torch, q)
+    dig["dequantize"] = _digest(torch, d)
+    if hold:
+        res = dict.fromkeys(CODECS, 0.0)
+        _hold_bits(res, "quantize", q, Q.quantize_plain(x2d, s, 127),
+                   "phase 31 B4")
+        _hold_bits(res, "dequantize", d, Q.dequantize_plain(q, s),
+                   "phase 31 B5")
+        errs.update(quantize=res["quantize"], dequantize=res["dequantize"])
+    del x2d, s, q, d
+    qkv = _attn_inputs(torch, ATTN_SHAPE, torch.bfloat16, gen)[:3]
+    st = FA.flash_block_step(*qkv, *_fresh(torch, *ATTN_SHAPE), 0, 0)
+    dig["flash_block_step"] = _digest(torch, *st)
+    if hold:
+        res = _flash_res()
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            want = FA.flash_block_step_plain(
+                *qkv, *_fresh(torch, *ATTN_SHAPE), 0, 0, True)
+            _hold_state(FA, torch, res, st, want, torch.bfloat16,
+                        "phase 31 B8")
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+        errs["flash_block_step"] = res["flash_block_step"]["max_abs_err"]
+    del qkv, st
+    m, c = BN_SHAPES["ResNet-50 bn_init"]
+    x = (randn(m, c) * 1.5 + randn(c)).to(torch.bfloat16)
+    dy = randn(m, c).to(torch.bfloat16)
+    scale, bias = 1 + 0.1 * randn(c), 0.1 * randn(c)
+    ra = (0.1 * randn(c), 1 + 0.1 * randn(c).abs())
+    mean, var, rstd = BN.bn_stats(x, 1e-5, 0.9, *ra)
+    y = BN.bn_normalize(x, mean, rstd, scale, bias)
+    db, ds = BN.bn_bwd_reduce(dy, x, mean, rstd)
+    dx = BN.bn_bwd_dx(dy, x, mean, rstd, scale, db, ds)
+    dig.update(bn_stats=_digest(torch, mean, var, rstd, *ra),
+               bn_normalize=_digest(torch, y),
+               bn_bwd_reduce=_digest(torch, db, ds),
+               bn_bwd_dx=_digest(torch, dx))
+    del x, dy, y, dx
+    # read before bn_case, whose own launches are comparisons
+    counts = {**TF.LAUNCHES, **Q.LAUNCHES, **FA.LAUNCHES, **BN.LAUNCHES}
+    launches = {k: counts[k] for k in P31_KERNELS}
+    if hold:
+        res = _bn_res()
+        bn_case(BN, torch, res, (m, c), torch.bfloat16, 1e-5, 0.9, True, gen,
+                "phase 31")
+        errs.update({k: res[k]["max_abs_err"] for k in BN_KERNELS})
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"digest": dig, "max_abs_err": errs, "launches": launches}
+
+
+def _p31_program(torch, A, fmt: str) -> dict:
+    """31c: ``compile_or_load`` of ``P31_DEPTH`` elementwise layers on a
+    CUDA tensor in ``fmt`` (exact in float32 in any fusion: ``2t`` is
+    exact); the counters' deltas, the seconds (the process's first
+    export or load included, as a restart pays it), whether the output
+    equals the eager program's bit for bit, and the compile's error when
+    no entry was written."""
+    os.environ["HOROVOD_AOT_CACHE_MODE"] = fmt
+    x = torch.randn(*P31_PROGRAM, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(
+                        P31_SEED))
+
+    def build():
+        def program(t):
+            for _ in range(P31_DEPTH):
+                t = torch.relu(t * 2 + 1) - 0.5
+            return t
+
+        return program
+
+    key = ("p31c", fmt, P31_PROGRAM)
+    s0, t0 = A.stats(), time.perf_counter()
+    fn = A.compile_or_load(key, build, [x])
+    y = fn(x)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    s1 = A.stats()
+    out = {"seconds": secs, "equal": bool(torch.equal(y, build()(x))),
+           **{k: s1[k] - s0[k] for k in ("hits", "misses", "evictions")},
+           "entry": os.path.exists(A.entry_path(key))}
+    if not out["entry"]:
+        from horovod_tpu_torch.runtime import flight
+
+        failed = [e for e in flight.recorder().snapshot()
+                  if e["kind"] == "aot" and e.get("event") == "uncached"]
+        out["error"] = (failed[-1]["error"] if failed
+                        else "no entry was written")
+    return out
+
+
+def _p31_worker(mode: str, d: str) -> int:
+    """One child of phase 31 (``--phase31-worker MODE DIR``): ``init()``
+    on the card with ``HOROVOD_AOT_CACHE_DIR`` set, the seven libraries
+    loaded (the four ``.cu`` in parallel), the cache's counters and each
+    library's seconds read, then :func:`p31_kernels`; ``cold`` and
+    ``warm`` also run 31c's programs.  Prints one JSON line."""
+    pin_one_card()
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import _build
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.ops import batch_norm as BN
+    from horovod_tpu_torch.ops import flash_attention as FA
+    from horovod_tpu_torch.ops import quantization as Q
+    from horovod_tpu_torch.optim import fused_update as TF
+    from horovod_tpu_torch.runtime import aot_cache as A
+    from horovod_tpu_torch.runtime import kvstore, wire
+
+    hvd.init()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(P31_CU)) as pool:
+        list(pool.map(_build.load, P31_CU))
+    _build.load_host_extension("_hvdtorchwire", "wire.cc")
+    kvstore._load()
+    _build.load_host_library("hvdtorchtl", "timeline.cc")
+    load_s = time.perf_counter() - t0
+    if not wire.native_loaded():
+        raise AssertionError("phase 31: the wire codec did not load")
+    rec = {"mode": mode, "load_s": load_s, "stats": A.stats(),
+           "libs": {n: {k: _build.build_info[n][k]
+                        for k in ("seconds", "hit", "entry")}
+                    for n in P31_LIBS}}
+    shapes = [tuple(p.shape) for p in ResNet50(device="cpu").parameters()]
+    for mod in (TF, Q, FA, BN):
+        mod.reset_launch_counts()
+    rec["kernels"] = p31_kernels(torch, TF, Q, FA, BN, shapes, True)
+    rec["launches"] = rec["kernels"]["launches"]
+    if mode in ("cold", "warm"):
+        rec["programs"] = {f: _p31_program(torch, A, f)
+                           for f in os.environ["P31_FORMATS"].split(",")}
+    hvd.shutdown()
+    print(json.dumps({P31_TAG: rec}), flush=True)
+    return 0
+
+
+def _p31_child(mode: str, d: str, cache: str,
+               formats: str = "export,exec") -> dict:
+    """Run one phase-31 child; its JSON record and wall time.  ``formats``
+    are the program formats 31c runs in it."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env.pop("HOROVOD_AOT_CACHE_MODE", None)
+    env.update({"PYTHONPATH": root + os.pathsep + env.get("PYTHONPATH", ""),
+                "HOROVOD_AOT_CACHE_DIR": cache, "P31_FORMATS": formats})
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--phase31-worker",
+         mode, d], env=env, capture_output=True, text=True, timeout=600,
+        cwd=root)
+    wall = time.perf_counter() - t0
+    recs = [json.loads(ln)[P31_TAG] for ln in proc.stdout.splitlines()
+            if ln.startswith("{") and P31_TAG in ln]
+    if proc.returncode != 0 or len(recs) != 1:
+        raise AssertionError(f"phase 31 {mode} child: rc {proc.returncode}"
+                             f"\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-6000:]}")
+    rec = recs[0]
+    rec["wall_s"] = wall
+    s = rec["stats"]
+    log(f"[aot] 31 {mode}: child {wall:.1f} s; libraries in "
+        f"{rec['load_s']:.3f} s; hits {s['hits']} misses {s['misses']} "
+        f"evictions {s['evictions']}; cold {s['compile_s_cold']:.4f} s, "
+        f"warm {s['compile_s_warm']:.4f} s; per library "
+        + ", ".join(f"{n} {v['seconds']:.4f} s"
+                    f"{' (hit)' if v['hit'] else ''}"
+                    for n, v in rec["libs"].items()))
+    return rec
+
+
+def _p31_hold(rec: dict, want: dict, hits: int, misses: int,
+              evictions: int) -> None:
+    s, mode = rec["stats"], rec["mode"]
+    got = (s["hits"], s["misses"], s["evictions"])
+    if got != (hits, misses, evictions):
+        raise AssertionError(f"phase 31 {mode}: (hits, misses, evictions) "
+                             f"{got}, want {(hits, misses, evictions)}")
+    for k, v in want["digest"].items():
+        if rec["kernels"]["digest"][k] != v:
+            raise AssertionError(
+                f"phase 31 {mode}: {k} from the cache-loaded library "
+                "differs from this process's (loaded from _build/)")
+    # one launch of each kernel, from the cache-loaded libraries
+    if rec["launches"] != dict.fromkeys(P31_KERNELS, 1):
+        raise AssertionError(f"phase 31 {mode}: launches {rec['launches']}")
+
+
+def aot_cache_phase(hvd, torch, gpu: str, work: str) -> dict:
+    """Phase 31: the AOT cache over the port's builds (see the module
+    docstring); returns the three children's records and the summary."""
+    import shutil
+
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.ops import batch_norm as BN
+    from horovod_tpu_torch.ops import flash_attention as FA
+    from horovod_tpu_torch.ops import quantization as Q
+    from horovod_tpu_torch.optim import fused_update as TF
+
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cache = os.path.join(work, "aot")
+    shapes = [tuple(p.shape) for p in ResNet50(device="cpu").parameters()]
+    # this process's libraries are phase 2's, built into _build/
+    want = p31_kernels(torch, TF, Q, FA, BN, shapes, False)
+    torch.cuda.empty_cache()
+    n = len(P31_LIBS)
+    cold = _p31_child("cold", work, cache)
+    _p31_hold(cold, want, 0, n, 0)
+    # a format that failed cold is not built again warm (it would fail
+    # again, uncached): 31c then holds the other alone
+    formats = [f for f, r in cold["programs"].items() if not r.get("error")]
+    warm = _p31_child("warm", work, cache, ",".join(formats))
+    _p31_hold(warm, want, n, 0, 0)
+    cold_s = cold["stats"]["compile_s_cold"] + cold["stats"]["compile_s_warm"]
+    warm_s = warm["stats"]["compile_s_cold"] + warm["stats"]["compile_s_warm"]
+    if not warm_s < cold_s / 2:
+        raise AssertionError(f"phase 31: warm {warm_s:.4f} s is not under "
+                             f"half the cold {cold_s:.4f} s")
+    entry = cold["libs"]["fused_update"]["entry"]
+    with open(entry, "rb") as f:
+        data = f.read()
+    with open(entry, "wb") as f:
+        f.write(data[:len(data) // 3])
+    evict = _p31_child("evict", work, cache)
+    _p31_hold(evict, want, n - 1, 1, 1)
+    if evict["libs"]["fused_update"]["hit"]:
+        raise AssertionError("phase 31b: the truncated entry was loaded")
+    programs = {}
+    for fmt, c in cold["programs"].items():
+        if c.get("error"):
+            programs[fmt] = {"cold_s": c["seconds"], "warm_s": None,
+                             "error": c["error"]}
+            if fmt == "export" or not c["equal"]:
+                raise AssertionError(f"phase 31c {fmt}: {c}")
+            log(f"[aot] 31c: exec (AOTInductor) FAILED on {gpu}; the "
+                f"program ran eagerly, uncached, in {c['seconds']:.1f} s: "
+                f"{c['error']}")
+            continue
+        w = warm["programs"][fmt]
+        programs[fmt] = {"cold_s": c["seconds"], "warm_s": w["seconds"],
+                         "error": None}
+        ok = (c["misses"] == 1 and c["hits"] == 0 and c["entry"]
+              and w["hits"] == 1 and w["misses"] == 0 and c["equal"]
+              and w["equal"] and w["seconds"] < c["seconds"])
+        if not ok:
+            raise AssertionError(f"phase 31c {fmt}: cold {c}, warm {w}")
+        log(f"[aot] 31c {fmt}: cold {c['seconds']:.4f} s (a miss), warm "
+            f"{w['seconds']:.4f} s (a hit), outputs equal to the eager "
+            f"program's")
+    log(f"[aot] phase 31: cold {cold_s:.4f} s of builds ({n} misses), warm "
+        f"{warm_s:.4f} s of loads ({n} hits), ratio {warm_s / cold_s:.5f}; "
+        f"31b one eviction and one rebuild ({evict['stats']['compile_s_cold']:.4f}"
+        f" s), the same digests; on {gpu}")
+    return {"cold": cold, "warm": warm, "evict": evict,
+            "cold_s": cold_s, "warm_s": warm_s, "programs": programs,
+            "max_abs_err": {k: max(r["kernels"]["max_abs_err"][k]
+                                   for r in (cold, warm, evict))
+                            for k in P31_KERNELS}}
+
+
 def run(args) -> int:
     t_start = time.perf_counter()
     card = pin_one_card()
@@ -8382,6 +8720,8 @@ def run(args) -> int:
     lint = analysis_phase(hvd, torch, gpu)
     fe = frontends(hvd, torch, gpu, os.path.join(_build.BUILD_DIR,
                                                  "phase30"), args.seed)
+    aot = aot_cache_phase(hvd, torch, gpu,
+                          os.path.join(_build.BUILD_DIR, "phase31"))
 
     def p24(name: str) -> dict:
         """A kernel's launches in phase 24's and phase 26's runs, as each
@@ -8396,6 +8736,14 @@ def run(args) -> int:
                        apl["a"]["launches"].items()},
                     "apdrain": apl["b"]["launches"][name]}}
 
+    def p31(name: str) -> dict:
+        """A kernel's launches in phase 31's children, if it ran there."""
+        if name not in P31_KERNELS:
+            return {}
+        return {"launches_aot_cache": {m: aot[m]["launches"][name]
+                                       for m in ("cold", "warm", "evict")},
+                "max_abs_err_aot_cache": aot["max_abs_err"][name]}
+
     launches = {**path["launches"], **lm["launches"],
                 "sgd": sgd["launches"]["sgd"]}
     kernels = []
@@ -8404,7 +8752,7 @@ def run(args) -> int:
         n_el = sum(math.prod(s) for s in shapes[kind])
         model = "transformer" if kind == "adam" else "ResNet-50"
         kernels.append({
-            **p24(kind),
+            **p24(kind), **p31(kind),
             "name": f"fused_update.{kind}",
             "route": "cuda",
             "source": "horovod_tpu_torch/csrc/fused_update.cu",
@@ -8495,7 +8843,7 @@ def run(args) -> int:
     for name in FLASH:
         t, tl = timings[name], long_times[name]
         kernels.append({
-            **p24(name),
+            **p24(name), **p31(name),
             "name": f"flash_attention.{name}",
             "route": "cuda",
             "source": "horovod_tpu_torch/csrc/flash_attention.cu",
@@ -8547,7 +8895,7 @@ def run(args) -> int:
     for kind in CODECS:
         t, tl = (codec_times[kind][k] for k in CODEC_BUFFERS)
         kernels.append({
-            **p24(kind),
+            **p24(kind), **p31(kind),
             "name": f"quantization.{kind}",
             "route": "cuda",
             "source": "horovod_tpu_torch/csrc/quantization.cu",
@@ -8601,7 +8949,7 @@ def run(args) -> int:
         t, ti = (bn_times[name][k] for k in BN_TIMED)
         e = bn_errs[name]
         kernels.append({
-            **p24(name),
+            **p24(name), **p31(name),
             "name": f"batch_norm.{name}",
             "route": "cuda",
             "source": "horovod_tpu_torch/csrc/batch_norm.cu",
@@ -8699,6 +9047,13 @@ def run(args) -> int:
         f"model's pickle through the KV store {fe['b']['pickle_s']:.3f} s "
         f"({fe['b']['pickle_bytes']} B), a {fe['b']['ckpt_bytes']} B "
         f"checkpoint through it {fe['b']['ckpt_s']:.3f} s; on {gpu}")
+    log(f"[aot] phase 31: library builds {aot['cold_s']:.4f} s cold, "
+        f"{aot['warm_s']:.4f} s warm; programs "
+        + ", ".join(f"{f} FAILED ({v['cold_s']:.3f} s, uncached)"
+                    if v["error"] else f"{f} {v['cold_s']:.3f} s cold, "
+                    f"{v['warm_s']:.4f} s warm"
+                    for f, v in aot["programs"].items())
+        + f"; on {gpu}")
     log(f"[done] wall time {time.perf_counter() - t_start:.1f} s; CNN paths "
         + "; ".join(f"{n}: median step {r['median_s']:.4f} s, "
                     f"{CNN[n][1] / r['median_s']:.1f} img/s, peak "
@@ -8721,9 +9076,13 @@ def main() -> int:
                     help="seed of phase 30's synthetic data and weights")
     ap.add_argument("--phase24-worker", nargs=2, metavar=("MODE", "DIR"),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--phase31-worker", nargs=2, metavar=("MODE", "DIR"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.phase24_worker:
         return _p24_worker(*args.phase24_worker)
+    if args.phase31_worker:
+        return _p31_worker(*args.phase31_worker)
     try:
         return run(args)
     except Exception:

@@ -23,9 +23,8 @@ counterpart of what it checks:
   globals rebound by functions, instance attributes built lazily
   under an ``if`` on themselves); a knob read into such a value that
   its key (the subscript, the guard) cannot see is flagged.
-* ``KNOB-AOT-KEY`` — an AOT cache must key on ``round0_cfg()``; the
-  port has no ``runtime/aot_cache.py`` yet, so it is reported (and
-  allowlisted) until one lands.
+* ``KNOB-AOT-KEY`` — the AOT cache (``runtime/aot_cache.py``) must
+  key its programs on ``round0_cfg()``.
 * ``KNOB-CLI-REGISTRY`` — ``run/launcher.py`` builds its flags from
   the registry.
 * ``KNOB-BENCH-DRIFT`` — the bench scripts that the benchmark's

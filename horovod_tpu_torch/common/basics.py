@@ -284,8 +284,8 @@ def _close_timeline() -> None:
 
 def _start_observability() -> None:
     """The metrics plane's topology gauges and per-rank endpoint, the
-    fatal-signal dump handlers and the ``init`` flight record
-    (``horovod_tpu/common/basics.py:248-300``)."""
+    fatal-signal dump handlers, the ``init`` flight record and the AOT
+    cache's announcement (``horovod_tpu/common/basics.py:248-300``)."""
     from horovod_tpu_torch.runtime import flight as _flight
     from horovod_tpu_torch.runtime import metrics as _metrics
 
@@ -305,6 +305,18 @@ def _start_observability() -> None:
     _flight.install_signal_handlers()
     _flight.record("init", rank=_state.rank, size=_state.size,
                    generation=_state.epoch)
+    # The persistent AOT cache: nothing to open (entries are keyed per
+    # library or program on demand), but the operator should see where
+    # warm starts come from, and a re-init announces under the new
+    # topology (horovod_tpu/common/basics.py:280-295).
+    from horovod_tpu_torch.runtime import aot_cache as _aot
+
+    if _aot.enabled():
+        _log.info(f"aot-cache: {_aot.cache_dir()} (mode={_aot.mode()}) — "
+                  "kernel and host libraries load from cache when keys "
+                  "match", rank=_state.rank)
+        _flight.record("aot", event="enabled", dir=_aot.cache_dir(),
+                       mode=_aot.mode())
 
 
 def _apply_mesh_arg(mesh) -> None:

@@ -516,6 +516,28 @@ _KNOBS: dict[str, Knob] = {
         "Deadline of the bounded teardown of the process groups (an "
         "elastic re-form) and of the launcher's TERM -> KILL "
         "escalation."),
+    "aot_cache_dir": Knob(
+        "HOROVOD_AOT_CACHE_DIR", "", str,
+        "Persistent AOT cache (runtime/aot_cache.py): the CUDA kernel "
+        "and host-library builds (nvcc, g++) are stored here keyed by "
+        "source, flags, compiler identity and the torch/CUDA/Triton "
+        "versions, and programs given to compile_or_load by (round-0 "
+        "cfg vector, topology, versions, program key), so a restart "
+        "or elastic re-form loads them instead of building again.  "
+        "Fail-closed: an unreadable, version-skewed, wrong-key or "
+        "hash-mismatched entry, or one that fails to load, is evicted "
+        "and rebuilt; a stale artifact never runs.  Empty (default) "
+        "disables.  Inspect/prune with `python -m "
+        "horovod_tpu_torch.runtime.aot_cache list|info|prune|clear`.",
+        cli="--aot-cache-dir", config_key="aot_cache.dir"),
+    "aot_cache_mode": Knob(
+        "HOROVOD_AOT_CACHE_MODE", "auto", str,
+        "AOT cache format of programs: auto (default: 'exec'), exec (an "
+        "AOTInductor package: warm loads skip compilation), export (a "
+        "torch.export program: warm loads skip tracing only), off "
+        "(disable even when HOROVOD_AOT_CACHE_DIR is set).  Libraries "
+        "are stored as their bytes in every mode but off.",
+        cli="--aot-cache-mode", config_key="aot_cache.mode"),
     "metrics_publish_interval": Knob(
         "HOROVOD_METRICS_PUBLISH_INTERVAL", 5.0, float,
         "Seconds between each rank's metric-snapshot publishes into the "

@@ -1056,9 +1056,15 @@ def _apply_roster(state: ElasticState, roster: dict, mine: dict,
     """Everyone: tear the old world down (unless the caller did),
     re-init on the roster's generation (on the same device: a process
     keeps its card), resync state from the new rank 0.  Returns the
-    phase split (teardown / init / resync seconds) for the reform_done
-    record."""
+    phase split (teardown / init / resync seconds, and the compile
+    seconds and AOT cache hits across the re-form) for the reform_done
+    record.  A survivor keeps the libraries it loaded, so its own
+    re-form reads 0 and 0; a joiner's loads count at its first
+    ``init()``."""
     global _held_coord
+    from horovod_tpu_torch.runtime import aot_cache as _aot
+
+    aot0 = _aot.stats()
     n, gen = int(roster["size"]), int(roster["gen"])
     st = _basics.state()
     device = st.device
@@ -1085,10 +1091,15 @@ def _apply_roster(state: ElasticState, roster: dict, mine: dict,
             _held_coord = None
     t_resync = time.monotonic()
     _resync(state)
+    aot1 = _aot.stats()
     return {
         "teardown_s": round(teardown_s, 3),
         "init_s": round(t_resync - t_init, 3),
         "resync_s": round(time.monotonic() - t_resync, 3),
+        "compile_s": round(
+            (aot1["compile_s_cold"] + aot1["compile_s_warm"])
+            - (aot0["compile_s_cold"] + aot0["compile_s_warm"]), 3),
+        "aot_hits": aot1["hits"] - aot0["hits"],
     }
 
 

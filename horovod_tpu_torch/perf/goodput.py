@@ -11,9 +11,9 @@ a per-rank **wall-clock ledger** that classifies every second of a run
 into exclusive phases:
 
 * ``init``        — framework/runtime bring-up (``hvd.init()``);
-* ``compile``     — program materialization (``span("compile")``;
-  the ``hvd_compile_seconds_total`` counter stays at 0 in the port,
-  which has no negotiated-program compile);
+* ``compile``     — materialization (``span("compile")``; the
+  ``hvd_compile_seconds_total`` counter counts the CUDA kernel and
+  host-library builds and AOT cache loads of ``_build.py``);
 * ``input_wait``  — the training thread starved on the input pipeline
   (the ``hvd.data_wait()`` span / iterator-wrapper hook — the
   bottleneck the device observatory cannot see);
@@ -80,8 +80,8 @@ def _metrics():
 
 
 def _compile_counter_total() -> float:
-    """The negotiated-program compile wall (cold + warm paths; 0 in the
-    port)."""
+    """The kernel and host-library build wall (cold + warm paths,
+    ``runtime/aot_cache.py``)."""
     try:
         return float(_metrics().counter("hvd_compile_seconds_total")
                      .total())

@@ -404,10 +404,10 @@ _DATA_WAIT = counter(
     "(hvd.data_wait() spans / hvd.wrap_data_loader) — the bottleneck "
     "the device observatory cannot see (docs/goodput.md).")
 
-# Registered at 0 for the goodput ledger's compile split: the JAX
-# package counts its negotiated-program builds here; the port has no
-# such compile (cuDNN's autotuning is not one), so nothing increments
-# it.
+# The goodput ledger's compile split: runtime/aot_cache.py counts the
+# kernel and host-library builds here (and the programs given to its
+# compile_or_load); cuDNN's autotuning is not one.  The help text is the
+# JAX package's.
 _COMPILE = counter(
     "hvd_compile_seconds_total",
     "Wall seconds spent materializing negotiated programs, labeled "
@@ -424,7 +424,7 @@ _open_steps = 0
 
 
 def _compile_total() -> float:
-    """Negotiated-program compile wall (the aot_cache cold/warm
+    """Library and program build wall (the aot_cache cold/warm
     counter) — trace_step samples it to attribute in-step compiles on
     the goodput ledger."""
     return _COMPILE.total()

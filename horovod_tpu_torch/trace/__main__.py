@@ -3,9 +3,9 @@
 ``merge`` aligns rank clocks, writes one Perfetto/Chrome trace JSON
 (open in https://ui.perfetto.dev or chrome://tracing) and prints the
 straggler / critical-path / death report; ``analyze`` prints the
-report alone (see docs/flight-recorder.md).  The JAX package's
-``aot-cache`` subcommand inspects its AOT executable cache, whose
-counterpart is ROADMAP.md Queue A item 12i: here it exits 2 naming it.
+report alone (see docs/flight-recorder.md).  ``aot-cache`` delegates
+to :func:`horovod_tpu_torch.runtime.aot_cache.main` (``list``,
+``info``, ``prune``, ``clear``).
 """
 
 from __future__ import annotations
@@ -45,11 +45,11 @@ def main(argv=None) -> int:
     if argv is None:
         argv = sys.argv[1:]
     if argv and argv[0] in ("aot-cache", "aot_cache"):
-        print(f"python -m horovod_tpu_torch.trace {argv[0]}: not ported "
-              "yet; the AOT cache's torch.compile/torch.export "
-              "counterpart is ROADMAP.md Queue A item 12i",
-              file=sys.stderr)
-        return 2
+        # Sibling CLI: inspect/prune the persistent AOT cache with the
+        # same entry-point ergonomics.
+        from horovod_tpu_torch.runtime.aot_cache import main as _aot_main
+
+        return _aot_main(argv[1:])
     from horovod_tpu_torch.trace.analyze import analyze, format_report
     from horovod_tpu_torch.trace.merge import (compute_offsets, load_dumps,
                                          merge)

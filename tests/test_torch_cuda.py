@@ -2312,3 +2312,141 @@ def test_four_cards_estimators(tmp_path):
                           f" eager all-reduce responses"
                           for _, _, _, c in ranks)
               + f"; on 4 x {card.strip()}")
+
+
+_AOT_WORKER = r"""
+import hashlib, json, time
+from concurrent.futures import ThreadPoolExecutor
+
+import torch
+
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch import _build
+from horovod_tpu_torch.models.resnet import ResNet50
+from horovod_tpu_torch.optim import fused_update as TF
+from horovod_tpu_torch.runtime import aot_cache, kvstore, wire
+
+hvd.init()
+dev = hvd.device()
+t0 = time.perf_counter()
+cu = ("fused_update", "flash_attention", "quantization", "batch_norm")
+with ThreadPoolExecutor(len(cu)) as pool:
+    list(pool.map(_build.load, cu))
+_build.load_host_extension("_hvdtorchwire", "wire.cc")
+kvstore._load()
+_build.load_host_library("hvdtorchtl", "timeline.cc")
+load_s = time.perf_counter() - t0
+assert wire.native_loaded()
+# B1 over ResNet-50's 161 leaves from the same seed on every rank
+gen = torch.Generator(device=dev).manual_seed(26)
+shapes = [tuple(p.shape) for p in ResNet50(device="cpu").parameters()]
+grads = [torch.randn(s, device=dev, generator=gen) for s in shapes]
+ts = [torch.randn(s, device=dev, generator=gen) for s in shapes]
+TF.reset_launch_counts()
+us, t2 = TF.momentum_update_multi(grads, ts, 1, 0.9, -0.1)
+launches = TF.LAUNCHES["momentum"]
+h = hashlib.sha256()
+for t in (*us, *t2):
+    h.update(t.contiguous().reshape(-1).view(torch.uint8).cpu().numpy()
+             .tobytes())
+print(json.dumps({"AOT": {
+    "rank": hvd.rank(), "load_s": load_s, "stats": aot_cache.stats(),
+    "hit": {n: i.get("hit") for n, i in _build.build_info.items()},
+    "b1": h.hexdigest(), "b1_launches": launches}}), flush=True)
+hvd.shutdown()
+"""
+
+
+def four_rank_aot_cache(tmp, device: str) -> dict:
+    """A world of 4 launched by ``python -m horovod_tpu_torch.run -np 4
+    --aot-cache-dir D`` twice over one fresh ``D``, cold then warm: each
+    rank loads the four ``.cu`` libraries (in parallel) and the wire,
+    KV-store and timeline libraries, then launches B1 over ResNet-50's
+    leaves from a shared seed.  Each world's rank records and the
+    launcher's wall time."""
+    import json
+    import os
+    import subprocess
+    import sys
+    import time
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = tmp / "aot_worker.py"
+    script.write_text(_AOT_WORKER)
+    env = dict(os.environ)
+    env.update({"PYTHONPATH": repo + os.pathsep + env.get("PYTHONPATH", ""),
+                "HOROVOD_METRICS_PUBLISH_INTERVAL": "0"})
+    env.pop("HOROVOD_AOT_CACHE_DIR", None)
+    env.pop("HOROVOD_AOT_CACHE_MODE", None)
+    if device == "cpu":
+        env.update({"HOROVOD_PLATFORM": "cpu", "OMP_NUM_THREADS": "1"})
+    else:
+        env.pop("HOROVOD_PLATFORM", None)
+    worlds = {}
+    for name in ("cold", "warm"):
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "horovod_tpu_torch.run", "-np", "4",
+             "--aot-cache-dir", str(tmp / "aot"), "--", sys.executable,
+             str(script)], env=env, capture_output=True, text=True,
+            timeout=900, cwd=repo)
+        assert out.returncode == 0, out.stderr[-6000:]
+        recs = []
+        for ln in out.stdout.splitlines():
+            _, _, rest = ln.partition(">:")
+            if rest.startswith("{") and '"AOT"' in rest:
+                recs.append(json.loads(rest)["AOT"])
+        assert len(recs) == 4, out.stdout[-4000:]
+        worlds[name] = {"wall_s": time.perf_counter() - t0,
+                        "ranks": sorted(recs, key=lambda r: r["rank"])}
+    return worlds
+
+
+def test_four_cards_aot_cache(tmp_path):
+    """The AOT cache over a world of four cards: in the cold world each of
+    the seven libraries is built once across the world (one rank misses,
+    under the name's lock; the other three take the lock after it and
+    hit); in the warm world every rank hits all seven and misses none;
+    B1 over ResNet-50's leaves, launched once per rank from the
+    cache-loaded library, is bit for bit rank 0's on every rank in both
+    worlds.  Prints the ranks' build and load seconds."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    import subprocess
+
+    card = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    worlds = four_rank_aot_cache(tmp_path, "cuda")
+    hold_four_rank_aot_cache(worlds, 1)
+    for name, w in worlds.items():
+        print(f"[four cards] aot cache {name}: launcher {w['wall_s']:.1f} s; "
+              + "; ".join(f"rank {r['rank']} libraries {r['load_s']:.3f} s, "
+                          f"hits {r['stats']['hits']} misses "
+                          f"{r['stats']['misses']}, cold "
+                          f"{r['stats']['compile_s_cold']:.4f} s warm "
+                          f"{r['stats']['compile_s_warm']:.4f} s"
+                          for r in w["ranks"])
+              + f"; on 4 x {card.strip()}")
+
+
+def hold_four_rank_aot_cache(worlds: dict, b1_launches: int) -> None:
+    """The four-card test's checks on the two worlds' records
+    (``b1_launches`` is 0 where the ranks run the plain version)."""
+    libs = {"fused_update", "flash_attention", "quantization", "batch_norm",
+            "_hvdtorchwire", "hvdtorchkv", "hvdtorchtl"}
+    cold, warm = worlds["cold"]["ranks"], worlds["warm"]["ranks"]
+    assert sum(r["stats"]["misses"] for r in cold) == len(libs), cold
+    for r in cold:
+        assert set(r["hit"]) == libs, r
+        assert r["stats"]["hits"] + r["stats"]["misses"] == len(libs), r
+        assert r["stats"]["evictions"] == 0, r
+    for n in libs:  # built by exactly one rank
+        assert sorted(r["hit"][n] for r in cold) == [False, True, True,
+                                                     True], n
+    for r in warm:
+        assert r["stats"]["misses"] == 0 and r["stats"]["evictions"] == 0
+        assert r["stats"]["hits"] == len(libs) and all(r["hit"].values())
+    for r in cold + warm:
+        assert r["b1"] == cold[0]["b1"], r["rank"]
+        assert r["b1_launches"] == b1_launches, r

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -600,14 +601,26 @@ def _launch(np_: int, extra_args=(), **env_extra):
 
 
 @pytest.mark.parametrize("stage", ["2", "3"])
-def test_kill_survivors_recut_and_match(stage):
+def test_kill_survivors_recut_and_match(stage, tmp_path):
     out, ev = _launch(3, ("--min-ranks", "2", "--blacklist-cooldown-seconds",
-                          "600"),
+                          "600", "--aot-cache-dir", str(tmp_path / "aot")),
                       HOROVOD_ZERO_STAGE=stage, ELX_TOTAL="8",
                       ELX_KILL_UID="rank2", ELX_KILL_STEP="3")
     assert out.returncode == 0, out.stderr[-4000:]
     assert "rank 2 on localhost died" in out.stderr
     assert 'reason="failure"' in out.stderr
+    # the re-form's el/status carries the compile seconds and AOT hits
+    # across it (horovod_tpu/elastic.py:840-884); the survivors keep the
+    # libraries their first init() loaded, so their re-form loads none
+    status = [ln for ln in out.stderr.splitlines()
+              if "elastic re-form complete" in ln]
+    assert status, out.stderr[-4000:]
+    fields = dict(re.findall(r"(\w+)=(\S+)", status[-1]))
+    assert json.loads(fields["aot_hits"]) == 0
+    assert json.loads(fields["compile_s"]) == 0.0
+    # the ranks loaded the wire codec and the KV store through the cache
+    assert len([n for n in os.listdir(tmp_path / "aot")
+                if n.endswith(".aot")]) == 2
     recut = [e for e in ev if e["event"] == "recut"]
     assert sorted(e["rank"] for e in recut) == [0, 1]
     assert all(e["same"] and e["size"] == 2 for e in recut)

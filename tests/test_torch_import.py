@@ -97,7 +97,7 @@ def test_no_jax_side_module_is_imported():
               "estimator.estimator", "spark", "spark.torch", "spark.keras",
               "keras", "keras.callbacks", "tensorflow", "tensorflow.mpi_ops",
               "tensorflow.keras", "mxnet", "mxnet.mpi_ops",
-              "ops.numpy_bridge"):
+              "ops.numpy_bridge", "runtime.aot_cache"):
         assert f"horovod_tpu_torch.{m}" in res["modules"]
 
 

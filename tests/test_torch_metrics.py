@@ -243,7 +243,8 @@ PORTED = ("runtime/controller.py", "runtime/background.py",
           "optim/local_sgd.py", "perf/goodput.py", "common/basics.py",
           "runtime/health.py", "checkpoint.py", "runtime/kvstore.py",
           "runtime/preemption.py", "elastic.py", "run/launcher.py",
-          "runtime/autopilot.py", "perf/capture.py")
+          "runtime/autopilot.py", "perf/capture.py",
+          "runtime/aot_cache.py")
 
 #: Metrics those modules register that the port leaves out, each with
 #: the ROADMAP.md Queue A item that brings it.
