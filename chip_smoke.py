@@ -41,7 +41,14 @@ Phases (any failure exits non-zero and prints no result line):
    SDPA's backward), and at the long-context shape (12, 8192, 64) beside
    its bound and SDPA; the registers, local memory (stack and spills) and
    shared memory of the bf16 B8, B9 and B10 (``wgmma``) kernels from
-   ``cudaFuncGetAttributes``;
+   ``cudaFuncGetAttributes``, with their tile shapes and ptxas's report,
+   at head dims up to 64, 128, 192 and 256; (4c) the three at head dims
+   192 and 256: bf16 at the transformer example's (64, 1024, D) and f32
+   at (8, 256, D), causal and not, and both dtypes at a ragged causal
+   block (Lq 301, Lk 259) with offsets, against their plain versions at
+   the same tolerances, each timed at (64, 1024, D) bf16 causal beside
+   its bound and SDPA's forward or backward (the ``*_d192`` and
+   ``*_d256`` keys of the kernels line);
 5. a small ResNet, a small transformer and SmallCNN (96 px, batch 2)
    (float32, TF32 off) trained 3 steps on the card through the kernels
    (N1-N4 for the CNNs' BatchNorm) and on the CPU through the plain
@@ -463,8 +470,26 @@ Phases (any failure exits non-zero and prints no result line):
    tensor in ``exec`` (AOTInductor) and ``export``: a hit the second
    time, outputs equal to the eager program, warm seconds under the cold
    (an ``exec`` that cannot build is printed as a failure and ``export``
-   is held alone) (the ``launches_aot_cache`` key of the kernels line on
-   B1, B4, B5, B8 and N1-N4).
+   is held alone; ``exec`` first probes the C++ compilers for an
+   ``-fopenmp`` link and 31c prints each with its result) (the
+   ``launches_aot_cache`` key of the kernels line on B1, B4, B5, B8 and
+   N1-N4).
+32. the example scripts (``horovod_tpu_torch/examples/``), each a child
+   of ``python -m horovod_tpu_torch.run -np 1`` at full width:
+   ``jax_synthetic_benchmark`` at ResNet-50, batch 64, 3 warm-up batches
+   and 3 iterations of 5; ``pytorch_synthetic_benchmark``,
+   ``pytorch_mnist`` and ``jax_mnist`` at their defaults;
+   ``jax_imagenet_resnet50`` at ResNet-50, 224 px, batch 32, 2 epochs of
+   3 steps, then a run to 3 epochs that resumes from its checkpoint;
+   ``transformer_lm`` at dp = tp = sp = 1, d-model 768 (head dim 192),
+   12 layers, seq 1024, batch 16, 10 steps (the two MNIST scripts and
+   the first imagenet run, which print no rate, side by side; the rest
+   one at a time): the reference's printed
+   lines, finite losses, the resume, each run's img/s or tokens/s beside
+   the card's name and power limit, and each run's launches as the
+   script prints them: 53 of each of N1-N4 per ResNet-50 step (and of N2
+   per evaluation batch), 12 of each of B8-B10 per LM step at D = 192
+   (the ``launches_d192`` key of the kernels line).
 
 Then the run's wall time, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
@@ -482,6 +507,7 @@ import argparse
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -543,6 +569,14 @@ FLASH = ("flash_block_step", "flash_bwd_dq", "flash_bwd_dkv")
 # the bf16 kernels on the tensor cores (f32 and the rest run on the CUDA
 # cores)
 TC_KERNELS = FLASH
+#: the head dims above 128 that phase 4c holds and times (192: the
+#: transformer example's at --d-model 768), and its ragged block (bh,
+#: Lq, Lk, q_offset, k_offset)
+WIDE_D = (192, 256)
+WIDE_RAGGED = (3, 301, 259, 40, 3)
+#: the transformer example's attention shape at --d-model 768 (batch 16
+#: x 4 heads, seq 1024, head dim 192)
+WIDE_ATTN_SHAPE = (64, 1024, 192)
 SGD_STEPS = 3
 # bf16: p and ds are rounded to bf16 and the kernels sum in another
 # order, so a value that crosses a rounding boundary moves by one bf16
@@ -1203,17 +1237,18 @@ def _hold_state(FA, torch, res: dict, got, want, dtype, what: str) -> None:
 
 
 def _hold_three(FA, torch, res: dict, q, k, v, do, causal: bool,
-                what: str) -> None:
+                what: str, qo: int = 0, ko: int = 0) -> None:
     """B8 from a fresh state, then B9 and B10 from the lse and delta of
-    the plain B8 state, each against its plain version."""
+    the plain B8 state, each against its plain version, at global
+    offsets ``qo``/``ko``."""
     dtype = q.dtype
     fresh = _fresh(torch, *q.shape)
-    want = FA.flash_block_step_plain(q, k, v, *fresh, 0, 0, causal)
+    want = FA.flash_block_step_plain(q, k, v, *fresh, qo, ko, causal)
     _hold_state(FA, torch, res, FA.flash_block_step(
-        q, k, v, *fresh, 0, 0, causal=causal), want, dtype, f"B8 {what}")
+        q, k, v, *fresh, qo, ko, causal=causal), want, dtype, f"B8 {what}")
     lse, delta = _lse_delta(want, do)
     del want, fresh
-    args = (q, k, v, do, lse, delta, 0, 0)
+    args = (q, k, v, do, lse, delta, qo, ko)
     _hold(FA, torch, res, "flash_bwd_dq",
           FA.flash_bwd_dq(*args, causal=causal),
           FA.flash_bwd_dq_plain(*args, causal), dtype, f"B9 dq {what}")
@@ -1269,6 +1304,44 @@ def attention_checks(FA, torch) -> dict:
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
     return res
+
+
+def wide_attention_checks(FA, torch) -> dict:
+    """Phase 4c: B8-B10 at head dims 192 and 256 (``WIDE_D``) against
+    their plain versions, on standard normal inputs as phase 4a: bf16 at
+    the LM example's shape (64, 1024, D) and f32 at (8, 256, D), causal
+    and not, then both dtypes at a ragged (Lq no multiple of 4) causal
+    block with offsets, at phase 4a's tolerances; each kernel's largest
+    absolute and row errors per head dim."""
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(2027)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for d in WIDE_D:
+            res = out[d] = _flash_res()
+            for dtype, shape in ((torch.bfloat16, (*WIDE_ATTN_SHAPE[:2], d)),
+                                 (torch.float32, (8, 256, d))):
+                q, k, v, do = _attn_inputs(torch, shape, dtype, gen)
+                for causal in (True, False):
+                    _hold_three(FA, torch, res, q, k, v, do, causal,
+                                f"{shape} {str(dtype)[6:]} causal={causal}")
+                del q, k, v, do
+            bh, lq, lk, qo, ko = WIDE_RAGGED
+            for dtype in (torch.bfloat16, torch.float32):
+                q, do = _attn_inputs(torch, (bh, lq, d), dtype, gen)[:2]
+                k, v = _attn_inputs(torch, (bh, lk, d), dtype, gen)[:2]
+                _hold_three(FA, torch, res, q, k, v, do, True,
+                            f"({bh}, {lq}/{lk}, {d}) offsets {qo}/{ko} "
+                            f"{str(dtype)[6:]}", qo, ko)
+            log(f"[attention] D = {d}: B8, B9, B10 agree with their plain "
+                f"versions in bf16 at (64, 1024, {d}) and f32 at (8, 256, "
+                f"{d}), causal and not, and both at a ragged block with "
+                f"offsets; largest errors {res}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    torch.cuda.empty_cache()
+    return out
 
 
 def attention_costs(shape, itemsize: int) -> dict:
@@ -1368,19 +1441,47 @@ def attention_timings(FA, torch, shape, batch: int,
     return out
 
 
-def tc_build_report(FA) -> dict:
+#: the mangled names' stems of the tensor-core kernels, by wrapper
+TC_STEMS = {"flash_block_step": "flash_fwd_tc_kernel",
+            "flash_bwd_dq": "flash_bwd_dq_tc_kernel",
+            "flash_bwd_dkv": "flash_bwd_dkv_tc_kernel"}
+
+
+def ptxas_report(log_text: str) -> dict:
+    """``{entry function: "N bytes stack frame, ... Used R registers"}``
+    from ``nvcc -Xptxas -v``'s log."""
+    out, fn = {}, None
+    for ln in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            fn = m.group(1)
+            out[fn] = ""
+        elif fn and ("stack frame" in ln or "Used" in ln):
+            out[fn] = (out[fn] + " " + ln.split("info    :")[-1].strip()
+                       ).strip()
+    return out
+
+
+def tc_build_report(FA, build_log: str) -> dict:
     """Registers, local memory (stack and spills) and shared memory of
-    the bf16 tensor-core kernels at D <= 64 and D = 128; returns those at
-    the paths' head dim per wrapper name."""
+    the bf16 tensor-core kernels at D <= 64, 128, 192 and 256 with their
+    tile shapes and ptxas's report; returns ``{name: {d: attributes}}``
+    (the paths' head dim's at the top level of each name)."""
     out = {}
+    ptxas = ptxas_report(build_log)
     for name in TC_KERNELS:
-        for d in (64, 128):
+        out[name] = {}
+        for d in (64, 128, *WIDE_D):
             a = FA.tc_kernel_attributes(name, d)
+            stem = TC_STEMS[name] + f"ILi{a['dp']}E"
+            a["ptxas"] = "; ".join(v for k, v in ptxas.items() if stem in k)
             log(f"[build] {name} bf16 kernel at D <= {d}: {a['registers']} "
                 f"registers, {a['local_bytes']} B local memory per thread, "
-                f"{a['smem_bytes']} B dynamic shared memory")
-            if d == LM["head_dim"]:
-                out[name] = a
+                f"{a['smem_bytes']} B dynamic shared memory; tiles "
+                f"{ {k: a[k] for k in ('dp', 'rows', 'tile', 'split')} }; "
+                f"ptxas: {a['ptxas']}")
+            out[name][d] = a
+        out[name].update(out[name][LM["head_dim"]])
     return out
 
 
@@ -8412,6 +8513,8 @@ def _p31_program(torch, A, fmt: str) -> dict:
     out = {"seconds": secs, "equal": bool(torch.equal(y, build()(x))),
            **{k: s1[k] - s0[k] for k in ("hits", "misses", "evictions")},
            "entry": os.path.exists(A.entry_path(key))}
+    if fmt == "exec":  # the C++ compilers the exec format probed
+        out["compiler"] = A.exec_compiler()
     if not out["entry"]:
         from horovod_tpu_torch.runtime import flight
 
@@ -8560,10 +8663,18 @@ def aot_cache_phase(hvd, torch, gpu: str, work: str) -> dict:
     if evict["libs"]["fused_update"]["hit"]:
         raise AssertionError("phase 31b: the truncated entry was loaded")
     programs = {}
+    cxx = cold["programs"].get("exec", {}).get("compiler")
+    if cxx is not None:
+        log(f"[aot] 31c exec: C++ compiler {cxx['chosen']}; probed "
+            + "; ".join(f"{p['cxx']}: "
+                        + ("links -fopenmp" if p["error"] is None
+                           else p["error"].replace("\n", " ")[-300:])
+                        for p in cxx["probes"]))
     for fmt, c in cold["programs"].items():
         if c.get("error"):
             programs[fmt] = {"cold_s": c["seconds"], "warm_s": None,
-                             "error": c["error"]}
+                             "error": c["error"],
+                             "compiler": c.get("compiler")}
             if fmt == "export" or not c["equal"]:
                 raise AssertionError(f"phase 31c {fmt}: {c}")
             log(f"[aot] 31c: exec (AOTInductor) FAILED on {gpu}; the "
@@ -8572,7 +8683,7 @@ def aot_cache_phase(hvd, torch, gpu: str, work: str) -> dict:
             continue
         w = warm["programs"][fmt]
         programs[fmt] = {"cold_s": c["seconds"], "warm_s": w["seconds"],
-                         "error": None}
+                         "error": None, "compiler": c.get("compiler")}
         ok = (c["misses"] == 1 and c["hits"] == 0 and c["entry"]
               and w["hits"] == 1 and w["misses"] == 0 and c["equal"]
               and w["equal"] and w["seconds"] < c["seconds"])
@@ -8590,6 +8701,144 @@ def aot_cache_phase(hvd, torch, gpu: str, work: str) -> dict:
             "max_abs_err": {k: max(r["kernels"]["max_abs_err"][k]
                                    for r in (cold, warm, evict))
                             for k in P31_KERNELS}}
+
+
+# Phase 32: the example scripts (horovod_tpu_torch/examples/), each a
+# child of the port's launcher at -np 1 on the card, at full width:
+# (key, script, arguments).  The runs that print no rate (P32_UNTIMED)
+# run at once, beside each other; the rest one at a time.
+P32_UNTIMED = ("torch_mnist", "mnist", "imagenet")
+P32_RUNS = (
+    ("bench", "jax_synthetic_benchmark",
+     ["--model", "ResNet50", "--batch-size", "64", "--num-warmup-batches",
+      "3", "--num-iters", "3", "--num-batches-per-iter", "5"]),
+    ("torch_bench", "pytorch_synthetic_benchmark", []),
+    ("torch_mnist", "pytorch_mnist", []),
+    ("mnist", "jax_mnist", []),
+    ("imagenet", "jax_imagenet_resnet50",
+     ["--model", "ResNet50", "--image-size", "224", "--batch-size", "32",
+      "--epochs", "2", "--steps-per-epoch", "3"]),
+    # the second imagenet run resumes from the first's checkpoint
+    ("resume", "jax_imagenet_resnet50",
+     ["--model", "ResNet50", "--image-size", "224", "--batch-size", "32",
+      "--epochs", "3", "--steps-per-epoch", "3"]),
+    ("lm", "transformer_lm",
+     ["--dp", "1", "--tp", "1", "--sp", "1", "--d-model", "768",
+      "--n-layers", "12", "--seq", "1024", "--batch", "16", "--steps",
+      "10"]),
+)
+#: the lines each run must print (rank 0's, as the reference prints them)
+P32_LINES = {
+    "bench": ("Model: ResNet50", "Batch size: 64 per device, 1 device(s)",
+              "Img/sec per device", "Total img/sec on 1 device(s)"),
+    "torch_bench": ("Batch size: 32, ranks: 1", "Total img/sec on 1 rank(s)"),
+    "torch_mnist": ("epoch 0 step 0 loss", "epoch 1 mean loss across ranks"),
+    "mnist": ("epoch 0 step 0/32 loss", "epoch 1 mean loss across ranks"),
+    "imagenet": ("epoch 0: train_loss", "epoch 1: train_loss", "done"),
+    "resume": ("resumed from epoch 2", "epoch 2: train_loss", "done"),
+    "lm": ("mesh: dp=1 pp=1 tp=1 sp=1 (1 devices)", "step 0 loss",
+           "step 5 loss", "tokens/sec"),
+}
+P32_BN = ("bn_stats", "bn_normalize", "bn_bwd_reduce", "bn_bwd_dx")
+
+
+def _p32_run(script: str, args, root: str, work: str) -> dict:
+    """One example through ``python -m horovod_tpu_torch.run -np 1``; its
+    wall time, rank 0's lines and its launch line."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    for k in [k for k in env if k.startswith("HOROVOD_")]:
+        env.pop(k)  # this process's knobs are not the example's
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.run", "-np", "1",
+         sys.executable, "-m", f"horovod_tpu_torch.examples.{script}",
+         *args], env=env, capture_output=True, text=True, timeout=600,
+        cwd=work)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 32 {script}: rc {proc.returncode}\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    lines, launches, steps = [], None, None
+    for ln in proc.stdout.splitlines():
+        text = ln.partition(">:")[2] if ln.startswith("[0]<stdout>") else ln
+        m = re.match(r"kernel launches on rank 0 over (\d+) steps: (.*)$",
+                     text)
+        if m:
+            steps, launches = int(m.group(1)), json.loads(m.group(2))
+        else:
+            lines.append(text)
+    if launches is None:
+        raise AssertionError(f"phase 32 {script}: no launch line\n"
+                             f"{proc.stdout[-3000:]}")
+    return {"wall_s": wall, "lines": lines, "launches": launches,
+            "steps": steps}
+
+
+def _p32_rate(lines) -> str:
+    """The run's throughput line(s) (img/sec or tokens/sec)."""
+    return "; ".join(ln for ln in lines if "Total img/sec" in ln
+                     or "tokens/sec" in ln) or "no rate line"
+
+
+def examples_phase(gpu: str, work: str) -> dict:
+    """Phase 32: each example script at full width as a child of the
+    port's launcher on the card (``P32_RUNS``): the printed lines, finite
+    losses, the imagenet resume, and each run's launches: N1-N4 53 per
+    ResNet-50 step (N2 also 53 per evaluation batch), B8-B10 12 per LM
+    step at head dim 192; the other scripts launch no hand kernel (plain
+    optimizer rules, torch.nn layers)."""
+    import shutil
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+
+    def one(run):
+        key, script, args = run
+        ck = (["--checkpoint-dir", os.path.join(work, "ckpts")]
+              if script == "jax_imagenet_resnet50" else [])
+        return key, _p32_run(script, args + ck, root, work)
+
+    t0 = time.perf_counter()
+    untimed = [r for r in P32_RUNS if r[0] in P32_UNTIMED]
+    with ThreadPoolExecutor(len(untimed)) as pool:
+        runs = dict(pool.map(one, untimed))
+    log(f"[examples] 32: {', '.join(runs)} side by side in "
+        f"{time.perf_counter() - t0:.1f} s")
+    runs.update(one(r) for r in P32_RUNS if r[0] not in P32_UNTIMED)
+    out = {}
+    for key, script, args in P32_RUNS:
+        r = out[key] = runs[key]
+        text = "\n".join(r["lines"])
+        for want in P32_LINES[key]:
+            if want not in text:
+                raise AssertionError(f"phase 32 {key}: no line with "
+                                     f"{want!r}\n{text[-3000:]}")
+        losses = [float(v) for v in re.findall(
+            r"(?:loss|loss across ranks:) (-?[0-9.]+|nan|inf)", text)]
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"phase 32 {key}: losses {losses}")
+        r["losses"] = losses
+        n, lc = r["steps"], r["launches"]
+        if key == "bench":
+            want = dict.fromkeys(P32_BN, RESNET50_BN * n)
+        elif key in ("imagenet", "resume"):
+            epochs = 2 if key == "imagenet" else 1  # 2 steps, 1 eval batch
+            want = {**dict.fromkeys(P32_BN, RESNET50_BN * n),
+                    "bn_normalize": RESNET50_BN * (n + epochs)}
+        elif key == "lm":
+            want = dict.fromkeys(FLASH, LM["n_layers"] * n)
+        else:
+            want = {}
+        want = {k: v for k, v in want.items() if v}  # as the line lists them
+        if lc != want:
+            raise AssertionError(f"phase 32 {key}: launches {lc} over {n} "
+                                 f"steps, want {want}")
+        log(f"[examples] 32 {script} {' '.join(args)}: {r['wall_s']:.1f} s "
+            f"through the launcher; {_p32_rate(r['lines'])}; launches {lc} "
+            f"over {n} steps; on {gpu}")
+    return out
 
 
 def run(args) -> int:
@@ -8643,6 +8892,7 @@ def run(args) -> int:
     checks = kernel_checks(TF, torch, shapes["adam"] + lm_shapes(LONG_SEQ),
                            shapes["sgd"], shapes["adam"])
     checks.update(attention_checks(FA, torch))
+    wide_errs = wide_attention_checks(FA, torch)
     codec_errs = codec_checks(Q, torch)
     bn_errs = bn_checks(BN, torch)
     vgg = vgg16_shapes()
@@ -8657,7 +8907,9 @@ def run(args) -> int:
     timings.update(attention_timings(FA, torch, ATTN_SHAPE, LM_BATCH, True))
     long_times = attention_timings(FA, torch, LONG_ATTN_SHAPE, LONG_BATCH,
                                    False)
-    tc_info = tc_build_report(FA)
+    wide_times = {d: attention_timings(FA, torch, (*WIDE_ATTN_SHAPE[:2], d),
+                                       16, True) for d in WIDE_D}
+    tc_info = tc_build_report(FA, _build.build_info["flash_attention"]["log"])
     codec_times = codec_timings(Q, torch)
     bn_times = bn_timings(BN, torch)
     vgg_times = kernel_timings(TF, torch, vgg, ("momentum",))["momentum"]
@@ -8722,6 +8974,7 @@ def run(args) -> int:
                                                  "phase30"), args.seed)
     aot = aot_cache_phase(hvd, torch, gpu,
                           os.path.join(_build.BUILD_DIR, "phase31"))
+    ex = examples_phase(gpu, os.path.join(_build.BUILD_DIR, "phase32"))
 
     def p24(name: str) -> dict:
         """A kernel's launches in phase 24's and phase 26's runs, as each
@@ -8876,7 +9129,26 @@ def run(args) -> int:
             "tflops": t["tflops"],
             "ms_long": tl["ms"], "bound_ms_long": tl["bound_ms"],
             "library_ms_long": tl["library_ms"], "tflops_long": tl["tflops"],
-            **tc_info.get(name, {}),
+            **{k: v for k, v in tc_info[name].items() if isinstance(k, str)},
+            # phase 4c at head dims 192 and 256 (timed at the transformer
+            # example's (64, 1024, D) bf16 causal); phase 32's LM example
+            # runs D = 192 (launches per run of 11 steps)
+            **{f"{k}_d{d}": v for d in WIDE_D for k, v in (
+                ("ms", wide_times[d][name]["ms"]),
+                ("plain_ms", wide_times[d][name]["plain_ms"]),
+                ("bound_ms", wide_times[d][name]["bound_ms"]),
+                ("bound_by", wide_times[d][name]["bound_by"]),
+                ("library_ms", wide_times[d][name]["library_ms"]),
+                ("tflops", wide_times[d][name]["tflops"]),
+                ("max_abs_err", wide_errs[d][name]["max_abs_err"]),
+                ("max_row_err", wide_errs[d][name]["max_row_err"]),
+                *((k2, tc_info[name][d][k2]) for k2 in (
+                    "registers", "local_bytes", "smem_bytes", "dp", "rows",
+                    "tile", "split", "ptxas")))},
+            **({"ms_with_dkv_d192": wide_times[192][name]["ms_with_dkv"],
+                "ms_with_dkv_d256": wide_times[256][name]["ms_with_dkv"]}
+               if name == "flash_bwd_dq" else {}),
+            "launches_d192": ex["lm"]["launches"][name],
             "launches_zero_lm": zero_lm["launches"][name],
             # phase 17, per emulated rank over MP_STEPS steps
             "launches_tp": mp["tp"]["launches"][name],
@@ -9053,6 +9325,10 @@ def run(args) -> int:
                     if v["error"] else f"{f} {v['cold_s']:.3f} s cold, "
                     f"{v['warm_s']:.4f} s warm"
                     for f, v in aot["programs"].items())
+        + f"; on {gpu}")
+    log(f"[examples] phase 32: "
+        + "; ".join(f"{k} {r['wall_s']:.1f} s ({_p32_rate(r['lines'])})"
+                    for k, r in ex.items())
         + f"; on {gpu}")
     log(f"[done] wall time {time.perf_counter() - t_start:.1f} s; CNN paths "
         + "; ".join(f"{n}: median step {r['median_s']:.4f} s, "

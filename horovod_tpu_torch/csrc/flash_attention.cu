@@ -17,7 +17,7 @@
 // K/Q dtype before ds.K and ds^T.Q; sums of p stay f32.  Only the order
 // of the sums differs from the plain PyTorch versions.  The CUDA-core
 // kernels take expf, the tensor-core kernels exp2f of scores scaled by
-// log2(e); no fast-math flags.
+// log2(e); no fast-math flags.  Head dims: any multiple of 8 up to 256.
 //
 // Design.  The TPU carried the softmax state across a sequential grid
 // axis in VMEM scratch; here that axis is a loop inside one thread
@@ -38,7 +38,8 @@
 // (B10) tile is in flight while the current one is multiplied.  The
 // products are wgmma.mma_async with f32 accumulators.  B8: one block per
 // 128 Q rows (Q tiles walked last first: the causal mask gives the last
-// the most keys), 128-key tiles at D <= 64 and 64-key tiles at D = 128; S
+// the most keys), 128-key tiles at D <= 64 and 64-key tiles above (the
+// tile is D rounded up to 64, 128, 192 or 256 columns); S
 // = Q.K^T from shared memory (both K-major), row max and sum over the four
 // threads of a quad; p is rounded to bf16 in registers and fed back as the
 // register A operand of O += P.V (the accumulator layout of S over columns
@@ -49,9 +50,14 @@
 // = 128, which keeps dK, dV, S^T and dP^T within the register file): S^T =
 // K.Q^T and dP^T = V.dO^T, p^T and ds^T in registers, then dV +=
 // bf16(p^T).dO and dK += bf16(ds^T).Q with the same Q and dO tiles read
-// MN-major.  B9: B8's block and walk (128 Q rows, Q tiles last first,
-// hidden tiles not loaded) over 64-key tiles (S, dP and dQ fit the
-// register file without spills at D = 128 too); Q and dO arrive once,
+// MN-major.  Above D = 128 (tiles of 256 columns) dK and dV of 64 keys
+// would take 256 f32 registers a thread: a block holds 64 keys, both
+// warpgroups compute the same S^T and dP^T, and each accumulates dK and
+// dV for its half of the head columns.  lse and delta reach B10's stages
+// by plain loads of the producer warp.  B9: B8's block and walk (128 Q
+// rows, Q tiles last first, hidden tiles not loaded) over 64-key tiles
+// (S, dP and dQ fit the register file without spills at D = 128 too; 32
+// above, where Q and dO take 96 or 128 KB); Q and dO arrive once,
 // behind one barrier, lse and delta of the thread's two rows by plain
 // loads (rows past Lq get lse = -inf, so p = 0); S = Q.K^T and dP = dO.V^T
 // as B10's S^T and dP^T with the roles of Q and K swapped, ds in
@@ -66,7 +72,9 @@
 // f32 B8-B10 run on the CUDA cores: tensor cores would take f32 as TF32,
 // whose 10-bit mantissa breaks the f32 tolerance.  B8 and B9 run one block
 // per (bh, 64-row Q tile) looping over 64-row K/V tiles; B10 one block per
-// (bh, 64-row K tile) looping over Q tiles. Tiles are staged in shared
+// (bh, 64-row K tile) looping over Q tiles; above D = 128 B9's K/V tiles
+// and B10's Q tiles hold 32 rows, so the staged tiles fit the 227 KB of
+// shared memory (B8's fit at 64). Tiles are staged in shared
 // memory as f32 (rows padded by one word, so a column walk hits 32 banks);
 // each of the 256 threads owns a 4x4 micro-tile of the 64x64 score tile
 // and a 4-row strip of the output, so a row's max and sum are reduced by
@@ -77,8 +85,15 @@
 //   fill then zeroes the rows past L of one head instead of reading the
 //   next head's, and the columns past D of a 64-column box, which pads
 //   the wgmma depth (16 bf16 values) for any D % 8 == 0.  Keys zero-
-//   filled past Lk are still masked to -inf, not scored 0; lse and delta
-//   come as one flattened 1-D map, and their rows past Lq are masked.
+//   filled past Lk are still masked to -inf, not scored 0.  A column
+//   group wholly past D (B10's 256-column tiles at D <= 192) is not
+//   loaded but zeroed in shared memory, behind fence.proxy.async.
+// - lse and delta are not loaded by TMA: a 1-D box of the flattened (BH *
+//   Lq) rows starts off the 16-byte grid unless Lq % 4 == 0, and the copy
+//   then faults (error 715, an illegal instruction).
+// - 288 threads are nine warps over the SM's four register partitions,
+//   so ptxas caps every tensor-core kernel at 168 registers a thread: the
+//   256-column B8 and B9 spill (a few hundred bytes of local memory).
 // - cuTensorMapEncodeTiled is a driver-API function and the library is
 //   not linked against libcuda: it is fetched once through
 //   cudaGetDriverEntryPoint.
@@ -105,7 +120,8 @@
 // block's prologue and epilogue.  B9 reads q, k, v, dO, lse, delta and
 // writes f32 dQ, 0.15 GB (0.046 ms) against 39 GFLOP (0.039 ms), so
 // bytes bound it too; at (12, 8192, 64) all three are bound by their
-// products.
+// products.  At the LM example's (64, 1024, 192) the same counts give
+// 0.053, 0.045 and 0.060 ms, all bound by bytes.
 //
 // Interface: plain C, one entry per kernel, loaded with ctypes.  dtype
 // 0 = float32, 1 = bfloat16 (q, k, v, do); m, l, o, lse, delta and every
@@ -127,7 +143,10 @@ namespace {
 constexpr int kBQ = 64;        // query rows per tile
 constexpr int kBK = 64;        // key rows per tile
 constexpr int kThreads = 256;  // 16 row groups x 16 column lanes
-constexpr int kMaxD = 128;
+constexpr int kMaxD = 256;
+// D > 128 in f32: the B9 key and B10 query tiles hold 32 rows, so the
+// staged tiles fit the 227 KB of shared memory
+constexpr int kBWide = 32;
 
 __device__ __forceinline__ float neg_inf() { return -INFINITY; }
 
@@ -145,68 +164,71 @@ __device__ __forceinline__ float group_sum(float x) {
   return x;
 }
 
-// Stage rows [row0, row0 + 64) of a (L, D) matrix into shared memory as
-// f32 with row stride D + 1; rows past L are zero.
+// Stage rows [row0, row0 + rows) of a (L, D) matrix into shared memory
+// as f32 with row stride D + 1; rows past L are zero.
 __device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int row0, int L, int D) {
+                                          int row0, int L, int D,
+                                          int rows = 64) {
   const int sd = D + 1;
-  for (int idx = threadIdx.x; idx < 64 * D; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < rows * D; idx += kThreads) {
     const int r = idx / D;
     const int c = idx - r * D;
     dst[r * sd + c] = row0 + r < L ? src[(size_t)(row0 + r) * D + c] : 0.f;
   }
 }
 
-// A 4x4 micro-tile of products over D: acc[i][j] = A[ra+i].B[cb+16j]
-// (A, B staged tiles).
+// A 4xJT micro-tile of products over D: acc[i][j] = A[ra+i].B[cb+16j]
+// (A, B staged tiles; B has 16 JT rows).
+template <int JT>
 __device__ __forceinline__ void dot_tile(const float* A, const float* B,
                                          int ra, int cb, int D,
-                                         float (&acc)[4][4]) {
+                                         float (&acc)[4][JT]) {
   const int sd = D + 1;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < JT; ++j) acc[i][j] = 0.f;
   for (int d = 0; d < D; ++d) {
-    float a[4], b[4];
+    float a[4], b[JT];
 #pragma unroll
     for (int i = 0; i < 4; ++i) a[i] = A[(ra + i) * sd + d];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = B[(cb + 16 * j) * sd + d];
+    for (int j = 0; j < JT; ++j) b[j] = B[(cb + 16 * j) * sd + d];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      for (int j = 0; j < JT; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
   }
 }
 
 // Two such micro-tiles in one pass: acc = A.B^T and acc2 = A2.B2^T.
+template <int JT>
 __device__ __forceinline__ void dot_tiles(const float* A, const float* B,
                                           const float* A2, const float* B2,
                                           int ra, int cb, int D,
-                                          float (&acc)[4][4],
-                                          float (&acc2)[4][4]) {
+                                          float (&acc)[4][JT],
+                                          float (&acc2)[4][JT]) {
   const int sd = D + 1;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = acc2[i][j] = 0.f;
+    for (int j = 0; j < JT; ++j) acc[i][j] = acc2[i][j] = 0.f;
   for (int d = 0; d < D; ++d) {
-    float a[4], b[4], a2[4], b2[4];
+    float a[4], b[JT], a2[4], b2[JT];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       a[i] = A[(ra + i) * sd + d];
       a2[i] = A2[(ra + i) * sd + d];
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < JT; ++j) {
       b[j] = B[(cb + 16 * j) * sd + d];
       b2[j] = B2[(cb + 16 * j) * sd + d];
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < JT; ++j) {
         acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
         acc2[i][j] = fmaf(a2[i], b2[j], acc2[i][j]);
       }
@@ -269,7 +291,7 @@ __global__ void __launch_bounds__(kThreads)
     load_tile(Vs, vb, k0, Lk, D);
     __syncthreads();
     float s[4][4];
-    dot_tile(Qs, Ks, ra, cg, D, s);
+    dot_tile<4>(Qs, Ks, ra, cg, D, s);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qpos = q_offset + q0 + ra + i;
@@ -335,8 +357,8 @@ __device__ __forceinline__ float softmax_p(float s, float lse) {
   return (isfinite(s) && lse_ok) ? expf(s - (lse_ok ? lse : 0.f)) : 0.f;
 }
 
-// B9, f32: grid (ceil(Lq/64), BH).
-template <int NJ>
+// B9, f32: grid (ceil(Lq/64), BH); BK keys per tile.
+template <int NJ, int BK>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
@@ -351,8 +373,8 @@ __global__ void __launch_bounds__(kThreads)
   float* Qs = smem;
   float* dOs = Qs + kBQ * sd;
   float* Ks = dOs + kBQ * sd;
-  float* Vs = Ks + kBK * sd;
-  float* dSs = Vs + kBK * sd;  // kBQ x (kBK + 1)
+  float* Vs = Ks + BK * sd;
+  float* dSs = Vs + BK * sd;  // kBQ x (BK + 1)
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kBQ;
   const int ra = (threadIdx.x >> 4) * 4;
@@ -373,38 +395,38 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
   }
 
-  int kt_end = (Lk + kBK - 1) / kBK;
+  int kt_end = (Lk + BK - 1) / BK;
   if (causal) {
     const long long lim = (long long)q_offset + min(q0 + kBQ, Lq) - 1 -
                           (long long)k_offset;
-    kt_end = lim < 0 ? 0 : min((long long)kt_end, lim / kBK + 1);
+    kt_end = lim < 0 ? 0 : min((long long)kt_end, lim / BK + 1);
   }
   for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * kBK;
+    const int k0 = kt * BK;
     __syncthreads();
-    load_tile(Ks, kb, k0, Lk, D);
-    load_tile(Vs, vb, k0, Lk, D);
+    load_tile(Ks, kb, k0, Lk, D, BK);
+    load_tile(Vs, vb, k0, Lk, D, BK);
     __syncthreads();
-    float s[4][4], dp[4][4];
-    dot_tiles(Qs, Ks, dOs, Vs, ra, cg, D, s, dp);
+    float s[4][BK / 16], dp[4][BK / 16];
+    dot_tiles<BK / 16>(Qs, Ks, dOs, Vs, ra, cg, D, s, dp);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qpos = q_offset + q0 + ra + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < BK / 16; ++j) {
         const int kk = k0 + cg + 16 * j;
         const bool ok = kk < Lk && (!causal || qpos >= k_offset + kk);
         const float p = softmax_p(ok ? s[i][j] * scale : neg_inf(), lse_r[i]);
-        dSs[(ra + i) * (kBK + 1) + cg + 16 * j] =
+        dSs[(ra + i) * (BK + 1) + cg + 16 * j] =
             p * (dp[i][j] - delta_r[i]) * scale;
       }
     }
     __syncthreads();
-    const int kn = min(kBK, Lk - k0);
+    const int kn = min(BK, Lk - k0);
     for (int kk = 0; kk < kn; ++kk) {
       float a[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = dSs[(ra + i) * (kBK + 1) + kk];
+      for (int i = 0; i < 4; ++i) a[i] = dSs[(ra + i) * (BK + 1) + kk];
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const int c = cg + 16 * j;
@@ -426,9 +448,10 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// B10, f32: grid (ceil(Lk/64), BH).  Tiles are computed transposed (rows
-// are keys), so each thread's accumulator rows are its own keys.
-template <int NJ>
+// B10, f32: grid (ceil(Lk/64), BH); BQ queries per tile.  Tiles are
+// computed transposed (rows are keys), so each thread's accumulator rows
+// are its own keys.
+template <int NJ, int BQ>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
@@ -443,11 +466,11 @@ __global__ void __launch_bounds__(kThreads)
   float* Ks = smem;
   float* Vs = Ks + kBK * sd;
   float* Qs = Vs + kBK * sd;
-  float* dOs = Qs + kBQ * sd;
-  float* Pt = dOs + kBQ * sd;         // kBK x (kBQ + 1)
-  float* dSt = Pt + kBK * (kBQ + 1);  // kBK x (kBQ + 1)
-  float* lse_s = dSt + kBK * (kBQ + 1);
-  float* delta_s = lse_s + kBQ;
+  float* dOs = Qs + BQ * sd;
+  float* Pt = dOs + BQ * sd;         // kBK x (BQ + 1)
+  float* dSt = Pt + kBK * (BQ + 1);  // kBK x (BQ + 1)
+  float* lse_s = dSt + kBK * (BQ + 1);
+  float* delta_s = lse_s + BQ;
   const int bh = blockIdx.y;
   const int k0 = blockIdx.x * kBK;
   const int ra = (threadIdx.x >> 4) * 4;  // the thread's 4 key rows
@@ -463,49 +486,49 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
 
-  const int nqt = (Lq + kBQ - 1) / kBQ;
+  const int nqt = (Lq + BQ - 1) / BQ;
   int qt_begin = 0;
   if (causal) {
     // queries at index >= lim see some key of this tile
     const long long lim = (long long)k_offset + k0 - (long long)q_offset;
-    qt_begin = lim <= 0 ? 0 : (int)min((long long)nqt, lim / kBQ);
+    qt_begin = lim <= 0 ? 0 : (int)min((long long)nqt, lim / BQ);
   }
   for (int qt = qt_begin; qt < nqt; ++qt) {
-    const int q0 = qt * kBQ;
+    const int q0 = qt * BQ;
     __syncthreads();
-    load_tile(Qs, q + qbase * D, q0, Lq, D);
-    load_tile(dOs, dout + qbase * D, q0, Lq, D);
-    if (threadIdx.x < kBQ) {
+    load_tile(Qs, q + qbase * D, q0, Lq, D, BQ);
+    load_tile(dOs, dout + qbase * D, q0, Lq, D, BQ);
+    if (threadIdx.x < BQ) {
       const int r = q0 + threadIdx.x;
       lse_s[threadIdx.x] = r < Lq ? lse[qbase + r] : neg_inf();
       delta_s[threadIdx.x] = r < Lq ? delta[qbase + r] : 0.f;
     }
     __syncthreads();
-    float st[4][4], dpt[4][4];
-    dot_tiles(Ks, Qs, Vs, dOs, ra, cg, D, st, dpt);
+    float st[4][BQ / 16], dpt[4][BQ / 16];
+    dot_tiles<BQ / 16>(Ks, Qs, Vs, dOs, ra, cg, D, st, dpt);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int kpos = k_offset + k0 + ra + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < BQ / 16; ++j) {
         const int qq = cg + 16 * j;
         const bool ok = q0 + qq < Lq && k0 + ra + i < Lk &&
                         (!causal || q_offset + q0 + qq >= kpos);
         const float p = softmax_p(ok ? st[i][j] * scale : neg_inf(),
                                   lse_s[qq]);
         const float ds = p * (dpt[i][j] - delta_s[qq]) * scale;
-        Pt[(ra + i) * (kBQ + 1) + qq] = p;
-        dSt[(ra + i) * (kBQ + 1) + qq] = ds;
+        Pt[(ra + i) * (BQ + 1) + qq] = p;
+        dSt[(ra + i) * (BQ + 1) + qq] = ds;
       }
     }
     __syncthreads();
-    const int qn = min(kBQ, Lq - q0);
+    const int qn = min(BQ, Lq - q0);
     for (int qq = 0; qq < qn; ++qq) {
       float a[4], b[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        a[i] = Pt[(ra + i) * (kBQ + 1) + qq];
-        b[i] = dSt[(ra + i) * (kBQ + 1) + qq];
+        a[i] = Pt[(ra + i) * (BQ + 1) + qq];
+        b[i] = dSt[(ra + i) * (BQ + 1) + qq];
       }
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
@@ -594,16 +617,6 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_1d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0) {
-  asm volatile(
-      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
       : "memory");
 }
 
@@ -774,6 +787,100 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<192>(float (&d)[96],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(acc));
 }
@@ -1005,10 +1112,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 
 // B9, bf16: grid (BH, ceil(Lq/128)), the Q tiles walked last first as in
 // B8; each warpgroup owns 64 Q rows (and their dO rows) and loops over
-// kDqKeys-key tiles of K and V.
-constexpr int kDqKeys = 64;
-
-template <int DP>
+// BK-key tiles of K and V (64 up to DP 128; 32 above, where Q and dO take
+// 96 or 128 KB of shared memory and dQ 96 or 128 registers a thread).
+template <int DP, int BK>
 __global__ void __launch_bounds__(kTcThreads, 1)
     flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
@@ -1017,7 +1123,6 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                            const float* lse, const float* delta, float* dq,
                            int Lq, int Lk, int D, int q_offset, int k_offset,
                            int causal, float scale) {
-  constexpr int BK = kDqKeys;
   constexpr uint32_t kQBytes = kTcRows * DP * 2;  // Q or dO
   constexpr uint32_t kTile = BK * DP * 2;         // one K or V tile
   extern __shared__ uint8_t smem_raw[];
@@ -1172,23 +1277,32 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   }
 }
 
-// B10, bf16: grid (BH, ceil(Lk/128)); each warpgroup owns 64 keys and
-// loops over BQ-query tiles of Q, dO, lse and delta.
-template <int DP, int BQ>
+// B10, bf16: grid (BH, ceil(Lk/KR)); loops over BQ-query tiles of Q, dO,
+// lse and delta.  Without SPLIT a block holds KR = 128 keys and each
+// warpgroup owns 64 of them with every head column of their dK and dV.
+// With SPLIT (DP 256: dK and dV of 64 keys over 256 columns would take
+// 256 f32 registers a thread) a block holds KR = 64 keys, both
+// warpgroups compute the same S^T and dP^T over the whole head dim, and
+// warpgroup wg accumulates dK and dV for head columns [128 wg, 128 wg +
+// 128) only.  The column groups of 64 that lie wholly past D are not
+// loaded: they are zeroed once in shared memory (the tiles' other column
+// groups arrive by TMA, which zero-fills past D within a group).
+template <int DP, int BQ, bool SPLIT>
 __global__ void __launch_bounds__(kTcThreads, 1)
     flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_k,
                             const __grid_constant__ CUtensorMap tm_v,
                             const __grid_constant__ CUtensorMap tm_do,
-                            const __grid_constant__ CUtensorMap tm_lse,
-                            const __grid_constant__ CUtensorMap tm_delta,
+                            const float* lse_g, const float* delta_g,
                             float* dk, float* dv, int Lq, int Lk, int D,
                             int q_offset, int k_offset, int causal,
                             float scale) {
-  constexpr uint32_t kKv = kTcRows * DP * 2;  // K or V
-  constexpr uint32_t kQt = BQ * DP * 2;       // one Q or dO tile
-  constexpr uint32_t kRowBytes = BQ * 4;      // lse or delta of a tile
-  constexpr uint32_t kStage = (2 * kQt + 2 * kRowBytes + 1023) & ~1023u;
+  constexpr int KR = SPLIT ? 64 : kTcRows;     // keys per block
+  constexpr int NO = SPLIT ? DP / 2 : DP;      // output columns per warpgroup
+  constexpr uint32_t kKv = KR * DP * 2;        // K or V
+  constexpr uint32_t kQt = BQ * DP * 2;        // one Q or dO tile
+  // a stage: Q, dO, then the tile's lse and delta
+  constexpr uint32_t kStage = (2 * kQt + 2 * BQ * 4 + 1023) & ~1023u;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sK = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t sV = sK + kKv;
@@ -1197,7 +1311,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const uint32_t kv_full = bars;
   const uint8_t* gS = smem_raw + (sS - smem_u32(smem_raw));
   const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * kTcRows;
+  const int k0 = blockIdx.y * KR;
+  const int ng = min(DP / kAtom, (D + kAtom - 1) / kAtom);  // groups loaded
   const int nqt = (Lq + BQ - 1) / BQ;
   int qt_begin = 0;
   if (causal) {
@@ -1207,6 +1322,25 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   }
   const int n = nqt - qt_begin;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (ng < DP / kAtom) {
+    // zero the column groups past D in every tile; the wgmma reads them
+    // through the async proxy, hence the proxy fence
+    uint8_t* base = smem_raw + (sK - smem_u32(smem_raw));
+    const uint4 z = make_uint4(0, 0, 0, 0);
+    for (int g = ng; g < DP / kAtom; ++g) {
+      for (int i = threadIdx.x; i < KR * 8; i += kTcThreads) {
+        reinterpret_cast<uint4*>(base + g * KR * 128)[i] = z;
+        reinterpret_cast<uint4*>(base + kKv + g * KR * 128)[i] = z;
+      }
+      for (int st = 0; st < kStages; ++st)
+        for (int i = threadIdx.x; i < BQ * 8; i += kTcThreads) {
+          uint8_t* t = base + 2 * kKv + st * kStage + g * BQ * 128;
+          reinterpret_cast<uint4*>(t)[i] = z;
+          reinterpret_cast<uint4*>(t + kQt)[i] = z;
+        }
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
     for (int s = 0; s < kStages; ++s) {
@@ -1217,13 +1351,17 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   }
   __syncthreads();
 
-  if (warp == kConsumerWarps) {  // the producer
-    if (lane == 0 && n > 0) {
-      mbar_expect_tx(kv_full, 2 * kKv);
-      for (int g = 0; g < DP / kAtom; ++g) {
-        tma_load_3d(sK + g * kTcRows * 128, &tm_k, kv_full, g * kAtom, k0, bh);
-        tma_load_3d(sV + g * kTcRows * 128, &tm_v, kv_full, g * kAtom, k0, bh);
+  if (warp == kConsumerWarps) {  // the producer warp
+    if (n > 0) {
+      if (lane == 0) {
+        mbar_expect_tx(kv_full, 2 * ng * KR * 128);
+        for (int g = 0; g < ng; ++g) {
+          tma_load_3d(sK + g * KR * 128, &tm_k, kv_full, g * kAtom, k0, bh);
+          tma_load_3d(sV + g * KR * 128, &tm_v, kv_full, g * kAtom, k0, bh);
+        }
       }
+      float* rows_base = reinterpret_cast<float*>(
+          smem_raw + (sS - smem_u32(smem_raw)) + 2 * kQt);
       for (int i = 0; i < n; ++i) {
         const int s = i % kStages;
         const int q0 = (qt_begin + i) * BQ;
@@ -1231,29 +1369,43 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         const uint32_t st = sS + s * kStage;
         if (i >= kStages)
           mbar_wait(bars + 8 * (1 + kStages + s), ((i / kStages) + 1) & 1);
-        mbar_expect_tx(full, 2 * kQt + 2 * kRowBytes);
-        for (int g = 0; g < DP / kAtom; ++g) {
-          tma_load_3d(st + g * BQ * 128, &tm_q, full, g * kAtom, q0, bh);
-          tma_load_3d(st + kQt + g * BQ * 128, &tm_do, full, g * kAtom, q0,
-                      bh);
+        // lse and delta by plain loads: a TMA box of the flattened (BH *
+        // Lq) rows would start off the 16-byte grid unless Lq % 4 == 0.
+        // Rows past Lq get lse = -inf (p = 0); they are masked below too.
+        float* ls = rows_base + s * (kStage / 4);
+        for (int j = lane; j < BQ; j += 32) {
+          const bool in = q0 + j < Lq;
+          const size_t row = (size_t)bh * Lq + q0 + j;
+          ls[j] = in ? lse_g[row] : neg_inf();
+          ls[BQ + j] = in ? delta_g[row] : 0.f;
         }
-        // (BH * Lq) rows flattened: the rows past Lq are masked below
-        tma_load_1d(st + 2 * kQt, &tm_lse, full, bh * Lq + q0);
-        tma_load_1d(st + 2 * kQt + kRowBytes, &tm_delta, full, bh * Lq + q0);
+        __syncwarp();  // the lanes' stores precede lane 0's release
+        if (lane == 0) {
+          mbar_expect_tx(full, 2 * ng * BQ * 128);
+          for (int g = 0; g < ng; ++g) {
+            tma_load_3d(st + g * BQ * 128, &tm_q, full, g * kAtom, q0, bh);
+            tma_load_3d(st + kQt + g * BQ * 128, &tm_do, full, g * kAtom, q0,
+                        bh);
+          }
+        }
       }
     }
     return;
   }
 
-  // consumers: warpgroup wg owns keys [kw0, kw0 + 64); this thread key
-  // rows kr[0] and kr[0] + 8, query columns 8 j + 2 quad (+1)
+  // consumers: warpgroup wg's keys are [kw0, kw0 + 64); this thread key
+  // rows kr[0] and kr[0] + 8, query columns 8 j + 2 quad (+1) of S^T, and
+  // head columns c0 + 8 j + 2 quad (+1) of dK and dV
   const int wg = warp >> 2, quad = lane & 3;
-  const int kw0 = k0 + 64 * wg;
+  const int kw0 = k0 + (SPLIT ? 0 : 64 * wg);
+  const uint32_t krow = SPLIT ? 0 : wg * 64 * 128;  // kw0's offset in a group
+  const int c0 = SPLIT ? wg * NO : 0;
+  const uint32_t cofs = SPLIT ? wg * (NO / kAtom) * BQ * 128 : 0;
   const int kr[2] = {kw0 + 16 * (warp & 3) + (lane >> 2),
                      kw0 + 16 * (warp & 3) + (lane >> 2) + 8};
-  float dka[DP / 2], dva[DP / 2];
+  float dka[NO / 2], dva[NO / 2];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) dka[i] = dva[i] = 0.f;
+  for (int i = 0; i < NO / 2; ++i) dka[i] = dva[i] = 0.f;
   if (n > 0) mbar_wait(kv_full, 0);
   const bool keys_in = kw0 < Lk;
   for (int i = 0; i < n; ++i) {
@@ -1270,8 +1422,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk) {
-        const uint32_t a = (kk / 4) * kTcRows * 128 + wg * 64 * 128 +
-                           (kk % 4) * 32;
+        const uint32_t a = (kk / 4) * KR * 128 + krow + (kk % 4) * 32;
         const uint32_t b = st + (kk / 4) * BQ * 128 + (kk % 4) * 32;
         wgmma_ss<BQ>(sct, desc_k(sK + a), desc_k(b), kk > 0);
         wgmma_ss<BQ>(dpt, desc_k(sV + a), desc_k(b + kQt), kk > 0);
@@ -1317,9 +1468,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       wg_fence();
 #pragma unroll
       for (int kc = 0; kc < BQ / 16; ++kc) {
-        const uint32_t b = st + kc * 16 * 128;
-        wgmma_rs<DP>(dva, pf[kc], desc_mn(b + kQt, BQ * 128), 1);
-        wgmma_rs<DP>(dka, sf[kc], desc_mn(b, BQ * 128), 1);
+        const uint32_t b = st + kc * 16 * 128 + cofs;
+        wgmma_rs<NO>(dva, pf[kc], desc_mn(b + kQt, BQ * 128), 1);
+        wgmma_rs<NO>(dka, sf[kc], desc_mn(b, BQ * 128), 1);
       }
       wg_commit();
       wg_wait0();
@@ -1337,8 +1488,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     if (kr[i] >= Lk) continue;
     const size_t row = (size_t)bh * Lk + kr[i];
 #pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
-      const int c = 8 * j + 2 * quad;
+    for (int j = 0; j < NO / 8; ++j) {
+      const int c = c0 + 8 * j + 2 * quad;
       if (c < D) {
         *reinterpret_cast<float2*>(dk + row * D + c) =
             make_float2(dka[4 * j + 2 * i], dka[4 * j + 2 * i + 1]);
@@ -1405,20 +1556,6 @@ bool map_tiles(CUtensorMap* map, const void* p, int bh, int l, int d,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// A float32 (BH, L) row array flattened to n values, in boxes of `len`.
-bool map_rows(CUtensorMap* map, const float* p, long long n, int len) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (!fn) return false;
-  const cuuint64_t dims[1] = {(cuuint64_t)n};
-  const cuuint64_t strides[1] = {0};  // rank 1: none is read
-  const cuuint32_t box[1] = {(cuuint32_t)len};
-  const cuuint32_t elem[1] = {1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<float*>(p),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // The tensor-core kernels' extra limits: the Q-tile grid dimension and
 // the flattened row coordinate of lse/delta fit their 32-bit fields.
 bool tc_shape_ok(int bh, int lq) {
@@ -1433,14 +1570,14 @@ constexpr size_t fwd_tc_smem() {
   return 1024 + (size_t)(kTcRows + 2 * kStages * BK) * DP * 2 +
          8 * (1 + 2 * kStages);
 }
-template <int DP>
+template <int DP, int BK>
 constexpr size_t dq_tc_smem() {
-  return 1024 + (size_t)(2 * kTcRows + 2 * kStages * kDqKeys) * DP * 2 +
+  return 1024 + (size_t)(2 * kTcRows + 2 * kStages * BK) * DP * 2 +
          8 * (1 + 2 * kStages);
 }
-template <int DP, int BQ>
+template <int DP, int BQ, bool SPLIT>
 constexpr size_t dkv_tc_smem() {
-  return 1024 + (size_t)kTcRows * DP * 4 +
+  return 1024 + (size_t)(SPLIT ? 64 : kTcRows) * DP * 4 +
          kStages * (((size_t)BQ * DP * 4 + BQ * 8 + 1023) & ~(size_t)1023) +
          8 * (1 + 2 * kStages);
 }
@@ -1462,7 +1599,7 @@ cudaError_t fwd_tc(const void* q, const void* k, const void* v,
                 k_offset, causal, scale);
 }
 
-template <int DP>
+template <int DP, int BK>
 cudaError_t bwd_dq_tc(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       float* dq, int bh, int lq, int lk, int d, int q_offset,
@@ -1470,34 +1607,33 @@ cudaError_t bwd_dq_tc(const void* q, const void* k, const void* v,
                       cudaStream_t s) {
   CUtensorMap tq, tk, tv, tdo;
   if (!map_tiles(&tq, q, bh, lq, d, kTcRows) ||
-      !map_tiles(&tk, k, bh, lk, d, kDqKeys) ||
-      !map_tiles(&tv, v, bh, lk, d, kDqKeys) ||
+      !map_tiles(&tk, k, bh, lk, d, BK) ||
+      !map_tiles(&tv, v, bh, lk, d, BK) ||
       !map_tiles(&tdo, dout, bh, lq, d, kTcRows))
     return cudaErrorInvalidValue;
   const dim3 grid(bh, (lq + kTcRows - 1) / kTcRows);
-  return launch(flash_bwd_dq_tc_kernel<DP>, grid, kTcThreads,
-                dq_tc_smem<DP>(), s, tq, tk, tv, tdo, lse, delta, dq, lq, lk,
-                d, q_offset, k_offset, causal, scale);
+  return launch(flash_bwd_dq_tc_kernel<DP, BK>, grid, kTcThreads,
+                dq_tc_smem<DP, BK>(), s, tq, tk, tv, tdo, lse, delta, dq, lq,
+                lk, d, q_offset, k_offset, causal, scale);
 }
 
-template <int DP, int BQ>
+template <int DP, int BQ, bool SPLIT>
 cudaError_t bwd_dkv_tc(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* delta,
                        float* dk, float* dv, int bh, int lq, int lk, int d,
                        int q_offset, int k_offset, int causal, float scale,
                        cudaStream_t s) {
-  CUtensorMap tq, tk, tv, tdo, tlse, tdelta;
-  if (!map_tiles(&tq, q, bh, lq, d, BQ) ||
-      !map_tiles(&tk, k, bh, lk, d, kTcRows) ||
-      !map_tiles(&tv, v, bh, lk, d, kTcRows) ||
-      !map_tiles(&tdo, dout, bh, lq, d, BQ) ||
-      !map_rows(&tlse, lse, (long long)bh * lq, BQ) ||
-      !map_rows(&tdelta, delta, (long long)bh * lq, BQ))
+  constexpr int kr = SPLIT ? 64 : kTcRows;
+  CUtensorMap tq, tk, tv, tdo;
+  if ((lk + kr - 1) / kr > 65535 || !map_tiles(&tq, q, bh, lq, d, BQ) ||
+      !map_tiles(&tk, k, bh, lk, d, kr) ||
+      !map_tiles(&tv, v, bh, lk, d, kr) ||
+      !map_tiles(&tdo, dout, bh, lq, d, BQ))
     return cudaErrorInvalidValue;
-  const dim3 grid(bh, (lk + kTcRows - 1) / kTcRows);
-  return launch(flash_bwd_dkv_tc_kernel<DP, BQ>, grid, kTcThreads,
-                dkv_tc_smem<DP, BQ>(), s,
-                tq, tk, tv, tdo, tlse, tdelta, dk, dv, lq, lk, d, q_offset,
+  const dim3 grid(bh, (lk + kr - 1) / kr);
+  return launch(flash_bwd_dkv_tc_kernel<DP, BQ, SPLIT>, grid, kTcThreads,
+                dkv_tc_smem<DP, BQ, SPLIT>(), s,
+                tq, tk, tv, tdo, lse, delta, dk, dv, lq, lk, d, q_offset,
                 k_offset, causal, scale);
 }
 
@@ -1505,13 +1641,13 @@ size_t fwd_smem(int d) {
   return sizeof(float) * (size_t)(kBQ * (d + 1) + 2 * kBK * (d + 1) +
                                   kBQ * (kBK + 1));
 }
-size_t dq_smem(int d) {
-  return sizeof(float) * (size_t)(2 * kBQ * (d + 1) + 2 * kBK * (d + 1) +
-                                  kBQ * (kBK + 1));
+size_t dq_smem(int d, int bk) {
+  return sizeof(float) * (size_t)(2 * kBQ * (d + 1) + 2 * bk * (d + 1) +
+                                  kBQ * (bk + 1));
 }
-size_t dkv_smem(int d) {
-  return sizeof(float) * (size_t)(2 * kBK * (d + 1) + 2 * kBQ * (d + 1) +
-                                  2 * kBK * (kBQ + 1) + 2 * kBQ);
+size_t dkv_smem(int d, int bq) {
+  return sizeof(float) * (size_t)(2 * kBK * (d + 1) + 2 * bq * (d + 1) +
+                                  2 * kBK * (bq + 1) + 2 * bq);
 }
 
 cudaError_t fwd_f32(const float* q, const float* k, const float* v,
@@ -1524,9 +1660,13 @@ cudaError_t fwd_f32(const float* q, const float* k, const float* v,
     return launch(flash_fwd_kernel<4>, grid, kThreads, fwd_smem(d), s, q, k,
                   v, m, l, o, m_out, l_out, o_out, lq, lk, d, q_offset,
                   k_offset, causal, scale);
-  return launch(flash_fwd_kernel<8>, grid, kThreads, fwd_smem(d), s, q, k, v,
-                m, l, o, m_out, l_out, o_out, lq, lk, d, q_offset, k_offset,
-                causal, scale);
+  if (d <= 128)
+    return launch(flash_fwd_kernel<8>, grid, kThreads, fwd_smem(d), s, q, k,
+                  v, m, l, o, m_out, l_out, o_out, lq, lk, d, q_offset,
+                  k_offset, causal, scale);
+  return launch(flash_fwd_kernel<16>, grid, kThreads, fwd_smem(d), s, q, k,
+                v, m, l, o, m_out, l_out, o_out, lq, lk, d, q_offset,
+                k_offset, causal, scale);
 }
 
 cudaError_t bwd_dq_f32(const float* q, const float* k, const float* v,
@@ -1536,12 +1676,16 @@ cudaError_t bwd_dq_f32(const float* q, const float* k, const float* v,
                        float scale, cudaStream_t s) {
   const dim3 grid((lq + kBQ - 1) / kBQ, bh);
   if (d <= 64)
-    return launch(flash_bwd_dq_kernel<4>, grid, kThreads, dq_smem(d), s, q,
-                  k, v, dout, lse, delta, dq, lq, lk, d, q_offset, k_offset,
-                  causal, scale);
-  return launch(flash_bwd_dq_kernel<8>, grid, kThreads, dq_smem(d), s, q, k,
-                v, dout, lse, delta, dq, lq, lk, d, q_offset, k_offset,
-                causal, scale);
+    return launch(flash_bwd_dq_kernel<4, kBK>, grid, kThreads,
+                  dq_smem(d, kBK), s, q, k, v, dout, lse, delta, dq, lq, lk,
+                  d, q_offset, k_offset, causal, scale);
+  if (d <= 128)
+    return launch(flash_bwd_dq_kernel<8, kBK>, grid, kThreads,
+                  dq_smem(d, kBK), s, q, k, v, dout, lse, delta, dq, lq, lk,
+                  d, q_offset, k_offset, causal, scale);
+  return launch(flash_bwd_dq_kernel<16, kBWide>, grid, kThreads,
+                dq_smem(d, kBWide), s, q, k, v, dout, lse, delta, dq, lq, lk,
+                d, q_offset, k_offset, causal, scale);
 }
 
 cudaError_t bwd_dkv_f32(const float* q, const float* k, const float* v,
@@ -1551,12 +1695,25 @@ cudaError_t bwd_dkv_f32(const float* q, const float* k, const float* v,
                         int causal, float scale, cudaStream_t s) {
   const dim3 grid((lk + kBK - 1) / kBK, bh);
   if (d <= 64)
-    return launch(flash_bwd_dkv_kernel<4>, grid, kThreads, dkv_smem(d), s, q,
-                  k, v, dout, lse, delta, dk, dv, lq, lk, d, q_offset,
-                  k_offset, causal, scale);
-  return launch(flash_bwd_dkv_kernel<8>, grid, kThreads, dkv_smem(d), s, q, k,
-                v, dout, lse, delta, dk, dv, lq, lk, d, q_offset, k_offset,
-                causal, scale);
+    return launch(flash_bwd_dkv_kernel<4, kBQ>, grid, kThreads,
+                  dkv_smem(d, kBQ), s, q, k, v, dout, lse, delta, dk, dv, lq,
+                  lk, d, q_offset, k_offset, causal, scale);
+  if (d <= 128)
+    return launch(flash_bwd_dkv_kernel<8, kBQ>, grid, kThreads,
+                  dkv_smem(d, kBQ), s, q, k, v, dout, lse, delta, dk, dv, lq,
+                  lk, d, q_offset, k_offset, causal, scale);
+  return launch(flash_bwd_dkv_kernel<16, kBWide>, grid, kThreads,
+                dkv_smem(d, kBWide), s, q, k, v, dout, lse, delta, dk, dv, lq,
+                lk, d, q_offset, k_offset, causal, scale);
+}
+
+// The attributes of one tensor-core instantiation and the dynamic shared
+// memory it launches with.
+template <typename Kern>
+cudaError_t tc_attrs(Kern kern, size_t smem, cudaFuncAttributes* a,
+                     size_t* out_smem) {
+  *out_smem = smem;
+  return cudaFuncGetAttributes(a, kern);
 }
 
 }  // namespace
@@ -1582,7 +1739,13 @@ int hvd_flash_fwd(int dtype, const void* q, const void* k, const void* v,
     if (d <= 64)
       return (int)fwd_tc<64, 128>(q, k, v, fm, fl, fo, om, ol, oo, bh, lq, lk,
                                   d, q_offset, k_offset, causal, scale, s);
-    return (int)fwd_tc<128, 64>(q, k, v, fm, fl, fo, om, ol, oo, bh, lq, lk,
+    if (d <= 128)
+      return (int)fwd_tc<128, 64>(q, k, v, fm, fl, fo, om, ol, oo, bh, lq,
+                                  lk, d, q_offset, k_offset, causal, scale, s);
+    if (d <= 192)
+      return (int)fwd_tc<192, 64>(q, k, v, fm, fl, fo, om, ol, oo, bh, lq,
+                                  lk, d, q_offset, k_offset, causal, scale, s);
+    return (int)fwd_tc<256, 64>(q, k, v, fm, fl, fo, om, ol, oo, bh, lq, lk,
                                 d, q_offset, k_offset, causal, scale, s);
   }
   return (int)cudaErrorInvalidValue;
@@ -1602,10 +1765,20 @@ int hvd_flash_bwd_dq(int dtype, const void* q, const void* k, const void* v,
   if (dtype == 1) {
     if (!tc_shape_ok(bh, lq)) return (int)cudaErrorInvalidValue;
     if (d <= 64)
-      return (int)bwd_dq_tc<64>(q, k, v, dout, fl, fd, (float*)dq, bh, lq, lk,
-                                d, q_offset, k_offset, causal, scale, s);
-    return (int)bwd_dq_tc<128>(q, k, v, dout, fl, fd, (float*)dq, bh, lq, lk,
-                               d, q_offset, k_offset, causal, scale, s);
+      return (int)bwd_dq_tc<64, 64>(q, k, v, dout, fl, fd, (float*)dq, bh, lq,
+                                    lk, d, q_offset, k_offset, causal, scale,
+                                    s);
+    if (d <= 128)
+      return (int)bwd_dq_tc<128, 64>(q, k, v, dout, fl, fd, (float*)dq, bh,
+                                     lq, lk, d, q_offset, k_offset, causal,
+                                     scale, s);
+    if (d <= 192)
+      return (int)bwd_dq_tc<192, 32>(q, k, v, dout, fl, fd, (float*)dq, bh,
+                                     lq, lk, d, q_offset, k_offset, causal,
+                                     scale, s);
+    return (int)bwd_dq_tc<256, 32>(q, k, v, dout, fl, fd, (float*)dq, bh, lq,
+                                   lk, d, q_offset, k_offset, causal, scale,
+                                   s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1626,12 +1799,19 @@ int hvd_flash_bwd_dkv(int dtype, const void* q, const void* k, const void* v,
   if (dtype == 1) {
     if (!tc_shape_ok(bh, lq)) return (int)cudaErrorInvalidValue;
     if (d <= 64)
-      return (int)bwd_dkv_tc<64, 64>(q, k, v, dout, fl, fd, (float*)dk,
-                                     (float*)dv, bh, lq, lk, d, q_offset,
-                                     k_offset, causal, scale, s);
-    return (int)bwd_dkv_tc<128, 32>(q, k, v, dout, fl, fd, (float*)dk,
-                                    (float*)dv, bh, lq, lk, d, q_offset,
-                                    k_offset, causal, scale, s);
+      return (int)bwd_dkv_tc<64, 64, false>(q, k, v, dout, fl, fd, (float*)dk,
+                                            (float*)dv, bh, lq, lk, d,
+                                            q_offset, k_offset, causal, scale,
+                                            s);
+    if (d <= 128)
+      return (int)bwd_dkv_tc<128, 32, false>(q, k, v, dout, fl, fd,
+                                             (float*)dk, (float*)dv, bh, lq,
+                                             lk, d, q_offset, k_offset,
+                                             causal, scale, s);
+    return (int)bwd_dkv_tc<256, 32, true>(q, k, v, dout, fl, fd, (float*)dk,
+                                          (float*)dv, bh, lq, lk, d,
+                                          q_offset, k_offset, causal, scale,
+                                          s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1644,18 +1824,33 @@ int hvd_flash_tc_attributes(int kernel, int d, int* out) {
   cudaFuncAttributes a;
   cudaError_t err;
   size_t smem;
+  const int tier = d <= 64 ? 0 : d <= 128 ? 1 : d <= 192 ? 2 : 3;
+  if (d <= 0 || d > kMaxD) return (int)cudaErrorInvalidValue;
   if (kernel == 0) {
-    err = d <= 64 ? cudaFuncGetAttributes(&a, flash_fwd_tc_kernel<64, 128>)
-                  : cudaFuncGetAttributes(&a, flash_fwd_tc_kernel<128, 64>);
-    smem = d <= 64 ? fwd_tc_smem<64, 128>() : fwd_tc_smem<128, 64>();
+    err = tier == 0 ? tc_attrs(flash_fwd_tc_kernel<64, 128>,
+                               fwd_tc_smem<64, 128>(), &a, &smem)
+        : tier == 1 ? tc_attrs(flash_fwd_tc_kernel<128, 64>,
+                               fwd_tc_smem<128, 64>(), &a, &smem)
+        : tier == 2 ? tc_attrs(flash_fwd_tc_kernel<192, 64>,
+                               fwd_tc_smem<192, 64>(), &a, &smem)
+                    : tc_attrs(flash_fwd_tc_kernel<256, 64>,
+                               fwd_tc_smem<256, 64>(), &a, &smem);
   } else if (kernel == 1) {
-    err = d <= 64 ? cudaFuncGetAttributes(&a, flash_bwd_dkv_tc_kernel<64, 64>)
-                  : cudaFuncGetAttributes(&a, flash_bwd_dkv_tc_kernel<128, 32>);
-    smem = d <= 64 ? dkv_tc_smem<64, 64>() : dkv_tc_smem<128, 32>();
+    err = tier == 0 ? tc_attrs(flash_bwd_dkv_tc_kernel<64, 64, false>,
+                               dkv_tc_smem<64, 64, false>(), &a, &smem)
+        : tier == 1 ? tc_attrs(flash_bwd_dkv_tc_kernel<128, 32, false>,
+                               dkv_tc_smem<128, 32, false>(), &a, &smem)
+                    : tc_attrs(flash_bwd_dkv_tc_kernel<256, 32, true>,
+                               dkv_tc_smem<256, 32, true>(), &a, &smem);
   } else if (kernel == 2) {
-    err = d <= 64 ? cudaFuncGetAttributes(&a, flash_bwd_dq_tc_kernel<64>)
-                  : cudaFuncGetAttributes(&a, flash_bwd_dq_tc_kernel<128>);
-    smem = d <= 64 ? dq_tc_smem<64>() : dq_tc_smem<128>();
+    err = tier == 0 ? tc_attrs(flash_bwd_dq_tc_kernel<64, 64>,
+                               dq_tc_smem<64, 64>(), &a, &smem)
+        : tier == 1 ? tc_attrs(flash_bwd_dq_tc_kernel<128, 64>,
+                               dq_tc_smem<128, 64>(), &a, &smem)
+        : tier == 2 ? tc_attrs(flash_bwd_dq_tc_kernel<192, 32>,
+                               dq_tc_smem<192, 32>(), &a, &smem)
+                    : tc_attrs(flash_bwd_dq_tc_kernel<256, 32>,
+                               dq_tc_smem<256, 32>(), &a, &smem);
   } else {
     return (int)cudaErrorInvalidValue;
   }

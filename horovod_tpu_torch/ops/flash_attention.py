@@ -10,8 +10,11 @@
 
 Layout ``(BH, L, D)``; ``m``, ``l``, ``lse``, ``delta`` are plain
 ``(BH, L)`` float32 arrays (the TPU kernels' packed m|l lane tile is not
-carried over).  ``q_offset``/``k_offset`` are the global positions of
-``q[:, 0]``/``k[:, 0]`` and feed only the causal mask.
+carried over).  The plain versions take any head dim ``D``, as the
+Pallas kernels do; the card's kernels take multiples of 8 up to
+:data:`MAX_D` (256) and raise for any other.  ``q_offset``/``k_offset``
+are the global positions of ``q[:, 0]``/``k[:, 0]`` and feed only the
+causal mask.
 
 The plain versions (``*_plain``) follow the Pallas kernel bodies where
 they round: scores accumulate in float32 from the operands, ``scale =
@@ -43,7 +46,10 @@ from horovod_tpu_torch.common import events as _events
 from horovod_tpu_torch.common.types import HorovodTpuError
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_D = 128
+#: The largest head dim the card's kernels take; it must also be a
+#: multiple of 8 there (the tensor maps' rows are on TMA's 16-byte grid).
+#: The plain versions take any head dim.
+MAX_D = 256
 _MAX_BH = 65535  # the kernels' grid y dimension
 
 #: The bounds a bfloat16 kernel result is held to on the card beside the
@@ -207,10 +213,12 @@ def _check(name: str, q, k, v, extra_mm=(), rows=(), full=()) -> None:
         raise HorovodTpuError(
             f"{name}: q must be (BH, L, D), got {tuple(q.shape)}")
     bh, lq, d = q.shape
-    if d % 8 or not 0 < d <= _MAX_D:
+    if d == 0:
+        raise HorovodTpuError(f"{name}: head dim 0")
+    if q.device.type == "cuda" and (d % 8 or d > MAX_D):
         raise HorovodTpuError(
-            f"{name}: head dim {d} must be a multiple of 8, at most "
-            f"{_MAX_D}")
+            f"{name}: head dim {d} on the card must be a multiple of 8 (TMA's "
+            f"16-byte rows), at most {MAX_D}")
     if not 0 < bh <= _MAX_BH or lq == 0:
         raise HorovodTpuError(
             f"{name}: batch*heads {bh} must be in [1, {_MAX_BH}] and the "
@@ -247,12 +255,34 @@ def _check_aligned(name: str, tensors, grid: int) -> None:
                 f"not {grid}-byte aligned")
 
 
+def tc_tiles(name: str, d: int) -> dict:
+    """The tile shape of the bfloat16 tensor-core kernel of ``name`` at
+    head dim ``d`` (``csrc/flash_attention.cu``'s dispatch): ``dp``, the
+    head dim padded to the kernel's width; ``rows``, the Q rows (B8, B9)
+    or keys (B10) of one block; ``tile``, the keys (B8, B9) or queries
+    (B10) of one pipelined tile; ``split``, whether B10's two warpgroups
+    share the keys and split the head columns."""
+    if not 0 < d <= MAX_D:
+        raise HorovodTpuError(f"{name}: no kernel at head dim {d}")
+    dp = next(w for w in (64, 128, 192, 256) if d <= w)
+    if name == "flash_bwd_dkv":
+        split = dp > 128
+        dp = 256 if split else dp
+        return {"dp": dp, "rows": 64 if split else 128,
+                "tile": 64 if dp == 64 else 32, "split": split}
+    if name == "flash_block_step":
+        return {"dp": dp, "rows": 128, "tile": 128 if dp == 64 else 64,
+                "split": False}
+    return {"dp": dp, "rows": 128, "tile": 64 if dp <= 128 else 32,
+            "split": False}
+
+
 def tc_kernel_attributes(name: str, d: int) -> dict:
     """The registers and local memory (stack and spills) per thread and
     the dynamic shared memory of the bfloat16 tensor-core kernel of
     ``name`` (``flash_block_step``, ``flash_bwd_dq`` or ``flash_bwd_dkv``)
     that runs at head dim ``d``, from ``cudaFuncGetAttributes`` (builds
-    the library)."""
+    the library), with its tile shape (:func:`tc_tiles`)."""
     out = (ctypes.c_int * 3)()
     rc = _kernels().hvd_flash_tc_attributes(
         {"flash_block_step": 0, "flash_bwd_dkv": 1, "flash_bwd_dq": 2}[name],
@@ -261,7 +291,7 @@ def tc_kernel_attributes(name: str, d: int) -> dict:
         raise HorovodTpuError(f"{name}: cudaFuncGetAttributes failed: CUDA "
                               f"error {rc}")
     return {"registers": out[0], "local_bytes": out[1],
-            "smem_bytes": out[2]}
+            "smem_bytes": out[2], **tc_tiles(name, d)}
 
 
 def _launch(name: str, fn, q, *args) -> None:
@@ -328,7 +358,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, q_offset: int, k_offset: int, *,
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, q_offset,
                                    k_offset, causal)
     if q.dtype == torch.bfloat16:
-        _check_aligned("flash_bwd_dkv", (q, k, v, do, lse, delta), 16)
+        _check_aligned("flash_bwd_dkv", (q, k, v, do), 16)
     lib = _kernels()
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)

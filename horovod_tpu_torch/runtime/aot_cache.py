@@ -47,6 +47,7 @@ import io
 import os
 import pickle
 import shutil
+import subprocess
 import tempfile
 import time
 
@@ -315,15 +316,95 @@ def _as_module(fn):
     return Program()
 
 
+# A one-function OpenMP shared library: AOTInductor compiles and links
+# every ``exec`` program with ``-fopenmp`` and ``-lgomp``
+# (``torch._inductor.cpp_builder._get_openmp_args``).
+_OMP_PROBE = ('#include <omp.h>\n'
+              'extern "C" int hvd_probe() { return omp_get_max_threads(); }\n')
+_exec_cxx: dict | None = None
+
+
+def cxx_candidates() -> list:
+    """The C++ compilers :func:`exec_compiler` tries, in order: ``$CXX``,
+    ``g++`` on ``PATH``, ``/usr/bin/g++``, ``c++`` on ``PATH`` (each
+    once)."""
+    out = []
+    for c in (os.environ.get("CXX"), shutil.which("g++"), "/usr/bin/g++",
+              shutil.which("c++")):
+        if c and c not in out:
+            out.append(c)
+    return out
+
+
+def _probe_cxx(cxx: str, work: str) -> str | None:
+    """``None`` when ``cxx`` compiles and links the OpenMP probe as a
+    shared library, else its error (the compiler's last output)."""
+    src = os.path.join(work, "omp_probe.cc")
+    with open(src, "w") as f:
+        f.write(_OMP_PROBE)
+    cmd = [cxx, "-shared", "-fPIC", "-fopenmp", src, "-o",
+           os.path.join(work, "omp_probe.so"), "-lgomp"]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=120)
+    except (OSError, subprocess.SubprocessError) as exc:
+        return f"{type(exc).__name__}: {exc}"
+    if proc.returncode == 0:
+        return None
+    err = (proc.stderr or proc.stdout).strip()
+    return err[-1000:] or f"exit code {proc.returncode}"
+
+
+def exec_compiler(candidates=None) -> dict:
+    """The C++ compiler for the ``exec`` format's AOTInductor build: the
+    first of ``candidates`` (default :func:`cxx_candidates`) whose
+    ``-fopenmp`` link of a probe succeeds becomes
+    ``torch._inductor.config.cpp.cxx``.  Returns ``{"chosen": path or
+    None, "probes": [{"cxx", "error"}]}`` (``error`` ``None`` for the
+    chosen one; the candidates after it are not probed) and records it
+    as the ``aot`` flight event ``compiler``.  The default probe runs
+    once per process."""
+    global _exec_cxx
+    if candidates is None and _exec_cxx is not None:
+        return _exec_cxx
+    import torch._inductor.config as inductor_config
+
+    rec = {"chosen": None, "probes": []}
+    with tempfile.TemporaryDirectory(prefix="hvd-cxx-") as work:
+        for cxx in (cxx_candidates() if candidates is None else candidates):
+            err = _probe_cxx(cxx, work)
+            rec["probes"].append({"cxx": cxx, "error": err})
+            if err is None:
+                rec["chosen"] = cxx
+                inductor_config.cpp.cxx = cxx
+                break
+    try:
+        _flight.record("aot", event="compiler", chosen=rec["chosen"],
+                       probes=[(p["cxx"], p["error"])
+                               for p in rec["probes"]])
+    except Exception:
+        pass
+    if candidates is None:
+        _exec_cxx = rec
+    return rec
+
+
 def _compile(fn, args, fmt: str, work: str):
     """``(program, artifact)``: the exported (``export``) or
     AOTInductor-compiled and loaded (``exec``) program, and what
-    :func:`_serialize` persists of it."""
+    :func:`_serialize` persists of it.  ``exec`` first picks its C++
+    compiler (:func:`exec_compiler`) and raises, naming every probe's
+    error, when none links OpenMP."""
     import torch
 
     ep = torch.export.export(_as_module(fn), tuple(args))
     if fmt == "export":
         return ep.module(), ep
+    cxx = exec_compiler()
+    if cxx["chosen"] is None:
+        raise RuntimeError(
+            "no C++ compiler links -fopenmp for AOTInductor: " + "; ".join(
+                f"{p['cxx']}: {p['error']}" for p in cxx["probes"]))
     pkg = torch._inductor.aoti_compile_and_package(
         ep, package_path=os.path.join(work, "program.pt2"))
     return torch._inductor.aoti_load_package(pkg), pkg

@@ -277,6 +277,72 @@ def test_roundtrip_hit_and_miss(cache_dir):
         < s1["compile_s_cold"] - s0["compile_s_cold"]
 
 
+def _fake_cxx(tmp_path, name: str, msg: str) -> str:
+    """A "compiler" that fails every call with ``msg`` on stderr."""
+    p = tmp_path / name
+    p.write_text(f"#!/bin/sh\necho \"{msg}\" >&2\nexit 1\n")
+    p.chmod(0o755)
+    return str(p)
+
+
+def _aot_events(event: str) -> list:
+    from horovod_tpu_torch.runtime import flight
+
+    return [e for e in flight.recorder().snapshot()
+            if e["kind"] == "aot" and e.get("event") == event]
+
+
+def test_exec_compiler_takes_the_first_that_links(tmp_path, monkeypatch):
+    """The ``exec`` format's compiler probe: candidates in order, the
+    first whose ``-fopenmp`` link succeeds becomes inductor's
+    ``cpp.cxx`` and the rest are not tried; the record (also the ``aot``
+    flight event ``compiler``) lists each tried candidate's error."""
+    import torch._inductor.config as inductor_config
+
+    monkeypatch.setattr(inductor_config.cpp, "cxx", inductor_config.cpp.cxx)
+    nospec = _fake_cxx(tmp_path, "gxx-nospec",
+                       "g++: fatal error: cannot read spec file "
+                       "'libgomp.spec'")
+    absent = str(tmp_path / "absent-g++")
+    good = shutil.which("g++")
+    rec = A.exec_compiler([nospec, absent, good, nospec])
+    assert rec["chosen"] == good and inductor_config.cpp.cxx == good
+    assert [p["cxx"] for p in rec["probes"]] == [nospec, absent, good]
+    assert "libgomp.spec" in rec["probes"][0]["error"]
+    assert "absent-g++" in rec["probes"][1]["error"]
+    assert rec["probes"][2]["error"] is None
+    ev = _aot_events("compiler")[-1]
+    assert ev["chosen"] == good and len(ev["probes"]) == 3
+
+
+def test_exec_without_a_linking_compiler_lists_every_error(
+        cache_dir, tmp_path, monkeypatch):
+    """No candidate links: the record names every candidate with its
+    error, the program runs eagerly and uncached, and its ``uncached``
+    flight event's error lists every candidate's."""
+    import torch._inductor.config as inductor_config
+
+    monkeypatch.setattr(inductor_config.cpp, "cxx", inductor_config.cpp.cxx)
+    monkeypatch.setenv("HOROVOD_AOT_CACHE_MODE", "exec")
+    fakes = [_fake_cxx(tmp_path, f"cxx{i}",
+                       f"cxx{i}: cannot read spec file 'libgomp.spec'")
+             for i in range(2)]
+    monkeypatch.setattr(A, "cxx_candidates", lambda: fakes)
+    monkeypatch.setattr(A, "_exec_cxx", None)
+    x = torch.arange(4.0)
+    key = ("t_no_cxx", (4,), "f32")
+    fn = A.compile_or_load(key, _tbuild, [x])
+    torch.testing.assert_close(fn(x), x * 2 + 1, rtol=0, atol=0)
+    assert not os.path.exists(A.entry_path(key))
+    rec = A.exec_compiler()
+    assert rec["chosen"] is None
+    assert [p["cxx"] for p in rec["probes"]] == fakes
+    assert all(f"{os.path.basename(p['cxx'])}: cannot read spec file"
+               in p["error"] for p in rec["probes"])
+    err = _aot_events("uncached")[-1]["error"]
+    assert all(f in err for f in fakes), err
+
+
 def _lib_entry(name: str, source: str) -> tuple:
     lib = _build.load_host_library(name, source)
     info = _build.build_info[name]

@@ -162,6 +162,55 @@ def test_bf16_tile_edges_match_pallas(causal, shape):
     _close(dv, ref_dv, bf16, "B10 dv")
 
 
+# Head dims above 128 (the card's kernels take multiples of 8 up to 256)
+# and one that is not a multiple of 8 (the plain versions take any), at
+# ragged lengths and non-zero offsets: (bh, lq, lk, d, q_offset,
+# k_offset, block_q, block_k), the Pallas blocks dividing L
+WIDE_SHAPES = [(2, 96, 80, 192, 16, 0, 32, 16),
+               (2, 96, 80, 256, 0, 16, 32, 16),
+               (2, 64, 48, 100, 8, 4, 32, 16)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", WIDE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s[:6])))
+def test_wide_head_dims_match_pallas(shape, dtype):
+    """B8, B9 and B10 (causal) at D = 192, 256 and 100: the port's plain
+    versions against the interpreted Pallas kernels, at this file's
+    float32 tolerances and the JAX package's bfloat16 one (B8's o as o /
+    l in bfloat16, ``flash_attention.state_pairs``)."""
+    bh, lq, lk, d, qo, ko, bq, bk = shape
+    blocks = dict(block_q=bq, block_k=bk, interpret=True)
+    bf16 = dtype == "bfloat16"
+    fwd, bwd = ((dict(rtol=2e-2, atol=2e-2),) * 2 if bf16
+                else (FWD_TOL, BWD_TOL))
+    q, k, v, dout = _arrays(12, (bh, lq, d), (bh, lk, d), (bh, lk, d),
+                            (bh, lq, d))
+    jq, jk, jv, jdo = (jnp.asarray(x, jnp.dtype(dtype))
+                       for x in (q, k, v, dout))
+    tq, tk, tv, tdo = (x.to(getattr(torch, dtype))
+                       for x in _t(q, k, v, dout))
+    fresh = (np.full((bh, lq), -np.inf, np.float32),
+             np.zeros((bh, lq), np.float32), np.zeros((bh, lq, d), np.float32))
+    ref = JA.flash_block_step(jq, jk, jv, *map(jnp.asarray, fresh), qo, ko,
+                              causal=True, **blocks)
+    ours = FA.flash_block_step(tq, tk, tv, *_t(*fresh), qo, ko, causal=True)
+    for name, a, b in FA.state_pairs(ours, _t(*ref), bf16):
+        _close(a, b, fwd, f"B8 D={d} {name}")
+    out, lse = TR.finish(*ours)
+    delta = (tdo.float() * out).sum(-1)
+    jargs = (jq, jk, jv, jdo, jnp.asarray(lse), jnp.asarray(delta), qo, ko)
+    targs = (tq, tk, tv, tdo, lse, delta, qo, ko)
+    ref_dq = JA.flash_bwd_dq(*jargs, causal=True, **blocks)
+    ref_dk, ref_dv = JA.flash_bwd_dkv(*jargs, causal=True, **blocks)
+    dq = FA.flash_bwd_dq(*targs, causal=True)
+    dk, dv = FA.flash_bwd_dkv(*targs, causal=True)
+    _close(dq, ref_dq, bwd, f"B9 D={d} dq")
+    _close(dk, ref_dk, bwd, f"B10 D={d} dk")
+    _close(dv, ref_dv, bwd, f"B10 D={d} dv")
+    assert np.isfinite(dq.numpy()).all() and dq.abs().max() > 0
+
+
 # The card holds bf16 B8-B10 within the JAX package's 2e-2 and within
 # flash_attention.BF16_MAX_ABS and BF16_ROW_REL.  These cases build, from
 # the plain versions, what a kernel at the long-context row length (one
@@ -335,8 +384,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(bad):
     q = torch.zeros(2, 16, 16)
     k = v = torch.zeros(2, 8, 16)
     m, l, o = torch.zeros(2, 16), torch.zeros(2, 16), torch.zeros(2, 16, 16)
-    if bad == "head_dim":
-        q, k, v, o = (x[..., :12].contiguous() for x in (q, k, v, o))
+    if bad == "head_dim":  # any other head dim is the plain versions'
+        q, k, v, o = (x[..., :0].contiguous() for x in (q, k, v, o))
     elif bad == "dtype":
         q, k, v = q.half(), k.half(), v.half()
     elif bad == "kv_shape":
@@ -347,3 +396,26 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(bad):
         k = torch.zeros(2, 16, 8).transpose(1, 2)
     with pytest.raises(HorovodTpuError):
         FA.flash_block_step(q, k, v, m, l, o, 0, 0)
+
+
+@pytest.mark.parametrize("d,fwd,dq,dkv", [
+    (64, (64, 128, 128, False), (64, 128, 64, False), (64, 128, 64, False)),
+    (128, (128, 128, 64, False), (128, 128, 64, False),
+     (128, 128, 32, False)),
+    (136, (192, 128, 64, False), (192, 128, 32, False),
+     (256, 64, 32, True)),
+    (256, (256, 128, 64, False), (256, 128, 32, False),
+     (256, 64, 32, True))])
+def test_tc_tiles_follow_the_kernels_dispatch(d, fwd, dq, dkv):
+    """``tc_tiles``: the bf16 tensor-core instantiation each wrapper
+    launches at head dim ``d`` (``csrc/flash_attention.cu``'s dispatch:
+    columns, rows per block, pipelined tile, B10's head-column split);
+    head dims the card does not take have none."""
+    keys = ("dp", "rows", "tile", "split")
+    for name, want in (("flash_block_step", fwd), ("flash_bwd_dq", dq),
+                       ("flash_bwd_dkv", dkv)):
+        got = FA.tc_tiles(name, d)
+        assert tuple(got[k] for k in keys) == want, (name, got)
+    for bad in (0, FA.MAX_D + 8):
+        with pytest.raises(HorovodTpuError):
+            FA.tc_tiles("flash_bwd_dkv", bad)

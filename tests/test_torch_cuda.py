@@ -241,15 +241,20 @@ def exact_f32():
 
 
 # (bh, lq, lk, d, q_offset, k_offset): a ragged tile edge, a KV block
-# after the queries, a mostly hidden block, head dims 8 to 128
+# after the queries, a mostly hidden block, head dims 8 to 128; head dims
+# 192 and 256 at ragged L (Lq no multiple of 4) with offsets
 FLASH_SHAPES = [(6, 200, 136, 64, 136, 0), (3, 64, 64, 128, 0, 0),
-                (2, 100, 70, 40, 64, 64), (4, 128, 128, 8, 0, 96)]
+                (2, 100, 70, 40, 64, 64), (4, 128, 128, 8, 0, 96),
+                (3, 301, 259, 192, 40, 3), (2, 129, 65, 256, 7, 5)]
 # the bf16 tensor-core kernels' tile edges (128-row blocks of two 64-row
 # warpgroups, 128- or 64-key tiles): L no multiple of 128 with offsets
 # no multiple of 64, D = 16 and 128 over full 1024-row tiles, and more
 # blocks than one wave of the card's 132 SMs; f32 runs them too
 TC_SHAPES = [(2, 300, 260, 64, 40, 0), (2, 1024, 1024, 16, 0, 0),
-             (2, 1024, 1024, 128, 0, 0), (160, 256, 256, 64, 0, 0)]
+             (2, 1024, 1024, 128, 0, 0), (160, 256, 256, 64, 0, 0),
+             # Lq no multiple of 4: B10's lse and delta rows start off the
+             # 16-byte grid (a TMA copy of them faulted there)
+             (2, 129, 65, 64, 7, 5)]
 
 
 @pytest.mark.parametrize("shape", FLASH_SHAPES,
@@ -309,7 +314,7 @@ def _check_flash(card, dname, causal, shape):
                            "flash_bwd_dkv": 1}
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
 def test_flash_bf16_kernels_are_deterministic(card, d):
     """B8, B9 and B10 on the tensor cores own their output tiles (no
     atomics): two calls give the same bits."""
@@ -341,15 +346,16 @@ def _off_grid(t):
     return out
 
 
-def test_flash_refuses_unaligned_operands(card):
+@pytest.mark.parametrize("d", [64, 256])
+def test_flash_refuses_unaligned_operands(card, d):
     """TMA needs 16-byte-aligned base addresses: a bf16 operand of B8, B9
     or B10 that starts off that grid is refused, not copied or sent
     elsewhere."""
-    k = torch.zeros(2, 64, 64, device=card, dtype=torch.bfloat16)
+    k = torch.zeros(2, 64, d, device=card, dtype=torch.bfloat16)
     q = _off_grid(k)  # 2 bytes off the grid
     m = torch.full((2, 64), -math.inf, device=card)
     l = torch.zeros(2, 64, device=card)
-    o = torch.zeros(2, 64, 64, device=card)
+    o = torch.zeros(2, 64, d, device=card)
     with pytest.raises(HorovodTpuError, match="16-byte"):
         FA.flash_block_step(q, k, k, m, l, o, 0, 0)
     with pytest.raises(HorovodTpuError, match="16-byte"):
@@ -359,6 +365,26 @@ def test_flash_refuses_unaligned_operands(card):
     # B8 reads the carried f32 o as float2
     with pytest.raises(HorovodTpuError, match="8-byte"):
         FA.flash_block_step(k, k, k, m, l, _off_grid(o), 0, 0)
+
+
+@pytest.mark.parametrize("d", [100, 264])
+@pytest.mark.parametrize("dname", sorted(DTYPES))
+def test_flash_refuses_head_dims_the_kernels_do_not_take(card, dname, d):
+    """On the card a head dim must be a multiple of 8 (TMA's 16-byte
+    rows) and at most 256: B8, B9 and B10 raise, naming the limit, and
+    never run the plain version instead."""
+    dtype = DTYPES[dname]
+    q = torch.zeros(2, 64, d, device=card, dtype=dtype)
+    rows = torch.zeros(2, 64, device=card)
+    o = torch.zeros(2, 64, d, device=card)
+    FA.reset_launch_counts()
+    with pytest.raises(HorovodTpuError, match="at most 256"):
+        FA.flash_block_step(q, q, q, rows, rows, o, 0, 0)
+    with pytest.raises(HorovodTpuError, match="at most 256"):
+        FA.flash_bwd_dq(q, q, q, q, rows, rows, 0, 0)
+    with pytest.raises(HorovodTpuError, match="at most 256"):
+        FA.flash_bwd_dkv(q, q, q, q, rows, rows, 0, 0)
+    assert not any(FA.LAUNCHES.values())
 
 
 def test_flash_cuda_core_kernels_take_unaligned_operands(card, exact_f32):
@@ -2450,3 +2476,160 @@ def hold_four_rank_aot_cache(worlds: dict, b1_launches: int) -> None:
     for r in cold + warm:
         assert r["b1"] == cold[0]["b1"], r["rank"]
         assert r["b1_launches"] == b1_launches, r
+
+
+# ---------------------------------------------------------------------------
+# The examples on four cards
+# ---------------------------------------------------------------------------
+
+#: (script, arguments at full width, arguments cut for a CPU rehearsal)
+EXAMPLES_FOUR = {
+    "lm": ("transformer_lm",
+           ["--dp", "1", "--tp", "2", "--sp", "2", "--d-model", "768",
+            "--n-layers", "12", "--seq", "1024", "--batch", "16",
+            "--steps", "10"],
+           ["--dp", "1", "--tp", "2", "--sp", "2", "--d-model", "32",
+            "--n-layers", "1", "--seq", "16", "--batch", "4", "--steps",
+            "2"]),
+    "bench": ("jax_synthetic_benchmark",
+              ["--model", "ResNet50", "--num-warmup-batches", "3",
+               "--num-iters", "3", "--num-batches-per-iter", "5"],
+              ["--model", "SmallCNN", "--batch-size", "1",
+               "--num-warmup-batches", "1", "--num-iters", "1",
+               "--num-batches-per-iter", "1"]),
+    "imagenet": ("jax_imagenet_resnet50",
+                 ["--model", "ResNet50", "--image-size", "224",
+                  "--batch-size", "32", "--steps-per-epoch", "3",
+                  "--use-adasum", "--fp16-allreduce"],
+                 ["--model", "ResNet18", "--image-size", "32",
+                  "--batch-size", "2", "--val-batch-size", "2",
+                  "--num-classes", "10", "--steps-per-epoch", "2",
+                  "--use-adasum", "--fp16-allreduce"]),
+}
+
+
+def _example_world(script: str, args, n: int, device: str, repo: str):
+    """One world of ``n`` ranks running an example through the port's
+    launcher: ``(wall seconds, rank 0's lines, {rank: launches})``."""
+    import json
+    import os
+    import re
+    import subprocess
+    import sys
+    import time
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    if device == "cpu":
+        env.update({"HOROVOD_PLATFORM": "cpu", "OMP_NUM_THREADS": "1"})
+    else:
+        env.pop("HOROVOD_PLATFORM", None)
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.run", "-np", str(n),
+         sys.executable, "-m", f"horovod_tpu_torch.examples.{script}",
+         *args], env=env, capture_output=True, text=True, timeout=900,
+        cwd=repo)
+    wall = time.perf_counter() - t0
+    assert out.returncode == 0, (script, out.stdout[-4000:],
+                                 out.stderr[-6000:])
+    lines, launches = [], {}
+    for ln in out.stdout.splitlines():
+        m = re.match(r"\[(\d+)\]<stdout>:(.*)$", ln)
+        if not m:
+            continue
+        r, text = int(m.group(1)), m.group(2)
+        k = re.match(r"kernel launches on rank (\d+) over (\d+) steps: (.*)$",
+                     text)
+        if k:
+            launches[int(k.group(1))] = (int(k.group(2)),
+                                         json.loads(k.group(3)))
+        elif r == 0:
+            lines.append(text)
+    return wall, lines, launches
+
+
+def four_rank_examples(tmp, device: str) -> dict:
+    """The four-card examples: the LM at dp 1 x tp 2 x sp 2 at d-model 768
+    (head dim 192), the synthetic benchmark at ResNet-50, and the imagenet
+    script under Adasum and fp16 for 2 epochs and then once more
+    resuming, each a world of 4 (``device="cpu"`` rehearses it at cut
+    sizes).  Each run's wall time, rank 0's lines and the ranks'
+    launches."""
+    import os
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    full = device == "cuda"
+    runs = {}
+    for key, (script, big, small) in EXAMPLES_FOUR.items():
+        args = list(big if full else small)
+        if key == "imagenet":
+            ck = ["--checkpoint-dir", str(tmp / "ckpts")]
+            runs["imagenet"] = _example_world(
+                script, args + ["--epochs", "2"] + ck, 4, device, repo)
+            runs["resume"] = _example_world(
+                script, args + ["--epochs", "3"] + ck, 4, device, repo)
+        else:
+            runs[key] = _example_world(script, args, 4, device, repo)
+    return runs
+
+
+def hold_four_rank_examples(runs: dict, on_card: bool) -> None:
+    """The printed lines, finite losses and the resume; on the card the
+    launches: B8-B10 12 (s + 1) per step on sequence rank s, N1-N4 53 per
+    ResNet-50 step (N2 also 53 per evaluation batch)."""
+    import math
+    import re
+
+    def losses(lines):
+        return [float(v) for v in re.findall(
+            r"(?:loss|train_loss|val_loss) ([-0-9.naif]+)", " ".join(lines))]
+
+    for key, (_, lines, launches) in runs.items():
+        assert losses(lines) or key == "bench", (key, lines)
+        assert all(math.isfinite(v) for v in losses(lines)), (key, lines)
+    lm = runs["lm"][1]
+    assert any("mesh: dp=1 pp=1 tp=2 sp=2 (4 devices)" in ln for ln in lm)
+    assert any("tokens/sec" in ln for ln in lm), lm
+    assert any("Total img/sec on 4 device(s)" in ln
+               for ln in runs["bench"][1])
+    assert "done" in runs["imagenet"][1] and "done" in runs["resume"][1]
+    assert "resumed from epoch 2" in runs["resume"][1], runs["resume"][1]
+    if not on_card:
+        return
+    per_sp = sorted(l["flash_block_step"] // (12 * steps)
+                    for steps, l in runs["lm"][2].values())
+    assert per_sp == [1, 1, 2, 2], runs["lm"][2]
+    for steps, l in runs["lm"][2].values():
+        assert l["flash_block_step"] == l["flash_bwd_dq"] \
+            == l["flash_bwd_dkv"], l
+    for steps, l in runs["bench"][2].values():
+        assert all(l[k] == 53 * steps for k in (
+            "bn_stats", "bn_normalize", "bn_bwd_reduce", "bn_bwd_dx")), l
+    for key, epochs in (("imagenet", 2), ("resume", 1)):
+        for steps, l in runs[key][2].values():
+            assert steps == 2 * epochs, (key, steps)
+            assert all(l[k] == 53 * steps for k in (
+                "bn_stats", "bn_bwd_reduce", "bn_bwd_dx")), (key, l)
+            assert l["bn_normalize"] == 53 * (steps + epochs), (key, l)
+
+
+def test_four_cards_examples(tmp_path):
+    """The examples over a world of four cards: the transformer LM at tp 2
+    x sp 2 and d-model 768 (head dim 192: B8-B10 at D = 192), the
+    synthetic benchmark at ResNet-50, the imagenet script under Adasum
+    and fp16 and its resume.  Prints each run's wall time and rate."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    import subprocess
+
+    card = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    runs = four_rank_examples(tmp_path, "cuda")
+    hold_four_rank_examples(runs, True)
+    for key, (wall, lines, launches) in runs.items():
+        rate = [ln for ln in lines if "tokens/sec" in ln
+                or "Total img/sec" in ln or ln.startswith("epoch")]
+        print(f"[four cards] example {key}: {wall:.1f} s; {rate}; launches "
+              f"rank 0 {launches.get(0)}; on 4 x {card.strip()}")

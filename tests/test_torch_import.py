@@ -97,8 +97,51 @@ def test_no_jax_side_module_is_imported():
               "estimator.estimator", "spark", "spark.torch", "spark.keras",
               "keras", "keras.callbacks", "tensorflow", "tensorflow.mpi_ops",
               "tensorflow.keras", "mxnet", "mxnet.mpi_ops",
-              "ops.numpy_bridge", "runtime.aot_cache"):
+              "ops.numpy_bridge", "runtime.aot_cache", "examples",
+              *(f"examples.{e}" for e in EXAMPLES)):
         assert f"horovod_tpu_torch.{m}" in res["modules"]
+
+
+#: the example scripts of the port (``horovod_tpu_torch/examples/``)
+EXAMPLES = ("pytorch_mnist", "pytorch_synthetic_benchmark", "jax_mnist",
+            "jax_synthetic_benchmark", "jax_imagenet_resnet50",
+            "transformer_lm")
+
+_HIDDEN_PROBE = r"""
+import importlib, importlib.abc, json, sys
+HIDDEN = ("jax", "jaxlib", "flax", "optax", "horovod_tpu", "tensorflow",
+          "keras", "mxnet", "pyspark", "pandas")
+
+
+class _Absent(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in HIDDEN:
+            raise ModuleNotFoundError(f"No module named {name!r}")
+        return None
+
+
+sys.meta_path.insert(0, _Absent())
+done = []
+for e in sys.argv[1:]:
+    mod = importlib.import_module(f"horovod_tpu_torch.examples.{e}")
+    assert callable(mod.main), e
+    done.append(e)
+print(json.dumps({"done": done, "bad": sorted(
+    m for m in sys.modules if m.split(".")[0] in HIDDEN)}))
+"""
+
+
+def test_examples_import_with_jax_hidden():
+    """Every example script imports (and finds its ``main``) with jax,
+    flax, optax, horovod_tpu and the optional frameworks absent."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-c", _HIDDEN_PROBE, *EXAMPLES],
+                         env=env, capture_output=True, text=True,
+                         timeout=120, cwd=REPO)
+    assert out.returncode == 0, out.stderr[-3000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"done": list(EXAMPLES), "bad": []}, res
 
 
 _TF_PROBE = r"""

@@ -89,10 +89,11 @@ def test_init_params_bit_identical():
     assert all(a.dtype == np.float32 for a in jax.tree_util.tree_leaves(ours))
 
 
-def test_loss_and_gradients_match_jax():
+def test_loss_and_gradients_match_jax(head_dim=SMALL["head_dim"]):
     """One forward and backward of the model (attention through the
     port's ring_attention) against ``jax.value_and_grad(loss_fn)``."""
-    jcfg, tcfg = _cfgs("float32")
+    jcfg, tcfg = (dataclasses.replace(c, head_dim=head_dim)
+                  for c in _cfgs("float32"))
     params = TT.init_params(np.random.RandomState(0), tcfg)
     tok, tgt, jtok, jtgt = _tokens()
     mesh = make_mesh(dp=1, pp=1, tp=1, sp=1, devices=jax.devices()[:1])
@@ -111,6 +112,13 @@ def test_loss_and_gradients_match_jax():
     np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
     _tree_close(interop.transformer_to_jax(model, grads=True), jgrads, 1e-4,
                 "grad")
+
+
+def test_loss_and_gradients_match_jax_at_head_dim_192():
+    """The same at head dim 192, the transformer example's at ``--d-model
+    768`` (``head_dim = d_model // 4``): above the 128 the port's kernels
+    took before they were widened to 256."""
+    test_loss_and_gradients_match_jax(head_dim=192)
 
 
 def _jax_train(jcfg, params, jtok, jtgt):
